@@ -1,0 +1,119 @@
+"""JAX-package variables -> the port's state_dict (NeMo names and layouts).
+
+The exact inverse of `convert_ctc_model_state` in
+conformer_nemo_tpu/convert/nemo_weights.py, which maps a NeMo state_dict
+onto the JAX package's flax tree. Inputs are plain numpy arrays (the
+`{"params", "batch_stats"}` tree moved off the JAX device); nothing here
+imports JAX. Layout rules (flax -> torch):
+
+  Dense kernel [in, out]          -> Linear weight [out, in]        (T)
+  Conv kernel [kh, kw, in, out]   -> Conv2d weight [out, in, kh, kw]
+  Dense kernel of a 1x1 Conv1d    -> Conv1d weight [out, in, 1]
+  depthwise kernel [k, 1, d]      -> Conv1d weight [d, 1, k]
+  LayerNorm/BatchNorm scale, bias -> weight, bias; BatchNorm stats
+                                     mean, var -> running_mean, running_var
+  ConvSubsampling out kernel      -> rows un-permuted: the JAX model flattens
+                                     [B, T, F', C] f-major, NeMo and the port
+                                     [B, C, T, F'] c-major.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from conformer_nemo_tpu_torch.models.conformer import calc_sub_length
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _tensor(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32).copy())
+
+
+def _encoder_state(p: dict, stats: dict, cfg, prefix: str) -> dict:
+    sd: dict[str, np.ndarray] = {}
+
+    def dense(key: str, node: dict):
+        sd[key + ".weight"] = _np(node["kernel"]).T
+        if "bias" in node:
+            sd[key + ".bias"] = _np(node["bias"])
+
+    def conv1x1(key: str, node: dict):
+        sd[key + ".weight"] = _np(node["kernel"]).T[:, :, None]
+        sd[key + ".bias"] = _np(node["bias"])
+
+    def norm(key: str, node: dict):
+        sd[key + ".weight"] = _np(node["scale"])
+        sd[key + ".bias"] = _np(node["bias"])
+
+    if cfg.subsampling != "striding" or cfg.subsampling_factor <= 1:
+        raise NotImplementedError(
+            f"weight bridge for subsampling={cfg.subsampling!r} is not ported yet")
+    reps = int(math.log2(cfg.subsampling_factor))
+    pe = p["pre_encode"]
+    for j in range(reps):
+        node = pe[f"conv{j}"]
+        sd[prefix + f"pre_encode.conv.{2 * j}.weight"] = _np(node["kernel"]).transpose(3, 2, 0, 1)
+        sd[prefix + f"pre_encode.conv.{2 * j}.bias"] = _np(node["bias"])
+    channels = cfg.subsampling_conv_channels if cfg.subsampling_conv_channels > 0 else cfg.d_model
+    f_out = int(calc_sub_length(torch.tensor(cfg.feat_in), "striding", reps))
+    kernel = _np(pe["out"]["kernel"])  # rows f*C + c
+    r = np.arange(channels * f_out)
+    perm = (r % channels) * f_out + (r // channels)  # JAX row f*C+c <- NeMo row c*F'+f
+    w_t = np.empty_like(kernel)
+    w_t[perm] = kernel
+    sd[prefix + "pre_encode.out.weight"] = w_t.T
+    sd[prefix + "pre_encode.out.bias"] = _np(pe["out"]["bias"])
+
+    shared = not cfg.untie_biases and cfg.self_attention_model == "rel_pos"
+    if shared:
+        sd[prefix + "pos_bias_u"] = _np(p["pos_bias_u"])
+        sd[prefix + "pos_bias_v"] = _np(p["pos_bias_v"])
+
+    for i in range(cfg.n_layers):
+        lp = prefix + f"layers.{i}."
+        layer = p[f"layers_{i}"]
+        for name in ("norm_feed_forward1", "norm_self_att", "norm_conv",
+                     "norm_feed_forward2", "norm_out"):
+            norm(lp + name, layer[name])
+        for ff in ("feed_forward1", "feed_forward2"):
+            dense(lp + ff + ".linear1", layer[ff]["linear1"])
+            dense(lp + ff + ".linear2", layer[ff]["linear2"])
+        attn = layer["self_attn"]
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+            dense(lp + "self_attn." + name, attn[name])
+        if cfg.self_attention_model == "rel_pos":
+            sd[lp + "self_attn.linear_pos.weight"] = _np(attn["linear_pos_kernel"]).T
+            src = p if shared else attn
+            sd[lp + "self_attn.pos_bias_u"] = _np(src["pos_bias_u"])
+            sd[lp + "self_attn.pos_bias_v"] = _np(src["pos_bias_v"])
+        conv = layer["conv"]
+        conv1x1(lp + "conv.pointwise_conv1", conv["pointwise_conv1"])
+        conv1x1(lp + "conv.pointwise_conv2", conv["pointwise_conv2"])
+        sd[lp + "conv.depthwise_conv.weight"] = _np(conv["depthwise_kernel"]).transpose(2, 1, 0)
+        sd[lp + "conv.depthwise_conv.bias"] = _np(conv["depthwise_bias"])
+        norm(lp + "conv.batch_norm", conv["norm"])
+        if cfg.conv_norm_type == "batch_norm":
+            st = stats[f"layers_{i}"]["conv"]["norm"]
+            sd[lp + "conv.batch_norm.running_mean"] = _np(st["mean"])
+            sd[lp + "conv.batch_norm.running_var"] = _np(st["var"])
+    if cfg.feat_out > 0 and cfg.feat_out != cfg.d_model:
+        dense(prefix + "out_proj", p["out_proj"])
+    return sd
+
+
+def ctc_state_dict_from_jax(variables: dict, cfg) -> dict[str, torch.Tensor]:
+    """JAX `{"params", "batch_stats"}` (numpy leaves) -> the port's CTCModel
+    state_dict. `cfg`: the port's (or the JAX package's) CTCModelConfig."""
+    params = variables["params"]
+    stats = (variables.get("batch_stats") or {}).get("encoder", {})
+    sd = _encoder_state(params["encoder"], stats, cfg.encoder, "encoder.")
+    head = params["decoder"]["decoder_layers"]
+    sd["decoder.decoder_layers.0.weight"] = _np(head["kernel"]).T[:, :, None]
+    sd["decoder.decoder_layers.0.bias"] = _np(head["bias"])
+    return {k: _tensor(v) for k, v in sd.items()}

@@ -1,0 +1,470 @@
+"""Conformer encoder (port of conformer_nemo_tpu/models/conformer.py).
+
+    conv-subsampling (striding: log2(f) x [Conv2d k3 s2 p1 + ReLU], Linear over
+    C*F') -> xscale * x + positional encoding -> N x [half-FF -> MHSA -> conv
+    module (pointwise -> GLU -> depthwise k -> norm -> swish -> pointwise)
+    -> half-FF -> LayerNorm].
+
+Parameter names are NeMo's (`pre_encode.conv.0`, `layers.N.self_attn.linear_q`,
+`conv.depthwise_conv`, `conv.batch_norm`, ...), with NeMo's layouts, so a
+NeMo state_dict loads as it is and convert/jax_params.py bridges the JAX
+package's variables.
+
+Precision follows the JAX package: parameters fp32; linears, convolutions
+and attention matmuls in the compute dtype (`cfg.dtype`, bf16 by default);
+LayerNorm, BatchNorm, softmax and residual adds in fp32.
+
+Inference only: dropout, training-mode BatchNorm statistics and the
+non-striding subsampling modes wait for later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from conformer_nemo_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+
+@dataclasses.dataclass(frozen=True)
+class ConformerEncoderConfig:
+    """Schema mirror of the reference encoder config."""
+
+    feat_in: int = 80
+    n_layers: int = 18
+    d_model: int = 512
+    feat_out: int = -1
+    subsampling: str = "striding"  # only striding is ported
+    subsampling_factor: int = 4
+    subsampling_conv_channels: int = -1
+    ff_expansion_factor: int = 4
+    self_attention_model: str = "rel_pos"  # rel_pos | abs_pos
+    n_heads: int = 8
+    att_context_size: tuple[int, int] = (-1, -1)
+    xscaling: bool = True
+    untie_biases: bool = True
+    pos_emb_max_len: int = 5000
+    conv_kernel_size: int = 31
+    conv_norm_type: str = "batch_norm"  # batch_norm | layer_norm
+    dropout: float = 0.1
+    dropout_emb: float = 0.0
+    dropout_att: float = 0.1
+    dtype: Any = torch.bfloat16  # compute dtype; params always fp32
+    # flash attention (hand-written CUDA kernel, ops/flash_attention.py):
+    # True | False | "auto"; "auto" takes it once T >= flash_attention_min_t
+    use_flash_attention: Any = "auto"
+    flash_attention_min_t: int = 1024
+
+    @property
+    def d_ff(self) -> int:
+        return self.d_model * self.ff_expansion_factor
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+
+# mode -> (padding, kernel, stride, ceil_mode) of the length-determining op
+_SUBSAMPLING_GEOM = {
+    "striding": (1, 3, 2, False),
+    "vggnet": (0, 2, 2, True),
+    "resnet": (0, 2, 2, True),
+    "subencoder": (1, 4, 2, False),
+}
+
+
+def calc_sub_length(lengths: torch.Tensor, mode: str, reps: int) -> torch.Tensor:
+    """Output length after `reps` applications of the mode's length op
+    (float32 arithmetic, as the reference calc_length)."""
+    pad, k, s, ceil = _SUBSAMPLING_GEOM[mode]
+    out = lengths.to(torch.float32)
+    for _ in range(reps):
+        out = (out + 2 * pad - k) / s + 1.0
+        out = torch.ceil(out) if ceil else torch.floor(out)
+    return out.to(torch.int32)
+
+
+def _inv_freq(d_model: int) -> np.ndarray:
+    return np.exp(np.arange(0, d_model, 2, dtype=np.float64) * -(math.log(10000.0) / d_model))
+
+
+def _sinusoidal_pe(positions: np.ndarray, d_model: int) -> np.ndarray:
+    """[len(positions), D]: even dims sin(pos*w), odd dims cos(pos*w)."""
+    angle = positions.astype(np.float64)[:, None] * _inv_freq(d_model)
+    pe = np.zeros((len(positions), d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(angle)
+    pe[:, 1::2] = np.cos(angle)
+    return pe.astype(np.float32)
+
+
+def sinusoidal_rel_pos_emb(length: int, d_model: int) -> np.ndarray:
+    """Relative PE for positions (length-1) .. -(length-1), [2L-1, D]."""
+    return _sinusoidal_pe(np.arange(length - 1, -length, -1), d_model)
+
+
+def sinusoidal_abs_pos_emb(length: int, d_model: int) -> np.ndarray:
+    return _sinusoidal_pe(np.arange(length), d_model)
+
+
+@functools.lru_cache(maxsize=16)
+def _sin_cos_table(t: int, d_model: int) -> tuple[np.ndarray, np.ndarray]:
+    """sin/cos(i * w) for i < t, [T, D/2] each (the bd decomposition)."""
+    pos = np.arange(t, dtype=np.float64)[:, None] * _inv_freq(d_model)[None, :]
+    return np.sin(pos), np.cos(pos)
+
+
+def _rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """Transformer-XL relative shift of [B, H, T, 2T-1] scores: pad-left one
+    column, fold, drop the first row."""
+    b, h, qlen, pos_len = x.shape
+    x = F.pad(x, (1, 0))
+    x = x.reshape(b, h, pos_len + 1, qlen)
+    return x[:, :, 1:, :].reshape(b, h, qlen, pos_len)
+
+
+def make_masks(cfg: ConformerEncoderConfig, t: int, lengths: torch.Tensor):
+    """(pad_mask [B,T] True=PAD, att_mask [B,T,T] True=MASKED) from lengths;
+    att[i,j] allowed iff both valid and -left <= j - i <= right."""
+    idx = torch.arange(t, device=lengths.device)
+    valid = idx[None, :] < lengths[:, None]
+    att_ok = valid[:, :, None] & valid[:, None, :]
+    left, right = cfg.att_context_size
+    rel = idx[:, None] - idx[None, :]  # i - j
+    if left >= 0:
+        att_ok = att_ok & (rel <= left)[None]
+    if right >= 0:
+        att_ok = att_ok & (-rel <= right)[None]
+    return ~valid, ~att_ok
+
+
+def _linear(mod: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """nn.Linear in the compute dtype (params stay fp32)."""
+    bias = None if mod.bias is None else mod.bias.to(dtype)
+    return F.linear(x.to(dtype), mod.weight.to(dtype), bias)
+
+
+def _layer_norm(d: int) -> nn.LayerNorm:
+    return nn.LayerNorm(d, eps=1e-6)  # flax LayerNorm's epsilon
+
+
+def _fp32_norm(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return mod(x.to(torch.float32))
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over channel dim 1 with NeMo's parameter names
+    (weight, bias, running_mean, running_var), in fp32 with eps 1e-5."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x.to(torch.float32), self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False, eps=self.eps)
+
+
+def check_flash_dtype(cfg: ConformerEncoderConfig, device) -> None:
+    """The CUDA flash-attention kernel takes bf16 only. Refuse a CUDA encoder
+    in another compute dtype whose attention can take the flash path, before
+    any work, rather than at its first batch with T >= flash_attention_min_t."""
+    can_flash = (cfg.self_attention_model == "rel_pos" and cfg.dropout_emb == 0.0
+                 and cfg.use_flash_attention is not False)
+    if torch.device(device).type == "cuda" and cfg.dtype != torch.bfloat16 and can_flash:
+        raise ValueError(
+            f"the CUDA flash-attention kernel takes bf16 only, and the compute dtype is "
+            f"{cfg.dtype}: pass dtype=torch.bfloat16, or set "
+            "model.encoder.use_flash_attention=False for the dense path")
+
+
+class RelPosMultiHeadAttention(nn.Module):
+    """Multi-head self-attention with Transformer-XL relative positional terms.
+
+    As in the JAX package, bd[i,j] = qv[i] . pe(i-j) is computed through the
+    angle-addition decomposition
+
+        bd = [qs*sinI + qc*cosI | -qs*cosI + qc*sinI] @ [cosJ | sinJ]^T
+
+    so no [B,H,T,2T-1] tensor and no shift is needed; the rel_shift form is
+    kept for pos-emb dropout (dropout_emb > 0), which the decomposition cannot
+    express. With the decomposition the whole score is one extended-depth
+    product Qs Ks^T, which the flash kernel takes."""
+
+    def __init__(self, cfg: ConformerEncoderConfig, shared_biases=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.linear_q = nn.Linear(d, d)
+        self.linear_k = nn.Linear(d, d)
+        self.linear_v = nn.Linear(d, d)
+        self.linear_out = nn.Linear(d, d)
+        self.linear_pos = nn.Linear(d, d, bias=False)
+        if shared_biases is None:
+            self.pos_bias_u = nn.Parameter(torch.zeros(cfg.n_heads, cfg.d_head))
+            self.pos_bias_v = nn.Parameter(torch.zeros(cfg.n_heads, cfg.d_head))
+        else:  # untie_biases=False: the encoder's pair, registered here too (NeMo)
+            self.pos_bias_u, self.pos_bias_v = shared_biases
+
+    def use_flash(self, t: int, lengths) -> bool:
+        cfg = self.cfg
+        want = cfg.use_flash_attention is True or (
+            cfg.use_flash_attention == "auto" and t >= cfg.flash_attention_min_t)
+        # inference only, so the dropout_att condition of the JAX dispatch holds
+        return want and cfg.dropout_emb == 0.0 and lengths is not None
+
+    def forward(self, x, pos_emb, att_mask, lengths=None):
+        cfg = self.cfg
+        dt = cfg.dtype
+        h, dk, d_model = cfg.n_heads, cfg.d_head, cfg.d_model
+        b, t, _ = x.shape
+        q = _linear(self.linear_q, x, dt).reshape(b, t, h, dk)
+        k = _linear(self.linear_k, x, dt).reshape(b, t, h, dk)
+        v = _linear(self.linear_v, x, dt).reshape(b, t, h, dk)
+        q = q.to(torch.float32)
+        qu = (q + self.pos_bias_u).to(dt)
+        qv = (q + self.pos_bias_v).to(dt)
+
+        use_decomposition = cfg.dropout_emb == 0.0
+        if use_decomposition:
+            # W_pos is [D_out, D_in] (torch layout); the JAX kernel is its
+            # transpose, [e, (h, d)]
+            w = self.linear_pos.weight.t().to(dt).reshape(d_model, h, dk)
+            sin_np, cos_np = _sin_cos_table(t, d_model)
+            sin_t = torch.from_numpy(sin_np).to(x.device, dt)  # [T, D/2]
+            cos_t = torch.from_numpy(cos_np).to(x.device, dt)
+            w_cat = torch.cat([w[0::2], w[1::2]], dim=0)  # [D, H, dk]
+            qsc = torch.einsum("bihd,ehd->bhie", qv, w_cat)  # [B, H, T, D]
+            qs, qc = qsc[..., : d_model // 2], qsc[..., d_model // 2 :]
+            mod_a = qs * sin_t + qc * cos_t
+            mod_b = -qs * cos_t + qc * sin_t
+
+        if self.use_flash(t, lengths):
+            # Qs = [q+u | mod_a | mod_b], Ks = [k | cos | sin] per head, in
+            # batch-major (b*H + h) order; lens repeat per head
+            qs_full = torch.cat([qu.permute(0, 2, 1, 3), mod_a, mod_b], dim=-1)
+            cs = torch.cat([cos_t, sin_t], dim=-1).expand(b, h, t, d_model)
+            ks_full = torch.cat([k.permute(0, 2, 1, 3), cs], dim=-1)
+            d1 = dk + d_model
+            o, _ = flash_attention_fwd(
+                qs_full.reshape(b * h, t, d1).contiguous(),
+                ks_full.reshape(b * h, t, d1).contiguous(),
+                v.permute(0, 2, 1, 3).reshape(b * h, t, dk).contiguous(),
+                torch.repeat_interleave(lengths.to(torch.int32), h),
+                1.0 / math.sqrt(dk), *(int(a) for a in cfg.att_context_size))
+            out = o.reshape(b, h, t, dk).permute(0, 2, 1, 3).reshape(b, t, h * dk)
+            valid = torch.arange(t, device=x.device)[None, :, None] < lengths[:, None, None]
+            out = torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
+            return _linear(self.linear_out, out, dt)
+
+        # dense-score path
+        matrix_ac = torch.einsum("bthd,bshd->bhts", qu, k)
+        if use_decomposition:
+            matrix_bd = (torch.einsum("bhik,jk->bhij", mod_a, cos_t)
+                         + torch.einsum("bhik,jk->bhij", mod_b, sin_t))
+        else:
+            p = _linear(self.linear_pos, pos_emb, dt).reshape(-1, h, dk)
+            matrix_bd = torch.einsum("bthd,phd->bhtp", qv, p)
+            matrix_bd = _rel_shift(matrix_bd)[..., :t]
+        scores = (matrix_ac.to(torch.float32) + matrix_bd.to(torch.float32)) / math.sqrt(dk)
+        masked = att_mask[:, None, :, :]
+        scores = scores.masked_fill(masked, -10000.0)
+        attn = torch.softmax(scores, dim=-1).masked_fill(masked, 0.0).to(dt)
+        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, h * dk)
+        return _linear(self.linear_out, out, dt)
+
+
+class AbsPosMultiHeadAttention(nn.Module):
+    def __init__(self, cfg: ConformerEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.linear_q = nn.Linear(d, d)
+        self.linear_k = nn.Linear(d, d)
+        self.linear_v = nn.Linear(d, d)
+        self.linear_out = nn.Linear(d, d)
+
+    def forward(self, x, att_mask):
+        cfg = self.cfg
+        dt, h, dk = cfg.dtype, cfg.n_heads, cfg.d_head
+        b, t, _ = x.shape
+        q = _linear(self.linear_q, x, dt).reshape(b, t, h, dk)
+        k = _linear(self.linear_k, x, dt).reshape(b, t, h, dk)
+        v = _linear(self.linear_v, x, dt).reshape(b, t, h, dk)
+        scores = torch.einsum("bthd,bshd->bhts", q, k).to(torch.float32) / math.sqrt(dk)
+        masked = att_mask[:, None, :, :]
+        scores = scores.masked_fill(masked, -10000.0)
+        attn = torch.softmax(scores, dim=-1).masked_fill(masked, 0.0)
+        out = torch.einsum("bhts,bshd->bthd", attn.to(dt), v).reshape(b, t, h * dk)
+        return _linear(self.linear_out, out, dt)
+
+
+class ConformerFeedForward(nn.Module):
+    def __init__(self, cfg: ConformerEncoderConfig):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.linear1 = nn.Linear(cfg.d_model, cfg.d_ff)
+        self.linear2 = nn.Linear(cfg.d_ff, cfg.d_model)
+
+    def forward(self, x):
+        return _linear(self.linear2, F.silu(_linear(self.linear1, x, self.dtype)), self.dtype)
+
+
+class ConformerConvolution(nn.Module):
+    """pointwise(2d) -> GLU -> pad-masked depthwise(k) -> norm -> swish -> pointwise."""
+
+    def __init__(self, cfg: ConformerEncoderConfig):
+        super().__init__()
+        d, k = cfg.d_model, cfg.conv_kernel_size
+        self.cfg = cfg
+        self.pointwise_conv1 = nn.Conv1d(d, 2 * d, 1)
+        self.depthwise_conv = nn.Conv1d(d, d, k, groups=d, padding=(k - 1) // 2)
+        # NeMo names the norm 'batch_norm' for both norm types
+        self.batch_norm = BatchNorm(d) if cfg.conv_norm_type == "batch_norm" else _layer_norm(d)
+        self.pointwise_conv2 = nn.Conv1d(d, d, 1)
+
+    def forward(self, x, pad_mask):
+        dt = self.cfg.dtype
+        pw1, pw2, dw = self.pointwise_conv1, self.pointwise_conv2, self.depthwise_conv
+        x = F.linear(x.to(dt), pw1.weight[..., 0].to(dt), pw1.bias.to(dt))
+        a, gate = x.chunk(2, dim=-1)
+        x = a * torch.sigmoid(gate)  # GLU
+        # zero padded frames so no padding leaks into valid ones
+        x = x.masked_fill(pad_mask[:, :, None], 0.0)
+        x = F.conv1d(x.transpose(1, 2), dw.weight.to(dt), dw.bias.to(dt),
+                     padding=dw.padding, groups=dw.groups)  # [B, D, T]
+        if isinstance(self.batch_norm, BatchNorm):
+            x = self.batch_norm(x).transpose(1, 2)
+        else:
+            x = _fp32_norm(self.batch_norm, x.transpose(1, 2))
+        x = F.silu(x)
+        return F.linear(x.to(dt), pw2.weight[..., 0].to(dt), pw2.bias.to(dt))
+
+
+class ConformerLayer(nn.Module):
+    """half-FF -> MHSA -> conv -> half-FF -> LayerNorm (macaron, fc_factor=0.5)."""
+
+    def __init__(self, cfg: ConformerEncoderConfig, shared_biases=None):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.norm_feed_forward1 = _layer_norm(d)
+        self.feed_forward1 = ConformerFeedForward(cfg)
+        self.norm_self_att = _layer_norm(d)
+        if cfg.self_attention_model == "rel_pos":
+            self.self_attn = RelPosMultiHeadAttention(cfg, shared_biases)
+        else:
+            self.self_attn = AbsPosMultiHeadAttention(cfg)
+        self.norm_conv = _layer_norm(d)
+        self.conv = ConformerConvolution(cfg)
+        self.norm_feed_forward2 = _layer_norm(d)
+        self.feed_forward2 = ConformerFeedForward(cfg)
+        self.norm_out = _layer_norm(d)
+
+    def forward(self, x, pos_emb, att_mask, pad_mask, lengths=None):
+        dt = self.cfg.dtype
+        # branch outputs round to the compute dtype; the residual stays fp32
+        to_res = lambda y: y.to(dt).to(torch.float32)
+        residual = x
+        y = self.feed_forward1(_fp32_norm(self.norm_feed_forward1, residual))
+        residual = residual + to_res(y) * 0.5
+        y = _fp32_norm(self.norm_self_att, residual)
+        if self.cfg.self_attention_model == "rel_pos":
+            y = self.self_attn(y, pos_emb, att_mask, lengths=lengths)
+        else:
+            y = self.self_attn(y, att_mask)
+        residual = residual + to_res(y)
+        y = self.conv(_fp32_norm(self.norm_conv, residual), pad_mask)
+        residual = residual + to_res(y)
+        y = self.feed_forward2(_fp32_norm(self.norm_feed_forward2, residual))
+        residual = residual + to_res(y) * 0.5
+        return _fp32_norm(self.norm_out, residual)
+
+
+class ConvSubsampling(nn.Module):
+    """Striding conv subsampling: log2(f) x [Conv2d(C, k3 s2 p1) + ReLU], then
+    Linear over the flattened (C, F') axes, c-major as NeMo flattens them."""
+
+    def __init__(self, cfg: ConformerEncoderConfig):
+        super().__init__()
+        if cfg.subsampling != "striding":
+            raise NotImplementedError(
+                f"subsampling={cfg.subsampling!r} is not ported yet (ROADMAP.md "
+                "queue 1: the other subsampling modes); only 'striding' is")
+        self.dtype = cfg.dtype
+        channels = cfg.subsampling_conv_channels if cfg.subsampling_conv_channels > 0 else cfg.d_model
+        reps = int(math.log2(cfg.subsampling_factor))
+        layers: list[nn.Module] = []
+        in_ch = 1
+        for _ in range(reps):
+            layers += [nn.Conv2d(in_ch, channels, 3, stride=2, padding=1), nn.ReLU()]
+            in_ch = channels
+        self.conv = nn.Sequential(*layers)
+        f_out = int(calc_sub_length(torch.tensor(cfg.feat_in), "striding", reps))
+        self.out = nn.Linear(channels * f_out, cfg.d_model)
+
+    def forward(self, x):  # x: [B, T, F]
+        dt = self.dtype
+        y = x[:, None, :, :].to(dt)  # [B, 1, T, F]
+        for mod in self.conv:
+            if isinstance(mod, nn.Conv2d):
+                y = F.conv2d(y, mod.weight.to(dt), mod.bias.to(dt), stride=mod.stride,
+                             padding=mod.padding)
+            else:
+                y = F.relu(y)
+        b, c, t, f = y.shape
+        y = y.transpose(1, 2).reshape(b, t, c * f)
+        return _linear(self.out, y, dt)
+
+
+class ConformerEncoder(nn.Module):
+    """[B, D_feat, T] + lengths -> [B, d_model, T'] (fp32) + lengths'."""
+
+    def __init__(self, cfg: ConformerEncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.subsampling_factor <= 1:
+            raise NotImplementedError("subsampling_factor <= 1 is not ported yet")
+        self.pre_encode = ConvSubsampling(cfg)
+        shared = None
+        if not cfg.untie_biases and cfg.self_attention_model == "rel_pos":
+            self.pos_bias_u = nn.Parameter(torch.zeros(cfg.n_heads, cfg.d_head))
+            self.pos_bias_v = nn.Parameter(torch.zeros(cfg.n_heads, cfg.d_head))
+            shared = (self.pos_bias_u, self.pos_bias_v)
+        self.layers = nn.ModuleList([ConformerLayer(cfg, shared) for _ in range(cfg.n_layers)])
+        if cfg.feat_out > 0 and cfg.feat_out != cfg.d_model:
+            self.out_proj = nn.Linear(cfg.d_model, cfg.feat_out)
+        else:
+            self.out_proj = None
+
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor):
+        cfg = self.cfg
+        x = self.pre_encode(features.transpose(1, 2))
+        out_lengths = calc_sub_length(lengths, cfg.subsampling,
+                                      int(math.log2(cfg.subsampling_factor)))
+        t = x.shape[1]
+        x = x.to(torch.float32)
+        if cfg.xscaling:
+            x = x * math.sqrt(cfg.d_model)
+        pos_emb = None
+        if cfg.self_attention_model == "rel_pos":
+            if cfg.dropout_emb > 0.0:  # only the rel_shift path reads it
+                pos_emb = torch.from_numpy(sinusoidal_rel_pos_emb(t, cfg.d_model)).to(x.device)
+        else:
+            x = x + torch.from_numpy(sinusoidal_abs_pos_emb(t, cfg.d_model)).to(x.device)
+        pad_mask, att_mask = make_masks(cfg, t, out_lengths)
+        for layer in self.layers:
+            x = layer(x, pos_emb, att_mask, pad_mask, out_lengths)
+        if self.out_proj is not None:
+            x = _linear(self.out_proj, x, cfg.dtype)
+        return x.to(torch.float32).transpose(1, 2), out_lengths

@@ -1,0 +1,102 @@
+"""Port CTCModel (encoder + head) vs the JAX CTCModel on the same weights.
+
+The JAX variables come from `init_ctc_state`, are perturbed with numpy
+noise (so biases, norm scales and BatchNorm statistics are all exercised)
+and cross through the weight bridge. Both sides run float32; the JAX flash
+path runs its Pallas kernel in interpret mode on the CPU backend, the
+port's its plain version. Log-probs agree within 1e-4 (fp32 summation-order
+differences through 2 layers and a log_softmax); encoder lengths exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from conformer_nemo_tpu.models.conformer import ConformerEncoderConfig as JaxEncoderConfig
+from conformer_nemo_tpu.models.ctc_model import CTCModel as JaxCTCModel
+from conformer_nemo_tpu.models.ctc_model import CTCModelConfig as JaxCTCConfig
+from conformer_nemo_tpu.train.trainer import init_ctc_state
+from conformer_nemo_tpu_torch.convert.jax_params import ctc_state_dict_from_jax
+from conformer_nemo_tpu_torch.models.conformer import ConformerEncoderConfig, check_flash_dtype
+from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, CTCModelConfig
+
+torch.set_num_threads(2)
+
+V = 37
+ATOL = 1e-4
+PATHS = {
+    "dense": dict(use_flash_attention=False),
+    "flash": dict(use_flash_attention=True),
+    "rel_shift": dict(use_flash_attention=False, dropout_emb=0.1),
+    "banded_flash": dict(use_flash_attention=True, att_context_size=(12, 4)),
+    "abs_pos_layer_norm": dict(self_attention_model="abs_pos", conv_norm_type="layer_norm"),
+    "shared_biases": dict(untie_biases=False, use_flash_attention="auto",
+                          flash_attention_min_t=16),
+}
+
+
+def _perturbed_numpy(tree, rng):
+    def leaf(x):
+        x = np.asarray(x, np.float32)
+        return (x + 0.2 * rng.randn(*x.shape)).astype(np.float32)
+
+    return jax.tree.map(leaf, dict(tree))
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_ctc_model_matches_jax(path):
+    enc = dict(feat_in=80, n_layers=2, d_model=64, n_heads=4, conv_kernel_size=15, **PATHS[path])
+    jax_cfg = JaxCTCConfig(encoder=JaxEncoderConfig(dtype=jnp.float32, **enc), num_classes=V)
+    port_cfg = CTCModelConfig(encoder=ConformerEncoderConfig(dtype=torch.float32, **enc),
+                              num_classes=V)
+    state = init_ctc_state(jax_cfg, optax.sgd(0.1), jax.random.PRNGKey(0), (1, 80, 64))
+    rng = np.random.RandomState(0)
+    variables = {"params": _perturbed_numpy(state.params, rng)}
+    if state.batch_stats:
+        stats = _perturbed_numpy(state.batch_stats, rng)
+        for layer in stats["encoder"].values():  # keep variances positive
+            layer["conv"]["norm"]["var"] = np.abs(layer["conv"]["norm"]["var"]) + 0.5
+        variables["batch_stats"] = stats
+
+    feats = rng.randn(3, 80, 150).astype(np.float32)
+    lens = np.array([150, 117, 33], np.int32)
+    lp_j, el_j = JaxCTCModel(jax_cfg).apply(
+        jax.tree.map(jnp.asarray, variables), jnp.asarray(feats), jnp.asarray(lens), train=False)
+
+    model = CTCModel(port_cfg).eval()
+    model.load_state_dict(ctc_state_dict_from_jax(variables, port_cfg))
+    with torch.inference_mode():
+        lp_p, el_p = model(torch.from_numpy(feats), torch.from_numpy(lens))
+    np.testing.assert_array_equal(el_p.numpy(), np.asarray(el_j))
+    assert lp_p.shape == lp_j.shape
+    np.testing.assert_allclose(lp_p.numpy(), np.asarray(lp_j), rtol=0, atol=ATOL)
+    if PATHS[path].get("use_flash_attention") is True or path == "shared_biases":
+        assert model.encoder.layers[0].self_attn.use_flash(lp_p.shape[1], el_p)
+
+
+# (cfg fields, device, refused?): the CUDA flash kernel takes bf16 only, so a
+# CUDA model in another dtype that can reach the flash path is refused up front
+FLASH_DTYPE_CASES = {
+    "cuda_fp32_auto": (dict(dtype=torch.float32), "cuda", True),
+    "cuda_fp32_flash": (dict(dtype=torch.float32, use_flash_attention=True), "cuda", True),
+    "cuda_bf16_auto": (dict(dtype=torch.bfloat16), "cuda", False),
+    "cuda_fp32_dense": (dict(dtype=torch.float32, use_flash_attention=False), "cuda", False),
+    "cuda_fp32_rel_shift": (dict(dtype=torch.float32, dropout_emb=0.1), "cuda", False),
+    "cuda_fp32_abs_pos": (dict(dtype=torch.float32, self_attention_model="abs_pos"), "cuda",
+                          False),
+    "cpu_fp32_flash": (dict(dtype=torch.float32, use_flash_attention=True), "cpu", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_DTYPE_CASES))
+def test_check_flash_dtype(case):
+    fields, device, refused = FLASH_DTYPE_CASES[case]
+    cfg = ConformerEncoderConfig(**fields)
+    if refused:
+        with pytest.raises(ValueError, match="bf16 only"):
+            check_flash_dtype(cfg, torch.device(device))
+    else:
+        check_flash_dtype(cfg, torch.device(device))
