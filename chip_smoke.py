@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each (any failure raises and exits non-zero):
-  env         torch/CUDA/nvcc versions, triton and yaml presence, the card
-  build       compiles every CUDA kernel from conformer_nemo_tpu_torch/ops/csrc
-  profile     (inside transcribe) one traced transcribe: device busy share
-              and the kernels that take the device time
-  transcribe  ConformerCTC.transcribe at full width (configs/conformer_ctc_bpe.yaml,
-              18 layers, d_model 512, seeded random weights) over generated
-              WAVs: a dense-attention bucket, a batched flash bucket and one
-              whole-utterance long-form file; the launch counts prove the main
-              path went through the kernel, and a second model with the flash
-              path switched off must agree with it
-  kernels     each kernel against its plain PyTorch version on the card, on
-              the same bf16 inputs, at the shapes and lengths of the counted
-              transcribe's own calls and a few edge cases, with times, the
-              card's bound and a library yardstick
+  env          torch/CUDA/nvcc versions, triton and yaml presence, the card
+  build        compiles every CUDA kernel from conformer_nemo_tpu_torch/ops/csrc
+  transcribe   ConformerCTC.transcribe at full width (configs/conformer_ctc_bpe.yaml,
+               18 layers, d_model 512, seeded random weights) over generated
+               WAVs: a dense-attention bucket, a batched flash bucket and one
+               whole-utterance long-form file; the launch counts prove the main
+               path went through the kernel, and a second model with the flash
+               path switched off must agree with it (profile: one traced
+               transcribe, device busy share and the kernels that take its time)
+  train        ConformerCTC.fit at full width on configs/conformer_ctc_bpe_longform.yaml
+               (batch 8, remat, flash) over 16 generated 45-75 s WAVs, 3 steps
+               with validation; per step the launch counts of all five kernels,
+               finite loss and gradient norm, changed parameters and BatchNorm
+               statistics, the step time and audio-seconds trained per second;
+               then transcribe of a training file (profile_train: one traced
+               train step)
+  bpe_step     one fit step of configs/conformer_ctc_bpe.yaml (batch 16, 10-16 s
+               clips): K1 launches and no K2 launch, since dropout_att is 0.1
+  train_parity the same weights and batch, dropout, SpecAugment and dither off:
+               one step through the flash and K1 kernels against one through
+               the dense attention and the plain CTC recursion (loss, gradient
+               cosine, largest per-tensor relative error)
+  kernels      each kernel against its plain PyTorch version on the card, on
+               the same inputs, at the shapes and lengths of the counted
+               transcribe's and train step's own calls and a few edge cases,
+               with times, the card's bound and a library yardstick
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -39,25 +51,64 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "conformer_ctc_bpe.yaml")
+LONGFORM = os.path.join(ROOT, "configs", "conformer_ctc_bpe_longform.yaml")
 TOKENIZER = os.path.join(ROOT, "tests", "fixtures", "sp_bpe_bytefallback.model")
 OVERRIDES = {"model.tokenizer.model_file": TOKENIZER}
+TRAIN_OVERRIDES = {**OVERRIDES, "model.train_ds.num_buckets": 1}
 SR = 16000
 SEED = 0
 BATCH = 8  # transcribe's batch_size
+TRAIN_STEPS = 3
 
-# H100 SXM published peaks (dense bf16 tensor cores; HBM3)
+# H100 SXM published peaks (dense bf16 tensor cores; fp32 outside them; HBM3)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# kernel vs plain version on the same bf16 unit-scale inputs: bf16 rounding
-# of the output plus a different summation order
+# K2-fwd vs its plain version on the same bf16 unit-scale inputs: bf16
+# rounding of the output plus a different summation order
 O_TOL = 2e-2
 LSE_TOL = 2e-3
 ARGMAX_AGREEMENT_MIN = 0.99
+# K2-bwd vs its plain version, max|kernel - plain| / max|plain| per output:
+# the kernel rounds P and dS to bf16 before the dV, dQ and dK products
+BWD_REL_TOL = 2e-2
+# K1 vs its plain version in fp32: nll relative (rounding accumulated over
+# ~1900 log-sum-exp steps); gradient absolute (posteriors lie in [0, 1] and
+# alpha + beta - ll cancels at |ll| ~ T log V, leaving ~ulp(|ll|))
+NLL_REL_TOL = 1e-4
+GRAD_ABS_TOL = 1e-2
+# torch.nn.functional.ctc_loss's nll on the feasible rows: its own fp32 recursion
+LIB_NLL_REL_TOL = 1e-3
+# train_parity: flash + K1 kernels vs dense attention + plain CTC, bf16 compute
+PARITY_LOSS_REL = 1e-2
+PARITY_GRAD_COSINE = 0.99
+# gradients zero in exact arithmetic (the key bias under softmax's shift
+# invariance; the depthwise bias before training BatchNorm): their relative
+# error between two summation orders is meaningless
+ZERO_GRAD = ("self_attn.linear_k.bias", "conv.depthwise_conv.bias")
+PER_STEP_LAUNCHES = {"K2-fwd": 36, "K2-bwd-dq": 18, "K2-bwd-dkv": 18, "K1-fwd": 1, "K1-bwd": 1}
 
-FLASH_SOURCE = "conformer_nemo_tpu_torch/ops/csrc/flash_attention_fwd.cu"
-FLASH_REPLACES = ("conformer_nemo_tpu/ops/pallas/flash_attention.py:102 "
-                  "(_make_kernel, via _flash_fwd_entry :158)")
+def watched(model) -> tuple:
+    """Parameters and BatchNorm statistics a train step must change."""
+    last = model.cfg.encoder.n_layers - 1
+    return ("decoder.decoder_layers.0.weight", f"encoder.layers.{last}.self_attn.linear_q.weight",
+            "encoder.layers.0.conv.batch_norm.running_mean",
+            f"encoder.layers.{last}.conv.batch_norm.running_var")
+
+FLASH_FWD = ("conformer_nemo_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+             "conformer_nemo_tpu/ops/pallas/flash_attention.py:102 "
+             "(_make_kernel, via _flash_fwd_entry :158)")
+FLASH_DQ = ("conformer_nemo_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "conformer_nemo_tpu/ops/pallas/flash_attention.py:188 "
+            "(_make_dq_kernel, via _flash_bwd_entry :291)")
+FLASH_DKV = ("conformer_nemo_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+             "conformer_nemo_tpu/ops/pallas/flash_attention.py:234 "
+             "(_make_dkv_kernel, via _flash_bwd_entry :291)")
+CTC_FWD = ("conformer_nemo_tpu_torch/ops/csrc/ctc_loss.cu",
+           "conformer_nemo_tpu/ops/pallas/ctc_kernel.py:56 (_fwd_kernel, via _run_fwd :128)")
+CTC_BWD = ("conformer_nemo_tpu_torch/ops/csrc/ctc_loss.cu",
+           "conformer_nemo_tpu/ops/pallas/ctc_kernel.py:80 (_bwd_kernel, via _run_bwd :147)")
 
 
 def check(ok: bool, what) -> None:
@@ -90,8 +141,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak rate for their type and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def free_cuda() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
-# phases
+# env, build
 # ---------------------------------------------------------------------------
 
 
@@ -129,13 +194,22 @@ def phase_build() -> None:
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(report), ptxas=ptxas)
 
 
-def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev):
-    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+# ---------------------------------------------------------------------------
+# kernel cases: the kernel against its plain version, times and bounds
+# ---------------------------------------------------------------------------
 
+
+def _flash_inputs(bh, t, d1, dv, lens, gen, dev):
     qs = torch.randn(bh, t, d1, generator=gen, device=dev).to(torch.bfloat16)
     ks = torch.randn(bh, t, d1, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(bh, t, dv, generator=gen, device=dev).to(torch.bfloat16)
-    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return qs, ks, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev):
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    qs, ks, v, lens = _flash_inputs(bh, t, d1, dv, lens, gen, dev)
     scale = 1.0 / math.sqrt(64.0)
     left, right = band
     o, lse = fa.flash_attention_fwd(qs, ks, v, lens, scale, left, right)
@@ -145,17 +219,16 @@ def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev):
     err_lse = (lse - lse_ref).abs().max().item()
     check(math.isfinite(err_o) and err_o <= O_TOL, (name, "o", err_o))
     check(math.isfinite(err_lse) and err_lse <= LSE_TOL, (name, "lse", err_lse))
-    row = {"case": name, "bh": bh, "t": t, "d1": d1, "dv": dv, "band": list(band),
-           "max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "tol_o": O_TOL,
-           "tol_lse": LSE_TOL}
+    row = {"case": name, "kernel": "K2-fwd", "bh": bh, "t": t, "d1": d1, "dv": dv,
+           "band": list(band), "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+           "tol_o": O_TOL, "tol_lse": LSE_TOL,
+           "max_abs_err": max(err_o, err_lse)}
     mask = fa.visible_mask(t, lens, left, right)
     pairs = int(mask.sum().item())
-    flops = 2.0 * pairs * (d1 + dv)
     # bytes the function must move: the qs rows that see a key, the ks and v
     # rows that some query sees, lens; o and lse are written in full
     q_rows, k_rows = int(mask.any(2).sum().item()), int(mask.any(1).sum().item())
     nbytes = 2 * (q_rows * d1 + k_rows * (d1 + dv)) + 4 * bh + 2 * bh * t * dv + 4 * bh * t
-    bound_ops, bound_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     sdpa_mask = mask[:, None]
     q4, k4, v4 = qs[:, None], ks[:, None], v[:, None]
     row.update(
@@ -164,12 +237,140 @@ def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev):
             qs, ks, v, lens, scale, left, right), 3, warmup=1),
         library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=sdpa_mask, scale=scale), 5, warmup=1),
-        bound_ms=max(bound_ops, bound_bytes),
-        bound_by="operations" if bound_ops >= bound_bytes else "bytes",
-        visible_pairs=pairs, flops=flops, bytes=nbytes)
-    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        visible_pairs=pairs, **bound(2.0 * pairs * (d1 + dv), nbytes))
+    row["tflops"] = row["flops"] / (row["ms"] * 1e-3) / 1e12
     emit("kernels", **row)
     return row
+
+
+def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
+    """K2 dQ and dK/dV against the plain backward -> (dq row, dkv row)."""
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    qs, ks, v, lens = _flash_inputs(bh, t, d1, dv, lens, gen, dev)
+    do = torch.randn(bh, t, dv, generator=gen, device=dev).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(64.0)
+    left, right = band
+    o, lse = fa.flash_attention_fwd(qs, ks, v, lens, scale, left, right)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (qs, ks, v, do, lse, delta, lens, scale, left, right)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dvv = fa.flash_attention_bwd_dkv(*args)
+    ref = fa.flash_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    errs, abs_errs = {}, {}
+    for out_name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dvv), ref):
+        abs_errs[out_name] = (a.float() - b.float()).abs().max().item()
+        errs[out_name] = abs_errs[out_name] / max(b.float().abs().max().item(), 1e-30)
+        check(math.isfinite(errs[out_name]) and errs[out_name] <= BWD_REL_TOL,
+              (name, out_name, errs[out_name]))
+    q_valid = torch.arange(t, device=dev)[None, :] < lens[:, None]
+    check(dq[~q_valid].abs().max().item() == 0.0 if (~q_valid).any() else True,
+          (name, "dq past the length"))
+    mask = fa.visible_mask(t, lens, left, right) & q_valid[:, :, None]
+    pairs = int(mask.sum().item())
+    q_rows, k_rows = int(mask.any(2).sum().item()), int(mask.any(1).sum().item())
+    # inputs each kernel must read once: the qs and dO rows of queries that
+    # see a key, the ks and v rows some such query sees, lens, lse, delta
+    inputs = 2 * (q_rows * (d1 + dv) + k_rows * (d1 + dv)) + 4 * bh + 8 * bh * t
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(*args), 2, warmup=1)
+    library_ms = None
+    if (lens > 0).all():  # SDPA gives NaN on a row without a visible key
+        q4, k4, v4 = (x[:, None].detach().requires_grad_() for x in (qs, ks, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=fa.visible_mask(t, lens, left, right)[:, None], scale=scale)
+        do4 = do[:, None]
+        library_ms = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                                         retain_graph=True), 3, warmup=1)
+        del out
+    common = {"case": name, "bh": bh, "t": t, "d1": d1, "dv": dv, "band": list(band),
+              "visible_pairs": pairs, "rel_err": errs, "abs_err": abs_errs,
+              "tol_rel": BWD_REL_TOL,
+              "plain_ms": plain_ms, "library_ms": library_ms}
+    rows = []
+    for kernel, fn, flops, out_bytes, err in (
+            ("K2-bwd-dq", lambda: fa.flash_attention_bwd_dq(*args),
+             2.0 * pairs * (2 * d1 + dv), 2 * bh * t * d1, abs_errs["dq"]),
+            ("K2-bwd-dkv", lambda: fa.flash_attention_bwd_dkv(*args),
+             2.0 * pairs * (2 * d1 + 2 * dv), 2 * bh * t * (d1 + dv),
+             max(abs_errs["dk"], abs_errs["dv"]))):
+        row = {**common, "kernel": kernel, "max_abs_err": err, "ms": time_ms(fn, 10),
+               **bound(flops, inputs + out_bytes)}
+        row["tflops"] = row["flops"] / (row["ms"] * 1e-3) / 1e12
+        emit("kernels", **row)
+        rows.append(row)
+    # the pair as one function: S once, dP, dQ, dK, dV
+    emit("kernels", case=name, kernel="K2-bwd pair", ms=rows[0]["ms"] + rows[1]["ms"],
+         **bound(2.0 * pairs * (3 * d1 + 2 * dv), inputs + 2 * bh * t * (2 * d1 + dv)))
+    return rows
+
+
+def _ctc_case(name, lp, targets, il, tl, blank):
+    """K1-fwd and K1-bwd against their plain versions -> (fwd row, bwd row)."""
+    from conformer_nemo_tpu_torch.ops import ctc_loss as ctc
+
+    b, t, v1 = lp.shape
+    u = targets.shape[1]
+    g = torch.ones(b, device=lp.device)
+    alphas, nll = ctc.ctc_alphas(lp, targets, il, tl, blank)
+    grad = ctc.ctc_grad(lp, targets, il, tl, alphas, nll, g, blank)
+    a_ref, nll_ref = ctc.ctc_alphas_reference(lp, targets, il, tl, blank)
+    grad_ref = ctc.ctc_grad_reference(lp, targets, il, tl, a_ref, nll_ref, g, blank)
+    torch.cuda.synchronize()
+    feasible = nll_ref < 1e29
+    check(torch.isfinite(nll).all().item() and torch.isfinite(grad).all().item(),
+          (name, "non-finite"))
+    check(bool((nll[~feasible] >= 1e29).all()), (name, "infeasible rows keep the sentinel"))
+    nll_err = ((nll - nll_ref).abs() / nll_ref.abs().clamp(min=1.0))[feasible].max().item()
+    nll_abs = (nll - nll_ref).abs()[feasible].max().item()
+    grad_err = (grad - grad_ref).abs().max().item()
+    check(nll_err <= NLL_REL_TOL, (name, "nll", nll_err))
+    check(grad_err <= GRAD_ABS_TOL, (name, "grad", grad_err))
+    # library yardstick: torch.nn.functional.ctc_loss (reduction none, blank = V);
+    # only its nll is compared, its gradient follows PyTorch's own convention
+    lib_args = (lp.transpose(0, 1), targets.long(), il.long(), tl.long())
+    lib_nll = torch.nn.functional.ctc_loss(*lib_args, blank=blank, reduction="none")
+    ok = feasible & torch.isfinite(lib_nll)
+    lib_err = ((lib_nll - nll_ref).abs() / nll_ref.abs().clamp(min=1.0))[ok].max().item()
+    check(lib_err <= LIB_NLL_REL_TOL, (name, "library nll", lib_err))
+    lp_req = lp.detach().requires_grad_()
+    lib_fwd_ms = time_ms(lambda: torch.nn.functional.ctc_loss(
+        *lib_args, blank=blank, reduction="none"), 5)
+    lib_fb_ms = time_ms(lambda: torch.autograd.grad(torch.nn.functional.ctc_loss(
+        lp_req.transpose(0, 1), *lib_args[1:], blank=blank, reduction="none").sum(),
+        lp_req), 5)
+    # bytes: each sample's log-prob entries of the classes its lattice uses,
+    # every frame; alphas written (fwd) or read (bwd); the gradient written
+    s = 2 * u + 1
+    ext = torch.full((b, s), blank, dtype=torch.int64, device=lp.device)
+    ext[:, 1::2] = targets.long()
+    in_lattice = torch.arange(s, device=lp.device)[None, :] < (2 * tl.long().clamp(0, u) + 1)[:, None]
+    classes = sum(len(set(ext[i][in_lattice[i]].tolist())) for i in range(b))
+    entries = 4 * t * classes
+    lattice_ops = 20.0 * b * t * s  # a handful of fp32 flops per state and step
+    common = {"case": name, "b": b, "t": t, "u": u, "v1": v1, "serial_steps": t,
+              "nll_rel_err": nll_err, "nll_abs_err": nll_abs, "grad_abs_err": grad_err, "tol_nll_rel": NLL_REL_TOL,
+              "tol_grad_abs": GRAD_ABS_TOL, "library_nll_rel_err": lib_err}
+    rows = []
+    for kernel, fn, plain, lib_ms, nbytes, err in (
+            ("K1-fwd", lambda: ctc.ctc_alphas(lp, targets, il, tl, blank),
+             lambda: ctc.ctc_alphas_reference(lp, targets, il, tl, blank), lib_fwd_ms,
+             entries + 4 * b * t * s + 4 * b, nll_abs),
+            ("K1-bwd", lambda: ctc.ctc_grad(lp, targets, il, tl, alphas, nll, g, blank),
+             lambda: ctc.ctc_grad_reference(lp, targets, il, tl, a_ref, nll_ref, g, blank),
+             lib_fb_ms, entries + 4 * b * t * s + 4 * b * t * v1 + 8 * b, grad_err)):
+        row = {**common, "kernel": kernel, "max_abs_err": err, "ms": time_ms(fn, 10),
+               "plain_ms": time_ms(plain, 1, warmup=1), "library_ms": lib_ms,
+               **bound(lattice_ops, nbytes, PEAK_FP32_FLOPS)}
+        row["us_per_step"] = row["ms"] * 1e3 / t
+        emit("kernels", **row)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# transcribe
+# ---------------------------------------------------------------------------
 
 
 def encoder_frames(cfg, samples) -> list:
@@ -182,18 +383,11 @@ def encoder_frames(cfg, samples) -> list:
     return calc_sub_length(feats, enc.subsampling, int(math.log2(enc.subsampling_factor))).tolist()
 
 
-def phase_kernels(dev, cfg, flash_calls) -> list:
-    """Each main-path flash call, (T, lens [BH]) as the counted transcribe
-    made it, then edge cases off the main path."""
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    d1, dv = cfg.encoder.d_head + cfg.encoder.d_model, cfg.encoder.d_head
-    rows = [_flash_case(f"main_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens, (-1, -1),
-                        gen, dev) for t, lens in flash_calls]
-    # tiny depths, empty rows, a two-sided band
-    _flash_case("tiny", 4, 200, 80, 16, [200, 100, 1, 0], (-1, -1), gen, dev)
-    _flash_case("band_128_32", 8, 3001, d1, dv, [3001, 2500, 1876, 1200, 700, 64, 1, 0],
-                (128, 32), gen, dev)
-    return rows
+def _wav(rng, seconds: float) -> np.ndarray:
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    tones = sum(0.1 * np.sin(2 * np.pi * f * t) for f in rng.uniform(150, 3000, 3))
+    return (0.05 * rng.randn(n) + tones).astype(np.float32)
 
 
 def _write_inputs(tmp: str) -> dict:
@@ -208,44 +402,40 @@ def _write_inputs(tmp: str) -> dict:
     paths = {}
     for g, secs in groups.items():
         for i, s in enumerate(secs):
-            n = int(s * SR)
-            t = np.arange(n) / SR
-            tones = sum(0.1 * np.sin(2 * np.pi * f * t) for f in rng.uniform(150, 3000, 3))
-            wav = (0.05 * rng.randn(n) + tones).astype(np.float32)
             path = os.path.join(tmp, f"{g}_{i}.wav")
-            write_wav(path, wav, SR)
+            write_wav(path, _wav(rng, s), SR)
             paths.setdefault(g, []).append(path)
     return paths
 
 
-def profile_transcribe(model, paths) -> None:
-    """One traced transcribe, apart from the timed run: how busy the device
-    was and which kernels took its time (torch.profiler, CUPTI). Only
-    device-side events (kernels, memcpys, memsets) count: an `aten::` op's
-    device time is that of the kernels it launched, which are listed too.
-    They run on one stream, so their times add up without overlap."""
+def _profile(run, phase: str, **fields) -> None:
+    """One traced run of `run()`: how busy the device was and which kernels
+    took its time (torch.profiler, CUPTI). Only device-side events (kernels,
+    memcpys, memsets) count: an `aten::` op's device time is that of the
+    kernels it launched, which are listed too. They run on one stream, so
+    their times add up without overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.transcribe(paths, batch_size=BATCH)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = lambda e: e.self_device_time_total
     busy_s = sum(dev_us(e) for e in events) / 1e6
     check(busy_s > 0, "the profiler saw no device time")
-    top = sorted(events, key=dev_us, reverse=True)[:12]
-    emit("profile", traced_wall_s=wall, device_busy_s=busy_s,
-         device_idle_share=1.0 - busy_s / wall,
+    top = sorted(events, key=dev_us, reverse=True)[:15]
+    emit(phase, traced_wall_s=wall, device_busy_s=busy_s, device_idle_share=1.0 - busy_s / wall,
          top=[{"name": e.key[:100], "device_ms": dev_us(e) / 1e3, "calls": e.count}
-              for e in top])
+              for e in top], **fields)
 
 
-def phase_transcribe(model, groups, gpu: str) -> dict:
+def phase_transcribe(model, groups, gpu: str) -> tuple:
     from conformer_nemo_tpu_torch.api import ConformerCTC
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
+    from conformer_nemo_tpu_torch.ops.build import reset_launch_counts
 
     enc = model.cfg.encoder
     n_params = sum(p.numel() for p in model.model.parameters())
@@ -266,9 +456,9 @@ def phase_transcribe(model, groups, gpu: str) -> dict:
 
     model.transcribe(paths, batch_size=BATCH)  # warm-up (cuDNN, allocator)
     model._decode_audio_batch = timed
-    fa.reset_launch_counts()
+    reset_launch_counts()
     texts = model.transcribe(paths, batch_size=BATCH)
-    launches, by_shape = fa.launches, dict(fa.launches_by_shape)
+    launches, by_shape = fa.fwd_launches.total, dict(fa.fwd_launches.by_shape)
     model._decode_audio_batch = orig
 
     check(len(texts) == len(paths) and all(isinstance(s, str) for s in texts), texts)
@@ -284,7 +474,7 @@ def phase_transcribe(model, groups, gpu: str) -> dict:
     flash_calls = [(f, [n for n in encoder_frames(model.cfg, t["lens"])
                         for _ in range(enc.n_heads)])
                    for t, f in zip(timings, frames) if f >= enc.flash_attention_min_t]
-    profile_transcribe(model, paths)
+    _profile(lambda: model.transcribe(paths, batch_size=BATCH), "profile")
 
     lp_flash = model.transcribe(paths, batch_size=BATCH, logprobs=True)
     dense = ConformerCTC.from_config_file(
@@ -292,7 +482,7 @@ def phase_transcribe(model, groups, gpu: str) -> dict:
     dense.load_state_dict(model.state_dict())
     lp_dense = dense.transcribe(paths, batch_size=BATCH, logprobs=True)
     del dense
-    torch.cuda.empty_cache()
+    free_cuda()
 
     v1 = model.cfg.num_classes + 1
     for a, b in zip(lp_flash, lp_dense):
@@ -314,6 +504,270 @@ def phase_transcribe(model, groups, gpu: str) -> dict:
     return by_shape, flash_calls
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _write_manifest(tmp: str, name: str, n: int, lo_s: float, hi_s: float, rng) -> str:
+    """n WAVs of lo_s..hi_s seconds, texts drawn from the fixture tokenizer's
+    pieces at 2-3 tokens per second, and their JSONL manifest."""
+    from conformer_nemo_tpu_torch.data.audio_io import write_wav
+    from conformer_nemo_tpu_torch.data.tokenizers import SentencePieceTokenizer
+
+    tok = SentencePieceTokenizer(TOKENIZER)
+    pieces = [p for p, t in zip(tok.pieces, tok.types) if t == 1 and p != "▁"]
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(n):
+            secs = float(np.round(rng.uniform(lo_s, hi_s), 2))
+            wav_path = os.path.join(tmp, f"{name}_{i}.wav")
+            write_wav(wav_path, _wav(rng, secs), SR)
+            words = rng.choice(pieces, size=int(secs * rng.uniform(2.0, 3.0)))
+            text = "".join(words).replace("▁", " ").strip()
+            f.write(json.dumps({"audio_filepath": wav_path, "duration": secs, "text": text},
+                               ensure_ascii=False) + "\n")
+    return path
+
+
+def _counted_steps(model, log: list):
+    """Wrap `model._make_train_step` so that each step records its time,
+    audio, metrics, launches per kernel and whether the watched parameters
+    and BatchNorm statistics changed."""
+    from conformer_nemo_tpu_torch.ops.build import launch_counts
+
+    orig = model._make_train_step
+    watch = watched(model)
+
+    def make(optimizer):
+        step = orig(optimizer)
+
+        def run(batch):
+            sd = model.model.state_dict()
+            snap = {k: sd[k].clone() for k in watch}
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = launch_counts()
+            sd = model.model.state_dict()
+            audio_s = float(batch.audio_lens.sum()) / SR
+            log.append({
+                "seconds": seconds, "audio_s": audio_s, "audio_s_per_s": audio_s / seconds,
+                "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                "launches": {k: after[k] - before.get(k, 0) for k in after},
+                "changed": {k: not torch.equal(snap[k], sd[k]) for k in watch},
+                "batch": batch})
+            return metrics
+
+        return run
+
+    return make
+
+
+def phase_train(tmp: str, gpu: str) -> dict:
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
+
+    rng = np.random.RandomState(SEED + 1)
+    train_m = _write_manifest(tmp, "lf_train", 16, 45.0, 75.0, rng)
+    val_m = _write_manifest(tmp, "lf_val", 2, 45.0, 75.0, rng)
+    model = ConformerCTC.from_config_file(LONGFORM, overrides=TRAIN_OVERRIDES, seed=SEED)
+    enc = model.cfg.encoder
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    reset_launch_counts()
+    out = model.fit(train_m, val_m, max_steps=TRAIN_STEPS)
+    by_shape = {k: dict(launch_count(k).by_shape) for k in PER_STEP_LAUNCHES}
+    del model._make_train_step  # the class's own again
+    check(len(steps) == TRAIN_STEPS and out["steps"] == TRAIN_STEPS, (len(steps), out))
+    check(not model.model.training, "the model is in eval mode after fit")
+    for i, s in enumerate(steps):
+        got = {k: s["launches"].get(k, 0) for k in PER_STEP_LAUNCHES}
+        check(got == PER_STEP_LAUNCHES, ("step", i, "launches", got))
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]), ("step", i, s["loss"]))
+        check(all(s["changed"].values()), ("step", i, "unchanged", s["changed"]))
+    batch = steps[0]["batch"]
+    t_enc = encoder_frames(model.cfg, [batch.audio.shape[1]])[0]
+    check(t_enc >= enc.flash_attention_min_t, ("train T", t_enc))
+    enc_lens = encoder_frames(model.cfg, batch.audio_lens.tolist())
+    text = model.transcribe([json.loads(open(train_m, encoding="utf-8").readline())
+                             ["audio_filepath"]])[0]
+    steady = steps[1:]
+    emit("train", config="configs/conformer_ctc_bpe_longform.yaml", n_layers=enc.n_layers,
+         d_model=enc.d_model, remat=enc.remat, batch=int(batch.audio.shape[0]), encoder_t=t_enc,
+         params=sum(p.numel() for p in model.model.parameters()), gpu=gpu,
+         steps=[{k: v for k, v in s.items() if k != "batch"} for s in steps],
+         steady_step_s=sum(s["seconds"] for s in steady) / len(steady),
+         steady_audio_s_per_s=sum(s["audio_s"] for s in steady) / sum(
+             s["seconds"] for s in steady),
+         val=out["val"], launches_by_shape={k: {str(s): n for s, n in v.items()}
+                                             for k, v in by_shape.items()},
+         transcribe_after_fit=text[:80])
+    step = model._make_train_step(model._make_optimizer())
+    _profile(lambda: step(batch), "profile_train", config="configs/conformer_ctc_bpe_longform.yaml",
+             batch=int(batch.audio.shape[0]), encoder_t=t_enc)
+    info = {"by_shape": by_shape, "t": t_enc,
+            "lens": [n for n in enc_lens for _ in range(enc.n_heads)],
+            "ctc": (batch.tokens, enc_lens, batch.token_lens),
+            "cfg": model.cfg, "train_manifest": train_m}
+    del model, step
+    free_cuda()
+    return info
+
+
+def phase_bpe_step(tmp: str) -> None:
+    """conformer_ctc_bpe.yaml trains through the dense attention (its
+    dropout_att is 0.1) and the K1 kernels."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.ops.build import launch_counts, reset_launch_counts
+
+    manifest = _write_manifest(tmp, "bpe_train", 16, 10.0, 16.0, np.random.RandomState(SEED + 2))
+    model = ConformerCTC.from_config_file(CONFIG, overrides=TRAIN_OVERRIDES, seed=SEED)
+    attn = model.model.encoder.layers[0].self_attn
+    model.model.train()
+    lens = torch.tensor([3000], device=model.device)
+    check(not attn.use_flash(3000, lens), "training with dropout_att > 0 takes the dense path")
+    model.model.eval()
+    check(attn.use_flash(3000, lens), "eval mode takes the flash path at T >= 1024")
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    reset_launch_counts()
+    model.fit(manifest, max_steps=1)
+    counts = launch_counts()
+    check(counts.get("K1-fwd", 0) == 1 and counts.get("K1-bwd", 0) == 1, counts)
+    check(all(counts.get(k, 0) == 0 for k in ("K2-fwd", "K2-bwd-dq", "K2-bwd-dkv")), counts)
+    s = steps[0]
+    check(math.isfinite(s["loss"]) and all(s["changed"].values()), s["changed"])
+    emit("bpe_step", config="configs/conformer_ctc_bpe.yaml",
+         batch=int(s["batch"].audio.shape[0]),
+         encoder_t=encoder_frames(model.cfg, [s["batch"].audio.shape[1]])[0],
+         dropout_att=model.cfg.encoder.dropout_att, launches=counts, seconds=s["seconds"],
+         audio_s_per_s=s["audio_s_per_s"], loss=s["loss"])
+    del model
+    free_cuda()
+
+
+def phase_train_parity(train_manifest: str) -> None:
+    """One step through flash + K1 against dense + plain CTC: same weights,
+    same batch, no dropout, SpecAugment or dither."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.train.optim import Transformation
+    from conformer_nemo_tpu_torch.train.trainer import init_ctc_state, make_ctc_train_step
+
+    quiet = {**TRAIN_OVERRIDES, "model.encoder.dropout": 0.0, "model.encoder.dropout_att": 0.0,
+             "model.encoder.dropout_emb": 0.0, "model.spec_augment.freq_masks": 0,
+             "model.spec_augment.time_masks": 0, "model.preprocessor.dither": 0.0}
+    kernel = ConformerCTC.from_config_file(LONGFORM, overrides=quiet, seed=SEED)
+    plain = ConformerCTC.from_config_file(
+        LONGFORM, overrides={**quiet, "model.encoder.use_flash_attention": False}, seed=SEED + 1)
+    plain.load_state_dict(kernel.state_dict())
+    batch = next(iter(kernel._loader(train_manifest, kernel.raw_cfg["model"]["train_ds"],
+                                     shuffle=True)))
+
+    def run(m, impl):
+        grads = []
+
+        def capture(g, state, params):
+            grads.extend(x.detach().float() for x in g)
+            return [torch.zeros_like(x) for x in g], state
+
+        probe = Transformation(lambda params: {}, capture)
+        metrics = make_ctc_train_step(m.cfg, probe, ctc_impl=impl)(
+            init_ctc_state(m.model, probe, seed=SEED), batch)
+        return float(metrics["loss"]), grads
+
+    loss_k, g_k = run(kernel, "kernel")
+    loss_p, g_p = run(plain, "plain")
+    names = [n for n, _ in kernel.model.named_parameters()]
+    dot = sum((a.double() * b.double()).sum() for a, b in zip(g_k, g_p)).item()
+    nk = math.sqrt(sum((a.double() ** 2).sum().item() for a in g_k))
+    np_ = math.sqrt(sum((b.double() ** 2).sum().item() for b in g_p))
+    cosine = dot / (nk * np_)
+    rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(g_k, g_p)]
+    worst = int(np.argmax(rel))
+    nonzero = [i for i, n in enumerate(names) if not n.endswith(ZERO_GRAD)]
+    worst_nz = max(nonzero, key=lambda i: rel[i])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(math.isfinite(loss_k) and loss_rel <= PARITY_LOSS_REL, ("loss", loss_k, loss_p))
+    check(cosine >= PARITY_GRAD_COSINE, ("gradient cosine", cosine))
+    emit("train_parity", config="configs/conformer_ctc_bpe_longform.yaml",
+         loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_rel,
+         tol_loss_rel=PARITY_LOSS_REL, grad_cosine=cosine, min_cosine=PARITY_GRAD_COSINE,
+         grad_norm_kernel=nk, grad_norm_plain=np_, max_tensor_rel_err=rel[worst],
+         max_tensor=names[worst], max_tensor_rel_err_nonzero_grad=rel[worst_nz],
+         max_tensor_nonzero_grad=names[worst_nz], median_tensor_rel_err=float(np.median(rel)))
+    del kernel, plain, g_k, g_p
+    free_cuda()
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels(dev, cfg, flash_calls, train: dict) -> dict:
+    """Each main-path call as the counted runs made it, then edge cases off
+    the main path. -> {kernel name: [rows]} for the main-path rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d1, dv = cfg.encoder.d_head + cfg.encoder.d_model, cfg.encoder.d_head
+    rows = {"transcribe": [_flash_case(f"main_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
+                                       (-1, -1), gen, dev) for t, lens in flash_calls]}
+    t, lens = train["t"], train["lens"]
+    rows["train"] = [_flash_case(f"train_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
+                                 (-1, -1), gen, dev)]
+    rows["train"] += _flash_bwd_case(f"train_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
+                                     (-1, -1), gen, dev)
+    # tiny depths, empty rows, a two-sided band
+    _flash_case("tiny", 4, 200, 80, 16, [200, 100, 1, 0], (-1, -1), gen, dev)
+    _flash_case("band_128_32", 8, 3001, d1, dv, [3001, 2500, 1876, 1200, 700, 64, 1, 0],
+                (128, 32), gen, dev)
+    _flash_bwd_case("bwd_tiny_lens0", 4, 200, 80, 16, [200, 100, 1, 0], (-1, -1), gen, dev)
+    _flash_bwd_case("bwd_band_128_32", 8, 1876, d1, dv, [1876, 1500, 1126, 700, 300, 64, 1, 0],
+                    (128, 32), gen, dev)
+
+    tokens, enc_lens, token_lens = train["ctc"]
+    v1, blank = cfg.num_classes + 1, cfg.blank_id
+    b = len(enc_lens)
+    lp = torch.log_softmax(torch.randn(b, t, v1, generator=gen, device=dev) * 3, dim=-1)
+    as_i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    rows["train"] += _ctc_case(f"train_b{b}_t{t}_u{tokens.shape[1]}", lp, as_i32(tokens),
+                               as_i32(enc_lens), as_i32(token_lens), blank)
+    # a U = 0 row, an infeasible row (25 labels in 17 frames), a 1-frame zero row
+    u = 30
+    lp_e = torch.log_softmax(torch.randn(4, 300, v1, generator=gen, device=dev) * 3, dim=-1)
+    tg_e = torch.randint(0, v1 - 1, (4, u), generator=gen, device=dev).to(torch.int32)
+    _ctc_case("edges_u0_infeasible", lp_e, tg_e, as_i32([300, 300, 17, 1]),
+              as_i32([30, 0, 25, 0]), blank)
+    return rows
+
+
+def kernel_summary(rows: dict, launches: dict) -> list:
+    """The summary line's entries: every main-path kernel row, with the
+    launches its path made at its shape."""
+    sources = {"K2-fwd": FLASH_FWD, "K2-bwd-dq": FLASH_DQ, "K2-bwd-dkv": FLASH_DKV,
+               "K1-fwd": CTC_FWD, "K1-bwd": CTC_BWD}
+    kernels = []
+    for path, path_rows in rows.items():
+        for r in path_rows:
+            k = r["kernel"]
+            shape = ((r["bh"], r["t"], r["d1"], r["dv"]) if k.startswith("K2")
+                     else (r["b"], r["t"], r["u"], r["v1"]))
+            source, replaces = sources[k]
+            kernels.append({
+                "name": f"{k}[{path}:{','.join(map(str, shape))}]", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launches[path].get(k, {}).get(shape, 0),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]})
+    check(all(k["launches"] > 0 for k in kernels), kernels)
+    check({k["name"].split("[")[0] for k in kernels} == set(sources), kernels)
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -327,20 +781,17 @@ def main() -> int:
     model = ConformerCTC.from_config_file(CONFIG, overrides=OVERRIDES, seed=SEED)
     with tempfile.TemporaryDirectory() as tmp:
         groups = _write_inputs(tmp)
-        by_shape, flash_calls = phase_transcribe(model, groups, env["nvidia_smi"])
-    rows = phase_kernels(dev, model.cfg, flash_calls)
+        fwd_by_shape, flash_calls = phase_transcribe(model, groups, env["nvidia_smi"])
+        cfg = model.cfg
+        del model
+        free_cuda()
+        train = phase_train(tmp, env["nvidia_smi"])
+        phase_bpe_step(tmp)
+        phase_train_parity(train["train_manifest"])
+    rows = phase_kernels(dev, cfg, flash_calls, train)
 
-    kernels = []
-    for r in rows:
-        kernels.append({
-            "name": f"flash_attention_fwd[BH={r['bh']},T={r['t']},d1={r['d1']},dv={r['dv']}]",
-            "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-            "launches": by_shape.get((r["bh"], r["t"], r["d1"], r["dv"]), 0),
-            "max_abs_err": max(r["max_abs_err_o"], r["max_abs_err_lse"]),
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
-    check(all(k["launches"] > 0 for k in kernels), kernels)
+    kernels = kernel_summary(rows, {"transcribe": {"K2-fwd": fwd_by_shape},
+                                    "train": train["by_shape"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

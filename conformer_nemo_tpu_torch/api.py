@@ -1,9 +1,10 @@
-"""User API for serving: build a Conformer-CTC model and transcribe
-(port of the `ConformerCTC` serving surface of conformer_nemo_tpu/api.py).
+"""User API: build a Conformer-CTC model, train it and transcribe (port of
+the `ConformerCTC` surface of conformer_nemo_tpu/api.py).
 
     model = ConformerCTC.from_config_file("configs/conformer_ctc_bpe.yaml",
                                           overrides={...})   # runs on CUDA
     model.load_state_dict(state_dict)   # NeMo names; see convert/jax_params.py
+    model.fit("train.json", "val.json", max_steps=1000)
     texts = model.transcribe(["a.wav", "b.wav"])
 
 Batching follows the JAX package: files up to `longform_threshold_s` are
@@ -11,14 +12,18 @@ sorted by length and decoded `batch_size` at a time, padded to a multiple
 of 1600 samples and to `batch_size` rows with zero rows; each longer file
 takes an exact whole-utterance forward alone, padded to threshold * 2^k.
 
-Training (fit), save/restore, timestamps, buffered/streaming decode and
-beam search with an LM wait for later slices (ROADMAP.md).
+`fit` trains on one device with the config's optimizer, schedule, loader
+and validation cadence. An experiment manager (checkpoints, logging),
+`trainer.resume_from_checkpoint` and a multi-device mesh raise, as do
+save/restore, timestamps, buffered/streaming decode and beam search with an
+LM: they wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -27,11 +32,22 @@ from torch import nn
 
 from conformer_nemo_tpu_torch.config.loader import build_ctc_model_config, load_config
 from conformer_nemo_tpu_torch.data.audio_io import load_audio
+from conformer_nemo_tpu_torch.data.dataset import BucketedAudioTextDataset, BucketedLoader
+from conformer_nemo_tpu_torch.data.manifest import read_manifest
 from conformer_nemo_tpu_torch.data.tokenizers import build_tokenizer
 from conformer_nemo_tpu_torch.decode.ctc_greedy import collapse_ctc_ids, ctc_greedy_decode
 from conformer_nemo_tpu_torch.device import resolve_device
 from conformer_nemo_tpu_torch.models.conformer import check_flash_dtype
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, ctc_forward
+from conformer_nemo_tpu_torch.train.lr_schedule import make_lr_schedule
+from conformer_nemo_tpu_torch.train.optim import make_optimizer, with_grad_accumulation
+from conformer_nemo_tpu_torch.train.trainer import (
+    evaluate_wer,
+    init_ctc_state,
+    make_ctc_train_step,
+)
+
+_WAITS = "is not ported yet (ROADMAP.md, slice 2 leftovers)"
 
 
 @dataclasses.dataclass
@@ -80,6 +96,8 @@ class ConformerCTC:
         model = CTCModel(self.cfg)
         init_weights(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
+        self.seed = seed
+        self.train_state = None  # optimizer state and step count, made by fit
 
     @classmethod
     def from_config_file(cls, path: str, tokenizer_dir: Optional[str] = None,
@@ -97,6 +115,115 @@ class ConformerCTC:
         """Load a state_dict with NeMo's names (e.g. from
         convert.jax_params.ctc_state_dict_from_jax)."""
         self.model.load_state_dict(state_dict, strict=True)
+
+    # -- training -----------------------------------------------------------
+
+    def _make_optimizer(self):
+        ocfg = self.raw_cfg["model"].get("optim", {"name": "adamw", "lr": 1.0})
+        sched_cfg = dict(ocfg.get("sched", {"name": "NoamAnnealing", "d_model": 256,
+                                             "warmup_steps": 1000}))
+        tr = self.raw_cfg.get("trainer", {})
+        opt = make_optimizer(ocfg.get("name", "adamw"),
+                             make_lr_schedule(sched_cfg, ocfg.get("lr", 1.0)),
+                             weight_decay=float(ocfg.get("weight_decay", 0.0)),
+                             betas=tuple(ocfg.get("betas", (0.9, 0.98))),
+                             grad_clip=tr.get("gradient_clip_val") or None)
+        return with_grad_accumulation(opt, int(tr.get("accumulate_grad_batches", 1) or 1))
+
+    def _make_train_step(self, optimizer):
+        """-> step(batch) -> metrics, over this model's training state."""
+        step = make_ctc_train_step(
+            self.cfg, optimizer,
+            skip_nan_grad=bool(self.raw_cfg["model"].get("skip_nan_grad", False)))
+        return lambda batch: step(self.train_state, batch)
+
+    def _loader(self, manifest: str, ds_cfg: dict, shuffle: bool):
+        for key, what in (("is_tarred", "tarred datasets"), ("augmentor", "the waveform augmentor"),
+                          ("trim_silence", "silence trimming")):
+            if ds_cfg.get(key):
+                raise NotImplementedError(f"{what} {_WAITS}")
+        if ds_cfg.get("transport") not in (None, "f32"):
+            raise NotImplementedError(f"transport={ds_cfg['transport']!r} {_WAITS}; f32 is")
+        samples = read_manifest(manifest, min_duration=ds_cfg.get("min_duration"),
+                                max_duration=ds_cfg.get("max_duration"),
+                                max_number=ds_cfg.get("max_utts"))
+        ds = BucketedAudioTextDataset(samples, self.tokenizer,
+                                      sample_rate=ds_cfg.get("sample_rate", 16000),
+                                      n_buckets=ds_cfg.get("num_buckets", 8))
+        return BucketedLoader(
+            ds, ds_cfg.get("batch_size", 16), shuffle=shuffle, seed=self.seed,
+            bucketing_strategy=ds_cfg.get("bucketing_strategy", "synced_randomized"),
+            num_workers=int(ds_cfg.get("num_workers", 0) or 0))
+
+    def fit(self, train_manifest: Optional[str] = None, val_manifest: Optional[str] = None,
+            max_steps: Optional[int] = None, max_epochs: Optional[int] = None,
+            exp_manager=None) -> dict:
+        """Train on this model's device. Validation (greedy WER) runs at the
+        trainer's val_check_interval (an int count of steps, or a fraction of
+        an epoch) and at each epoch's end. The model is in eval mode again on
+        return. -> {"steps", "time_s", "last_loss", "val"}."""
+        if exp_manager is not None:
+            raise NotImplementedError(f"an experiment manager {_WAITS}")
+        m = self.raw_cfg["model"]
+        tr = self.raw_cfg.get("trainer", {})
+        if tr.get("resume_from_checkpoint"):
+            raise NotImplementedError(f"trainer.resume_from_checkpoint {_WAITS}")
+        mesh = tr.get("mesh") or {}
+        if int(mesh.get("model", 1) or 1) > 1 or int(mesh.get("data", 1) or 1) > 1:
+            raise NotImplementedError(f"a multi-device mesh {_WAITS}; fit uses one device")
+        # "???" is the configs' mark of a value left to the caller
+        given = lambda v: v if v not in (None, "???") else None
+        train_manifest = given(train_manifest) or given(m["train_ds"].get("manifest_filepath"))
+        if train_manifest is None:
+            raise ValueError("fit needs a training manifest (argument or "
+                             "model.train_ds.manifest_filepath)")
+        val_manifest = given(val_manifest) or given(
+            (m.get("validation_ds") or {}).get("manifest_filepath"))
+        max_epochs = max_epochs or tr.get("max_epochs", 1)
+        max_steps = max_steps or tr.get("max_steps")
+
+        optimizer = self._make_optimizer()
+        if self.train_state is None:
+            self.train_state = init_ctc_state(self.model, optimizer, seed=self.seed)
+        step_fn = self._make_train_step(optimizer)
+        train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True)
+        val_loader = (self._loader(val_manifest, m.get("validation_ds", {}), shuffle=False)
+                      if val_manifest else None)
+        vci = tr.get("val_check_interval")
+        val_every_n_steps = None
+        if isinstance(vci, int) and vci > 0:
+            val_every_n_steps = vci
+        elif isinstance(vci, float) and 0 < vci <= 1:
+            val_every_n_steps = max(1, int(round(vci * len(train_loader))))
+
+        val: dict = {}
+
+        def validate():
+            if val_loader is not None:
+                val.update(evaluate_wer(self.cfg, self.model, val_loader, self.tokenizer))
+
+        t0 = time.time()
+        metrics: dict = {}
+        try:
+            for _ in range(max_epochs):
+                for batch in train_loader:
+                    metrics = step_fn(batch)
+                    step = self.train_state.step
+                    if val_every_n_steps and step % val_every_n_steps == 0:
+                        validate()
+                    if max_steps and step >= max_steps:
+                        break
+                validate()  # end of epoch
+                if max_steps and self.train_state.step >= max_steps:
+                    break
+        finally:
+            self.model.eval()
+        out = {"steps": self.train_state.step, "time_s": time.time() - t0, "val": dict(val)}
+        if metrics:
+            out["last_loss"] = float(metrics["loss"])
+        return out
+
+    # -- inference ----------------------------------------------------------
 
     def transcribe(self, audio_paths: Sequence[str], batch_size: int = 16,
                    logprobs: bool = False, return_hypotheses: bool = False,

@@ -1,16 +1,20 @@
 """Log-mel spectrogram frontend (port of conformer_nemo_tpu/audio/features.py).
 
-Inference path of the reference FilterbankFeatures:
+The reference FilterbankFeatures:
 
-    preemphasis -> STFT (symmetric window, center reflect pad) -> power
-    -> Slaney mel matmul -> log(x + guard) -> per-feature masked mean/std
-    normalisation -> pad_value beyond length -> pad_to multiple.
+    [training: dither] -> preemphasis -> STFT (symmetric window, center
+    reflect pad) -> power -> [training: narrowband] -> Slaney mel matmul
+    -> log(x + guard) -> per-feature masked mean/std normalisation
+    -> pad_value beyond length -> pad_to multiple.
 
 Everything runs in float32. The STFT is one framed matmul against the
 windowed real-DFT basis, like the JAX package's; both matmuls are plain
 float32 `torch.matmul` (never TF32: `torch.backends.cuda.matmul.allow_tf32`
-is False by default and no convolution is involved). Dither and narrowband
-augmentation are training-time only and wait for the training slice.
+is False by default and no convolution is involved). In training mode,
+dither adds `dither` x N(0, 1) noise to the waveform and narrowband
+augmentation zeroes, with probability `nb_augmentation_prob` per sample,
+the power bins at or above `nb_max_freq`; both draw from an explicit
+`torch.Generator` on the waveform's device.
 """
 
 from __future__ import annotations
@@ -129,7 +133,7 @@ class MelFeatureConfig:
     log: bool = True
     log_zero_guard_type: str = "add"  # add | clamp
     log_zero_guard_value: float | str = LOG_GUARD  # number | 'tiny' | 'eps'
-    dither: float = 1e-5  # training only
+    dither: float = 1e-5  # training only (waveform noise scale)
     preemph: float | None = 0.97
     normalize: str = "per_feature"  # per_feature | all_features | fixed_mean_and_std | none
     fixed_mean: tuple | None = None
@@ -197,14 +201,31 @@ def _decode_transport(waveform: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def log_mel_spectrogram(cfg: MelFeatureConfig, waveform: torch.Tensor,
-                        lengths: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def _bernoulli(gen: torch.Generator, p: float, shape, device) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, device=device) < p
+
+
+def log_mel_spectrogram(cfg: MelFeatureConfig, waveform: torch.Tensor, lengths: torch.Tensor,
+                        *, generator: torch.Generator | None = None,
+                        training: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """wav [B, T] (float32, int16 or int8 mu-law) + valid lengths [B]
-    -> (log-mel [B, D, Tf] float32, frame lengths [B] int32). Inference only."""
+    -> (log-mel [B, D, Tf] float32, frame lengths [B] int32). With
+    training=True, dither and narrowband augmentation draw from `generator`."""
     n_fft, hop = cfg.n_fft_, cfg.hop_length
     dev = waveform.device
     x = _decode_transport(waveform)
     seq_len = mel_seq_len(cfg, lengths)
+
+    needs_nb = (training and 0.0 < cfg.nb_augmentation_prob
+                and cfg.nb_max_freq < cfg.sample_rate / 2)
+    if (training and cfg.dither > 0 or needs_nb) and generator is None:
+        raise ValueError("training=True with dither/narrowband augmentation needs a generator")
+    if training and cfg.dither > 0:
+        x = x + cfg.dither * _normal(generator, x.shape, dev)
 
     if cfg.preemph is not None:
         x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], dim=1)
@@ -216,6 +237,12 @@ def log_mel_spectrogram(cfg: MelFeatureConfig, waveform: torch.Tensor,
     spec = torch.matmul(frames, basis)
     n_bins = n_fft // 2 + 1
     power = spec[..., :n_bins] ** 2 + spec[..., n_bins:] ** 2  # [B, F, bins]
+    if needs_nb:
+        # zeroing the magnitude bins >= the cut equals zeroing the power bins
+        nb_bin = int((cfg.nb_max_freq / cfg.sample_rate) * n_fft)
+        drop = _bernoulli(generator, cfg.nb_augmentation_prob, (power.shape[0], 1, 1), dev)
+        hi = (torch.arange(n_bins, device=dev) >= nb_bin)[None, None, :]
+        power = torch.where(drop & hi, torch.zeros((), device=dev), power)
     if cfg.mag_power == 1.0:
         power = torch.sqrt(power)
     elif cfg.mag_power != 2.0:

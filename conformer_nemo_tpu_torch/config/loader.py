@@ -16,6 +16,7 @@ import torch
 import yaml
 
 from conformer_nemo_tpu_torch.audio.features import MelFeatureConfig
+from conformer_nemo_tpu_torch.audio.spec_augment import SpecAugmentConfig
 from conformer_nemo_tpu_torch.models.conformer import ConformerEncoderConfig
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModelConfig
 
@@ -77,7 +78,12 @@ _ENCODER_KEYS = (
     "subsampling_conv_channels", "ff_expansion_factor", "self_attention_model",
     "n_heads", "xscaling", "untie_biases", "pos_emb_max_len", "conv_kernel_size",
     "conv_norm_type", "dropout", "dropout_emb", "dropout_att",
-    "use_flash_attention", "flash_attention_min_t",
+    "use_flash_attention", "flash_attention_min_t", "remat",
+)
+
+_SPEC_AUGMENT_KEYS = (
+    "freq_masks", "time_masks", "freq_width", "time_width", "rect_masks", "rect_time",
+    "rect_freq", "specshot_ratio", "augmask_value",
 )
 
 
@@ -93,6 +99,10 @@ def build_preprocessor_config(p: dict) -> MelFeatureConfig:
         if p.get(key) is not None:
             kw[key] = tuple(p[key])
     return MelFeatureConfig(**kw)
+
+
+def build_spec_augment_config(s: dict) -> SpecAugmentConfig:
+    return SpecAugmentConfig(**_pick(s, _SPEC_AUGMENT_KEYS))
 
 
 def build_encoder_config(e: dict, dtype: torch.dtype = torch.bfloat16) -> ConformerEncoderConfig:
@@ -114,6 +124,8 @@ def build_ctc_model_config(cfg: dict, vocab_size: Optional[int] = None,
         vocab_size = len(labels)
     return CTCModelConfig(
         preprocessor=build_preprocessor_config(m.get("preprocessor", {})),
+        spec_augment=build_spec_augment_config(m.get("spec_augment", {}) or {}),
         encoder=build_encoder_config(m.get("encoder", {}), dtype=dtype),
         num_classes=vocab_size,
+        ctc_reduction=m.get("ctc_reduction", "mean_batch"),
     )

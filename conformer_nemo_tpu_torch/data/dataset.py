@@ -1,0 +1,228 @@
+"""Bucketed audio-text dataset and loader (port of
+conformer_nemo_tpu/data/dataset.py).
+
+Samples group into duration buckets whose boundaries sit at duration
+quantiles rounded up to 0.1 s; every batch of a bucket has the same
+(audio samples, token cap) shape and the bucket's batch size, short
+batches padded with zero rows (audio_lens = 0, which the trainer weights
+0). The epoch plan is a pure function of (seed, epoch, strategy), so the
+serial path and the thread-pool path emit the same batches.
+
+The f32 wire format is ported; the pcm16/mulaw8 transports, tarred data,
+waveform augmentation, silence trimming and multi-process sharding are
+not (ROADMAP.md): `ConformerCTC._loader` refuses configs that ask for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from conformer_nemo_tpu_torch.data.audio_io import load_audio
+from conformer_nemo_tpu_torch.data.manifest import AudioTextSample
+
+TOKEN_CAP_PER_SEC = 8.0  # token cap of a bucket per second of its audio
+MIN_TOKEN_CAP = 16
+PREFETCH_BATCHES = 2  # collated batches the thread-pool path keeps ready
+
+
+@dataclasses.dataclass
+class Batch:
+    audio: np.ndarray  # [B, T] float32
+    audio_lens: np.ndarray  # [B] int32
+    tokens: np.ndarray  # [B, U] int32
+    token_lens: np.ndarray  # [B] int32
+    texts: List[str]  # reference transcripts (host-side, for WER)
+
+
+def make_bucket_boundaries(durations: Sequence[float], n_buckets: int,
+                           sample_rate: int = 16000) -> List[int]:
+    """Sample-count boundaries at duration quantiles, rounded up to 1600
+    (0.1 s) multiples to bound the number of shapes."""
+    if not durations:
+        return [16 * sample_rate]
+    qs = np.quantile(np.asarray(durations), np.linspace(1.0 / n_buckets, 1.0, n_buckets))
+    out: List[int] = []
+    for q in qs:
+        samples = int(math.ceil(q * sample_rate / 1600.0)) * 1600
+        if not out or samples > out[-1]:
+            out.append(samples)
+    return out
+
+
+class BucketedAudioTextDataset:
+    """Maps manifest samples to tokenized entries grouped by duration bucket."""
+
+    def __init__(self, samples: List[AudioTextSample], tokenizer, sample_rate: int = 16000,
+                 n_buckets: int = 8):
+        self.samples = samples
+        self.tokenizer = tokenizer
+        self.sample_rate = sample_rate
+        self.boundaries = make_bucket_boundaries([s.duration for s in samples], n_buckets,
+                                                 sample_rate)
+        # token cap per bucket: proportional to duration (rounded to 8)
+        self.token_caps = [
+            max(MIN_TOKEN_CAP, int(math.ceil(b / sample_rate * TOKEN_CAP_PER_SEC / 8.0)) * 8)
+            for b in self.boundaries
+        ]
+        self.bucket_of = [self._bucket_index(int(round(s.duration * sample_rate)))
+                          for s in samples]
+
+    def _bucket_index(self, n_samples: int) -> int:
+        for i, b in enumerate(self.boundaries):
+            if n_samples <= b:
+                return i
+        return len(self.boundaries) - 1
+
+    def load_item(self, idx: int):
+        """Decode and tokenize one sample -> (audio float32 [n], ids, text)."""
+        s = self.samples[idx]
+        audio = load_audio(s.audio_file, target_sr=self.sample_rate, offset=s.offset,
+                           duration=s.duration)
+        return audio, self.tokenizer.text_to_ids(s.text), s.text
+
+
+class BucketedLoader:
+    """Epoch iterator yielding fixed-shape Batches (token padding id 0).
+
+    num_workers > 0 decodes items on a thread pool while a builder thread
+    collates up to PREFETCH_BATCHES batches ahead of the consumer; the
+    batches are the ones the serial path (num_workers = 0) emits."""
+
+    def __init__(self, dataset: BucketedAudioTextDataset, batch_size: int, *,
+                 shuffle: bool = True, seed: int = 0,
+                 bucketing_strategy: str = "synced_randomized", bucketing_batch_size=None,
+                 num_workers: int = 0):
+        self.ds = dataset
+        n_buckets = len(dataset.boundaries)
+        if bucketing_batch_size is None:
+            self.bucket_batch = [batch_size] * n_buckets
+        elif isinstance(bucketing_batch_size, int):
+            # a scale against the longest bucket: shorter buckets get larger batches
+            longest = dataset.boundaries[-1]
+            self.bucket_batch = [max(1, int(bucketing_batch_size * longest / b))
+                                 for b in dataset.boundaries]
+        else:
+            if len(bucketing_batch_size) != n_buckets:
+                raise ValueError(f"bucketing_batch_size needs {n_buckets} entries")
+            self.bucket_batch = [int(x) for x in bucketing_batch_size]
+        self.shuffle = shuffle
+        self.seed = seed
+        self.bucketing_strategy = bucketing_strategy
+        self.num_workers = int(num_workers or 0)
+        self.epoch = 0
+        self._plan_cache: Optional[tuple] = None
+
+    def _plan(self) -> list[tuple[int, list[int]]]:
+        """The epoch's batch plan: (bucket, sample indices) in emission order;
+        a pure function of (seed, epoch, strategy), built once per epoch."""
+        if self._plan_cache is not None and self._plan_cache[0] == self.epoch:
+            return self._plan_cache[1]
+        rng = np.random.RandomState(
+            self.seed if self.bucketing_strategy == "synced_randomized"
+            else self.seed + self.epoch)
+        order = np.arange(len(self.ds.samples))
+        if self.shuffle:
+            rng.shuffle(order)
+        pending: dict[int, list[int]] = {}
+        batches: list[tuple[int, list[int]]] = []
+        for idx in order:
+            b = self.ds.bucket_of[idx]
+            pending.setdefault(b, []).append(int(idx))
+            if len(pending[b]) == self.bucket_batch[b]:
+                batches.append((b, pending.pop(b)))
+        batches.extend(pending.items())
+        if self.shuffle:
+            rng.shuffle(batches)
+        self._plan_cache = (self.epoch, batches)
+        return batches
+
+    def __len__(self) -> int:
+        return len(self._plan())
+
+    def __iter__(self) -> Iterator[Batch]:
+        batches = self._plan()
+        if self.num_workers > 0:
+            yield from self._iter_workers(batches)
+        else:
+            for b, idxs in batches:
+                yield self._collate(b, idxs, [self.ds.load_item(i) for i in idxs])
+        self.epoch += 1
+
+    def _iter_workers(self, batches) -> Iterator[Batch]:
+        """Decode on a thread pool, collate on a builder thread, and hand
+        batches over through a bounded queue; closing the generator (a
+        max_steps break) stops the builder."""
+        out: queue.Queue = queue.Queue(maxsize=PREFETCH_BATCHES)
+        stop = threading.Event()
+
+        def put(item) -> None:
+            while not stop.is_set():
+                try:
+                    out.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+        def build() -> None:
+            try:
+                with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                    inflight = []
+                    plan = iter(batches)
+                    for b, idxs in plan:
+                        inflight.append((b, idxs, [pool.submit(self.ds.load_item, i)
+                                                   for i in idxs]))
+                        if len(inflight) > PREFETCH_BATCHES:
+                            break
+                    while inflight and not stop.is_set():
+                        b, idxs, futs = inflight.pop(0)
+                        put(("batch", self._collate(b, idxs, [f.result() for f in futs])))
+                        nxt = next(plan, None)
+                        if nxt is not None:
+                            inflight.append((nxt[0], nxt[1], [pool.submit(self.ds.load_item, i)
+                                                              for i in nxt[1]]))
+            except BaseException as e:  # surface worker errors in the consumer
+                put(("error", e))
+                return
+            put(("done", None))
+
+        builder = threading.Thread(target=build, name="bucketed-loader", daemon=True)
+        builder.start()
+        try:
+            while True:
+                kind, payload = out.get()
+                if kind == "batch":
+                    yield payload
+                elif kind == "error":
+                    raise payload
+                else:
+                    break
+        finally:
+            stop.set()
+            builder.join(timeout=5.0)
+
+    def _collate(self, bucket: int, idxs: List[int], items) -> Batch:
+        t_cap = self.ds.boundaries[bucket]
+        u_cap = self.ds.token_caps[bucket]
+        bsz = self.bucket_batch[bucket]  # pad the batch dim too: fixed shapes
+        audio = np.zeros((bsz, t_cap), dtype=np.float32)
+        audio_lens = np.zeros((bsz,), dtype=np.int32)
+        tokens = np.zeros((bsz, u_cap), dtype=np.int32)
+        token_lens = np.zeros((bsz,), dtype=np.int32)
+        texts: List[str] = []
+        for row, (wav, toks, text) in enumerate(items):
+            n = min(len(wav), t_cap)
+            audio[row, :n] = wav[:n]
+            audio_lens[row] = n
+            toks = (toks or [])[:u_cap]
+            tokens[row, : len(toks)] = toks
+            token_lens[row] = len(toks)
+            texts.append(text)
+        texts.extend([""] * (bsz - len(idxs)))
+        return Batch(audio, audio_lens, tokens, token_lens, texts)

@@ -1,28 +1,58 @@
-"""Tokenizers for decoding (port of conformer_nemo_tpu/data/tokenizers.py).
+"""Tokenizers (port of conformer_nemo_tpu/data/tokenizers.py).
 
-The slice needs `ids_to_text` only: a dependency-free SentencePiece model
-reader (hand-rolled protobuf wire-format parse) and the char tokenizer for
-`labels` configs. The HuggingFace `tokenizer.json` path waits for the
-ROADMAP.md queue-1 item "HF tokenizer": it needs the `tokenizers` package.
+A dependency-free SentencePiece model reader (hand-rolled protobuf
+wire-format parse) that encodes (`text_to_ids`: the model's normalizer,
+then BPE merges in score order for BPE models or Viterbi segmentation for
+unigram models, with byte fallback) and decodes (`ids_to_text`), and the
+char tokenizer for `labels` configs with the reference CharParser's
+rules. The HuggingFace `tokenizer.json` path, the "en" char parser and the
+aggregate multilang tokenizer wait for the ROADMAP.md queue-1 item "HF
+tokenizer": the first needs the `tokenizers` package.
 """
 
 from __future__ import annotations
 
+import heapq
 import os
 import struct
-from typing import List
+import unicodedata
+from typing import List, Optional
 
 
 class CharTokenizer:
-    """Char-level vocabulary from a `labels` list (decode side of the JAX
-    package's CharTokenizer)."""
+    """Char-level tokenizer over a `labels` list with the reference
+    CharParser's rules (strip, lowercase, per-word special labels, unknown
+    characters dropped)."""
 
-    def __init__(self, labels: List[str]):
+    def __init__(self, labels: List[str], *, unk_id: int = -1, blank_id: int = -1,
+                 do_lowercase: bool = True, do_normalize: bool = True):
         self.labels = list(labels)
+        self._labels_map = {label: i for i, label in enumerate(self.labels)}
+        self._special_labels = {label for label in self.labels if len(label) > 1}
+        self._unk_id = unk_id
+        self._blank_id = blank_id
+        self._do_lowercase = do_lowercase
+        self._do_normalize = do_normalize
 
     @property
     def vocab_size(self) -> int:
         return len(self.labels)
+
+    def text_to_ids(self, text: str) -> List[int]:
+        if self._do_normalize:
+            text = text.strip()
+            if self._do_lowercase:
+                text = text.lower()
+        tokens: List[int] = []
+        for word_id, word in enumerate(text.split(" ")):
+            if word_id != 0:
+                tokens.append(self._labels_map.get(" ", self._unk_id))
+            if word in self._special_labels:
+                tokens.append(self._labels_map[word])
+                continue
+            for char in word:
+                tokens.append(self._labels_map.get(char, self._unk_id))
+        return [t for t in tokens if t != self._blank_id]
 
     def ids_to_text(self, ids: List[int]) -> str:
         return "".join(self.labels[i] for i in ids if 0 <= i < len(self.labels))
@@ -59,30 +89,63 @@ def _parse_protobuf_fields(buf: bytes):
         yield field, wire, val
 
 
-def load_sentencepiece_pieces(model_path: str) -> list[tuple[str, float, int]]:
-    """ModelProto field 1 = repeated SentencePiece{piece=1:str, score=2:float,
-    type=3:enum} (types: 1=NORMAL, 2=UNK, 3=CONTROL, 4=USER_DEFINED, 6=BYTE)."""
+def load_sentencepiece_model(model_path: str):
+    """ModelProto -> (pieces [(piece, score, type)], trainer_spec, normalizer_spec).
+
+    ModelProto{pieces=1, trainer_spec=2, normalizer_spec=3};
+    SentencePiece{piece=1:str, score=2:float, type=3:enum} (types: 1=NORMAL,
+    2=UNK, 3=CONTROL, 4=USER_DEFINED, 6=BYTE); TrainerSpec{model_type=3
+    (1=unigram, 2=bpe, 3=word, 4=char), byte_fallback=35};
+    NormalizerSpec{name=1, add_dummy_prefix=3, remove_extra_whitespaces=4,
+    escape_whitespaces=5}."""
     with open(model_path, "rb") as f:
         data = f.read()
     pieces = []
+    trainer = {"model_type": 1, "byte_fallback": False}
+    norm = {"name": "nmt_nfkc", "add_dummy_prefix": True,
+            "remove_extra_whitespaces": True, "escape_whitespaces": True}
     for field, wire, val in _parse_protobuf_fields(data):
-        if field != 1 or wire != 2:
-            continue
-        piece, score, ptype = None, 0.0, 1
-        for f2, w2, v2 in _parse_protobuf_fields(val):
-            if f2 == 1 and w2 == 2:
-                piece = v2.decode("utf-8")
-            elif f2 == 2 and w2 == 5:
-                score = struct.unpack("<f", v2)[0]
-            elif f2 == 3 and w2 == 0:
-                ptype = v2
-        if piece is not None:
-            pieces.append((piece, score, ptype))
-    return pieces
+        if field == 1 and wire == 2:
+            piece, score, ptype = None, 0.0, 1
+            for f2, w2, v2 in _parse_protobuf_fields(val):
+                if f2 == 1 and w2 == 2:
+                    piece = v2.decode("utf-8")
+                elif f2 == 2 and w2 == 5:
+                    score = struct.unpack("<f", v2)[0]
+                elif f2 == 3 and w2 == 0:
+                    ptype = v2
+            if piece is not None:
+                pieces.append((piece, score, ptype))
+        elif field == 2 and wire == 2:
+            for f2, w2, v2 in _parse_protobuf_fields(val):
+                if f2 == 3 and w2 == 0:
+                    trainer["model_type"] = v2
+                elif f2 == 35 and w2 == 0:
+                    trainer["byte_fallback"] = bool(v2)
+        elif field == 3 and wire == 2:
+            for f2, w2, v2 in _parse_protobuf_fields(val):
+                if f2 == 1 and w2 == 2:
+                    norm["name"] = v2.decode("utf-8")
+                elif f2 == 3 and w2 == 0:
+                    norm["add_dummy_prefix"] = bool(v2)
+                elif f2 == 4 and w2 == 0:
+                    norm["remove_extra_whitespaces"] = bool(v2)
+                elif f2 == 5 and w2 == 0:
+                    norm["escape_whitespaces"] = bool(v2)
+    return pieces, trainer, norm
 
 
 _SP_SPACE = "▁"  # SentencePiece meta-space
-_BYTE_PIECE = 6
+_UNK_PIECE, _CONTROL_PIECE, _BYTE_PIECE = 2, 3, 6
+
+# nmt_* normalizers (sentencepiece builder.cc BuildNmtNFKCMap) apply two
+# rule families before NFKC: control characters are deleted, the
+# whitespace family becomes an ASCII space (exact codepoint lists)
+_NMT_CHARMAP = {c: None for c in (list(range(0x0001, 0x0009)) + [0x000B]
+                                  + list(range(0x000E, 0x0020)) + [0x007F, 0x008F, 0x009F])}
+_NMT_CHARMAP.update({c: " " for c in ([0x0009, 0x000A, 0x000C, 0x000D, 0x1680]
+                                      + list(range(0x200B, 0x2010))
+                                      + [0x2028, 0x2029, 0x2581, 0xFEFF, 0xFFFD])})
 
 
 def _byte_piece_value(piece: str):
@@ -96,16 +159,136 @@ def _byte_piece_value(piece: str):
 
 
 class SentencePieceTokenizer:
-    """Decode-only tokenizer over a SentencePiece model file."""
+    """Tokenizer over a SentencePiece model file (the sentencepiece library's
+    behaviour, re-implemented from the model file)."""
 
     def __init__(self, model_path: str):
-        raw = load_sentencepiece_pieces(model_path)
+        raw, trainer, norm = load_sentencepiece_model(model_path)
         self.pieces = [p for p, _, _ in raw]
+        self.scores = [s for _, s, _ in raw]
         self.types = [t for _, _, t in raw]
+        self.model_type = int(trainer.get("model_type", 1))
+        self.byte_fallback = bool(trainer.get("byte_fallback", False))
+        self.norm = norm
+        # UNK and CONTROL pieces never match text (bpe_model.cc skips them)
+        self._piece_to_id = {p: i for i, (p, t) in enumerate(zip(self.pieces, self.types))
+                             if t not in (_UNK_PIECE, _CONTROL_PIECE)}
+        self.unk_id = next((i for i, t in enumerate(self.types) if t == _UNK_PIECE), 0)
+        self._max_piece_len = max((len(p) for p in self.pieces), default=1)
 
     @property
     def vocab_size(self) -> int:
         return len(self.pieces)
+
+    def _normalize(self, text: str) -> str:
+        name = self.norm.get("name") or ""
+        if "nmt" in name:
+            text = text.translate(_NMT_CHARMAP)
+        if "nfkc" in name:
+            text = unicodedata.normalize("NFKC", text)
+        if self.norm.get("remove_extra_whitespaces", True):
+            # the library collapses and strips only ' '
+            out = []
+            for ch in text:
+                if ch == " " and out and out[-1] == " ":
+                    continue
+                out.append(ch)
+            text = "".join(out).strip(" ")
+        if not text:
+            return ""  # empty or whitespace-only input encodes to []
+        if self.norm.get("add_dummy_prefix", True):
+            text = " " + text
+        if self.norm.get("escape_whitespaces", True):
+            text = text.replace(" ", _SP_SPACE)
+        return text
+
+    def _char_ids(self, ch: str) -> List[int]:
+        """An out-of-vocabulary character -> byte pieces (byte_fallback) or unk."""
+        if not self.byte_fallback:
+            return [self.unk_id]
+        out = []
+        for b in ch.encode("utf-8"):
+            bid = self._piece_to_id.get("<0x%02X>" % b)
+            out.append(bid if bid is not None else self.unk_id)
+        return out
+
+    def text_to_ids(self, text: str) -> List[int]:
+        s = self._normalize(text)
+        if not s:
+            return []
+        if self.model_type == 2:
+            return self._encode_bpe(s)
+        return self._encode_viterbi(s)
+
+    def _encode_bpe(self, s: str) -> List[int]:
+        """bpe_model.cc: an agenda of adjacent symbol pairs ordered by (merged
+        piece's score desc, left position asc); merge until no pair's
+        concatenation is a piece."""
+        n = len(s)
+        sym = list(s)  # symbol strings, indexed by original left position
+        nxt = list(range(1, n)) + [-1]
+        prv = [-1] + list(range(n - 1))
+        alive = [True] * n
+        heap: list = []
+
+        def push(left: int):
+            if left < 0 or nxt[left] < 0:
+                return
+            merged = sym[left] + sym[nxt[left]]
+            pid = self._piece_to_id.get(merged)
+            if pid is not None:
+                heapq.heappush(heap, (-self.scores[pid], left, merged))
+
+        for i in range(n - 1):
+            push(i)
+        while heap:
+            _, left, merged = heapq.heappop(heap)
+            right = nxt[left]
+            if not alive[left] or right < 0 or not alive[right] or sym[left] + sym[right] != merged:
+                continue  # stale agenda entry
+            sym[left] = merged
+            alive[right] = False
+            nxt[left] = nxt[right]
+            if nxt[right] >= 0:
+                prv[nxt[right]] = left
+            push(prv[left])
+            push(left)
+
+        ids: List[int] = []
+        i = 0  # position 0 stays alive: a merge keeps the left symbol
+        while i >= 0:
+            pid = self._piece_to_id.get(sym[i])
+            ids.extend([pid] if pid is not None else self._char_ids(sym[i]))
+            i = nxt[i]
+        return ids
+
+    def _encode_viterbi(self, s: str) -> List[int]:
+        """unigram_model.cc: the segmentation maximising the summed piece
+        scores; an unknown character costs -100 and falls back to bytes/unk."""
+        n = len(s)
+        neg = -1e18
+        best = [neg] * (n + 1)
+        back: List[Optional[tuple]] = [None] * (n + 1)
+        best[0] = 0.0
+        for i in range(n):
+            if best[i] <= neg / 2:
+                continue
+            for j in range(i + 1, min(n, i + self._max_piece_len) + 1):
+                pid = self._piece_to_id.get(s[i:j])
+                if pid is None:
+                    if j == i + 1 and best[i] - 100.0 > best[j]:
+                        best[j], back[j] = best[i] - 100.0, (i, None)
+                    continue
+                sc = best[i] + self.scores[pid]
+                if sc > best[j]:
+                    best[j], back[j] = sc, (i, pid)
+        ids: List[int] = []
+        j = n
+        while j > 0:
+            i, pid = back[j]
+            ids.extend(reversed(self._char_ids(s[i:j]) if pid is None else [pid]))
+            j = i
+        return ids[::-1]
 
     def ids_to_text(self, ids: List[int]) -> str:
         # byte-fallback pieces (type BYTE) reassemble into UTF-8 bytes, as the

@@ -14,23 +14,30 @@ Precision follows the JAX package: parameters fp32; linears, convolutions
 and attention matmuls in the compute dtype (`cfg.dtype`, bf16 by default);
 LayerNorm, BatchNorm, softmax and residual adds in fp32.
 
-Inference only: dropout, training-mode BatchNorm statistics and the
-non-striding subsampling modes wait for later slices (ROADMAP.md).
+Training follows the JAX package too: `FastDropout` at every site it has
+(encoder input, rel-pos embedding, FF hidden, branch outputs, dense-path
+attention probabilities), with masks that are a pure function of a
+per-step seed and the site, so a layer recomputed under `remat`
+(`torch.utils.checkpoint`) draws the same masks; training BatchNorm with
+flax's statistics, whose running update the encoder applies once per
+forward, outside the checkpoint. `self.training` selects training mode;
+the encoder's `dropout_seed` seeds the masks. The non-striding subsampling
+modes wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from conformer_nemo_tpu_torch.ops.flash_attention import flash_attention_fwd
+from conformer_nemo_tpu_torch.ops.flash_attention import flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +68,8 @@ class ConformerEncoderConfig:
     # True | False | "auto"; "auto" takes it once T >= flash_attention_min_t
     use_flash_attention: Any = "auto"
     flash_attention_min_t: int = 1024
+    # recompute each layer in the backward (torch.utils.checkpoint)
+    remat: bool = False
 
     @property
     def d_ff(self) -> int:
@@ -113,11 +122,32 @@ def sinusoidal_abs_pos_emb(length: int, d_model: int) -> np.ndarray:
     return _sinusoidal_pe(np.arange(length), d_model)
 
 
-@functools.lru_cache(maxsize=16)
-def _sin_cos_table(t: int, d_model: int) -> tuple[np.ndarray, np.ndarray]:
-    """sin/cos(i * w) for i < t, [T, D/2] each (the bd decomposition)."""
+def sin_cos_tables(t: int, d_model: int, dtype: torch.dtype, device) -> tuple:
+    """sin/cos(i * w) for i < t, [T, D/2] each (the bd decomposition), from
+    float64 numpy values cast to the compute dtype, on the device."""
     pos = np.arange(t, dtype=np.float64)[:, None] * _inv_freq(d_model)[None, :]
-    return np.sin(pos), np.cos(pos)
+    return (torch.from_numpy(np.sin(pos)).to(device, dtype),
+            torch.from_numpy(np.cos(pos)).to(device, dtype))
+
+
+def sub_seed(seed: Optional[int], index: int) -> Optional[int]:
+    """The dropout seed of sub-site `index` of `seed` (None stays None)."""
+    return None if seed is None else (seed * 1_000_003 + index + 1) % (1 << 62)
+
+
+def fast_dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """The JAX package's FastDropout: uint8 random bits, drop iff
+    bits < t with t = round(rate * 256), rescale by the realised keep rate
+    1 - t/256, so E[out] == x exactly. The bits come from a generator seeded
+    with `seed` alone; seed None (deterministic mode) or t = 0 is identity."""
+    t = int(round(rate * 256))
+    if seed is None or t <= 0:
+        return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    bits = torch.randint(0, 256, x.shape, generator=gen, dtype=torch.uint8, device=x.device)
+    keep = 1.0 - t / 256.0
+    return torch.where(bits >= t, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -159,8 +189,19 @@ def _fp32_norm(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over channel dim 1 with NeMo's parameter names
-    (weight, bias, running_mean, running_var), in fp32 with eps 1e-5."""
+    """BatchNorm over channel dim 1 of [B, C, T] with NeMo's parameter names
+    (weight, bias, running_mean, running_var), in fp32 with eps 1e-5.
+
+    Training mode has flax's semantics (the JAX package's nn.BatchNorm,
+    momentum 0.9): statistics over every (B, T) position, padded frames
+    included, with the biased variance E[x^2] - E[x]^2 (clipped at 0) in
+    the normalisation and in the running update. `forward` returns the
+    batch statistics beside the output instead of updating the buffers, so
+    a recomputed forward (remat) cannot update them twice: the encoder calls
+    `update_running_stats` once. (F.batch_norm's running variance is the
+    unbiased estimate, which does not match.)"""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -170,9 +211,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.to(torch.float32), self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False, eps=self.eps)
+    def forward(self, x: torch.Tensor):
+        """-> (y, (mean, var) detached in training mode, else None)."""
+        x = x.to(torch.float32)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, eps=self.eps), None
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
+        return y, (mean.detach(), var.detach())
+
+    @torch.no_grad()
+    def update_running_stats(self, stats) -> None:
+        mean, var = stats
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
 def check_flash_dtype(cfg: ConformerEncoderConfig, device) -> None:
@@ -217,13 +273,21 @@ class RelPosMultiHeadAttention(nn.Module):
             self.pos_bias_u, self.pos_bias_v = shared_biases
 
     def use_flash(self, t: int, lengths) -> bool:
+        """The JAX dispatch: flash when wanted (True, or "auto" at T >=
+        flash_attention_min_t), with the decomposition (dropout_emb == 0),
+        lengths, and no attention dropout to apply (eval mode, or
+        dropout_att == 0): the kernel has no dropout epilogue."""
         cfg = self.cfg
         want = cfg.use_flash_attention is True or (
             cfg.use_flash_attention == "auto" and t >= cfg.flash_attention_min_t)
-        # inference only, so the dropout_att condition of the JAX dispatch holds
-        return want and cfg.dropout_emb == 0.0 and lengths is not None
+        deterministic = not self.training
+        return (want and cfg.dropout_emb == 0.0 and lengths is not None
+                and (deterministic or cfg.dropout_att == 0.0))
 
-    def forward(self, x, pos_emb, att_mask, lengths=None):
+    def forward(self, x, pos_emb, sin_cos, att_mask, lengths=None, seed=None):
+        """sin_cos: the encoder's (sin, cos) tables [T, D/2] in the compute
+        dtype (decomposition); pos_emb: [2T-1, D] (rel_shift path only);
+        seed: this site's dropout seed (None = no attention dropout)."""
         cfg = self.cfg
         dt = cfg.dtype
         h, dk, d_model = cfg.n_heads, cfg.d_head, cfg.d_model
@@ -240,9 +304,7 @@ class RelPosMultiHeadAttention(nn.Module):
             # W_pos is [D_out, D_in] (torch layout); the JAX kernel is its
             # transpose, [e, (h, d)]
             w = self.linear_pos.weight.t().to(dt).reshape(d_model, h, dk)
-            sin_np, cos_np = _sin_cos_table(t, d_model)
-            sin_t = torch.from_numpy(sin_np).to(x.device, dt)  # [T, D/2]
-            cos_t = torch.from_numpy(cos_np).to(x.device, dt)
+            sin_t, cos_t = sin_cos  # [T, D/2]
             w_cat = torch.cat([w[0::2], w[1::2]], dim=0)  # [D, H, dk]
             qsc = torch.einsum("bihd,ehd->bhie", qv, w_cat)  # [B, H, T, D]
             qs, qc = qsc[..., : d_model // 2], qsc[..., d_model // 2 :]
@@ -256,7 +318,7 @@ class RelPosMultiHeadAttention(nn.Module):
             cs = torch.cat([cos_t, sin_t], dim=-1).expand(b, h, t, d_model)
             ks_full = torch.cat([k.permute(0, 2, 1, 3), cs], dim=-1)
             d1 = dk + d_model
-            o, _ = flash_attention_fwd(
+            o = flash_attention(
                 qs_full.reshape(b * h, t, d1).contiguous(),
                 ks_full.reshape(b * h, t, d1).contiguous(),
                 v.permute(0, 2, 1, 3).reshape(b * h, t, dk).contiguous(),
@@ -280,6 +342,7 @@ class RelPosMultiHeadAttention(nn.Module):
         masked = att_mask[:, None, :, :]
         scores = scores.masked_fill(masked, -10000.0)
         attn = torch.softmax(scores, dim=-1).masked_fill(masked, 0.0).to(dt)
+        attn = fast_dropout(attn, cfg.dropout_att, seed)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, h * dk)
         return _linear(self.linear_out, out, dt)
 
@@ -294,7 +357,7 @@ class AbsPosMultiHeadAttention(nn.Module):
         self.linear_v = nn.Linear(d, d)
         self.linear_out = nn.Linear(d, d)
 
-    def forward(self, x, att_mask):
+    def forward(self, x, att_mask, seed=None):
         cfg = self.cfg
         dt, h, dk = cfg.dtype, cfg.n_heads, cfg.d_head
         b, t, _ = x.shape
@@ -305,6 +368,7 @@ class AbsPosMultiHeadAttention(nn.Module):
         masked = att_mask[:, None, :, :]
         scores = scores.masked_fill(masked, -10000.0)
         attn = torch.softmax(scores, dim=-1).masked_fill(masked, 0.0)
+        attn = fast_dropout(attn, cfg.dropout_att, seed)  # fp32, as the JAX module
         out = torch.einsum("bhts,bshd->bthd", attn.to(dt), v).reshape(b, t, h * dk)
         return _linear(self.linear_out, out, dt)
 
@@ -312,12 +376,14 @@ class AbsPosMultiHeadAttention(nn.Module):
 class ConformerFeedForward(nn.Module):
     def __init__(self, cfg: ConformerEncoderConfig):
         super().__init__()
-        self.dtype = cfg.dtype
+        self.cfg = cfg
         self.linear1 = nn.Linear(cfg.d_model, cfg.d_ff)
         self.linear2 = nn.Linear(cfg.d_ff, cfg.d_model)
 
-    def forward(self, x):
-        return _linear(self.linear2, F.silu(_linear(self.linear1, x, self.dtype)), self.dtype)
+    def forward(self, x, seed=None):
+        dt = self.cfg.dtype
+        y = fast_dropout(F.silu(_linear(self.linear1, x, dt)), self.cfg.dropout, seed)
+        return _linear(self.linear2, y, dt)
 
 
 class ConformerConvolution(nn.Module):
@@ -334,6 +400,7 @@ class ConformerConvolution(nn.Module):
         self.pointwise_conv2 = nn.Conv1d(d, d, 1)
 
     def forward(self, x, pad_mask):
+        """-> (y, BatchNorm batch statistics or None)."""
         dt = self.cfg.dtype
         pw1, pw2, dw = self.pointwise_conv1, self.pointwise_conv2, self.depthwise_conv
         x = F.linear(x.to(dt), pw1.weight[..., 0].to(dt), pw1.bias.to(dt))
@@ -343,12 +410,18 @@ class ConformerConvolution(nn.Module):
         x = x.masked_fill(pad_mask[:, :, None], 0.0)
         x = F.conv1d(x.transpose(1, 2), dw.weight.to(dt), dw.bias.to(dt),
                      padding=dw.padding, groups=dw.groups)  # [B, D, T]
+        stats = None
         if isinstance(self.batch_norm, BatchNorm):
-            x = self.batch_norm(x).transpose(1, 2)
+            x, stats = self.batch_norm(x)
+            x = x.transpose(1, 2)
         else:
             x = _fp32_norm(self.batch_norm, x.transpose(1, 2))
         x = F.silu(x)
-        return F.linear(x.to(dt), pw2.weight[..., 0].to(dt), pw2.bias.to(dt))
+        return F.linear(x.to(dt), pw2.weight[..., 0].to(dt), pw2.bias.to(dt)), stats
+
+
+# dropout sites of a layer (sub-seeds of the layer's seed)
+_FF1_HIDDEN, _FF1_OUT, _ATT_PROBS, _ATT_OUT, _CONV_OUT, _FF2_HIDDEN, _FF2_OUT = range(7)
 
 
 class ConformerLayer(nn.Module):
@@ -371,24 +444,34 @@ class ConformerLayer(nn.Module):
         self.feed_forward2 = ConformerFeedForward(cfg)
         self.norm_out = _layer_norm(d)
 
-    def forward(self, x, pos_emb, att_mask, pad_mask, lengths=None):
-        dt = self.cfg.dtype
-        # branch outputs round to the compute dtype; the residual stays fp32
-        to_res = lambda y: y.to(dt).to(torch.float32)
+    def forward(self, x, pos_emb, sin_cos, att_mask, pad_mask, lengths=None, seed=None):
+        """-> (x, BatchNorm batch statistics or None). seed: the layer's
+        dropout seed, None in eval mode."""
+        cfg = self.cfg
+        dt = cfg.dtype
+
+        def to_res(y, site):
+            # branch outputs round to the compute dtype (and drop there); the
+            # residual stays fp32
+            return fast_dropout(y.to(dt), cfg.dropout, sub_seed(seed, site)).to(torch.float32)
+
         residual = x
-        y = self.feed_forward1(_fp32_norm(self.norm_feed_forward1, residual))
-        residual = residual + to_res(y) * 0.5
+        y = self.feed_forward1(_fp32_norm(self.norm_feed_forward1, residual),
+                               sub_seed(seed, _FF1_HIDDEN))
+        residual = residual + to_res(y, _FF1_OUT) * 0.5
         y = _fp32_norm(self.norm_self_att, residual)
-        if self.cfg.self_attention_model == "rel_pos":
-            y = self.self_attn(y, pos_emb, att_mask, lengths=lengths)
+        if cfg.self_attention_model == "rel_pos":
+            y = self.self_attn(y, pos_emb, sin_cos, att_mask, lengths=lengths,
+                               seed=sub_seed(seed, _ATT_PROBS))
         else:
-            y = self.self_attn(y, att_mask)
-        residual = residual + to_res(y)
-        y = self.conv(_fp32_norm(self.norm_conv, residual), pad_mask)
-        residual = residual + to_res(y)
-        y = self.feed_forward2(_fp32_norm(self.norm_feed_forward2, residual))
-        residual = residual + to_res(y) * 0.5
-        return _fp32_norm(self.norm_out, residual)
+            y = self.self_attn(y, att_mask, seed=sub_seed(seed, _ATT_PROBS))
+        residual = residual + to_res(y, _ATT_OUT)
+        y, stats = self.conv(_fp32_norm(self.norm_conv, residual), pad_mask)
+        residual = residual + to_res(y, _CONV_OUT)
+        y = self.feed_forward2(_fp32_norm(self.norm_feed_forward2, residual),
+                               sub_seed(seed, _FF2_HIDDEN))
+        residual = residual + to_res(y, _FF2_OUT) * 0.5
+        return _fp32_norm(self.norm_out, residual), stats
 
 
 class ConvSubsampling(nn.Module):
@@ -427,6 +510,10 @@ class ConvSubsampling(nn.Module):
         return _linear(self.out, y, dt)
 
 
+# encoder-level dropout sites (sub-seeds of the step's seed; layer i takes i)
+_ENC_INPUT, _ENC_POS_EMB = -1, -2
+
+
 class ConformerEncoder(nn.Module):
     """[B, D_feat, T] + lengths -> [B, d_model, T'] (fp32) + lengths'."""
 
@@ -447,8 +534,15 @@ class ConformerEncoder(nn.Module):
         else:
             self.out_proj = None
 
-    def forward(self, features: torch.Tensor, lengths: torch.Tensor):
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor,
+                dropout_seed: Optional[int] = None):
+        """dropout_seed: the step's seed of every dropout mask, required in
+        training mode when a dropout rate is set; ignored in eval mode."""
         cfg = self.cfg
+        seed = dropout_seed if self.training else None
+        if seed is None and self.training and max(cfg.dropout, cfg.dropout_att,
+                                                   cfg.dropout_emb) > 0.0:
+            raise ValueError("training mode with dropout needs a dropout_seed")
         x = self.pre_encode(features.transpose(1, 2))
         out_lengths = calc_sub_length(lengths, cfg.subsampling,
                                       int(math.log2(cfg.subsampling_factor)))
@@ -456,15 +550,28 @@ class ConformerEncoder(nn.Module):
         x = x.to(torch.float32)
         if cfg.xscaling:
             x = x * math.sqrt(cfg.d_model)
-        pos_emb = None
+        pos_emb = sin_cos = None
         if cfg.self_attention_model == "rel_pos":
             if cfg.dropout_emb > 0.0:  # only the rel_shift path reads it
                 pos_emb = torch.from_numpy(sinusoidal_rel_pos_emb(t, cfg.d_model)).to(x.device)
+                pos_emb = fast_dropout(pos_emb, cfg.dropout_emb, sub_seed(seed, _ENC_POS_EMB))
+            else:  # built once per forward, shared by every layer
+                sin_cos = sin_cos_tables(t, cfg.d_model, cfg.dtype, x.device)
         else:
             x = x + torch.from_numpy(sinusoidal_abs_pos_emb(t, cfg.d_model)).to(x.device)
+        x = fast_dropout(x, cfg.dropout, sub_seed(seed, _ENC_INPUT))
         pad_mask, att_mask = make_masks(cfg, t, out_lengths)
-        for layer in self.layers:
-            x = layer(x, pos_emb, att_mask, pad_mask, out_lengths)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            args = (x, pos_emb, sin_cos, att_mask, pad_mask, out_lengths, sub_seed(seed, i))
+            if remat:
+                # the recomputation in the backward draws the same masks (they
+                # depend on the seed only) and its statistics are dropped
+                x, stats = torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
+            else:
+                x, stats = layer(*args)
+            if stats is not None:
+                layer.conv.batch_norm.update_running_stats(stats)
         if self.out_proj is not None:
             x = _linear(self.out_proj, x, cfg.dtype)
         return x.to(torch.float32).transpose(1, 2), out_lengths

@@ -3,8 +3,13 @@
 Each source under ops/csrc/ compiles with nvcc, for Hopper (sm_90a), into a
 shared library with a plain C interface that ctypes loads; no PyTorch
 headers are involved, so a build takes seconds. Libraries land in
-ops/_build/ (git-ignored) at first use and are rebuilt when the source is
-newer. `build_all` starts one nvcc per source, all at once.
+ops/_build/ (git-ignored) at first use and are rebuilt when the source (or
+a shared header in csrc/) is newer. `build_all` starts one nvcc per source,
+all at once.
+
+Each kernel wrapper counts its launches in a `LaunchCount` registered here
+under the kernel's name, so a caller can show that a path went through the
+kernels (`launch_counts`, `reset_launch_counts`).
 """
 
 from __future__ import annotations
@@ -18,10 +23,46 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("flash_attention_fwd.cu",)
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "ctc_loss.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCount:
+    """Launches of one kernel: the total and per shape key."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.total = 0
+        self.by_shape: dict[tuple, int] = {}
+
+    def add(self, shape: tuple) -> None:
+        self.total += 1
+        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+
+    def reset(self) -> None:
+        self.total = 0
+        self.by_shape.clear()
+
+
+_COUNTS: dict[str, LaunchCount] = {}
+
+
+def launch_count(name: str) -> LaunchCount:
+    """The registered counter of kernel `name` (created at first use)."""
+    return _COUNTS.setdefault(name, LaunchCount(name))
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches since the last reset}."""
+    return {name: c.total for name, c in _COUNTS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTS.values():
+        c.reset()
 
 
 def nvcc_path() -> str:
@@ -40,8 +81,10 @@ def _lib_path(source: str) -> str:
 
 def _stale(source: str) -> bool:
     so = _lib_path(source)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(
-        os.path.join(CSRC_DIR, source))
+    if not os.path.exists(so):
+        return True
+    deps = [source] + [f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(os.path.join(CSRC_DIR, f)) for f in deps)
 
 
 def _start(source: str, verbose: bool) -> tuple[subprocess.Popen, str]:

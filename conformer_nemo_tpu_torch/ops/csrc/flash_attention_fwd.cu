@@ -41,19 +41,15 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per tile
-constexpr int DC = 64;         // depth chunk of Qs Ks^T
-constexpr int NTHREADS = 128;  // 4 warps, 16 query rows each
-constexpr int LDQK = DC + 8;   // bf16 row stride of the Qs / Ks chunks
-constexpr int LDS = BK + 4;    // fp32 row stride of the score tile
-constexpr int LDP = BK + 8;    // bf16 row stride of the probability tile
-constexpr float NEG_INF = -1e30f;
+constexpr int BQ = TILE;  // query rows per block
+constexpr int BK = TILE;  // keys per tile
 
 struct Layout {
   int dvp;  // dv rounded up to the WMMA width
@@ -62,11 +58,9 @@ struct Layout {
   size_t q, k, v, s, p, o, total;  // byte offsets into shared memory
 };
 
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
 __host__ __device__ inline Layout make_layout(int dv) {
   Layout L;
-  L.dvp = (dv + 15) / 16 * 16;
+  L.dvp = round16(dv);
   L.ldv = L.dvp + 8;
   L.ldo = L.dvp + 4;
   size_t off = 0;
@@ -78,23 +72,6 @@ __host__ __device__ inline Layout make_layout(int dv) {
   L.o = off; off = align128(off + sizeof(float) * BQ * L.ldo);
   L.total = off;
   return L;
-}
-
-// Copy rows row0..row0+63, columns col0..col0+width-1 of a row-major
-// [nrows x ld_src] bf16 matrix into shared memory, zero outside
-// [nrows x ncols]. width and ncols are multiples of 8: 16-byte vectors.
-__device__ inline void load_tile(bf16* dst, int ld_dst, const bf16* __restrict__ src, int ld_src,
-                                 int row0, int nrows, int col0, int ncols, int width) {
-  const int vec_per_row = width / 8;
-  for (int idx = threadIdx.x; idx < 64 * vec_per_row; idx += NTHREADS) {
-    const int r = idx / vec_per_row;
-    const int c = (idx % vec_per_row) * 8;
-    const int gr = row0 + r, gc = col0 + c;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows && gc < ncols)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * ld_src + gc);
-    *reinterpret_cast<uint4*>(dst + r * ld_dst + c) = val;
-  }
 }
 
 __global__ void __launch_bounds__(NTHREADS)
@@ -175,7 +152,7 @@ flash_fwd_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ ks,
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int kj = k0 + half * 32 + c;
-      const bool ok = kj < klim && (left < 0 || qi - kj <= left) && (right < 0 || kj - qi <= right);
+      const bool ok = kj < klim && in_band(qi, kj, left, right);
       sv[c] = ok ? S[r * LDS + half * 32 + c] * scale : NEG_INF;
       vis |= (ok ? 1u : 0u) << c;
       mx = fmaxf(mx, sv[c]);

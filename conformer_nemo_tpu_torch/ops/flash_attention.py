@@ -1,34 +1,41 @@
-"""Flash attention forward for the Conformer's self-attention.
+"""Flash attention for the Conformer's self-attention: forward, backward, and
+the `torch.autograd.Function` around the pair.
 
-Replaces the TPU kernel `_make_kernel` / `_flash_fwd_entry` of
-conformer_nemo_tpu/ops/pallas/flash_attention.py, and its two-sided-band
-twin `_make_fwd_streamed_kernel` / `_flash_fwd_streamed` (same function,
-different VMEM strategy). With the sinusoidal decomposition of the
-rel-pos bd term, the attention is exactly
+Replaces the TPU kernels of conformer_nemo_tpu/ops/pallas/flash_attention.py:
+the forward `_make_kernel` / `_flash_fwd_entry` and its two-sided-band twin
+`_make_fwd_streamed_kernel` / `_flash_fwd_streamed`, and the backward
+`_make_dq_kernel` + `_make_dkv_kernel` / `_flash_bwd_entry` and their
+streamed twins (`_flash_bwd_streamed`); the TPU families differ only in
+VMEM strategy. With the sinusoidal decomposition of the rel-pos bd term,
+the attention is exactly
 
     o = softmax(Qs Ks^T * scale + mask) V,   lse = logsumexp of the same row
 
 over qs/ks [BH, T, d1] (d1 = dk + d_model = 576 at the flagship), v
 [BH, T, dv], where key j is visible to query i iff j < lens[bh] and, with
 a band, i - j <= left and j - i <= right. A row with no visible key gives
-o = 0 and lse = 0.
+o = 0 and lse = 0. The backward (`_flash_vjp_bwd`) takes delta =
+rowsum(dO * O) and treats query rows past lens as padding: they get dq = 0
+and add nothing to dk and dv.
 
-The kernel (ops/csrc/flash_attention_fwd.cu) is hand-written CUDA for
-sm_90a. What bounds it on an H100: `2 * sum(visible pairs) * (d1 + dv)`
-FLOPs at 989 TFLOP/s bf16 dense against the bytes of the qs rows that see
-a key, the ks and v rows that a query sees, o and lse (each once) at
-3.35 TB/s. With full-length rows at the flagship shapes the
-work is about 600 operations per byte, over the ridge of ~295, so the
-tensor cores bound it; a bucket with many short rows does fewer operations
-on the same bytes and can fall under the ridge. The design keeps every score tile on chip (online softmax, no [T, T] in
-device memory) and runs both products on bf16 tensor cores (WMMA) with
-fp32 accumulation. It skips key tiles outside the band and past the key
-length. Speed beyond that is later work.
+The kernels are hand-written CUDA for sm_90a: ops/csrc/flash_attention_fwd.cu
+and ops/csrc/flash_attention_bwd.cu (a dQ kernel tiled by query and a dK/dV
+kernel tiled by key). What bounds them on an H100: `2 * pairs * (d1 + dv)`
+FLOPs forward and `2 * pairs * (3 * d1 + 2 * dv)` backward (S recomputed
+once) at 989 TFLOP/s bf16 dense, against the bytes each reads and writes
+once at 3.35 TB/s; with full-length rows at the flagship shapes that is
+several hundred operations per byte, over the ridge of ~295, so the tensor
+cores bound them. A bucket with many short rows does fewer operations on
+the same bytes and can fall under the ridge. The designs keep every score
+tile on chip (no [T, T] in device memory), run the products on bf16 tensor
+cores (WMMA) with fp32 accumulation, and skip tiles outside the band and
+past the length. Speed beyond that is later work.
 
-`flash_attention_fwd` launches the kernel for CUDA tensors and raises on
-anything it does not take; for CPU tensors it runs
-`flash_attention_fwd_reference`, the plain PyTorch version of the same
-function. No CUDA call falls back to the plain version.
+`flash_attention_fwd` and `flash_attention_bwd` launch their kernels for
+CUDA tensors and raise on anything they do not take; for CPU tensors they
+run `flash_attention_fwd_reference` / `flash_attention_bwd_reference`, the
+plain PyTorch versions of the same functions. No CUDA call falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -37,18 +44,15 @@ import ctypes
 
 import torch
 
+from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, launch_count, load
+
 _NEG_INF = -1e30
 MAX_DV = 128
 
-# launches of the CUDA kernel: total, and per (bh, t, d1, dv) shape
-launches = 0
-launches_by_shape: dict[tuple[int, int, int, int], int] = {}
-
-
-def reset_launch_counts() -> None:
-    global launches
-    launches = 0
-    launches_by_shape.clear()
+# launches per kernel, keyed by (bh, t, d1, dv)
+fwd_launches = launch_count("K2-fwd")
+dq_launches = launch_count("K2-bwd-dq")
+dkv_launches = launch_count("K2-bwd-dkv")
 
 
 def visible_mask(t: int, lens: torch.Tensor, left: int = -1, right: int = -1) -> torch.Tensor:
@@ -63,32 +67,58 @@ def visible_mask(t: int, lens: torch.Tensor, left: int = -1, right: int = -1) ->
     return mask
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 for bf16/fp16/fp32 inputs, fp64 for fp64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def flash_attention_fwd_reference(qs, ks, v, lens, scale: float, left: int = -1,
                                   right: int = -1):
     """Plain PyTorch version: dense fp32 masked softmax with the kernel's
     masking and empty-row rules. -> (o [BH,T,dv] in qs.dtype, lse [BH,T] fp32)."""
     t = qs.shape[1]
+    acc = _acc_dtype(qs)
     mask = visible_mask(t, lens, left, right)
-    s = torch.einsum("btd,bsd->bts", qs.to(torch.float32), ks.to(torch.float32)) * scale
-    s = torch.where(mask, s, torch.full((), _NEG_INF, device=s.device))
+    s = torch.einsum("btd,bsd->bts", qs.to(acc), ks.to(acc)) * scale
+    s = torch.where(mask, s, torch.full((), _NEG_INF, dtype=acc, device=s.device))
     m = s.amax(dim=-1)
     m_safe = torch.where(m <= _NEG_INF * 0.5, torch.zeros_like(m), m)
-    p = torch.where(mask, torch.exp(s - m_safe[..., None]), torch.zeros((), device=s.device))
+    p = torch.where(mask, torch.exp(s - m_safe[..., None]),
+                    torch.zeros((), dtype=acc, device=s.device))
     l = p.sum(dim=-1)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = torch.einsum("bts,bsd->btd", p, v.to(torch.float32)) / l_safe[..., None]
+    o = torch.einsum("bts,bsd->btd", p, v.to(acc)) / l_safe[..., None]
     return o.to(qs.dtype), m_safe + torch.log(l_safe)
 
 
-def _library():
-    from conformer_nemo_tpu_torch.ops.build import load
+def flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, scale: float,
+                                  left: int = -1, right: int = -1):
+    """Plain PyTorch version of the backward: dense fp32 recomputation of
+    P = exp(S * scale - lse) over the visible pairs of valid query rows.
+    -> (dq, dk, dv) in the dtypes of qs, ks, v."""
+    t = qs.shape[1]
+    acc = _acc_dtype(qs)
+    q_valid = torch.arange(t, device=lens.device)[None, :] < lens.to(torch.int64)[:, None]
+    mask = visible_mask(t, lens, left, right) & q_valid[:, :, None]
+    qf, kf, vf, dof = qs.to(acc), ks.to(acc), v.to(acc), do.to(acc)
+    s = torch.einsum("btd,bsd->bts", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse.to(acc)[..., None]),
+                    torch.zeros((), dtype=acc, device=s.device))
+    dp = torch.einsum("btd,bsd->bts", dof, vf)
+    ds = p * (dp - delta.to(acc)[..., None]) * scale
+    dq = torch.einsum("bts,bsd->btd", ds, kf)
+    dk = torch.einsum("bts,btd->bsd", ds, qf)
+    dv = torch.einsum("bts,btd->bsd", p, dof)
+    return dq.to(qs.dtype), dk.to(ks.dtype), dv.to(v.dtype)
 
-    lib = load("flash_attention_fwd.cu")
-    fn = lib.flash_attention_fwd_bf16
+
+def _fn(source: str, name: str, n_ptr: int, n_int: int):
+    """A C entry point of `source`: n_ptr pointers, then n_int ints, a
+    float scale and two ints (the band), then the stream."""
+    fn = getattr(load(source), name)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float,
-                       i32, i32, ptr]
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ctypes.c_float, i32, i32, ptr]
         fn.restype = i32
     return fn
 
@@ -103,6 +133,23 @@ def _check(qs, ks, v, lens):
         raise ValueError(f"lens must be [BH] = [{qs.shape[0]}], got {tuple(lens.shape)}")
 
 
+def _check_cuda(tensors: dict, lens, bh: int, d1: int, dv: int) -> None:
+    """What the CUDA kernels take: bf16 operands, int32 lens, contiguous
+    16-byte-aligned tensors, BH <= 65535, d1 and dv multiples of 8."""
+    if any(x.dtype != torch.bfloat16 for x in tensors.values()) or lens.dtype != torch.int32:
+        raise TypeError("the CUDA kernel takes bf16 " + "/".join(tensors) + " and int32 lens, got "
+                        + "/".join(str(x.dtype) for x in tensors.values()) + f"/{lens.dtype}")
+    if not all(x.is_contiguous() for x in (*tensors.values(), lens)) or any(
+            x.data_ptr() % 16 for x in tensors.values()):  # the kernels load 16-byte vectors
+        raise ValueError("the CUDA kernel takes contiguous tensors, "
+                         + "/".join(tensors) + " 16-byte aligned")
+    if bh > 65535:
+        raise ValueError(f"the CUDA kernel takes BH <= 65535, got {bh}")
+    if d1 % 8 or dv % 8 or d1 <= 0 or not 0 < dv <= MAX_DV:
+        raise ValueError(f"the CUDA kernel takes d1 and dv <= {MAX_DV} as positive "
+                         f"multiples of 8; got d1={d1}, dv={dv}")
+
+
 def flash_attention_fwd(qs, ks, v, lens, scale: float, left: int = -1, right: int = -1):
     """softmax(qs ks^T * scale + mask) v over [BH, T, d1] x [BH, T, dv] with
     per-row key lengths lens [BH] and an optional (left, right) band
@@ -114,30 +161,112 @@ def flash_attention_fwd(qs, ks, v, lens, scale: float, left: int = -1, right: in
         raise ValueError(f"unsupported device {qs.device}")
     bh, t, d1 = qs.shape
     dv = v.shape[-1]
-    if not (qs.dtype == ks.dtype == v.dtype == torch.bfloat16) or lens.dtype != torch.int32:
-        raise TypeError("the CUDA kernel takes bf16 qs/ks/v and int32 lens, got "
-                        f"{qs.dtype}/{ks.dtype}/{v.dtype}/{lens.dtype}")
-    if not all(x.is_contiguous() for x in (qs, ks, v, lens)) or any(
-            x.data_ptr() % 16 for x in (qs, ks, v)):  # the kernel loads 16-byte vectors
-        raise ValueError("the CUDA kernel takes contiguous tensors, qs/ks/v 16-byte aligned")
-    if bh > 65535:
-        raise ValueError(f"the CUDA kernel takes BH <= 65535, got {bh}")
-    if d1 % 8 or dv % 8 or d1 <= 0 or not 0 < dv <= MAX_DV:
-        raise ValueError(f"the CUDA kernel takes d1 and dv <= {MAX_DV} as positive "
-                         f"multiples of 8; got d1={d1}, dv={dv}")
+    _check_cuda({"qs": qs, "ks": ks, "v": v}, lens, bh, d1, dv)
     o = torch.empty((bh, t, dv), dtype=torch.bfloat16, device=qs.device)
     lse = torch.empty((bh, t), dtype=torch.float32, device=qs.device)
     if bh == 0 or t == 0:
         return o, lse
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library()(qs.data_ptr(), ks.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                         o.data_ptr(), lse.data_ptr(), bh, t, d1, dv, float(scale),
-                         int(left), int(right), stream)
+        err = _fn("flash_attention_fwd.cu", "flash_attention_fwd_bf16", 6, 4)(
+            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, t, d1, dv, float(scale), int(left), int(right), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
-    key = (bh, t, d1, dv)
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    fwd_launches.add((bh, t, d1, dv))
     return o, lse
+
+
+def _check_bwd(qs, ks, v, do, lse, delta, lens) -> None:
+    _check(qs, ks, v, lens)
+    bh, t, _ = qs.shape
+    if do.shape != v.shape or lse.shape != (bh, t) or delta.shape != (bh, t):
+        raise ValueError(f"shapes: do {tuple(do.shape)}, lse {tuple(lse.shape)}, delta "
+                         f"{tuple(delta.shape)}; want [BH,T,dv], [BH,T], [BH,T]")
+    if not all(x.device == qs.device for x in (do, lse, delta)):
+        raise ValueError("do, lse and delta must be on the device of qs")
+    if qs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {qs.device}")
+
+
+def _bwd_kernel(name: str, counter, outs, qs, ks, v, do, lse, delta, lens, scale, left, right):
+    """Launch one of the two backward kernels (CUDA tensors, checked)."""
+    bh, t, d1 = qs.shape
+    dv = v.shape[-1]
+    _check_cuda({"qs": qs, "ks": ks, "v": v, "do": do}, lens, bh, d1, dv)
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32 or not (
+            lse.is_contiguous() and delta.is_contiguous()):
+        raise TypeError("the CUDA kernel takes contiguous fp32 lse and delta")
+    smem = load("flash_attention_bwd.cu").flash_attention_bwd_smem_bytes(d1, dv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the CUDA backward keeps a 64 x d1 fp32 accumulator in shared memory "
+                         f"and needs {smem} bytes at d1={d1}, dv={dv}; a block has {SMEM_LIMIT}")
+    if bh == 0 or t == 0:
+        return
+    with torch.cuda.device(qs.device):
+        err = _fn("flash_attention_bwd.cu", f"flash_attention_bwd_{name}_bf16", 7 + len(outs), 4)(
+            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), lens.data_ptr(), *(o.data_ptr() for o in outs), bh, t, d1, dv,
+            float(scale), int(left), int(right), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd {name} kernel launch failed: CUDA error {err}")
+    counter.add((bh, t, d1, dv))
+
+
+def flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
+                           right: int = -1):
+    """The dQ kernel of the backward alone (CUDA tensors): -> dq."""
+    _check_bwd(qs, ks, v, do, lse, delta, lens)
+    dq = torch.empty_like(qs)
+    _bwd_kernel("dq", dq_launches, (dq,), qs, ks, v, do, lse, delta, lens, scale, left, right)
+    return dq
+
+
+def flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
+                            right: int = -1):
+    """The dK/dV kernel of the backward alone (CUDA tensors): -> (dk, dv)."""
+    _check_bwd(qs, ks, v, do, lse, delta, lens)
+    dk, dvo = torch.empty_like(ks), torch.empty_like(v)
+    _bwd_kernel("dkv", dkv_launches, (dk, dvo), qs, ks, v, do, lse, delta, lens, scale, left,
+                right)
+    return dk, dvo
+
+
+def flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
+                        right: int = -1):
+    """Gradients of `flash_attention_fwd`'s o with respect to qs, ks and v,
+    given dO [BH, T, dv], the forward's lse [BH, T] and delta = rowsum(dO * O)
+    [BH, T] (fp32). -> (dq, dk, dv) in the input dtypes."""
+    _check_bwd(qs, ks, v, do, lse, delta, lens)
+    if qs.device.type == "cpu":
+        return flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, scale, left, right)
+    dq = flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale, left, right)
+    return (dq, *flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale, left, right))
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = flash_attention_fwd(...)[0] with the fused backward: delta =
+    rowsum(dO * O) in fp32 (plain ops, as the JAX package computes it
+    outside Pallas), then `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, qs, ks, v, lens, scale: float, left: int, right: int):
+        o, lse = flash_attention_fwd(qs, ks, v, lens, scale, left, right)
+        ctx.save_for_backward(qs, ks, v, lens, o, lse)
+        ctx.band = (scale, left, right)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, ks, v, lens, o, lse = ctx.saved_tensors
+        scale, left, right = ctx.band
+        do = do.contiguous()
+        acc = _acc_dtype(o)  # fp32; fp64 on the plain path under gradcheck
+        delta = (do.to(acc) * o.to(acc)).sum(-1)
+        dq, dk, dv = flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale, left, right)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(qs, ks, v, lens, scale: float, left: int = -1, right: int = -1):
+    """Differentiable o of `flash_attention_fwd` (see `FlashAttention`)."""
+    return FlashAttention.apply(qs, ks, v, lens, float(scale), int(left), int(right))

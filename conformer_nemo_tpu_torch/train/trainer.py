@@ -1,0 +1,139 @@
+"""CTC train and eval steps (port of conformer_nemo_tpu/train/trainer.py).
+
+A train step is: frontend (training mode: dither, narrowband), then
+SpecAugment, then the model (dropout, training BatchNorm), then the CTC
+loss averaged over the rows with audio (the loader's zero rows weigh 0),
+then the gradients, their global norm, and the optimizer update. With
+`skip_nan_grad`, a step whose gradient norm is not finite leaves the
+parameters and the optimizer state as they were; the step counter still
+advances (the BatchNorm statistics of that forward stay updated, as in the
+JAX package).
+
+Randomness is explicit: the state's CPU `torch.Generator` draws three seeds
+per step (frontend noise, augmentation, dropout), each of which seeds a
+generator on the device or, for dropout, every mask of the step
+(models/conformer.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from conformer_nemo_tpu_torch.audio.features import log_mel_spectrogram
+from conformer_nemo_tpu_torch.audio.spec_augment import apply_spectrogram_augmentation
+from conformer_nemo_tpu_torch.decode.ctc_greedy import collapse_ctc_ids, ctc_greedy_decode
+from conformer_nemo_tpu_torch.decode.wer import wer_num_denom
+from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, CTCModelConfig, ctc_model_loss
+from conformer_nemo_tpu_torch.train.optim import Transformation, apply_updates, global_norm
+
+_BATCH_KEYS = ("audio", "audio_lens", "tokens", "token_lens")
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: CTCModel
+    opt_state: dict
+    generator: torch.Generator  # CPU; draws each step's seeds
+    step: int = 0
+
+    @property
+    def params(self) -> list:
+        return list(self.model.parameters())
+
+
+def init_ctc_state(model: CTCModel, optimizer: Transformation, seed: int = 0) -> TrainState:
+    return TrainState(model=model, opt_state=optimizer.init(list(model.parameters())),
+                      generator=torch.Generator().manual_seed(seed))
+
+
+def _device_batch(batch, device) -> dict:
+    """A Batch or dict of numpy arrays / tensors -> dict of tensors on device."""
+    get = batch.__getitem__ if isinstance(batch, dict) else lambda k: getattr(batch, k)
+    return {k: torch.as_tensor(get(k)).to(device) for k in _BATCH_KEYS}
+
+
+def _seeded(device, seed: int) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def make_ctc_train_step(cfg: CTCModelConfig, optimizer: Transformation,
+                        skip_nan_grad: bool = False, ctc_impl: str = "auto") -> Callable:
+    """-> step(state, batch) -> {"loss", "grad_norm"} (0-d tensors), which
+    updates `state` in place."""
+
+    def step(state: TrainState, batch) -> dict:
+        model = state.model
+        params = state.params
+        dev = params[0].device
+        bd = _device_batch(batch, dev)
+        feat_seed, aug_seed, drop_seed = (
+            int(s) for s in torch.randint(0, 1 << 62, (3,), generator=state.generator))
+        model.train()
+        with torch.no_grad():
+            feats, feat_lens = log_mel_spectrogram(
+                cfg.preprocessor, bd["audio"], bd["audio_lens"],
+                generator=_seeded(dev, feat_seed), training=True)
+            if cfg.spec_augment.enabled:
+                feats = apply_spectrogram_augmentation(cfg.spec_augment, _seeded(dev, aug_seed),
+                                                       feats, feat_lens)
+        log_probs, enc_lens = model(feats, feat_lens, dropout_seed=drop_seed)
+        valid = (bd["audio_lens"] > 0).to(torch.float32)
+        loss = ctc_model_loss(cfg, log_probs, enc_lens, bd["tokens"], bd["token_lens"], valid,
+                              impl=ctc_impl)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        gnorm = global_norm(grads)
+        if not skip_nan_grad or bool(torch.isfinite(gnorm)):
+            updates, state.opt_state = optimizer.update(grads, state.opt_state, params)
+            apply_updates(params, updates)
+        state.step += 1
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+def make_ctc_eval_step(cfg: CTCModelConfig) -> Callable:
+    """-> eval(model, batch) -> (loss, greedy ids [B, T'], enc_lens [B]) in
+    eval mode; on CUDA the loss takes the forward-only K1 kernel."""
+
+    @torch.no_grad()
+    def eval_fn(model: CTCModel, batch):
+        dev = next(model.parameters()).device
+        bd = _device_batch(batch, dev)
+        model.eval()
+        feats, feat_lens = log_mel_spectrogram(cfg.preprocessor, bd["audio"], bd["audio_lens"])
+        log_probs, enc_lens = model(feats, feat_lens)
+        valid = (bd["audio_lens"] > 0).to(torch.float32)
+        loss = ctc_model_loss(cfg, log_probs, enc_lens, bd["tokens"], bd["token_lens"], valid)
+        return loss, ctc_greedy_decode(log_probs), enc_lens
+
+    return eval_fn
+
+
+def evaluate_wer(cfg: CTCModelConfig, model: CTCModel, loader, tokenizer) -> dict:
+    """Dataset WER: greedy decode on the device, detokenise and edit
+    distance on the host; sum(edits) / sum(words) across batches."""
+    eval_step = make_ctc_eval_step(cfg)
+    tot_edits, tot_words, tot_loss, n_batches = 0, 0, 0.0, 0
+    example = None  # one (reference, prediction) pair
+    for batch in loader:
+        loss, preds, enc_lens = eval_step(model, batch)
+        n_valid = int((batch.audio_lens > 0).sum())
+        id_lists = collapse_ctc_ids(preds.cpu().numpy(), enc_lens.cpu().numpy(),
+                                    cfg.blank_id)[:n_valid]
+        hyps = [tokenizer.ids_to_text(ids) for ids in id_lists]
+        refs = batch.texts[:n_valid]
+        e, w = wer_num_denom(hyps, refs)
+        tot_edits += e
+        tot_words += w
+        tot_loss += float(loss)
+        n_batches += 1
+        if example is None and refs:
+            example = (refs[0], hyps[0])
+    return {"wer": tot_edits / max(tot_words, 1), "loss": tot_loss / max(n_batches, 1),
+            "edits": tot_edits, "words": tot_words, "example": example}

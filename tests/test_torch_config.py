@@ -39,7 +39,7 @@ def test_load_config_and_builders_match_jax(name):
     enc_p = port_loader.build_encoder_config(raw_p["model"]["encoder"], dtype=torch.float32)
     enc_j = jax_loader.build_encoder_config(raw_j["model"]["encoder"], dtype=jnp.float32)
     port_fields = _fields(enc_p)
-    jax_fields = _fields(enc_j, skip=("dtype", "remat"))  # remat is training-only
+    jax_fields = _fields(enc_j)
     assert port_fields == jax_fields
     assert enc_p.dtype == torch.float32
 
@@ -47,4 +47,7 @@ def test_load_config_and_builders_match_jax(name):
     model_p = port_loader.build_ctc_model_config(raw_p, vocab_size=vocab)
     model_j = jax_loader.build_ctc_model_config(raw_j, vocab_size=vocab)
     assert model_p.num_classes == model_j.num_classes and model_p.blank_id == model_j.blank_id
+    assert _fields(model_p.spec_augment, skip=()) == _fields(model_j.spec_augment, skip=())
+    assert model_p.spec_augment.enabled == model_j.spec_augment.enabled
+    assert model_p.ctc_reduction == model_j.ctc_reduction
     assert model_p.encoder.dtype == torch.bfloat16  # the default compute dtype

@@ -1,0 +1,76 @@
+"""`ConformerCTC.fit` on the CPU: a tiny config (2 layers, d_model 64,
+remat and the flash path on, whose kernels run their plain versions here)
+trains two steps on a 4-utterance manifest with validation, returns a
+finite loss, leaves the model in eval mode, and transcribes; what this
+slice does not port raises."""
+
+import json
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from conformer_nemo_tpu_torch.api import ConformerCTC
+from conformer_nemo_tpu_torch.data.audio_io import write_wav
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(ROOT, "configs", "conformer_ctc_bpe.yaml")
+TINY = {
+    "model.tokenizer.model_file": os.path.join(ROOT, "tests", "fixtures",
+                                               "sp_bpe_bytefallback.model"),
+    "model.encoder.n_layers": 2, "model.encoder.d_model": 64, "model.encoder.n_heads": 4,
+    "model.encoder.remat": True, "model.encoder.use_flash_attention": True,
+    "model.train_ds.batch_size": 2, "model.validation_ds.batch_size": 2,
+    "model.train_ds.num_workers": 2,
+}
+
+
+@pytest.fixture(scope="module")
+def manifest(tmp_path_factory):
+    d = tmp_path_factory.mktemp("fit")
+    rng = np.random.RandomState(0)
+    with open(d / "train.json", "w", encoding="utf-8") as f:
+        for i, text in enumerate(["hello world", "the quick brown fox", "speech", "a test"]):
+            n = int(rng.uniform(1.0, 2.0) * 16000)
+            write_wav(str(d / f"{i}.wav"), (0.1 * rng.randn(n)).astype(np.float32))
+            f.write(json.dumps({"audio_filepath": f"{i}.wav", "duration": n / 16000,
+                                "text": text}) + "\n")
+    return str(d / "train.json")
+
+
+def test_fit_on_cpu_then_transcribe(manifest):
+    model = ConformerCTC.from_config_file(CONFIG, overrides=TINY, device="cpu",
+                                          dtype=torch.float32)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    out = model.fit(manifest, manifest, max_steps=2)
+    assert out["steps"] == 2 and math.isfinite(out["last_loss"])
+    assert math.isfinite(out["val"]["loss"]) and out["val"]["words"] > 0
+    assert not model.model.training
+    after = model.state_dict()
+    bn = "encoder.layers.0.conv.batch_norm.running_mean"
+    assert not torch.equal(after[bn], before[bn])
+    assert not torch.equal(after["decoder.decoder_layers.0.weight"],
+                           before["decoder.decoder_layers.0.weight"])
+    texts = model.transcribe([os.path.join(os.path.dirname(manifest), "0.wav")])
+    assert len(texts) == 1 and isinstance(texts[0], str)
+
+
+def test_fit_refuses_what_is_not_ported(manifest):
+    model = ConformerCTC.from_config_file(CONFIG, overrides=TINY, device="cpu",
+                                          dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.fit(manifest, exp_manager=object())
+    for key, value in (("trainer.resume_from_checkpoint", "/nowhere"),
+                       ("trainer.mesh", {"data": 2, "model": 1}),
+                       ("model.optim.name", "novograd"),
+                       ("model.train_ds.transport", "pcm16"),
+                       ("model.train_ds.transport", "mulaw8"),
+                       ("model.train_ds.is_tarred", True),
+                       ("model.train_ds.trim_silence", True),
+                       ("model.train_ds.augmentor", {"white_noise": {"prob": 1.0}})):
+        m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, key: value}, device="cpu",
+                                          dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            m.fit(manifest, max_steps=1)

@@ -86,9 +86,9 @@ def test_flash_fwd_matches_jax_streamed_kernel(band, monkeypatch):
 
 def test_flash_fwd_wrapper_checks_and_counts():
     qs, ks, v, lens = (torch.from_numpy(a) for a in _inputs(2, 2, 16, 8, 8, [16, 3]))
-    before = port.launches
+    before = port.fwd_launches.total
     port.flash_attention_fwd(qs, ks, v, lens, 1.0)
-    assert port.launches == before  # the plain version is not a kernel launch
+    assert port.fwd_launches.total == before  # the plain version is not a kernel launch
     with pytest.raises(ValueError):
         port.flash_attention_fwd(qs, ks[:, :8], v, lens, 1.0)
     with pytest.raises(ValueError):
