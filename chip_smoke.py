@@ -26,10 +26,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                one step through the flash and K1 kernels against one through
                the dense attention and the plain CTC recursion (loss, gradient
                cosine, largest per-tensor relative error)
+  rnnt_train   ConformerTransducer.fit at full width on configs/conformer_transducer_bpe.yaml
+               with the flash joint (joint_impl flash, one bucket) over 16 generated
+               10-16 s WAVs, 3 steps; per step one launch each of K4-fwd, K3-alpha,
+               K3-beta and the two K4-bwd kernels and none of K1/K2, finite loss
+               and gradient norm, changed parameters, step time and audio-s/s; then
+               a timed greedy transcribe of a few files (profile_rnnt: one traced
+               train step)
+  rnnt_dense_step two steps with joint_impl auto, which resolves to the dense
+               joint: K3 launches, no K4 launch, each step's time
+  rnnt_parity  the same weights and batch, dropout, SpecAugment and dither off: one
+               step through K4 + K3 against one through the dense joint and the
+               plain lattice
   kernels      each kernel against its plain PyTorch version on the card, on
                the same inputs, at the shapes and lengths of the counted
                transcribe's and train step's own calls and a few edge cases,
-               with times, the card's bound and a library yardstick
+               with times, the card's bound and a library yardstick (K3 and
+               K4 at the counted transducer step's shapes and lengths, edge
+               cases, and the dropout mask read back bit for bit)
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -37,6 +51,7 @@ It imports nothing of JAX or of the JAX package, and exits non-zero without
 printing a result when CUDA is not available.
 """
 
+import dataclasses
 import importlib
 import json
 import math
@@ -45,6 +60,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -88,11 +104,26 @@ PARITY_GRAD_COSINE = 0.99
 # error between two summation orders is meaningless
 ZERO_GRAD = ("self_attn.linear_k.bias", "conv.depthwise_conv.bias")
 PER_STEP_LAUNCHES = {"K2-fwd": 36, "K2-bwd-dq": 18, "K2-bwd-dkv": 18, "K1-fwd": 1, "K1-bwd": 1}
+RNNT_CONFIG = os.path.join(ROOT, "configs", "conformer_transducer_bpe.yaml")
+RNNT_OVERRIDES = {**TRAIN_OVERRIDES, "model.joint.joint_impl": "flash"}
+# one transducer step through the flash joint: K4-bwd is two kernels (the
+# backward and the reduce of its per-block partials); no CTC or
+# flash-attention kernel
+RNNT_STEP_LAUNCHES = {"K3-alpha": 1, "K3-beta": 1, "K4-fwd": 1, "K4-bwd": 1, "K4-bwd-reduce": 1,
+                      "K2-fwd": 0, "K2-bwd-dq": 0, "K2-bwd-dkv": 0, "K1-fwd": 0, "K1-bwd": 0}
+RNNT_TRANSCRIBE_FILES = 3
+# K3 vs its plain version in fp32: the same recursion in the same order
+LATTICE_REL_TOL = 1e-5
+# K4 vs its plain version in bf16: max|kernel - plain| <= 2e-2 * max|plain| per output
+JOINT_REL_TOL = 2e-2
 
 def watched(model) -> tuple:
     """Parameters and BatchNorm statistics a train step must change."""
-    last = model.cfg.encoder.n_layers - 1
-    return ("decoder.decoder_layers.0.weight", f"encoder.layers.{last}.self_attn.linear_q.weight",
+    enc = model.model.cfg.encoder
+    last = enc.n_layers - 1
+    head = (("joint.joint_net.2.weight", "decoder.prediction.dec_rnn.lstm.weight_hh_l0")
+            if hasattr(model.model, "joint") else ("decoder.decoder_layers.0.weight",))
+    return (*head, f"encoder.layers.{last}.self_attn.linear_q.weight",
             "encoder.layers.0.conv.batch_norm.running_mean",
             f"encoder.layers.{last}.conv.batch_norm.running_var")
 
@@ -109,6 +140,18 @@ CTC_FWD = ("conformer_nemo_tpu_torch/ops/csrc/ctc_loss.cu",
            "conformer_nemo_tpu/ops/pallas/ctc_kernel.py:56 (_fwd_kernel, via _run_fwd :128)")
 CTC_BWD = ("conformer_nemo_tpu_torch/ops/csrc/ctc_loss.cu",
            "conformer_nemo_tpu/ops/pallas/ctc_kernel.py:80 (_bwd_kernel, via _run_bwd :147)")
+RNNT_ALPHA = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_lattice.cu",
+              "conformer_nemo_tpu/ops/pallas/rnnt_kernel.py:42 "
+              "(_alpha_kernel, via alphas_skewed_pallas :105)")
+RNNT_BETA = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_lattice.cu",
+             "conformer_nemo_tpu/ops/pallas/rnnt_kernel.py:68 "
+             "(_beta_kernel, via betas_skewed_pallas :128)")
+JOINT_FWD = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_joint.cu",
+             "conformer_nemo_tpu/ops/pallas/rnnt_joint_kernel.py:166 "
+             "(_make_fwd_kernel, via joint_flash_fwd :326)")
+JOINT_BWD = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_joint.cu",
+             "conformer_nemo_tpu/ops/pallas/rnnt_joint_kernel.py:191 "
+             "(_make_bwd_kernel, via joint_flash_bwd :372)")
 
 
 def check(ok: bool, what) -> None:
@@ -366,6 +409,206 @@ def _ctc_case(name, lp, targets, il, tl, blank):
         emit("kernels", **row)
         rows.append(row)
     return rows
+
+
+def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev):
+    """K3-alpha and K3-beta against their plain versions -> (alpha row, beta row)."""
+    from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
+
+    b = len(t_lens)
+    bl = torch.log(torch.rand(b, t, u1, generator=gen, device=dev) * 0.9 + 0.05)
+    lb = torch.log(torch.rand(b, t, u1, generator=gen, device=dev) * 0.9 + 0.05)
+    lb[:, :, -1] = -1e30
+    tl = torch.tensor(t_lens, dtype=torch.int32, device=dev)
+    ul = torch.tensor(u_lens, dtype=torch.int32, device=dev)
+    inside = lat.valid_cells(bl.shape, tl, ul)
+    cells = int(inside.sum().item())
+    serial = max(min(a, t) + min(c, u1 - 1) for a, c in zip(t_lens, u_lens))  # diagonals
+    rows = []
+    for kernel, fn, plain in (("K3-alpha", lat.rnnt_alphas, lat.rnnt_alphas_reference),
+                              ("K3-beta", lat.rnnt_betas, lat.rnnt_betas_reference)):
+        got, want = fn(bl, lb, tl, ul), plain(bl, lb, tl, ul)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+        abs_err = (got - want)[inside].abs().max().item()
+        check(math.isfinite(rel) and rel <= LATTICE_REL_TOL, (name, kernel, rel))
+        check(bool((got[~inside] == -1e30).all()), (name, kernel, "outside the lattice"))
+        # bytes: blank_lp and label_lp read once in the lattice's cells, the
+        # lattice written once in full (-1e30 outside); operations: ~10 fp32
+        # flops per valid cell (two adds, the lse)
+        row = {"case": name, "kernel": kernel, "shape": [b, t, u1], "t_lens": t_lens,
+               "u_lens": u_lens, "valid_cells": cells, "serial_steps": serial,
+               "max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": LATTICE_REL_TOL,
+               "ms": time_ms(lambda: fn(bl, lb, tl, ul), 20),
+               "plain_ms": time_ms(lambda: plain(bl, lb, tl, ul), 1, warmup=1),
+               "library_ms": None,
+               **bound(10.0 * cells, 8.0 * cells + 4.0 * b * t * u1 + 8 * b,
+                       PEAK_FP32_FLOPS)}
+        row["us_per_step"] = row["ms"] * 1e3 / serial
+        emit("kernels", **row)
+        rows.append(row)
+    return rows
+
+
+def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu", drop_t=26,
+                fastemit=0.0, clamp=-1.0, bt=16):
+    """K4-fwd and the two K4-bwd kernels against their plain versions, on
+    posteriors from the K3 lattice of the kernel's own forward."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+    from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
+    from conformer_nemo_tpu_torch.ops.rnnt_loss import posteriors
+
+    bf = lambda *shape, scale: (torch.randn(*shape, generator=gen, device=dev) * scale).to(
+        torch.bfloat16)
+    e, p = bf(b, t, h, scale=0.5), bf(b, u + 1, h, scale=0.5)
+    w, bias = bf(h, v, scale=h ** -0.5), bf(v, scale=0.1)
+    targets = torch.randint(0, v - 1, (b, u), generator=gen, device=dev).to(torch.int32)
+    tl = torch.tensor(t_lens, dtype=torch.int32, device=dev)
+    ul = torch.tensor(u_lens, dtype=torch.int32, device=dev)
+    seed = torch.tensor([20250], dtype=torch.int32)
+    kw = dict(t_lens=tl, u_lens=ul, blank_id=v - 1, activation=activation, drop_t=drop_t, bt=bt)
+    fwd = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    fwd_ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    blank_lp, label_lp, lse = fwd
+    label_lp = label_lp.clone()
+    label_lp[:, :, -1] = -1e30
+    alpha = lat.rnnt_alphas(blank_lp, label_lp, tl, ul)
+    beta = lat.rnnt_betas(blank_lp, label_lp, tl, ul)
+    gb, gy = posteriors(alpha, beta, blank_lp, label_lp, tl, ul)
+    if fastemit > 0:
+        gb, gy = gb * (1 + fastemit), gy * (1 + fastemit)
+    inside = lat.valid_cells(blank_lp.shape, tl, ul)
+    g = torch.rand(b, generator=gen, device=dev) + 0.5
+    # as RNNTLossFused passes them: K4-bwd reads the lattice's cells only
+    args = (e, p, w, bias, targets, lse, (gb + gy).contiguous(), gb.contiguous(), gy.contiguous(),
+            g, seed)
+    bwd = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
+    bwd_ref = jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw)
+    part_kw = dict(t_lens=tl, u_lens=ul, act=jt.ACTIVATIONS.index(activation), drop_t=drop_t,
+                   bt=bt, clamp=clamp)
+    _, partials = jt.joint_flash_bwd_partials(*args, **part_kw)
+    red = jt.joint_flash_bwd_reduce(partials, b, t)
+    red_ref = jt.joint_flash_bwd_reduce_reference(partials, b, t)
+    torch.cuda.synchronize()
+    errs = {}
+    for out, a, r in zip(("blank_lp", "label_lp", "lse", "de", "dp", "dw", "db", "reduce_dp",
+                          "reduce_dw", "reduce_db"),
+                         (*fwd, *bwd, *red), (*fwd_ref, *bwd_ref, *red_ref)):
+        if out in ("blank_lp", "label_lp", "lse"):  # outside the lattice: the sentinels
+            check(torch.equal(a[~inside], r[~inside]), (name, out, "outside the lattice"))
+            a, r = a[inside], r[inside]
+        a, r = a.float(), r.float()
+        check(bool(torch.isfinite(a).all()), (name, out, "non-finite"))
+        err = (a - r).abs().max().item()
+        errs[out] = {"abs": err, "rel_to_max": err / max(r.abs().max().item(), 1e-30)}
+        check(errs[out]["rel_to_max"] <= JOINT_REL_TOL, (name, out, errs[out]))
+
+    # library yardstick: the dense torch joint (matmul, logsumexp, gather) over
+    # every cell, and its backward through autograd from a cotangent on the logits
+    act = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}[activation]
+    tgt = torch.nn.functional.pad(targets.long(), (0, 1))[:, None, :, None].expand(b, t, u + 1, 1)
+
+    def dense(e_, p_, w_, b_):
+        logits = torch.matmul(act(e_[:, :, None, :] + p_[:, None, :, :]), w_) + b_
+        return logits
+
+    def dense_prep():
+        logits = dense(e, p, w, bias).float()
+        lse_d = torch.logsumexp(logits, -1)
+        return logits[..., v - 1] - lse_d, torch.gather(logits, 3, tgt)[..., 0] - lse_d, lse_d
+
+    leaves = [x.detach().requires_grad_() for x in (e, p, w, bias)]
+    logits = dense(*leaves)
+    cot = torch.randn(logits.shape, generator=gen, device=dev).to(logits.dtype)
+    lib_fwd_ms = time_ms(dense_prep, 5, warmup=1)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(logits, leaves, cot, retain_graph=True), 3,
+                         warmup=1)
+    del logits, cot, leaves
+
+    # bytes and operations the function needs: the lattice's cells only (the
+    # loss reads no other), the e and p rows they use, W and the bias; the
+    # forward writes its three streams in full (sentinels outside the lattice)
+    cells = b * t * (u + 1)
+    cells_in = int(inside.sum().item())
+    t_in = sum(min(x, t) for x in t_lens)
+    u_in = sum(min(y, u) + 1 for y in u_lens)
+    product = 2.0 * h * v  # FLOPs per cell of one [H] x [H, V] product
+    in_bytes = 2 * (t_in * h + u_in * h + h * v + v) + 4 * (u_in - b) + 8 * b
+    fwd_bytes = in_bytes + 12 * cells
+    bwd_bytes = in_bytes + 16 * cells_in + 4 * b + 2 * b * t * h + 4 * (b * (u + 1) * h + h * v + v)
+    # each of the backward's two kernels timed on its own (they run in order)
+    part = {"K4-bwd": time_ms(lambda: jt.joint_flash_bwd_partials(*args, **part_kw), 5),
+            "K4-bwd-reduce": time_ms(lambda: jt.joint_flash_bwd_reduce(partials, b, t), 5)}
+    partial_bytes = sum(4 * x.numel() for x in partials)
+    common = {"case": name, "shape": [b, t, u + 1, h, v], "t_lens": t_lens, "u_lens": u_lens,
+              "activation": activation, "drop_t": drop_t, "fastemit": fastemit, "clamp": clamp,
+              "errors": errs, "tol_rel_to_max": JOINT_REL_TOL, "cells": cells,
+              "lattice_cells": cells_in}
+    rows = [
+        {**common, "kernel": "K4-fwd",
+         "max_abs_err": max(errs[k]["abs"] for k in ("blank_lp", "label_lp", "lse")),
+         "ms": time_ms(lambda: jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw), 10),
+         "plain_ms": time_ms(lambda: jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed,
+                                                                  **kw), 1, warmup=1),
+         "library_ms": lib_fwd_ms, **bound(product * cells_in, fwd_bytes)},
+        # the backward kernel: the logits again, dh and h^T dlab, three
+        # products per lattice cell; its plain and library times are of the
+        # whole backward (the reduce included)
+        {**common, "kernel": "K4-bwd",
+         "max_abs_err": max(errs[k]["abs"] for k in ("de", "dp", "dw", "db")),
+         "ms": part["K4-bwd"],
+         "plain_ms": time_ms(lambda: jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw), 1,
+                             warmup=1),
+         "library_ms": lib_bwd_ms, **bound(3 * product * cells_in, bwd_bytes)},
+        # the reduce: every partial read once, dp, dW and db written once;
+        # against its own plain version (torch sums); no one PyTorch call
+        # computes it
+        {**common, "kernel": "K4-bwd-reduce",
+         "max_abs_err": max(errs[k]["abs"] for k in ("reduce_dp", "reduce_dw", "reduce_db")),
+         "ms": part["K4-bwd-reduce"],
+         "plain_ms": time_ms(lambda: jt.joint_flash_bwd_reduce_reference(partials, b, t), 5),
+         "library_ms": None,
+         **bound(float(partial_bytes // 4), partial_bytes + 4 * (b * (u + 1) * h + h * v + v),
+                 PEAK_FP32_FLOPS)},
+    ]
+    # the whole backward as one function: three products per lattice cell
+    emit("kernels", case=name, kernel="K4-bwd with its reduce",
+         ms=time_ms(lambda: jt.joint_flash_bwd(*args, clamp=clamp, **kw), 5),
+         split_ms=part, **bound(3 * product * cells_in, bwd_bytes))
+    for row in rows:
+        row["tflops"] = row["flops"] / max(row["ms"], 1e-9) / 1e9
+        emit("kernels", **row)
+    return rows
+
+
+def _dropout_mask_probe(b, t, u, h, gen, dev, bt=16, drop_t=26) -> dict:
+    """W_lab the identity, p = 0, e a positive constant: each cell's label
+    logit is its h at the target column, c * inv_keep if kept and 0 if
+    dropped, so the kernel's keep bit there is read off label_lp + lse and
+    held against hash_keep_mask_reference bit for bit."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    targets = torch.randint(0, h, (b, u), generator=gen, device=dev).to(torch.int32)
+    e = torch.full((b, t, h), 0.5, dtype=torch.bfloat16, device=dev)
+    p = torch.zeros((b, u + 1, h), dtype=torch.bfloat16, device=dev)
+    w = torch.cat([torch.eye(h, device=dev), torch.zeros(h, 1, device=dev)], 1).to(torch.bfloat16)
+    bias = torch.zeros(h + 1, dtype=torch.bfloat16, device=dev)
+    seed = torch.tensor([-987654321], dtype=torch.int32)
+    full = lambda n: torch.full((b,), n, dtype=torch.int32, device=dev)
+    _, label_lp, lse = jt.joint_flash_fwd(e, p, w, bias, targets, seed, t_lens=full(t),
+                                          u_lens=full(u), blank_id=h, drop_t=drop_t, bt=bt)
+    kept = (label_lp + lse) > 0.25
+    mask = jt.hash_keep_mask_reference((b, jt.padded_t(t, bt), u + 1, h), seed, drop_t,
+                                       device=dev)[:, :t]
+    tgt = torch.nn.functional.pad(targets.long(), (0, 1))[:, None, :, None].expand(b, t, u + 1, 1)
+    want = torch.gather(mask, 3, tgt)[..., 0]
+    mismatches = int((kept != want).sum().item())
+    check(mismatches == 0, ("dropout mask", mismatches))
+    out = {"case": "dropout_mask_probe", "shape": [b, t, u + 1, h], "drop_t": drop_t,
+           "cells_probed": kept.numel(), "mismatches": mismatches,
+           "kept_share": want.float().mean().item()}
+    emit("kernels", **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -704,11 +947,174 @@ def phase_train_parity(train_manifest: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# transducer training
+# ---------------------------------------------------------------------------
+
+
+def _frames(model, samples) -> list:
+    """Encoder frames of a transducer model for each sample count."""
+    return encoder_frames(types.SimpleNamespace(encoder=model.cfg.model.encoder,
+                                                preprocessor=model.cfg.preprocessor), samples)
+
+
+def phase_rnnt_train(tmp: str, gpu: str) -> dict:
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+    from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
+
+    manifest = _write_manifest(tmp, "rnnt_train", 16, 10.0, 16.0,
+                               np.random.RandomState(SEED + 3))
+    model = ConformerTransducer.from_config_file(RNNT_CONFIG, overrides=RNNT_OVERRIDES,
+                                                 seed=SEED)
+    cfg = model.cfg.model
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    reset_launch_counts()
+    out = model.fit(manifest, max_steps=TRAIN_STEPS)
+    by_shape = {k: dict(launch_count(k).by_shape) for k, n in RNNT_STEP_LAUNCHES.items() if n}
+    del model._make_train_step
+    check(len(steps) == TRAIN_STEPS and out["steps"] == TRAIN_STEPS, (len(steps), out))
+    check(not model.model.training, "the model is in eval mode after fit")
+    for i, s in enumerate(steps):
+        got = {k: s["launches"].get(k, 0) for k in RNNT_STEP_LAUNCHES}
+        check(got == RNNT_STEP_LAUNCHES, ("rnnt step", i, "launches", got))
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]), ("step", i, s["loss"]))
+        check(all(s["changed"].values()), ("rnnt step", i, "unchanged", s["changed"]))
+    batch = steps[0]["batch"]
+    t_enc = _frames(model, [batch.audio.shape[1]])[0]
+    enc_lens = _frames(model, batch.audio_lens.tolist())
+    with open(manifest, encoding="utf-8") as f:
+        entries = [json.loads(line) for line in f][:RNNT_TRANSCRIBE_FILES]
+    wavs = [x["audio_filepath"] for x in entries]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = model.transcribe(wavs, batch_size=RNNT_TRANSCRIBE_FILES)
+    torch.cuda.synchronize()
+    transcribe_s = time.perf_counter() - t0
+    check(len(texts) == len(wavs) and all(isinstance(x, str) for x in texts), texts)
+    steady = steps[1:]
+    emit("rnnt_train", config="configs/conformer_transducer_bpe.yaml",
+         overrides={k: v for k, v in RNNT_OVERRIDES.items() if "tokenizer" not in k},
+         n_layers=cfg.encoder.n_layers, d_model=cfg.encoder.d_model,
+         pred_hidden=cfg.decoder.pred_hidden, joint_hidden=cfg.joint.joint_hidden,
+         vocab_with_blank=cfg.num_classes_with_blank, batch=int(batch.audio.shape[0]),
+         encoder_t=t_enc, u_cap=int(batch.tokens.shape[1]),
+         params=sum(p.numel() for p in model.model.parameters()), gpu=gpu,
+         steps=[{k: v for k, v in s.items() if k != "batch"} for s in steps],
+         steady_step_s=sum(s["seconds"] for s in steady) / len(steady),
+         steady_audio_s_per_s=sum(s["audio_s"] for s in steady) / sum(
+             s["seconds"] for s in steady),
+         launches_by_shape={k: {str(sh): n for sh, n in v.items()} for k, v in by_shape.items()},
+         transcribe_files=len(wavs), transcribe_s=transcribe_s,
+         transcribe_audio_s=sum(x["duration"] for x in entries), sample_text=texts[0][:80])
+    step = model._make_train_step(model._make_optimizer())
+    _profile(lambda: step(batch), "profile_rnnt", config="configs/conformer_transducer_bpe.yaml",
+             batch=int(batch.audio.shape[0]), encoder_t=t_enc)
+    info = {"by_shape": by_shape, "t": t_enc, "enc_lens": enc_lens, "tokens": batch.tokens,
+            "token_lens": batch.token_lens.tolist(), "manifest": manifest,
+            "h": cfg.joint.joint_hidden, "v": cfg.num_classes_with_blank}
+    del model, step
+    free_cuda()
+    return info
+
+
+def phase_rnnt_dense_step(manifest: str) -> None:
+    """joint_impl auto at this batch resolves to the dense joint: K3
+    launches, no K4 launch, in each of two steps (the first pays the
+    warm-up, the second is the steady step)."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+    from conformer_nemo_tpu_torch.ops.build import reset_launch_counts
+
+    model = ConformerTransducer.from_config_file(RNNT_CONFIG, overrides=TRAIN_OVERRIDES,
+                                                 seed=SEED)
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    reset_launch_counts()
+    model.fit(manifest, max_steps=2)
+    b, samples = steps[0]["batch"].audio.shape
+    t = _frames(model, [samples])[0]
+    u1 = steps[0]["batch"].tokens.shape[1] + 1
+    resolved = model.cfg.model.resolve_joint_impl(b, t, u1, "cuda")
+    check(resolved == "dense", ("auto resolved to", resolved))
+    check(len(steps) == 2, len(steps))
+    for i, s in enumerate(steps):
+        counts = s["launches"]
+        check(counts.get("K3-alpha", 0) == 1 and counts.get("K3-beta", 0) == 1, (i, counts))
+        check(all(counts.get(k, 0) == 0 for k in ("K4-fwd", "K4-bwd", "K4-bwd-reduce", "K2-fwd",
+                                                  "K2-bwd-dq", "K2-bwd-dkv")), (i, counts))
+        check(math.isfinite(s["loss"]) and all(s["changed"].values()), (i, s["changed"]))
+    emit("rnnt_dense_step", config="configs/conformer_transducer_bpe.yaml", joint_impl="auto",
+         resolved=resolved, dense_bytes_estimate=3 * 2 * b * t * u1 * model.cfg.model.num_classes_with_blank,
+         batch=b, encoder_t=t, u1=u1,
+         steps=[{k: s[k] for k in ("seconds", "audio_s_per_s", "loss", "launches")} for s in steps],
+         seconds=steps[1]["seconds"], audio_s_per_s=steps[1]["audio_s_per_s"])
+    del model
+    free_cuda()
+
+
+def phase_rnnt_parity(manifest: str) -> None:
+    """One step through K4 + K3 against one through the dense joint and the
+    plain lattice: same weights, same batch, no dropout, SpecAugment or dither."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+    from conformer_nemo_tpu_torch.train.optim import Transformation
+    from conformer_nemo_tpu_torch.train.rnnt_trainer import init_rnnt_state, make_rnnt_train_step
+
+    quiet = {**TRAIN_OVERRIDES, "model.encoder.dropout": 0.0, "model.encoder.dropout_att": 0.0,
+             "model.encoder.dropout_emb": 0.0, "model.decoder.prednet.dropout": 0.0,
+             "model.joint.jointnet.dropout": 0.0, "model.spec_augment.freq_masks": 0,
+             "model.spec_augment.time_masks": 0, "model.spec_augment.specshot_ratio": 0.0,
+             "model.preprocessor.dither": 0.0}
+    kernel = ConformerTransducer.from_config_file(
+        RNNT_CONFIG, overrides={**quiet, "model.joint.joint_impl": "flash"}, seed=SEED)
+    plain = ConformerTransducer.from_config_file(
+        RNNT_CONFIG, overrides={**quiet, "model.joint.joint_impl": "dense"}, seed=SEED + 1)
+    plain.load_state_dict(kernel.state_dict())
+    plain.model.cfg = dataclasses.replace(plain.model.cfg, lattice_impl="plain")
+    batch = next(iter(kernel._loader(manifest, kernel.raw_cfg["model"]["train_ds"],
+                                     shuffle=True)))
+
+    def run(m):
+        grads = []
+
+        def capture(g, state, params):
+            grads.extend(x.detach().float() for x in g)
+            return [torch.zeros_like(x) for x in g], state
+
+        probe = Transformation(lambda params: {}, capture)
+        metrics = make_rnnt_train_step(m.cfg, probe)(init_rnnt_state(m.model, probe, seed=SEED),
+                                                     batch)
+        return float(metrics["loss"]), grads
+
+    loss_k, g_k = run(kernel)
+    loss_p, g_p = run(plain)
+    names = [n for n, _ in kernel.model.named_parameters()]
+    dot = sum((a.double() * b.double()).sum() for a, b in zip(g_k, g_p)).item()
+    nk = math.sqrt(sum((a.double() ** 2).sum().item() for a in g_k))
+    np_ = math.sqrt(sum((b.double() ** 2).sum().item() for b in g_p))
+    cosine = dot / (nk * np_)
+    rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(g_k, g_p)]
+    worst = int(np.argmax(rel))
+    nonzero = [i for i, n in enumerate(names) if not n.endswith(ZERO_GRAD)]
+    worst_nz = max(nonzero, key=lambda i: rel[i])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(math.isfinite(loss_k) and loss_rel <= PARITY_LOSS_REL, ("rnnt loss", loss_k, loss_p))
+    check(cosine >= PARITY_GRAD_COSINE, ("rnnt gradient cosine", cosine))
+    emit("rnnt_parity", config="configs/conformer_transducer_bpe.yaml",
+         batch=int(batch.audio.shape[0]), loss_kernel=loss_k, loss_plain=loss_p,
+         loss_rel_err=loss_rel, tol_loss_rel=PARITY_LOSS_REL, grad_cosine=cosine,
+         min_cosine=PARITY_GRAD_COSINE, grad_norm_kernel=nk, grad_norm_plain=np_,
+         max_tensor_rel_err=rel[worst], max_tensor=names[worst],
+         max_tensor_rel_err_nonzero_grad=rel[worst_nz], max_tensor_nonzero_grad=names[worst_nz],
+         median_tensor_rel_err=float(np.median(rel)))
+    del kernel, plain, g_k, g_p
+    free_cuda()
+
+
+# ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(dev, cfg, flash_calls, train: dict) -> dict:
+def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -741,6 +1147,21 @@ def phase_kernels(dev, cfg, flash_calls, train: dict) -> dict:
     tg_e = torch.randint(0, v1 - 1, (4, u), generator=gen, device=dev).to(torch.int32)
     _ctc_case("edges_u0_infeasible", lp_e, tg_e, as_i32([300, 300, 17, 1]),
               as_i32([30, 0, 25, 0]), blank)
+
+    # the counted transducer step's lattice and joint, then edge cases: U+1 >
+    # 1024 with a u_len = 0 row and a 1-frame row, T not a multiple of 16;
+    # tanh, FastEmit 0.1 and clamp 2 on the joint; the dropout mask probe
+    t, enc_lens = rnnt["t"], rnnt["enc_lens"]
+    b, u = rnnt["tokens"].shape
+    name = f"rnnt_b{b}_t{t}_u1{u + 1}"
+    rows["rnnt_train"] = _lattice_case(name, t, u + 1, enc_lens, rnnt["token_lens"], gen, dev)
+    rows["rnnt_train"] += _joint_case(name, b, t, u, rnnt["h"], rnnt["v"], enc_lens,
+                                      rnnt["token_lens"], gen, dev, drop_t=26)
+    _lattice_case("lattice_edges_u1_1100", 301, 1100, [301, 150, 1, 77], [1099, 500, 0, 0],
+                  gen, dev)
+    _joint_case("joint_edges_tanh_fastemit_clamp", 3, 37, 8, rnnt["h"], rnnt["v"], [37, 20, 1],
+                [8, 3, 0], gen, dev, activation="tanh", drop_t=26, fastemit=0.1, clamp=2.0)
+    _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev)
     return rows
 
 
@@ -748,13 +1169,19 @@ def kernel_summary(rows: dict, launches: dict) -> list:
     """The summary line's entries: every main-path kernel row, with the
     launches its path made at its shape."""
     sources = {"K2-fwd": FLASH_FWD, "K2-bwd-dq": FLASH_DQ, "K2-bwd-dkv": FLASH_DKV,
-               "K1-fwd": CTC_FWD, "K1-bwd": CTC_BWD}
+               "K1-fwd": CTC_FWD, "K1-bwd": CTC_BWD, "K3-alpha": RNNT_ALPHA,
+               "K3-beta": RNNT_BETA, "K4-fwd": JOINT_FWD, "K4-bwd": JOINT_BWD,
+               "K4-bwd-reduce": JOINT_BWD}
     kernels = []
     for path, path_rows in rows.items():
         for r in path_rows:
             k = r["kernel"]
-            shape = ((r["bh"], r["t"], r["d1"], r["dv"]) if k.startswith("K2")
-                     else (r["b"], r["t"], r["u"], r["v1"]))
+            if "shape" in r:
+                shape = tuple(r["shape"])
+            elif k.startswith("K2"):
+                shape = (r["bh"], r["t"], r["d1"], r["dv"])
+            else:
+                shape = (r["b"], r["t"], r["u"], r["v1"])
             source, replaces = sources[k]
             kernels.append({
                 "name": f"{k}[{path}:{','.join(map(str, shape))}]", "route": "cuda",
@@ -788,10 +1215,13 @@ def main() -> int:
         train = phase_train(tmp, env["nvidia_smi"])
         phase_bpe_step(tmp)
         phase_train_parity(train["train_manifest"])
-    rows = phase_kernels(dev, cfg, flash_calls, train)
+        rnnt = phase_rnnt_train(tmp, env["nvidia_smi"])
+        phase_rnnt_dense_step(rnnt["manifest"])
+        phase_rnnt_parity(rnnt["manifest"])
+    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt)
 
     kernels = kernel_summary(rows, {"transcribe": {"K2-fwd": fwd_by_shape},
-                                    "train": train["by_shape"]})
+                                    "train": train["by_shape"], "rnnt_train": rnnt["by_shape"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

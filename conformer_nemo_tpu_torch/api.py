@@ -1,11 +1,15 @@
-"""User API: build a Conformer-CTC model, train it and transcribe (port of
-the `ConformerCTC` surface of conformer_nemo_tpu/api.py).
+"""User API: build a Conformer-CTC or Conformer-Transducer model, train it
+and transcribe (port of the `ConformerCTC` / `ConformerTransducer` surface
+of conformer_nemo_tpu/api.py, with their shared `_BaseASRModel`).
 
     model = ConformerCTC.from_config_file("configs/conformer_ctc_bpe.yaml",
                                           overrides={...})   # runs on CUDA
     model.load_state_dict(state_dict)   # NeMo names; see convert/jax_params.py
     model.fit("train.json", "val.json", max_steps=1000)
     texts = model.transcribe(["a.wav", "b.wav"])
+
+`ConformerTransducer` takes the same calls (greedy / greedy_batch decoding;
+`change_decoding_strategy`).
 
 Batching follows the JAX package: files up to `longform_threshold_s` are
 sorted by length and decoded `batch_size` at a time, padded to a multiple
@@ -16,7 +20,9 @@ takes an exact whole-utterance forward alone, padded to threshold * 2^k.
 and validation cadence. An experiment manager (checkpoints, logging),
 `trainer.resume_from_checkpoint` and a multi-device mesh raise, as do
 save/restore, timestamps, buffered/streaming decode and beam search with an
-LM: they wait for later slices (ROADMAP.md).
+LM: they wait for later slices (ROADMAP.md). For the transducer, so do
+`change_vocabulary`, word timestamps, buffered decode, export, save/restore
+and the beam strategies.
 """
 
 from __future__ import annotations
@@ -30,17 +36,31 @@ import numpy as np
 import torch
 from torch import nn
 
-from conformer_nemo_tpu_torch.config.loader import build_ctc_model_config, load_config
+from conformer_nemo_tpu_torch.audio.features import log_mel_spectrogram
+from conformer_nemo_tpu_torch.config.loader import (
+    build_ctc_model_config,
+    build_rnnt_model_config,
+    load_config,
+)
 from conformer_nemo_tpu_torch.data.audio_io import load_audio
 from conformer_nemo_tpu_torch.data.dataset import BucketedAudioTextDataset, BucketedLoader
 from conformer_nemo_tpu_torch.data.manifest import read_manifest
 from conformer_nemo_tpu_torch.data.tokenizers import build_tokenizer
 from conformer_nemo_tpu_torch.decode.ctc_greedy import collapse_ctc_ids, ctc_greedy_decode
+from conformer_nemo_tpu_torch.decode.rnnt_decoding import RNNTDecoding
 from conformer_nemo_tpu_torch.device import resolve_device
 from conformer_nemo_tpu_torch.models.conformer import check_flash_dtype
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, ctc_forward
+from conformer_nemo_tpu_torch.models.rnnt import PredictionNetwork, RNNTModel, check_joint_dtype
 from conformer_nemo_tpu_torch.train.lr_schedule import make_lr_schedule
 from conformer_nemo_tpu_torch.train.optim import make_optimizer, with_grad_accumulation
+from conformer_nemo_tpu_torch.train.rnnt_trainer import (
+    evaluate_rnnt_wer,
+    init_rnnt_state,
+    make_rnnt_eval_step,
+    make_rnnt_loss_eval_step,
+    make_rnnt_train_step,
+)
 from conformer_nemo_tpu_torch.train.trainer import (
     evaluate_wer,
     init_ctc_state,
@@ -48,6 +68,7 @@ from conformer_nemo_tpu_torch.train.trainer import (
 )
 
 _WAITS = "is not ported yet (ROADMAP.md, slice 2 leftovers)"
+_RNNT_WAITS = "is not ported yet (ROADMAP.md, slice 3 leftovers)"
 
 
 @dataclasses.dataclass
@@ -73,8 +94,11 @@ def _tokenizer_from_model_cfg(m: dict, tokenizer_dir: Optional[str] = None):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with the JAX package's rules: LeCun-normal
     (truncated at two standard deviations) linear and convolution weights
-    and zero biases. Norms, BatchNorm statistics and the rel-pos biases keep
-    their construction values (unit scales, zero shifts, identity stats)."""
+    (the joint's output projection included) and zero biases; the prediction
+    network's embedding, xavier-uniform input and orthogonal recurrent LSTM
+    weights and its biases (`PredictionNetwork.reset_parameters`). Norms,
+    BatchNorm statistics and the rel-pos biases keep their construction
+    values (unit scales, zero shifts, identity stats)."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
@@ -83,26 +107,32 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                   generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, PredictionNetwork):
+            mod.reset_parameters(generator)
 
 
-class ConformerCTC:
+class _BaseASRModel:
+    """What ConformerCTC and ConformerTransducer share: construction on a
+    device, the state_dict, the optimizer from the config, the loader, `fit`
+    on one device and transcribe's bucketing. A subclass builds `self.cfg`
+    and `self.model` in `_build` and implements `_init_state`,
+    `_make_train_step`, `_evaluate` and `_decode_audio_batch`."""
+
     def __init__(self, raw_cfg: dict, tokenizer, dtype: torch.dtype = torch.bfloat16,
                  device=None, seed: int = 0):
         self.device = resolve_device(device)
         self.raw_cfg = raw_cfg
         self.tokenizer = tokenizer
-        self.cfg = build_ctc_model_config(raw_cfg, vocab_size=tokenizer.vocab_size, dtype=dtype)
-        check_flash_dtype(self.cfg.encoder, self.device)
-        model = CTCModel(self.cfg)
+        self.seed = seed
+        model = self._build(dtype)
         init_weights(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
-        self.seed = seed
         self.train_state = None  # optimizer state and step count, made by fit
 
     @classmethod
     def from_config_file(cls, path: str, tokenizer_dir: Optional[str] = None,
                          overrides: Optional[dict] = None, dtype: torch.dtype = torch.bfloat16,
-                         device=None, seed: int = 0) -> "ConformerCTC":
+                         device=None, seed: int = 0):
         resolve_device(device)  # fail before any work when CUDA is missing
         raw = load_config(path, overrides)
         return cls(raw, _tokenizer_from_model_cfg(raw["model"], tokenizer_dir), dtype=dtype,
@@ -112,8 +142,7 @@ class ConformerCTC:
         return self.model.state_dict()
 
     def load_state_dict(self, state_dict: dict) -> None:
-        """Load a state_dict with NeMo's names (e.g. from
-        convert.jax_params.ctc_state_dict_from_jax)."""
+        """Load a state_dict with NeMo's names (e.g. from convert.jax_params)."""
         self.model.load_state_dict(state_dict, strict=True)
 
     # -- training -----------------------------------------------------------
@@ -129,13 +158,6 @@ class ConformerCTC:
                              betas=tuple(ocfg.get("betas", (0.9, 0.98))),
                              grad_clip=tr.get("gradient_clip_val") or None)
         return with_grad_accumulation(opt, int(tr.get("accumulate_grad_batches", 1) or 1))
-
-    def _make_train_step(self, optimizer):
-        """-> step(batch) -> metrics, over this model's training state."""
-        step = make_ctc_train_step(
-            self.cfg, optimizer,
-            skip_nan_grad=bool(self.raw_cfg["model"].get("skip_nan_grad", False)))
-        return lambda batch: step(self.train_state, batch)
 
     def _loader(self, manifest: str, ds_cfg: dict, shuffle: bool):
         for key, what in (("is_tarred", "tarred datasets"), ("augmentor", "the waveform augmentor"),
@@ -184,7 +206,7 @@ class ConformerCTC:
 
         optimizer = self._make_optimizer()
         if self.train_state is None:
-            self.train_state = init_ctc_state(self.model, optimizer, seed=self.seed)
+            self.train_state = self._init_state(optimizer)
         step_fn = self._make_train_step(optimizer)
         train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True)
         val_loader = (self._loader(val_manifest, m.get("validation_ds", {}), shuffle=False)
@@ -200,7 +222,7 @@ class ConformerCTC:
 
         def validate():
             if val_loader is not None:
-                val.update(evaluate_wer(self.cfg, self.model, val_loader, self.tokenizer))
+                val.update(self._evaluate(val_loader))
 
         t0 = time.time()
         metrics: dict = {}
@@ -229,8 +251,9 @@ class ConformerCTC:
                    logprobs: bool = False, return_hypotheses: bool = False,
                    longform_threshold_s: float = 60.0):
         """Offline transcription of audio files (eval mode, bucket-padded
-        batches). `logprobs=True` returns per-file [T, V+1] numpy arrays;
-        `return_hypotheses=True` returns TranscriptionHypothesis objects."""
+        batches). `logprobs=True` (CTC only) returns per-file [T, V+1] numpy
+        arrays; `return_hypotheses=True` returns TranscriptionHypothesis
+        objects."""
         if logprobs and return_hypotheses:
             raise ValueError("logprobs and return_hypotheses are exclusive")
         mode = "logprobs" if logprobs else ("hypotheses" if return_hypotheses else "text")
@@ -263,6 +286,27 @@ class ConformerCTC:
             out[j] = self._decode_audio_batch(audio, np.array([len(w)], np.int32), mode=mode)[0]
         return out
 
+
+class ConformerCTC(_BaseASRModel):
+    def _build(self, dtype: torch.dtype) -> CTCModel:
+        self.cfg = build_ctc_model_config(self.raw_cfg, vocab_size=self.tokenizer.vocab_size,
+                                          dtype=dtype)
+        check_flash_dtype(self.cfg.encoder, self.device)
+        return CTCModel(self.cfg)
+
+    def _init_state(self, optimizer):
+        return init_ctc_state(self.model, optimizer, seed=self.seed)
+
+    def _make_train_step(self, optimizer):
+        """-> step(batch) -> metrics, over this model's training state."""
+        step = make_ctc_train_step(
+            self.cfg, optimizer,
+            skip_nan_grad=bool(self.raw_cfg["model"].get("skip_nan_grad", False)))
+        return lambda batch: step(self.train_state, batch)
+
+    def _evaluate(self, loader) -> dict:
+        return evaluate_wer(self.cfg, self.model, loader, self.tokenizer)
+
     @torch.inference_mode()
     def _decode_audio_batch(self, audio: np.ndarray, lens: np.ndarray, mode: str = "text"):
         log_probs, enc_lens = ctc_forward(self.model, torch.from_numpy(audio).to(self.device),
@@ -282,3 +326,74 @@ class ConformerCTC:
                 text=self.tokenizer.ids_to_text(ids))
             for i, ids in enumerate(id_lists)
         ]
+
+
+class ConformerTransducer(_BaseASRModel):
+    """Conformer-Transducer: the encoder, an LSTM prediction network and the
+    joint (models/rnnt.py); training through the RNN-T loss (the flash joint
+    K4 and the lattice K3 on CUDA), transcription by batched greedy decode."""
+
+    def _build(self, dtype: torch.dtype) -> RNNTModel:
+        self.cfg = build_rnnt_model_config(self.raw_cfg, vocab_size=self.tokenizer.vocab_size,
+                                           dtype=dtype)
+        check_flash_dtype(self.cfg.model.encoder, self.device)
+        check_joint_dtype(self.cfg.model, self.device)
+        model = RNNTModel(self.cfg.model)
+        self.decoding = RNNTDecoding(model, self.tokenizer, self.raw_cfg["model"].get("decoding"))
+        return model
+
+    def change_decoding_strategy(self, decoding_cfg: dict) -> None:
+        """Swap the decoding strategy without touching the weights; the beam
+        strategies raise (ROADMAP.md)."""
+        self.decoding = RNNTDecoding(self.model, self.tokenizer, decoding_cfg)
+        self.raw_cfg["model"]["decoding"] = decoding_cfg
+
+    def change_vocabulary(self, *args, **kwargs):
+        raise NotImplementedError(f"change_vocabulary {_RNNT_WAITS}")
+
+    def transcribe_with_timestamps(self, *args, **kwargs):
+        raise NotImplementedError(f"word timestamps {_RNNT_WAITS}")
+
+    def transcribe_buffered(self, *args, **kwargs):
+        raise NotImplementedError(f"buffered decode {_RNNT_WAITS}")
+
+    def export(self, *args, **kwargs):
+        raise NotImplementedError(f"export {_RNNT_WAITS}")
+
+    def save_portable(self, *args, **kwargs):
+        raise NotImplementedError(f"save/restore {_RNNT_WAITS}")
+
+    def _init_state(self, optimizer):
+        return init_rnnt_state(self.model, optimizer, seed=self.seed)
+
+    def _make_train_step(self, optimizer):
+        """-> step(batch) -> metrics, over this model's training state."""
+        step = make_rnnt_train_step(
+            self.cfg, optimizer,
+            skip_nan_grad=bool(self.raw_cfg["model"].get("skip_nan_grad", False)))
+        return lambda batch: step(self.train_state, batch)
+
+    def _evaluate(self, loader) -> dict:
+        loss_step = (make_rnnt_loss_eval_step(self.cfg)
+                     if self.raw_cfg["model"].get("compute_eval_loss", False) else None)
+        return evaluate_rnnt_wer(
+            self.cfg, self.model, loader, self.tokenizer,
+            make_rnnt_eval_step(self.cfg, max_symbols=self.decoding.max_symbols),
+            loss_step=loss_step)
+
+    @torch.inference_mode()
+    def _decode_audio_batch(self, audio: np.ndarray, lens: np.ndarray, mode: str = "text"):
+        if mode == "logprobs":
+            raise ValueError("logprobs=True is CTC-only (the transducer's transcribe has no "
+                             "logprobs)")
+        self.model.eval()
+        feats, feat_lens = log_mel_spectrogram(self.cfg.preprocessor,
+                                               torch.from_numpy(audio).to(self.device),
+                                               torch.from_numpy(lens).to(self.device))
+        enc, enc_lens = self.model.encode(feats, feat_lens)
+        ids = self.decoding.decode(enc, enc_lens, preserve_alignments=mode == "hypotheses")
+        if mode == "text":
+            return [self.tokenizer.ids_to_text(seq) for seq in ids]
+        return [TranscriptionHypothesis(score=0.0, y_sequence=seq,
+                                        text=self.tokenizer.ids_to_text(seq), timestep=frames)
+                for seq, frames in zip(ids, self.decoding.last_alignments)]

@@ -19,6 +19,12 @@ from conformer_nemo_tpu_torch.audio.features import MelFeatureConfig
 from conformer_nemo_tpu_torch.audio.spec_augment import SpecAugmentConfig
 from conformer_nemo_tpu_torch.models.conformer import ConformerEncoderConfig
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModelConfig
+from conformer_nemo_tpu_torch.models.rnnt import (
+    RNNTDecoderConfig,
+    RNNTJointConfig,
+    RNNTModelConfig,
+)
+from conformer_nemo_tpu_torch.train.rnnt_trainer import RNNTTrainConfig
 
 # ---------------------------------------------------------------------------
 # Loading, overrides, interpolation
@@ -128,4 +134,58 @@ def build_ctc_model_config(cfg: dict, vocab_size: Optional[int] = None,
         encoder=build_encoder_config(m.get("encoder", {}), dtype=dtype),
         num_classes=vocab_size,
         ctc_reduction=m.get("ctc_reduction", "mean_batch"),
+    )
+
+
+def build_rnnt_model_config(cfg: dict, vocab_size: int,
+                            dtype: torch.dtype = torch.bfloat16) -> RNNTTrainConfig:
+    """model-section dict (reference shape) -> RNNTTrainConfig, as the JAX
+    package's `ConformerTransducer.__init__` builds it: blank id = V; the loss
+    kwargs under `warprnnt_numba_kwargs` (the reference's key) or its alias
+    `rnnt_kwargs`; variational noise; the flash-joint knobs `joint_impl`,
+    `joint_flash_bt` and `joint_flash_hbm_threshold`."""
+    m = cfg["model"] if "model" in cfg else cfg
+    defaults = m.get("model_defaults", {})
+    dec_cfg = m.get("decoder", {})
+    prednet = dec_cfg.get("prednet", {})
+    joint_cfg = m.get("joint", {})
+    jointnet = joint_cfg.get("jointnet", {})
+    loss_cfg = m.get("loss") or {}
+    loss_kwargs = loss_cfg.get("warprnnt_numba_kwargs") or loss_cfg.get("rnnt_kwargs") or {}
+    loss_name = loss_cfg.get("loss_name", "default")
+    if loss_name not in ("default", "warprnnt_numba"):
+        raise ValueError(f"unsupported transducer loss_name {loss_name!r} (the one lattice "
+                         "implementation covers the reference's default/warprnnt_numba)")
+    vn = m.get("variational_noise") or {}
+    return RNNTTrainConfig(
+        preprocessor=build_preprocessor_config(m.get("preprocessor", {})),
+        spec_augment=build_spec_augment_config(m.get("spec_augment", {}) or {}),
+        model=RNNTModelConfig(
+            encoder=build_encoder_config(m.get("encoder", {}), dtype=dtype),
+            decoder=RNNTDecoderConfig(
+                vocab_size=vocab_size,
+                pred_hidden=prednet.get("pred_hidden", defaults.get("pred_hidden", 640)),
+                pred_rnn_layers=prednet.get("pred_rnn_layers", 1),
+                dropout=prednet.get("dropout", 0.1),
+                forget_gate_bias=float(prednet.get("forget_gate_bias", 1.0)),
+                t_max=prednet.get("t_max"),
+                weights_init_scale=float(prednet.get("weights_init_scale", 1.0)),
+                norm=dec_cfg.get("normalization_mode"),
+                random_state_sampling=bool(dec_cfg.get("random_state_sampling", False)),
+                blank_as_pad=bool(dec_cfg.get("blank_as_pad", True)),
+                dtype=dtype),
+            joint=RNNTJointConfig(
+                joint_hidden=jointnet.get("joint_hidden", defaults.get("joint_hidden", 640)),
+                activation=jointnet.get("activation", "relu"),
+                dropout=jointnet.get("dropout", 0.1),
+                fuse_loss_wer=joint_cfg.get("fuse_loss_wer", True),
+                fused_batch_size=joint_cfg.get("fused_batch_size", 16),
+                dtype=dtype),
+            fastemit_lambda=float(loss_kwargs.get("fastemit_lambda", 0.0)),
+            clamp=float(loss_kwargs.get("clamp", -1.0)),
+            joint_impl=joint_cfg.get("joint_impl", "auto"),
+            joint_flash_bt=int(joint_cfg.get("joint_flash_bt", 16)),
+            joint_flash_hbm_threshold=float(joint_cfg.get("joint_flash_hbm_threshold", 5.0e9))),
+        variational_noise_std=float(vn.get("std", 0.0)),
+        variational_noise_start=int(vn.get("start_step", 0)),
     )

@@ -1,8 +1,8 @@
 """JAX-package variables -> the port's state_dict (NeMo names and layouts).
 
-The exact inverse of `convert_ctc_model_state` in
-conformer_nemo_tpu/convert/nemo_weights.py, which maps a NeMo state_dict
-onto the JAX package's flax tree. Inputs are plain numpy arrays (the
+The exact inverses of `convert_ctc_model_state` and
+`convert_rnnt_model_state` in conformer_nemo_tpu/convert/nemo_weights.py,
+which map a NeMo state_dict onto the JAX package's flax tree. Inputs are plain numpy arrays (the
 `{"params", "batch_stats"}` tree moved off the JAX device); nothing here
 imports JAX. Layout rules (flax -> torch):
 
@@ -116,4 +116,43 @@ def ctc_state_dict_from_jax(variables: dict, cfg) -> dict[str, torch.Tensor]:
     head = params["decoder"]["decoder_layers"]
     sd["decoder.decoder_layers.0.weight"] = _np(head["kernel"]).T[:, :, None]
     sd["decoder.decoder_layers.0.bias"] = _np(head["bias"])
+    return {k: _tensor(v) for k, v in sd.items()}
+
+
+def rnnt_state_dict_from_jax(variables: dict, cfg) -> dict[str, torch.Tensor]:
+    """JAX `{"params", "batch_stats"}` (numpy leaves) -> the port's RNNTModel
+    state_dict; the exact inverse of `convert_rnnt_model_state`. `cfg`: the
+    port's (or the JAX package's) RNNTModelConfig.
+
+    The JAX LSTM keeps one fused bias b and adds forget_gate_bias at run
+    time; NeMo's state_dict (and so the port's) keeps bias_ih + bias_hh
+    with the constant in bias_ih's forget chunk. The split is not unique:
+    this puts b plus the constant in bias_ih and zeros in bias_hh, which is
+    how the port writes its one trained bias."""
+    params = variables["params"]
+    stats = (variables.get("batch_stats") or {}).get("encoder", {})
+    sd = _encoder_state(params["encoder"], stats, cfg.encoder, "encoder.")
+    dec, dcfg = params["decoder"], cfg.decoder
+    h = dcfg.pred_hidden
+    pre = "decoder.prediction."
+    sd[pre + "embed.weight"] = _np(dec["embed"]["embedding"])
+    for k in range(dcfg.pred_rnn_layers):
+        lstm = pre + "dec_rnn.lstm."
+        sd[lstm + f"weight_ih_l{k}"] = _np(dec[f"lstm{k}_wx"]).T
+        sd[lstm + f"weight_hh_l{k}"] = _np(dec[f"lstm{k}_wh"]).T
+        b = _np(dec[f"lstm{k}_b"]).copy()
+        if dcfg.t_max is None and dcfg.forget_gate_bias:
+            b[h: 2 * h] += float(dcfg.forget_gate_bias)
+        sd[lstm + f"bias_ih_l{k}"] = b
+        sd[lstm + f"bias_hh_l{k}"] = np.zeros_like(b)
+        if dcfg.norm == "layer":
+            for name in ("ln_i", "ln_h", "ln_c"):
+                sd[lstm + f"{name}_l{k}.weight"] = _np(dec[f"lstm{k}_{name}_scale"])
+                sd[lstm + f"{name}_l{k}.bias"] = _np(dec[f"lstm{k}_{name}_bias"])
+    joint = params["joint"]
+    for name in ("enc", "pred"):
+        sd[f"joint.{name}.weight"] = _np(joint[name]["kernel"]).T
+        sd[f"joint.{name}.bias"] = _np(joint[name]["bias"])
+    sd["joint.joint_net.2.weight"] = _np(joint["out_kernel"]).T
+    sd["joint.joint_net.2.bias"] = _np(joint["out_bias"])
     return {k: _tensor(v) for k, v in sd.items()}

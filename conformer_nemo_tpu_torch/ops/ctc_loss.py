@@ -42,7 +42,7 @@ alpha_launches = launch_count("K1-fwd")
 grad_launches = launch_count("K1-bwd")
 
 
-def _lse2(a, b):
+def lse2(a, b):
     """log(e^a + e^b) with -1e30 as -inf; the double `where` keeps both
     branches (and their gradients) finite where the lattice is empty."""
     m = torch.maximum(a, b)
@@ -93,11 +93,11 @@ def ctc_forward_neg_log_likelihood(log_probs, targets, input_lengths, target_len
     for t in range(1, t_max):
         a_m1 = F.pad(alpha, (1, 0), value=_NEG_INF)[:, :s_max]
         a_m2 = F.pad(alpha, (2, 0), value=_NEG_INF)[:, :s_max]
-        new = _lse2(_lse2(alpha, a_m1), torch.where(can_skip, a_m2, _NEG_INF)) + emits[:, t]
+        new = lse2(lse2(alpha, a_m1), torch.where(can_skip, a_m2, _NEG_INF)) + emits[:, t]
         new = torch.where(in_lattice, new, _NEG_INF)
         alpha = torch.where((t < lens)[:, None], new, alpha)  # frozen past the length
     last, last2 = _final_ll(alpha, tl)
-    return -_lse2(last, last2)
+    return -lse2(last, last2)
 
 
 def _emits(lp, ext, in_lattice):
@@ -124,7 +124,7 @@ def ctc_alphas_reference(log_probs, targets, input_lengths, target_lengths, blan
     for t in range(1, t_max):
         a_m1 = F.pad(alpha, (1, 0), value=_NEG_INF)[:, :s_max]
         a_m2 = torch.where(skip, F.pad(alpha, (2, 0), value=_NEG_INF)[:, :s_max], _NEG_INF)
-        new = _lse2(_lse2(alpha, a_m1), a_m2) + emits[:, t]
+        new = lse2(lse2(alpha, a_m1), a_m2) + emits[:, t]
         alpha = torch.where((t < lens)[:, None], new, alpha)
         alphas.append(alpha)
     last, last2 = _final_ll(alpha, tl)
@@ -154,7 +154,7 @@ def ctc_grad_reference(log_probs, targets, input_lengths, target_lengths, alphas
         be = beta + emits[:, min(t + 1, t_max - 1)]
         adv = F.pad(be, (0, 1), value=_NEG_INF)[:, 1:]
         skp = torch.where(skip2, F.pad(be, (0, 2), value=_NEG_INF)[:, 2:], _NEG_INF)
-        beta = torch.where((t == lens - 1) | (t >= lens), final, _lse2(_lse2(be, adv), skp))
+        beta = torch.where((t == lens - 1) | (t >= lens), final, lse2(lse2(be, adv), skp))
         post = torch.exp(torch.clamp(alphas[:, t] + beta - ll, -60.0, 0.0))
         dem[:, t] = torch.where(t >= lens, 0.0, -post)
     dem = torch.where(in_lattice[:, None, :], dem, 0.0)

@@ -34,14 +34,14 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 15  # every module was walked
+    assert int(r.stdout.split()[-1]) >= 36  # every module was walked
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without a GPU")
     from conformer_nemo_tpu_torch import resolve_device
-    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
@@ -50,6 +50,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ConformerCTC.from_config_file(
             os.path.join(ROOT, "configs", "conformer_ctc_bpe.yaml"),
+            overrides={"model.tokenizer.model_file": os.path.join(
+                ROOT, "tests", "fixtures", "sp_bpe_bytefallback.model")})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ConformerTransducer.from_config_file(
+            os.path.join(ROOT, "configs", "conformer_transducer_bpe.yaml"),
             overrides={"model.tokenizer.model_file": os.path.join(
                 ROOT, "tests", "fixtures", "sp_bpe_bytefallback.model")})
     assert resolve_device("cpu") == torch.device("cpu")

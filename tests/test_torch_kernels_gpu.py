@@ -93,3 +93,117 @@ def test_ctc_cuda_kernels_match_plain(cuda_device):
     assert ((nll - nll_ref).abs() / nll_ref.abs().clamp(min=1.0)).max().item() <= NLL_REL_TOL
     assert (grad - grad_ref).abs().max().item() <= GRAD_ABS_TOL
     assert grad[1, 250:].abs().max().item() == 0.0  # no gradient past the length
+
+
+# K3 vs its plain version in fp32: the same recursion in the same order
+LATTICE_REL_TOL = 1e-5
+# K4 vs its plain version in bf16: max|kernel - plain| <= 2e-2 * max|plain| per output
+JOINT_REL_TOL = 2e-2
+
+
+def _lattice_inputs(dev, b, t, u1, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    bl = torch.log(torch.rand(b, t, u1, generator=g) * 0.9 + 0.05)
+    lb = torch.log(torch.rand(b, t, u1, generator=g) * 0.9 + 0.05)
+    lb[:, :, -1] = -1e30
+    return bl.to(dev), lb.to(dev)
+
+
+def _rel_err(a, b):
+    return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,u1,t_lens,u_lens", [(60, 12, [60, 41, 1, 7], [11, 5, 0, 0]),
+                                                 (37, 1100, [37, 20], [1099, 600])])
+def test_rnnt_lattice_cuda_kernels_match_plain(cuda_device, t, u1, t_lens, u_lens):
+    from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
+
+    bl, lb = _lattice_inputs(cuda_device, len(t_lens), t, u1)
+    tl = torch.tensor(t_lens, dtype=torch.int32, device=cuda_device)
+    ul = torch.tensor(u_lens, dtype=torch.int32, device=cuda_device)
+    a, b = lat.rnnt_alphas(bl, lb, tl, ul), lat.rnnt_betas(bl, lb, tl, ul)
+    a_ref = lat.rnnt_alphas_reference(bl, lb, tl, ul)
+    b_ref = lat.rnnt_betas_reference(bl, lb, tl, ul)
+    torch.cuda.synchronize()
+    assert _rel_err(a, a_ref) <= LATTICE_REL_TOL and _rel_err(b, b_ref) <= LATTICE_REL_TOL
+    outside = ~lat.valid_cells(bl.shape, tl, ul)
+    assert (a[outside] == -1e30).all() and (b[outside] == -1e30).all()
+
+
+def _joint_inputs(dev, b, t, u, h, v, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    bf = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev, torch.bfloat16)
+    e, p = bf(b, t, h, scale=0.5), bf(b, u + 1, h, scale=0.5)
+    w, bias = bf(h, v, scale=h ** -0.5), bf(v, scale=0.1)
+    targets = torch.randint(0, v - 1, (b, u), generator=g).to(dev, torch.int32)
+    return e, p, w, bias, targets, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation,drop_t,clamp", [("relu", 0, -1.0), ("tanh", 26, 2.0)])
+def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, clamp):
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    b, t, u, h, v = 3, 37, 8, 64, 41  # T not a multiple of 16; VL = 40 ragged
+    e, p, w, bias, targets, g = _joint_inputs(cuda_device, b, t, u, h, v)
+    seed = torch.tensor([12345], dtype=torch.int32)
+    t_lens = torch.tensor([37, 20, 1], dtype=torch.int32, device=cuda_device)
+    u_lens = torch.tensor([8, 3, 0], dtype=torch.int32, device=cuda_device)
+    kw = dict(t_lens=t_lens, u_lens=u_lens, blank_id=v - 1, activation=activation,
+              drop_t=drop_t, bt=16)
+    fwd = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    fwd_ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    inside = (torch.arange(t, device=cuda_device)[None, :, None] < t_lens[:, None, None]) & (
+        torch.arange(u + 1, device=cuda_device)[None, None, :] <= u_lens[:, None, None])
+    # posteriors non-zero outside the lattice too: both versions ignore them there
+    post = [torch.rand(b, t, u + 1, generator=g).to(cuda_device) * s for s in (1.1, 0.6, 0.6)]
+    gg = torch.tensor([1.0, 0.5, 2.0], device=cuda_device)
+    args = (e, p, w, bias, targets, fwd_ref[2].contiguous(), *post, gg, seed)
+    bwd = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
+    bwd_ref = jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw)
+    _, partials = jt.joint_flash_bwd_partials(
+        *args, t_lens=t_lens, u_lens=u_lens, act=jt.ACTIVATIONS.index(activation),
+        drop_t=drop_t, bt=16, clamp=clamp)
+    for a, r in zip(jt.joint_flash_bwd_reduce(partials, b, t),
+                    jt.joint_flash_bwd_reduce_reference(partials, b, t)):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)  # fp32 sums, another order
+    torch.cuda.synchronize()
+    for name, a, r in zip(("blank_lp", "label_lp", "lse"), fwd, fwd_ref):
+        assert torch.equal(a[~inside], r[~inside]), name  # the sentinels
+        a, r = a[inside], r[inside]
+        assert torch.isfinite(a).all(), name
+        assert (a - r).abs().max().item() <= JOINT_REL_TOL * r.abs().max().item(), name
+    for name, a, r in zip(("de", "dp", "dw", "db"), bwd, bwd_ref):
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all(), name
+        assert (a - r).abs().max().item() <= JOINT_REL_TOL * r.abs().max().item(), name
+
+
+@pytest.mark.gpu
+def test_rnnt_joint_cuda_dropout_mask_is_the_hash_mask(cuda_device):
+    """Probe: W_lab the identity, p = 0, e a positive constant: each cell's
+    label logit is its h at the target column, c * inv_keep if kept and 0 if
+    dropped, so the kernel's keep bit there can be read off label_lp + lse
+    and is held against hash_keep_mask_reference bit for bit."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    b, t, u, h, bt, drop_t = 2, 35, 15, 64, 16, 64
+    dev = cuda_device
+    gen = torch.Generator().manual_seed(3)
+    targets = torch.randint(0, h, (b, u), generator=gen).to(dev, torch.int32)
+    e = torch.full((b, t, h), 0.5, dtype=torch.bfloat16, device=dev)
+    p = torch.zeros((b, u + 1, h), dtype=torch.bfloat16, device=dev)
+    w = torch.cat([torch.eye(h), torch.zeros(h, 1)], dim=1).to(dev, torch.bfloat16)
+    bias = torch.zeros(h + 1, dtype=torch.bfloat16, device=dev)
+    seed = torch.tensor([-987654321], dtype=torch.int32)
+    full = lambda n: torch.full((b,), n, dtype=torch.int32, device=dev)
+    _, label_lp, lse = jt.joint_flash_fwd(e, p, w, bias, targets, seed, t_lens=full(t),
+                                          u_lens=full(u), blank_id=h, drop_t=drop_t, bt=bt)
+    kept = (label_lp + lse) > 0.25
+    mask = jt.hash_keep_mask_reference((b, jt.padded_t(t, bt), u + 1, h), seed, drop_t,
+                                       device=dev)[:, :t]
+    tgt = torch.nn.functional.pad(targets.long(), (0, 1))[:, None, :, None].expand(b, t, u + 1, 1)
+    want = torch.gather(mask, 3, tgt)[..., 0]
+    assert torch.equal(kept, want)
+    assert 0.6 < want.float().mean().item() < 0.9
