@@ -15,7 +15,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                transcribe, device busy share and the kernels that take its time)
   train        ConformerCTC.fit at full width on configs/conformer_ctc_bpe_longform.yaml
                (batch 8, remat, flash) over 16 generated 45-75 s WAVs, 3 steps
-               with validation; per step the launch counts of all five kernels,
+               with validation; per step the launch counts of all six kernels,
                finite loss and gradient norm, changed parameters and BatchNorm
                statistics, the step time and audio-seconds trained per second;
                then transcribe of a training file (profile_train: one traced
@@ -29,7 +29,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   rnnt_train   ConformerTransducer.fit at full width on configs/conformer_transducer_bpe.yaml
                with the flash joint (joint_impl flash, one bucket) over 16 generated
                10-16 s WAVs, 3 steps; per step one launch each of K4-fwd, K3-alpha,
-               K3-beta and the two K4-bwd kernels and none of K1/K2, finite loss
+               K3-beta and K4-bwd-reduce, one K4-bwd and one K4-bwd-dw per window
+               of lattice cells, and none of K1/K2, finite loss
                and gradient norm, changed parameters, step time and audio-s/s; then
                a timed greedy transcribe of a few files (profile_rnnt: one traced
                train step)
@@ -43,7 +44,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                transcribe's and train step's own calls and a few edge cases,
                with times, the card's bound and a library yardstick (K3 and
                K4 at the counted transducer step's shapes and lengths, edge
-               cases, and the dropout mask read back bit for bit)
+               cases up to U+1 1100, the joint at V 401 and CTC at U 4200,
+               and the dropout mask read back bit for bit); the K1 and K4
+               backwards also as whole functions (rows of their own in the
+               summary, against the library's whole backward), run twice for
+               the same bits, and K4-bwd's scratch bytes
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -103,14 +108,15 @@ PARITY_GRAD_COSINE = 0.99
 # invariance; the depthwise bias before training BatchNorm): their relative
 # error between two summation orders is meaningless
 ZERO_GRAD = ("self_attn.linear_k.bias", "conv.depthwise_conv.bias")
-PER_STEP_LAUNCHES = {"K2-fwd": 36, "K2-bwd-dq": 18, "K2-bwd-dkv": 18, "K1-fwd": 1, "K1-bwd": 1}
+PER_STEP_LAUNCHES = {"K2-fwd": 36, "K2-bwd-dq": 18, "K2-bwd-dkv": 18, "K1-fwd": 1, "K1-bwd": 1,
+                     "K1-bwd-grad": 1}
 RNNT_CONFIG = os.path.join(ROOT, "configs", "conformer_transducer_bpe.yaml")
 RNNT_OVERRIDES = {**TRAIN_OVERRIDES, "model.joint.joint_impl": "flash"}
-# one transducer step through the flash joint: K4-bwd is two kernels (the
-# backward and the reduce of its per-block partials); no CTC or
+# one transducer step through the flash joint: K4-bwd is the cells and sums
+# kernels once per window of lattice cells, then the reduce; no CTC or
 # flash-attention kernel
-RNNT_STEP_LAUNCHES = {"K3-alpha": 1, "K3-beta": 1, "K4-fwd": 1, "K4-bwd": 1, "K4-bwd-reduce": 1,
-                      "K2-fwd": 0, "K2-bwd-dq": 0, "K2-bwd-dkv": 0, "K1-fwd": 0, "K1-bwd": 0}
+RNNT_KERNELS = ("K3-alpha", "K3-beta", "K4-fwd", "K4-bwd", "K4-bwd-dw", "K4-bwd-reduce")
+NOT_RNNT = ("K2-fwd", "K2-bwd-dq", "K2-bwd-dkv", "K1-fwd", "K1-bwd", "K1-bwd-grad")
 RNNT_TRANSCRIBE_FILES = 3
 # K3 vs its plain version in fp32: the same recursion in the same order
 LATTICE_REL_TOL = 1e-5
@@ -139,7 +145,8 @@ FLASH_DKV = ("conformer_nemo_tpu_torch/ops/csrc/flash_attention_bwd.cu",
 CTC_FWD = ("conformer_nemo_tpu_torch/ops/csrc/ctc_loss.cu",
            "conformer_nemo_tpu/ops/pallas/ctc_kernel.py:56 (_fwd_kernel, via _run_fwd :128)")
 CTC_BWD = ("conformer_nemo_tpu_torch/ops/csrc/ctc_loss.cu",
-           "conformer_nemo_tpu/ops/pallas/ctc_kernel.py:80 (_bwd_kernel, via _run_bwd :147)")
+           "conformer_nemo_tpu/ops/pallas/ctc_kernel.py:80 (_bwd_kernel, via _run_bwd :147 "
+           "-> :150, and _ctc_bwd :233)")
 RNNT_ALPHA = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_lattice.cu",
               "conformer_nemo_tpu/ops/pallas/rnnt_kernel.py:42 "
               "(_alpha_kernel, via alphas_skewed_pallas :105)")
@@ -151,7 +158,7 @@ JOINT_FWD = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_joint.cu",
              "(_make_fwd_kernel, via joint_flash_fwd :326)")
 JOINT_BWD = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_joint.cu",
              "conformer_nemo_tpu/ops/pallas/rnnt_joint_kernel.py:191 "
-             "(_make_bwd_kernel, via joint_flash_bwd :372)")
+             "(_make_bwd_kernel, via joint_flash_bwd :372 -> :393)")
 
 
 def check(ok: bool, what) -> None:
@@ -182,6 +189,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, kernels: dict, iters: int = 5) -> dict:
+    """Device time per call of fn() of each kernel named in `kernels`
+    ({label: substring of its name}), summed over its launches in a call,
+    from torch.profiler over `iters` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for label, name in kernels.items():
+        us = sum(e.self_device_time_total for e in events if name in e.key)
+        check(us > 0, ("the profiler saw no", name))
+        out[label] = us / iters / 1e3
+    return out
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -348,8 +377,10 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
     return rows
 
 
-def _ctc_case(name, lp, targets, il, tl, blank):
-    """K1-fwd and K1-bwd against their plain versions -> (fwd row, bwd row)."""
+def _ctc_case(name, lp, targets, il, tl, blank, timed=True):
+    """K1-fwd, K1-bwd (betas) and K1-bwd-grad (the collect) against their
+    plain versions -> (fwd row, bwd row, collect row, whole backward row);
+    untimed, one row of errors only and no rows returned."""
     from conformer_nemo_tpu_torch.ops import ctc_loss as ctc
 
     b, t, v1 = lp.shape
@@ -357,18 +388,37 @@ def _ctc_case(name, lp, targets, il, tl, blank):
     g = torch.ones(b, device=lp.device)
     alphas, nll = ctc.ctc_alphas(lp, targets, il, tl, blank)
     grad = ctc.ctc_grad(lp, targets, il, tl, alphas, nll, g, blank)
+    grad2 = ctc.ctc_grad(lp, targets, il, tl, alphas, nll, g, blank)
     a_ref, nll_ref = ctc.ctc_alphas_reference(lp, targets, il, tl, blank)
-    grad_ref = ctc.ctc_grad_reference(lp, targets, il, tl, a_ref, nll_ref, g, blank)
+    b_ref, c_ref = ctc.ctc_betas_reference(lp, targets, il, tl, blank)
+    # ctc_grad_reference is these two plain pieces composed
+    grad_ref = ctc.ctc_collect_reference(lp, targets, il, tl, a_ref, b_ref, c_ref, nll_ref, g,
+                                         blank)
+    betas, chains = ctc.ctc_betas(lp, targets, il, tl, blank)
+    coll = ctc.ctc_collect(lp, targets, il, tl, alphas, betas, chains, nll, g, blank)
+    coll_ref = ctc.ctc_collect_reference(lp, targets, il, tl, alphas, betas, chains, nll, g, blank)
     torch.cuda.synchronize()
     feasible = nll_ref < 1e29
     check(torch.isfinite(nll).all().item() and torch.isfinite(grad).all().item(),
           (name, "non-finite"))
     check(bool((nll[~feasible] >= 1e29).all()), (name, "infeasible rows keep the sentinel"))
+    check(torch.equal(grad, grad2), (name, "the backward is not deterministic"))
+    check(torch.equal(chains, c_ref), (name, "label chains"))
     nll_err = ((nll - nll_ref).abs() / nll_ref.abs().clamp(min=1.0))[feasible].max().item()
     nll_abs = (nll - nll_ref).abs()[feasible].max().item()
     grad_err = (grad - grad_ref).abs().max().item()
+    beta_err = ((betas - b_ref).abs() / b_ref.abs().clamp(min=1.0)).max().item()
+    coll_err = (coll - coll_ref).abs().max().item()
     check(nll_err <= NLL_REL_TOL, (name, "nll", nll_err))
     check(grad_err <= GRAD_ABS_TOL, (name, "grad", grad_err))
+    check(beta_err <= NLL_REL_TOL, (name, "betas", beta_err))
+    check(coll_err <= GRAD_ABS_TOL, (name, "collect", coll_err))
+    errors = {"case": name, "b": b, "t": t, "u": u, "v1": v1, "nll_rel_err": nll_err,
+              "grad_abs_err": grad_err, "betas_rel_err": beta_err, "collect_abs_err": coll_err,
+              "deterministic": True}
+    if not timed:
+        emit("kernels", kernel="K1 (untimed)", **errors)
+        return []
     # library yardstick: torch.nn.functional.ctc_loss (reduction none, blank = V);
     # only its nll is compared, its gradient follows PyTorch's own convention
     lib_args = (lp.transpose(0, 1), targets.long(), il.long(), tl.long())
@@ -382,8 +432,14 @@ def _ctc_case(name, lp, targets, il, tl, blank):
     lib_fb_ms = time_ms(lambda: torch.autograd.grad(torch.nn.functional.ctc_loss(
         lp_req.transpose(0, 1), *lib_args[1:], blank=blank, reduction="none").sum(),
         lp_req), 5)
+    # its backward alone: autograd.grad on a retained forward graph
+    lib_loss = torch.nn.functional.ctc_loss(lp_req.transpose(0, 1), *lib_args[1:], blank=blank,
+                                            reduction="none").sum()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_loss, lp_req, retain_graph=True), 5)
+    del lib_loss
     # bytes: each sample's log-prob entries of the classes its lattice uses,
-    # every frame; alphas written (fwd) or read (bwd); the gradient written
+    # every frame; alphas written (fwd), betas written (betas) or alphas and
+    # betas read (collect); the gradient written
     s = 2 * u + 1
     ext = torch.full((b, s), blank, dtype=torch.int64, device=lp.device)
     ext[:, 1::2] = targets.long()
@@ -391,23 +447,41 @@ def _ctc_case(name, lp, targets, il, tl, blank):
     classes = sum(len(set(ext[i][in_lattice[i]].tolist())) for i in range(b))
     entries = 4 * t * classes
     lattice_ops = 20.0 * b * t * s  # a handful of fp32 flops per state and step
-    common = {"case": name, "b": b, "t": t, "u": u, "v1": v1, "serial_steps": t,
-              "nll_rel_err": nll_err, "nll_abs_err": nll_abs, "grad_abs_err": grad_err, "tol_nll_rel": NLL_REL_TOL,
-              "tol_grad_abs": GRAD_ABS_TOL, "library_nll_rel_err": lib_err}
+    common = {**errors, "serial_steps": t, "nll_abs_err": nll_abs, "tol_nll_rel": NLL_REL_TOL,
+              "tol_grad_abs": GRAD_ABS_TOL, "library_nll_rel_err": lib_err,
+              "library_fwd_bwd_ms": lib_fb_ms, "library_bwd_ms": lib_bwd_ms}
     rows = []
-    for kernel, fn, plain, lib_ms, nbytes, err in (
+    for kernel, fn, plain, lib_ms, flops, nbytes, err in (
             ("K1-fwd", lambda: ctc.ctc_alphas(lp, targets, il, tl, blank),
              lambda: ctc.ctc_alphas_reference(lp, targets, il, tl, blank), lib_fwd_ms,
-             entries + 4 * b * t * s + 4 * b, nll_abs),
-            ("K1-bwd", lambda: ctc.ctc_grad(lp, targets, il, tl, alphas, nll, g, blank),
-             lambda: ctc.ctc_grad_reference(lp, targets, il, tl, a_ref, nll_ref, g, blank),
-             lib_fb_ms, entries + 4 * b * t * s + 4 * b * t * v1 + 8 * b, grad_err)):
+             lattice_ops, entries + 4 * b * t * s + 4 * b, nll_abs),
+            # the serial half of the backward: no PyTorch call computes it alone
+            ("K1-bwd", lambda: ctc.ctc_betas(lp, targets, il, tl, blank),
+             lambda: ctc.ctc_betas_reference(lp, targets, il, tl, blank), None,
+             lattice_ops, entries + 4 * b * t * s + 8 * b, beta_err),
+            ("K1-bwd-grad", lambda: ctc.ctc_collect(lp, targets, il, tl, alphas, betas, chains,
+                                                    nll, g, blank),
+             lambda: ctc.ctc_collect_reference(lp, targets, il, tl, alphas, betas, chains, nll,
+                                               g, blank), None,
+             4.0 * b * t * s, 8 * b * t * s + 4 * b * t * v1 + 8 * b + 8 * b * u, coll_err)):
         row = {**common, "kernel": kernel, "max_abs_err": err, "ms": time_ms(fn, 10),
                "plain_ms": time_ms(plain, 1, warmup=1), "library_ms": lib_ms,
-               **bound(lattice_ops, nbytes, PEAK_FP32_FLOPS)}
-        row["us_per_step"] = row["ms"] * 1e3 / t
+               **bound(flops, nbytes, PEAK_FP32_FLOPS)}
+        if kernel != "K1-bwd-grad":
+            row["us_per_step"] = row["ms"] * 1e3 / t
         emit("kernels", **row)
         rows.append(row)
+    # the whole backward as one function (betas, then the collect), against
+    # F.ctc_loss's backward alone
+    row = {**common, "kernel": "K1-bwd-whole", "max_abs_err": grad_err,
+           "ms": time_ms(lambda: ctc.ctc_grad(lp, targets, il, tl, alphas, nll, g, blank), 10),
+           "plain_ms": time_ms(lambda: ctc.ctc_grad_reference(lp, targets, il, tl, alphas, nll, g,
+                                                              blank), 1, warmup=0),
+           "library_ms": lib_bwd_ms,
+           **bound(lattice_ops, entries + 4 * b * t * s + 4 * b * t * v1 + 8 * b,
+                   PEAK_FP32_FLOPS)}
+    emit("kernels", **row)
+    rows.append(row)
     return rows
 
 
@@ -452,8 +526,10 @@ def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev):
 
 def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu", drop_t=26,
                 fastemit=0.0, clamp=-1.0, bt=16):
-    """K4-fwd and the two K4-bwd kernels against their plain versions, on
-    posteriors from the K3 lattice of the kernel's own forward."""
+    """K4-fwd and the three K4-bwd kernels against their plain versions, on
+    posteriors from the K3 lattice of the kernel's own forward; the whole
+    backward timed as one function, checked for the same bits on a second
+    call, and its scratch measured."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
     from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
     from conformer_nemo_tpu_torch.ops.rnnt_loss import posteriors
@@ -484,16 +560,35 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
             g, seed)
     bwd = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
     bwd_ref = jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw)
-    part_kw = dict(t_lens=tl, u_lens=ul, act=jt.ACTIVATIONS.index(activation), drop_t=drop_t,
-                   bt=bt, clamp=clamp)
-    _, partials = jt.joint_flash_bwd_partials(*args, **part_kw)
-    red = jt.joint_flash_bwd_reduce(partials, b, t)
-    red_ref = jt.joint_flash_bwd_reduce_reference(partials, b, t)
+    bwd2 = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
+    # each backward kernel against its plain version on the same inputs: the
+    # first window's cells, its sums into fresh accumulators, their reduce
+    w_pad, w_blank = jt.pad_label_block(w, v - 1)
+    cells_in = int(inside.sum().item())
+    win, n_win = jt.bwd_windows(b * t * (u + 1), h, v)
+    pkw = dict(t_lens=tl, u_lens=ul, activation=activation, drop_t=drop_t, bt=bt)
+    cells_args = (e, p, w_pad, w_blank, *args[3:])
+    new_acc = lambda: jt.bwd_accumulators(b, t, u + 1, h, v, dev)
+    cells = jt.joint_flash_bwd_cells(*cells_args, c0=0, win=win, clamp=clamp, **pkw)
+    cells_ref = jt.joint_flash_bwd_cells_reference(*cells_args, c0=0, win=win, clamp=clamp, **pkw)
+    skw = dict(t_lens=tl, u_lens=ul, win=win)
+    acc = jt.joint_flash_bwd_sums(cells, new_acc(), c0=0, **skw)
+    acc_ref = jt.joint_flash_bwd_sums_reference(cells, new_acc(), c0=0, **skw)
+    red = jt.joint_flash_bwd_reduce(acc, e.dtype)
+    red_ref = jt.joint_flash_bwd_reduce_reference(acc, e.dtype)
     torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(bwd, bwd2)), (name, "K4-bwd not deterministic"))
+    n0 = min(win, cells_in)  # the first window's cells
+    n_tiles0 = -(-n0 // jt.TILE_CELLS)
+    pairs = list(zip(("blank_lp", "label_lp", "lse"), fwd, fwd_ref)) + \
+        list(zip(("de", "dp", "dw", "db"), bwd, bwd_ref)) + \
+        [(k, x[:n], y[:n]) for k, x, y, n in zip(
+            ("cells_dlab", "cells_dblank", "cells_dx", "cells_h", "cells_db_tiles"), cells,
+            cells_ref, (n0, n0, n0, n0, n_tiles0))] + \
+        list(zip(("sums_de", "sums_dp", "sums_dw", "sums_dw_blank", "sums_db"), acc, acc_ref)) + \
+        list(zip(("reduce_de", "reduce_dp", "reduce_dw", "reduce_db"), red, red_ref))
     errs = {}
-    for out, a, r in zip(("blank_lp", "label_lp", "lse", "de", "dp", "dw", "db", "reduce_dp",
-                          "reduce_dw", "reduce_db"),
-                         (*fwd, *bwd, *red), (*fwd_ref, *bwd_ref, *red_ref)):
+    for out, a, r in pairs:
         if out in ("blank_lp", "label_lp", "lse"):  # outside the lattice: the sentinels
             check(torch.equal(a[~inside], r[~inside]), (name, out, "outside the lattice"))
             a, r = a[inside], r[inside]
@@ -502,6 +597,7 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
         err = (a - r).abs().max().item()
         errs[out] = {"abs": err, "rel_to_max": err / max(r.abs().max().item(), 1e-30)}
         check(errs[out]["rel_to_max"] <= JOINT_REL_TOL, (name, out, errs[out]))
+    del cells_ref, acc_ref
 
     # library yardstick: the dense torch joint (matmul, logsumexp, gather) over
     # every cell, and its backward through autograd from a cotangent on the logits
@@ -525,25 +621,48 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
                          warmup=1)
     del logits, cot, leaves
 
+    # the backward's scratch: as the wrapper sizes it, and the peak it measures
+    free_cuda()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    jt.joint_flash_bwd(*args, clamp=clamp, **kw)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    scratch_bytes = jt.bwd_scratch_bytes(b * t * (u + 1), b, t, u + 1, h, v)
+
     # bytes and operations the function needs: the lattice's cells only (the
     # loss reads no other), the e and p rows they use, W and the bias; the
     # forward writes its three streams in full (sentinels outside the lattice)
-    cells = b * t * (u + 1)
-    cells_in = int(inside.sum().item())
+    cells_all = b * t * (u + 1)
     t_in = sum(min(x, t) for x in t_lens)
     u_in = sum(min(y, u) + 1 for y in u_lens)
     product = 2.0 * h * v  # FLOPs per cell of one [H] x [H, V] product
+    vlp = jt.padded_vl(v)
     in_bytes = 2 * (t_in * h + u_in * h + h * v + v) + 4 * (u_in - b) + 8 * b
-    fwd_bytes = in_bytes + 12 * cells
-    bwd_bytes = in_bytes + 16 * cells_in + 4 * b + 2 * b * t * h + 4 * (b * (u + 1) * h + h * v + v)
-    # each of the backward's two kernels timed on its own (they run in order)
-    part = {"K4-bwd": time_ms(lambda: jt.joint_flash_bwd_partials(*args, **part_kw), 5),
-            "K4-bwd-reduce": time_ms(lambda: jt.joint_flash_bwd_reduce(partials, b, t), 5)}
-    partial_bytes = sum(4 * x.numel() for x in partials)
+    fwd_bytes = in_bytes + 12 * cells_all
+    out_bytes = 2 * b * t * h + 4 * (b * (u + 1) * h + h * v + v)
+    bwd_bytes = in_bytes + 16 * cells_in + 4 * b + out_bytes
+    scratch_io = cells_in * (2 * vlp + 4 + 4 * h) + 4 * n_win * (win // jt.TILE_CELLS) * v
+    acc_bytes = 4 * (b * t * h + b * (u + 1) * h + jt.KSPLIT * h * (vlp + 1) + v)
+    # each kernel's device time in one whole backward (all its windows)
+    times = kernel_device_ms(lambda: jt.joint_flash_bwd(*args, clamp=clamp, **kw),
+                             {"K4-bwd": "joint_bwd_cells_kernel",
+                              "K4-bwd-dw": "joint_bwd_sums_kernel",
+                              "K4-bwd-reduce": "joint_bwd_reduce_kernel"})
+    # the plain versions of the windows that hold cells
+    active = range(-(-cells_in // win))
+    plain = {"K4-bwd": time_ms(lambda: [jt.joint_flash_bwd_cells_reference(
+                 *cells_args, c0=k * win, win=win, clamp=clamp, **pkw) for k in active], 1,
+                 warmup=0),
+             "K4-bwd-dw": time_ms(lambda: [jt.joint_flash_bwd_sums_reference(
+                 cells, new_acc(), c0=k * win, **skw) for k in active], 1, warmup=0)}
+    whole_ms = time_ms(lambda: jt.joint_flash_bwd(*args, clamp=clamp, **kw), 5)
+    whole_plain_ms = time_ms(lambda: jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw), 1,
+                             warmup=1)
     common = {"case": name, "shape": [b, t, u + 1, h, v], "t_lens": t_lens, "u_lens": u_lens,
               "activation": activation, "drop_t": drop_t, "fastemit": fastemit, "clamp": clamp,
-              "errors": errs, "tol_rel_to_max": JOINT_REL_TOL, "cells": cells,
-              "lattice_cells": cells_in}
+              "errors": errs, "tol_rel_to_max": JOINT_REL_TOL, "cells": cells_all,
+              "lattice_cells": cells_in, "window_cells": win, "windows": n_win}
     rows = [
         {**common, "kernel": "K4-fwd",
          "max_abs_err": max(errs[k]["abs"] for k in ("blank_lp", "label_lp", "lse")),
@@ -551,30 +670,44 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
          "plain_ms": time_ms(lambda: jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed,
                                                                   **kw), 1, warmup=1),
          "library_ms": lib_fwd_ms, **bound(product * cells_in, fwd_bytes)},
-        # the backward kernel: the logits again, dh and h^T dlab, three
-        # products per lattice cell; its plain and library times are of the
-        # whole backward (the reduce included)
+        # the cells kernel: the logits again and dh, two products per lattice
+        # cell, writing the windows' scratch (no PyTorch call computes this
+        # piece alone)
         {**common, "kernel": "K4-bwd",
-         "max_abs_err": max(errs[k]["abs"] for k in ("de", "dp", "dw", "db")),
-         "ms": part["K4-bwd"],
-         "plain_ms": time_ms(lambda: jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw), 1,
-                             warmup=1),
-         "library_ms": lib_bwd_ms, **bound(3 * product * cells_in, bwd_bytes)},
-        # the reduce: every partial read once, dp, dW and db written once;
-        # against its own plain version (torch sums); no one PyTorch call
-        # computes it
+         "max_abs_err": max(errs[k]["abs"] for k in ("cells_dlab", "cells_dblank", "cells_dx",
+                                                      "cells_h")),
+         "ms": times["K4-bwd"], "plain_ms": plain["K4-bwd"], "library_ms": None,
+         "deterministic": True, "scratch_bytes": scratch_bytes, "peak_bytes": peak_bytes,
+         **bound(2 * product * cells_in, in_bytes + 16 * cells_in + 4 * b + scratch_io)},
+        # the sums: dW = h^T dlab (one product per cell) and the fixed-order
+        # sums of de, dp and db from the scratch into the accumulators
+        {**common, "kernel": "K4-bwd-dw",
+         "max_abs_err": max(errs[k]["abs"] for k in ("sums_de", "sums_dp", "sums_dw",
+                                                      "sums_dw_blank", "sums_db")),
+         "ms": times["K4-bwd-dw"], "plain_ms": plain["K4-bwd-dw"], "library_ms": None,
+         **bound(product * cells_in, in_bytes + scratch_io + acc_bytes)},
+        # the reduce: reads the K splits' label columns and dW[:, VL] splits,
+        # db and de's fp32 sums once; writes dW, db and de once (dp passes
+        # through untouched)
         {**common, "kernel": "K4-bwd-reduce",
-         "max_abs_err": max(errs[k]["abs"] for k in ("reduce_dp", "reduce_dw", "reduce_db")),
-         "ms": part["K4-bwd-reduce"],
-         "plain_ms": time_ms(lambda: jt.joint_flash_bwd_reduce_reference(partials, b, t), 5),
+         "max_abs_err": max(errs[k]["abs"] for k in ("reduce_de", "reduce_dp", "reduce_dw",
+                                                      "reduce_db")),
+         "ms": times["K4-bwd-reduce"],
+         "plain_ms": time_ms(lambda: jt.joint_flash_bwd_reduce_reference(acc, e.dtype), 5),
          "library_ms": None,
-         **bound(float(partial_bytes // 4), partial_bytes + 4 * (b * (u + 1) * h + h * v + v),
-                 PEAK_FP32_FLOPS)},
+         **bound(float(jt.KSPLIT * h * v),
+                 4 * (jt.KSPLIT * h * (v - 1) + jt.KSPLIT * h + v + b * t * h)
+                 + 4 * (h * v + v) + 2 * b * t * h, PEAK_FP32_FLOPS)},
+        # the whole backward as one function (cells, dw and reduce over every
+        # window): three products per lattice cell, against the dense joint's
+        # autograd backward
+        {**common, "kernel": "K4-bwd-whole",
+         "max_abs_err": max(errs[k]["abs"] for k in ("de", "dp", "dw", "db")),
+         "ms": whole_ms, "plain_ms": whole_plain_ms, "library_ms": lib_bwd_ms,
+         "split_ms": {k: times[k] for k in ("K4-bwd", "K4-bwd-dw", "K4-bwd-reduce")},
+         "deterministic": True, "scratch_bytes": scratch_bytes, "peak_bytes": peak_bytes,
+         **bound(3 * product * cells_in, bwd_bytes)},
     ]
-    # the whole backward as one function: three products per lattice cell
-    emit("kernels", case=name, kernel="K4-bwd with its reduce",
-         ms=time_ms(lambda: jt.joint_flash_bwd(*args, clamp=clamp, **kw), 5),
-         split_ms=part, **bound(3 * product * cells_in, bwd_bytes))
     for row in rows:
         row["tflops"] = row["flops"] / max(row["ms"], 1e-9) / 1e9
         emit("kernels", **row)
@@ -880,7 +1013,7 @@ def phase_bpe_step(tmp: str) -> None:
     reset_launch_counts()
     model.fit(manifest, max_steps=1)
     counts = launch_counts()
-    check(counts.get("K1-fwd", 0) == 1 and counts.get("K1-bwd", 0) == 1, counts)
+    check(all(counts.get(k, 0) == 1 for k in ("K1-fwd", "K1-bwd", "K1-bwd-grad")), counts)
     check(all(counts.get(k, 0) == 0 for k in ("K2-fwd", "K2-bwd-dq", "K2-bwd-dkv")), counts)
     s = steps[0]
     check(math.isfinite(s["loss"]) and all(s["changed"].values()), s["changed"])
@@ -957,6 +1090,19 @@ def _frames(model, samples) -> list:
                                                 preprocessor=model.cfg.preprocessor), samples)
 
 
+def rnnt_step_launches(model, batch) -> dict:
+    """Launches per kernel of one flash-joint train step on this batch: one
+    K4-bwd and one K4-bwd-dw per window of the B * T * U1 cells."""
+    from conformer_nemo_tpu_torch.ops.rnnt_joint import bwd_windows
+
+    cfg = model.cfg.model
+    b, samples = batch.audio.shape
+    cells = b * _frames(model, [samples])[0] * (batch.tokens.shape[1] + 1)  # B * T * U1
+    _, n_win = bwd_windows(cells, cfg.joint.joint_hidden, cfg.num_classes_with_blank)
+    return {"K3-alpha": 1, "K3-beta": 1, "K4-fwd": 1, "K4-bwd": n_win, "K4-bwd-dw": n_win,
+            "K4-bwd-reduce": 1, **{k: 0 for k in NOT_RNNT}}
+
+
 def phase_rnnt_train(tmp: str, gpu: str) -> dict:
     from conformer_nemo_tpu_torch.api import ConformerTransducer
     from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
@@ -970,13 +1116,15 @@ def phase_rnnt_train(tmp: str, gpu: str) -> dict:
     model._make_train_step = _counted_steps(model, steps)
     reset_launch_counts()
     out = model.fit(manifest, max_steps=TRAIN_STEPS)
-    by_shape = {k: dict(launch_count(k).by_shape) for k, n in RNNT_STEP_LAUNCHES.items() if n}
+    by_shape = {k: dict(launch_count(k).by_shape) for k in RNNT_KERNELS}
     del model._make_train_step
     check(len(steps) == TRAIN_STEPS and out["steps"] == TRAIN_STEPS, (len(steps), out))
     check(not model.model.training, "the model is in eval mode after fit")
     for i, s in enumerate(steps):
-        got = {k: s["launches"].get(k, 0) for k in RNNT_STEP_LAUNCHES}
-        check(got == RNNT_STEP_LAUNCHES, ("rnnt step", i, "launches", got))
+        got = {k: s["launches"].get(k, 0) for k in RNNT_KERNELS + NOT_RNNT}
+        want = rnnt_step_launches(model, s["batch"])
+        s["windows"] = want["K4-bwd"]
+        check(got == want, ("rnnt step", i, "launches", got, "want", want))
         check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]), ("step", i, s["loss"]))
         check(all(s["changed"].values()), ("rnnt step", i, "unchanged", s["changed"]))
     batch = steps[0]["batch"]
@@ -1039,8 +1187,9 @@ def phase_rnnt_dense_step(manifest: str) -> None:
     for i, s in enumerate(steps):
         counts = s["launches"]
         check(counts.get("K3-alpha", 0) == 1 and counts.get("K3-beta", 0) == 1, (i, counts))
-        check(all(counts.get(k, 0) == 0 for k in ("K4-fwd", "K4-bwd", "K4-bwd-reduce", "K2-fwd",
-                                                  "K2-bwd-dq", "K2-bwd-dkv")), (i, counts))
+        check(all(counts.get(k, 0) == 0 for k in ("K4-fwd", "K4-bwd", "K4-bwd-dw", "K4-bwd-reduce",
+                                                  "K2-fwd", "K2-bwd-dq", "K2-bwd-dkv")),
+              (i, counts))
         check(math.isfinite(s["loss"]) and all(s["changed"].values()), (i, s["changed"]))
     emit("rnnt_dense_step", config="configs/conformer_transducer_bpe.yaml", joint_impl="auto",
          resolved=resolved, dense_bytes_estimate=3 * 2 * b * t * u1 * model.cfg.model.num_classes_with_blank,
@@ -1147,10 +1296,16 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
     tg_e = torch.randint(0, v1 - 1, (4, u), generator=gen, device=dev).to(torch.int32)
     _ctc_case("edges_u0_infeasible", lp_e, tg_e, as_i32([300, 300, 17, 1]),
               as_i32([30, 0, 25, 0]), blank)
+    # 8401 states: more than the beta kernel's 8 per thread at 1024 threads
+    lp_l = torch.log_softmax(torch.randn(2, 4400, v1, generator=gen, device=dev) * 3, dim=-1)
+    tg_l = torch.randint(0, v1 - 1, (2, 4200), generator=gen, device=dev).to(torch.int32)
+    _ctc_case("edges_u4200", lp_l, tg_l, as_i32([4400, 4300]), as_i32([4200, 3000]), blank,
+              timed=False)
 
     # the counted transducer step's lattice and joint, then edge cases: U+1 >
     # 1024 with a u_len = 0 row and a 1-frame row, T not a multiple of 16;
-    # tanh, FastEmit 0.1 and clamp 2 on the joint; the dropout mask probe
+    # tanh, FastEmit 0.1 and clamp 2 on the joint; the joint at U+1 1100 and
+    # at V 401; the dropout mask probe
     t, enc_lens = rnnt["t"], rnnt["enc_lens"]
     b, u = rnnt["tokens"].shape
     name = f"rnnt_b{b}_t{t}_u1{u + 1}"
@@ -1161,17 +1316,29 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
                   gen, dev)
     _joint_case("joint_edges_tanh_fastemit_clamp", 3, 37, 8, rnnt["h"], rnnt["v"], [37, 20, 1],
                 [8, 3, 0], gen, dev, activation="tanh", drop_t=26, fastemit=0.1, clamp=2.0)
+    # a long lattice: U+1 > 1024, three windows of cells at the flagship widths
+    _joint_case("joint_edges_long_u1_1100", 2, 301, 1099, rnnt["h"], rnnt["v"], [301, 150],
+                [1099, 500], gen, dev, activation="relu", drop_t=26)
+    # V - 1 = 400: the backward takes the label block in two passes of columns
+    _joint_case("joint_edges_v401", 3, 37, 8, rnnt["h"], 401, [37, 20, 1], [8, 3, 0], gen, dev,
+                activation="relu", drop_t=26)
     _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev)
     return rows
 
 
+# a whole backward runs once per call; its last kernel counts the calls
+WHOLE_COUNTED_BY = {"K1-bwd-whole": "K1-bwd-grad", "K4-bwd-whole": "K4-bwd-reduce"}
+
+
 def kernel_summary(rows: dict, launches: dict) -> list:
-    """The summary line's entries: every main-path kernel row, with the
-    launches its path made at its shape."""
+    """The summary line's entries: every main-path kernel row, and each
+    whole backward as one function, with the launches its path made at its
+    shape."""
     sources = {"K2-fwd": FLASH_FWD, "K2-bwd-dq": FLASH_DQ, "K2-bwd-dkv": FLASH_DKV,
-               "K1-fwd": CTC_FWD, "K1-bwd": CTC_BWD, "K3-alpha": RNNT_ALPHA,
-               "K3-beta": RNNT_BETA, "K4-fwd": JOINT_FWD, "K4-bwd": JOINT_BWD,
-               "K4-bwd-reduce": JOINT_BWD}
+               "K1-fwd": CTC_FWD, "K1-bwd": CTC_BWD, "K1-bwd-grad": CTC_BWD,
+               "K1-bwd-whole": CTC_BWD, "K3-alpha": RNNT_ALPHA, "K3-beta": RNNT_BETA,
+               "K4-fwd": JOINT_FWD, "K4-bwd": JOINT_BWD, "K4-bwd-dw": JOINT_BWD,
+               "K4-bwd-reduce": JOINT_BWD, "K4-bwd-whole": JOINT_BWD}
     kernels = []
     for path, path_rows in rows.items():
         for r in path_rows:
@@ -1186,7 +1353,7 @@ def kernel_summary(rows: dict, launches: dict) -> list:
             kernels.append({
                 "name": f"{k}[{path}:{','.join(map(str, shape))}]", "route": "cuda",
                 "source": source, "replaces": replaces,
-                "launches": launches[path].get(k, {}).get(shape, 0),
+                "launches": launches[path].get(WHOLE_COUNTED_BY.get(k, k), {}).get(shape, 0),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]})

@@ -1,14 +1,15 @@
-// CTC loss forward (alpha recursion) and backward (beta recursion fused
-// with the gradient) for NVIDIA Hopper (sm_90a), plain C interface.
+// CTC loss forward (alpha recursion) and backward (beta recursion, then a
+// parallel gradient) for NVIDIA Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernels `_fwd_kernel` (via `_run_fwd`) and `_bwd_kernel`
-// (via `_run_bwd`) of conformer_nemo_tpu/ops/pallas/ctc_kernel.py, together
-// with the XLA glue around them (`_prep`'s one-hot emit gather, the nll from
-// the terminal states in `_ctc_fwd`, `_ctc_bwd`'s one-hot scatter back to
-// the V+1 classes). Over the extended label sequence ext = (blank, y1,
-// blank, ..., yU, blank) of S = 2U+1 states, with emit(t, s) =
-// log_probs[b, t, ext[s]] inside the lattice (s < 2 * target_length + 1)
-// and -1e30 outside:
+// Replaces the TPU kernels `_fwd_kernel` (ctc_kernel.py:56, via `_run_fwd`
+// :128 -> pallas_call :131) and `_bwd_kernel` (:80, via `_run_bwd` :147 ->
+// pallas_call :150, and `_ctc_bwd` :233) of
+// conformer_nemo_tpu/ops/pallas/ctc_kernel.py, together with the XLA glue
+// around them (`_prep`'s one-hot emit gather, the nll from the terminal
+// states in `_ctc_fwd`, `_ctc_bwd`'s one-hot scatter back to the V+1
+// classes). Over the extended label sequence ext = (blank, y1, blank, ...,
+// yU, blank) of S = 2U+1 states, with emit(t, s) = log_probs[b, t, ext[s]]
+// inside the lattice (s < 2 * target_length + 1) and -1e30 outside:
 //
 //   alpha_0  = (emit(0, 0), emit(0, 1) if U_b > 0, -1e30, ...)
 //   alpha_t  = lse(alpha_{t-1}[s], alpha_{t-1}[s-1], alpha_{t-1}[s-2] if skip[s])
@@ -24,20 +25,24 @@
 // -inf throughout (an infeasible alignment gives the same finite nll as the
 // TPU kernels).
 //
-// Bound on an H100: a recursion of T dependent steps per sample, each a
-// handful of flops per lattice state; the bytes are the gathered log-prob
-// entries and the alphas [B, T, S] written (forward), the alphas and the
-// entries read and the gradient [B, T, V+1] written (backward), at
-// 3.35 TB/s. At B = 8 the card holds 8 blocks, so the T serial steps (one
-// block barrier and a dependent global read each) set the time, not the
-// bytes.
+// Bound on an H100: the bytes, at 3.35 TB/s: the gathered log-prob entries
+// and the alphas [B, T, S] written (forward); the entries, alphas and betas
+// read and the gradient [B, T, V+1] written (backward). What holds the
+// recursions is their T dependent steps per sample (one block barrier each)
+// on only B blocks.
 //
-// Design: one block per sample; threads stride over the states; alpha (and
-// beta) ping-pong in shared memory with one __syncthreads per time step.
-// log_probs[b, t, ext[s]] is read directly (no one-hot product, no emits
-// tensor). The backward sums the posteriors of a time step into a
-// shared-memory row of V+1 floats with shared atomics (blank recurs U+1
-// times and labels can repeat), then writes that row of the gradient.
+// Design: the forward is one block per sample; threads stride over the
+// states; alpha ping-pongs in shared memory with one __syncthreads per time
+// step; log_probs[b, t, ext[s]] is read directly (no one-hot product, no
+// emits tensor). The backward keeps the gradient off its serial path:
+// summing each step's posteriors into a row of V+1 classes there would put
+// U+1 atomic adds on blank's one address every step, and make the last bits
+// depend on their order. So it is two kernels, as the CUDA CTC backward
+// that torch.nn.CTCLoss calls is: the beta recursion alone (no atomics, no
+// gradient work; one thread per state up to 1024 threads, blank's and the
+// labels' states in separate warps; each step's emits loaded a step ahead
+// into registers, for up to 8 states per thread), writing betas [B, T, S]; then a collect over all B * T rows in parallel,
+// which sums each class's posteriors in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +58,20 @@ __device__ inline float lse2(float a, float b) {
   return m + logf(expf(a - m) + expf(b - m));
 }
 
+// lse2, bit for bit, without the exp and log when one side is -1e30: then
+// exp(min - m) is 0 and log(1 + 0) = 0, so the result is m
+__device__ inline float lse2_skip(float a, float b) {
+  const float m = fmaxf(a, b);
+  if (m <= NEG_INF * 0.5f) return NEG_INF;
+  if (fminf(a, b) <= NEG_INF * 0.5f) return m;
+  return m + logf(expf(a - m) + expf(b - m));
+}
+
+// The beta kernel's state for thread slot i: the U + 1 blank (even) states
+// first, then the labels, so a warp's lanes share a parity and blank's
+// lanes, whose skip term is always -1e30, take lse2_skip's short way.
+__device__ inline int state_of(int i, int U) { return i <= U ? 2 * i : 2 * (i - U - 1) + 1; }
+
 struct Lattice {
   int S, s_len, tl;
   int* ext;           // [S] class of each state
@@ -67,7 +86,7 @@ __device__ inline void build_lattice(Lattice& lat, const int* __restrict__ targe
   lat.tl = min(max(target_lengths[b], 0), U);
   lat.s_len = 2 * lat.tl + 1;
   const int* tg = targets + (size_t)b * U;
-  for (int s = threadIdx.x; s < lat.S; s += NTHREADS) {
+  for (int s = threadIdx.x; s < lat.S; s += blockDim.x) {
     const int e = (s & 1) ? tg[s >> 1] : blank;
     const int e2 = s >= 2 ? ((s & 1) ? tg[(s >> 1) - 1] : blank) : -1;
     const bool in = s < lat.s_len;
@@ -131,78 +150,177 @@ ctc_alpha_kernel(const float* __restrict__ log_probs, const int* __restrict__ ta
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-ctc_beta_grad_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
-                     const int* __restrict__ input_lengths,
-                     const int* __restrict__ target_lengths, const float* __restrict__ alphas,
-                     const float* __restrict__ nll, const float* __restrict__ g,
-                     float* __restrict__ grad, int T, int U, int V1, int blank) {
+// The beta recursion (K1-bwd): beta_{t+1} + emit(t+1) ping-pongs in shared
+// memory, one barrier per step; each thread keeps its states' emit(t, s) in
+// registers, loaded a step ahead, so no global load sits on the chain. Its
+// prologue also links each label position to the next one with the same
+// label (chain[b, 0, i], -1 at the end) and marks the first occurrences
+// (chain[b, 1, i]), for the collect's fixed-order sums. Past 8 states per
+// thread (S > 8192 at 1024 threads) the WIDE variant's further states read
+// their emit on the chain, so any lattice that fits shared memory runs.
+constexpr int BETA_REG_K = 8;  // states per thread whose emits wait in registers
+
+// beta_t[s] from beta_{t+1} + emit(t+1) (nx), or the terminal indicator
+__device__ inline float beta_at(const float* nx, const Lattice& lat, int s, int S, bool terminal) {
+  if (terminal) {
+    const bool term = s == lat.s_len - 1 || (s == lat.s_len - 2 && lat.tl > 0);
+    return term ? 0.f : NEG_INF;
+  }
+  const float skp = (lat.fl[min(s + 2, S - 1)] & 2) && s + 2 < S ? nx[s + 2] : NEG_INF;
+  return lse2_skip(lse2_skip(nx[s], nx[s + 1]), skp);
+}
+
+template <bool WIDE>
+__global__ void __launch_bounds__(1024)
+ctc_beta_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
+                const int* __restrict__ input_lengths, const int* __restrict__ target_lengths,
+                float* __restrict__ betas, int* __restrict__ chain, int T, int U, int V1,
+                int blank) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = 2 * U + 1;
-  float* beta[2] = {reinterpret_cast<float*>(smem), reinterpret_cast<float*>(smem) + S};
-  float* grow[2] = {beta[1] + S, beta[1] + S + V1};
+  float* be[2] = {reinterpret_cast<float*>(smem), reinterpret_cast<float*>(smem) + S + 2};
   Lattice lat;
-  lat.ext = reinterpret_cast<int*>(grow[1] + V1);
+  lat.ext = reinterpret_cast<int*>(be[1] + S + 2);
   lat.fl = reinterpret_cast<unsigned char*>(lat.ext + S);
-  const int b = blockIdx.x;
+  const int b = blockIdx.x, nth = blockDim.x;
   build_lattice(lat, targets, target_lengths, b, U, blank);
-  for (int s = threadIdx.x; s < S; s += NTHREADS) beta[0][s] = beta[1][s] = NEG_INF;
-  for (int v = threadIdx.x; v < V1; v += NTHREADS) grow[0][v] = grow[1][v] = 0.f;
+  for (int s = threadIdx.x; s < S + 2; s += nth) be[0][s] = be[1][s] = NEG_INF;
   __syncthreads();
+  int* nxt = chain + (size_t)b * 2 * U;
+  int* first = nxt + U;
+  for (int i = threadIdx.x; i < U; i += nth) {
+    int n = -1, f = i < lat.tl ? 1 : 0;
+    if (i < lat.tl) {
+      const int y = lat.ext[2 * i + 1];
+      for (int j = i + 1; j < lat.tl; ++j)
+        if (lat.ext[2 * j + 1] == y) { n = j; break; }
+      for (int j = 0; j < i && f; ++j)
+        if (lat.ext[2 * j + 1] == y) f = 0;
+    }
+    nxt[i] = n;
+    first[i] = f;
+  }
 
   const int len = input_lengths[b];
-  const float ll = -nll[b];
-  const float gb = g[b];
   const float* lp_b = log_probs + (size_t)b * T * V1;
-  const float* al_b = alphas + (size_t)b * T * S;
-  float* gr_b = grad + (size_t)b * T * V1;
+  float* bt_b = betas + (size_t)b * T * S;
+  float em[BETA_REG_K];
+#pragma unroll
+  for (int k = 0; k < BETA_REG_K; ++k) {
+    const int i = threadIdx.x + k * nth;
+    em[k] = i < S ? emit(lp_b + (size_t)(T - 1) * V1, lat, state_of(i, U)) : NEG_INF;
+  }
   for (int t = T - 1; t >= 0; --t) {
-    const float* next = beta[(t + 1) & 1];
-    float* cur = beta[t & 1];
-    float* G = grow[t & 1];
-    const bool beyond = t >= len;  // no gradient; beta is the terminal indicator
-    const bool terminal = beyond || t == len - 1;
-    const float* lp_n = lp_b + (size_t)min(t + 1, T - 1) * V1;
-    for (int s = threadIdx.x; s < S; s += NTHREADS) {
-      float bt;
-      if (terminal) {
-        const bool term = s == lat.s_len - 1 || (s == lat.s_len - 2 && lat.tl > 0);
-        bt = term ? 0.f : NEG_INF;
-      } else {
-        const float stay = next[s] + emit(lp_n, lat, s);
-        const float adv = s + 1 < S ? next[s + 1] + emit(lp_n, lat, s + 1) : NEG_INF;
-        const float skp = (s + 2 < S && (lat.fl[s + 2] & 2))
-                              ? next[s + 2] + emit(lp_n, lat, s + 2) : NEG_INF;
-        bt = lse2(lse2(stay, adv), skp);
+    const float* nx = be[(t + 1) & 1];
+    float* cur = be[t & 1];
+    const bool terminal = t >= len - 1;  // the last frame, and past the length
+    const float* lp_p = lp_b + (size_t)max(t - 1, 0) * V1;
+#pragma unroll
+    for (int k = 0; k < BETA_REG_K; ++k) {
+      const int i = threadIdx.x + k * nth;
+      if (i < S) {
+        const int s = state_of(i, U);
+        const float bt = beta_at(nx, lat, s, S, terminal);
+        bt_b[(size_t)t * S + s] = bt;
+        cur[s] = bt + em[k];
+        em[k] = emit(lp_p, lat, s);  // for step t - 1, off the chain
       }
-      cur[s] = bt;
-      if (!beyond && (lat.fl[s] & 1)) {
-        const float x = fminf(fmaxf(al_b[(size_t)t * S + s] + bt - ll, -60.f), 0.f);
-        atomicAdd(&G[lat.ext[s]], -expf(x) * gb);
+    }
+    if constexpr (WIDE) {
+      for (int i = threadIdx.x + BETA_REG_K * nth; i < S; i += nth) {
+        const int s = state_of(i, U);
+        const float bt = beta_at(nx, lat, s, S, terminal);
+        bt_b[(size_t)t * S + s] = bt;
+        cur[s] = bt + emit(lp_b + (size_t)t * V1, lat, s);
       }
     }
     __syncthreads();
-    // the row is complete; write it and clear it for time step t - 2
-    float* out = gr_b + (size_t)t * V1;
-    for (int v = threadIdx.x; v < V1; v += NTHREADS) {
-      out[v] = G[v];
-      G[v] = 0.f;
-    }
   }
+}
+
+// The gradient ("collect", K1-bwd-grad): one block per (b, t) row, bound by
+// the bytes of alpha and beta read once and the row written once. Blank's
+// states are summed by a fixed-order block reduction, each label's states
+// by its first occurrence walking the chain in order, into a shared row
+// that is then written whole: no atomics, the same bits every call.
+constexpr int COLLECT_THREADS = 256;
+
+__global__ void __launch_bounds__(COLLECT_THREADS)
+ctc_collect_kernel(const int* __restrict__ targets, const int* __restrict__ input_lengths,
+                   const int* __restrict__ target_lengths, const float* __restrict__ alphas,
+                   const float* __restrict__ betas, const int* __restrict__ chain,
+                   const float* __restrict__ nll, const float* __restrict__ g,
+                   float* __restrict__ grad, int T, int U, int V1, int blank) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = 2 * U + 1;
+  float* post = reinterpret_cast<float*>(smem);
+  float* row = post + S;
+  float* warp_sum = row + V1;
+  const int b = blockIdx.x / T, t = blockIdx.x % T;
+  float* out = grad + ((size_t)b * T + t) * V1;
+  if (t >= input_lengths[b]) {
+    for (int v = threadIdx.x; v < V1; v += COLLECT_THREADS) out[v] = 0.f;
+    return;
+  }
+  const int tl = min(max(target_lengths[b], 0), U), s_len = 2 * tl + 1;
+  const float ll = -nll[b], gb = g[b];
+  const size_t o = ((size_t)b * T + t) * S;
+  for (int s = threadIdx.x; s < s_len; s += COLLECT_THREADS)
+    post[s] = expf(fminf(fmaxf(alphas[o + s] + betas[o + s] - ll, -60.f), 0.f));
+  for (int v = threadIdx.x; v < V1; v += COLLECT_THREADS) row[v] = 0.f;
+  __syncthreads();
+  // blank: thread i sums states 2i, 2i + 2 * 256, ... in order, then a
+  // fixed tree over the lanes and the warps in order
+  float s_blank = 0.f;
+  for (int s = 2 * threadIdx.x; s < s_len; s += 2 * COLLECT_THREADS) s_blank += post[s];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s_blank += __shfl_down_sync(0xffffffffu, s_blank, off);
+  if (threadIdx.x % 32 == 0) warp_sum[threadIdx.x / 32] = s_blank;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < COLLECT_THREADS / 32; ++w) s += warp_sum[w];
+    row[blank] = -s * gb;
+  }
+  __syncthreads();
+  const int* nxt = chain + (size_t)b * 2 * U;
+  const int* first = nxt + U;
+  const int* tg = targets + (size_t)b * U;
+  for (int i = threadIdx.x; i < tl; i += COLLECT_THREADS) {
+    if (!first[i]) continue;
+    float s = 0.f;
+    for (int j = i; j >= 0; j = nxt[j]) s += post[2 * j + 1];
+    const int y = tg[i];
+    row[y] = (y == blank ? row[y] : 0.f) - s * gb;
+  }
+  __syncthreads();
+  for (int v = threadIdx.x; v < V1; v += COLLECT_THREADS) out[v] = row[v];
 }
 
 size_t alpha_smem(int U) { return sizeof(float) * 2 * (2 * U + 1) + (sizeof(int) + 1) * (2 * U + 1); }
 
-size_t beta_smem(int U, int V1) {
-  return sizeof(float) * (2 * (2 * U + 1) + 2 * V1) + (sizeof(int) + 1) * (2 * U + 1);
+size_t beta_smem(int U) {
+  return sizeof(float) * 2 * (2 * U + 3) + (sizeof(int) + 1) * (2 * U + 1);
+}
+
+size_t collect_smem(int U, int V1) {
+  return sizeof(float) * ((2 * U + 1) + V1 + COLLECT_THREADS / 32);
+}
+
+// Threads of the beta kernel: one per state up to 1024 (the step's chain of
+// two log-sum-exps is the latency to hide), a multiple of 32.
+int beta_threads(int U) {
+  const int want = (2 * U + 1 + 31) / 32 * 32;
+  return want < 64 ? 64 : (want > 1024 ? 1024 : want);
 }
 
 }  // namespace
 
-// Bytes of shared memory the forward (which = 0) or backward (which = 1)
-// kernel needs at (U, V1).
+// Bytes of shared memory the forward (which = 0), the beta (1) or the
+// collect (2) kernel needs at (U, V1).
 extern "C" long long ctc_smem_bytes(int U, int V1, int which) {
-  return (long long)(which ? beta_smem(U, V1) : alpha_smem(U));
+  if (which == 1) return (long long)beta_smem(U);
+  return (long long)(which ? collect_smem(U, V1) : alpha_smem(U));
 }
 
 // log_probs: [b, t, v1] fp32; targets: [b, u] int32 (u >= 0); input_lengths,
@@ -221,19 +339,36 @@ extern "C" int ctc_alpha_f32(const void* log_probs, const void* targets, const v
   return (int)cudaGetLastError();
 }
 
-// As above, plus nll [b] from the forward and the upstream g [b] fp32;
-// grad: [b, t, v1] fp32 (every entry written).
-extern "C" int ctc_beta_grad_f32(const void* log_probs, const void* targets,
-                                 const void* input_lengths, const void* target_lengths,
-                                 const void* alphas, const void* nll, const void* g, void* grad,
-                                 int b, int t, int u, int v1, int blank, void* stream) {
-  const size_t smem = beta_smem(u, v1);
-  cudaError_t err = cudaFuncSetAttribute(ctc_beta_grad_kernel,
+// The beta kernel: as above, writing betas [b, t, 2u+1] fp32 and the label
+// chains [b, 2, u] int32.
+extern "C" int ctc_beta_f32(const void* log_probs, const void* targets, const void* input_lengths,
+                            const void* target_lengths, void* betas, void* chain, int b, int t,
+                            int u, int v1, int blank, void* stream) {
+  const size_t smem = beta_smem(u);
+  const int threads = beta_threads(u);
+  auto kernel = 2 * u + 1 > BETA_REG_K * threads ? ctc_beta_kernel<true> : ctc_beta_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<b, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)log_probs, (const int*)targets, (const int*)input_lengths,
+      (const int*)target_lengths, (float*)betas, (int*)chain, t, u, v1, blank);
+  return (int)cudaGetLastError();
+}
+
+// The collect kernel: alphas, betas [b, t, 2u+1], the chains, nll and the
+// upstream g [b] fp32 -> grad [b, t, v1] fp32 (every entry written).
+extern "C" int ctc_collect_f32(const void* targets, const void* input_lengths,
+                               const void* target_lengths, const void* alphas, const void* betas,
+                               const void* chain, const void* nll, const void* g, void* grad,
+                               int b, int t, int u, int v1, int blank, void* stream) {
+  const size_t smem = collect_smem(u, v1);
+  cudaError_t err = cudaFuncSetAttribute(ctc_collect_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ctc_beta_grad_kernel<<<b, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)log_probs, (const int*)targets, (const int*)input_lengths,
-      (const int*)target_lengths, (const float*)alphas, (const float*)nll, (const float*)g,
-      (float*)grad, t, u, v1, blank);
+  ctc_collect_kernel<<<(unsigned)((size_t)b * t), COLLECT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int*)targets, (const int*)input_lengths, (const int*)target_lengths,
+      (const float*)alphas, (const float*)betas, (const int*)chain, (const float*)nll,
+      (const float*)g, (float*)grad, t, u, v1, blank);
   return (int)cudaGetLastError();
 }

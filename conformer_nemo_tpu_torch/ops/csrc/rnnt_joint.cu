@@ -2,8 +2,9 @@
 // log-softmax prep, forward and backward, for NVIDIA Hopper (sm_90a), bf16,
 // plain C interface.
 //
-// Replaces the TPU kernels `_make_fwd_kernel` (via `joint_flash_fwd`) and
-// `_make_bwd_kernel` (via `joint_flash_bwd`) of
+// Replaces the TPU kernels `_make_fwd_kernel` (:166, via `joint_flash_fwd`
+// :326 -> pallas_call :344) and `_make_bwd_kernel` (:191, via
+// `joint_flash_bwd` :372 -> pallas_call :393) of
 // conformer_nemo_tpu/ops/pallas/rnnt_joint_kernel.py. For each lattice cell
 // (b, t, u), with the vocabulary split blank-last (`_split_blank`: label
 // columns 0..V-2, blank column V-1 = VL):
@@ -41,31 +42,61 @@
 // dW) at 989 TFLOP/s bf16 dense; the bytes are e, p, W and the [B, T, U+1]
 // streams, far smaller. So the tensor cores bound it.
 //
-// Design (simple and right first):
+// Design:
 //   * forward: one block of 4 warps per 64 lattice cells of one sample
 //     (t-major: cell j -> t = j / (u_len + 1), u = j % (u_len + 1)); the
 //     grid covers all T * (U+1) cells, so block x also writes the sentinels
 //     of the cells outside the lattice among full-index rows 64x..64x+63,
-//     and blocks past the lattice's count stop there. h is formed in shared memory as bf16 (the hash
-//     dropout in place); W's label block streams through shared memory in
+//     and blocks past the lattice's count stop there. h is formed in
+//     shared memory as bf16 (the hash dropout in place); W's label block streams through shared memory in
 //     64 x 64 pieces; WMMA bf16 m16n16k16 with fp32 accumulation gives the
 //     logits 64 columns at a time, with an online max and sum over the
 //     chunks (blank seeds them), as K2-fwd does over keys. The label
 //     block's ragged width (VL = 295 at the flagship) is zero-padded inside
 //     the kernel and its pad columns never enter the max, the sum or a store.
-//   * backward, two kernels, no atomics (deterministic):
-//     (bwd) one block per (b, 16 frames) over the sample's cells inside its
-//          lattice (cells outside it have zero posteriors, so they add
-//          nothing), 64 cells at a time: recompute h and the logits, dlab in
-//          shared memory as bf16, dh = dlab W_lab^T by WMMA 64 hidden
-//          columns at a time, dx; de is summed in shared memory; dp goes
-//          into the block's own slice of a partial buffer [B, tiles, U+1, H],
-//          dW_lab += h^T dlab by WMMA into the block's own [H, VL] slice
-//          (read, add and written back per 64 cells: the slice does not fit
-//          in shared memory), db and dW[:, VL] into per-block partials;
-//     (reduce) sums the partials of dp, dW and db in a fixed order.
+//   * backward: three kernels, no atomics, so every output is bitwise the
+//     same from call to call. What the card asks of it: the tensor cores
+//     fed from registers and ldmatrix, W arriving in 16-byte vectors ahead
+//     of use, and as many warps as one block per SM allows (h, act' and the
+//     W ring fill most of its 227 KB); dW's [H, VL] sum cannot stay in one
+//     block, and reading, adding to and writing back a per-block fp32 slice
+//     of it per 64 cells moves gigabytes, so dW is a product of its own over
+//     bf16 dlab kept in scratch; cross-block sums need fixed orders and
+//     scratch that does not grow with B * T * (U+1) * H. The lattice's
+//     cells are numbered sample-major, t-major, and processed in windows
+//     of at most a fixed cell count (the wrapper sizes a window so that
+//     its scratch stays under a fixed byte budget; the windows cover
+//     B * T * (U+1) cells, so the lattice's own count never leaves the card,
+//     and a window past it exits at once); per window:
+//     (cells) 16 warps per 64 cells (4 row blocks x 4 column groups, for
+//          latency hiding at one block per SM): h and act' (0 where
+//          dropped) built once per element into shared memory from 16-byte
+//          loads of e and p;
+//          the logits [64 x VLp] by mma.sync m16n8k16 (ldmatrix fragments,
+//          accumulators in registers) with W_pad's k-slices arriving through
+//          a 3-stage cp.async ring; dlab in registers, its fp32 column sums
+//          (db) reduced by shuffles in a fixed order, its bf16 copy into
+//          shared memory and the window's dlab scratch; dh = dlab W_lab^T
+//          by mma.sync from the same zero-padded W_pad (row-major [H, VLp]:
+//          ldmatrix without transpose gives W_lab^T's fragments, so both
+//          products read 16-byte vectors) through a 2-stage ring of 64
+//          hidden rows; dx = bf16(dh * act') into the window's dx scratch.
+//          The cells kernel also writes h (as built) to the window's scratch.
+//          A label block wider than 320 columns (the accumulators a warp
+//          holds) takes passes of 320: each pass reloads h from the scratch,
+//          forms its columns' logits and dlab, and adds its share of dh to
+//          an fp32 scratch row that the last pass rounds, in pass order.
+//     (sums) dW_lab = h^T bf16(dlab) as a split-K product over the window's
+//          cells with a fixed number of splits (KSPLIT), each block owning
+//          64 hidden rows x up to 320 columns in registers, h and dlab arriving
+//          through a 2-stage cp.async ring; dW[:, VL] = sum h * dblank in
+//          fp32 beside it; de (over u) and dp (over t) summed from the dx
+//          scratch, one thread per pair of outputs in a fixed order; db from
+//          the per-tile partials. Each adds to fp32 accumulators, the
+//          windows in order.
+//     (reduce) sums the K splits into dW, writes db and de in e's dtype.
 //   The TPU kernel carries dp, dW and db across its sequential grid; Hopper
-//   blocks run in any order, hence the partials and the second pass.
+//   blocks run in any order, hence the accumulators and the fixed orders.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,11 +115,9 @@ constexpr int NC = 64;          // label columns per chunk
 constexpr int KC = 64;          // depth of a staged W piece
 constexpr int LDW = NC + 8;     // bf16 stride of a W piece
 constexpr int LDS = NC + 4;     // fp32 stride of a logits tile
-constexpr int TB = 16;          // frames per backward tile
 constexpr float NEG_INF = -1e30f;
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-__host__ __device__ inline int round64(int x) { return (x + 63) / 64 * 64; }
 
 __device__ inline float rb(float x) { return __bfloat162float(__float2bfloat16(x)); }
 
@@ -110,6 +139,11 @@ struct Joint {
   int B, T, U1, H, V, VL, Tp, act, drop_t;
   uint32_t seed;
   float inv_keep;
+  // the backward's lattice: t_lens, u_lens [B] and each sample's first
+  // cell in the global order, off [B + 1] (off[B]: the lattice's cells)
+  const int* t_lens;
+  const int* u_lens;
+  const long long* off;
 };
 
 __device__ inline float act_fn(float x, int act) {
@@ -325,43 +359,70 @@ joint_fwd_kernel(Joint J, const int* __restrict__ t_lens, const int* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// backward: shared pieces
+// backward: tensor-core helpers (mma.sync m16n8k16 bf16, ldmatrix, cp.async)
 // ---------------------------------------------------------------------------
 
-// Per-row cotangent inputs of a 64-row chunk.
-struct RowMeta {
-  int* rt;
-  int* ru;
-  int* tgt;
-  float* lse;
-  float* total;
-  float* gb;
-  float* gy;
-  float* dblank;
-};
+constexpr int CELL_THREADS = 512;  // cells kernel: 16 warps, 4 row blocks x 4 column groups
+constexpr int SUM_THREADS = 256;   // sums kernel: 8 warps, 4 row blocks x 2 column halves
+constexpr int BROWS = 64;          // lattice cells per backward tile
+constexpr int NTQ = 10;            // n-tiles of 8 columns per cells-kernel warp
+constexpr int PASS_COLS = 4 * 8 * NTQ;  // label columns per pass over the block: 320
+constexpr int NTW = PASS_COLS / 16;  // n-tiles per sums-kernel warp
+constexpr int KSL = 32;          // depth of a W slice in the logits ring
+constexpr int LOGIT_STAGES = 3;
+constexpr int HCH = 64;          // hidden columns per dh chunk (and per dW block)
+constexpr int KSPLIT = 24;       // fixed number of K splits of the dW product
 
-__device__ void load_meta(const Joint& J, const TileRows& R, int b, int j0, const float* lse,
-                          const float* total, const float* gb, const float* gy, RowMeta& M) {
-  for (int r = threadIdx.x; r < ROWS; r += NT) {
-    const int j = j0 + r;
-    if (j < R.n) {
-      const int t = R.t0 + j / R.n_u, u = j % R.n_u;
-      const size_t o = ((size_t)b * J.T + t) * J.U1 + u;
-      M.rt[r] = t;
-      M.ru[r] = u;
-      M.tgt[r] = target_of(J, b, u);
-      M.lse[r] = lse[o];
-      M.total[r] = total[o];
-      M.gb[r] = gb[o];
-      M.gy[r] = gy[o];
-    } else {
-      M.rt[r] = -1;
-      M.ru[r] = 0;
-      M.tgt[r] = -1;
-      M.lse[r] = 0.f;
-      M.total[r] = M.gb[r] = M.gy[r] = 0.f;
-    }
-  }
+// Columns of the padded label block (VLp, a multiple of 32) that one pass
+// holds; a wider block takes ceil(VLp / 320) passes.
+__host__ __device__ inline int pass_cols(int VLp) { return VLp < PASS_COLS ? VLp : PASS_COLS; }
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ inline void cp_async16(void* s, const void* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(s)), "l"(g));
+}
+__device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ inline void ldsm4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ inline void ldsm4t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ inline void ldsm2t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
+}
+__device__ inline void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment addresses for lane l (ldmatrix x4: lanes 8i..8i+7 give matrix i's rows).
+// A [16 x 16] from row-major [m][k] storage (no transpose)
+__device__ inline const bf16* a_addr(const bf16* s, int ld, int m0, int k0, int l) {
+  return s + (size_t)(m0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + k0 + (l >> 4) * 8;
+}
+// A [16 x 16] from [k][m] storage (.trans)
+__device__ inline const bf16* at_addr(const bf16* s, int ld, int m0, int k0, int l) {
+  return s + (size_t)(k0 + (l & 7) + (l >> 4) * 8) * ld + m0 + ((l >> 3) & 1) * 8;
+}
+// B of two n-tiles [16 x 8] from row-major [k][n] storage (.trans)
+__device__ inline const bf16* bt_addr(const bf16* s, int ld, int k0, int n0, int l) {
+  return s + (size_t)(k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8;
+}
+// B of two n-tiles from [n][k] storage (no transpose)
+__device__ inline const bf16* bn_addr(const bf16* s, int ld, int k0, int n0, int l) {
+  return s + (size_t)(n0 + (l & 7) + (l >> 4) * 8) * ld + k0 + ((l >> 3) & 1) * 8;
 }
 
 __device__ inline float clamp_g(float x, float clamp, float g) {
@@ -369,276 +430,640 @@ __device__ inline float clamp_g(float x, float clamp, float g) {
   return x * g;
 }
 
-// dlab of the 64 x 64 chunk in S (logit accumulators in, dlab fp32 out), for
-// the rows of this warp; rows that are empty give 0.
-__device__ void dlab_chunk(const Joint& J, float* S, const RowMeta& M, int c0, float clamp,
-                           float g) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = 16 * warp + (lane >> 1);
-  const int half = lane & 1;
-  const bool live = M.rt[r] >= 0;
-  for (int k = 0; k < 32; ++k) {
-    const int cc = half * 32 + k, c = c0 + cc;
-    float d = 0.f;
-    if (live && c < J.VL) {
-      const float lab = label_logit(J, S[r * LDS + cc], c);
-      d = expf(lab - M.lse[r]) * M.total[r] - (c == M.tgt[r] ? M.gy[r] : 0.f);
-      d = clamp_g(d, clamp, g);
-    }
-    S[r * LDS + cc] = d;
+__device__ inline uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Sample b's lattice: n_t frames, n_u labels + 1. Its cells are numbered
+// from J.off[b] (sample-major, then t-major: cell j -> t = j / n_u, u = j % n_u).
+struct Lat {
+  int n_t, n_u;
+};
+__device__ inline Lat lat_of(const Joint& J, int b) {
+  Lat L;
+  L.n_t = max(0, min(J.t_lens[b], J.T));
+  L.n_u = max(0, min(J.u_lens[b], J.U1 - 1) + 1);
+  return L;
+}
+
+// (b, t, u) of global cell c < J.off[J.B]: a binary search over the offsets.
+__device__ inline void cell_btu(const Joint& J, long long c, int& b, int& t, int& u) {
+  int lo = 0, hi = J.B - 1;  // the last sample whose first cell is <= c
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (J.off[mid] <= c) lo = mid;
+    else hi = mid - 1;
   }
-  __syncwarp();
+  b = lo;
+  const int n_u = lat_of(J, b).n_u;
+  const int j = (int)(c - J.off[b]);
+  t = j / n_u;
+  u = j % n_u;
+}
+
+// Eight hidden units h0..h0+7 of cell (b, t, u): x = bf16(e + p), h =
+// drop(act(x)) and g = act'(x), zero where dropped (so dx = dh * g).
+__device__ inline void hidden8(const Joint& J, int b, int t, int u, int h0, uint4& hv,
+                               uint4& gv) {
+  const uint4 ev = __ldg(reinterpret_cast<const uint4*>(J.e + ((size_t)b * J.T + t) * J.H + h0));
+  const uint4 pv = __ldg(reinterpret_cast<const uint4*>(J.p + ((size_t)b * J.U1 + u) * J.H + h0));
+  const bf16* e8 = reinterpret_cast<const bf16*>(&ev);
+  const bf16* p8 = reinterpret_cast<const bf16*>(&pv);
+  uint32_t hw[4], gw[4];
+  const uint32_t base =
+      ((uint32_t)b * (uint32_t)J.Tp + (uint32_t)t) * ((uint32_t)J.U1 * (uint32_t)J.H) +
+      (uint32_t)u * (uint32_t)J.H + (uint32_t)h0;
+#pragma unroll
+  for (int k = 0; k < 8; k += 2) {
+    float hh[2], gg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float x = rb(__bfloat162float(e8[k + i]) + __bfloat162float(p8[k + i]));
+      const float a = act_fn(x, J.act);
+      float ag = act_grad(x, a, J.act);
+      float h = a;
+      if (J.drop_t > 0) {
+        const bool keep = (int)(fmix32((base + (uint32_t)(k + i)) ^ J.seed) >> 24) >= J.drop_t;
+        h = keep ? rb(a * J.inv_keep) : 0.f;
+        ag = keep ? ag : 0.f;
+      }
+      hh[i] = h;
+      gg[i] = ag;
+    }
+    hw[k / 2] = pack2(hh[0], hh[1]);
+    gw[k / 2] = pack2(gg[0], gg[1]);
+  }
+  hv = make_uint4(hw[0], hw[1], hw[2], hw[3]);
+  gv = make_uint4(gw[0], gw[1], gw[2], gw[3]);
+}
+
+// rows [r0, r0 + nr) x [0, ncol) of a bf16 [.., ld_g] array into smem [..][ld_s]
+// by cp.async (16-byte vectors; ncol a multiple of 8); rows past `rmax` zero.
+__device__ inline void stage_rows(bf16* s, int ld_s, const bf16* g, int ld_g, int r0, int nr,
+                                  int rmax, int ncol) {
+  const int vec = ncol / 8;
+  for (int i = threadIdx.x; i < nr * vec; i += blockDim.x) {
+    const int r = i / vec, c = (i % vec) * 8;
+    bf16* dst = s + (size_t)r * ld_s + c;
+    if (r0 + r < rmax) cp_async16(dst, g + (size_t)(r0 + r) * ld_g + c);
+    else *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// backward (dx): de, dp partials, db and dW[:, VL] partials
+// backward (cells): per 64 lattice cells of a window, dlab, dblank and dx
 // ---------------------------------------------------------------------------
 
-struct DxLayout {
-  int ldh, ldl, vlp;
-  size_t hs, wc, s, dl, dx, de, dbl, dwb, meta, total;
+struct CellLayout {
+  int ldh, ldl;
+  size_t hs, gs, ring, dl, dbw, meta, total;
 };
 
-__host__ __device__ inline DxLayout dx_layout(int H, int VL) {
-  DxLayout L;
+__host__ __device__ inline CellLayout cell_layout(int H, int VLp) {
+  CellLayout L;
+  const int PW = pass_cols(VLp);
   L.ldh = H + 8;
-  L.vlp = round64(VL);
-  L.ldl = L.vlp + 8;
+  L.ldl = PW + 8;
   size_t off = 0;
-  L.hs = off; off = align128(off + sizeof(bf16) * ROWS * L.ldh);
-  L.wc = off; off = align128(off + sizeof(bf16) * KC * LDW);
-  L.s = off; off = align128(off + sizeof(float) * ROWS * LDS);
-  L.dl = off; off = align128(off + sizeof(bf16) * ROWS * L.ldl);
-  L.dx = off; off = align128(off + sizeof(bf16) * ROWS * LDW);
-  L.de = off; off = align128(off + sizeof(float) * TB * H);
-  L.dbl = off; off = align128(off + sizeof(float) * L.vlp);
-  L.dwb = off; off = align128(off + sizeof(float) * H);
-  L.meta = off; off = align128(off + sizeof(float) * ROWS * 8);
+  // Hs: h, bf16; after the logits the region holds the dh ring (2 x [64][ldl])
+  const size_t hs_elems = BROWS * (size_t)(L.ldh > 2 * L.ldl ? L.ldh : 2 * L.ldl);
+  L.hs = off; off = align128(off + sizeof(bf16) * hs_elems);
+  L.gs = off; off = align128(off + sizeof(bf16) * BROWS * (size_t)L.ldh);
+  // the logits ring (3 x [32][ldl]); after the logits, Dl and the db partial
+  L.ring = off;
+  L.dl = off;
+  L.dbw = align128(L.dl + sizeof(bf16) * BROWS * (size_t)L.ldl);
+  const size_t ring_end = L.ring + sizeof(bf16) * LOGIT_STAGES * KSL * (size_t)L.ldl;
+  const size_t dl_end = L.dbw + sizeof(float) * 4 * (size_t)PW;
+  off = align128(ring_end > dl_end ? ring_end : dl_end);
+  L.meta = off; off = align128(off + sizeof(float) * BROWS * 10);
   L.total = off;
   return L;
 }
 
-__device__ inline RowMeta meta_at(unsigned char* p) {
-  RowMeta M;
-  M.rt = reinterpret_cast<int*>(p);
-  M.ru = M.rt + ROWS;
-  M.tgt = M.ru + ROWS;
-  M.lse = reinterpret_cast<float*>(M.tgt + ROWS);
-  M.total = M.lse + ROWS;
-  M.gb = M.total + ROWS;
-  M.gy = M.gb + ROWS;
-  M.dblank = M.gy + ROWS;
+struct CellMeta {
+  int *b, *t, *u, *tgt;
+  float *lse, *total, *gb, *gy, *g, *dblank;
+};
+__device__ inline CellMeta cell_meta_at(unsigned char* p) {
+  CellMeta M;
+  M.b = reinterpret_cast<int*>(p);
+  M.t = M.b + BROWS;
+  M.u = M.t + BROWS;
+  M.tgt = M.u + BROWS;
+  M.lse = reinterpret_cast<float*>(M.tgt + BROWS);
+  M.total = M.lse + BROWS;
+  M.gb = M.total + BROWS;
+  M.gy = M.gb + BROWS;
+  M.g = M.gy + BROWS;
+  M.dblank = M.g + BROWS;
   return M;
 }
 
-__global__ void __launch_bounds__(NT)
-joint_bwd_dx_kernel(Joint J, const int* __restrict__ t_lens, const int* __restrict__ u_lens,
-                    const float* __restrict__ lse, const float* __restrict__ total,
-                    const float* __restrict__ gb, const float* __restrict__ gy,
-                    const float* __restrict__ g, float clamp, bf16* __restrict__ de,
-                    float* __restrict__ dp_part, float* __restrict__ dw_part,
-                    float* __restrict__ dbl_part, float* __restrict__ dwb_part,
-                    float* __restrict__ dbb_part) {
+__global__ void __launch_bounds__(CELL_THREADS)
+joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __restrict__ w_blank,
+                       int VLp, const float* __restrict__ lse, const float* __restrict__ total,
+                       const float* __restrict__ gb, const float* __restrict__ gy,
+                       const float* __restrict__ g, float clamp, long long c0, int win,
+                       bf16* __restrict__ dlab_out, float* __restrict__ dblank_out,
+                       bf16* __restrict__ dx_out, bf16* __restrict__ h_out,
+                       float* __restrict__ dbl_part, float* __restrict__ dh_part) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DxLayout L = dx_layout(J.H, J.VL);
+  const CellLayout L = cell_layout(J.H, VLp);
   bf16* Hs = reinterpret_cast<bf16*>(smem + L.hs);
-  bf16* Wc = reinterpret_cast<bf16*>(smem + L.wc);
-  float* S = reinterpret_cast<float*>(smem + L.s);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + L.gs);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
   bf16* Dl = reinterpret_cast<bf16*>(smem + L.dl);
-  bf16* DX = reinterpret_cast<bf16*>(smem + L.dx);
-  float* de_acc = reinterpret_cast<float*>(smem + L.de);
-  float* dbl_acc = reinterpret_cast<float*>(smem + L.dbl);
-  float* dwb_acc = reinterpret_cast<float*>(smem + L.dwb);
-  RowMeta M = meta_at(smem + L.meta);
+  float* dbw = reinterpret_cast<float*>(smem + L.dbw);
+  CellMeta M = cell_meta_at(smem + L.meta);
 
-  const int tile = blockIdx.x, b = blockIdx.y, n_tiles = gridDim.x;
-  const int blk = b * n_tiles + tile;
-  const TileRows R = tile_rows(J, t_lens, u_lens, b, tile * TB, TB);
-  const float gg = g[b];
-  float* dp_slice = dp_part + (size_t)blk * J.U1 * J.H;
-  float* dw_slice = dw_part + (size_t)blk * J.H * L.vlp;  // [H][vlp]
-  for (int i = threadIdx.x; i < J.U1 * J.H; i += NT) dp_slice[i] = 0.f;
-  for (int i = threadIdx.x; i < TB * J.H; i += NT) de_acc[i] = 0.f;
-  for (int i = threadIdx.x; i < L.vlp; i += NT) dbl_acc[i] = 0.f;
-  for (int i = threadIdx.x; i < J.H; i += NT) dwb_acc[i] = 0.f;
-  float dbb = 0.f;  // thread 0's running sum
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = 16 * warp + (lane >> 1);
-  const int half = lane & 1;
+  const long long n_all = J.off[J.B];
+  const long long tile0 = c0 + (long long)blockIdx.x * BROWS;  // first global cell
+  if (tile0 >= n_all || (long long)blockIdx.x * BROWS >= win) return;
+  const int rows = (int)min((long long)BROWS, n_all - tile0);
+  const size_t row0 = (size_t)(tile0 - c0);  // the tile's first row in the window's scratch
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int mblk = warp & 3, nq = warp >> 2;  // row block, column group
+  const int H = J.H, VL = J.VL, ldh = L.ldh, ldl = L.ldl;
+  const int hv8 = H / 8;
 
-  for (int j0 = 0; j0 < R.n; j0 += ROWS) {
-    __syncthreads();  // the previous chunk is done with every buffer
-    load_meta(J, R, b, j0, lse, total, gb, gy, M);
-    __syncthreads();
-    build_h(J, b, M.rt, M.ru, Hs, L.ldh);
-    __syncthreads();
-    {
-      const float blank = blank_logit(J, Hs, L.ldh, r, half);
-      float d = 0.f;
-      if (M.rt[r] >= 0)
-        d = clamp_g(expf(blank - M.lse[r]) * M.total[r] - M.gb[r], clamp, gg);
-      if (half == 0) M.dblank[r] = d;
+  if (threadIdx.x < BROWS) {
+    const int r = threadIdx.x;
+    int b = -1, t = 0, u = 0;
+    if (r < rows) cell_btu(J, tile0 + r, b, t, u);
+    M.b[r] = b;
+    M.t[r] = t;
+    M.u[r] = u;
+    if (b >= 0) {
+      const size_t o = ((size_t)b * J.T + t) * J.U1 + u;
+      M.tgt[r] = target_of(J, b, u);
+      M.lse[r] = lse[o];
+      M.total[r] = total[o];
+      M.gb[r] = gb[o];
+      M.gy[r] = gy[o];
+      M.g[r] = g[b];
+    } else {
+      M.tgt[r] = -1;
+      M.lse[r] = M.total[r] = M.gb[r] = M.gy[r] = M.g[r] = 0.f;
     }
-    // dlab, chunk by chunk, into Dl (bf16) and the db partial (fp32)
-    for (int c0 = 0; c0 < L.vlp; c0 += NC) {
-      logits_chunk(J, Hs, L.ldh, Wc, S, c0);
-      dlab_chunk(J, S, M, c0, clamp, gg);
+  }
+
+  // The label block in passes of at most 320 columns (one pass up to
+  // VLp 320): each pass forms its columns' logits and dlab and adds their
+  // share of dh; dh stays in fp32 (dh_part, this block's rows) until the
+  // last pass rounds it.
+  const int n_pass = (VLp + PASS_COLS - 1) / PASS_COLS;
+  const int n_sl = (H + KSL - 1) / KSL;
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int p0 = pass * PASS_COLS, PW = min(PASS_COLS, VLp - p0);
+    const bool last = pass == n_pass - 1;
+    if (pass > 0) {  // h again, from this tile's rows of the window's scratch
+      stage_rows(Hs, ldh, h_out + row0 * H, H, 0, BROWS, rows, H);
+      cp_commit();
+    }
+    // the first two W slices of the logits ring, in flight while h is built
+    auto load_slice = [&](int s) {
+      const int k0 = s * KSL;
+      stage_rows(ring + (size_t)(s % LOGIT_STAGES) * KSL * ldl, ldl, w_pad + p0, VLp, k0,
+                 min(KSL, H - k0), H, PW);
+    };
+    load_slice(0);
+    cp_commit();
+    if (n_sl > 1) load_slice(1);
+    cp_commit();
+    __syncthreads();
+
+    if (pass == 0) {
+      // h and act' (0 where dropped), once per element
+      for (int i = threadIdx.x; i < BROWS * hv8; i += CELL_THREADS) {
+        const int r = i / hv8, h0 = (i % hv8) * 8;
+        uint4 hv = make_uint4(0, 0, 0, 0), gv = make_uint4(0, 0, 0, 0);
+        if (M.b[r] >= 0) hidden8(J, M.b[r], M.t[r], M.u[r], h0, hv, gv);
+        *reinterpret_cast<uint4*>(Hs + (size_t)r * ldh + h0) = hv;
+        *reinterpret_cast<uint4*>(Gs + (size_t)r * ldh + h0) = gv;
+      }
       __syncthreads();
-      for (int idx = threadIdx.x; idx < ROWS * NC; idx += NT) {
-        const int rr = idx / NC, cc = idx % NC;
-        Dl[rr * L.ldl + c0 + cc] = __float2bfloat16(S[rr * LDS + cc]);
+      // h into the window's scratch for the dW product (16-byte vectors)
+      for (int i = threadIdx.x; i < rows * hv8; i += CELL_THREADS) {
+        const int r = i / hv8, h0 = (i % hv8) * 8;
+        *reinterpret_cast<uint4*>(h_out + (row0 + r) * H + h0) =
+            *reinterpret_cast<const uint4*>(Hs + (size_t)r * ldh + h0);
       }
-      if (threadIdx.x < NC) {
-        float s = 0.f;
-        for (int rr = 0; rr < ROWS; ++rr) s += S[rr * LDS + threadIdx.x];
-        dbl_acc[c0 + threadIdx.x] += s;
-      }
-    }
-    __syncthreads();
-    // dW[:, VL] and db[VL] partials
-    for (int h = threadIdx.x; h < J.H; h += NT) {
+
+      // blank logit: eight lanes per row, the fp32 row dot rounded, + bias[VL]
+      const int r = threadIdx.x / 8, q = threadIdx.x % 8;
       float s = 0.f;
-      for (int rr = 0; rr < ROWS; ++rr) s += __bfloat162float(Hs[rr * L.ldh + h]) * M.dblank[rr];
-      dwb_acc[h] += s;
-    }
-    if (threadIdx.x == 0)
-      for (int rr = 0; rr < ROWS; ++rr) dbb += M.dblank[rr];
-    // dW_lab slice += Hs^T Dl: each warp reads, adds to and writes back its
-    // own 16 x 16 tiles (the same tiles every chunk); the first chunk starts
-    // from zero
-    for (int tile_i = warp; tile_i < (J.H / 16) * (L.vlp / 16); tile_i += NT / 32) {
-      const int i = tile_i / (L.vlp / 16), j = tile_i % (L.vlp / 16);
-      float* out = dw_slice + (size_t)(16 * i) * L.vlp + 16 * j;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (j0 == 0) wmma::fill_fragment(acc, 0.f);
-      else wmma::load_matrix_sync(acc, out, L.vlp, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < ROWS / 16; ++k) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(a, Hs + (16 * k) * L.ldh + 16 * i, L.ldh);
-        wmma::load_matrix_sync(bfr, Dl + (16 * k) * L.ldl + 16 * j, L.ldl);
-        wmma::mma_sync(acc, a, bfr, acc);
+      for (int h = 2 * q; h < H; h += 16) {
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            Hs + (size_t)r * ldh + h));
+        const float2 wb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w_blank + h));
+        s += x.x * wb.x + x.y * wb.y;
       }
-      wmma::store_matrix_sync(out, acc, L.vlp, wmma::mem_row_major);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      if (q == 0) {
+        float d = 0.f;
+        if (M.b[r] >= 0) {
+          const float blank = rb(rb(s) + __bfloat162float(J.bias[VL]));
+          d = clamp_g(expf(blank - M.lse[r]) * M.total[r] - M.gb[r], clamp, M.g[r]);
+          dblank_out[row0 + r] = d;
+        }
+        M.dblank[r] = d;
+      }
     }
 
-    // dh = Dl @ W_lab^T, 64 hidden columns at a time, then dx
-    for (int h0 = 0; h0 < J.H; h0 += NC) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+    // the pass's logits [64 x PW] = Hs @ W_pad[:, p0 : p0 + PW], accumulators
+    // in registers
+    const int nt = PW / 32;  // n-tiles per column group
+    const int cb = nq * (PW / 4);
+    float acc[NTQ][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-      for (int c0 = 0; c0 < L.vlp; c0 += KC) {
-        __syncthreads();
-        // piece [c][h] = W[h0 + h, c0 + c]: W_lab^T, zero past VL and H
-        for (int idx = threadIdx.x; idx < KC * NC; idx += NT) {
-          const int kk = idx / NC, hh = idx % NC;
-          const int c = c0 + kk, h = h0 + hh;
-          Wc[kk * LDW + hh] = (c < J.VL && h < J.H) ? J.w[(size_t)h * J.V + c]
-                                                     : __float2bfloat16(0.f);
-        }
-        __syncthreads();
+    for (int j = 0; j < NTQ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int s = 0; s < n_sl; ++s) {
+      cp_wait<1>();
+      __syncthreads();
+      if (s + 2 < n_sl) load_slice(s + 2);
+      cp_commit();
+      const bf16* Ws = ring + (size_t)(s % LOGIT_STAGES) * KSL * ldl;
+      const int ks = min(KSL, H - s * KSL) / 16;
+      for (int kk = 0; kk < ks; ++kk) {
+        uint32_t a[4];
+        ldsm4(a, a_addr(Hs, ldh, 16 * mblk, s * KSL + 16 * kk, l));
 #pragma unroll
-        for (int kk = 0; kk < KC / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, Dl + (16 * warp) * L.ldl + c0 + kk * 16, L.ldl);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-            wmma::load_matrix_sync(bfr, Wc + (kk * 16) * LDW + 16 * j, LDW);
-            wmma::mma_sync(acc[j], a, bfr, acc[j]);
+        for (int j = 0; j < NTQ; j += 2) {
+          if (j + 1 < NTQ && j + 1 < nt) {
+            uint32_t bb[4];
+            ldsm4t(bb, bt_addr(Ws, ldl, 16 * kk, cb + 8 * j, l));
+            mma16816(acc[j], a, bb[0], bb[1]);
+            mma16816(acc[j + 1], a, bb[2], bb[3]);
+          } else if (j < nt) {
+            uint32_t bb[2];
+            ldsm2t(bb, bt_addr(Ws, ldl, 16 * kk, cb + 8 * j, l & 15));
+            mma16816(acc[j], a, bb[0], bb[1]);
           }
         }
       }
+    }
+    cp_wait<0>();
+    __syncthreads();  // every warp is done with the ring: Dl and dbw take its place
+
+    // dlab = clamp(softmax * total - gy 1[tgt]) * g in fp32: db sums it, Dl
+    // holds it in bf16 (zero in the pad columns and empty rows)
+    {
+      const int g0 = l >> 2, r_lo = 16 * mblk + g0, r_hi = r_lo + 8;
+      const bool live_lo = M.b[r_lo] >= 0, live_hi = M.b[r_hi] >= 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(S + (16 * warp) * LDS + 16 * j, acc[j], LDS,
-                                wmma::mem_row_major);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < ROWS * NC; idx += NT) {
-        const int rr = idx / NC, hh = idx % NC, h = h0 + hh;
-        const int t = M.rt[rr], u = M.ru[rr];
-        float dx = 0.f;
-        if (t >= 0 && h < J.H) {
-          float dh = rb(S[rr * LDS + hh] +
-                        M.dblank[rr] * __bfloat162float(J.w[(size_t)h * J.V + J.VL]));
-          if (J.drop_t > 0) dh = keep_elem(J, b, t, u, h) ? rb(dh * J.inv_keep) : 0.f;
-          const float x = pre_act(J, b, t, u, h);
-          dx = rb(dh * act_grad(x, act_fn(x, J.act), J.act));
+      for (int j = 0; j < NTQ; ++j) {
+        if (j >= nt) continue;
+        const int lc = cb + 8 * j + (l & 3) * 2;  // the pass's column
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? r_lo : r_hi;
+          const bool live = e < 2 ? live_lo : live_hi;
+          const int c = p0 + lc + (e & 1);
+          float x = 0.f;
+          if (live && c < VL) {
+            const float lab = rb(rb(acc[j][e]) + __bfloat162float(J.bias[c]));
+            x = expf(lab - M.lse[r]) * M.total[r] - (c == M.tgt[r] ? M.gy[r] : 0.f);
+            x = clamp_g(x, clamp, M.g[r]);
+          }
+          d[e] = x;
         }
-        DX[rr * LDW + hh] = __float2bfloat16(dx);
-      }
-      __syncthreads();
-      // de (shared memory) and dp (this block's slice): one thread per
-      // column, rows in order
-      const int hh = threadIdx.x % NC, h = h0 + hh;
-      if (h < J.H) {
-        if (threadIdx.x < NC) {
-          for (int rr = 0; rr < ROWS; ++rr)
-            if (M.rt[rr] >= 0)
-              de_acc[(M.rt[rr] - R.t0) * J.H + h] += __bfloat162float(DX[rr * LDW + hh]);
-        } else {
-          for (int rr = 0; rr < ROWS; ++rr)
-            if (M.rt[rr] >= 0)
-              dp_slice[(size_t)M.ru[rr] * J.H + h] += __bfloat162float(DX[rr * LDW + hh]);
+        *reinterpret_cast<uint32_t*>(Dl + (size_t)r_lo * ldl + lc) = pack2(d[0], d[1]);
+        *reinterpret_cast<uint32_t*>(Dl + (size_t)r_hi * ldl + lc) = pack2(d[2], d[3]);
+        // column sums over this warp's 16 rows, in a fixed order
+        float s0 = d[0] + d[2], s1 = d[1] + d[3];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (g0 == 0) {
+          dbw[mblk * PW + lc] = s0;
+          dbw[mblk * PW + lc + 1] = s1;
         }
       }
     }
+    __syncthreads();
+    float* dbl_row = dbl_part + (row0 / BROWS) * (size_t)(VL + 1);
+    for (int c = threadIdx.x; c < min(PW, VL - p0); c += CELL_THREADS)
+      dbl_row[p0 + c] = ((dbw[c] + dbw[PW + c]) + dbw[2 * PW + c]) + dbw[3 * PW + c];
+    if (pass == 0 && threadIdx.x == 0) {
+      float s = 0.f;
+      for (int r = 0; r < BROWS; ++r) s += M.dblank[r];
+      dbl_row[VL] = s;
+    }
+    // the bf16 dlab rows into the window's scratch (16-byte vectors)
+    {
+      const int vec = PW / 8;
+      for (int i = threadIdx.x; i < rows * vec; i += CELL_THREADS) {
+        const int r = i / vec, c = (i % vec) * 8;
+        *reinterpret_cast<uint4*>(dlab_out + (row0 + r) * VLp + p0 + c) =
+            *reinterpret_cast<const uint4*>(Dl + (size_t)r * ldl + c);
+      }
+    }
+
+    // dh += Dl @ W_pad[:, p0 : p0 + PW]^T, 64 hidden columns at a time, with
+    // W_pad's rows for the next chunk in flight (ring in the Hs region);
+    // after the last pass, + dblank w_blank, dropout and dx = bf16(dh * act')
+    bf16* dring = Hs;
+    const size_t dstage = (size_t)HCH * ldl;
+    const int n_hc = (H + HCH - 1) / HCH;
+    auto load_hc = [&](int hc) {
+      stage_rows(dring + (size_t)(hc & 1) * dstage, ldl, w_pad + p0, VLp, hc * HCH, HCH, H, PW);
+    };
+    load_hc(0);
+    cp_commit();
+    for (int hc = 0; hc < n_hc; ++hc) {
+      if (hc + 1 < n_hc) load_hc(hc + 1);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();
+      const bf16* Wd = dring + (size_t)(hc & 1) * dstage;
+      float acc2[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
+      for (int kk = 0; kk < PW / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        ldsm4(a, a_addr(Dl, ldl, 16 * mblk, 16 * kk, l));
+        ldsm4(bb, bn_addr(Wd, ldl, 16 * kk, 16 * nq, l));
+        mma16816(acc2[0], a, bb[0], bb[1]);
+        mma16816(acc2[1], a, bb[2], bb[3]);
+      }
+      const int g0 = l >> 2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int h = hc * HCH + 16 * nq + 8 * j + (l & 3) * 2;
+        if (h >= H) continue;
+        const float wb0 = __bfloat162float(w_blank[h]), wb1 = __bfloat162float(w_blank[h + 1]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * mblk + g0 + 8 * half;
+          if (r >= rows) continue;
+          float2 sum = make_float2(acc2[j][2 * half], acc2[j][2 * half + 1]);
+          if (n_pass > 1) {
+            // the earlier passes' share (this thread wrote it), added in pass order
+            float2* part = reinterpret_cast<float2*>(dh_part + (row0 + r) * H + h);
+            if (pass > 0) {
+              const float2 prev = *part;
+              sum = make_float2(prev.x + sum.x, prev.y + sum.y);
+            }
+            if (!last) {
+              *part = sum;
+              continue;
+            }
+          }
+          float dx[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float dh = rb((i ? sum.y : sum.x) + M.dblank[r] * (i ? wb1 : wb0));
+            if (J.drop_t > 0) dh = rb(dh * J.inv_keep);
+            dx[i] = rb(dh * __bfloat162float(Gs[(size_t)r * ldh + h + i]));
+          }
+          // dx takes act's place in Gs (this thread alone reads and writes it)
+          *reinterpret_cast<uint32_t*>(Gs + (size_t)r * ldh + h) = pack2(dx[0], dx[1]);
+        }
+      }
+      __syncthreads();  // every warp is done with this stage before it is reloaded
+    }
   }
-  __syncthreads();
-  if (R.n == 0)  // no cell in the lattice: the slice is zero
-    for (size_t i = threadIdx.x; i < (size_t)J.H * L.vlp; i += NT) dw_slice[i] = 0.f;
-  for (int i = threadIdx.x; i < TB * J.H; i += NT) {
-    const int t = R.t0 + i / J.H;
-    if (t < J.T) de[((size_t)b * J.T + t) * J.H + i % J.H] = __float2bfloat16(de_acc[i]);
+  // the dx rows into the window's scratch (16-byte vectors)
+  for (int i = threadIdx.x; i < rows * hv8; i += CELL_THREADS) {
+    const int r = i / hv8, h0 = (i % hv8) * 8;
+    *reinterpret_cast<uint4*>(dx_out + (row0 + r) * H + h0) =
+        *reinterpret_cast<const uint4*>(Gs + (size_t)r * ldh + h0);
   }
-  for (int i = threadIdx.x; i < J.VL; i += NT) dbl_part[(size_t)blk * J.VL + i] = dbl_acc[i];
-  for (int i = threadIdx.x; i < J.H; i += NT) dwb_part[(size_t)blk * J.H + i] = dwb_acc[i];
-  if (threadIdx.x == 0) dbb_part[blk] = dbb;
 }
 
 // ---------------------------------------------------------------------------
-// backward (reduce): dW [H, V], db [V], dp [B, U1, H], fp32
+// backward (sums): over one window's scratch, dW by a split-K product of the
+// window's h and dlab, and the fixed-order sums of de, dp and db
 // ---------------------------------------------------------------------------
 
-__global__ void joint_bwd_reduce_kernel(int B, int U1, int H, int V, int n_tiles,
+struct SumLayout {
+  int ldc, ldd;
+  size_t hc, dc, dbs, dwq, total;
+};
+
+__host__ __device__ inline SumLayout sum_layout(int VLp) {
+  SumLayout L;
+  L.ldc = HCH + 8;
+  L.ldd = pass_cols(VLp) + 8;
+  size_t off = 0;
+  L.hc = off; off = align128(off + sizeof(bf16) * 2 * BROWS * (size_t)L.ldc);
+  L.dc = off; off = align128(off + sizeof(bf16) * 2 * BROWS * (size_t)L.ldd);
+  L.dbs = off; off = align128(off + sizeof(float) * 2 * BROWS);
+  L.dwq = off; off = align128(off + sizeof(float) * 4 * HCH);
+  L.total = off;
+  return L;
+}
+
+// dW_lab[hx0 : hx0 + 64, p0 : p0 + 320] over the window's cells [cs, ce)
+// (split s), added to dw_part[s]; with the first columns (p0 = 0) also
+// dW[:, VL] = sum h * dblank in fp32 into dwb_part[s]. h and dlab arrive
+// from the window's scratch through a 2-stage cp.async ring.
+__device__ void sums_dw(const Joint& J, int VLp, int cs, int ce, int s, int hx0, int p0,
+                        const bf16* dlab, const float* dblank, const bf16* hwin, float* dw_part,
+                        float* dwb_part, unsigned char* smem) {
+  const SumLayout L = sum_layout(VLp);
+  bf16* Hc = reinterpret_cast<bf16*>(smem + L.hc);
+  bf16* Dc = reinterpret_cast<bf16*>(smem + L.dc);
+  float* dbs = reinterpret_cast<float*>(smem + L.dbs);
+  float* dwq = reinterpret_cast<float*>(smem + L.dwq);
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int mblk = warp & 3, nh = warp >> 2;
+  const int PW = min(PASS_COLS, VLp - p0);
+  const int nt = PW / 16, cb = nh * (PW / 2), ldd = L.ldd, ldc = L.ldc;
+  const int H = J.H, ncol = min(HCH, H - hx0);
+  const int n_ch = (ce - cs + BROWS - 1) / BROWS;
+  const size_t hstage = (size_t)BROWS * ldc, dstage = (size_t)BROWS * ldd;
+  auto load = [&](int ch) {
+    const int r0 = cs + ch * BROWS, st = ch & 1;
+    stage_rows(Dc + st * dstage, ldd, dlab + p0, VLp, r0, BROWS, ce, PW);
+    stage_rows(Hc + st * hstage, ldc, hwin + hx0, H, r0, BROWS, ce, ncol);
+    for (int r = threadIdx.x; r < BROWS; r += SUM_THREADS)
+      dbs[st * BROWS + r] = r0 + r < ce ? dblank[r0 + r] : 0.f;
+  };
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int m = threadIdx.x % HCH, q = threadIdx.x / HCH;  // dW[:, VL]: column m, rows 16q..
+  float dwb = 0.f;
+  load(0);
+  cp_commit();
+  for (int ch = 0; ch < n_ch; ++ch) {
+    if (ch + 1 < n_ch) load(ch + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* Hs = Hc + (ch & 1) * hstage;
+    const bf16* D = Dc + (ch & 1) * dstage;
+    const float* db = dbs + (ch & 1) * BROWS;
+    if (p0 == 0)
+      for (int r = 16 * q; r < 16 * q + 16; ++r)
+        dwb += __bfloat162float(Hs[(size_t)r * ldc + m]) * db[r];
+#pragma unroll
+    for (int kk = 0; kk < BROWS / 16; ++kk) {
+      uint32_t a[4];
+      ldsm4t(a, at_addr(Hs, ldc, 16 * mblk, 16 * kk, l));
+#pragma unroll
+      for (int j = 0; j < NTW; j += 2) {
+        if (j + 1 < NTW && j + 1 < nt) {
+          uint32_t bb[4];
+          ldsm4t(bb, bt_addr(D, ldd, 16 * kk, cb + 8 * j, l));
+          mma16816(acc[j], a, bb[0], bb[1]);
+          mma16816(acc[j + 1], a, bb[2], bb[3]);
+        } else if (j < nt) {
+          uint32_t bb[2];
+          ldsm2t(bb, bt_addr(D, ldd, 16 * kk, cb + 8 * j, l & 15));
+          mma16816(acc[j], a, bb[0], bb[1]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for chunk ch + 2
+  }
+  const int g0 = l >> 2;
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    if (j >= nt) continue;
+    const int c = cb + 8 * j + (l & 3) * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int h = hx0 + 16 * mblk + g0 + 8 * half;
+      if (h >= H) continue;
+      float2* out = reinterpret_cast<float2*>(dw_part + ((size_t)s * H + h) * VLp + p0 + c);
+      float2 v = *out;
+      v.x += acc[j][2 * half];
+      v.y += acc[j][2 * half + 1];
+      *out = v;
+    }
+  }
+  if (p0 > 0) return;
+  dwq[q * HCH + m] = dwb;
+  __syncthreads();
+  if (threadIdx.x < ncol)
+    dwb_part[(size_t)s * H + hx0 + threadIdx.x] +=
+        ((dwq[threadIdx.x] + dwq[HCH + threadIdx.x]) + dwq[2 * HCH + threadIdx.x]) +
+        dwq[3 * HCH + threadIdx.x];
+}
+
+// sum over k < n, in order, of the bf16 pairs src[k * stride] -> out (+=),
+// the loads issued four at a time ahead of the adds
+__device__ inline void sum_pairs(const __nv_bfloat162* src, size_t stride, int n, float* out) {
+  float sx = 0.f, sy = 0.f;
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+    float2 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __bfloat1622float2(src[(size_t)(k + i) * stride]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sx += v[i].x;
+      sy += v[i].y;
+    }
+  }
+  for (; k < n; ++k) {
+    const float2 v = __bfloat1622float2(src[(size_t)k * stride]);
+    sx += v.x;
+    sy += v.y;
+  }
+  out[0] += sx;
+  out[1] += sy;
+}
+
+__global__ void __launch_bounds__(SUM_THREADS)
+joint_bwd_sums_kernel(Joint J, int VLp, long long c0, int win,
+                      const bf16* __restrict__ dlab, const float* __restrict__ dblank,
+                      const bf16* __restrict__ dx, const bf16* __restrict__ hwin,
+                      const float* __restrict__ dbl_part, float* __restrict__ de_acc,
+                      float* __restrict__ dp, float* __restrict__ dw_part,
+                      float* __restrict__ dwb_part, float* __restrict__ db_acc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long long n_all = J.off[J.B];
+  if (c0 >= n_all) return;
+  const int n_w = (int)min((long long)win, n_all - c0);
+  const int H = J.H, H2 = J.H / 2;
+  const int n_ht = (H + HCH - 1) / HCH, n_cp = (VLp + PASS_COLS - 1) / PASS_COLS;
+  const int n_dw = KSPLIT * n_ht * n_cp;
+  int bid = blockIdx.x;
+  if (bid < n_dw) {  // dW: split s of the window's 64-cell tiles, hidden block ht, columns cp
+    const int s = bid / (n_ht * n_cp), ht = bid / n_cp % n_ht, cp = bid % n_cp;
+    const int per = (((n_w + BROWS - 1) / BROWS + KSPLIT - 1) / KSPLIT) * BROWS;
+    const int cs = s * per, ce = min(cs + per, n_w);
+    if (cs < ce)
+      sums_dw(J, VLp, cs, ce, s, ht * HCH, cp * PASS_COLS, dlab, dblank, hwin, dw_part,
+              dwb_part, smem);
+    return;
+  }
+  bid -= n_dw;
+  const __nv_bfloat162* dx2 = reinterpret_cast<const __nv_bfloat162*>(dx);
+  if (bid < J.B * J.T) {  // de[b, t] += sum over u of dx, u in order
+    const int b = bid / J.T, t = bid % J.T;
+    const Lat L = lat_of(J, b);
+    if (t >= L.n_t) return;
+    const long long row = J.off[b] + (long long)t * L.n_u;
+    const long long lo = max(row, c0), hi = min(row + L.n_u, c0 + n_w);
+    if (lo >= hi) return;
+    for (int h2 = threadIdx.x; h2 < H2; h2 += SUM_THREADS)
+      sum_pairs(dx2 + (size_t)(lo - c0) * H2 + h2, H2, (int)(hi - lo),
+                de_acc + ((size_t)b * J.T + t) * H + 2 * h2);
+    return;
+  }
+  bid -= J.B * J.T;
+  if (bid < J.B * J.U1) {  // dp[b, u] += sum over t of dx, t in order
+    const int b = bid / J.U1, u = bid % J.U1;
+    const Lat L = lat_of(J, b);
+    if (u >= L.n_u) return;
+    const long long base = J.off[b] + u;  // cell (b, 0, u)
+    const long long a = c0 - base, z = c0 + n_w - 1 - base;
+    const int t_lo = a <= 0 ? 0 : (int)((a + L.n_u - 1) / L.n_u);
+    const int t_hi = z < 0 ? 0 : (int)min((long long)L.n_t, z / L.n_u + 1);
+    if (t_lo >= t_hi) return;
+    for (int h2 = threadIdx.x; h2 < H2; h2 += SUM_THREADS)
+      sum_pairs(dx2 + (size_t)(base + (long long)t_lo * L.n_u - c0) * H2 + h2,
+                (size_t)L.n_u * H2, t_hi - t_lo, dp + ((size_t)b * J.U1 + u) * H + 2 * h2);
+    return;
+  }
+  // db += the window's per-tile partials, tiles in order (db[VL]: dblank)
+  const int n_tiles = (n_w + BROWS - 1) / BROWS;
+  for (int c = threadIdx.x; c <= J.VL; c += SUM_THREADS) {
+    float s = 0.f;
+    for (int k = 0; k < n_tiles; ++k) s += dbl_part[(size_t)k * (J.VL + 1) + c];
+    db_acc[c] += s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward (reduce): dW [H, V] from the K splits, db [V], de in e's dtype
+// ---------------------------------------------------------------------------
+
+__global__ void joint_bwd_reduce_kernel(int B, int T, int H, int V, int VLp,
                                         const float* __restrict__ dw_part,
-                                        const float* __restrict__ dp_part,
-                                        const float* __restrict__ dbl_part,
                                         const float* __restrict__ dwb_part,
-                                        const float* __restrict__ dbb_part,
+                                        const float* __restrict__ db_acc,
+                                        const float* __restrict__ de_acc,
                                         float* __restrict__ dw, float* __restrict__ db,
-                                        float* __restrict__ dp) {
-  const int VL = V - 1, vlp = round64(VL);
-  const long long n_dw = (long long)H * V, n_db = V, n_dp = (long long)B * U1 * H;
+                                        bf16* __restrict__ de) {
+  const int VL = V - 1;
+  const long long n_dw = (long long)H * V, n_de = (long long)B * T * H;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_blk = B * n_tiles;
   if (i < n_dw) {
     const int h = (int)(i / V), c = (int)(i % V);
     float s = 0.f;
     if (c < VL) {
-      for (int k = 0; k < n_blk; ++k) s += dw_part[((size_t)k * H + h) * vlp + c];
+      for (int k = 0; k < KSPLIT; ++k) s += dw_part[((size_t)k * H + h) * VLp + c];
     } else {
-      for (int k = 0; k < n_blk; ++k) s += dwb_part[(size_t)k * H + h];
+      for (int k = 0; k < KSPLIT; ++k) s += dwb_part[(size_t)k * H + h];
     }
     dw[i] = s;
-  } else if (i < n_dw + n_db) {
-    const int c = (int)(i - n_dw);
-    float s = 0.f;
-    if (c < VL) {
-      for (int k = 0; k < n_blk; ++k) s += dbl_part[(size_t)k * VL + c];
-    } else {
-      for (int k = 0; k < n_blk; ++k) s += dbb_part[k];
-    }
-    db[c] = s;
-  } else if (i < n_dw + n_db + n_dp) {
-    const long long j = i - n_dw - n_db;
-    const int b = (int)(j / ((long long)U1 * H));
-    const long long uh = j % ((long long)U1 * H);
-    float s = 0.f;
-    for (int tile = 0; tile < n_tiles; ++tile)
-      s += dp_part[((size_t)b * n_tiles + tile) * U1 * H + uh];
-    dp[j] = s;
+  } else if (i < n_dw + V) {
+    db[i - n_dw] = db_acc[i - n_dw];
+  } else if (i < n_dw + V + n_de) {
+    const long long j = i - n_dw - V;
+    de[j] = __float2bfloat16(de_acc[j]);
   }
 }
 
@@ -656,23 +1081,32 @@ Joint make_joint(const void* e, const void* p, const void* w, const void* bias,
   J.drop_t = drop_t;
   J.seed = (uint32_t)seed;
   J.inv_keep = drop_t > 0 ? (float)(1.0 / (1.0 - drop_t / 256.0)) : 1.f;
+  J.t_lens = J.u_lens = nullptr;
+  J.off = nullptr;
   return J;
 }
 
 }  // namespace
 
-// Bytes of shared memory the forward (which = 0) or backward (1) kernel needs.
+// Bytes of shared memory the forward (which = 0), the backward's cells (1)
+// or sums (2) kernel needs at H, V.
 extern "C" long long rnnt_joint_smem_bytes(int H, int V, int which) {
-  return (long long)(which == 0 ? fwd_layout(H).total : dx_layout(H, V - 1).total);
+  const int vlp = (V - 1 + 31) / 32 * 32;
+  if (which == 0) return (long long)fwd_layout(H).total;
+  return (long long)(which == 1 ? cell_layout(H, vlp).total : sum_layout(vlp).total);
 }
 
-// Frames per backward tile.
-extern "C" int rnnt_joint_frames_per_tile() { return TB; }
+// The backward's layout constants, which size the buffers the caller
+// allocates: the cells per tile, the K splits of the dW product and the
+// label columns per pass.
+extern "C" int rnnt_joint_bwd_tile_cells() { return BROWS; }
+extern "C" int rnnt_joint_bwd_ksplit() { return KSPLIT; }
+extern "C" int rnnt_joint_bwd_pass_cols() { return PASS_COLS; }
 
 // e: [b, t, h], p: [b, u1, h], w: [h, v], bias: [v] bf16; targets: [b, u1-1],
 // t_lens, u_lens: [b] int32; blank_lp, label_lp, lse: [b, t, u1] fp32 (-1e30,
-// -1e30 and 1e30 outside each lattice). All contiguous; h a multiple of 16. tp: the dropout layout's padded t; act 0 relu, 1 sigmoid,
-// 2 tanh; drop_t 0 disables dropout. Launches on `stream`; returns the
+// -1e30 and 1e30 outside each lattice). All contiguous; h a multiple of 16.
+// tp: the dropout layout's padded t; act 0 relu, 1 sigmoid, 2 tanh; drop_t 0 disables dropout. Launches on `stream`; returns the
 // cudaError_t of the launch.
 extern "C" int rnnt_joint_fwd_bf16(const void* e, const void* p, const void* w, const void* bias,
                                    const void* targets, const void* t_lens, const void* u_lens,
@@ -690,44 +1124,79 @@ extern "C" int rnnt_joint_fwd_bf16(const void* e, const void* p, const void* w, 
   return (int)cudaGetLastError();
 }
 
-// The backward kernel: as the forward's inputs plus t_lens, u_lens [b]
-// int32; lse, total, gb, gy [b, t, u1] fp32 (posteriors zero outside the
-// lattice); g [b] fp32. Writes de [b, t, h] bf16 and the partials dp_part
-// [b * n_tiles, u1, h], dw_part [b * n_tiles, h, round64(v-1)], dbl_part
-// [b * n_tiles, v-1], dwb_part [b * n_tiles, h], dbb_part [b * n_tiles] fp32,
-// n_tiles = ceil(t / 16).
-extern "C" int rnnt_joint_bwd_dx_bf16(const void* e, const void* p, const void* w,
-                                      const void* bias, const void* targets, const void* t_lens,
-                                      const void* u_lens, const void* lse, const void* total,
-                                      const void* gb, const void* gy, const void* g, void* de,
-                                      void* dp_part, void* dw_part, void* dbl_part,
-                                      void* dwb_part, void* dbb_part, int b, int t, int u1, int h,
-                                      int v, int tp,
-                                      int act, int drop_t, int seed, float clamp, void* stream) {
-  const Joint J = make_joint(e, p, w, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
-  const size_t smem = dx_layout(h, v - 1).total;
-  cudaError_t err = cudaFuncSetAttribute(joint_bwd_dx_kernel,
+// The backward's cells kernel over the window of global cells [c0, c0 + win)
+// (win a multiple of 64): as the forward's inputs, with w_pad [h, vlp] the
+// label block zero-padded to vlp (a multiple of 32) and w_blank [h] bf16;
+// cell_off [b + 1] int64, each sample's first lattice cell (sample-major,
+// t-major; cell_off[b]: the lattice's cells); lse, total, gb, gy [b, t, u1]
+// fp32 (read inside the lattice only); g [b] fp32. Writes the window's dlab
+// [win, vlp] bf16, dblank [win] fp32, dx and h [win, h] bf16 and per-tile db
+// partials [win / 64, v] fp32. dh_part [win, h] fp32 holds dh between the
+// passes over a label block wider than 320 columns (unused, and may be null,
+// up to 320).
+extern "C" int rnnt_joint_bwd_cells_bf16(
+    const void* e, const void* p, const void* w_pad, const void* w_blank, const void* bias,
+    const void* targets, const void* t_lens, const void* u_lens, const void* cell_off,
+    const void* lse, const void* total, const void* gb, const void* gy, const void* g,
+    void* dlab, void* dblank, void* dx, void* h_win, void* dbl_part, void* dh_part, int b, int t,
+    int u1, int h,
+    int v, int vlp, int tp, int act, int drop_t, int seed, int win, long long c0, float clamp,
+    void* stream) {
+  Joint J = make_joint(e, p, nullptr, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
+  J.t_lens = (const int*)t_lens;
+  J.u_lens = (const int*)u_lens;
+  J.off = (const long long*)cell_off;
+  const size_t smem = cell_layout(h, vlp).total;
+  cudaError_t err = cudaFuncSetAttribute(joint_bwd_cells_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t + TB - 1) / TB, b);
-  joint_bwd_dx_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      J, (const int*)t_lens, (const int*)u_lens, (const float*)lse, (const float*)total,
-      (const float*)gb, (const float*)gy, (const float*)g, clamp, (bf16*)de, (float*)dp_part,
-      (float*)dw_part, (float*)dbl_part, (float*)dwb_part, (float*)dbb_part);
+  joint_bwd_cells_kernel<<<win / BROWS, CELL_THREADS, smem, (cudaStream_t)stream>>>(
+      J, (const bf16*)w_pad, (const bf16*)w_blank, vlp, (const float*)lse, (const float*)total,
+      (const float*)gb, (const float*)gy, (const float*)g, clamp, c0, win, (bf16*)dlab,
+      (float*)dblank, (bf16*)dx, (bf16*)h_win, (float*)dbl_part, (float*)dh_part);
   return (int)cudaGetLastError();
 }
 
-// The reduce kernel: dw [h, v], db [v], dp [b, u1, h] fp32 from the partials.
-extern "C" int rnnt_joint_bwd_reduce_f32(const void* dw_part, const void* dp_part,
-                                         const void* dbl_part, const void* dwb_part,
-                                         const void* dbb_part, void* dw, void* db, void* dp,
-                                         int b, int t, int u1, int h, int v, void* stream) {
-  const long long n = (long long)h * v + v + (long long)b * u1 * h;
+// The backward's sums kernel over the same window, from the cells kernel's
+// dlab, dblank, dx, h [win, h] bf16 and db partials: adds its dW_lab to
+// dw_part [KSPLIT, h, vlp], its dW[:, v-1] to dwb_part [KSPLIT, h], its de to
+// de_acc [b, t, h], its dp to dp [b, u1, h] and its db to db_acc [v], all
+// fp32 (zeroed by the caller before the first window).
+extern "C" int rnnt_joint_bwd_sums_f32(const void* t_lens, const void* u_lens,
+                                       const void* cell_off, const void* dlab,
+                                       const void* dblank, const void* dx, const void* h_win,
+                                       const void* dbl_part, void* de_acc, void* dp,
+                                       void* dw_part, void* dwb_part, void* db_acc, int b, int t,
+                                       int u1, int h, int v, int vlp, int win, long long c0,
+                                       void* stream) {
+  Joint J = make_joint(nullptr, nullptr, nullptr, nullptr, nullptr, b, t, u1, h, v, t, 0, 0, 0);
+  J.t_lens = (const int*)t_lens;
+  J.u_lens = (const int*)u_lens;
+  J.off = (const long long*)cell_off;
+  const size_t smem = sum_layout(vlp).total;
+  cudaError_t err = cudaFuncSetAttribute(joint_bwd_sums_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks =
+      (h + HCH - 1) / HCH * KSPLIT * ((vlp + PASS_COLS - 1) / PASS_COLS) + b * t + b * u1 + 1;
+  joint_bwd_sums_kernel<<<blocks, SUM_THREADS, smem, (cudaStream_t)stream>>>(
+      J, vlp, c0, win, (const bf16*)dlab, (const float*)dblank, (const bf16*)dx,
+      (const bf16*)h_win, (const float*)dbl_part, (float*)de_acc, (float*)dp, (float*)dw_part,
+      (float*)dwb_part, (float*)db_acc);
+  return (int)cudaGetLastError();
+}
+
+// The reduce kernel: dw [h, v], db [v] fp32 and de [b, t, h] bf16 from the
+// sums' accumulators.
+extern "C" int rnnt_joint_bwd_reduce_f32(const void* dw_part, const void* dwb_part,
+                                         const void* db_acc, const void* de_acc, void* dw,
+                                         void* db, void* de, int b, int t, int h, int v, int vlp,
+                                         void* stream) {
+  const long long n = (long long)h * v + v + (long long)b * t * h;
   const int threads = 256;
   joint_bwd_reduce_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
                             (cudaStream_t)stream>>>(
-      b, u1, h, v, (t + TB - 1) / TB, (const float*)dw_part, (const float*)dp_part,
-      (const float*)dbl_part, (const float*)dwb_part, (const float*)dbb_part, (float*)dw,
-      (float*)db, (float*)dp);
+      b, t, h, v, vlp, (const float*)dw_part, (const float*)dwb_part, (const float*)db_acc,
+      (const float*)de_acc, (float*)dw, (float*)db, (bf16*)de);
   return (int)cudaGetLastError();
 }

@@ -17,11 +17,13 @@ Two implementations:
 * `CTCLossKernel`: the TPU kernels of conformer_nemo_tpu/ops/pallas/ctc_kernel.py
   (`_fwd_kernel` / `_bwd_kernel` with the glue of `_ctc_fwd` / `_ctc_bwd`)
   as a `torch.autograd.Function` whose forward is K1-fwd (`ctc_alphas`:
-  all alphas [B, T, S] and the nll) and whose backward is K1-bwd
-  (`ctc_grad`: the beta recursion fused with d nll / d log_probs).
+  all alphas [B, T, S] and the nll) and whose backward (`ctc_grad`) is
+  K1-bwd (`ctc_betas`: the beta recursion) and K1-bwd-grad (`ctc_collect`:
+  d nll / d log_probs over all B * T rows in parallel).
   `impl="kernel"`. For CUDA tensors they launch ops/csrc/ctc_loss.cu and
   raise on anything the kernels do not take; for CPU tensors they run
-  `ctc_alphas_reference` / `ctc_grad_reference`, their plain versions.
+  their plain versions (`ctc_alphas_reference`, `ctc_betas_reference`,
+  `ctc_collect_reference`; `ctc_grad_reference` composes the last two).
 
 The kernels and what bounds them are described in ops/csrc/ctc_loss.cu.
 """
@@ -39,7 +41,8 @@ _NEG_INF = -1e30
 
 # launches per kernel, keyed by (B, T, U, V+1)
 alpha_launches = launch_count("K1-fwd")
-grad_launches = launch_count("K1-bwd")
+grad_launches = launch_count("K1-bwd")  # the beta kernel
+collect_launches = launch_count("K1-bwd-grad")
 
 
 def lse2(a, b):
@@ -131,13 +134,28 @@ def ctc_alphas_reference(log_probs, targets, input_lengths, target_lengths, blan
     return torch.stack(alphas, dim=1), -torch.logaddexp(last, last2)
 
 
-def ctc_grad_reference(log_probs, targets, input_lengths, target_lengths, alphas, nll, g,
-                       blank_id: int):
-    """Plain PyTorch version of K1-bwd: g[b] * d nll_b / d log_probs
-    [B, T, V+1] fp32 from K1-fwd's alphas and nll."""
+def label_chains(targets, target_lengths):
+    """[B, 2, U] int32: for each label position i < target_length, the next
+    position with the same label (-1 at the end of its chain), and whether i
+    is its label's first occurrence (K1-bwd's prologue builds the same)."""
+    b, u = targets.shape
+    tl = target_lengths.to(torch.int64).clamp(0, u)
+    pos = torch.arange(u, device=targets.device)
+    valid = pos[None, :] < tl[:, None]  # [B, U]
+    same = (targets[:, :, None] == targets[:, None, :]) & valid[:, :, None] & valid[:, None, :]
+    later = same & (pos[None, None, :] > pos[None, :, None])
+    earlier = same & (pos[None, None, :] < pos[None, :, None])
+    nxt = torch.where(later, pos[None, None, :], u).amin(2)
+    nxt = torch.where(later.any(2), nxt, -1)
+    return torch.stack([nxt, (valid & ~earlier.any(2)).to(torch.int64)], 1).to(torch.int32)
+
+
+def ctc_betas_reference(log_probs, targets, input_lengths, target_lengths, blank_id: int):
+    """Plain PyTorch version of K1-bwd: (betas [B, T, S] fp32, the label
+    chains [B, 2, U] of `label_chains`)."""
     lp = log_probs.to(torch.float32)
-    b, t_max, v1 = lp.shape
-    s_max = alphas.shape[2]
+    b, t_max, _ = lp.shape
+    s_max = 2 * targets.shape[1] + 1
     ext, in_lattice, can_skip, tl = _lattice(targets, target_lengths, blank_id, s_max)
     skip = can_skip & in_lattice
     emits = _emits(lp, ext, in_lattice)
@@ -145,22 +163,48 @@ def ctc_grad_reference(log_probs, targets, input_lengths, target_lengths, alphas
     s_len = 2 * tl[:, None] + 1
     final = torch.where((s_idx == s_len - 1) | ((s_idx == s_len - 2) & (tl[:, None] > 0)),
                         0.0, _NEG_INF)
-    ll = -nll.to(torch.float32)[:, None]
     lens = input_lengths.to(lp.device)[:, None]
     skip2 = F.pad(skip, (0, 2), value=False)[:, 2:]
     beta = torch.full((b, s_max), _NEG_INF, device=lp.device)
-    dem = torch.zeros((b, t_max, s_max), device=lp.device)
+    betas = [None] * t_max
     for t in range(t_max - 1, -1, -1):
         be = beta + emits[:, min(t + 1, t_max - 1)]
         adv = F.pad(be, (0, 1), value=_NEG_INF)[:, 1:]
         skp = torch.where(skip2, F.pad(be, (0, 2), value=_NEG_INF)[:, 2:], _NEG_INF)
         beta = torch.where((t == lens - 1) | (t >= lens), final, lse2(lse2(be, adv), skp))
-        post = torch.exp(torch.clamp(alphas[:, t] + beta - ll, -60.0, 0.0))
-        dem[:, t] = torch.where(t >= lens, 0.0, -post)
-    dem = torch.where(in_lattice[:, None, :], dem, 0.0)
-    grad = torch.zeros((b, t_max, v1), device=lp.device)
+        betas[t] = beta
+    return torch.stack(betas, dim=1), label_chains(targets, target_lengths)
+
+
+def ctc_collect_reference(log_probs, targets, input_lengths, target_lengths, alphas, betas,
+                          chains, nll, g, blank_id: int):
+    """Plain PyTorch version of K1-bwd-grad: grad [B, T, V+1] fp32 =
+    -g[b] * the posteriors exp(clip(alpha + beta - ll, -60, 0)) of the
+    lattice's states summed per class, zero past the input length (the
+    chains are the kernel's means to a fixed order; the sums here need
+    none)."""
+    b, t_max, v1 = log_probs.shape
+    s_max = alphas.shape[2]
+    ext, in_lattice, _, _ = _lattice(targets, target_lengths, blank_id, s_max)
+    ll = -nll.to(torch.float32)[:, None, None]
+    post = torch.exp(torch.clamp(alphas + betas - ll, -60.0, 0.0))
+    past = torch.arange(t_max, device=alphas.device)[None, :, None] >= \
+        input_lengths.to(alphas.device)[:, None, None]
+    dem = torch.where(past | ~in_lattice[:, None, :], 0.0, -post)
+    grad = torch.zeros((b, t_max, v1), device=alphas.device)
     grad.scatter_add_(2, ext[:, None, :].expand(b, t_max, s_max), dem)
     return grad * g.to(torch.float32)[:, None, None]
+
+
+def ctc_grad_reference(log_probs, targets, input_lengths, target_lengths, alphas, nll, g,
+                       blank_id: int):
+    """Plain PyTorch version of the whole backward: g[b] * d nll_b / d
+    log_probs [B, T, V+1] fp32 from K1-fwd's alphas and nll (K1-bwd's
+    betas, then K1-bwd-grad)."""
+    betas, chains = ctc_betas_reference(log_probs, targets, input_lengths, target_lengths,
+                                        blank_id)
+    return ctc_collect_reference(log_probs, targets, input_lengths, target_lengths, alphas,
+                                 betas, chains, nll, g, blank_id)
 
 
 def _c_fn(name: str, n_ptr: int):
@@ -171,7 +215,8 @@ def _c_fn(name: str, n_ptr: int):
     return fn
 
 
-def _check_cuda(lp, targets, input_lengths, target_lengths, blank_id: int) -> None:
+def _check_cuda(lp, targets, input_lengths, target_lengths, blank_id: int,
+                kernels: tuple) -> None:
     """What the CUDA kernels take: fp32 log_probs [B, T>=1, V+1], int32
     targets [B, U] with ids in [0, V+1), int32 lengths, all contiguous on one
     card, and shared memory for the lattice."""
@@ -189,11 +234,12 @@ def _check_cuda(lp, targets, input_lengths, target_lengths, blank_id: int) -> No
         raise ValueError(f"target ids must lie in [0, {v1})")
     lib = load("ctc_loss.cu")
     lib.ctc_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.ctc_smem_bytes(targets.shape[1], v1, 1)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"the CUDA kernels keep the lattice and a class row in shared "
-                         f"memory: {smem} bytes at U={targets.shape[1]}, V+1={v1}; a block "
-                         f"has {SMEM_LIMIT}")
+    u = targets.shape[1]
+    for which, what in zip(kernels, ("the forward", "the beta kernel", "the collect kernel")):
+        smem = lib.ctc_smem_bytes(u, v1, which)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{what} keeps the lattice in shared memory: U={u}, V+1={v1} "
+                             f"needs {smem} bytes of a block's {SMEM_LIMIT}")
 
 
 def _check(log_probs, targets, input_lengths, target_lengths):
@@ -212,7 +258,7 @@ def ctc_alphas(log_probs, targets, input_lengths, target_lengths, blank_id: int)
     _check(log_probs, targets, input_lengths, target_lengths)
     if log_probs.device.type == "cpu":
         return ctc_alphas_reference(log_probs, targets, input_lengths, target_lengths, blank_id)
-    _check_cuda(log_probs, targets, input_lengths, target_lengths, blank_id)
+    _check_cuda(log_probs, targets, input_lengths, target_lengths, blank_id, (0,))
     b, t_max, v1 = log_probs.shape
     u = targets.shape[1]
     alphas = torch.empty((b, t_max, 2 * u + 1), dtype=torch.float32, device=log_probs.device)
@@ -231,7 +277,8 @@ def ctc_alphas(log_probs, targets, input_lengths, target_lengths, blank_id: int)
 
 
 def ctc_grad(log_probs, targets, input_lengths, target_lengths, alphas, nll, g, blank_id: int):
-    """K1-bwd: g[b] * d nll_b / d log_probs, [B, T, V+1] fp32."""
+    """The CTC backward: g[b] * d nll_b / d log_probs, [B, T, V+1] fp32. On
+    CUDA: K1-bwd (`ctc_betas`), then K1-bwd-grad (`ctc_collect`)."""
     _check(log_probs, targets, input_lengths, target_lengths)
     b, t_max, v1 = log_probs.shape
     if alphas.shape != (b, t_max, 2 * targets.shape[1] + 1) or nll.shape != (b,) or \
@@ -240,22 +287,78 @@ def ctc_grad(log_probs, targets, input_lengths, target_lengths, alphas, nll, g, 
     if log_probs.device.type == "cpu":
         return ctc_grad_reference(log_probs, targets, input_lengths, target_lengths, alphas,
                                   nll, g, blank_id)
-    _check_cuda(log_probs, targets, input_lengths, target_lengths, blank_id)
-    if not all(x.dtype == torch.float32 and x.is_contiguous() and x.device == log_probs.device
-               for x in (alphas, nll, g)):
-        raise TypeError("the CUDA kernel takes contiguous fp32 alphas, nll and g on the card")
+    _check_cuda(log_probs, targets, input_lengths, target_lengths, blank_id, (1, 2))
+    _check_grad_inputs(log_probs, alphas, nll, g)
+    args = (log_probs, targets, input_lengths, target_lengths)
+    betas, chains = _launch_betas(*args, blank_id)
+    return _launch_collect(*args, alphas, betas, chains, nll, g, blank_id)
+
+
+def ctc_betas(log_probs, targets, input_lengths, target_lengths, blank_id: int):
+    """K1-bwd: (betas [B, T, 2U+1] fp32, label chains [B, 2, U] int32)."""
+    _check(log_probs, targets, input_lengths, target_lengths)
+    if log_probs.device.type == "cpu":
+        return ctc_betas_reference(log_probs, targets, input_lengths, target_lengths, blank_id)
+    _check_cuda(log_probs, targets, input_lengths, target_lengths, blank_id, (1,))
+    return _launch_betas(log_probs, targets, input_lengths, target_lengths, blank_id)
+
+
+def ctc_collect(log_probs, targets, input_lengths, target_lengths, alphas, betas, chains, nll, g,
+                blank_id: int):
+    """K1-bwd-grad: the gradient [B, T, V+1] fp32 from alphas, betas, the
+    chains, nll and g (log_probs gives the shape and device only)."""
+    _check(log_probs, targets, input_lengths, target_lengths)
+    if log_probs.device.type == "cpu":
+        return ctc_collect_reference(log_probs, targets, input_lengths, target_lengths, alphas,
+                                     betas, chains, nll, g, blank_id)
+    _check_cuda(log_probs, targets, input_lengths, target_lengths, blank_id, (2,))
+    _check_grad_inputs(log_probs, alphas, nll, g, betas)
+    if chains.dtype != torch.int32 or chains.shape != (log_probs.shape[0], 2, targets.shape[1]):
+        raise TypeError("the CUDA kernel takes int32 chains [B, 2, U]")
+    return _launch_collect(log_probs, targets, input_lengths, target_lengths, alphas, betas,
+                           chains, nll, g, blank_id)
+
+
+def _check_grad_inputs(lp, *tensors) -> None:
+    if not all(x.dtype == torch.float32 and x.is_contiguous() and x.device == lp.device
+               for x in tensors):
+        raise TypeError("the CUDA kernels take contiguous fp32 alphas, betas, nll and g on the "
+                        "card")
+
+
+def _launch_betas(log_probs, targets, input_lengths, target_lengths, blank_id: int):
+    b, t_max, v1 = log_probs.shape
+    u = targets.shape[1]
+    betas = torch.empty((b, t_max, 2 * u + 1), dtype=torch.float32, device=log_probs.device)
+    chains = torch.empty((b, 2, u), dtype=torch.int32, device=log_probs.device)
+    if b == 0:
+        return betas, chains
+    with torch.cuda.device(log_probs.device):
+        err = _c_fn("ctc_beta_f32", 6)(
+            log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
+            target_lengths.data_ptr(), betas.data_ptr(), chains.data_ptr(), b, t_max, u, v1,
+            blank_id, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ctc_betas kernel launch failed: CUDA error {err}")
+    grad_launches.add((b, t_max, u, v1))
+    return betas, chains
+
+
+def _launch_collect(log_probs, targets, input_lengths, target_lengths, alphas, betas, chains, nll,
+                    g, blank_id: int):
+    b, t_max, v1 = log_probs.shape
+    u = targets.shape[1]
     grad = torch.empty_like(log_probs)
     if b == 0:
         return grad
     with torch.cuda.device(log_probs.device):
-        err = _c_fn("ctc_beta_grad_f32", 8)(
-            log_probs.data_ptr(), targets.data_ptr(), input_lengths.data_ptr(),
-            target_lengths.data_ptr(), alphas.data_ptr(), nll.data_ptr(), g.data_ptr(),
-            grad.data_ptr(), b, t_max, targets.shape[1], v1, blank_id,
-            torch.cuda.current_stream().cuda_stream)
+        err = _c_fn("ctc_collect_f32", 9)(
+            targets.data_ptr(), input_lengths.data_ptr(), target_lengths.data_ptr(),
+            alphas.data_ptr(), betas.data_ptr(), chains.data_ptr(), nll.data_ptr(), g.data_ptr(),
+            grad.data_ptr(), b, t_max, u, v1, blank_id, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ctc_grad kernel launch failed: CUDA error {err}")
-    grad_launches.add((b, t_max, targets.shape[1], v1))
+        raise RuntimeError(f"ctc_collect kernel launch failed: CUDA error {err}")
+    collect_launches.add((b, t_max, u, v1))
     return grad
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from conformer_nemo_tpu_torch.ops.rnnt_joint import joint_flash_bwd, joint_flash_fwd
+from conformer_nemo_tpu_torch.ops.rnnt_joint import check_smem, joint_flash_bwd, joint_flash_fwd
 from conformer_nemo_tpu_torch.ops.rnnt_lattice import NEG_INF
 from conformer_nemo_tpu_torch.ops.rnnt_loss import lattice_fns, log_likelihood, posteriors
 
@@ -32,6 +32,10 @@ class RNNTLossFused(torch.autograd.Function):
     def forward(ctx, e, p, w, bias, targets, t_lens, u_lens, seed, blank_id: int,
                 fastemit_lambda: float, clamp: float, lattice_impl: str, activation: str,
                 drop_t: int, bt: int):
+        if e.is_cuda and any(ctx.needs_input_grad[:4]):
+            # the backward's kernels take a narrower H than the forward's:
+            # refuse before any work rather than after the forward
+            check_smem(e.shape[2], w.shape[1], (1, 2))
         alphas, betas = lattice_fns(lattice_impl, e.device)
         tg = targets.to(torch.int32).contiguous()
         tl, ul = t_lens.to(torch.int32).contiguous(), u_lens.to(torch.int32).contiguous()

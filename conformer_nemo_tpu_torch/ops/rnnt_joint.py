@@ -27,11 +27,13 @@ byte >= drop_t, rescaled by 1 / (1 - drop_t / 256). `hash_keep_mask_reference`
 gives the same mask outside the kernels, bit for bit.
 
 For CUDA tensors `joint_flash_fwd` / `joint_flash_bwd` launch the
-hand-written bf16 kernels of ops/csrc/rnnt_joint.cu (forward; backward as a
-kernel that writes per-block partials and a kernel that reduces them;
-design and bound described there) and raise on anything they do not take; for CPU tensors they run
-`joint_flash_fwd_reference` / `joint_flash_bwd_reference`, the plain
-versions, which materialise the tile in torch.
+hand-written bf16 kernels of ops/csrc/rnnt_joint.cu (design and bound
+described there) and raise on anything they do not take; for CPU tensors
+they run `joint_flash_fwd_reference` / `joint_flash_bwd_reference`, the
+plain versions, which materialise the tile in torch. The backward runs in
+pieces over windows of lattice cells (`joint_flash_bwd_windowed`: the cells
+kernel, the sums kernel, the reduce), each with its plain version here, and
+the plain pieces compose to `joint_flash_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ _MASK32 = 0xFFFFFFFF
 # launches per kernel, keyed by (B, T, U+1, H, V)
 fwd_launches = launch_count("K4-fwd")
 bwd_launches = launch_count("K4-bwd")
+bwd_sums_launches = launch_count("K4-bwd-dw")
 bwd_reduce_launches = launch_count("K4-bwd-reduce")
 
 
@@ -212,13 +215,29 @@ def joint_flash_bwd_reference(e, p, w, bias, targets, lse, total, gb, gy, g, see
 # ---------------------------------------------------------------------------
 
 
-def _c_fn(name: str, n_ptr: int, n_int: int, with_clamp: bool = False):
-    fn = getattr(load("rnnt_joint.cu"), name)
+_CHECKED_LIBS: set = set()
+
+
+def _lib():
+    """rnnt_joint.cu's library. The backward's layout constants, which size
+    the buffers allocated here, are held against the library's once."""
+    lib = load("rnnt_joint.cu")
+    if id(lib) not in _CHECKED_LIBS:
+        got = (lib.rnnt_joint_bwd_tile_cells(), lib.rnnt_joint_bwd_ksplit(),
+               lib.rnnt_joint_bwd_pass_cols())
+        if got != (TILE_CELLS, KSPLIT, PASS_COLS):
+            raise RuntimeError(f"rnnt_joint.cu's (tile cells, K splits, pass columns) are {got}, "
+                               f"this module's {(TILE_CELLS, KSPLIT, PASS_COLS)}")
+        _CHECKED_LIBS.add(id(lib))
+    return lib
+
+
+def _c_fn(name: str, n_ptr: int, n_int: int, tail: tuple = ()):
+    """An entry point: pointers, ints, the `tail` types (ctypes), the stream."""
+    fn = getattr(_lib(), name)
     if fn.argtypes is None:
-        args = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-        if with_clamp:
-            args.append(ctypes.c_float)
-        fn.argtypes = args + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + list(tail) + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -236,7 +255,7 @@ def _shapes(e, p, w, bias, targets):
 
 
 def _check_cuda(tensors: dict, h: int, v: int, which: tuple) -> None:
-    bf = {k: x for k, x in tensors.items() if k in ("e", "p", "w", "bias")}
+    bf = {k: x for k, x in tensors.items() if k in ("e", "p", "w", "w_pad", "w_blank", "bias")}
     if any(x.dtype != torch.bfloat16 for x in bf.values()):
         raise TypeError("the CUDA kernels take bf16 e, p, w and bias, got "
                         + ", ".join(f"{k} {x.dtype}" for k, x in bf.items()))
@@ -248,7 +267,14 @@ def _check_cuda(tensors: dict, h: int, v: int, which: tuple) -> None:
     if h % 16 or h <= 0 or v < 2:
         raise ValueError(f"the CUDA kernels take H a positive multiple of 16 and V >= 2, "
                          f"got H={h}, V={v}")
-    lib = load("rnnt_joint.cu")
+    check_smem(h, v, which)
+
+
+def check_smem(h: int, v: int, which: tuple = (0, 1, 2)) -> None:
+    """Raise if a CUDA joint kernel (0 the forward, 1 and 2 the backward's
+    cells and sums) needs more shared memory at H, V than a block has; a
+    training caller checks the backward's before the forward runs."""
+    lib = _lib()
     lib.rnnt_joint_smem_bytes.restype = ctypes.c_longlong
     for k in which:
         smem = lib.rnnt_joint_smem_bytes(h, v, k)
@@ -311,12 +337,12 @@ def joint_flash_bwd(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_le
     [B,T,U1] fp32 are the lattice posteriors; g [B] fp32 is the upstream
     gradient, applied after the clamp; t_lens / u_lens [B] bound each
     sample's lattice, and the cells outside it add nothing. -> (de [B,T,H]
-    e.dtype, dp [B,U1,H], dw [H,V], db [V] fp32). On CUDA: the backward
-    kernel (`joint_flash_bwd_partials`), then its reduce
-    (`joint_flash_bwd_reduce`)."""
+    e.dtype, dp [B,U1,H], dw [H,V], db [V] fp32). On CUDA: per window of
+    lattice cells the cells kernel and the sums kernel, then the reduce
+    (`joint_flash_bwd_windowed`)."""
     b, t, u1, h, v = _shapes(e, p, w, bias, targets)
     split_blank(w, bias, blank_id)
-    act = _act_code(activation)
+    _act_code(activation)
     if any(x.shape != (b, t, u1) for x in (lse, total, gb, gy)) or g.shape != (b,):
         raise ValueError("lse, total, gb, gy must be [B, T, U+1] and g [B]")
     if e.device.type == "cpu":
@@ -331,10 +357,227 @@ def joint_flash_bwd(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_le
         return (torch.zeros((b, t, h), dtype=e.dtype, device=e.device),
                 torch.zeros((b, u1, h), **f32), torch.zeros((h, v), **f32),
                 torch.zeros((v,), **f32))
-    de, partials = joint_flash_bwd_partials(e, p, w, bias, targets, lse, total, gb, gy, g,
-                                            seed, t_lens=t_lens, u_lens=u_lens, act=act,
-                                            drop_t=drop_t, bt=bt, clamp=clamp)
-    return (de, *joint_flash_bwd_reduce(partials, b, t))
+    return joint_flash_bwd_windowed(e, p, w, bias, targets, lse, total, gb, gy, g, seed,
+                                    t_lens=t_lens, u_lens=u_lens, blank_id=blank_id,
+                                    activation=activation, drop_t=drop_t, bt=bt, clamp=clamp)
+
+
+# ---------------------------------------------------------------------------
+# K4-bwd in pieces: per window of lattice cells, the cells kernel (dlab,
+# dblank, dx) and the sums kernel (dW, de, dp, db into fp32 accumulators);
+# then the reduce. Each piece runs its plain version on CPU tensors.
+# ---------------------------------------------------------------------------
+
+TILE_CELLS = 64  # lattice cells per tile of the cells kernel
+KSPLIT = 24  # fixed number of K splits of the dW product
+PASS_COLS = 320  # label columns per pass of the backward kernels over the label block
+WINDOW_BYTES = 320 << 20  # at most a window's scratch (dlab, dblank, dx, h, db partials, dh)
+
+
+def padded_vl(v: int) -> int:
+    """V - 1 rounded up to a multiple of 32: the label block's padded width."""
+    return -(-(v - 1) // 32) * 32
+
+
+def _window_bytes_per_cell(h: int, v: int) -> float:
+    """A window's scratch per cell: bf16 dlab, dx and h, fp32 dblank, the db
+    partials, and fp32 dh between the passes over a label block wider than
+    PASS_COLS."""
+    vlp = padded_vl(v)
+    return 2 * (2 * h + vlp) + 4 + 4 * v / TILE_CELLS + (4 * h if vlp > PASS_COLS else 0)
+
+
+def bwd_windows(cells: int, h: int, v: int, window: int | None = None):
+    """(cells per window, windows) of the backward over a lattice of `cells`
+    cells: a window holds at most `window` cells (default: as many as fit
+    WINDOW_BYTES of scratch at H, V), a multiple of 64, and no more than the
+    lattice needs."""
+    if window is None:
+        window = int(WINDOW_BYTES // _window_bytes_per_cell(h, v))
+    win = max(TILE_CELLS, min(window // TILE_CELLS, -(-cells // TILE_CELLS)) * TILE_CELLS)
+    return win, -(-cells // win)
+
+
+def bwd_scratch_bytes(cells: int, b: int, t: int, u1: int, h: int, v: int,
+                      window: int | None = None) -> int:
+    """Device bytes the backward allocates besides its outputs: the padded W,
+    the lattice offsets, one window's scratch and the fp32 accumulators."""
+    win, _ = bwd_windows(cells, h, v, window)
+    vlp = padded_vl(v)
+    return int(2 * h * (vlp + 1) + 8 * (b + 1) + win * _window_bytes_per_cell(h, v)
+               + 4 * b * t * h + 4 * KSPLIT * h * (vlp + 1) + 4 * v)
+
+
+def pad_label_block(w, blank_id: int):
+    """W [H, V] -> (W_lab zero-padded to [H, VLp], w_blank [H]), contiguous."""
+    w_lab, w_b, _, _ = split_blank(w, w[0], blank_id)
+    vl = w_lab.shape[1]
+    return F.pad(w_lab, (0, padded_vl(vl + 1) - vl)).contiguous(), w_b.contiguous()
+
+
+def bwd_accumulators(b: int, t: int, u1: int, h: int, v: int, device):
+    """Zeroed fp32 (de [B,T,H], dp [B,U1,H], dW_lab splits [KSPLIT,H,VLp],
+    dW[:, VL] splits [KSPLIT,H], db [V]) that the sums add into."""
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    return (z(b, t, h), z(b, u1, h), z(KSPLIT, h, padded_vl(v)), z(KSPLIT, h), z(v))
+
+
+def joint_flash_bwd_windowed(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_lens,
+                             u_lens, blank_id: int, activation: str = "relu", drop_t: int = 0,
+                             bt: int = 32, clamp: float = -1.0, window: int | None = None):
+    """K4-bwd as the kernels run it: the lattice's cells in windows of at most
+    `window` cells, each through the cells kernel and the sums kernel
+    (`joint_flash_bwd_cells` and `joint_flash_bwd_sums` launch them the
+    same way), then `joint_flash_bwd_reduce`. The windows cover B * T * U1
+    cells, the most a lattice of these shapes can hold (the lattice's own
+    count stays on the card; a window past it exits at once). On CPU
+    tensors every piece is its plain version, and the whole equals
+    `joint_flash_bwd_reference`."""
+    b, t, u1, h, v = _shapes(e, p, w, bias, targets)
+    w_pad, w_blank = pad_label_block(w, blank_id)
+    win, n_win = bwd_windows(b * t * u1, h, v, window)
+    acc = bwd_accumulators(b, t, u1, h, v, e.device)
+    cells_in = (e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed)
+    if e.device.type == "cpu":
+        for k in range(n_win):
+            scratch = joint_flash_bwd_cells_reference(
+                *cells_in, t_lens=t_lens, u_lens=u_lens, c0=k * win, win=win,
+                activation=activation, drop_t=drop_t, bt=bt, clamp=clamp)
+            joint_flash_bwd_sums_reference(scratch, acc, t_lens=t_lens, u_lens=u_lens,
+                                           c0=k * win, win=win)
+        return joint_flash_bwd_reduce_reference(acc, e.dtype)
+    # checked once; then two launches per window
+    _check_cells(*cells_in[:-1], t_lens, u_lens, win)
+    scratch, dh_part = _cells_scratch(e, w_pad, bias, win)
+    cell_off = lattice_offsets(t_lens, u_lens, t, u1)
+    for k in range(n_win):
+        _launch_cells(cells_in, t_lens, u_lens, cell_off, scratch, dh_part, k * win, win,
+                      activation, drop_t, bt, clamp)
+        _launch_sums(t_lens, u_lens, cell_off, scratch, acc, k * win, win)
+    return joint_flash_bwd_reduce(acc, e.dtype)
+
+
+def lattice_offsets(t_lens, u_lens, t: int, u1: int):
+    """int64 [B + 1]: each sample's first lattice cell in the kernels' order
+    (the last entry: the lattice's cells), computed on the lengths' device."""
+    n = t_lens.long().clamp(0, t) * (u_lens.long().clamp(max=u1 - 1) + 1).clamp(min=0)
+    return F.pad(torch.cumsum(n, 0), (1, 0)).contiguous()
+
+
+def lattice_cells(t_lens, u_lens, t: int, u1: int, device=None):
+    """(b, t, u) int64 [N] of every lattice cell in the kernels' order:
+    sample-major, then t-major (cell j of sample b is t = j // n_u,
+    u = j % n_u, n_u = u_len + 1)."""
+    n_t = t_lens.long().clamp(0, t).tolist()
+    n_u = (u_lens.long().clamp(max=u1 - 1) + 1).clamp(min=0).tolist()
+    parts = [[], [], []]
+    for b, (nt, nu) in enumerate(zip(n_t, n_u)):
+        parts[0].append(torch.full((nt * nu,), b, dtype=torch.int64))
+        parts[1].append(torch.arange(nt).repeat_interleave(nu))
+        parts[2].append(torch.arange(nu).repeat(nt))
+    return tuple(torch.cat(x).to(device) for x in parts)
+
+
+def _cell_hidden(e, p, cells, seed, activation: str, drop_t: int, bt: int):
+    """x, h = drop(act(x)) and keep (or None) [N, H] for the cells (b, t, u)."""
+    bi, ti, ui = cells
+    _, t, h_dim = e.shape
+    u1 = p.shape[1]
+    x = e[bi, ti] + p[bi, ui]
+    h = _act(x, activation)
+    keep = None
+    if drop_t > 0:
+        idx = ((bi * padded_t(t, bt) + ti) * u1 + ui)[:, None] * h_dim + \
+            torch.arange(h_dim, device=e.device)
+        keep = keep_from_bits(hash_bits(idx, _seed_int(seed)), drop_t)
+        h = torch.where(keep, h * inv_keep(drop_t), torch.zeros((), dtype=e.dtype))
+    return x, h, keep
+
+
+def _window(cells, c0: int, win: int):
+    n_w = max(0, min(win, cells[0].shape[0] - c0))
+    return n_w, tuple(x[c0: c0 + n_w] for x in cells)
+
+
+def joint_flash_bwd_cells_reference(e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g,
+                                    seed, *, t_lens, u_lens, c0: int, win: int,
+                                    activation: str = "relu", drop_t: int = 0, bt: int = 32,
+                                    clamp: float = -1.0):
+    """Plain version of the cells kernel for the window of lattice cells
+    [c0, c0 + win) -> (dlab [win, VLp] e.dtype, dblank [win] fp32, dx
+    [win, H] e.dtype, h [win, H] e.dtype, db partials [win // 64, V] fp32:
+    each 64-cell tile's sums of the fp32 dlab, and of dblank in the last
+    column). Rows past the lattice's cells are zero."""
+    dt = e.dtype
+    b, t, h_dim = e.shape
+    u1, v, vlp = p.shape[1], bias.shape[0], w_pad.shape[1]
+    vl = v - 1
+    n_w, cells = _window(lattice_cells(t_lens, u_lens, t, u1, e.device), c0, win)
+    bi, ti, ui = cells
+    x, h, keep = _cell_hidden(e, p, cells, seed, activation, drop_t, bt)
+    w_lab = w_pad[:, :vl]
+    lab = (torch.matmul(h.float(), w_lab.float()).to(dt) + bias[:vl].to(dt)).float()
+    blank = ((h.float() * w_blank.float()).sum(-1).to(dt) + bias[vl:].to(dt)).float()
+    at = lambda z: z[bi, ti, ui].float()
+    lse_c, tot = at(lse), at(total)
+    tgt = F.pad(targets.long(), (0, 1))[bi, ui]
+    dlab = torch.exp(lab - lse_c[:, None]) * tot[:, None]
+    dlab = dlab - torch.zeros_like(dlab).scatter_(1, tgt[:, None], at(gy)[:, None])
+    dblank = torch.exp(blank - lse_c) * tot - at(gb)
+    if clamp > 0:
+        dlab, dblank = dlab.clamp(-clamp, clamp), dblank.clamp(-clamp, clamp)
+    gg = g.float()[bi]
+    dlab, dblank = dlab * gg[:, None], dblank * gg
+    dlab_c = dlab.to(dt)
+    dh = (torch.matmul(dlab_c.float(), w_lab.float().T) + dblank[:, None] * w_blank.float()).to(dt)
+    if keep is not None:
+        dh = torch.where(keep, dh * inv_keep(drop_t), torch.zeros((), dtype=dt))
+    h_act = h if drop_t == 0 else _act(x, activation)
+    dx = dh * _act_grad(x, h_act, activation)
+    n_tiles = -(-n_w // TILE_CELLS)
+    rows = lambda z: F.pad(z, (0, 0, 0, n_tiles * TILE_CELLS - n_w))
+    tile_sums = torch.cat([rows(dlab), rows(dblank[:, None])], 1)
+    dbl = torch.zeros((win // TILE_CELLS, v), dtype=torch.float32, device=e.device)
+    dbl[:n_tiles] = tile_sums.reshape(n_tiles, TILE_CELLS, v).sum(1)
+    out = lambda z, dtype, *shape: torch.cat(
+        [z.to(dtype), torch.zeros((win - n_w, *shape), dtype=dtype, device=e.device)])
+    return (out(F.pad(dlab_c, (0, vlp - vl)), dt, vlp), out(dblank, torch.float32),
+            out(dx, dt, h_dim), out(h, dt, h_dim), dbl)
+
+
+def joint_flash_bwd_sums_reference(scratch, acc, *, t_lens, u_lens, c0: int, win: int):
+    """Plain version of the sums kernel: adds the window's dW_lab = h^T dlab
+    (split s of KSPLIT over the window's 64-cell tiles into acc[2][s]),
+    dW[:, VL] = h^T dblank (acc[3][s]), de, dp and db to the accumulators of
+    `bwd_accumulators`, in place -> acc."""
+    dlab, dblank, dx, h, dbl = scratch
+    de_acc, dp, dw_part, dwb_part, db_acc = acc
+    t, u1 = de_acc.shape[1], dp.shape[1]
+    n_w, (bi, ti, ui) = _window(lattice_cells(t_lens, u_lens, t, u1, dx.device), c0, win)
+    if n_w == 0:
+        return acc
+    hf = h[:n_w].float()
+    n_tiles = -(-n_w // TILE_CELLS)
+    per = -(-n_tiles // KSPLIT) * TILE_CELLS
+    for s in range(KSPLIT):
+        cs, ce = s * per, min((s + 1) * per, n_w)
+        if cs < ce:
+            dw_part[s] += hf[cs:ce].T @ dlab[cs:ce].float()
+            dwb_part[s] += (hf[cs:ce] * dblank[cs:ce, None]).sum(0)
+    dxf = dx[:n_w].float()
+    de_acc.index_put_((bi, ti), dxf, accumulate=True)
+    dp.index_put_((bi, ui), dxf, accumulate=True)
+    db_acc += dbl[:n_tiles].sum(0)
+    return acc
+
+
+def joint_flash_bwd_reduce_reference(acc, dtype):
+    """Plain version of the reduce kernel -> (de [B,T,H] dtype, dp, dw [H,V],
+    db [V] fp32)."""
+    de_acc, dp, dw_part, dwb_part, db_acc = acc
+    vl = db_acc.shape[0] - 1
+    dw = torch.cat([dw_part.sum(0)[:, :vl], dwb_part.sum(0)[:, None]], dim=1)
+    return de_acc.to(dtype), dp.clone(), dw, db_acc.clone()
 
 
 def _launch(what: str, counter, shape, dev, fn, *args) -> None:
@@ -345,58 +588,114 @@ def _launch(what: str, counter, shape, dev, fn, *args) -> None:
     counter.add(shape)
 
 
-def joint_flash_bwd_partials(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_lens,
-                             u_lens, act: int, drop_t: int, bt: int, clamp: float):
-    """K4-bwd's first kernel on CUDA tensors (B, T > 0): de [B,T,H] and the
-    per-block fp32 partials (dp [units, U1, H], dW_lab [units, H, VLp],
-    db_lab [units, V-1], dw_blank [units, H], db_blank [units]; units =
-    B * ceil(T / 16) blocks, VLp = V-1 rounded up to 64) -> (de, partials)."""
-    b, t, u1, h, v = _shapes(e, p, w, bias, targets)
-    dev = e.device
+def _check_cells(e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, t_lens, u_lens,
+                 win: int) -> None:
+    """Raise on what the cells kernel does not take."""
+    b, t, h = e.shape
+    v = bias.shape[0]
+    if win % TILE_CELLS or w_pad.shape != (h, padded_vl(v)) or w_blank.shape != (h,):
+        raise ValueError("want win a multiple of 64, w_pad [H, VLp] and w_blank [H]")
     _lens(t_lens, u_lens, b)
-    streams = {"lse": lse, "total": total, "gb": gb, "gy": gy, "g": g}
-    if any(x.dtype != torch.float32 for x in streams.values()):
+    if any(x.dtype != torch.float32 for x in (lse, total, gb, gy, g)):
         raise TypeError("the CUDA kernels take fp32 lse, total, gb, gy and g")
-    _check_cuda({"e": e, "p": p, "w": w, "bias": bias, "targets": targets, "t_lens": t_lens,
-                 "u_lens": u_lens, **streams}, h, v, (1,))
-    units = b * -(-t // load("rnnt_joint.cu").rnnt_joint_frames_per_tile())
-    vlp = -(-(v - 1) // 64) * 64
-    f32 = dict(dtype=torch.float32, device=dev)
-    de = torch.empty((b, t, h), dtype=e.dtype, device=dev)
-    partials = (torch.empty((units, u1, h), **f32), torch.empty((units, h, vlp), **f32),
-                torch.empty((units, v - 1), **f32), torch.empty((units, h), **f32),
-                torch.empty((units,), **f32))
-    _launch("backward", bwd_launches, (b, t, u1, h, v), dev,
-            _c_fn("rnnt_joint_bwd_dx_bf16", 18, 9, with_clamp=True),
-            e.data_ptr(), p.data_ptr(), w.data_ptr(), bias.data_ptr(), targets.data_ptr(),
-            t_lens.data_ptr(), u_lens.data_ptr(), lse.data_ptr(), total.data_ptr(),
-            gb.data_ptr(), gy.data_ptr(), g.data_ptr(), de.data_ptr(),
-            *(x.data_ptr() for x in partials), b, t, u1, h, v, padded_t(t, bt), act,
-            int(drop_t), _seed_int(seed), float(clamp))
-    return de, partials
+    _check_cuda({"e": e, "p": p, "w_pad": w_pad, "w_blank": w_blank, "bias": bias,
+                 "targets": targets, "t_lens": t_lens, "u_lens": u_lens, "lse": lse,
+                 "total": total, "gb": gb, "gy": gy, "g": g}, h, v, (1, 2))
 
 
-def joint_flash_bwd_reduce(partials, b: int, t: int):
-    """K4-bwd's reduce kernel: the partials of `joint_flash_bwd_partials`
-    summed in a fixed order -> (dp [B,U1,H], dw [H,V], db [V]) fp32."""
-    dp_part, dw_part, dbl_part, _, _ = partials
-    u1, h, v = dp_part.shape[1], dp_part.shape[2], dbl_part.shape[1] + 1
-    dev = dp_part.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    dp, dw, db = torch.empty((b, u1, h), **f32), torch.empty((h, v), **f32), \
-        torch.empty((v,), **f32)
+def _cells_scratch(e, w_pad, bias, win: int):
+    """The cells kernel's window scratch (dlab, dblank, dx, h, db partials) and
+    its fp32 dh between passes ([win, H], or None for one pass)."""
+    h, vlp, v, dev = e.shape[2], w_pad.shape[1], bias.shape[0], e.device
+    scratch = (torch.empty((win, vlp), dtype=e.dtype, device=dev),
+               torch.empty((win,), dtype=torch.float32, device=dev),
+               torch.empty((win, h), dtype=e.dtype, device=dev),
+               torch.empty((win, h), dtype=e.dtype, device=dev),
+               torch.empty((win // TILE_CELLS, v), dtype=torch.float32, device=dev))
+    dh_part = (torch.empty((win, h), dtype=torch.float32, device=dev) if vlp > PASS_COLS
+               else None)
+    return scratch, dh_part
+
+
+def _launch_cells(cells_in, t_lens, u_lens, cell_off, scratch, dh_part, c0: int, win: int,
+                  activation: str, drop_t: int, bt: int, clamp: float) -> None:
+    """One launch of the cells kernel on checked inputs."""
+    e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed = cells_in
+    b, t, h = e.shape
+    u1, v = p.shape[1], bias.shape[0]
+    ptrs = (e, p, w_pad, w_blank, bias, targets, t_lens, u_lens, cell_off, lse, total, gb, gy, g,
+            *scratch)
+    _launch("cells", bwd_launches, (b, t, u1, h, v), e.device,
+            _c_fn("rnnt_joint_bwd_cells_bf16", 20, 11, (ctypes.c_longlong, ctypes.c_float)),
+            *(x.data_ptr() for x in ptrs), None if dh_part is None else dh_part.data_ptr(),
+            b, t, u1, h, v, w_pad.shape[1], padded_t(t, bt), _act_code(activation), int(drop_t),
+            _seed_int(seed), win, c0, float(clamp))
+
+
+def _launch_sums(t_lens, u_lens, cell_off, scratch, acc, c0: int, win: int) -> None:
+    """One launch of the sums kernel on checked inputs."""
+    b, t, h = acc[0].shape
+    u1, v = acc[1].shape[1], acc[4].shape[0]
+    _launch("sums", bwd_sums_launches, (b, t, u1, h, v), acc[0].device,
+            _c_fn("rnnt_joint_bwd_sums_f32", 13, 7, (ctypes.c_longlong,)),
+            *(x.data_ptr() for x in (t_lens, u_lens, cell_off, *scratch, *acc)),
+            b, t, u1, h, v, padded_vl(v), win, c0)
+
+
+def joint_flash_bwd_cells(e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed, *,
+                          t_lens, u_lens, c0: int, win: int, activation: str = "relu",
+                          drop_t: int = 0, bt: int = 32, clamp: float = -1.0):
+    """K4-bwd's cells kernel over the window [c0, c0 + win) of lattice
+    cells (win a multiple of 64): w_pad [H, VLp] and w_blank [H] from
+    `pad_label_block` -> (dlab, dblank, dx, h, db partials) as
+    `joint_flash_bwd_cells_reference` gives them; on CUDA the rows past the
+    lattice's cells are left unwritten."""
+    cells_in = (e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed)
+    if e.device.type == "cpu":
+        return joint_flash_bwd_cells_reference(
+            *cells_in, t_lens=t_lens, u_lens=u_lens, c0=c0, win=win, activation=activation,
+            drop_t=drop_t, bt=bt, clamp=clamp)
+    _check_cells(*cells_in[:-1], t_lens, u_lens, win)
+    scratch, dh_part = _cells_scratch(e, w_pad, bias, win)
+    _launch_cells(cells_in, t_lens, u_lens, lattice_offsets(t_lens, u_lens, e.shape[1], p.shape[1]),
+                  scratch, dh_part, c0, win, activation, drop_t, bt, clamp)
+    return scratch
+
+
+def joint_flash_bwd_sums(scratch, acc, *, t_lens, u_lens, c0: int, win: int):
+    """K4-bwd's sums kernel: adds the window's dW, de, dp and db from the
+    cells kernel's scratch to `acc` (`bwd_accumulators`) in place, as
+    `joint_flash_bwd_sums_reference`."""
+    if acc[0].device.type == "cpu":
+        return joint_flash_bwd_sums_reference(scratch, acc, t_lens=t_lens, u_lens=u_lens, c0=c0,
+                                              win=win)
+    b, t, h = acc[0].shape
+    u1, vlp = acc[1].shape[1], padded_vl(acc[4].shape[0])
+    if not all(x.is_cuda and x.is_contiguous() for x in (*scratch, *acc)):
+        raise ValueError("the CUDA kernels take contiguous scratch and accumulators on the card")
+    if scratch[0].shape != (win, vlp) or acc[2].shape != (KSPLIT, h, vlp):
+        raise ValueError("want the scratch of `joint_flash_bwd_cells` and `bwd_accumulators`")
+    _lens(t_lens, u_lens, b)
+    _launch_sums(t_lens, u_lens, lattice_offsets(t_lens, u_lens, t, u1), scratch, acc, c0, win)
+    return acc
+
+
+def joint_flash_bwd_reduce(acc, dtype):
+    """K4-bwd's reduce kernel: the K splits summed in a fixed order -> (de
+    [B,T,H] dtype, dp [B,U1,H], dw [H,V], db [V] fp32)."""
+    if acc[0].device.type == "cpu":
+        return joint_flash_bwd_reduce_reference(acc, dtype)
+    de_acc, dp, dw_part, dwb_part, db_acc = acc
+    b, t, h = de_acc.shape
+    u1, v, vlp = dp.shape[1], db_acc.shape[0], dw_part.shape[2]
+    if dtype != torch.bfloat16:
+        raise TypeError("the CUDA kernels write de in bf16")
+    dev = de_acc.device
+    dw = torch.empty((h, v), dtype=torch.float32, device=dev)
+    db = torch.empty((v,), dtype=torch.float32, device=dev)
+    de = torch.empty((b, t, h), dtype=dtype, device=dev)
     _launch("reduce", bwd_reduce_launches, (b, t, u1, h, v), dev,
-            _c_fn("rnnt_joint_bwd_reduce_f32", 8, 5), dw_part.data_ptr(), dp_part.data_ptr(),
-            *(x.data_ptr() for x in partials[2:]), dw.data_ptr(), db.data_ptr(), dp.data_ptr(),
-            b, t, u1, h, v)
-    return dp, dw, db
-
-
-def joint_flash_bwd_reduce_reference(partials, b: int, t: int):
-    """Plain PyTorch version of the reduce kernel -> (dp, dw, db) fp32."""
-    dp_part, dw_part, dbl_part, dwb_part, dbb_part = partials
-    units, u1, h = dp_part.shape
-    vl = dbl_part.shape[1]
-    dp = dp_part.reshape(b, units // b, u1, h).sum(1)
-    dw = torch.cat([dw_part.sum(0)[:, :vl], dwb_part.sum(0)[:, None]], dim=1)
-    return dp, dw, torch.cat([dbl_part.sum(0), dbb_part.sum()[None]])
+            _c_fn("rnnt_joint_bwd_reduce_f32", 7, 5),
+            *(x.data_ptr() for x in (dw_part, dwb_part, db_acc, de_acc, dw, db, de)),
+            b, t, h, v, vlp)
+    return de, dp, dw, db

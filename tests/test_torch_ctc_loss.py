@@ -126,3 +126,35 @@ def test_ctc_wrappers_check_and_count():
         port.ctc_alphas(*_t(lp, tg[:3], il, tl), blank)
     with pytest.raises(ValueError):
         port.ctc_loss(*_t(lp, tg, il, tl), blank_id=blank, impl="scan")
+
+
+@pytest.mark.parametrize("seed", [2, 5])
+def test_ctc_backward_pieces(seed):
+    """K1-bwd's betas and K1-bwd-grad's collect, the plain pieces of the
+    backward: alpha + beta gives the same log-likelihood at every frame
+    inside a feasible row (forward-backward), the label chains link each
+    label position to its next equal label, and the pieces' gradient matches
+    the Pallas kernels' `_ctc_bwd`. Rows: repeats, U = 0, an infeasible one,
+    a 1-frame one."""
+    from conformer_nemo_tpu.ops.pallas import ctc_kernel as ck
+
+    lp, tg, il, tl, blank = _case(seed=seed)
+    g = np.random.RandomState(seed).rand(len(il)).astype(np.float32)
+    alphas, nll = port.ctc_alphas(*_t(lp, tg, il, tl), blank)
+    betas, chains = port.ctc_betas(*_t(lp, tg, il, tl), blank)
+    grad = port.ctc_collect(*_t(lp, tg, il, tl), alphas, betas, chains, nll, torch.from_numpy(g),
+                            blank)
+    for b in range(len(il)):
+        s_len = 2 * tl[b] + 1
+        if tl[b] > il[b]:  # infeasible
+            continue
+        per_t = torch.logsumexp((alphas[b] + betas[b])[: il[b], :s_len], dim=1).numpy()
+        np.testing.assert_allclose(per_t, -nll[b].item(), rtol=1e-5)
+        for i in range(tg.shape[1]):
+            same = [j for j in range(tl[b]) if tg[b, j] == tg[b, i]]
+            nxt = [j for j in same if j > i]
+            want = (nxt[0] if nxt else -1, int(i == same[0])) if i < tl[b] else (-1, 0)
+            assert tuple(chains[b, :, i].tolist()) == want, (b, i)
+    _, res = ck._ctc_fwd(*(jnp.asarray(a) for a in (lp, tg, il, tl)), blank, True)
+    want = ck._ctc_bwd(blank, True, res, jnp.asarray(g))[0]
+    np.testing.assert_allclose(grad.numpy(), np.asarray(want), rtol=0, atol=GRAD_ATOL)

@@ -80,19 +80,57 @@ def test_ctc_cuda_kernels_match_plain(cuda_device):
     lp = torch.log_softmax(torch.from_numpy(rng.randn(b, t, v1).astype(np.float32) * 3), -1)
     targets = torch.from_numpy(rng.randint(0, v1 - 1, (b, u)).astype(np.int32))
     targets[1, 4:8] = 7  # repeats
+    targets[0, ::3] = 5  # a label recurring along the row
     il = torch.tensor([300, 250, 17, 300, 1], dtype=torch.int32)
     tl = torch.tensor([30, 20, 25, 0, 0], dtype=torch.int32)  # row 2 infeasible, U = 0 rows
     g = torch.from_numpy(rng.rand(b).astype(np.float32))
     args = [x.to(cuda_device) for x in (lp, targets, il, tl)]
+    gd = g.to(cuda_device)
     alphas, nll = ctc.ctc_alphas(*args, v1 - 1)
     a_ref, nll_ref = ctc.ctc_alphas_reference(*args, v1 - 1)
-    grad = ctc.ctc_grad(*args, alphas, nll, g.to(cuda_device), v1 - 1)
-    grad_ref = ctc.ctc_grad_reference(*args, a_ref, nll_ref, g.to(cuda_device), v1 - 1)
+    grad = ctc.ctc_grad(*args, alphas, nll, gd, v1 - 1)
+    grad_ref = ctc.ctc_grad_reference(*args, a_ref, nll_ref, gd, v1 - 1)
+    # K1-bwd and K1-bwd-grad, each against its plain version on the same inputs
+    betas, chains = ctc.ctc_betas(*args, v1 - 1)
+    b_ref, c_ref = ctc.ctc_betas_reference(*args, v1 - 1)
+    coll = ctc.ctc_collect(*args, alphas, betas, chains, nll, gd, v1 - 1)
+    coll_ref = ctc.ctc_collect_reference(*args, alphas, betas, chains, nll, gd, v1 - 1)
     torch.cuda.synchronize()
     assert torch.isfinite(nll).all() and nll[2].item() >= 1e29  # infeasible: the -1e30 sentinel
     assert ((nll - nll_ref).abs() / nll_ref.abs().clamp(min=1.0)).max().item() <= NLL_REL_TOL
     assert (grad - grad_ref).abs().max().item() <= GRAD_ABS_TOL
     assert grad[1, 250:].abs().max().item() == 0.0  # no gradient past the length
+    assert torch.equal(chains, c_ref)
+    assert _rel_err(betas, b_ref) <= NLL_REL_TOL
+    # the same posteriors, summed in another order
+    assert (coll - coll_ref).abs().max().item() <= 1e-5
+    # no atomics: the same bits on a second call
+    assert torch.equal(grad, ctc.ctc_grad(*args, alphas, nll, gd, v1 - 1))
+
+
+@pytest.mark.gpu
+def test_ctc_cuda_backward_past_8192_states(cuda_device):
+    """U = 4200 (8401 states, more than 8 per thread of the beta kernel's
+    1024): the states past 8192 read their emit on the chain."""
+    rng = np.random.RandomState(1)
+    b, t, v1, u = 2, 4400, 40, 4200
+    lp = torch.log_softmax(torch.from_numpy(rng.randn(b, t, v1).astype(np.float32) * 3), -1)
+    targets = torch.from_numpy(rng.randint(0, v1 - 1, (b, u)).astype(np.int32))
+    il = torch.tensor([4400, 4300], dtype=torch.int32)
+    tl = torch.tensor([4200, 3000], dtype=torch.int32)
+    g = torch.tensor([1.0, 0.5], device=cuda_device)
+    args = [x.to(cuda_device) for x in (lp, targets, il, tl)]
+    alphas, nll = ctc.ctc_alphas(*args, v1 - 1)
+    betas, chains = ctc.ctc_betas(*args, v1 - 1)
+    b_ref, c_ref = ctc.ctc_betas_reference(*args, v1 - 1)
+    grad = ctc.ctc_grad(*args, alphas, nll, g, v1 - 1)
+    grad_ref = ctc.ctc_grad_reference(*args, alphas, nll, g, v1 - 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(nll).all() and (nll < 1e29).all()
+    assert torch.equal(chains, c_ref)
+    assert _rel_err(betas, b_ref) <= NLL_REL_TOL
+    assert (grad - grad_ref).abs().max().item() <= GRAD_ABS_TOL
+    assert torch.equal(grad, ctc.ctc_grad(*args, alphas, nll, g, v1 - 1))
 
 
 # K3 vs its plain version in fp32: the same recursion in the same order
@@ -141,11 +179,14 @@ def _joint_inputs(dev, b, t, u, h, v, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("activation,drop_t,clamp", [("relu", 0, -1.0), ("tanh", 26, 2.0)])
-def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, clamp):
+@pytest.mark.parametrize("activation,drop_t,clamp,v", [("relu", 0, -1.0, 41), ("tanh", 26, 2.0, 41),
+                                                      ("relu", 26, -1.0, 401)])
+def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, clamp, v):
+    """V = 41: VL = 40 ragged; V = 401: VL = 400 pads to 416 label columns,
+    which the backward kernels take in two passes."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
 
-    b, t, u, h, v = 3, 37, 8, 64, 41  # T not a multiple of 16; VL = 40 ragged
+    b, t, u, h = 3, 37, 8, 64  # T not a multiple of 16
     e, p, w, bias, targets, g = _joint_inputs(cuda_device, b, t, u, h, v)
     seed = torch.tensor([12345], dtype=torch.int32)
     t_lens = torch.tensor([37, 20, 1], dtype=torch.int32, device=cuda_device)
@@ -162,12 +203,36 @@ def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, cl
     args = (e, p, w, bias, targets, fwd_ref[2].contiguous(), *post, gg, seed)
     bwd = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
     bwd_ref = jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw)
-    _, partials = jt.joint_flash_bwd_partials(
-        *args, t_lens=t_lens, u_lens=u_lens, act=jt.ACTIVATIONS.index(activation),
-        drop_t=drop_t, bt=16, clamp=clamp)
-    for a, r in zip(jt.joint_flash_bwd_reduce(partials, b, t),
-                    jt.joint_flash_bwd_reduce_reference(partials, b, t)):
-        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)  # fp32 sums, another order
+    # windows of 64 cells: the lattice's 414 cells in seven windows, summed in order
+    small = jt.joint_flash_bwd_windowed(*args, clamp=clamp, window=64, **kw)
+    # each backward kernel against its plain version on the same inputs
+    w_pad, w_blank = jt.pad_label_block(w, v - 1)
+    pkw = dict(t_lens=t_lens, u_lens=u_lens, activation=activation, drop_t=drop_t, bt=16)
+    n = int((t_lens * (u_lens + 1)).sum())  # the lattice's cells
+    win, _ = jt.bwd_windows(b * t * (u + 1), h, v)
+    cells = jt.joint_flash_bwd_cells(e, p, w_pad, w_blank, *args[3:], c0=0, win=win,
+                                     clamp=clamp, **pkw)
+    cells_ref = jt.joint_flash_bwd_cells_reference(e, p, w_pad, w_blank, *args[3:], c0=0,
+                                                   win=win, clamp=clamp, **pkw)
+    skw = dict(t_lens=t_lens, u_lens=u_lens, c0=0, win=win)
+    acc = jt.joint_flash_bwd_sums(cells, jt.bwd_accumulators(b, t, u + 1, h, v, cuda_device),
+                                  **skw)
+    acc_ref = jt.joint_flash_bwd_sums_reference(
+        cells, jt.bwd_accumulators(b, t, u + 1, h, v, cuda_device), **skw)
+    torch.cuda.synchronize()
+    for name, a, r, rows in zip(("dlab", "dblank", "dx", "h", "db_tiles"), cells, cells_ref,
+                                (n, n, n, n, -(-n // 64))):  # the rows the kernel writes
+        a, r = a[:rows].float(), r[:rows].float()
+        assert (a - r).abs().max().item() <= JOINT_REL_TOL * r.abs().max().item(), name
+    for a, r in zip(acc, acc_ref):  # fp32 sums of the same bf16 values, another order
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    for a, r in zip(jt.joint_flash_bwd_reduce(acc, e.dtype),
+                    jt.joint_flash_bwd_reduce_reference(acc, e.dtype)):
+        torch.testing.assert_close(a.float(), r.float(), rtol=1e-5, atol=1e-5)
+    for a, r in zip(small, bwd):
+        torch.testing.assert_close(a.float(), r.float(), rtol=1e-4, atol=1e-4)
+    # no atomics: the same bits on a second call
+    assert all(torch.equal(a, r) for a, r in zip(bwd, jt.joint_flash_bwd(*args, clamp=clamp, **kw)))
     torch.cuda.synchronize()
     for name, a, r in zip(("blank_lp", "label_lp", "lse"), fwd, fwd_ref):
         assert torch.equal(a[~inside], r[~inside]), name  # the sentinels
@@ -178,6 +243,18 @@ def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, cl
         a, r = a.float(), r.float()
         assert torch.isfinite(a).all(), name
         assert (a - r).abs().max().item() <= JOINT_REL_TOL * r.abs().max().item(), name
+
+
+@pytest.mark.gpu
+def test_rnnt_joint_cuda_smem_limits(cuda_device):
+    """The training path refuses, before its forward, an H that the
+    backward's kernels cannot take: H 640 fits at any V, H 704 does not."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    for v in (296, 401, 1025):
+        jt.check_smem(640, v)
+    with pytest.raises(ValueError, match="shared memory"):
+        jt.check_smem(704, 296, (1,))
 
 
 @pytest.mark.gpu

@@ -163,3 +163,30 @@ def test_joint_refuses_blank_not_last():
         port.joint_flash_fwd(tx["e"], tx["p"], tx["w"], tx["bias"], tx["targets"],
                              torch.zeros(1, dtype=torch.int32), t_lens=torch.tensor([7, 7]),
                              u_lens=torch.tensor([3, 3]), blank_id=0)
+
+
+@pytest.mark.parametrize("activation,drop_t,clamp,window,v", [
+    ("relu", 0, -1.0, 64, 13), ("tanh", 26, 2.0, 64, 13), ("sigmoid", 64, -1.0, None, 13),
+    ("relu", 26, -1.0, 64, 401)])
+def test_joint_bwd_pieces_compose_and_match_jax(activation, drop_t, clamp, window, v):
+    """The backward's plain pieces (cells, sums, reduce) over windows of the
+    lattice's cells: with 64-cell windows the 155 cells take three windows
+    (and four past the lattice hold none), and dW is summed across them in
+    order. They compose to `joint_flash_bwd_reference` and match JAX's
+    backward on a ragged lattice with a u_len = 0 row. V - 1 = 400 pads to
+    416 label columns, which the kernels take in two passes."""
+    d = _inputs(seed=11, b=3, t=20, u=6, v=v)
+    d["g"] = np.array([1.0, 0.5, 2.0], np.float32)
+    lens = ([20, 11, 1], [6, 0, 3])
+    _, _, want_b, got_b = _run(d, "float32", activation, 4, drop_t, clamp=clamp, lens=lens)
+    tx = {k: torch.from_numpy(x) for k, x in d.items()}
+    tl, ul = (torch.tensor(x, dtype=torch.int32) for x in lens)
+    args = [tx[k] for k in ("e", "p", "w", "bias", "targets", "lse", "total", "gb", "gy", "g")]
+    kw = dict(t_lens=tl, u_lens=ul, blank_id=d["w"].shape[1] - 1, activation=activation,
+              drop_t=drop_t, bt=4, clamp=clamp)
+    seed = torch.tensor([12345], dtype=torch.int32)
+    pieces = port.joint_flash_bwd_windowed(*args, seed, window=window, **kw)
+    assert port.bwd_windows(3 * 20 * 7, 16, v, window)[1] == (7 if window else 1)
+    for name, a, b, r in zip(("de", "dp", "dw", "db"), pieces, want_b, got_b):
+        np.testing.assert_allclose(_np(a), _np(r), rtol=F32_TOL, atol=F32_TOL, err_msg=name)
+        np.testing.assert_allclose(_np(a), _np(b), rtol=F32_TOL, atol=F32_TOL, err_msg=name)
