@@ -48,7 +48,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                and the dropout mask read back bit for bit); the K1 and K4
                backwards also as whole functions (rows of their own in the
                summary, against the library's whole backward), run twice for
-               the same bits, and K4-bwd's scratch bytes
+               the same bits, as K2's dK/dV kernel is, K1-fwd's alphas held
+               against the plain recursion's, and K4-bwd's scratch bytes
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -328,8 +329,10 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
     args = (qs, ks, v, do, lse, delta, lens, scale, left, right)
     dq = fa.flash_attention_bwd_dq(*args)
     dk, dvv = fa.flash_attention_bwd_dkv(*args)
+    dk2, dvv2 = fa.flash_attention_bwd_dkv(*args)
     ref = fa.flash_attention_bwd_reference(*args)
     torch.cuda.synchronize()
+    check(torch.equal(dk, dk2) and torch.equal(dvv, dvv2), (name, "dK/dV is not deterministic"))
     errs, abs_errs = {}, {}
     for out_name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dvv), ref):
         abs_errs[out_name] = (a.float() - b.float()).abs().max().item()
@@ -357,7 +360,7 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
         del out
     common = {"case": name, "bh": bh, "t": t, "d1": d1, "dv": dv, "band": list(band),
               "visible_pairs": pairs, "rel_err": errs, "abs_err": abs_errs,
-              "tol_rel": BWD_REL_TOL,
+              "tol_rel": BWD_REL_TOL, "dkv_deterministic": True,
               "plain_ms": plain_ms, "library_ms": library_ms}
     rows = []
     for kernel, fn, flops, out_bytes, err in (
@@ -404,6 +407,10 @@ def _ctc_case(name, lp, targets, il, tl, blank, timed=True):
     check(bool((nll[~feasible] >= 1e29).all()), (name, "infeasible rows keep the sentinel"))
     check(torch.equal(grad, grad2), (name, "the backward is not deterministic"))
     check(torch.equal(chains, c_ref), (name, "label chains"))
+    live = a_ref > -1e29  # the states an alignment reaches
+    check(torch.equal(alphas > -1e29, live), (name, "reachable states of the alphas"))
+    alpha_err = ((alphas - a_ref).abs() / a_ref.abs().clamp(min=1.0))[live].max().item()
+    check(alpha_err <= NLL_REL_TOL, (name, "alphas", alpha_err))
     nll_err = ((nll - nll_ref).abs() / nll_ref.abs().clamp(min=1.0))[feasible].max().item()
     nll_abs = (nll - nll_ref).abs()[feasible].max().item()
     grad_err = (grad - grad_ref).abs().max().item()
@@ -414,6 +421,7 @@ def _ctc_case(name, lp, targets, il, tl, blank, timed=True):
     check(beta_err <= NLL_REL_TOL, (name, "betas", beta_err))
     check(coll_err <= GRAD_ABS_TOL, (name, "collect", coll_err))
     errors = {"case": name, "b": b, "t": t, "u": u, "v1": v1, "nll_rel_err": nll_err,
+              "alphas_rel_err": alpha_err,
               "grad_abs_err": grad_err, "betas_rel_err": beta_err, "collect_abs_err": coll_err,
               "deterministic": True}
     if not timed:

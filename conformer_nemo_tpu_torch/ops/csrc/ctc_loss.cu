@@ -29,37 +29,46 @@
 // and the alphas [B, T, S] written (forward); the entries, alphas and betas
 // read and the gradient [B, T, V+1] written (backward). What holds the
 // recursions is their T dependent steps per sample (one block barrier each)
-// on only B blocks.
+// on only B blocks: a step's time is its chain's latency plus the
+// instructions that the block's warps issue for it on one SM.
 //
-// Design: the forward is one block per sample; threads stride over the
-// states; alpha ping-pongs in shared memory with one __syncthreads per time
-// step; log_probs[b, t, ext[s]] is read directly (no one-hot product, no
-// emits tensor). The backward keeps the gradient off its serial path:
-// summing each step's posteriors into a row of V+1 classes there would put
-// U+1 atomic adds on blank's one address every step, and make the last bits
-// depend on their order. So it is two kernels, as the CUDA CTC backward
-// that torch.nn.CTCLoss calls is: the beta recursion alone (no atomics, no
-// gradient work; one thread per state up to 1024 threads, blank's and the
-// labels' states in separate warps; each step's emits loaded a step ahead
-// into registers, for up to 8 states per thread), writing betas [B, T, S]; then a collect over all B * T rows in parallel,
-// which sums each class's posteriors in a fixed order.
+// Design. Both recursions are one block per sample with one thread per
+// state up to 1024 threads (past that the forward gives each label state a
+// thread and each two blank states one while that fits, then 2, 4 or 8
+// states a thread; the backward up to 8), blank's and the labels' states in
+// separate warps, each state's class, flags and next emits in registers
+// (the emits loaded ahead, so the log-prob gather is off the chain), and the
+// previous step's row in shared memory behind one barrier per step.
+//   * forward (alpha): each state's step is the plain version's nested
+//     log-sum-exp, lse(lse(stay, advance), skip), one exponential and one
+//     log a level, the outer level only where the state may skip; so it
+//     rounds where the plain version (and the JAX package's `_lse`,
+//     ctc_kernel.py:41, used at :70) rounds. A flat three-term form, which
+//     torch's CTC kernel uses, drifts from it by a random walk of ulps of
+//     |alpha| and fails the gradient's limit at T 1843 (the kernel's note).
+//     -1e30 arithmetic keeps an infeasible row's >= 1e29 sentinel. Rows are
+//     written to alphas in coalesced stores from shared memory, one step
+//     behind, and rows past the input length after the recursion. nll
+//     comes from the two terminal states.
+//   * backward: summing each step's posteriors into a row of V+1 classes on
+//     the serial path would put U+1 atomic adds on blank's one address every
+//     step, and make the last bits depend on their order. So it is two
+//     kernels, as the CUDA CTC backward that torch.nn.CTCLoss calls is: the
+//     beta recursion alone (no atomics, no gradient work), writing betas
+//     [B, T, S]; then a collect over all B * T rows in parallel, which sums
+//     each class's posteriors in a fixed order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int NTHREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
-__device__ inline float lse2(float a, float b) {
-  const float m = fmaxf(a, b);
-  if (m <= NEG_INF * 0.5f) return NEG_INF;
-  return m + logf(expf(a - m) + expf(b - m));
-}
-
-// lse2, bit for bit, without the exp and log when one side is -1e30: then
-// exp(min - m) is 0 and log(1 + 0) = 0, so the result is m
+// log(e^a + e^b) with -1e30 as -inf, without the exp and log when one side
+// is -1e30: then exp(min - m) is 0 and log(1 + 0) = 0, so the result is m
 __device__ inline float lse2_skip(float a, float b) {
   const float m = fmaxf(a, b);
   if (m <= NEG_INF * 0.5f) return NEG_INF;
@@ -67,9 +76,18 @@ __device__ inline float lse2_skip(float a, float b) {
   return m + logf(expf(a - m) + expf(b - m));
 }
 
-// The beta kernel's state for thread slot i: the U + 1 blank (even) states
-// first, then the labels, so a warp's lanes share a parity and blank's
-// lanes, whose skip term is always -1e30, take lse2_skip's short way.
+// lse2_skip in one exponential: the larger side's exp(0) is 1 exactly, so
+// m + log(1 + exp(min - m)) is m + log(exp(a - m) + exp(b - m)) bit for bit
+__device__ inline float lse2_one_exp(float a, float b) {
+  const float m = fmaxf(a, b), lo = fminf(a, b);
+  if (m <= NEG_INF * 0.5f) return NEG_INF;
+  if (lo <= NEG_INF * 0.5f) return m;
+  return m + logf(1.f + expf(lo - m));
+}
+
+// The state of thread slot i in both recursions: the U + 1 blank (even)
+// states first, then the labels, so a warp's lanes share a parity and
+// blank's lanes, which never skip, take the two-term way together.
 __device__ inline int state_of(int i, int U) { return i <= U ? 2 * i : 2 * (i - U - 1) + 1; }
 
 struct Lattice {
@@ -99,52 +117,142 @@ __device__ inline float emit(const float* __restrict__ lp_t, const Lattice& lat,
   return (lat.fl[s] & 1) ? lp_t[lat.ext[s]] : NEG_INF;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+// The alpha recursion (K1-fwd). One block per sample; alpha ping-pongs in
+// shared memory behind two -1e30 pads, one barrier per step. Each thread
+// keeps its states' class, skip flag and emits of the next D steps in
+// registers (a ring of D registers a state, the time loop unrolled by D, so
+// each emit is loaded D steps before its use and no global load sits on the
+// chain). A step's chain per state is three shared loads, the log-sum-exp,
+// the emit add and one shared store. The log-sum-exp is the plain version's
+// nested lse(lse(stay, advance), skip) (the JAX package's `_lse` nesting,
+// ctc_kernel.py:41, used at :70), each level with one exponential
+// (`lse2_one_exp`), and a state that cannot skip drops the outer level,
+// whose -1e30 side leaves its value unchanged: so the kernel gives the
+// plain version's bits. A step is held by its longest chain of log-sum-exps
+// in one thread, stretched by the other warps' issue on the SM, so the
+// states are dealt out to keep that chain at two: one state a thread up to
+// 1024 states; past that (PAIR) a thread for each label state and one for
+// each two blank states (2b and 2(b + nb), neighbouring lanes two states
+// apart), while that fits a block, with four more warps (from `copy0`)
+// that only copy each finished row out; then K = 2, 4 or 8 states a thread
+// (`state_of`, blank and label states in separate warps), every thread
+// taking a share of the copy.
+// What else was timed on an H100, in one process, at the main shape: a flat
+// three-term form (one max, three exponentials, one log, as torch's CTC
+// kernel forms it) rounds once where the nested form rounds twice at the
+// alphas' magnitude (|alpha| ~ 1e4 at T 1843, an ulp of 1e-3); over the T
+// steps the two drift apart as a random walk, which moved the gradient by
+// 0.018 in chip_smoke.py at B 8, T 1843, U 592, past its 1e-2 limit. D = 4
+// beat 2 and 8. Slower were a cluster of two blocks splitting a sample's
+// states (a cluster barrier a step), skipping the states past the sample's
+// lattice, and issuing the row copy and the prefetch ahead of the chain;
+// branch-free log-sum-exps came within a few percent. Each step copies the previous row to alphas in
+// coalesced stores, off the chain (the copy warps beat sharing the copy
+// among the recursion's threads). Frames past the input length repeat the
+// last computed row: those rows are written after the recursion, without
+// barriers. Past K states per thread (S > 8192 at 1024 threads) the WIDE
+// variant's further states read their class and emit on the chain, so any
+// lattice that fits shared memory runs.
+template <int K, bool WIDE, bool PAIR>
+__global__ void __launch_bounds__(1024)
 ctc_alpha_kernel(const float* __restrict__ log_probs, const int* __restrict__ targets,
                  const int* __restrict__ input_lengths, const int* __restrict__ target_lengths,
                  float* __restrict__ alphas, float* __restrict__ nll, int T, int U, int V1,
-                 int blank) {
+                 int blank, int copy0) {
+  constexpr int D = K <= 2 ? 4 : 2;  // emit prefetch distance, in steps
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = 2 * U + 1;
-  float* buf[2] = {reinterpret_cast<float*>(smem), reinterpret_cast<float*>(smem) + S};
-  Lattice lat;
-  lat.ext = reinterpret_cast<int*>(smem + sizeof(float) * 2 * S);
-  lat.fl = smem + sizeof(float) * 2 * S + sizeof(int) * S;
-  const int b = blockIdx.x;
-  build_lattice(lat, targets, target_lengths, b, U, blank);
-  __syncthreads();
-
-  const int len = input_lengths[b];
+  float* const buf0 = reinterpret_cast<float*>(smem);  // step t's row at buf0 + (t & 1) * (S + 2)
+  const int b = blockIdx.x, nth = blockDim.x;
+  const int tl = min(max(target_lengths[b], 0), U), s_len = 2 * tl + 1;
+  const int t_end = max(min(input_lengths[b], T), 1);  // rows computed: 0 .. t_end - 1
+  const int* tg = targets + (size_t)b * U;
   const float* lp_b = log_probs + (size_t)b * T * V1;
   float* al_b = alphas + (size_t)b * T * S;
-  for (int s = threadIdx.x; s < S; s += NTHREADS) {
-    float a = NEG_INF;
-    if (s == 0 || (s == 1 && lat.tl > 0)) a = emit(lp_b, lat, s);
-    buf[0][s] = a;
-    al_b[s] = a;
-  }
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    const float* prev = buf[(t - 1) & 1];
-    float* cur = buf[t & 1];
-    const bool active = t < len;  // samples freeze past their length
-    const float* lp_t = lp_b + (size_t)t * V1;
-    for (int s = threadIdx.x; s < S; s += NTHREADS) {
-      float a = prev[s];
-      if (active) {
-        const float adv = s >= 1 ? prev[s - 1] : NEG_INF;
-        const float skp = (s >= 2 && (lat.fl[s] & 2)) ? prev[s - 2] : NEG_INF;
-        a = lse2(lse2(a, adv), skp) + emit(lp_t, lat, s);
-      }
-      cur[s] = a;
-      al_b[(size_t)t * S + s] = a;
+
+  // class of state s and whether it may skip from s - 2 (a label, in the
+  // lattice, other than the label before it)
+  auto lattice_at = [&](int s, int& e, bool& skip) {
+    e = (s & 1) ? tg[s >> 1] : blank;
+    skip = (s & 1) && s >= 3 && s < s_len && e != blank && e != tg[(s >> 1) - 1];
+  };
+  auto alpha_at = [&](const float* prev, int s, bool skip) {
+    const float r = lse2_one_exp(prev[s + 2], prev[s + 1]);
+    return skip ? lse2_one_exp(r, prev[s]) : r;
+  };
+  int st[K], ext[K];
+  bool skp[K];
+  float em[D][K];  // em[j]: the emits of steps t = 1 + j (mod D)
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if constexpr (PAIR) {  // a label state alone, or two blank states
+      const int tid = threadIdx.x, nb = (U + 2) / 2, bi = tid - U + k * nb;
+      st[k] = tid < U ? (k == 0 ? 2 * tid + 1 : -1) : (bi - k * nb < nb && 2 * bi < S ? 2 * bi : -1);
+    } else {
+      const int i = threadIdx.x + k * nth;
+      st[k] = i < S ? state_of(i, U) : -1;
     }
-    __syncthreads();
+    ext[k] = blank;
+    skp[k] = false;
+#pragma unroll
+    for (int j = 0; j < D; ++j) em[j][k] = NEG_INF;
+    if (st[k] >= 0) {
+      const int s = st[k];
+      lattice_at(s, ext[k], skp[k]);
+      float a0 = NEG_INF;
+      if (s == 0 || (s == 1 && tl > 0)) a0 = lp_b[ext[k]];
+      buf0[s + 2] = a0;
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (s < s_len && 1 + j < t_end) em[j][k] = lp_b[(size_t)(1 + j) * V1 + ext[k]];
+    }
   }
+  if constexpr (WIDE) {
+    for (int i = threadIdx.x + K * nth; i < S; i += nth) {
+      const int s = state_of(i, U);
+      buf0[s + 2] = (s == 0 || (s == 1 && tl > 0)) ? lp_b[(s & 1) ? tg[0] : blank] : NEG_INF;
+    }
+  }
+  if (threadIdx.x < 2) buf0[threadIdx.x] = buf0[S + 2 + threadIdx.x] = NEG_INF;
+  __syncthreads();
+
+  for (int t0 = 1; t0 < t_end; t0 += D) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const int t = t0 + j;
+      if (t >= t_end) break;  // the same for every thread of the block
+      const float* prev = buf0 + ((t - 1) & 1) * (S + 2);
+      float* cur = buf0 + (t & 1) * (S + 2);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (st[k] >= 0) cur[st[k] + 2] = alpha_at(prev, st[k], skp[k]) + em[j][k];
+      if constexpr (WIDE) {
+        for (int i = threadIdx.x + K * nth; i < S; i += nth) {
+          const int s = state_of(i, U);
+          int e;
+          bool skip;
+          lattice_at(s, e, skip);
+          cur[s + 2] = alpha_at(prev, s, skip) + (s < s_len ? lp_b[(size_t)t * V1 + e] : NEG_INF);
+        }
+      }
+      if ((int)threadIdx.x >= copy0)
+        for (int s = threadIdx.x - copy0; s < S; s += nth - copy0)
+          al_b[(size_t)(t - 1) * S + s] = prev[s + 2];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (st[k] >= 0 && st[k] < s_len && t + D < t_end)
+          em[j][k] = lp_b[(size_t)(t + D) * V1 + ext[k]];
+      __syncthreads();
+    }
+  }
+
+  // the last computed row, and the frozen rows past the length
+  const float* fin = buf0 + ((t_end - 1) & 1) * (S + 2);
+  for (int t = t_end - 1; t < T; ++t)
+    for (int s = threadIdx.x; s < S; s += nth) al_b[(size_t)t * S + s] = fin[s + 2];
   if (threadIdx.x == 0) {
-    const float* fin = buf[(T - 1) & 1];
-    const float last = fin[lat.s_len - 1];
-    const float last2 = lat.tl > 0 ? fin[lat.s_len - 2] : NEG_INF;
+    const float last = fin[s_len + 1];
+    const float last2 = tl > 0 ? fin[s_len] : NEG_INF;
     const float m = fmaxf(last, last2);  // logaddexp
     nll[b] = -(m + log1pf(expf(-fabsf(last - last2))));
   }
@@ -297,7 +405,7 @@ ctc_collect_kernel(const int* __restrict__ targets, const int* __restrict__ inpu
   for (int v = threadIdx.x; v < V1; v += COLLECT_THREADS) out[v] = row[v];
 }
 
-size_t alpha_smem(int U) { return sizeof(float) * 2 * (2 * U + 1) + (sizeof(int) + 1) * (2 * U + 1); }
+size_t alpha_smem(int U) { return sizeof(float) * 2 * (2 * U + 3); }
 
 size_t beta_smem(int U) {
   return sizeof(float) * 2 * (2 * U + 3) + (sizeof(int) + 1) * (2 * U + 1);
@@ -330,12 +438,33 @@ extern "C" int ctc_alpha_f32(const void* log_probs, const void* targets, const v
                              const void* target_lengths, void* alphas, void* nll, int b, int t,
                              int u, int v1, int blank, void* stream) {
   const size_t smem = alpha_smem(u);
-  cudaError_t err = cudaFuncSetAttribute(ctc_alpha_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // one state per thread up to 1024 threads, then 2, 4 or 8 a thread, and
+  // the WIDE variant past 8192 states
+  const int S = 2 * u + 1;
+  int k = 1;
+  while (k < 8 && S > 1024 * k) k *= 2;
+  int threads = std::min(1024, std::max(32, ((S + k - 1) / k + 31) / 32 * 32));
+  // past 1024 states, a thread for each label state and one for each two
+  // blank states, while that fits a block: no thread then runs more than two
+  // log-sum-exps a step
+  const bool pair = k == 2 && u + (u + 2) / 2 <= 1024;
+  if (pair) threads = (u + (u + 2) / 2 + 31) / 32 * 32;
+  // threads from copy0 on copy each row out; with room, four warps of
+  // their own, so the recursion's threads keep to the chain
+  const int copy0 = pair && threads + 128 <= 1024 ? threads : 0;
+  if (copy0) threads += 128;
+  auto kernel = k == 1   ? ctc_alpha_kernel<1, false, false>
+                : pair   ? ctc_alpha_kernel<2, false, true>
+                : k == 2 ? ctc_alpha_kernel<2, false, false>
+                : k == 4 ? ctc_alpha_kernel<4, false, false>
+                : S > 8 * threads ? ctc_alpha_kernel<8, true, false>
+                                  : ctc_alpha_kernel<8, false, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ctc_alpha_kernel<<<b, NTHREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<b, threads, smem, (cudaStream_t)stream>>>(
       (const float*)log_probs, (const int*)targets, (const int*)input_lengths,
-      (const int*)target_lengths, (float*)alphas, (float*)nll, t, u, v1, blank);
+      (const int*)target_lengths, (float*)alphas, (float*)nll, t, u, v1, blank, copy0);
   return (int)cudaGetLastError();
 }
 

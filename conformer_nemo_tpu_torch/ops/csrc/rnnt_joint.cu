@@ -103,7 +103,10 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 using namespace nvcuda;
+using namespace tc;
 
 namespace {
 
@@ -359,7 +362,8 @@ joint_fwd_kernel(Joint J, const int* __restrict__ t_lens, const int* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// backward: tensor-core helpers (mma.sync m16n8k16 bf16, ldmatrix, cp.async)
+// backward: tiling constants (the mma.sync, ldmatrix and cp.async helpers are
+// in tensor_core.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int CELL_THREADS = 512;  // cells kernel: 16 warps, 4 row blocks x 4 column groups
@@ -377,62 +381,9 @@ constexpr int KSPLIT = 24;       // fixed number of K splits of the dW product
 // holds; a wider block takes ceil(VLp / 320) passes.
 __host__ __device__ inline int pass_cols(int VLp) { return VLp < PASS_COLS ? VLp : PASS_COLS; }
 
-__device__ inline uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ inline void cp_async16(void* s, const void* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(s)), "l"(g));
-}
-__device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ inline void ldsm4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-__device__ inline void ldsm4t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-__device__ inline void ldsm2t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
-}
-__device__ inline void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment addresses for lane l (ldmatrix x4: lanes 8i..8i+7 give matrix i's rows).
-// A [16 x 16] from row-major [m][k] storage (no transpose)
-__device__ inline const bf16* a_addr(const bf16* s, int ld, int m0, int k0, int l) {
-  return s + (size_t)(m0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + k0 + (l >> 4) * 8;
-}
-// A [16 x 16] from [k][m] storage (.trans)
-__device__ inline const bf16* at_addr(const bf16* s, int ld, int m0, int k0, int l) {
-  return s + (size_t)(k0 + (l & 7) + (l >> 4) * 8) * ld + m0 + ((l >> 3) & 1) * 8;
-}
-// B of two n-tiles [16 x 8] from row-major [k][n] storage (.trans)
-__device__ inline const bf16* bt_addr(const bf16* s, int ld, int k0, int n0, int l) {
-  return s + (size_t)(k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8;
-}
-// B of two n-tiles from [n][k] storage (no transpose)
-__device__ inline const bf16* bn_addr(const bf16* s, int ld, int k0, int n0, int l) {
-  return s + (size_t)(n0 + (l & 7) + (l >> 4) * 8) * ld + k0 + ((l >> 3) & 1) * 8;
-}
-
 __device__ inline float clamp_g(float x, float clamp, float g) {
   if (clamp > 0.f) x = fminf(fmaxf(x, -clamp), clamp);
   return x * g;
-}
-
-__device__ inline uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Sample b's lattice: n_t frames, n_u labels + 1. Its cells are numbered

@@ -1,0 +1,82 @@
+// Tensor-core and async-copy helpers shared by the backward kernels
+// (rnnt_joint.cu, flash_attention_bwd.cu): cp.async into shared memory,
+// ldmatrix fragments and mma.sync m16n8k16 bf16 with fp32 accumulation.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16, lane l, g = l / 4, c = 2 * (l % 4)):
+//   A [16 x 16]: a[0] = (row g, k c..c+1), a[1] = (row g+8, k c..c+1),
+//                a[2] = (row g, k c+8..c+9), a[3] = (row g+8, k c+8..c+9)
+//   B [16 x 8]:  b0 = (k c..c+1, col g), b1 = (k c+8..c+9, col g)
+//   C [16 x 8]:  c[0..1] = (row g, cols c..c+1), c[2..3] = (row g+8, cols c..c+1)
+// so two neighbouring C tiles of a row block, rounded to bf16 in pairs, are
+// the A fragment of a 16-deep product.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace tc {
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ inline void cp_async16(void* s, const void* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(s)), "l"(g));
+}
+__device__ inline void cp_async4(void* s, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(s)), "l"(g));
+}
+__device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ inline void ldsm4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ inline void ldsm4t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ inline void ldsm2t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
+}
+__device__ inline void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment addresses for lane l (ldmatrix x4: lanes 8i..8i+7 give matrix i's
+// rows; x2 reads lanes 0..15, so pass l & 15).
+// A [16 x 16] from row-major [m][k] storage (no transpose)
+__device__ inline const __nv_bfloat16* a_addr(const __nv_bfloat16* s, int ld, int m0, int k0,
+                                              int l) {
+  return s + (size_t)(m0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + k0 + (l >> 4) * 8;
+}
+// A [16 x 16] from [k][m] storage (.trans)
+__device__ inline const __nv_bfloat16* at_addr(const __nv_bfloat16* s, int ld, int m0, int k0,
+                                               int l) {
+  return s + (size_t)(k0 + (l & 7) + (l >> 4) * 8) * ld + m0 + ((l >> 3) & 1) * 8;
+}
+// B of two n-tiles [16 x 8] from row-major [k][n] storage (.trans)
+__device__ inline const __nv_bfloat16* bt_addr(const __nv_bfloat16* s, int ld, int k0, int n0,
+                                               int l) {
+  return s + (size_t)(k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8;
+}
+// B of two n-tiles from [n][k] storage (no transpose)
+__device__ inline const __nv_bfloat16* bn_addr(const __nv_bfloat16* s, int ld, int k0, int n0,
+                                               int l) {
+  return s + (size_t)(n0 + (l & 7) + (l >> 4) * 8) * ld + k0 + ((l >> 3) & 1) * 8;
+}
+
+// Two floats rounded to bf16, packed low-first (a fragment register).
+__device__ inline uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+}  // namespace tc

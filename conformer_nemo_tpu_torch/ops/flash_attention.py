@@ -26,10 +26,15 @@ once) at 989 TFLOP/s bf16 dense, against the bytes each reads and writes
 once at 3.35 TB/s; with full-length rows at the flagship shapes that is
 several hundred operations per byte, over the ridge of ~295, so the tensor
 cores bound them. A bucket with many short rows does fewer operations on
-the same bytes and can fall under the ridge. The designs keep every score
-tile on chip (no [T, T] in device memory), run the products on bf16 tensor
-cores (WMMA) with fp32 accumulation, and skip tiles outside the band and
-past the length. Speed beyond that is later work.
+the same bytes and can fall under the ridge. All keep every score tile on
+chip (no [T, T] in device memory), multiply bf16 on the tensor cores with
+fp32 accumulation, and skip tiles outside the band and past the length.
+The forward and the dQ kernel use WMMA (dQ with its d1-wide accumulator in
+shared memory); the dK/dV kernel uses mma.sync from ldmatrix fragments,
+keeps its K and V tiles resident while the query tiles stream through a
+cp.async ring, and accumulates dK and dV in registers (so it takes d1 <=
+576). Each backward kernel checks its own limits (`_check_bwd_cuda`), and
+`flash_attention_bwd` checks both before either launches.
 
 `flash_attention_fwd` and `flash_attention_bwd` launch their kernels for
 CUDA tensors and raise on anything they do not take; for CPU tensors they
@@ -189,18 +194,38 @@ def _check_bwd(qs, ks, v, do, lse, delta, lens) -> None:
         raise ValueError(f"unsupported device {qs.device}")
 
 
-def _bwd_kernel(name: str, counter, outs, qs, ks, v, do, lse, delta, lens, scale, left, right):
-    """Launch one of the two backward kernels (CUDA tensors, checked)."""
+def _check_bwd_cuda(qs, ks, v, do, lse, delta, lens, kernels: tuple) -> None:
+    """What the backward kernels named in `kernels` ("dq", "dkv") take, each
+    against its own limits, checked before any of them launches."""
     bh, t, d1 = qs.shape
     dv = v.shape[-1]
     _check_cuda({"qs": qs, "ks": ks, "v": v, "do": do}, lens, bh, d1, dv)
     if lse.dtype != torch.float32 or delta.dtype != torch.float32 or not (
             lse.is_contiguous() and delta.is_contiguous()):
         raise TypeError("the CUDA kernel takes contiguous fp32 lse and delta")
-    smem = load("flash_attention_bwd.cu").flash_attention_bwd_smem_bytes(d1, dv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"the CUDA backward keeps a 64 x d1 fp32 accumulator in shared memory "
-                         f"and needs {smem} bytes at d1={d1}, dv={dv}; a block has {SMEM_LIMIT}")
+    lib = load("flash_attention_bwd.cu")
+    if "dq" in kernels:
+        smem = lib.flash_attention_bwd_dq_smem_bytes(d1, dv)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"the CUDA dQ kernel keeps a 64 x d1 fp32 accumulator in shared "
+                             f"memory and needs {smem} bytes at d1={d1}, dv={dv}; a block has "
+                             f"{SMEM_LIMIT}")
+    if "dkv" in kernels:
+        max_d1 = lib.flash_attention_bwd_dkv_max_d1()
+        if -(-d1 // 16) * 16 > max_d1:
+            raise ValueError(f"the CUDA dK/dV kernel holds dK in registers, at most {max_d1} "
+                             f"columns (d1 rounded up to 16); got d1={d1}")
+        smem = lib.flash_attention_bwd_dkv_smem_bytes(d1, dv)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"the CUDA dK/dV kernel keeps its K tile and two query tiles in "
+                             f"shared memory and needs {smem} bytes at d1={d1}, dv={dv}; a "
+                             f"block has {SMEM_LIMIT}")
+
+
+def _bwd_kernel(name: str, counter, outs, qs, ks, v, do, lse, delta, lens, scale, left, right):
+    """Launch one of the two backward kernels (CUDA tensors, checked)."""
+    bh, t, d1 = qs.shape
+    dv = v.shape[-1]
     if bh == 0 or t == 0:
         return
     with torch.cuda.device(qs.device):
@@ -213,23 +238,41 @@ def _bwd_kernel(name: str, counter, outs, qs, ks, v, do, lse, delta, lens, scale
     counter.add((bh, t, d1, dv))
 
 
-def flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
-                           right: int = -1):
-    """The dQ kernel of the backward alone (CUDA tensors): -> dq."""
-    _check_bwd(qs, ks, v, do, lse, delta, lens)
+def _launch_dq(qs, ks, v, do, lse, delta, lens, scale, left, right):
     dq = torch.empty_like(qs)
     _bwd_kernel("dq", dq_launches, (dq,), qs, ks, v, do, lse, delta, lens, scale, left, right)
     return dq
 
 
-def flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
-                            right: int = -1):
-    """The dK/dV kernel of the backward alone (CUDA tensors): -> (dk, dv)."""
-    _check_bwd(qs, ks, v, do, lse, delta, lens)
+def _launch_dkv(qs, ks, v, do, lse, delta, lens, scale, left, right):
     dk, dvo = torch.empty_like(ks), torch.empty_like(v)
     _bwd_kernel("dkv", dkv_launches, (dk, dvo), qs, ks, v, do, lse, delta, lens, scale, left,
                 right)
     return dk, dvo
+
+
+def flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
+                           right: int = -1):
+    """The dQ kernel of the backward alone: -> dq (CPU tensors: the plain
+    version's dq)."""
+    args = (qs, ks, v, do, lse, delta, lens, scale, left, right)
+    _check_bwd(*args[:7])
+    if qs.device.type == "cpu":
+        return flash_attention_bwd_reference(*args)[0]
+    _check_bwd_cuda(*args[:7], ("dq",))
+    return _launch_dq(*args)
+
+
+def flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
+                            right: int = -1):
+    """The dK/dV kernel of the backward alone: -> (dk, dv) (CPU tensors: the
+    plain version's)."""
+    args = (qs, ks, v, do, lse, delta, lens, scale, left, right)
+    _check_bwd(*args[:7])
+    if qs.device.type == "cpu":
+        return flash_attention_bwd_reference(*args)[1:]
+    _check_bwd_cuda(*args[:7], ("dkv",))
+    return _launch_dkv(*args)
 
 
 def flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
@@ -237,11 +280,12 @@ def flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale: float, left: int
     """Gradients of `flash_attention_fwd`'s o with respect to qs, ks and v,
     given dO [BH, T, dv], the forward's lse [BH, T] and delta = rowsum(dO * O)
     [BH, T] (fp32). -> (dq, dk, dv) in the input dtypes."""
-    _check_bwd(qs, ks, v, do, lse, delta, lens)
+    args = (qs, ks, v, do, lse, delta, lens, scale, left, right)
+    _check_bwd(*args[:7])
     if qs.device.type == "cpu":
-        return flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, scale, left, right)
-    dq = flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale, left, right)
-    return (dq, *flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale, left, right))
+        return flash_attention_bwd_reference(*args)
+    _check_bwd_cuda(*args[:7], ("dq", "dkv"))  # both kernels' limits before either launches
+    return (_launch_dq(*args), *_launch_dkv(*args))
 
 
 class FlashAttention(torch.autograd.Function):

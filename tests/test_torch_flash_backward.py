@@ -129,3 +129,54 @@ def test_flash_bwd_wrapper_checks_and_counts():
         port.flash_attention_bwd(qs, ks, v, do[:, :8], lse, delta, lens, 1.0)
     with pytest.raises(ValueError):
         port.flash_attention_bwd(qs, ks, v, do, lse[:, :8], delta, lens, 1.0)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flash_bwd_kernel_wrappers_match_jax_on_cpu(name):
+    """The dQ and the dK/dV wrappers alone, on CPU tensors: their plain
+    versions' pieces, against the JAX package's dQ and dK/dV kernels."""
+    t, d1, dv, lens, (left, right) = CASES[name]
+    qs, ks, v, do, lens = _inputs(4, len(lens), t, d1, dv, lens)
+    lse, delta = _fwd_residuals(qs, ks, v, do, lens, 0.25, left, right)
+    want = fa._flash_bwd_entry(*(jnp.asarray(a) for a in (qs, ks, v, do)),
+                               jnp.asarray(lse)[..., None], jnp.asarray(delta)[..., None],
+                               jnp.asarray(lens), 64, 64, 0.25, True, left=left, right=right)
+    args = [torch.from_numpy(a) for a in (qs, ks, v, do, lse, delta, lens)]
+    before = (port.dq_launches.total, port.dkv_launches.total)
+    dq = port.flash_attention_bwd_dq(*args, 0.25, left, right)
+    dk, dv_ = port.flash_attention_bwd_dkv(*args, 0.25, left, right)
+    assert (port.dq_launches.total, port.dkv_launches.total) == before  # plain, not a launch
+    for g, w in zip((dq, dk, dv_), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=ATOL)
+
+
+class _Limits:
+    """Stand-in for the backward library's size queries (the layouts are
+    the card's; this holds the wrapper's use of them)."""
+
+    def __init__(self, dq_smem, dkv_smem, dkv_max_d1=576):
+        self.flash_attention_bwd_dq_smem_bytes = lambda d1, dv: dq_smem
+        self.flash_attention_bwd_dkv_smem_bytes = lambda d1, dv: dkv_smem
+        self.flash_attention_bwd_dkv_max_d1 = lambda: dkv_max_d1
+
+
+@pytest.mark.parametrize("d1,dq_smem,dkv_smem,refused", [
+    (576, 1000, 1000, None),
+    (584, 1000, 1000, "dK/dV kernel holds dK in registers"),  # d1 rounds up to 592
+    (576, 10 ** 6, 1000, "dQ kernel keeps a 64 x d1 fp32 accumulator"),
+    (576, 1000, 10 ** 6, "dK/dV kernel keeps its K tile"),
+])
+def test_flash_bwd_limits_are_per_kernel(monkeypatch, d1, dq_smem, dkv_smem, refused):
+    """Each backward kernel is held to its own limits, and the whole
+    backward checks both before either launches."""
+    monkeypatch.setattr(port, "load", lambda source: _Limits(dq_smem, dkv_smem))
+    bf = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    args = (bf(2, 64, d1), bf(2, 64, d1), bf(2, 64, 64), bf(2, 64, 64), torch.zeros(2, 64),
+            torch.zeros(2, 64), torch.tensor([64, 3], dtype=torch.int32))
+    if refused is None:
+        port._check_bwd_cuda(*args, ("dq", "dkv"))
+        return
+    with pytest.raises(ValueError, match=refused):
+        port._check_bwd_cuda(*args, ("dq", "dkv"))
+    which = "dq" if "dQ" in refused else "dkv"
+    port._check_bwd_cuda(*args, ({"dq": "dkv", "dkv": "dq"}[which],))  # the other one passes

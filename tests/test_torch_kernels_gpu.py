@@ -56,8 +56,12 @@ def test_flash_fwd_cuda_kernel_matches_plain(cuda_device, t, d1, dv, band):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("t,d1,dv,band", [(1875, 576, 64, (-1, -1)), (200, 80, 16, (-1, -1)),
-                                          (700, 576, 64, (128, 32)), (300, 40, 24, (16, -1))])
+                                          (700, 576, 64, (128, 32)), (300, 40, 24, (16, -1)),
+                                          (333, 200, 40, (-1, -1))])
 def test_flash_bwd_cuda_kernels_match_plain(cuda_device, t, d1, dv, band):
+    """d1 80, 40 and 200 split unevenly over the dK/dV kernel's 8 warps'
+    column groups (10, 6 and 26 n-tiles of 8 columns); dv 24 and 40 are not
+    multiples of 16."""
     qs, ks, v, do = _flash_inputs(cuda_device, 4, t, d1, dv, seed=1)
     lens = torch.tensor([t, t // 2 + 3, 1, 0], dtype=torch.int32, device=cuda_device)
     scale = 1.0 / np.sqrt(64)
@@ -71,6 +75,60 @@ def test_flash_bwd_cuda_kernels_match_plain(cuda_device, t, d1, dv, band):
         assert rel.item() <= BWD_REL_TOL, (name, rel.item())
     # query rows past the length (and the lens = 0 row) get exactly zero
     assert got[0][2, 1:].abs().max().item() == 0.0 and got[0][3].abs().max().item() == 0.0
+    # no atomics: the dK/dV kernel gives the same bits on a second call
+    again = port.flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale, *band)
+    assert torch.equal(again[0], got[1]) and torch.equal(again[1], got[2])
+
+
+@pytest.mark.gpu
+def test_flash_bwd_dkv_refuses_a_depth_past_its_registers(cuda_device):
+    """d1 584 rounds up to 592 dK columns, past the 576 the dK/dV kernel's
+    warps hold: the whole backward raises before either kernel launches,
+    while the dQ kernel alone still takes it."""
+    t, d1, dv = 200, 584, 64
+    qs, ks, v, do = _flash_inputs(cuda_device, 2, t, d1, dv, seed=2)
+    lens = torch.tensor([t, 77], dtype=torch.int32, device=cuda_device)
+    scale = 1.0 / np.sqrt(64)
+    o, lse = port.flash_attention_fwd_reference(qs, ks, v, lens, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (qs, ks, v, do, lse, delta, lens, scale)
+    before = (port.dq_launches.total, port.dkv_launches.total)
+    with pytest.raises(ValueError, match="registers"):
+        port.flash_attention_bwd(*args)
+    with pytest.raises(ValueError, match="registers"):
+        port.flash_attention_bwd_dkv(*args)
+    assert (port.dq_launches.total, port.dkv_launches.total) == before
+    dq = port.flash_attention_bwd_dq(*args)
+    want = port.flash_attention_bwd_reference(*args)[0]
+    torch.cuda.synchronize()
+    rel = (dq.float() - want.float()).abs().max() / want.float().abs().max()
+    assert rel.item() <= BWD_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,t", [(30, 300), (592, 900), (800, 1200), (1500, 2000), (3000, 3900)])
+def test_ctc_alpha_cuda_kernel_matches_plain(cuda_device, u, t):
+    """K1-fwd at one state a thread (S 61), a label state or two blank states
+    a thread (S 1185), and 2, 4 and 8 states a thread (S 1601, 3001, 6001),
+    with a row frozen past its length, a short target and an infeasible
+    row: alphas and nll against the plain recursion, the sentinels kept."""
+    rng = np.random.RandomState(u)
+    b, v1 = 3, 40
+    lp = torch.log_softmax(torch.from_numpy(rng.randn(b, t, v1).astype(np.float32) * 3), -1)
+    targets = torch.from_numpy(rng.randint(0, v1 - 1, (b, u)).astype(np.int32))
+    targets[0, 1::4] = targets[0, 0::4]  # repeats: states that may not skip
+    il = torch.tensor([t, t - 37, u // 2], dtype=torch.int32)
+    tl = torch.tensor([u, u // 3, u], dtype=torch.int32)  # row 2 infeasible
+    args = [x.to(cuda_device) for x in (lp, targets, il, tl)]
+    alphas, nll = ctc.ctc_alphas(*args, v1 - 1)
+    a_ref, nll_ref = ctc.ctc_alphas_reference(*args, v1 - 1)
+    torch.cuda.synchronize()
+    assert nll[2].item() >= 1e29 and (nll[:2] < 1e29).all()
+    assert _rel_err(nll[:2], nll_ref[:2]) <= NLL_REL_TOL
+    live = a_ref > -1e29
+    assert torch.equal(alphas > -1e29, live)  # the same reachable states
+    assert _rel_err(alphas[live], a_ref[live]) <= NLL_REL_TOL
+    assert torch.equal(alphas[1, t - 37:], alphas[1, t - 38:t - 37].expand(37, -1))  # frozen
 
 
 @pytest.mark.gpu
