@@ -48,8 +48,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                and the dropout mask read back bit for bit); the K1 and K4
                backwards also as whole functions (rows of their own in the
                summary, against the library's whole backward), run twice for
-               the same bits, as K2's dK/dV kernel is, K1-fwd's alphas held
-               against the plain recursion's, and K4-bwd's scratch bytes
+               the same bits, as K2's forward, dQ and dK/dV kernels are,
+               K1-fwd's alphas held against the plain recursion's, and
+               K4-bwd's scratch bytes; K2-fwd at the main shapes also timed
+               at both query-tile heights in turns (64, 128, 128, 64 rows),
+               and at the top of its range (d1 1152, dv 128), and the dQ
+               kernel alone past the dK/dV kernel's 576 columns (d1 656)
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -279,23 +283,36 @@ def _flash_inputs(bh, t, d1, dv, lens, gen, dev):
     return qs, ks, v, torch.tensor(lens, dtype=torch.int32, device=dev)
 
 
-def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev):
+def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev, compare_rows=False):
+    """K2-fwd against its plain version, twice for the same bits, timed;
+    with compare_rows, both query-tile heights timed in turns (64, 128,
+    128, 64 rows), which is what chose the library's pick."""
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
+    from conformer_nemo_tpu_torch.ops.build import load
 
     qs, ks, v, lens = _flash_inputs(bh, t, d1, dv, lens, gen, dev)
     scale = 1.0 / math.sqrt(64.0)
     left, right = band
     o, lse = fa.flash_attention_fwd(qs, ks, v, lens, scale, left, right)
+    o2, lse2 = fa.flash_attention_fwd(qs, ks, v, lens, scale, left, right)
     o_ref, lse_ref = fa.flash_attention_fwd_reference(qs, ks, v, lens, scale, left, right)
     torch.cuda.synchronize()
+    check(torch.equal(o, o2) and torch.equal(lse, lse2), (name, "K2-fwd is not deterministic"))
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_lse = (lse - lse_ref).abs().max().item()
     check(math.isfinite(err_o) and err_o <= O_TOL, (name, "o", err_o))
     check(math.isfinite(err_lse) and err_lse <= LSE_TOL, (name, "lse", err_lse))
     row = {"case": name, "kernel": "K2-fwd", "bh": bh, "t": t, "d1": d1, "dv": dv,
            "band": list(band), "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-           "tol_o": O_TOL, "tol_lse": LSE_TOL,
+           "tol_o": O_TOL, "tol_lse": LSE_TOL, "deterministic": True,
+           "rows": load("flash_attention_fwd.cu").flash_attention_fwd_rows(bh, t, d1, dv),
            "max_abs_err": max(err_o, err_lse)}
+    if compare_rows:
+        turns = {64: [], 128: []}
+        for rows in (64, 128, 128, 64):
+            turns[rows].append(time_ms(lambda: fa._launch_fwd(qs, ks, v, lens, scale, left,
+                                                              right, rows=rows), 10))
+        row["ms_by_rows"] = {str(r): ms for r, ms in turns.items()}
     mask = fa.visible_mask(t, lens, left, right)
     pairs = int(mask.sum().item())
     # bytes the function must move: the qs rows that see a key, the ks and v
@@ -316,22 +333,51 @@ def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev):
     return row
 
 
-def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
-    """K2 dQ and dK/dV against the plain backward -> (dq row, dkv row)."""
+def _flash_bwd_inputs(bh, t, d1, dv, lens, band, gen, dev):
+    """(qs, ks, v, do, lse, delta, lens, scale, left, right) of a backward
+    case, lse and delta from the forward kernel, as the main path has them."""
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
 
     qs, ks, v, lens = _flash_inputs(bh, t, d1, dv, lens, gen, dev)
     do = torch.randn(bh, t, dv, generator=gen, device=dev).to(torch.bfloat16)
     scale = 1.0 / math.sqrt(64.0)
-    left, right = band
-    o, lse = fa.flash_attention_fwd(qs, ks, v, lens, scale, left, right)
+    o, lse = fa.flash_attention_fwd(qs, ks, v, lens, scale, *band)
     delta = (do.float() * o.float()).sum(-1)
-    args = (qs, ks, v, do, lse, delta, lens, scale, left, right)
-    dq = fa.flash_attention_bwd_dq(*args)
+    return qs, ks, v, do, lse, delta, lens, scale, *band
+
+
+def _flash_dq_wide_case(name, bh, t, d1, dv, lens, gen, dev) -> None:
+    """The dQ kernel alone past the dK/dV kernel's 576 columns (passes of
+    dQ columns, 32-key tiles): against the plain version, twice for the
+    same bits, zero past the length; untimed."""
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    args = _flash_bwd_inputs(bh, t, d1, dv, lens, (-1, -1), gen, dev)
+    dq, dq2 = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dq(*args)
+    want = fa.flash_attention_bwd_reference(*args)[0]
+    torch.cuda.synchronize()
+    check(torch.equal(dq, dq2), (name, "dQ is not deterministic"))
+    err = ((dq.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    check(math.isfinite(err) and err <= BWD_REL_TOL, (name, "dq", err))
+    q_valid = torch.arange(t, device=dev)[None, :] < args[6][:, None]
+    check(dq[~q_valid].abs().max().item() == 0.0, (name, "dq past the length"))
+    emit("kernels", case=name, kernel="K2-bwd-dq", bh=bh, t=t, d1=d1, dv=dv, rel_err=err,
+         tol_rel=BWD_REL_TOL, deterministic=True,
+         max_d1=fa.load("flash_attention_bwd.cu").flash_attention_bwd_dq_max_d1(dv))
+
+
+def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
+    """K2 dQ and dK/dV against the plain backward -> (dq row, dkv row)."""
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    args = _flash_bwd_inputs(bh, t, d1, dv, lens, band, gen, dev)
+    qs, ks, v, do, lse, delta, lens, scale, left, right = args
+    dq, dq2 = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dq(*args)
     dk, dvv = fa.flash_attention_bwd_dkv(*args)
     dk2, dvv2 = fa.flash_attention_bwd_dkv(*args)
     ref = fa.flash_attention_bwd_reference(*args)
     torch.cuda.synchronize()
+    check(torch.equal(dq, dq2), (name, "dQ is not deterministic"))
     check(torch.equal(dk, dk2) and torch.equal(dvv, dvv2), (name, "dK/dV is not deterministic"))
     errs, abs_errs = {}, {}
     for out_name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dvv), ref):
@@ -360,7 +406,7 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
         del out
     common = {"case": name, "bh": bh, "t": t, "d1": d1, "dv": dv, "band": list(band),
               "visible_pairs": pairs, "rel_err": errs, "abs_err": abs_errs,
-              "tol_rel": BWD_REL_TOL, "dkv_deterministic": True,
+              "tol_rel": BWD_REL_TOL, "deterministic": True,
               "plain_ms": plain_ms, "library_ms": library_ms}
     rows = []
     for kernel, fn, flops, out_bytes, err in (
@@ -1277,19 +1323,23 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     d1, dv = cfg.encoder.d_head + cfg.encoder.d_model, cfg.encoder.d_head
     rows = {"transcribe": [_flash_case(f"main_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
-                                       (-1, -1), gen, dev) for t, lens in flash_calls]}
+                                       (-1, -1), gen, dev, compare_rows=True)
+                           for t, lens in flash_calls]}
     t, lens = train["t"], train["lens"]
     rows["train"] = [_flash_case(f"train_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
-                                 (-1, -1), gen, dev)]
+                                 (-1, -1), gen, dev, compare_rows=True)]
     rows["train"] += _flash_bwd_case(f"train_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
                                      (-1, -1), gen, dev)
-    # tiny depths, empty rows, a two-sided band
+    # tiny depths, empty rows, a two-sided band, the top of the forward's range
+    # (d1 1152, dv 128), dQ past the dK/dV kernel's 576 columns
     _flash_case("tiny", 4, 200, 80, 16, [200, 100, 1, 0], (-1, -1), gen, dev)
     _flash_case("band_128_32", 8, 3001, d1, dv, [3001, 2500, 1876, 1200, 700, 64, 1, 0],
                 (128, 32), gen, dev)
+    _flash_case("wide_d1152_dv128", 4, 333, 1152, 128, [333, 200, 1, 0], (-1, -1), gen, dev)
     _flash_bwd_case("bwd_tiny_lens0", 4, 200, 80, 16, [200, 100, 1, 0], (-1, -1), gen, dev)
     _flash_bwd_case("bwd_band_128_32", 8, 1876, d1, dv, [1876, 1500, 1126, 700, 300, 64, 1, 0],
                     (128, 32), gen, dev)
+    _flash_dq_wide_case("dq_wide_d656", 3, 301, 656, 64, [301, 256, 0], gen, dev)
 
     tokens, enc_lens, token_lens = train["ctc"]
     v1, blank = cfg.num_classes + 1, cfg.blank_id

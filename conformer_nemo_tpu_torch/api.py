@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from conformer_nemo_tpu_torch.audio.features import log_mel_spectrogram
+from conformer_nemo_tpu_torch.audio.features import log_mel_spectrogram, mel_seq_len
 from conformer_nemo_tpu_torch.config.loader import (
     build_ctc_model_config,
     build_rnnt_model_config,
@@ -49,7 +49,11 @@ from conformer_nemo_tpu_torch.data.tokenizers import build_tokenizer
 from conformer_nemo_tpu_torch.decode.ctc_greedy import collapse_ctc_ids, ctc_greedy_decode
 from conformer_nemo_tpu_torch.decode.rnnt_decoding import RNNTDecoding
 from conformer_nemo_tpu_torch.device import resolve_device
-from conformer_nemo_tpu_torch.models.conformer import check_flash_dtype
+from conformer_nemo_tpu_torch.models.conformer import (
+    calc_sub_length,
+    check_flash_dtype,
+    check_flash_training,
+)
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, ctc_forward
 from conformer_nemo_tpu_torch.models.rnnt import PredictionNetwork, RNNTModel, check_joint_dtype
 from conformer_nemo_tpu_torch.train.lr_schedule import make_lr_schedule
@@ -160,6 +164,10 @@ class _BaseASRModel:
         return with_grad_accumulation(opt, int(tr.get("accumulate_grad_batches", 1) or 1))
 
     def _loader(self, manifest: str, ds_cfg: dict, shuffle: bool):
+        """The bucketed loader of a manifest. It shuffles with seed 0 whatever
+        the model's `seed`, as the JAX package's `fit` builds its loaders:
+        the model's seed draws the weights and the dropout, not the batch
+        order, so a model of any seed sees the reference's batches."""
         for key, what in (("is_tarred", "tarred datasets"), ("augmentor", "the waveform augmentor"),
                           ("trim_silence", "silence trimming")):
             if ds_cfg.get(key):
@@ -173,7 +181,7 @@ class _BaseASRModel:
                                       sample_rate=ds_cfg.get("sample_rate", 16000),
                                       n_buckets=ds_cfg.get("num_buckets", 8))
         return BucketedLoader(
-            ds, ds_cfg.get("batch_size", 16), shuffle=shuffle, seed=self.seed,
+            ds, ds_cfg.get("batch_size", 16), shuffle=shuffle, seed=0,
             bucketing_strategy=ds_cfg.get("bucketing_strategy", "synced_randomized"),
             num_workers=int(ds_cfg.get("num_workers", 0) or 0))
 
@@ -204,11 +212,18 @@ class _BaseASRModel:
         max_epochs = max_epochs or tr.get("max_epochs", 1)
         max_steps = max_steps or tr.get("max_steps")
 
+        train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True)
+        # the longest batch's frames decide whether "auto" attention takes
+        # the flash path; refuse a depth its backward cannot take before a step
+        longest = mel_seq_len(self.cfg.preprocessor,
+                              torch.tensor([train_loader.ds.boundaries[-1]]))
+        enc = self._encoder_config
+        check_flash_training(enc, self.device, int(calc_sub_length(
+            longest, enc.subsampling, int(math.log2(enc.subsampling_factor)))[0]))
         optimizer = self._make_optimizer()
         if self.train_state is None:
             self.train_state = self._init_state(optimizer)
         step_fn = self._make_train_step(optimizer)
-        train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True)
         val_loader = (self._loader(val_manifest, m.get("validation_ds", {}), shuffle=False)
                       if val_manifest else None)
         vci = tr.get("val_check_interval")
@@ -294,6 +309,10 @@ class ConformerCTC(_BaseASRModel):
         check_flash_dtype(self.cfg.encoder, self.device)
         return CTCModel(self.cfg)
 
+    @property
+    def _encoder_config(self):
+        return self.cfg.encoder
+
     def _init_state(self, optimizer):
         return init_ctc_state(self.model, optimizer, seed=self.seed)
 
@@ -341,6 +360,10 @@ class ConformerTransducer(_BaseASRModel):
         model = RNNTModel(self.cfg.model)
         self.decoding = RNNTDecoding(model, self.tokenizer, self.raw_cfg["model"].get("decoding"))
         return model
+
+    @property
+    def _encoder_config(self):
+        return self.cfg.model.encoder
 
     def change_decoding_strategy(self, decoding_cfg: dict) -> None:
         """Swap the decoding strategy without touching the weights; the beam

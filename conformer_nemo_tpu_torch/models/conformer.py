@@ -37,7 +37,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from conformer_nemo_tpu_torch.ops.flash_attention import flash_attention
+from conformer_nemo_tpu_torch.ops.flash_attention import check_bwd_depth, flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +242,29 @@ def check_flash_dtype(cfg: ConformerEncoderConfig, device) -> None:
             f"the CUDA flash-attention kernel takes bf16 only, and the compute dtype is "
             f"{cfg.dtype}: pass dtype=torch.bfloat16, or set "
             "model.encoder.use_flash_attention=False for the dense path")
+
+
+def check_flash_training(cfg: ConformerEncoderConfig, device, longest_t: int) -> None:
+    """The CUDA flash backward takes a bounded depth d1 = d_head + d_model
+    (its kernels report their limits). Refuse, before the first training
+    step, a CUDA encoder whose attention can take the flash path in
+    training (`RelPosMultiHeadAttention.use_flash` in training mode, at the
+    longest batch of `longest_t` frames) at a depth the backward cannot
+    take; otherwise the forward would run and the first backward raise.
+    Inference is not refused: the forward takes any depth."""
+    want = cfg.use_flash_attention is True or (
+        cfg.use_flash_attention == "auto" and longest_t >= cfg.flash_attention_min_t)
+    can_flash = (cfg.self_attention_model == "rel_pos" and cfg.dropout_emb == 0.0
+                 and cfg.dropout_att == 0.0 and want)
+    if torch.device(device).type != "cuda" or not can_flash:
+        return
+    try:
+        check_bwd_depth(cfg.d_head + cfg.d_model, cfg.d_head)
+    except ValueError as e:
+        raise ValueError(
+            f"this encoder's flash attention cannot train on CUDA at d_model={cfg.d_model}, "
+            f"n_heads={cfg.n_heads}: {e}. Set model.encoder.use_flash_attention=False "
+            "for the dense path") from None
 
 
 class RelPosMultiHeadAttention(nn.Module):

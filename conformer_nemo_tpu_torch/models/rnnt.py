@@ -38,6 +38,7 @@ the dense joint's masks where the tensors live.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any, Optional
 
@@ -51,8 +52,14 @@ from conformer_nemo_tpu_torch.models.conformer import (
     _linear,
 )
 from conformer_nemo_tpu_torch.ops.rnnt_fused import rnnt_loss_fused
-from conformer_nemo_tpu_torch.ops.rnnt_joint import ACTIVATIONS
+from conformer_nemo_tpu_torch.ops.rnnt_joint import ACTIVATIONS, check_smem
 from conformer_nemo_tpu_torch.ops.rnnt_loss import rnnt_loss_from_logits
+
+
+logger = logging.getLogger(__name__)
+# (H, V) for which "auto" took the dense joint because of the flash
+# joint's backward, said once each
+_DENSE_FOR_WIDTH: set = set()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,12 +109,27 @@ class RNNTModelConfig:
         return self.lattice_impl
 
     def resolve_joint_impl(self, b: int, t: int, u1: int, device) -> str:
+        """"auto" takes the flash joint only where its backward's kernels
+        take the joint's width H; elsewhere the dense joint, sub-batched
+        where `fused_batch_size` says so, and a log line says why (once per
+        H, V). An explicit "flash" is checked before its forward instead."""
         if self.joint_impl != "auto":
             return self.joint_impl
         if torch.device(device).type != "cuda":
             return "dense"
         dense_bytes = 3 * 2 * b * t * u1 * self.num_classes_with_blank
-        return "flash" if dense_bytes > self.joint_flash_hbm_threshold else "dense"
+        if dense_bytes <= self.joint_flash_hbm_threshold:
+            return "dense"
+        h, v = self.joint.joint_hidden, self.num_classes_with_blank
+        try:
+            check_smem(h, v, (1, 2))
+        except ValueError as e:
+            if (h, v) not in _DENSE_FOR_WIDTH:
+                _DENSE_FOR_WIDTH.add((h, v))
+                logger.warning("joint_impl auto: the dense joint, since the flash joint's "
+                               "backward cannot take joint_hidden=%d (%s)", h, e)
+            return "dense"
+        return "flash"
 
     @property
     def blank_id(self) -> int:

@@ -24,13 +24,37 @@
 // bound it. Two kernels, no atomics, so every output is the same bits on
 // every call.
 //
-// dQ kernel (WMMA, simple first): one block of 4 warps per (bh, 64-query
-// tile) looping over key tiles; S = Qs Ks^T by WMMA bf16 m16n16k16 over
-// 64-deep chunks staged in shared memory, P and dS in fp32 registers (warp w
-// owns rows 16w..16w+15) rounded to bf16 only as the next product's A
-// operand; the 64 x d1 fp32 dQ accumulator stays in shared memory and is
-// read back through WMMA accumulator fragments (207 KB at d1 = 576, dv = 64,
-// one block per SM).
+// dQ kernel (redesigned for Hopper; the dK/dV kernel below, transposed):
+// one block per (bh, 32-query tile, pass of 576 dQ columns) looping over
+// the key tiles in band, with 8 consumer warps and one producer warp. What
+// the card asks of it:
+//   * load once: the producer brings the block's Qs and dO rows (32 x d1,
+//     32 x dv bf16) by bulk copies, one a row, into rows padded for
+//     ldmatrix, where they stay; lse and delta are read once into registers;
+//   * stream the rest: each key tile's Ks and V arrive in a 2-stage ring as
+//     64-column tensor-copy boxes (the Tensor Memory Accelerator, 128-byte
+//     swizzle, zeros past the tensor's edges: a handful of copy requests a
+//     tile, where a copy a row or 16 bytes a thread held the forward to its
+//     copy rate), each stage with a "full" and an "empty" mbarrier; each Ks
+//     tile serves both S = Qs Ks^T and dQ += dS Ks;
+//   * tensor cores from registers: warp (rg, cg) forms S and dP = dO V^T for
+//     queries 16rg.. x keys 16cg.. by mma.sync m16n8k16 from ldmatrix
+//     fragments in fp32 registers (two accumulator sets over alternate depth
+//     steps), then P and dS in registers; dS is exchanged once a key tile
+//     through shared memory as bf16 (4.5 KB, two buffers, so one barrier of
+//     the consumer warps a tile), where it is rounded for the dQ product
+//     anyway;
+//   * dQ accumulates in fp32 registers across the whole key loop: each warp
+//     owns all 32 query rows x its share of the pass's columns (9 n-tiles
+//     of 8 at d1 = 576: 72 accumulators a thread), fed by ldmatrix.trans of
+//     the swizzled Ks boxes; past 576 columns a third grid dimension takes
+//     the rest in passes, each recomputing S, so registers set no limit on d1;
+//   * no atomics (the same bits on every call); dQ goes out through shared
+//     memory in 16-byte rows, rows past the length exactly 0.
+// Shared memory at d1 = 576, dv = 64: 211 KB with 64-key tiles, one block
+// an SM. Past d1 576 the tiles take 32 keys (each warp 16 x 8 of S);
+// `flash_attention_bwd_dq_max_d1` reports the d1 where that too stops
+// fitting (1088 at dv 64, 1024 at dv 128).
 //
 // dK/dV kernel (redesigned for Hopper): one block of 8 warps per (bh,
 // 32-key tile) looping over the 64-query tiles in band (the band inverts:
@@ -66,203 +90,300 @@
 // Next for this kernel: wgmma from shared memory with TMA loads (the
 // register budget of dK's 576-wide accumulator is the hard part).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
 #include "tensor_core.cuh"
 
-using namespace nvcuda;
 using namespace flash;
 using namespace tc;
 
 namespace {
 
-// The dQ kernel's shared memory.
-struct Layout {
-  int d1p, dvp;  // d1 and dv rounded up to the WMMA width
-  int ldv;       // bf16 row stride of the V / dO tiles
-  int lda;       // fp32 row stride of the d1-wide accumulator
-  size_t q, k, v, dout, s, p, acc, total;  // byte offsets
+// ---------------------------------------------------------------------------
+// dQ kernel
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_ROWS = 32;      // queries per block
+constexpr int DQ_WARPS = 8;      // consumer warps, and one producer warp
+constexpr int DQ_THREADS = DQ_WARPS * 32 + 32;
+constexpr int DQ_NT = 9;         // n-tiles of 8 dQ columns a warp holds in a pass
+constexpr int DQ_PASS_N8 = DQ_WARPS * DQ_NT;  // 72 n-tiles: 576 dQ columns a pass
+constexpr int DQ_STAGES = 2;     // the key tiles' ring
+
+struct DqLayout {
+  int d1p, dvp;   // d1 and dv rounded up to 16 (zero columns past d1, dv)
+  int ldq, ldv;   // bf16 row strides of the resident Qs and dO rows
+  int ldd;        // bf16 row stride of a dS tile
+  int kboxes, vboxes;  // 64-column tensor-copy boxes of a Ks and a V tile
+  // byte offsets from the block's 1024-aligned base, and the dynamic shared
+  // memory a launch asks for (1024 bytes of it to align)
+  size_t ring, stage, bar, q, dout, ds, total;
 };
 
-__host__ __device__ inline Layout make_layout(int d1, int dv) {
-  Layout L;
+// bk keys a tile: 64, or 32 where a 64-key ring does not fit
+__host__ __device__ inline DqLayout dq_layout(int bk, int d1, int dv) {
+  DqLayout L;
   L.d1p = round16(d1);
   L.dvp = round16(dv);
+  L.ldq = L.d1p + 8;  // an odd number of 16-byte units: ldmatrix rows hit distinct banks
   L.ldv = L.dvp + 8;
-  L.lda = L.d1p + 4;
-  size_t off = 0;
-  L.q = off; off = align128(off + sizeof(bf16) * TILE * LDQK);
-  L.k = off; off = align128(off + sizeof(bf16) * TILE * LDQK);
-  L.dout = off; off = align128(off + sizeof(bf16) * TILE * L.ldv);
-  L.s = off; off = align128(off + sizeof(float) * TILE * LDS);
-  L.p = off; off = align128(off + sizeof(bf16) * TILE * LDP);
-  L.acc = off; off = align128(off + sizeof(float) * TILE * L.lda);
-  L.v = off; off = align128(off + sizeof(bf16) * TILE * L.ldv);
-  L.total = off;
+  L.ldd = bk + 8;
+  L.kboxes = (d1 + 63) / 64;
+  L.vboxes = (dv + 63) / 64;
+  L.stage = sizeof(bf16) * bk * 64 * (L.kboxes + L.vboxes);
+  L.ring = 0;  // swizzled boxes: 1024-byte aligned
+  L.bar = DQ_STAGES * L.stage;  // 2 DQ_STAGES + 1 mbarriers
+  L.q = L.bar + align128(sizeof(uint64_t) * (2 * DQ_STAGES + 1));
+  L.dout = L.q + align128(sizeof(bf16) * DQ_ROWS * L.ldq);
+  L.ds = L.dout + align128(sizeof(bf16) * DQ_ROWS * L.ldv);
+  L.total = L.ds + 2 * align128(sizeof(bf16) * DQ_ROWS * L.ldd) + 1024;
   return L;
 }
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> RowA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> RowB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> ColB;
-
-// acc[0..d1p) of rows 16w..16w+15 += A (16 x 64 bf16 at a_tile, stride LDP)
-// @ B chunk (64 x 64 bf16 at b_chunk, stride LDQK), columns col0.. of acc.
-__device__ inline void accumulate_chunk(float* acc, int lda, const bf16* a_tile,
-                                        const bf16* b_chunk, int col0, int d1p, int warp) {
-  const int nsteps = min(DC, d1p - col0) / 16;
-  for (int n = 0; n < nsteps; ++n) {
-    AccFrag o;
-    float* o_tile = acc + (16 * warp) * lda + col0 + 16 * n;
-    wmma::load_matrix_sync(o, o_tile, lda, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk) {
-      RowA a;
-      RowB b;
-      wmma::load_matrix_sync(a, a_tile + (16 * warp) * LDP + kk * 16, LDP);
-      wmma::load_matrix_sync(b, b_chunk + (kk * 16) * LDQK + 16 * n, LDQK);
-      wmma::mma_sync(o, a, b, o);
-    }
-    wmma::store_matrix_sync(o_tile, o, lda, wmma::mem_row_major);
-  }
+// the key-tile width a launch at (d1, dv) takes, 0 where none fits
+__host__ __device__ inline int dq_keys(int d1, int dv) {
+  if (dq_layout(64, d1, dv).total <= SMEM_BLOCK) return 64;
+  return dq_layout(32, d1, dv).total <= SMEM_BLOCK ? 32 : 0;
 }
 
-// Write rows r of a fp32 [64 x ld] shared accumulator as bf16 rows of a
-// [T x width] output, lane half `half` taking half of the columns.
-__device__ inline void write_rows(bf16* out, const float* acc, int ld, int row, int r, int T,
-                                  int width, int widthp, int half) {
-  if (row >= T) return;
-  const int hw = widthp / 2;
-  const int c_end = min(width, (half + 1) * hw);
-  bf16* dst = out + (size_t)row * width;
-  for (int c = half * hw; c < c_end; ++c) dst[c] = __float2bfloat16(acc[r * ld + c]);
+// a barrier of the consumer warps (threads 0 .. DQ_WARPS * 32 - 1)
+__device__ inline void dq_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(DQ_WARPS * 32) : "memory");
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ ks,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// BK keys a tile. Warp (rg, cg) forms S and dP for queries 16 rg.. x keys
+// BK / 4 * cg.. (NS = BK / 32 n-tiles of 8); dQ's columns of the pass split
+// over the 8 consumer warps, all 32 rows each.
+template <int BK>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                    const bf16* __restrict__ qs, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ lens, bf16* __restrict__ dq,
                     int T, int d1, int dv, float scale, int left, int right) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(d1, dv);
-  bf16* Qc = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* Kc = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
+  constexpr int NS = BK / 32;
+  constexpr size_t BOX = sizeof(bf16) * BK * 64;  // bytes of a 64-column box
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const DqLayout L = dq_layout(BK, d1, dv);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);  // a key tile has landed
+  uint64_t* empty = full + DQ_STAGES;                          // every warp is done with it
+  uint64_t* qbar = empty + DQ_STAGES;                          // Qs and dO rows have landed
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q);
   bf16* dOs = reinterpret_cast<bf16*>(smem + L.dout);
-  float* S = reinterpret_cast<float*>(smem + L.s);
-  bf16* P = reinterpret_cast<bf16*>(smem + L.p);
-  float* A = reinterpret_cast<float*>(smem + L.acc);
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * DQ_ROWS;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   const int klim = min(max(lens[bh], 0), T);  // keys and queries < klim are valid
-  const bf16* qs_bh = qs + (size_t)bh * T * d1;
-  const bf16* ks_bh = ks + (size_t)bh * T * d1;
-  const bf16* v_bh = v + (size_t)bh * T * dv;
 
-  // key tiles that can hold a visible key (_band_tile_bounds, capped at the
-  // length); none when every query row of the tile is past the length
-  const int n_tiles = (T + TILE - 1) / TILE;
+  // key tiles in band of queries q0..q0+31 (_band_tile_bounds), capped at the
+  // length; none when every query row of the tile is past the length
+  const int n_tiles = (T + BK - 1) / BK;
   int lo = 0, hi = n_tiles;
-  if (left >= 0) lo = max(q0 - left, 0) / TILE;
-  if (right >= 0) hi = min((q0 + TILE + right + TILE - 1) / TILE, n_tiles);
-  hi = min(hi, (klim + TILE - 1) / TILE);
+  if (left >= 0) lo = max(q0 - left, 0) / BK;
+  if (right >= 0) hi = min((q0 + DQ_ROWS - 1 + right) / BK + 1, n_tiles);
+  hi = min(hi, (klim + BK - 1) / BK);
   if (q0 >= klim) hi = lo;
 
-  // this lane's share of the row-wise work: row r, columns half*32 .. +31
-  const int r = 16 * warp + (lane >> 1);
-  const int half = lane & 1;
-  const int qi = q0 + r;
-  const bool q_ok = qi < klim;
-  const float lse_r = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
-  const float delta_r = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
-  for (int idx = threadIdx.x; idx < TILE * L.lda; idx += NTHREADS) A[idx] = 0.f;
-  load_tile(dOs, L.ldv, dout + (size_t)bh * T * dv, dv, q0, T, 0, dv, L.dvp);
+  // zero the resident rows once: pad columns and rows past T are never
+  // loaded and must read as finite (0 x garbage may be NaN in a product);
+  // the tensor copies fill a box's columns past d1 or dv with zeros
+  for (size_t i = L.q / 16 + threadIdx.x; i < L.ds / 16; i += DQ_THREADS)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();  // the zeros land before the bulk copies into the same rows
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], DQ_WARPS);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int n_chunks = (d1 + DC - 1) / DC;
+  if (warp == DQ_WARPS) {
+    // the producer warp: the block's Qs and dO rows once (a bulk copy a row,
+    // lanes over rows), then each key tile's Ks and V into its stage as
+    // 64-column tensor-copy boxes once every consumer warp is done with it
+    const int q_rows = min(DQ_ROWS, T - q0);
+    if (l == 0) mbar_arrive_expect(qbar, q_rows * (d1 + dv) * 2);
+    __syncwarp();
+    if (l < q_rows) {
+      const size_t row = (size_t)bh * T + q0 + l;
+      bulk_g2s(Qs + l * L.ldq, qs + row * d1, d1 * 2, qbar);
+      bulk_g2s(dOs + l * L.ldv, dout + row * dv, dv * 2, qbar);
+    }
+    if (l == 0) {
+      for (int kt = lo; kt < hi; ++kt) {
+        const int i = kt - lo, s = i % DQ_STAGES;
+        if (i >= DQ_STAGES) mbar_wait(&empty[s], (i / DQ_STAGES - 1) & 1);
+        unsigned char* dst = smem + L.ring + s * L.stage;
+        const int row0 = bh * T + kt * BK;
+        mbar_arrive_expect(&full[s], (L.kboxes + L.vboxes) * BOX);
+        for (int j = 0; j < L.kboxes; ++j) tma_load_2d(dst + j * BOX, &tk, 64 * j, row0, &full[s]);
+        for (int j = 0; j < L.vboxes; ++j)
+          tma_load_2d(dst + (L.kboxes + j) * BOX, &tv, 64 * j, row0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // the consumer warps. S / dP tile of this warp: queries 16 rg.., keys
+  // BK / 4 * cg..
+  const int rg = warp & 1, cg = warp >> 1;
+  const int g = l >> 2, c2 = 2 * (l & 3);  // accumulator row and column pair of this lane
+  // dQ columns of this warp in this pass: n-tiles nt0 .. nt0 + nk - 1
+  const int n8k = L.d1p / 8;
+  const int pn0 = blockIdx.z * DQ_PASS_N8, pn = min(DQ_PASS_N8, n8k - pn0);
+  const int ntw = (pn + DQ_WARPS - 1) / DQ_WARPS;
+  const int nt0 = pn0 + warp * ntw;
+  const int nk = max(0, min(ntw, pn0 + pn - nt0));
+  const int nkk = L.d1p / 16, nvk = L.dvp / 16;
+  float lse_r[2], delta_r[2];  // rows g and g + 8 of the warp
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + 16 * rg + g + 8 * h;
+    lse_r[h] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
+    delta_r[h] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+  }
+
+  float dqa[2][DQ_NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < DQ_NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[m][j][e] = 0.f;
+  mbar_wait(qbar, 0);
+
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * TILE;
-    // S = Qs Ks^T for this warp's 16 query rows
-    AccFrag acc[4];
+    const int i = kt - lo, st = i % DQ_STAGES;
+    const int k0 = kt * BK;
+    mbar_wait(&full[st], (i / DQ_STAGES) & 1);
+    const bf16* Kt = reinterpret_cast<const bf16*>(smem + L.ring + st * L.stage);
+    const bf16* Vt = Kt + L.kboxes * BK * 64;
+    bf16* Ds = reinterpret_cast<bf16*>(smem + L.ds + (i & 1) * align128(sizeof(bf16) * DQ_ROWS * L.ldd));
+
+    // S = Qs Kt^T over the depth (alternate steps into two accumulator sets,
+    // for independent chains) and dP = dO Vt^T; Kt and Vt are swizzled boxes
+    float s[2][NS][4], dp[NS][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-    for (int c = 0; c < n_chunks; ++c) {
-      __syncthreads();  // every warp is done with the previous chunk (and V tile)
-      const int col0 = c * DC;
-      load_tile(Qc, LDQK, qs_bh, d1, q0, T, col0, d1, DC);
-      load_tile(Kc, LDQK, ks_bh, d1, k0, T, col0, d1, DC);
-      if (c == 0) load_tile(Vs, L.ldv, v_bh, dv, k0, T, 0, dv, L.dvp);
-      __syncthreads();
-      const int ksteps = (min(DC, d1 - col0) + 15) / 16;
-      for (int kk = 0; kk < ksteps; ++kk) {
-        RowA a;
-        wmma::load_matrix_sync(a, Qc + (16 * warp) * LDQK + kk * 16, LDQK);
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ColB b;  // a Ks chunk stored [key][depth] is Ks^T in column-major order
-          wmma::load_matrix_sync(b, Kc + (16 * j) * LDQK + kk * 16, LDQK);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int e = 0; e < 4; ++e) s[0][j][e] = s[1][j][e] = dp[j][e] = 0.f;
+    // B fragments of keys BK / 4 * cg.. at depth 16 kk.. of [BK x 64] boxes
+    auto b_frag = [&](uint32_t* b, const bf16* boxes, int kk) {
+      const bf16* box = boxes + (kk >> 2) * BK * 64;
+      const int kc = 16 * (kk & 3) + ((l >> 3) & 1) * 8;
+      if constexpr (NS == 2)
+        ldsm4(b, swz128(box, 16 * cg + (l & 7) + (l >> 4) * 8, kc));
+      else
+        ldsm2(b, swz128(box, 8 * cg + (l & 7), kc));
+    };
+    auto s_step = [&](float (&acc)[NS][4], int kk) {
+      uint32_t a[4], b[4];
+      ldsm4(a, a_addr(Qs, L.ldq, 16 * rg, 16 * kk, l));
+      b_frag(b, Kt, kk);
+      mma16816(acc[0], a, b[0], b[1]);
+      if constexpr (NS == 2) mma16816(acc[1], a, b[2], b[3]);
+    };
+    int kk = 0;
+#pragma unroll 2
+    for (; kk + 1 < nkk; kk += 2) {
+      s_step(s[0], kk);
+      s_step(s[1], kk + 1);
+    }
+    if (kk < nkk) s_step(s[0], kk);
+#pragma unroll
+    for (int kv = 0; kv < nvk; ++kv) {
+      uint32_t a[4], b[4];
+      ldsm4(a, a_addr(dOs, L.ldv, 16 * rg, 16 * kv, l));
+      b_frag(b, Vt, kv);
+      mma16816(dp[0], a, b[0], b[1]);
+      if constexpr (NS == 2) mma16816(dp[1], a, b[2], b[3]);
+    }
+
+    // P and dS in fp32 registers; dS rounded to bf16 into this tile's dS buffer
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // accumulator rows g and g + 8
+        const int row = 16 * rg + g + 8 * h, qi = q0 + row;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = BK / 4 * cg + 8 * j + c2 + e, kj = k0 + col;
+          const bool ok = qi < klim && kj < klim && in_band(qi, kj, left, right);
+          const float sv = s[0][j][2 * h + e] + s[1][j][2 * h + e];
+          const float p = ok ? expf(sv * scale - lse_r[h]) : 0.f;
+          ds[e] = ok ? p * (dp[j][2 * h + e] - delta_r[h]) * scale : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(Ds + row * L.ldd + BK / 4 * cg + 8 * j + c2) =
+            pack2(ds[0], ds[1]);
+      }
+    }
+    // every warp's dS rows are in; the other buffer is the next tile's, and a
+    // warp writes it only after this barrier, once done with this one
+    dq_consumers_sync();
+
+    // dQ += dS Kt over the tile's BK keys, all 32 query rows
+#pragma unroll
+    for (int kq = 0; kq < BK / 16; ++kq) {
+      uint32_t da[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) ldsm4(da[m], a_addr(Ds, L.ldd, 16 * m, 16 * kq, l));
+      // keys 16 kq.. of this lane's row, depth columns of n-tile nt0 + j (+1)
+      const int kr = 16 * kq + (l & 7) + ((l >> 3) & 1) * 8;
+#pragma unroll
+      for (int j = 0; j < DQ_NT; j += 2) {
+        if (j + 1 < nk) {
+          uint32_t b[4];
+          const int col = 8 * (nt0 + j) + (l >> 4) * 8;
+          ldsm4t(b, swz128(Kt + (col >> 6) * BK * 64, kr, col & 63));
+          mma16816(dqa[0][j], da[0], b[0], b[1]);
+          mma16816(dqa[1][j], da[1], b[0], b[1]);
+          mma16816(dqa[0][j + 1], da[0], b[2], b[3]);
+          mma16816(dqa[1][j + 1], da[1], b[2], b[3]);
+        } else if (j < nk) {
+          uint32_t b[2];
+          const int col = 8 * (nt0 + j);
+          ldsm2t(b, swz128(Kt + (col >> 6) * BK * 64, kr, col & 63));
+          mma16816(dqa[0][j], da[0], b[0], b[1]);
+          mma16816(dqa[1][j], da[1], b[0], b[1]);
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(S + (16 * warp) * LDS + 16 * j, acc[j], LDS, wmma::mem_row_major);
     __syncwarp();
-
-    // P in fp32 registers
-    float p[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int kj = k0 + half * 32 + c;
-      const bool ok = q_ok && kj < klim && in_band(qi, kj, left, right);
-      p[c] = ok ? expf(S[r * LDS + half * 32 + c] * scale - lse_r) : 0.f;
-    }
-    __syncwarp();
-
-    // dP = dO V^T into the score buffer
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      AccFrag t;
-      wmma::fill_fragment(t, 0.f);
-      for (int kk = 0; kk < L.dvp / 16; ++kk) {
-        RowA a;
-        ColB b;  // V stored [key][dv] is V^T in column-major order
-        wmma::load_matrix_sync(a, dOs + (16 * warp) * L.ldv + kk * 16, L.ldv);
-        wmma::load_matrix_sync(b, Vs + (16 * j) * L.ldv + kk * 16, L.ldv);
-        wmma::mma_sync(t, a, b, t);
-      }
-      wmma::store_matrix_sync(S + (16 * warp) * LDS + 16 * j, t, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // dS = P (dP - delta) scale, rounded to bf16 as the next A operand
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float ds = p[c] * (S[r * LDS + half * 32 + c] - delta_r) * scale;
-      P[r * LDP + half * 32 + c] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-
-    // dQ += dS Ks, chunk by chunk of the depth
-    for (int c = 0; c < n_chunks; ++c) {
-      __syncthreads();
-      const int col0 = c * DC;
-      load_tile(Kc, LDQK, ks_bh, d1, k0, T, col0, d1, DC);
-      __syncthreads();
-      accumulate_chunk(A, L.lda, P, Kc, col0, L.d1p, warp);
-    }
+    if (l == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
   }
 
-  __syncthreads();
-  write_rows(dq + (size_t)bh * T * d1, A, L.lda, qi, r, T, d1, L.d1p, half);
+  // dQ as bf16 through the Qs rows once every consumer warp is done with
+  // them, then 16-byte rows out (this pass's columns)
+  dq_consumers_sync();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * m + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < DQ_NT; ++j)
+        if (j < nk)
+          *reinterpret_cast<uint32_t*>(Qs + row * L.ldq + 8 * (nt0 + j) + c2) =
+              pack2(dqa[m][j][2 * h], dqa[m][j][2 * h + 1]);
+    }
+  dq_consumers_sync();
+  const int c_lo = 8 * pn0, vec = (min(d1, 8 * (pn0 + pn)) - c_lo) / 8;
+  for (int i = threadIdx.x; i < DQ_ROWS * vec; i += DQ_WARPS * 32) {
+    const int r = i / vec, c = c_lo + (i % vec) * 8;
+    if (q0 + r < T)
+      *reinterpret_cast<uint4*>(dq + ((size_t)bh * T + q0 + r) * d1 + c) =
+          *reinterpret_cast<const uint4*>(Qs + r * L.ldq + c);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -545,9 +666,14 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ ks,
 
 }  // namespace
 
-// Bytes of shared memory the dQ kernel needs at (d1, dv).
-extern "C" int flash_attention_bwd_dq_smem_bytes(int d1, int dv) {
-  return (int)make_layout(d1, dv).total;
+// The largest d1 (a multiple of 8) the dQ kernel takes at dv: its 32 query
+// rows of qs stay in shared memory beside a 2-stage ring of key tiles (32
+// keys a tile where 64 do not fit); dQ's columns go in passes of 576, so
+// registers set no limit.
+extern "C" int flash_attention_bwd_dq_max_d1(int dv) {
+  int d1 = 0;
+  while (dq_keys(d1 + 8, dv)) d1 += 8;
+  return d1;
 }
 
 // Bytes of shared memory the dK/dV kernel needs at (d1, dv).
@@ -566,14 +692,22 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* qs, const void* ks, const
                                            const void* lens, void* dq, int bh, int t, int d1,
                                            int dv, float scale, int left, int right,
                                            void* stream) {
-  const Layout L = make_layout(d1, dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  const int bk = dq_keys(d1, dv);
+  if (bk == 0 || d1 % 8 || dv % 8 || dv > 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap tk, tv;
+  if (!tensor_map(&tk, ks, d1, (long long)bh * t, bk) ||
+      !tensor_map(&tv, v, dv, (long long)bh * t, bk))
+    return (int)cudaErrorNotSupported;
+  const size_t smem = dq_layout(bk, d1, dv).total;
+  auto kernel = bk == 64 ? flash_bwd_dq_kernel<64> : flash_bwd_dq_kernel<32>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t + TILE - 1) / TILE, bh);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, L.total, (cudaStream_t)stream>>>(
-      (const bf16*)qs, (const bf16*)ks, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (const int*)lens, (bf16*)dq, t, d1, dv, scale, left, right);
+  const int passes = (round16(d1) / 8 + DQ_PASS_N8 - 1) / DQ_PASS_N8;
+  const dim3 grid((t + DQ_ROWS - 1) / DQ_ROWS, bh, passes);
+  kernel<<<grid, DQ_THREADS, smem, (cudaStream_t)stream>>>(
+      tk, tv, (const bf16*)qs, (const bf16*)dout, (const float*)lse, (const float*)delta,
+      (const int*)lens, (bf16*)dq, t, d1, dv, scale, left, right);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
-// Shared-memory staging used by the flash-attention kernels
+// Constants and helpers shared by the flash-attention kernels
 // (flash_attention_fwd.cu, flash_attention_bwd.cu).
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -10,38 +13,42 @@ namespace flash {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TILE = 64;          // rows of a query or key tile
-constexpr int DC = 64;            // depth chunk of Qs Ks^T
-constexpr int NTHREADS = 128;     // 4 warps, 16 rows of a tile each
-constexpr int LDQK = DC + 8;      // bf16 row stride of the Qs / Ks chunks
-constexpr int LDS = TILE + 4;     // fp32 row stride of a score tile
-constexpr int LDP = TILE + 8;     // bf16 row stride of a probability tile
+constexpr int TILE = 64;               // query rows of a dK/dV kernel tile
+constexpr int LDP = TILE + 8;          // bf16 row stride of its P^T / dS^T tiles
 constexpr float NEG_INF = -1e30f;
+constexpr size_t SMEM_BLOCK = 232448;  // bytes of shared memory one block may use
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
-// Copy rows row0..row0+63, columns col0..col0+width-1 of a row-major
-// [nrows x ld_src] bf16 matrix into shared memory, zero outside
-// [nrows x ncols]. width and ncols are multiples of 8: 16-byte vectors.
-__device__ inline void load_tile(bf16* dst, int ld_dst, const bf16* __restrict__ src, int ld_src,
-                                 int row0, int nrows, int col0, int ncols, int width) {
-  const int vec_per_row = width / 8;
-  for (int idx = threadIdx.x; idx < TILE * vec_per_row; idx += NTHREADS) {
-    const int r = idx / vec_per_row;
-    const int c = (idx % vec_per_row) * 8;
-    const int gr = row0 + r, gc = col0 + c;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows && gc < ncols)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * ld_src + gc);
-    *reinterpret_cast<uint4*>(dst + r * ld_dst + c) = val;
-  }
-}
-
 // Key j is visible to query i under the (left, right) band (-1 = unlimited).
 __device__ inline bool in_band(int i, int j, int left, int right) {
   return (left < 0 || i - j <= left) && (right < 0 || j - i <= right);
+}
+
+// A 2D tensor map over a row-major [rows x cols] bf16 tensor for tensor
+// copies of [box_rows x 64] boxes with the 128-byte swizzle, zeros past the
+// tensor's edges (host code; the driver's encoder, found through the runtime).
+inline bool tensor_map(CUtensorMap* map, const void* base, int cols, long long rows,
+                       int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      encode = nullptr;
+      return false;
+    }
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace flash

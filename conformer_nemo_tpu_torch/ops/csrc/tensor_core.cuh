@@ -1,5 +1,5 @@
-// Tensor-core and async-copy helpers shared by the backward kernels
-// (rnnt_joint.cu, flash_attention_bwd.cu): cp.async into shared memory,
+// Tensor-core and async-copy helpers shared by the kernels of rnnt_joint.cu,
+// flash_attention_fwd.cu and flash_attention_bwd.cu: cp.async into shared memory,
 // ldmatrix fragments and mma.sync m16n8k16 bf16 with fp32 accumulation.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, lane l, g = l / 4, c = 2 * (l % 4)):
@@ -38,6 +38,10 @@ __device__ inline void ldsm4t(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
+__device__ inline void ldsm2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
+}
 __device__ inline void ldsm2t(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
@@ -48,6 +52,67 @@ __device__ inline void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mbarriers and bulk copies (the Tensor Memory Accelerator's 1D form): a
+// bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory reports its bytes to the mbarrier `bar`,
+// whose phase completes once its arrivals and the bytes it expects are in.
+__device__ inline void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ inline void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// order this thread's earlier generic-proxy shared-memory writes before
+// later bulk copies into the same memory
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ inline void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// wait until the phase of parity `parity` of `bar` has completed
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+__device__ inline void bulk_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a 2D tensor copy (the Tensor Memory Accelerator): the box at (column c0,
+// row r0) of the tensor map `tmap` (a __grid_constant__ kernel parameter)
+// into shared memory at dst, its bytes reported to the mbarrier `bar`
+__device__ inline void tma_load_2d(void* dst, const void* tmap, int c0, int r0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(tmap), "r"(c0), "r"(r0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Element (r, c) of a [rows x 64] bf16 box a tensor copy wrote with the
+// 128-byte swizzle: the 16-byte chunk c / 8 of row r sits at chunk
+// (c / 8) ^ (r % 8), so the 8 rows an ldmatrix reads at one column hit 8
+// distinct bank groups. The box must start 1024-byte aligned.
+__device__ inline const __nv_bfloat16* swz128(const __nv_bfloat16* box, int r, int c) {
+  return box + r * 64 + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
 }
 
 // Fragment addresses for lane l (ldmatrix x4: lanes 8i..8i+7 give matrix i's

@@ -29,12 +29,20 @@ cores bound them. A bucket with many short rows does fewer operations on
 the same bytes and can fall under the ridge. All keep every score tile on
 chip (no [T, T] in device memory), multiply bf16 on the tensor cores with
 fp32 accumulation, and skip tiles outside the band and past the length.
-The forward and the dQ kernel use WMMA (dQ with its d1-wide accumulator in
-shared memory); the dK/dV kernel uses mma.sync from ldmatrix fragments,
-keeps its K and V tiles resident while the query tiles stream through a
-cp.async ring, and accumulates dK and dV in registers (so it takes d1 <=
-576). Each backward kernel checks its own limits (`_check_bwd_cuda`), and
-`flash_attention_bwd` checks both before either launches.
+All three use mma.sync from ldmatrix fragments, keep the tile they own
+resident in shared memory while the other side streams through a ring, and
+accumulate in registers: the forward keeps Qs and streams Ks in (key tile x
+depth chunk) pieces and V, with S, P and O in registers; the dQ kernel
+keeps Qs and dO and streams Ks and V, with dQ in registers (in passes of
+576 columns), both streaming by tensor copies (the Tensor Memory
+Accelerator) from a producer warp; the dK/dV kernel keeps K and V and
+streams Qs and dO through a cp.async ring, with dK and dV in registers (so
+it takes d1 <= 576). Each kernel reports what
+bounds its range (`flash_attention_fwd_smem_bytes`,
+`flash_attention_bwd_dq_max_d1`, `flash_attention_bwd_dkv_max_d1` and
+`_smem_bytes`); the wrappers check them before launching, and
+`flash_attention_bwd` checks both backward kernels before either launches
+(`check_bwd_depth`, which a CUDA `fit` also asks before its first step).
 
 `flash_attention_fwd` and `flash_attention_bwd` launch their kernels for
 CUDA tensors and raise on anything they do not take; for CPU tensors they
@@ -117,13 +125,14 @@ def flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, scale: float,
     return dq.to(qs.dtype), dk.to(ks.dtype), dv.to(v.dtype)
 
 
-def _fn(source: str, name: str, n_ptr: int, n_int: int):
+def _fn(source: str, name: str, n_ptr: int, n_int: int, n_tail: int = 0):
     """A C entry point of `source`: n_ptr pointers, then n_int ints, a
-    float scale and two ints (the band), then the stream."""
+    float scale, two ints (the band) and n_tail more ints, then the stream."""
     fn = getattr(load(source), name)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ctypes.c_float, i32, i32, ptr]
+        fn.argtypes = ([ptr] * n_ptr + [i32] * n_int + [ctypes.c_float, i32, i32]
+                       + [i32] * n_tail + [ptr])
         fn.restype = i32
     return fn
 
@@ -155,6 +164,20 @@ def _check_cuda(tensors: dict, lens, bh: int, d1: int, dv: int) -> None:
                          f"multiples of 8; got d1={d1}, dv={dv}")
 
 
+def _check_fwd_cuda(qs, ks, v, lens) -> None:
+    """What the forward kernel takes: `_check_cuda`, and its resident Qs
+    tile and key ring within a block's shared memory (the library's
+    `flash_attention_fwd_smem_bytes`)."""
+    bh, _, d1 = qs.shape
+    dv = v.shape[-1]
+    _check_cuda({"qs": qs, "ks": ks, "v": v}, lens, bh, d1, dv)
+    smem = load("flash_attention_fwd.cu").flash_attention_fwd_smem_bytes(d1, dv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the CUDA forward kernel keeps its query tile of qs and a ring of key "
+                         f"pieces in shared memory and needs {smem} bytes at d1={d1}, dv={dv} "
+                         f"(flash_attention_fwd_smem_bytes); a block has {SMEM_LIMIT}")
+
+
 def flash_attention_fwd(qs, ks, v, lens, scale: float, left: int = -1, right: int = -1):
     """softmax(qs ks^T * scale + mask) v over [BH, T, d1] x [BH, T, dv] with
     per-row key lengths lens [BH] and an optional (left, right) band
@@ -166,19 +189,28 @@ def flash_attention_fwd(qs, ks, v, lens, scale: float, left: int = -1, right: in
         raise ValueError(f"unsupported device {qs.device}")
     bh, t, d1 = qs.shape
     dv = v.shape[-1]
-    _check_cuda({"qs": qs, "ks": ks, "v": v}, lens, bh, d1, dv)
+    _check_fwd_cuda(qs, ks, v, lens)
+    return _launch_fwd(qs, ks, v, lens, scale, left, right)
+
+
+def _launch_fwd(qs, ks, v, lens, scale, left, right, rows: int = 0):
+    """Launch the forward kernel (CUDA tensors, checked) with a query tile of
+    `rows` rows, 64 or 128 (0: the library's choice)."""
+    bh, t, _ = qs.shape
+    dv = v.shape[-1]
     o = torch.empty((bh, t, dv), dtype=torch.bfloat16, device=qs.device)
     lse = torch.empty((bh, t), dtype=torch.float32, device=qs.device)
     if bh == 0 or t == 0:
         return o, lse
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("flash_attention_fwd.cu", "flash_attention_fwd_bf16", 6, 4)(
+        err = _fn("flash_attention_fwd.cu", "flash_attention_fwd_rows_bf16", 6, 4, 1)(
             qs.data_ptr(), ks.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, t, d1, dv, float(scale), int(left), int(right), stream)
+            lse.data_ptr(), bh, t, qs.shape[2], dv, float(scale), int(left), int(right),
+            int(rows), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {err}")
-    fwd_launches.add((bh, t, d1, dv))
+    fwd_launches.add((bh, t, qs.shape[2], dv))
     return o, lse
 
 
@@ -194,6 +226,29 @@ def _check_bwd(qs, ks, v, do, lse, delta, lens) -> None:
         raise ValueError(f"unsupported device {qs.device}")
 
 
+def check_bwd_depth(d1: int, dv: int, kernels: tuple = ("dq", "dkv")) -> None:
+    """Raise ValueError if a backward kernel named in `kernels` ("dq",
+    "dkv") cannot take depths (d1, dv), by the limits its library reports."""
+    lib = load("flash_attention_bwd.cu")
+    if "dq" in kernels:
+        max_d1 = lib.flash_attention_bwd_dq_max_d1(dv)
+        if d1 > max_d1:
+            raise ValueError(f"the CUDA dQ kernel keeps its query rows of qs in shared memory "
+                             f"beside a ring of key tiles and takes d1 <= {max_d1} at dv={dv} "
+                             f"(flash_attention_bwd_dq_max_d1); got d1={d1}")
+    if "dkv" in kernels:
+        max_d1 = lib.flash_attention_bwd_dkv_max_d1()
+        if -(-d1 // 16) * 16 > max_d1:
+            raise ValueError(f"the CUDA dK/dV kernel holds dK in registers, at most {max_d1} "
+                             f"columns (flash_attention_bwd_dkv_max_d1; d1 rounded up to 16); "
+                             f"got d1={d1}")
+        smem = lib.flash_attention_bwd_dkv_smem_bytes(d1, dv)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"the CUDA dK/dV kernel keeps its K tile and two query tiles in "
+                             f"shared memory and needs {smem} bytes at d1={d1}, dv={dv}; a "
+                             f"block has {SMEM_LIMIT}")
+
+
 def _check_bwd_cuda(qs, ks, v, do, lse, delta, lens, kernels: tuple) -> None:
     """What the backward kernels named in `kernels` ("dq", "dkv") take, each
     against its own limits, checked before any of them launches."""
@@ -203,23 +258,7 @@ def _check_bwd_cuda(qs, ks, v, do, lse, delta, lens, kernels: tuple) -> None:
     if lse.dtype != torch.float32 or delta.dtype != torch.float32 or not (
             lse.is_contiguous() and delta.is_contiguous()):
         raise TypeError("the CUDA kernel takes contiguous fp32 lse and delta")
-    lib = load("flash_attention_bwd.cu")
-    if "dq" in kernels:
-        smem = lib.flash_attention_bwd_dq_smem_bytes(d1, dv)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"the CUDA dQ kernel keeps a 64 x d1 fp32 accumulator in shared "
-                             f"memory and needs {smem} bytes at d1={d1}, dv={dv}; a block has "
-                             f"{SMEM_LIMIT}")
-    if "dkv" in kernels:
-        max_d1 = lib.flash_attention_bwd_dkv_max_d1()
-        if -(-d1 // 16) * 16 > max_d1:
-            raise ValueError(f"the CUDA dK/dV kernel holds dK in registers, at most {max_d1} "
-                             f"columns (d1 rounded up to 16); got d1={d1}")
-        smem = lib.flash_attention_bwd_dkv_smem_bytes(d1, dv)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"the CUDA dK/dV kernel keeps its K tile and two query tiles in "
-                             f"shared memory and needs {smem} bytes at d1={d1}, dv={dv}; a "
-                             f"block has {SMEM_LIMIT}")
+    check_bwd_depth(d1, dv, kernels)
 
 
 def _bwd_kernel(name: str, counter, outs, qs, ks, v, do, lse, delta, lens, scale, left, right):

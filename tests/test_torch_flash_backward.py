@@ -151,25 +151,26 @@ def test_flash_bwd_kernel_wrappers_match_jax_on_cpu(name):
 
 
 class _Limits:
-    """Stand-in for the backward library's size queries (the layouts are
-    the card's; this holds the wrapper's use of them)."""
+    """Stand-in for the flash libraries' limit queries (the layouts are the
+    card's; this holds the wrappers' use of them)."""
 
-    def __init__(self, dq_smem, dkv_smem, dkv_max_d1=576):
-        self.flash_attention_bwd_dq_smem_bytes = lambda d1, dv: dq_smem
+    def __init__(self, dq_max_d1, dkv_smem, dkv_max_d1=576, fwd_smem=1000):
+        self.flash_attention_bwd_dq_max_d1 = lambda dv: dq_max_d1
         self.flash_attention_bwd_dkv_smem_bytes = lambda d1, dv: dkv_smem
         self.flash_attention_bwd_dkv_max_d1 = lambda: dkv_max_d1
+        self.flash_attention_fwd_smem_bytes = lambda d1, dv: fwd_smem
 
 
-@pytest.mark.parametrize("d1,dq_smem,dkv_smem,refused", [
+@pytest.mark.parametrize("d1,dq_max_d1,dkv_smem,refused", [
     (576, 1000, 1000, None),
     (584, 1000, 1000, "dK/dV kernel holds dK in registers"),  # d1 rounds up to 592
-    (576, 10 ** 6, 1000, "dQ kernel keeps a 64 x d1 fp32 accumulator"),
+    (576, 568, 1000, "dQ kernel keeps its query rows"),
     (576, 1000, 10 ** 6, "dK/dV kernel keeps its K tile"),
 ])
-def test_flash_bwd_limits_are_per_kernel(monkeypatch, d1, dq_smem, dkv_smem, refused):
+def test_flash_bwd_limits_are_per_kernel(monkeypatch, d1, dq_max_d1, dkv_smem, refused):
     """Each backward kernel is held to its own limits, and the whole
     backward checks both before either launches."""
-    monkeypatch.setattr(port, "load", lambda source: _Limits(dq_smem, dkv_smem))
+    monkeypatch.setattr(port, "load", lambda source: _Limits(dq_max_d1, dkv_smem))
     bf = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
     args = (bf(2, 64, d1), bf(2, 64, d1), bf(2, 64, 64), bf(2, 64, 64), torch.zeros(2, 64),
             torch.zeros(2, 64), torch.tensor([64, 3], dtype=torch.int32))
@@ -180,3 +181,18 @@ def test_flash_bwd_limits_are_per_kernel(monkeypatch, d1, dq_smem, dkv_smem, ref
         port._check_bwd_cuda(*args, ("dq", "dkv"))
     which = "dq" if "dQ" in refused else "dkv"
     port._check_bwd_cuda(*args, ({"dq": "dkv", "dkv": "dq"}[which],))  # the other one passes
+
+
+@pytest.mark.parametrize("fwd_smem,refused", [(232448, False), (232449, True)])
+def test_flash_fwd_refuses_past_its_shared_memory(monkeypatch, fwd_smem, refused):
+    """The forward checks the library's `flash_attention_fwd_smem_bytes`
+    against a block's shared memory before it launches."""
+    monkeypatch.setattr(port, "load", lambda source: _Limits(1000, 1000, fwd_smem=fwd_smem))
+    bf = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    args = (bf(2, 64, 1160), bf(2, 64, 1160), bf(2, 64, 128), torch.tensor([64, 3],
+                                                                          dtype=torch.int32))
+    if not refused:
+        port._check_fwd_cuda(*args)
+        return
+    with pytest.raises(ValueError, match="flash_attention_fwd_smem_bytes"):
+        port._check_fwd_cuda(*args)

@@ -40,18 +40,42 @@ def _flash_inputs(dev, bh, t, d1, dv, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("t,d1,dv,band", [(3001, 576, 64, (-1, -1)), (200, 80, 16, (-1, -1)),
-                                          (1251, 576, 64, (128, 32))])
+                                          (1251, 576, 64, (128, 32)), (1843, 576, 64, (-1, -1)),
+                                          (333, 1152, 128, (-1, -1)), (300, 40, 24, (16, -1))])
 def test_flash_fwd_cuda_kernel_matches_plain(cuda_device, t, d1, dv, band):
+    """Both query-tile heights (64 and 128 rows) against the plain version,
+    T not a multiple of either; d1 1152 / dv 128 at the top of the range
+    (64-row tiles only: 128 rows do not fit there); o and lse the same bits
+    on a second call."""
     qs, ks, v, _ = _flash_inputs(cuda_device, 4, t, d1, dv)
     lens = torch.tensor([t, t // 2, 1, 0], dtype=torch.int32, device=cuda_device)
     # the model's 1/sqrt(d_head): peaked rows, so o is of order 1 and the o limit bites
     scale = 1.0 / np.sqrt(64)
-    o, lse = port.flash_attention_fwd(qs, ks, v, lens, scale, *band)
     o_ref, lse_ref = port.flash_attention_fwd_reference(qs, ks, v, lens, scale, *band)
-    torch.cuda.synchronize()
-    # bf16 output rounding plus a different summation order
-    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
-    assert (lse - lse_ref).abs().max().item() <= 2e-3
+    rows = (0, 64) if d1 > 576 else (0, 64, 128)
+    for r in rows:
+        o, lse = port._launch_fwd(qs, ks, v, lens, scale, *band, rows=r)
+        again = port._launch_fwd(qs, ks, v, lens, scale, *band, rows=r)
+        torch.cuda.synchronize()
+        # bf16 output rounding plus a different summation order
+        assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2, r
+        assert (lse - lse_ref).abs().max().item() <= 2e-3, r
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), r
+        assert o[3].abs().max().item() == 0.0 and lse[3].abs().max().item() == 0.0  # lens 0
+    assert torch.equal(port.flash_attention_fwd(qs, ks, v, lens, scale, *band)[0],
+                       port._launch_fwd(qs, ks, v, lens, scale, *band)[0])
+
+
+@pytest.mark.gpu
+def test_flash_fwd_refuses_past_its_shared_memory(cuda_device):
+    """The 64-row tile with its key ring fits up to d1 1216: past it the
+    wrapper raises before a launch."""
+    qs, ks, v, _ = _flash_inputs(cuda_device, 1, 64, 1224, 128)
+    lens = torch.tensor([64], dtype=torch.int32, device=cuda_device)
+    before = port.fwd_launches.total
+    with pytest.raises(ValueError, match="flash_attention_fwd_smem_bytes"):
+        port.flash_attention_fwd(qs, ks, v, lens, 0.125)
+    assert port.fwd_launches.total == before
 
 
 @pytest.mark.gpu
@@ -75,9 +99,11 @@ def test_flash_bwd_cuda_kernels_match_plain(cuda_device, t, d1, dv, band):
         assert rel.item() <= BWD_REL_TOL, (name, rel.item())
     # query rows past the length (and the lens = 0 row) get exactly zero
     assert got[0][2, 1:].abs().max().item() == 0.0 and got[0][3].abs().max().item() == 0.0
-    # no atomics: the dK/dV kernel gives the same bits on a second call
+    # no atomics: each kernel gives the same bits on a second call
     again = port.flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale, *band)
     assert torch.equal(again[0], got[1]) and torch.equal(again[1], got[2])
+    assert torch.equal(port.flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale,
+                                                   *band), got[0])
 
 
 @pytest.mark.gpu
@@ -103,6 +129,65 @@ def test_flash_bwd_dkv_refuses_a_depth_past_its_registers(cuda_device):
     torch.cuda.synchronize()
     rel = (dq.float() - want.float()).abs().max() / want.float().abs().max()
     assert rel.item() <= BWD_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d1,dv", [(301, 656, 64), (200, None, 64), (157, None, 128)])
+def test_flash_bwd_dq_kernel_past_576_columns(cuda_device, t, d1, dv):
+    """d1 656: two passes of dQ columns (576 + 80) on 32-key tiles; d1 None:
+    the widest the kernel takes at dv (its library's limit, past which it
+    refuses). dQ alone, since the dK/dV kernel takes d1 <= 576."""
+    widest = port.load("flash_attention_bwd.cu").flash_attention_bwd_dq_max_d1(dv)
+    assert widest > 576  # wider than the dK/dV kernel takes
+    d1 = d1 or widest
+    qs, ks, v, do = _flash_inputs(cuda_device, 3, t, d1, dv, seed=3)
+    lens = torch.tensor([t, t - 45, 0], dtype=torch.int32, device=cuda_device)
+    scale = 1.0 / np.sqrt(64)
+    o, lse = port.flash_attention_fwd_reference(qs, ks, v, lens, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (qs, ks, v, do, lse, delta, lens, scale)
+    dq = port.flash_attention_bwd_dq(*args)
+    want = port.flash_attention_bwd_reference(*args)[0]
+    torch.cuda.synchronize()
+    rel = (dq.float() - want.float()).abs().max() / want.float().abs().max()
+    assert rel.item() <= BWD_REL_TOL
+    assert dq[1, t - 45:].abs().max().item() == 0.0 and dq[2].abs().max().item() == 0.0
+    assert torch.equal(dq, port.flash_attention_bwd_dq(*args))
+    with pytest.raises(ValueError, match="flash_attention_bwd_dq_max_d1"):
+        port.flash_attention_bwd_dq(*(torch.zeros(1, 8, widest + 8, dtype=torch.bfloat16,
+                                                  device=cuda_device) for _ in range(2)),
+                                    v[:1, :8], do[:1, :8], lse[:1, :8], delta[:1, :8],
+                                    lens[:1].clamp(max=8), scale)
+
+
+@pytest.mark.gpu
+def test_cuda_fit_refuses_a_flash_depth_past_the_backward_before_a_step(cuda_device, tmp_path):
+    """d_model 640 (d1 = 80 + 640 = 720, past the dK/dV kernel's 576 dK
+    columns) with flash attention on: `fit` raises before its first step,
+    and transcribe at that width runs through the forward kernel."""
+    import json
+    import os
+
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.data.audio_io import write_wav
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    wav = str(tmp_path / "a.wav")
+    write_wav(wav, (0.1 * np.random.RandomState(0).randn(32000)).astype(np.float32))
+    manifest = tmp_path / "m.json"
+    manifest.write_text(json.dumps({"audio_filepath": wav, "duration": 2.0, "text": "a"}) + "\n")
+    model = ConformerCTC.from_config_file(
+        os.path.join(root, "configs", "conformer_ctc_bpe_longform.yaml"), overrides={
+            "model.tokenizer.model_file": os.path.join(root, "tests", "fixtures",
+                                                       "sp_bpe_bytefallback.model"),
+            "model.encoder.n_layers": 2, "model.encoder.d_model": 640,
+            "model.encoder.use_flash_attention": True, "model.train_ds.batch_size": 1})
+    with pytest.raises(ValueError, match="flash_attention_bwd_dkv_max_d1"):
+        model.fit(str(manifest), max_steps=1)
+    assert model.train_state is None
+    before = port.fwd_launches.total
+    texts = model.transcribe([wav])
+    assert len(texts) == 1 and port.fwd_launches.total == before + 2
 
 
 @pytest.mark.gpu

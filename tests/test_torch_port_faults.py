@@ -1,0 +1,171 @@
+"""Inputs where the port once refused late or diverged from the JAX package:
+
+* a CUDA `fit` whose flash attention would train at a depth d1 = d_head +
+  d_model past the backward kernels' limits is refused before its first
+  step (the library's limits stood in for, since this machine has no card);
+  inference is not refused;
+* `joint_impl: auto` does not pick a flash joint whose backward cannot take
+  the joint's width H (the joint library's shared-memory query stood in
+  for);
+* the training loader shuffles as the JAX package's `fit` does, with seed
+  0, whatever the model's seed.
+"""
+
+import dataclasses
+import json
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from conformer_nemo_tpu import api as jax_api
+from conformer_nemo_tpu.data import tokenizers as jtok
+from conformer_nemo_tpu_torch import api
+from conformer_nemo_tpu_torch.config.loader import build_encoder_config, load_config
+from conformer_nemo_tpu_torch.data.audio_io import write_wav
+from conformer_nemo_tpu_torch.data.dataset import BucketedLoader
+from conformer_nemo_tpu_torch.models import conformer
+from conformer_nemo_tpu_torch.models import rnnt
+from conformer_nemo_tpu_torch.models.ctc_model import ctc_forward
+from conformer_nemo_tpu_torch.ops import flash_attention as fa
+from conformer_nemo_tpu_torch.ops import rnnt_joint
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(ROOT, "configs", "conformer_ctc_bpe.yaml")
+LONGFORM = os.path.join(ROOT, "configs", "conformer_ctc_bpe_longform.yaml")
+TOKENIZER = os.path.join(ROOT, "tests", "fixtures", "sp_bpe_bytefallback.model")
+SMEM_LIMIT = 232448
+
+
+class _BwdLimits:
+    """Stand-in for the flash backward library's limit queries: the dK/dV
+    kernel holds 576 dK columns in registers, the dQ kernel takes more."""
+
+    flash_attention_bwd_dkv_max_d1 = staticmethod(lambda: 576)
+    flash_attention_bwd_dkv_smem_bytes = staticmethod(lambda d1, dv: 1000)
+    flash_attention_bwd_dq_max_d1 = staticmethod(lambda dv: 1152)
+
+
+def _encoder(d_model, use_flash):
+    raw = load_config(LONGFORM, {"model.tokenizer.model_file": TOKENIZER,
+                                 "model.encoder.d_model": d_model,
+                                 "model.encoder.use_flash_attention": use_flash})
+    return build_encoder_config(raw["model"]["encoder"])
+
+
+@pytest.mark.parametrize("d_model,use_flash,longest_t,refused", [
+    (640, "auto", 1843, True),   # d1 = 80 + 640 = 720 > 576
+    (640, True, 200, True),      # flash forced at any length
+    (512, "auto", 1843, False),  # d1 = 576, the flagship depth
+    (640, False, 1843, False),   # the dense path trains at any depth
+    (640, "auto", 900, False),   # "auto" stays dense below flash_attention_min_t
+])
+def test_cuda_flash_training_depth_is_checked_before_a_step(monkeypatch, d_model, use_flash,
+                                                             longest_t, refused):
+    monkeypatch.setattr(fa, "load", lambda source: _BwdLimits())
+    enc = _encoder(d_model, use_flash)
+    assert enc.dropout_att == 0.0 and enc.flash_attention_min_t == 1024
+    if not refused:
+        conformer.check_flash_training(enc, "cuda", longest_t)
+        return
+    with pytest.raises(ValueError) as err:
+        conformer.check_flash_training(enc, "cuda", longest_t)
+    msg = str(err.value)
+    assert "at most 576" in msg and "flash_attention_bwd_dkv_max_d1" in msg
+    assert "model.encoder.use_flash_attention=False" in msg
+    conformer.check_flash_training(enc, "cpu", longest_t)  # the CPU path runs plain PyTorch
+    # attention dropout keeps the flash path out of training
+    conformer.check_flash_training(dataclasses.replace(enc, dropout_att=0.1), "cuda", longest_t)
+
+
+def test_flash_inference_past_the_backward_depth_is_not_refused():
+    """Construction checks only the dtype: transcribe at d1 720 runs through
+    the forward kernel, which takes any depth up to its shared memory."""
+    enc = _encoder(640, "auto")
+    conformer.check_flash_dtype(enc, "cuda")
+
+
+@pytest.fixture(scope="module")
+def manifest(tmp_path_factory):
+    d = tmp_path_factory.mktemp("faults")
+    rng = np.random.RandomState(0)
+    with open(d / "train.json", "w", encoding="utf-8") as f:
+        for i in range(12):
+            n = int(rng.uniform(0.5, 2.0) * 16000)
+            write_wav(str(d / f"{i}.wav"), (0.1 * rng.randn(n)).astype(np.float32))
+            f.write(json.dumps({"audio_filepath": f"{i}.wav", "duration": n / 16000,
+                                "text": ["hello world", "speech", "a test"][i % 3]}) + "\n")
+    return str(d / "train.json")
+
+
+TINY = {"model.tokenizer.model_file": TOKENIZER, "model.encoder.n_layers": 1,
+        "model.encoder.d_model": 32, "model.encoder.n_heads": 2,
+        "model.train_ds.batch_size": 2, "model.train_ds.num_buckets": 1}
+
+
+def test_fit_checks_the_flash_depth_at_the_longest_batch_before_a_step(monkeypatch, manifest):
+    """`fit` hands the check the encoder frames of its longest bucket, and a
+    refusal leaves no training state behind."""
+    model = api.ConformerCTC.from_config_file(CONFIG, overrides=TINY, device="cpu",
+                                              dtype=torch.float32)
+    seen = {}
+
+    def refuse(enc, device, longest_t):
+        seen.update(enc=enc, device=device, longest_t=longest_t)
+        raise ValueError("refused")
+
+    monkeypatch.setattr(api, "check_flash_training", refuse)
+    with pytest.raises(ValueError, match="refused"):
+        model.fit(manifest, max_steps=1)
+    assert model.train_state is None
+    assert seen["enc"] is model.cfg.encoder and seen["device"] == model.device
+    loader = model._loader(manifest, model.raw_cfg["model"]["train_ds"], shuffle=True)
+    batch = next(iter(loader))  # one bucket: every batch is padded to the longest
+    log_probs, _ = ctc_forward(model.model, torch.from_numpy(batch.audio),
+                               torch.from_numpy(batch.audio_lens))
+    assert seen["longest_t"] == log_probs.shape[1]
+
+
+def _flash_joint_smem(h, v, which):
+    """Stand-in for rnnt_joint_smem_bytes: the backward fits up to H 640."""
+    return SMEM_LIMIT if which == 0 or h <= 640 else 10 ** 6
+
+
+@pytest.mark.parametrize("h,want", [(704, "dense"), (640, "flash")])
+def test_auto_joint_takes_dense_where_the_flash_backward_cannot_take_h(monkeypatch, caplog, h,
+                                                                        want):
+    monkeypatch.setattr(rnnt_joint, "_lib", lambda: types.SimpleNamespace(
+        rnnt_joint_smem_bytes=_flash_joint_smem))
+    monkeypatch.setattr(rnnt, "_DENSE_FOR_WIDTH", set())
+    cfg = rnnt.RNNTModelConfig(decoder=rnnt.RNNTDecoderConfig(vocab_size=1024),
+                               joint=rnnt.RNNTJointConfig(joint_hidden=h))
+    b, t, u1 = 16, 400, 200
+    assert 3 * 2 * b * t * u1 * cfg.num_classes_with_blank > cfg.joint_flash_hbm_threshold
+    with caplog.at_level("WARNING", logger=rnnt.__name__):
+        assert cfg.resolve_joint_impl(b, t, u1, "cuda") == want
+        assert cfg.resolve_joint_impl(b, t, u1, "cuda") == want
+    said = [r for r in caplog.records if "joint_hidden" in r.getMessage()]
+    assert len(said) == (1 if want == "dense" else 0)  # said once
+    assert cfg.resolve_joint_impl(2, 10, 5, "cuda") == "dense"  # under the threshold
+    assert cfg.resolve_joint_impl(b, t, u1, "cpu") == "dense"
+    # an explicit flash joint is not rerouted: its loss checks H before its forward
+    assert dataclasses.replace(cfg, joint_impl="flash").resolve_joint_impl(
+        b, t, u1, "cuda") == "flash"
+
+
+def test_training_loader_shuffles_as_the_jax_fit_at_any_model_seed(manifest):
+    model = api.ConformerCTC.from_config_file(CONFIG, overrides={
+        **TINY, "model.train_ds.num_buckets": 3}, device="cpu", dtype=torch.float32, seed=7)
+    ds_cfg = model.raw_cfg["model"]["train_ds"]
+    got = model._loader(manifest, ds_cfg, shuffle=True)
+    ref_self = types.SimpleNamespace(tokenizer=jtok.SentencePieceTokenizer(TOKENIZER))
+    want = jax_api._BaseASRModel._loader(ref_self, manifest, ds_cfg, True)
+    for _ in range(2):  # two epochs
+        assert got._plan() == want._plan()
+        got.epoch += 1
+        want.epoch += 1
+    # the model's seed would have given another order
+    other = BucketedLoader(got.ds, ds_cfg["batch_size"], shuffle=True, seed=7)
+    assert other._plan() != got._plan()
