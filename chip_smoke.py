@@ -44,11 +44,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                transcribe's and train step's own calls and a few edge cases,
                with times, the card's bound and a library yardstick (K3 and
                K4 at the counted transducer step's shapes and lengths, edge
-               cases up to U+1 1100, the joint at V 401 and CTC at U 4200,
+               cases up to U+1 1100, the joint at V 401, at the step's shapes
+               at V 1025 (joint_v1025) and its forward alone at H 1376 (64-cell
+               tiles), and CTC at U 4200,
                and the dropout mask read back bit for bit); the K1 and K4
                backwards also as whole functions (rows of their own in the
                summary, against the library's whole backward), run twice for
-               the same bits, as K2's forward, dQ and dK/dV kernels are,
+               the same bits, as K4-fwd and K2's forward, dQ and dK/dV kernels are,
                K1-fwd's alphas held against the plain recursion's, and
                K4-bwd's scratch bytes; K2-fwd at the main shapes also timed
                at both query-tile heights in turns (64, 128, 128, 64 rows),
@@ -56,6 +58,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                kernel alone past the dK/dV kernel's 576 columns (d1 656)
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --joint-bench DIR
+
+runs env, build and the K4 cases alone (the transducer step's shapes at the
+config's V and at V 1025) with conformer_nemo_tpu_torch imported from the
+checkout at DIR, so that two versions of the joint can be timed in turns.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero without
 printing a result when CUDA is not available.
@@ -127,6 +135,8 @@ RNNT_TRANSCRIBE_FILES = 3
 LATTICE_REL_TOL = 1e-5
 # K4 vs its plain version in bf16: max|kernel - plain| <= 2e-2 * max|plain| per output
 JOINT_REL_TOL = 2e-2
+# the JAX joint kernel's flagship vocabulary: 1024 BPE pieces and the blank
+JOINT_FLAGSHIP_V = 1025
 
 def watched(model) -> tuple:
     """Parameters and BatchNorm statistics a train step must change."""
@@ -581,9 +591,9 @@ def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev):
 def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu", drop_t=26,
                 fastemit=0.0, clamp=-1.0, bt=16):
     """K4-fwd and the three K4-bwd kernels against their plain versions, on
-    posteriors from the K3 lattice of the kernel's own forward; the whole
-    backward timed as one function, checked for the same bits on a second
-    call, and its scratch measured."""
+    posteriors from the K3 lattice of the kernel's own forward; the forward
+    and the whole backward checked for the same bits on a second call, the
+    backward timed as one function and its scratch measured."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
     from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
     from conformer_nemo_tpu_torch.ops.rnnt_loss import posteriors
@@ -599,6 +609,7 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     kw = dict(t_lens=tl, u_lens=ul, blank_id=v - 1, activation=activation, drop_t=drop_t, bt=bt)
     fwd = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
     fwd_ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    fwd2 = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
     blank_lp, label_lp, lse = fwd
     label_lp = label_lp.clone()
     label_lp[:, :, -1] = -1e30
@@ -632,6 +643,7 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     red_ref = jt.joint_flash_bwd_reduce_reference(acc, e.dtype)
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(bwd, bwd2)), (name, "K4-bwd not deterministic"))
+    check(all(torch.equal(x, y) for x, y in zip(fwd, fwd2)), (name, "K4-fwd not deterministic"))
     n0 = min(win, cells_in)  # the first window's cells
     n_tiles0 = -(-n0 // jt.TILE_CELLS)
     pairs = list(zip(("blank_lp", "label_lp", "lse"), fwd, fwd_ref)) + \
@@ -713,7 +725,8 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     whole_ms = time_ms(lambda: jt.joint_flash_bwd(*args, clamp=clamp, **kw), 5)
     whole_plain_ms = time_ms(lambda: jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw), 1,
                              warmup=1)
-    common = {"case": name, "shape": [b, t, u + 1, h, v], "t_lens": t_lens, "u_lens": u_lens,
+    common = {"case": name, "shape": [b, t, u + 1, h, v], "t_lens": list(t_lens),
+              "u_lens": list(u_lens),
               "activation": activation, "drop_t": drop_t, "fastemit": fastemit, "clamp": clamp,
               "errors": errs, "tol_rel_to_max": JOINT_REL_TOL, "cells": cells_all,
               "lattice_cells": cells_in, "window_cells": win, "windows": n_win}
@@ -723,7 +736,10 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
          "ms": time_ms(lambda: jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw), 10),
          "plain_ms": time_ms(lambda: jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed,
                                                                   **kw), 1, warmup=1),
-         "library_ms": lib_fwd_ms, **bound(product * cells_in, fwd_bytes)},
+         "library_ms": lib_fwd_ms, "deterministic": True,
+         # a package timed by --joint-bench from an earlier checkout may not say
+         "tile_cells": jt.fwd_rows(h) if hasattr(jt, "fwd_rows") else None,
+         **bound(product * cells_in, fwd_bytes)},
         # the cells kernel: the logits again and dh, two products per lattice
         # cell, writing the windows' scratch (no PyTorch call computes this
         # piece alone)
@@ -766,6 +782,42 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
         row["tflops"] = row["flops"] / max(row["ms"], 1e-9) / 1e9
         emit("kernels", **row)
     return rows
+
+
+def _joint_fwd_wide_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, drop_t=26, bt=16):
+    """K4-fwd alone at an H past the backward's range, where it takes 64-cell
+    tiles: against its plain version, the sentinels, the same bits twice."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+    from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
+
+    bf = lambda *shape, scale: (torch.randn(*shape, generator=gen, device=dev) * scale).to(
+        torch.bfloat16)
+    e, p = bf(b, t, h, scale=0.5), bf(b, u + 1, h, scale=0.5)
+    w, bias = bf(h, v, scale=h ** -0.5), bf(v, scale=0.1)
+    targets = torch.randint(0, v - 1, (b, u), generator=gen, device=dev).to(torch.int32)
+    tl = torch.tensor(t_lens, dtype=torch.int32, device=dev)
+    ul = torch.tensor(u_lens, dtype=torch.int32, device=dev)
+    seed = torch.tensor([777], dtype=torch.int32)
+    kw = dict(t_lens=tl, u_lens=ul, blank_id=v - 1, drop_t=drop_t, bt=bt)
+    fwd = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    fwd2 = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(fwd, fwd2)), (name, "K4-fwd not deterministic"))
+    inside = lat.valid_cells(fwd[0].shape, tl, ul)
+    errs = {}
+    for out, a, r in zip(("blank_lp", "label_lp", "lse"), fwd, ref):
+        check(torch.equal(a[~inside], r[~inside]), (name, out, "outside the lattice"))
+        a, r = a[inside], r[inside]
+        check(bool(torch.isfinite(a).all()), (name, out, "non-finite"))
+        err = (a - r).abs().max().item()
+        errs[out] = {"abs": err, "rel_to_max": err / max(r.abs().max().item(), 1e-30)}
+        check(errs[out]["rel_to_max"] <= JOINT_REL_TOL, (name, out, errs[out]))
+    out = {"case": name, "kernel": "K4-fwd", "shape": [b, t, u + 1, h, v], "t_lens": t_lens,
+           "u_lens": u_lens, "tile_cells": jt.fwd_rows(h), "errors": errs,
+           "tol_rel_to_max": JOINT_REL_TOL, "deterministic": True}
+    emit("kernels", **out)
+    return out
 
 
 def _dropout_mask_probe(b, t, u, h, gen, dev, bt=16, drop_t=26) -> dict:
@@ -1380,6 +1432,14 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
     # V - 1 = 400: the backward takes the label block in two passes of columns
     _joint_case("joint_edges_v401", 3, 37, 8, rnnt["h"], 401, [37, 20, 1], [8, 3, 0], gen, dev,
                 activation="relu", drop_t=26)
+    # the counted step's shapes and lengths at the JAX kernel's flagship
+    # vocabulary: 1024 pieces and the blank (the backward: four label passes)
+    _joint_case("joint_v1025", b, t, u, rnnt["h"], JOINT_FLAGSHIP_V, enc_lens,
+                rnnt["token_lens"], gen, dev, drop_t=26)
+    # the forward's 64-cell tiles at the widest H they take; V 41 leaves the last
+    # column group of each 64-column box nothing but pad columns
+    _joint_fwd_wide_case("joint_fwd_wide_h1376", 3, 37, 8, 1376, 41, [37, 20, 1], [8, 3, 0], gen,
+                         dev)
     _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev)
     return rows
 
@@ -1420,11 +1480,47 @@ def kernel_summary(rows: dict, launches: dict) -> list:
     return kernels
 
 
+def joint_bench(root: str) -> int:
+    """K4 alone, with the package imported from the checkout at `root` (so
+    that two versions can be timed in turns on one card): `_joint_case` at
+    the transducer step's shapes, its lengths from the same generated
+    manifest through the loader (no fit), at the config's V and at V 1025."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+
+    dev = torch.device("cuda")
+    env = phase_env()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = _write_manifest(tmp, "rnnt_train", 16, 10.0, 16.0,
+                                   np.random.RandomState(SEED + 3))
+        model = ConformerTransducer.from_config_file(RNNT_CONFIG, overrides=RNNT_OVERRIDES,
+                                                     seed=SEED)
+        batch = next(iter(model._loader(manifest, model.raw_cfg["model"]["train_ds"],
+                                        shuffle=True)))
+        cfg = model.cfg.model
+        t = _frames(model, [batch.audio.shape[1]])[0]
+        enc_lens = _frames(model, batch.audio_lens.tolist())
+        h, v = cfg.joint.joint_hidden, cfg.num_classes_with_blank
+        del model
+    free_cuda()
+    b, u = batch.tokens.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for vv in (v, JOINT_FLAGSHIP_V):
+        _joint_case(f"bench_b{b}_t{t}_u1{u + 1}_v{vv}", b, t, u, h, vv, enc_lens,
+                    batch.token_lens.tolist(), gen, dev, drop_t=26)
+        free_cuda()
+    emit("joint_bench", root=os.path.abspath(root), nvidia_smi=env["nvidia_smi"])
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--joint-bench"]:
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        return joint_bench(sys.argv[2])
     from conformer_nemo_tpu_torch.api import ConformerCTC
 
     dev = torch.device("cuda")

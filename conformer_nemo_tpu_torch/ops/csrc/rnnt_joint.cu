@@ -11,7 +11,8 @@
 //
 //   h     = drop(act(e[b, t] + p[b, u]))                      [H], bf16
 //   lab_c = bf16(bf16(h . W[:, c]) + bias[c])   (fp32 product, c < VL)
-//   blank = bf16(bf16(h . W[:, VL]) + bias[VL]) (fp32 row dot)
+//   blank = bf16(bf16(h . W[:, VL]) + bias[VL]) (fp32 dot; the forward's
+//           product takes it as column VL)
 //   lse   = logsumexp(lab, blank); blank_lp = blank - lse; label_lp = lab[tgt] - lse
 //
 // The backward recomputes the tile and forms, per cell,
@@ -43,17 +44,36 @@
 // streams, far smaller. So the tensor cores bound it.
 //
 // Design:
-//   * forward: one block of 4 warps per 64 lattice cells of one sample
-//     (t-major: cell j -> t = j / (u_len + 1), u = j % (u_len + 1)); the
-//     grid covers all T * (U+1) cells, so block x also writes the sentinels
-//     of the cells outside the lattice among full-index rows 64x..64x+63,
-//     and blocks past the lattice's count stop there. h is formed in
-//     shared memory as bf16 (the hash dropout in place); W's label block streams through shared memory in
-//     64 x 64 pieces; WMMA bf16 m16n16k16 with fp32 accumulation gives the
-//     logits 64 columns at a time, with an online max and sum over the
-//     chunks (blank seeds them), as K2-fwd does over keys. The label
-//     block's ragged width (VL = 295 at the flagship) is zero-padded inside
-//     the kernel and its pad columns never enter the max, the sum or a store.
+//   * forward: a persistent grid (a block per SM) walks the lattice's cells
+//     in tiles of 128 (64 where H is too wide for 128 rows: `fwd_rows`),
+//     numbered as the backward numbers them (sample-major, then t-major,
+//     from the per-sample offsets, so the cell count stays on the card);
+//     block x takes tiles x, x + gridDim.x, ... and also writes the
+//     sentinels of the full [B, T, U+1] index outside the lattice, in a
+//     grid-stride loop. Four (two) row groups of 32 cells x four column
+//     groups make 16 (8) consumer warps; one more warp, the producer,
+//     streams W as 64 x 64 tensor copies (128-byte swizzle, zeros past W's
+//     edges) into a ring of three 2-box slots with full/empty mbarriers:
+//     128 columns x 64 hidden rows a piece, every piece of every tile in one
+//     sequence, so the next tile's first pieces land while its h is built.
+//     h is built once per cell into shared memory from 16-byte loads of e
+//     and p (`hidden8`, the hash dropout in registers). The logits come
+//     from mma.sync m16n8k16 (ldmatrix fragments of h and of the swizzled
+//     boxes) into fp32 registers, a 128-column chunk at a time: each warp
+//     holds 32 rows x 32 columns (16 of each box), rounds them as the TPU
+//     kernel does, picks the target and the blank (column VL of W: the
+//     blank joins the product) off its fragments, and runs the online max
+//     by quad shuffles and its lanes' sums; the four column groups' (max,
+//     sum) meet once per tile through shared memory. No fp32 logits tile
+//     exists anywhere. Range: H a multiple of 16 up to what `fwd_rows`'s
+//     layouts fit in a block's shared memory (128-row tiles to H 672,
+//     64-row tiles to H 1376), any V >= 2.
+//     What decided the shape (variants in turns on an H100): with two
+//     column groups (8 consumer warps) building h, the dropout hash per
+//     element, took close to half of the kernel's time, and more loads in
+//     flight did not shorten it: it is bound by instruction issue, so four
+//     column groups (16 warps) build it faster, and the products gain the
+//     warps too.
 //   * backward: three kernels, no atomics, so every output is bitwise the
 //     same from call to call. What the card asks of it: the tensor cores
 //     fed from registers and ldmatrix, W arriving in 16-byte vectors ahead
@@ -98,26 +118,20 @@
 //   The TPU kernel carries dp, dW and db across its sequential grid; Hopper
 //   blocks run in any order, hence the accumulators and the fixed orders.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
 #include "tensor_core.cuh"
 
-using namespace nvcuda;
 using namespace tc;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int NT = 128;         // 4 warps, 16 rows of a 64-row tile each
-constexpr int ROWS = 64;        // cells per tile
-constexpr int NC = 64;          // label columns per chunk
-constexpr int KC = 64;          // depth of a staged W piece
-constexpr int LDW = NC + 8;     // bf16 stride of a W piece
-constexpr int LDS = NC + 4;     // fp32 stride of a logits tile
 constexpr float NEG_INF = -1e30f;
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
@@ -136,14 +150,13 @@ __device__ inline uint32_t fmix32(uint32_t x) {
 struct Joint {
   const bf16* e;       // [B, T, H]
   const bf16* p;       // [B, U1, H]
-  const bf16* w;       // [H, V]
   const bf16* bias;    // [V]
   const int* targets;  // [B, U1 - 1]
   int B, T, U1, H, V, VL, Tp, act, drop_t;
   uint32_t seed;
   float inv_keep;
-  // the backward's lattice: t_lens, u_lens [B] and each sample's first
-  // cell in the global order, off [B + 1] (off[B]: the lattice's cells)
+  // the lattice: t_lens, u_lens [B] and each sample's first cell in the
+  // global order, off [B + 1] (off[B]: the lattice's cells)
   const int* t_lens;
   const int* u_lens;
   const long long* off;
@@ -163,207 +176,13 @@ __device__ inline float act_grad(float x, float a, int act) {
   return rb(1.f - rb(a * a));
 }
 
-__device__ inline bool keep_elem(const Joint& J, int b, int t, int u, int h) {
-  const uint32_t idx = ((uint32_t)b * (uint32_t)J.Tp + (uint32_t)t) * ((uint32_t)J.U1 * (uint32_t)J.H)
-                       + (uint32_t)u * (uint32_t)J.H + (uint32_t)h;
-  return (int)(fmix32(idx ^ J.seed) >> 24) >= J.drop_t;
-}
-
-// x = bf16(e[b, t, h] + p[b, u, h])
-__device__ inline float pre_act(const Joint& J, int b, int t, int u, int h) {
-  return rb(__bfloat162float(J.e[((size_t)b * J.T + t) * J.H + h]) +
-            __bfloat162float(J.p[((size_t)b * J.U1 + u) * J.H + h]));
-}
-
-// h = drop(act(x)) of the 64 rows whose (t, u) are in rt/ru (t < 0: empty
-// row, zeros), into Hs [64][ldh] bf16. Caller synchronises.
-__device__ void build_h(const Joint& J, int b, const int* rt, const int* ru, bf16* Hs, int ldh) {
-  for (int idx = threadIdx.x; idx < ROWS * J.H; idx += NT) {
-    const int r = idx / J.H, h = idx % J.H;
-    const int t = rt[r], u = ru[r];
-    float a = 0.f;
-    if (t >= 0) {
-      a = act_fn(pre_act(J, b, t, u, h), J.act);
-      if (J.drop_t > 0) a = keep_elem(J, b, t, u, h) ? rb(a * J.inv_keep) : 0.f;
-    }
-    Hs[r * ldh + h] = __float2bfloat16(a);
-  }
-}
-
-// blank logit of row r from Hs: the fp32 row dot with W[:, VL], rounded, +
-// bias[VL] in bf16. Two lanes per row (half = lane & 1), combined by shuffle.
-__device__ inline float blank_logit(const Joint& J, const bf16* Hs, int ldh, int r, int half) {
-  const int hw = (J.H + 1) / 2;
-  const int h1 = min(J.H, (half + 1) * hw);
-  float s = 0.f;
-  for (int h = half * hw; h < h1; ++h)
-    s += __bfloat162float(Hs[r * ldh + h]) * __bfloat162float(J.w[(size_t)h * J.V + J.VL]);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  return rb(rb(s) + __bfloat162float(J.bias[J.VL]));
-}
-
-// S[64][LDS] = Hs[64][H] @ W[:, c0 : c0 + 64] (label columns only, zero past
-// VL), fp32, through WMMA with W staged in Wc [KC][LDW]. Warp w writes rows
-// 16w..16w+15; the caller reads them after __syncwarp (its own rows) or
-// __syncthreads.
-__device__ void logits_chunk(const Joint& J, const bf16* Hs, int ldh, bf16* Wc, float* S, int c0) {
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int k0 = 0; k0 < J.H; k0 += KC) {
-    __syncthreads();  // every warp is done with the previous piece
-    for (int idx = threadIdx.x; idx < KC * NC; idx += NT) {
-      const int kk = idx / NC, cc = idx % NC;
-      const int k = k0 + kk, c = c0 + cc;
-      Wc[kk * LDW + cc] = (k < J.H && c < J.VL) ? J.w[(size_t)k * J.V + c] : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-    const int ksteps = min(KC, J.H - k0) / 16;
-    for (int kk = 0; kk < ksteps; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Hs + (16 * warp) * ldh + k0 + kk * 16, ldh);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, Wc + (kk * 16) * LDW + 16 * j, LDW);
-        wmma::mma_sync(acc[j], a, bfr, acc[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(S + (16 * warp) * LDS + 16 * j, acc[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// label logit as the TPU kernel rounds it: bf16 product, + bias in bf16
-__device__ inline float label_logit(const Joint& J, float acc, int c) {
-  return rb(rb(acc) + __bfloat162float(J.bias[c]));
-}
-
 __device__ inline int target_of(const Joint& J, int b, int u) {
   return u < J.U1 - 1 ? J.targets[(size_t)b * (J.U1 - 1) + u] : 0;  // dummy column: 0
 }
 
-// The cells of frames t0..t0+frames of sample b inside its lattice (t <
-// t_len, u <= u_len), t-major: cell j -> (t0 + j / n_u, j % n_u).
-struct TileRows {
-  int t0, n_t, n_u, n;
-};
-
-__device__ inline TileRows tile_rows(const Joint& J, const int* t_lens, const int* u_lens, int b,
-                                     int t0, int frames) {
-  TileRows R;
-  R.t0 = t0;
-  const int t_hi = min(min(t0 + frames, t_lens[b]), J.T);
-  R.n_t = max(0, t_hi - t0);
-  R.n_u = max(0, min(u_lens[b], J.U1 - 1) + 1);
-  R.n = R.n_t * R.n_u;
-  return R;
-}
-
 // ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-struct FwdLayout {
-  int ldh;
-  size_t hs, wc, s, rt, ru, total;
-};
-
-__host__ __device__ inline FwdLayout fwd_layout(int H) {
-  FwdLayout L;
-  L.ldh = H + 8;
-  size_t off = 0;
-  L.hs = off; off = align128(off + sizeof(bf16) * ROWS * L.ldh);
-  L.wc = off; off = align128(off + sizeof(bf16) * KC * LDW);
-  L.s = off; off = align128(off + sizeof(float) * ROWS * LDS);
-  L.rt = off; off = align128(off + sizeof(int) * ROWS);
-  L.ru = off; off = align128(off + sizeof(int) * ROWS);
-  L.total = off;
-  return L;
-}
-
-__global__ void __launch_bounds__(NT)
-joint_fwd_kernel(Joint J, const int* __restrict__ t_lens, const int* __restrict__ u_lens,
-                 float* __restrict__ blank_lp, float* __restrict__ label_lp,
-                 float* __restrict__ lse_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const FwdLayout L = fwd_layout(J.H);
-  bf16* Hs = reinterpret_cast<bf16*>(smem + L.hs);
-  bf16* Wc = reinterpret_cast<bf16*>(smem + L.wc);
-  float* S = reinterpret_cast<float*>(smem + L.s);
-  int* rt = reinterpret_cast<int*>(smem + L.rt);
-  int* ru = reinterpret_cast<int*>(smem + L.ru);
-
-  const int b = blockIdx.y;
-  const int cells = J.T * J.U1;
-  const int row0 = blockIdx.x * ROWS;
-  // block x also fills the cells [row0, row0 + 64) of the full t-major
-  // index that lie outside the lattice, so every output is written once
-  const TileRows R = tile_rows(J, t_lens, u_lens, b, 0, J.T);
-  for (int r = threadIdx.x; r < ROWS; r += NT) {
-    const int i = row0 + r;
-    if (i < cells && (i / J.U1 >= R.n_t || i % J.U1 >= R.n_u)) {
-      const size_t o = (size_t)b * cells + i;
-      blank_lp[o] = label_lp[o] = NEG_INF;
-      lse_out[o] = -NEG_INF;
-    }
-  }
-  if (row0 >= R.n) return;  // the whole block: no lattice cell left
-  for (int r = threadIdx.x; r < ROWS; r += NT) {
-    const int j = row0 + r;
-    rt[r] = j < R.n ? j / R.n_u : -1;
-    ru[r] = j < R.n ? j % R.n_u : 0;
-  }
-  __syncthreads();
-  build_h(J, b, rt, ru, Hs, L.ldh);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = 16 * warp + (lane >> 1);
-  const int half = lane & 1;
-  const bool live = rt[r] >= 0;
-  const int tgt = target_of(J, b, ru[r]);
-  const float blank = blank_logit(J, Hs, L.ldh, r, half);
-  float m_run = blank, l_run = 1.f;  // the blank term seeds the running sum
-  float label = 0.f;
-  for (int c0 = 0; c0 < J.VL; c0 += NC) {
-    logits_chunk(J, Hs, L.ldh, Wc, S, c0);
-    float v[32];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const int c = c0 + half * 32 + k;
-      v[k] = c < J.VL ? label_logit(J, S[r * LDS + half * 32 + k], c) : NEG_INF;
-      mx = fmaxf(mx, v[k]);
-      if (c == tgt) label = v[k];
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (c0 + half * 32 + k < J.VL) sum += expf(v[k] - m_new);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * expf(m_run - m_new) + sum;
-    m_run = m_new;
-  }
-  // the target column lies in one lane of the pair; the other holds 0
-  label += __shfl_xor_sync(0xffffffffu, label, 1);
-  if (live && half == 0) {
-    const size_t o = ((size_t)b * J.T + rt[r]) * J.U1 + ru[r];
-    const float lse = m_run + logf(l_run);
-    blank_lp[o] = blank - lse;
-    label_lp[o] = label - lse;
-    lse_out[o] = lse;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: tiling constants (the mma.sync, ldmatrix and cp.async helpers are
-// in tensor_core.cuh)
+// shared helpers, and the backward's tiling constants (the mma.sync,
+// ldmatrix, cp.async, mbarrier and tensor-copy helpers are in tensor_core.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int CELL_THREADS = 512;  // cells kernel: 16 warps, 4 row blocks x 4 column groups
@@ -460,6 +279,315 @@ __device__ inline void stage_rows(bf16* s, int ld_s, const bf16* g, int ld_g, in
     if (r0 + r < rmax) cp_async16(dst, g + (size_t)(r0 + r) * ld_g + c);
     else *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   }
+}
+
+// ---------------------------------------------------------------------------
+// forward: the logits of each tile of lattice cells, their log-sum-exp, the
+// blank and target log-probabilities
+// ---------------------------------------------------------------------------
+
+constexpr int FBOX = 64;     // columns and hidden rows of a W tensor-copy box (128 bytes a row)
+constexpr int FBOXES = 2;    // boxes a ring slot holds: a chunk of 128 columns
+constexpr int FCG = 4;       // column groups: warp cg takes columns FCW cg.. of each box
+constexpr int FCW = FBOX / FCG;  // columns a warp takes of each box
+constexpr int FNT = FCW / 8;     // its n-tiles of 8 columns in each box
+constexpr int FSLOT = 3;     // ring slots
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t FBOX_BYTES = sizeof(bf16) * FBOX * FBOX;
+
+// a barrier of the first n threads of the block (the consumer warps)
+__device__ inline void consumers_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+struct FwdLayout {
+  int ldh;  // bf16 row stride of the h tile
+  // byte offsets from the block's 1024-aligned base, and the dynamic shared
+  // memory a launch asks for (1024 bytes of it to align)
+  size_t ring, bar, hs, meta, total;
+};
+
+// rows: the cells of a tile (128 or 64)
+__host__ __device__ inline FwdLayout fwd_layout(int rows, int H) {
+  FwdLayout L;
+  L.ldh = H + 8;  // an odd number of 16-byte units: ldmatrix rows hit distinct banks
+  L.ring = 0;     // swizzled boxes: 1024-byte aligned
+  L.bar = FSLOT * FBOXES * FBOX_BYTES;
+  L.hs = L.bar + align128(sizeof(uint64_t) * 2 * FSLOT);
+  L.meta = L.hs + align128(sizeof(bf16) * rows * (size_t)L.ldh);
+  // per row b, t, u, target (int), label and blank logits, and (m, l) of
+  // each column group (float)
+  L.total = L.meta + align128((sizeof(int) * 4 + sizeof(float) * (2 + 2 * FCG)) * rows) + 1024;
+  return L;
+}
+
+// The tile height a launch at H takes: 128 cells where the layout fits in a
+// block's shared memory, else 64; 0 where neither fits.
+__host__ __device__ inline int fwd_rows(int H) {
+  if (fwd_layout(128, H).total <= flash::SMEM_BLOCK) return 128;
+  return fwd_layout(64, H).total <= flash::SMEM_BLOCK ? 64 : 0;
+}
+
+// RG row groups of 32 cells (a tile of 32 RG cells) x FCG column groups:
+// FCG RG consumer warps, then one producer warp. A persistent grid: block x
+// takes the lattice's tiles x, x + gridDim.x, ...
+template <int RG>
+__global__ void __launch_bounds__(32 * FCG * RG + 32, 1)
+joint_fwd_kernel(const __grid_constant__ CUtensorMap tw, Joint J, float* __restrict__ blank_lp,
+                 float* __restrict__ label_lp, float* __restrict__ lse_out) {
+  constexpr int ROWS = 32 * RG, NCW = FCG * RG, NCT = 32 * NCW;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const FwdLayout L = fwd_layout(ROWS, J.H);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar);  // a slot's boxes have landed
+  uint64_t* empty = full + FSLOT;                              // every consumer warp is done
+  bf16* Hs = reinterpret_cast<bf16*>(smem + L.hs);
+  int* m_b = reinterpret_cast<int*>(smem + L.meta);
+  int* m_t = m_b + ROWS;
+  int* m_u = m_t + ROWS;
+  int* m_tgt = m_u + ROWS;
+  float* m_lab = reinterpret_cast<float*>(m_tgt + ROWS);
+  float* m_blank = m_lab + ROWS;
+  float* red_m = m_blank + ROWS;  // [FCG][ROWS]
+  float* red_l = red_m + FCG * ROWS;
+
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const long long n_all = J.off[J.B];  // the lattice's cells
+  const int n_boxes = (J.V + FBOX - 1) / FBOX;  // label columns and blank, zeros past V
+  const int n_chunks = (n_boxes + FBOXES - 1) / FBOXES;
+  const int nk = (J.H + FBOX - 1) / FBOX;  // hidden slices of a chunk
+  const int per_tile = n_chunks * nk;      // ring pieces a tile takes
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FSLOT; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCW);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == NCW) {
+    // the producer: W's boxes for every piece of every tile of this block, a
+    // slot as soon as every consumer warp has released it
+    if (l == 0) {
+      int i = 0;
+      for (long long tile = blockIdx.x; tile * ROWS < n_all; tile += gridDim.x)
+        for (int q = 0; q < per_tile; ++q, ++i) {
+          const int s = i % FSLOT;
+          if (i >= FSLOT) mbar_wait(&empty[s], (i / FSLOT - 1) & 1);
+          const int ch = q / nk, ks = q - ch * nk;
+          const int nb = min(FBOXES, n_boxes - FBOXES * ch);
+          mbar_arrive_expect(&full[s], nb * FBOX_BYTES);
+          for (int j = 0; j < nb; ++j)
+            tma_load_2d(smem + L.ring + (s * FBOXES + j) * FBOX_BYTES, &tw,
+                        (FBOXES * ch + j) * FBOX, ks * FBOX, &full[s]);
+        }
+    }
+    return;
+  }
+
+  // the sentinels of every cell outside its sample's lattice (grid-stride
+  // over the full [B, T, U1] index), while the first boxes are in flight
+  const long long n_full = (long long)J.B * J.T * J.U1;
+  for (long long i = (long long)blockIdx.x * NCT + threadIdx.x; i < n_full;
+       i += (long long)gridDim.x * NCT) {
+    const int u = (int)(i % J.U1);
+    const long long bt = i / J.U1;
+    const Lat la = lat_of(J, (int)(bt / J.T));
+    if ((int)(bt % J.T) >= la.n_t || u >= la.n_u) {
+      blank_lp[i] = label_lp[i] = NEG_INF;
+      lse_out[i] = -NEG_INF;
+    }
+  }
+
+  // consumer warp (rg, cg): cells 32 rg..32 rg + 31 of the tile, columns
+  // FCW cg..FCW cg + FCW - 1 of each 64-column box; lane l holds rows g, g + 8
+  // of each 16-row half (q = 2 mt + half) and columns c2, c2 + 1 of each n-tile
+  const int rg = warp % RG, cg = warp / RG;
+  const int g = l >> 2, c2 = 2 * (l & 3);
+  const int H = J.H, ldh = L.ldh, hv8 = H / 8;
+  int row[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) row[q] = 32 * rg + 16 * (q >> 1) + g + 8 * (q & 1);
+  int i = 0;  // pieces taken so far, as the producer counts them
+  for (long long tile = blockIdx.x; tile * ROWS < n_all; tile += gridDim.x) {
+    consumers_sync(NCT);  // the previous tile's rows are out
+    if (threadIdx.x < ROWS) {
+      const int r = threadIdx.x;
+      const long long c = tile * ROWS + r;
+      int b = -1, t = 0, u = 0;
+      if (c < n_all) cell_btu(J, c, b, t, u);
+      m_b[r] = b;
+      m_t[r] = t;
+      m_u[r] = u;
+      m_tgt[r] = b >= 0 ? target_of(J, b, u) : -1;
+      m_lab[r] = m_blank[r] = 0.f;
+    }
+    consumers_sync(NCT);
+    // h = drop(act(e + p)) once per element, from 16-byte loads (zero rows
+    // past the lattice)
+    for (int k = threadIdx.x; k < ROWS * hv8; k += NCT) {
+      const int r = k / hv8, h0 = (k - r * hv8) * 8;
+      uint4 hv = make_uint4(0, 0, 0, 0), gv;
+      if (m_b[r] >= 0) hidden8(J, m_b[r], m_t[r], m_u[r], h0, hv, gv);
+      *reinterpret_cast<uint4*>(Hs + (size_t)r * ldh + h0) = hv;
+    }
+    consumers_sync(NCT);
+
+    int tgt[4];
+    float m_run[4], l_run[4];  // running max (over the warp's columns) and this lane's sum
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      tgt[q] = m_tgt[row[q]];
+      m_run[q] = NEG_INF;
+      l_run[q] = 0.f;
+    }
+    float acc[FBOXES][2][FNT][4];  // [box][m-tile][n-tile][fragment]
+    for (int q = 0; q < per_tile; ++q, ++i) {
+      const int ch = q / nk, ks = q - ch * nk;
+      const int nb = min(FBOXES, n_boxes - FBOXES * ch);
+      if (ks == 0) {
+#pragma unroll
+        for (int j = 0; j < FBOXES; ++j)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int n = 0; n < FNT; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[j][mt][n][e] = 0.f;
+      }
+      const int s = i % FSLOT;
+      mbar_wait(&full[s], (i / FSLOT) & 1);
+      const bf16* P = reinterpret_cast<const bf16*>(smem + L.ring + s * FBOXES * FBOX_BYTES);
+      const int k0 = ks * FBOX, ksteps = min(FBOX, H - k0) / 16;
+#pragma unroll
+      for (int kk = 0; kk < FBOX / 16; ++kk) {
+        if (kk < ksteps) {
+          uint32_t a[2][4];
+          ldsm4(a[0], a_addr(Hs, ldh, 32 * rg, k0 + 16 * kk, l));
+          ldsm4(a[1], a_addr(Hs, ldh, 32 * rg + 16, k0 + 16 * kk, l));
+#pragma unroll
+          for (int j = 0; j < FBOXES; ++j) {
+            if (j < nb) {
+#pragma unroll
+              for (int n = 0; n < FNT / 2; ++n) {
+                uint32_t bb[4];  // hidden rows 16 kk.., columns FCW cg + 16 n.. as two n-tiles
+                ldsm4t(bb, swz128(P + j * FBOX * FBOX, 16 * kk + (l & 7) + ((l >> 3) & 1) * 8,
+                                  FCW * cg + 16 * n + (l >> 4) * 8));
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                  mma16816(acc[j][mt][2 * n], a[mt], bb[0], bb[1]);
+                  mma16816(acc[j][mt][2 * n + 1], a[mt], bb[2], bb[3]);
+                }
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (l == 0) mbar_arrive(&empty[s]);  // this warp is done with the slot
+      if (ks < nk - 1) continue;
+
+      // the chunk's logits, rounded as the TPU kernel rounds them; the
+      // target and blank columns picked off; the online max and sum
+      const int cbase = ch * FBOXES * FBOX + FCW * cg + c2;
+      float bv[FBOXES][FNT][2];  // this lane's columns' bias
+#pragma unroll
+      for (int j = 0; j < FBOXES; ++j)
+#pragma unroll
+        for (int n = 0; n < FNT; ++n)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int c = cbase + j * FBOX + 8 * n + k;
+            bv[j][n][k] = j < nb && c < J.V ? __bfloat162float(J.bias[c]) : 0.f;
+          }
+      float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < FBOXES; ++j)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int n = 0; n < FNT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = cbase + j * FBOX + 8 * n + (e & 1), qr = 2 * mt + (e >> 1);
+              float x = NEG_INF;
+              if (j < nb && c < J.V) {
+                x = rb(rb(acc[j][mt][n][e]) + bv[j][n][e & 1]);
+                if (c == tgt[qr]) m_lab[row[qr]] = x;
+                if (c == J.VL) m_blank[row[qr]] = x;
+              }
+              acc[j][mt][n][e] = x;
+              mx[qr] = fmaxf(mx[qr], x);
+            }
+      float m2[4];  // the new running max in the exp2 domain
+#pragma unroll
+      for (int qr = 0; qr < 4; ++qr) {
+        mx[qr] = fmaxf(mx[qr], __shfl_xor_sync(0xffffffffu, mx[qr], 1));
+        mx[qr] = fmaxf(mx[qr], __shfl_xor_sync(0xffffffffu, mx[qr], 2));
+        const float m_new = fmaxf(m_run[qr], mx[qr]);
+        // both maxima scaled by one rounded product each (no fused
+        // multiply-add): a column group that has seen only pad columns keeps
+        // m = -1e30, and its rescale must be exp2(0) = 1 on its sum of 0
+        m2[qr] = __fmul_rn(m_new, LOG2E);
+        l_run[qr] *= exp2f(__fmul_rn(m_run[qr], LOG2E) - m2[qr]);
+        m_run[qr] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < FBOXES; ++j)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int n = 0; n < FNT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = cbase + j * FBOX + 8 * n + (e & 1), qr = 2 * mt + (e >> 1);
+              // columns past V are no logits: they enter no sum (a column
+              // group may hold none but pad columns so far)
+              if (j < nb && c < J.V) l_run[qr] += exp2f(fmaf(acc[j][mt][n][e], LOG2E, -m2[qr]));
+            }
+    }
+
+    // each row's (m, l) from every column group, then lse and the outputs
+#pragma unroll
+    for (int qr = 0; qr < 4; ++qr) {
+      l_run[qr] += __shfl_xor_sync(0xffffffffu, l_run[qr], 1);
+      l_run[qr] += __shfl_xor_sync(0xffffffffu, l_run[qr], 2);
+      if ((l & 3) == 0) {
+        red_m[cg * ROWS + row[qr]] = m_run[qr];
+        red_l[cg * ROWS + row[qr]] = l_run[qr];
+      }
+    }
+    consumers_sync(NCT);
+    if (threadIdx.x < ROWS && m_b[threadIdx.x] >= 0) {
+      const int r = threadIdx.x;
+      float m = NEG_INF, sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < FCG; ++k) m = fmaxf(m, red_m[k * ROWS + r]);
+#pragma unroll
+      for (int k = 0; k < FCG; ++k) sum += red_l[k * ROWS + r] * expf(red_m[k * ROWS + r] - m);
+      const float lse = m + logf(sum);
+      const size_t o = ((size_t)m_b[r] * J.T + m_t[r]) * J.U1 + m_u[r];
+      blank_lp[o] = m_blank[r] - lse;
+      label_lp[o] = m_lab[r] - lse;
+      lse_out[o] = lse;
+    }
+  }
+}
+
+template <int RG>
+int launch_fwd(const Joint& J, const void* w, int vt, int grid, float* blank_lp, float* label_lp,
+               float* lse, cudaStream_t stream) {
+  CUtensorMap tw;
+  if (!flash::tensor_map(&tw, w, vt, J.H, FBOX)) return (int)cudaErrorNotSupported;
+  const size_t smem = fwd_layout(32 * RG, J.H).total;
+  cudaError_t err = cudaFuncSetAttribute(joint_fwd_kernel<RG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  joint_fwd_kernel<RG><<<grid, 32 * FCG * RG + 32, smem, stream>>>(tw, J, blank_lp, label_lp,
+                                                                    lse);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1018,13 +1146,12 @@ __global__ void joint_bwd_reduce_kernel(int B, int T, int H, int V, int VLp,
   }
 }
 
-Joint make_joint(const void* e, const void* p, const void* w, const void* bias,
+Joint make_joint(const void* e, const void* p, const void* bias,
                  const void* targets, int B, int T, int U1, int H, int V, int Tp, int act,
                  int drop_t, int seed) {
   Joint J;
   J.e = (const bf16*)e;
   J.p = (const bf16*)p;
-  J.w = (const bf16*)w;
   J.bias = (const bf16*)bias;
   J.targets = (const int*)targets;
   J.B = B; J.T = T; J.U1 = U1; J.H = H; J.V = V; J.VL = V - 1; J.Tp = Tp;
@@ -1040,12 +1167,17 @@ Joint make_joint(const void* e, const void* p, const void* w, const void* bias,
 }  // namespace
 
 // Bytes of shared memory the forward (which = 0), the backward's cells (1)
-// or sums (2) kernel needs at H, V.
+// or sums (2) kernel needs at H, V (the forward: the layout of the tile
+// height it takes, or its 64-row layout where none fits).
 extern "C" long long rnnt_joint_smem_bytes(int H, int V, int which) {
   const int vlp = (V - 1 + 31) / 32 * 32;
-  if (which == 0) return (long long)fwd_layout(H).total;
+  if (which == 0) return (long long)fwd_layout(fwd_rows(H) ? fwd_rows(H) : 64, H).total;
   return (long long)(which == 1 ? cell_layout(H, vlp).total : sum_layout(vlp).total);
 }
+
+// The forward's tile height at H: 128 or 64 lattice cells, 0 where neither
+// layout fits in a block's shared memory.
+extern "C" int rnnt_joint_fwd_rows(int H) { return fwd_rows(H); }
 
 // The backward's layout constants, which size the buffers the caller
 // allocates: the cells per tile, the K splits of the dW product and the
@@ -1054,25 +1186,34 @@ extern "C" int rnnt_joint_bwd_tile_cells() { return BROWS; }
 extern "C" int rnnt_joint_bwd_ksplit() { return KSPLIT; }
 extern "C" int rnnt_joint_bwd_pass_cols() { return PASS_COLS; }
 
-// e: [b, t, h], p: [b, u1, h], w: [h, v], bias: [v] bf16; targets: [b, u1-1],
-// t_lens, u_lens: [b] int32; blank_lp, label_lp, lse: [b, t, u1] fp32 (-1e30,
-// -1e30 and 1e30 outside each lattice). All contiguous; h a multiple of 16.
-// tp: the dropout layout's padded t; act 0 relu, 1 sigmoid, 2 tanh; drop_t 0 disables dropout. Launches on `stream`; returns the
-// cudaError_t of the launch.
+// e: [b, t, h], p: [b, u1, h] bf16; w: [h, vt] bf16 whose first v columns
+// are W [h, v] (blank last), zeros past them, vt >= v a multiple of 8 (16-byte
+// rows); bias: [v] bf16; targets: [b, u1-1], t_lens, u_lens: [b] int32;
+// cell_off: [b + 1] int64, each sample's first lattice cell (sample-major,
+// t-major; cell_off[b]: the lattice's cells); blank_lp, label_lp, lse:
+// [b, t, u1] fp32 (-1e30, -1e30 and 1e30 outside each lattice). All
+// contiguous and 16-byte aligned; h a multiple of 16 that `fwd_rows` takes.
+// tp: the dropout layout's padded t; act 0 relu, 1 sigmoid, 2 tanh; drop_t 0
+// disables dropout; grid >= 1: the blocks of the persistent grid (any count
+// covers every cell; the wrapper takes one per SM, at most one per tile of
+// the b * t * u1 cells). Launches on `stream`; returns the cudaError_t of the
+// launch.
 extern "C" int rnnt_joint_fwd_bf16(const void* e, const void* p, const void* w, const void* bias,
                                    const void* targets, const void* t_lens, const void* u_lens,
-                                   void* blank_lp, void* label_lp, void* lse, int b, int t, int u1,
-                                   int h, int v, int tp, int act, int drop_t, int seed,
-                                   void* stream) {
-  const Joint J = make_joint(e, p, w, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
-  const size_t smem = fwd_layout(h).total;
-  cudaError_t err = cudaFuncSetAttribute(joint_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(((size_t)t * u1 + ROWS - 1) / ROWS, b);
-  joint_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      J, (const int*)t_lens, (const int*)u_lens, (float*)blank_lp, (float*)label_lp, (float*)lse);
-  return (int)cudaGetLastError();
+                                   const void* cell_off, void* blank_lp, void* label_lp, void* lse,
+                                   int b, int t, int u1, int h, int v, int vt, int tp, int act,
+                                   int drop_t, int seed, int grid, void* stream) {
+  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
+  J.t_lens = (const int*)t_lens;
+  J.u_lens = (const int*)u_lens;
+  J.off = (const long long*)cell_off;
+  const int rows = fwd_rows(h);
+  if (rows == 0 || h % 16 || v < 2 || vt < v || vt % 8 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  return rows == 128 ? launch_fwd<4>(J, w, vt, grid, (float*)blank_lp, (float*)label_lp,
+                                     (float*)lse, (cudaStream_t)stream)
+                     : launch_fwd<2>(J, w, vt, grid, (float*)blank_lp, (float*)label_lp,
+                                     (float*)lse, (cudaStream_t)stream);
 }
 
 // The backward's cells kernel over the window of global cells [c0, c0 + win)
@@ -1093,7 +1234,7 @@ extern "C" int rnnt_joint_bwd_cells_bf16(
     int u1, int h,
     int v, int vlp, int tp, int act, int drop_t, int seed, int win, long long c0, float clamp,
     void* stream) {
-  Joint J = make_joint(e, p, nullptr, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
+  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
   J.t_lens = (const int*)t_lens;
   J.u_lens = (const int*)u_lens;
   J.off = (const long long*)cell_off;
@@ -1120,7 +1261,7 @@ extern "C" int rnnt_joint_bwd_sums_f32(const void* t_lens, const void* u_lens,
                                        void* dw_part, void* dwb_part, void* db_acc, int b, int t,
                                        int u1, int h, int v, int vlp, int win, long long c0,
                                        void* stream) {
-  Joint J = make_joint(nullptr, nullptr, nullptr, nullptr, nullptr, b, t, u1, h, v, t, 0, 0, 0);
+  Joint J = make_joint(nullptr, nullptr, nullptr, nullptr, b, t, u1, h, v, t, 0, 0, 0);
   J.t_lens = (const int*)t_lens;
   J.u_lens = (const int*)u_lens;
   J.off = (const long long*)cell_off;

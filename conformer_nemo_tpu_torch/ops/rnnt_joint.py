@@ -267,6 +267,9 @@ def _check_cuda(tensors: dict, h: int, v: int, which: tuple) -> None:
     if h % 16 or h <= 0 or v < 2:
         raise ValueError(f"the CUDA kernels take H a positive multiple of 16 and V >= 2, "
                          f"got H={h}, V={v}")
+    if tensors["e"].data_ptr() % 16 or tensors["p"].data_ptr() % 16:
+        raise ValueError("the CUDA kernels read e and p in 16-byte vectors: both must start "
+                         "16-byte aligned")
     check_smem(h, v, which)
 
 
@@ -281,6 +284,33 @@ def check_smem(h: int, v: int, which: tuple = (0, 1, 2)) -> None:
         if smem > SMEM_LIMIT:
             raise ValueError(f"the CUDA joint kernel {k} needs {smem} bytes of shared memory "
                              f"at H={h}, V={v}; a block has {SMEM_LIMIT}")
+
+
+def fwd_weight(w):
+    """W [H, V] as the forward's tensor copies read it: rows of a multiple of
+    8 columns (16 bytes), 16-byte aligned, zeros past column V - 1 (the
+    blank, last: column VL joins the label product). W itself where it
+    already is so; else a zero-padded copy [H, ceil(V / 8) * 8]."""
+    v = w.shape[1]
+    if v % 8 == 0 and w.is_contiguous() and w.data_ptr() % 16 == 0:
+        return w
+    return F.pad(w, (0, -v % 8)).contiguous()
+
+
+def fwd_rows(h: int) -> int:
+    """Lattice cells per tile the CUDA forward takes at H: 128 or 64, 0
+    where neither tile fits a block's shared memory (`check_smem` refuses)."""
+    return _lib().rnnt_joint_fwd_rows(h)
+
+
+def fwd_grid(cells: int, rows: int, n_sm: int) -> int:
+    """Blocks of the forward's persistent grid over B * T * U1 `cells` in
+    tiles of `rows`: one per SM, no more than the tiles. Block x takes the
+    lattice's tiles x, x + grid, ... (tile k: lattice cells k * rows ..
+    k * rows + rows - 1 in `lattice_cells` order), and the sentinels of the
+    full [B, T, U1] index in a grid-stride loop, so any grid covers every
+    cell once."""
+    return max(1, min(n_sm, -(-cells // rows)))
 
 
 def _act_code(activation: str) -> int:
@@ -318,16 +348,30 @@ def joint_flash_fwd(e, p, w, bias, targets, seed, *, t_lens, u_lens, blank_id: i
     outs = [torch.empty((b, t, u1), dtype=torch.float32, device=e.device) for _ in range(3)]
     if b == 0 or t == 0:
         return tuple(outs)
+    _launch_fwd(e, p, fwd_weight(w), bias, targets, seed, t_lens, u_lens, outs, v, act,
+                int(drop_t), bt)
+    return tuple(outs)
+
+
+def _launch_fwd(e, p, w_fwd, bias, targets, seed, t_lens, u_lens, outs, v: int, act: int,
+                drop_t: int, bt: int, grid: int | None = None) -> None:
+    """One launch of the forward on checked inputs: w_fwd from `fwd_weight`,
+    grid the persistent grid's blocks (default `fwd_grid`'s)."""
+    b, t, h = e.shape
+    u1 = p.shape[1]
+    if grid is None:
+        grid = fwd_grid(b * t * u1, fwd_rows(h),
+                        torch.cuda.get_device_properties(e.device).multi_processor_count)
+    cell_off = lattice_offsets(t_lens, u_lens, t, u1)
     with torch.cuda.device(e.device):
-        err = _c_fn("rnnt_joint_fwd_bf16", 10, 9)(
-            e.data_ptr(), p.data_ptr(), w.data_ptr(), bias.data_ptr(), targets.data_ptr(),
-            t_lens.data_ptr(), u_lens.data_ptr(), *(o.data_ptr() for o in outs), b, t, u1, h, v,
-            padded_t(t, bt), act, int(drop_t), _seed_int(seed),
-            torch.cuda.current_stream().cuda_stream)
+        err = _c_fn("rnnt_joint_fwd_bf16", 11, 11)(
+            e.data_ptr(), p.data_ptr(), w_fwd.data_ptr(), bias.data_ptr(), targets.data_ptr(),
+            t_lens.data_ptr(), u_lens.data_ptr(), cell_off.data_ptr(),
+            *(o.data_ptr() for o in outs), b, t, u1, h, v, w_fwd.shape[1], padded_t(t, bt), act,
+            drop_t, _seed_int(seed), int(grid), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"joint_flash_fwd kernel launch failed: CUDA error {err}")
     fwd_launches.add((b, t, u1, h, v))
-    return tuple(outs)
 
 
 def joint_flash_bwd(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_lens, u_lens,

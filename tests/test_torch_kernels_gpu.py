@@ -323,10 +323,13 @@ def _joint_inputs(dev, b, t, u, h, v, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("activation,drop_t,clamp,v", [("relu", 0, -1.0, 41), ("tanh", 26, 2.0, 41),
-                                                      ("relu", 26, -1.0, 401)])
+                                                      ("relu", 26, -1.0, 401),
+                                                      ("relu", 26, -1.0, 1025)])
 def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, clamp, v):
     """V = 41: VL = 40 ragged; V = 401: VL = 400 pads to 416 label columns,
-    which the backward kernels take in two passes."""
+    which the backward kernels take in two passes; V = 1025 (the flagship
+    1024 pieces and the blank): four passes, and a forward whose W rows
+    need padding to 16 bytes."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
 
     b, t, u, h = 3, 37, 8, 64  # T not a multiple of 16
@@ -376,6 +379,8 @@ def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, cl
         torch.testing.assert_close(a.float(), r.float(), rtol=1e-4, atol=1e-4)
     # no atomics: the same bits on a second call
     assert all(torch.equal(a, r) for a, r in zip(bwd, jt.joint_flash_bwd(*args, clamp=clamp, **kw)))
+    assert all(torch.equal(a, r) for a, r in zip(fwd, jt.joint_flash_fwd(e, p, w, bias, targets,
+                                                                         seed, **kw)))
     torch.cuda.synchronize()
     for name, a, r in zip(("blank_lp", "label_lp", "lse"), fwd, fwd_ref):
         assert torch.equal(a[~inside], r[~inside]), name  # the sentinels
@@ -386,6 +391,60 @@ def test_rnnt_joint_cuda_kernels_match_plain(cuda_device, activation, drop_t, cl
         a, r = a.float(), r.float()
         assert torch.isfinite(a).all(), name
         assert (a - r).abs().max().item() <= JOINT_REL_TOL * r.abs().max().item(), name
+
+
+def _fwd_edges(jt):
+    """The widest H (multiples of 16) of the forward's 128- and 64-cell tiles."""
+    rows = {h: jt.fwd_rows(h) for h in range(16, 2048, 16)}
+    return tuple(max(h for h, r in rows.items() if r == n) for n in (128, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge,v", [(0, 296), (1, 41)])
+def test_rnnt_joint_cuda_fwd_at_the_edge_of_its_tiles(cuda_device, edge, v):
+    """The forward at the widest H of each tile height against the plain
+    version, with the persistent grid at one block, three blocks and one
+    per SM (one block walks every tile): the same bits every time. Just past
+    the 64-cell tile's H, check_smem refuses and the wrapper raises before a
+    launch."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    edges = _fwd_edges(jt)
+    assert edges == (672, 1376)  # the range rnnt_joint.cu's design note states
+    h, b, t, u = edges[edge], 3, 29, 9
+    assert jt.fwd_rows(h) == (128, 64)[edge]
+    e, p, w, bias, targets, _ = _joint_inputs(cuda_device, b, t, u, h, v)
+    seed = torch.tensor([4242], dtype=torch.int32)
+    t_lens = torch.tensor([29, 11, 1], dtype=torch.int32, device=cuda_device)
+    u_lens = torch.tensor([9, 4, 0], dtype=torch.int32, device=cuda_device)
+    kw = dict(t_lens=t_lens, u_lens=u_lens, blank_id=v - 1, drop_t=26, bt=16)
+    ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    inside = (torch.arange(t, device=cuda_device)[None, :, None] < t_lens[:, None, None]) & (
+        torch.arange(u + 1, device=cuda_device)[None, None, :] <= u_lens[:, None, None])
+    runs = []
+    for grid in (1, 3, None):
+        outs = [torch.empty((b, t, u + 1), dtype=torch.float32, device=cuda_device)
+                for _ in range(3)]
+        jt._launch_fwd(e, p, jt.fwd_weight(w), bias, targets, seed, t_lens, u_lens, outs, v, 0,
+                       26, 16, grid=grid)
+        runs.append(outs)
+    torch.cuda.synchronize()
+    for outs in runs:
+        assert all(torch.equal(a, r) for a, r in zip(outs, runs[0]))
+    for name, a, r in zip(("blank_lp", "label_lp", "lse"), runs[0], ref):
+        assert torch.equal(a[~inside], r[~inside]), name
+        a, r = a[inside], r[inside]
+        assert (a - r).abs().max().item() <= JOINT_REL_TOL * r.abs().max().item(), name
+    past = edges[1] + 16
+    assert jt.fwd_rows(past) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        jt.check_smem(past, v, (0,))
+    e2, p2, w2, bias2, targets2, _ = _joint_inputs(cuda_device, 1, 4, 2, past, v)
+    before = jt.fwd_launches.total
+    with pytest.raises(ValueError, match="shared memory"):
+        jt.joint_flash_fwd(e2, p2, w2, bias2, targets2, seed, t_lens=t_lens[:1].clamp(max=4),
+                           u_lens=u_lens[:1].clamp(max=2), blank_id=v - 1)
+    assert jt.fwd_launches.total == before
 
 
 @pytest.mark.gpu
