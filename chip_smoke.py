@@ -44,7 +44,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                transcribe's and train step's own calls and a few edge cases,
                with times, the card's bound and a library yardstick (K3 and
                K4 at the counted transducer step's shapes and lengths, edge
-               cases up to U+1 1100, the joint at V 401, at the step's shapes
+               cases up to U+1 1100, K3 about its warp/block boundary, at
+               B 200 and at full-width rows, each K3 row with its two-call
+               bits, each sample's path and a chain bound from a clock probe
+               of its dependent step, the joint at V 401, at the step's shapes
                at V 1025 (joint_v1025) and its forward alone at H 1376 (64-cell
                tiles), and CTC at U 4200,
                and the dropout mask read back bit for bit); the K1 and K4
@@ -549,8 +552,19 @@ def _ctc_case(name, lp, targets, il, tl, blank, timed=True):
     return rows
 
 
-def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev):
-    """K3-alpha and K3-beta against their plain versions -> (alpha row, beta row)."""
+def _chain_probe(dev) -> dict:
+    """The K3 warp path's dependent step alone, per kernel (clock64 probe)."""
+    from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
+
+    return {kernel: lat.chain_probe(dev, beta=kernel == "K3-beta")
+            for kernel in ("K3-alpha", "K3-beta")}
+
+
+def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev, chain):
+    """K3-alpha and K3-beta against their plain versions, the same bits on a
+    second call, each sample's path and sweep as the kernel reports them
+    (`plan`), the same for both -> (alpha row, beta row). `chain`:
+    `_chain_probe`'s latency of one dependent step."""
     from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
 
     b = len(t_lens)
@@ -562,27 +576,51 @@ def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev):
     inside = lat.valid_cells(bl.shape, tl, ul)
     cells = int(inside.sum().item())
     serial = max(min(a, t) + min(c, u1 - 1) for a, c in zip(t_lens, u_lens))  # diagonals
-    rows = []
-    for kernel, fn, plain in (("K3-alpha", lat.rnnt_alphas, lat.rnnt_alphas_reference),
-                              ("K3-beta", lat.rnnt_betas, lat.rnnt_betas_reference)):
-        got, want = fn(bl, lb, tl, ul), plain(bl, lb, tl, ul)
+    rows, plans = [], []
+    for kernel, fn, plain, c_name, counter in (
+            ("K3-alpha", lat.rnnt_alphas, lat.rnnt_alphas_reference, "rnnt_alpha_f32",
+             lat.alpha_launches),
+            ("K3-beta", lat.rnnt_betas, lat.rnnt_betas_reference, "rnnt_beta_f32",
+             lat.beta_launches)):
+        got, again, want = fn(bl, lb, tl, ul), fn(bl, lb, tl, ul), plain(bl, lb, tl, ul)
+        plan = torch.full((b, 2), -1, dtype=torch.int32, device=dev)
+        lat._launch(c_name, counter, bl, lb, tl, ul, plan=plan)
         torch.cuda.synchronize()
+        plans.append(plan.tolist())
+        # dependent steps of the longest sweep: a strip's diagonals, strips in turn
+        steps = max(n for _, n in plans[-1])
         rel = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
         abs_err = (got - want)[inside].abs().max().item()
+        check(all(0 <= p < len(lat.PATHS) and n >= 0 for p, n in plans[-1]),
+              (name, kernel, "plan not written", plans[-1]))
+        path_names = [lat.PATHS[p] for p, _ in plans[-1]]
         check(math.isfinite(rel) and rel <= LATTICE_REL_TOL, (name, kernel, rel))
         check(bool((got[~inside] == -1e30).all()), (name, kernel, "outside the lattice"))
+        check(torch.equal(got, again), (name, kernel, "not the same bits on a second call"))
+        check(plans[-1] == plans[0], (name, kernel, "not the path and sweep of K3-alpha"))
         # bytes: blank_lp and label_lp read once in the lattice's cells, the
         # lattice written once in full (-1e30 outside); operations: ~10 fp32
-        # flops per valid cell (two adds, the lse)
+        # flops per valid cell (two adds, the lse). The chain bound: the
+        # longest sweep's dependent steps times the latency of one step (the
+        # exchange with the neighbouring lane and an lse), from the probe
+        ns = chain[kernel]["ns_per_step"]
         row = {"case": name, "kernel": kernel, "shape": [b, t, u1], "t_lens": t_lens,
                "u_lens": u_lens, "valid_cells": cells, "serial_steps": serial,
+               "sweep_steps": steps, "paths": {p: path_names.count(p) for p in lat.PATHS},
+               "bitwise_equal_two_calls": True,
                "max_abs_err": abs_err, "max_rel_err": rel, "tol_rel": LATTICE_REL_TOL,
                "ms": time_ms(lambda: fn(bl, lb, tl, ul), 20),
                "plain_ms": time_ms(lambda: plain(bl, lb, tl, ul), 1, warmup=1),
                "library_ms": None,
                **bound(10.0 * cells, 8.0 * cells + 4.0 * b * t * u1 + 8 * b,
-                       PEAK_FP32_FLOPS)}
+                       PEAK_FP32_FLOPS),
+               "chain_bound_ms": steps * ns * 1e-6,
+               "chain_ns_per_step": ns, "chain_cycles_per_step": chain[kernel]["cycles_per_step"],
+               "chain_method": "clock64/globaltimer probe: one warp, 16384 dependent steps "
+                               "of the warp path (shuffle + lse per cell), no memory access"}
         row["us_per_step"] = row["ms"] * 1e3 / serial
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_chain_bound"] = row["chain_bound_ms"] / row["ms"]
         emit("kernels", **row)
         rows.append(row)
     return rows
@@ -1419,11 +1457,24 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
     t, enc_lens = rnnt["t"], rnnt["enc_lens"]
     b, u = rnnt["tokens"].shape
     name = f"rnnt_b{b}_t{t}_u1{u + 1}"
-    rows["rnnt_train"] = _lattice_case(name, t, u + 1, enc_lens, rnnt["token_lens"], gen, dev)
+    chain = _chain_probe(dev)
+    emit("kernels", case="k3_chain_probe", **{k: v for k, v in chain.items()})
+    rows["rnnt_train"] = _lattice_case(name, t, u + 1, enc_lens, rnnt["token_lens"], gen, dev,
+                                       chain)
     rows["rnnt_train"] += _joint_case(name, b, t, u, rnnt["h"], rnnt["v"], enc_lens,
                                       rnnt["token_lens"], gen, dev, drop_t=26)
     _lattice_case("lattice_edges_u1_1100", 301, 1100, [301, 150, 1, 77], [1099, 500, 0, 0],
-                  gen, dev)
+                  gen, dev, chain)
+    # K3 at the step's T and U+1: widths 63-66 about the warp path's 64 (66
+    # with one frame); 200 samples, more blocks than SMs, at loader-like
+    # lengths; rows at the full width U+1 beside a u_len = 0 and a t_len = 1 row
+    _lattice_case("lattice_warp_block_boundary", t, u + 1, [t, t, t - 90, 1, t],
+                  [63, 64, 62, 65, 0], gen, dev, chain)
+    rng = np.random.RandomState(SEED + 5)
+    _lattice_case("lattice_b200", t, u + 1, rng.randint(int(0.6 * t), t + 1, 200).tolist(),
+                  rng.randint(20, 51, 200).tolist(), gen, dev, chain)
+    _lattice_case("lattice_full_width_rows", t, u + 1, [t, t, 1, t, t // 2],
+                  [u, u, u, 0, u], gen, dev, chain)
     _joint_case("joint_edges_tanh_fastemit_clamp", 3, 37, 8, rnnt["h"], rnnt["v"], [37, 20, 1],
                 [8, 3, 0], gen, dev, activation="tanh", drop_t=26, fastemit=0.1, clamp=2.0)
     # a long lattice: U+1 > 1024, three windows of cells at the flagship widths

@@ -1,5 +1,6 @@
 // Tensor-core and async-copy helpers shared by the kernels of rnnt_joint.cu,
-// flash_attention_fwd.cu and flash_attention_bwd.cu: cp.async into shared memory,
+// flash_attention_fwd.cu, flash_attention_bwd.cu and (the copies only)
+// rnnt_lattice.cu: cp.async into shared memory,
 // ldmatrix fragments and mma.sync m16n8k16 bf16 with fp32 accumulation.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, lane l, g = l / 4, c = 2 * (l % 4)):
@@ -25,6 +26,13 @@ __device__ inline void cp_async16(void* s, const void* g) {
 }
 __device__ inline void cp_async4(void* s, const void* g) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(s)), "l"(g));
+}
+// 4 bytes from g where `c`, else 4 zero bytes; g must be a valid address
+// either way (no byte of it is read when c is false)
+__device__ inline void cp_async4_zfill(void* s, const void* g, bool c) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(s)), "l"(g),
+               "r"(c ? 4 : 0)
+               : "memory");
 }
 __device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

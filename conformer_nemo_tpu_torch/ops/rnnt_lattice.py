@@ -17,11 +17,17 @@ returns -1e30 when both terms are below -5e29.
 
 `rnnt_alphas` / `rnnt_betas` take [B, T, U+1] fp32 and return [B, T, U+1]
 fp32. For CUDA tensors they launch the hand-written kernels of
-ops/csrc/rnnt_lattice.cu (a wavefront over the anti-diagonals, one block
-per sample; what bounds them is described there) and raise on anything the
-kernels do not take; for CPU tensors they run `rnnt_alphas_reference` /
-`rnnt_betas_reference`, the plain versions: the scan path's diagonal sweep
-(one step per anti-diagonal d = t + u), vectorised over B and T.
+ops/csrc/rnnt_lattice.cu and raise on anything the kernels do not take; for
+CPU tensors they run `rnnt_alphas_reference` / `rnnt_betas_reference`, the
+plain versions: the scan path's diagonal sweep (one step per anti-diagonal
+d = t + u), vectorised over B and T.
+
+The kernels take one block per sample and size its sweep to the sample's
+own width u_len + 1 on the device: one warp with a shuffle per diagonal up
+to 64 columns (the warp path), the block's warps with a barrier
+per diagonal past it, in strips of u past the block's width (the block
+path). The wrapper reads no length back; `_launch(..., plan=)` receives
+the path each sample took and the dependent diagonals it swept.
 
 The JAX package skews the lattice so that each diagonal is a column
 (`_skew` / `_unskew`) and caps the Pallas lattice at
@@ -36,10 +42,15 @@ import ctypes
 
 import torch
 
-from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, launch_count, load
+from conformer_nemo_tpu_torch.ops.build import launch_count, load
 from conformer_nemo_tpu_torch.ops.ctc_loss import lse2 as lse
 
 NEG_INF = -1e30
+# as ops/csrc/rnnt_lattice.cu: cells a thread holds, the block's bounds; each
+# sample's path, as the kernels report it
+CELLS = 2
+MIN_THREADS, MAX_THREADS = 128, 512
+PATHS = ("empty", "warp", "block")
 
 # launches per kernel, keyed by (B, T, U+1)
 alpha_launches = launch_count("K3-alpha")
@@ -117,10 +128,17 @@ def rnnt_betas_reference(blank_lp, label_lp, t_lens, u_lens):
     return torch.where(ok, beta, NEG_INF)
 
 
+def lattice_threads(u1: int) -> int:
+    """The block the kernels take at width U+1: a thread per CELLS columns,
+    in whole warps, at least MIN_THREADS (the warps the sweep leaves idle
+    write the -1e30 cells) and at most MAX_THREADS."""
+    return min(max(-(-u1 // (32 * CELLS)) * 32, MIN_THREADS), MAX_THREADS)
+
+
 def _c_fn(name: str):
     fn = getattr(load("rnnt_lattice.cu"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -138,31 +156,69 @@ def _check(blank_lp, label_lp, t_lens, u_lens) -> None:
         raise ValueError(f"unsupported device {blank_lp.device}")
 
 
-def _launch(name: str, counter, blank_lp, label_lp, t_lens, u_lens):
-    """What the CUDA kernels take: fp32 [B, T >= 1, U+1 >= 1] log-probs and
-    int32 lengths, contiguous, the two diagonals in shared memory."""
+def _check_launch(blank_lp, label_lp, t_lens, u_lens, threads, plan) -> int:
+    """What the CUDA kernels take: fp32 [B, T >= 1, 1 <= U+1 < 2^30] log-probs
+    and int32 lengths, contiguous (a row's byte stride is a 32-bit operand of
+    the kernels' address arithmetic; no diagonal is kept in shared memory, so
+    no shared-memory rule bounds U+1). -> the block."""
     if blank_lp.dtype != torch.float32 or label_lp.dtype != torch.float32 or \
             t_lens.dtype != torch.int32 or u_lens.dtype != torch.int32:
         raise TypeError("the CUDA kernels take fp32 blank_lp/label_lp and int32 lengths")
     if not all(x.is_contiguous() for x in (blank_lp, label_lp, t_lens, u_lens)):
         raise ValueError("the CUDA kernels take contiguous tensors")
     b, t_max, u1 = blank_lp.shape
-    if t_max < 1 or u1 < 1:
-        raise ValueError(f"the CUDA kernels take T >= 1 and U+1 >= 1, got {tuple(blank_lp.shape)}")
-    if 8 * u1 > SMEM_LIMIT:
-        raise ValueError(f"the CUDA kernels keep two diagonals of U+1 = {u1} floats in shared "
-                         f"memory; a block has {SMEM_LIMIT} bytes")
+    if t_max < 1 or not 1 <= u1 < 2 ** 30:
+        raise ValueError(f"the CUDA kernels take T >= 1 and 1 <= U+1 < 2^30, got "
+                         f"{tuple(blank_lp.shape)}")
+    if threads is None:
+        threads = lattice_threads(u1)
+    elif threads % 32 or not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"threads = {threads}: the block is whole warps, 32 to {MAX_THREADS}")
+    if plan is not None and (plan.dtype != torch.int32 or plan.shape != (b, 2)
+                             or not plan.is_contiguous() or plan.device != blank_lp.device):
+        raise ValueError(f"plan must be a contiguous int32 [{b}, 2] on {blank_lp.device}")
+    return threads
+
+
+def _launch(name: str, counter, blank_lp, label_lp, t_lens, u_lens, threads=None, plan=None):
+    """Launch one kernel. `threads` forces the block (32 sends every sample
+    to the block path, in strips of 64 columns); `plan`, an int32 [B, 2]
+    tensor, receives each sample's path as an index into `PATHS` and the
+    dependent diagonals its sweep took (each strip's t_len + width - 1)."""
+    threads = _check_launch(blank_lp, label_lp, t_lens, u_lens, threads, plan)
+    b, t_max, u1 = blank_lp.shape
     out = torch.empty_like(blank_lp)
     if b == 0:
         return out
     with torch.cuda.device(blank_lp.device):
         err = _c_fn(name)(blank_lp.data_ptr(), label_lp.data_ptr(), t_lens.data_ptr(),
-                          u_lens.data_ptr(), out.data_ptr(), b, t_max, u1,
+                          u_lens.data_ptr(), out.data_ptr(),
+                          None if plan is None else plan.data_ptr(), b, t_max, u1, threads,
                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     counter.add((b, t_max, u1))
     return out
+
+
+def chain_probe(device, beta: bool = False, steps: int = 16384) -> dict:
+    """The warp path's dependent step alone, timed on the card: one warp
+    runs `steps` exchanges with its neighbouring lane and lse's on values in
+    registers (no loads or stores) and reads the SM clock and the global
+    timer around them. -> {"cycles_per_step", "ns_per_step"}."""
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    fn = load("rnnt_lattice.cu").rnnt_lattice_chain_probe
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(out.device):
+        err = fn(int(beta), -0.7, -1.3, steps, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rnnt_lattice_chain_probe launch failed: CUDA error {err}")
+    cycles, ns, _ = out.tolist()
+    return {"cycles_per_step": cycles / steps, "ns_per_step": ns / steps}
 
 
 def rnnt_alphas(blank_lp, label_lp, t_lens, u_lens):

@@ -294,22 +294,69 @@ def _rel_err(a, b):
     return ((a - b).abs() / b.abs().clamp(min=1.0)).max().item()
 
 
+def _ragged(b, t, u_lo, u_hi, seed):
+    """Loader-like lengths: frames from 60% of T to T (one row at T), labels
+    drawn from [u_lo, u_hi]."""
+    rng = np.random.RandomState(seed)
+    t_lens = rng.randint(int(0.6 * t), t + 1, b)
+    t_lens[0] = t
+    return t_lens.tolist(), rng.randint(u_lo, u_hi + 1, b).tolist()
+
+
+# (T, U+1, t_lens, u_lens): the transducer step's shape (B 16, T 391, U+1
+# 129, ~20-50 labels); widths 63-66 about the warp path's 64; B 200, more
+# blocks than SMs; rows at the full width U+1 beside a u_len = 0 and a
+# t_len = 1 row; U+1 1100 (the block path in two strips)
+LATTICE_CASES = {
+    "small": (60, 12, [60, 41, 1, 7], [11, 5, 0, 0]),
+    "u1_1100": (37, 1100, [37, 20], [1099, 600]),
+    "transducer_step": (391, 129, *_ragged(16, 391, 20, 50, 0)),
+    "warp_block_boundary": (80, 129, [80, 80, 61, 1, 80], [63, 64, 62, 65, 0]),
+    "b200": (60, 70, *_ragged(200, 60, 0, 69, 1)),
+    "full_width_rows": (50, 97, [50, 50, 1, 50, 33], [96, 96, 96, 0, 96]),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,u1,t_lens,u_lens", [(60, 12, [60, 41, 1, 7], [11, 5, 0, 0]),
-                                                 (37, 1100, [37, 20], [1099, 600])])
-def test_rnnt_lattice_cuda_kernels_match_plain(cuda_device, t, u1, t_lens, u_lens):
+@pytest.mark.parametrize("case", sorted(LATTICE_CASES))
+def test_rnnt_lattice_cuda_kernels_match_plain(cuda_device, case):
+    """Each kernel against its plain version, the same bits on a second
+    call; each sample's path and dependent diagonals as the kernel reports
+    them: the warp path up to 64 columns, the block path past it, one strip
+    up to the 1024 columns of 16 sweep warps (two at U+1 1100); then every
+    sample forced onto the block path by a block of one warp (strips of 64
+    columns), which must give the same bits: both paths take the same
+    operations per cell in the same order."""
     from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
 
+    t, u1, t_lens, u_lens = LATTICE_CASES[case]
     bl, lb = _lattice_inputs(cuda_device, len(t_lens), t, u1)
     tl = torch.tensor(t_lens, dtype=torch.int32, device=cuda_device)
     ul = torch.tensor(u_lens, dtype=torch.int32, device=cuda_device)
-    a, b = lat.rnnt_alphas(bl, lb, tl, ul), lat.rnnt_betas(bl, lb, tl, ul)
-    a_ref = lat.rnnt_alphas_reference(bl, lb, tl, ul)
-    b_ref = lat.rnnt_betas_reference(bl, lb, tl, ul)
-    torch.cuda.synchronize()
-    assert _rel_err(a, a_ref) <= LATTICE_REL_TOL and _rel_err(b, b_ref) <= LATTICE_REL_TOL
     outside = ~lat.valid_cells(bl.shape, tl, ul)
-    assert (a[outside] == -1e30).all() and (b[outside] == -1e30).all()
+    rows = [min(a, t) for a in t_lens]
+    widths = [min(c, u1 - 1) + 1 for c in u_lens]
+
+    def plan_of(width, rows, strip):
+        if width == 0 or rows == 0:
+            return ["empty", 0]
+        path = "warp" if width <= 64 and strip > 64 else "block"
+        return [path, -(-width // strip) * (rows - 1) + width]
+
+    for name, counter, fn, plain in (
+            ("rnnt_alpha_f32", lat.alpha_launches, lat.rnnt_alphas, lat.rnnt_alphas_reference),
+            ("rnnt_beta_f32", lat.beta_launches, lat.rnnt_betas, lat.rnnt_betas_reference)):
+        got, again, want = fn(bl, lb, tl, ul), fn(bl, lb, tl, ul), plain(bl, lb, tl, ul)
+        assert _rel_err(got, want) <= LATTICE_REL_TOL, name
+        assert (got[outside] == -1e30).all(), name
+        assert torch.equal(got, again), name
+        for threads, strip in ((None, 1024), (32, 64)):
+            plan = torch.full((len(t_lens), 2), -1, dtype=torch.int32, device=cuda_device)
+            out = lat._launch(name, counter, bl, lb, tl, ul, threads=threads, plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(out, got), (name, threads)
+            assert [[lat.PATHS[p], n] for p, n in plan.tolist()] == \
+                [plan_of(w, r, strip) for w, r in zip(widths, rows)], (name, threads)
 
 
 def _joint_inputs(dev, b, t, u, h, v, seed=0):
