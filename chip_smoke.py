@@ -33,12 +33,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                of lattice cells, and none of K1/K2, finite loss
                and gradient norm, changed parameters, step time and audio-s/s; then
                a timed greedy transcribe of a few files (profile_rnnt: one traced
-               train step)
+               train step); then save_portable and restore_portable of that model
+               (the same bits but the LSTM forget chunk, held to one ulp; the same
+               greedy texts), timed
   rnnt_dense_step two steps with joint_impl auto, which resolves to the dense
                joint: K3 launches, no K4 launch, each step's time
   rnnt_parity  the same weights and batch, dropout, SpecAugment and dither off: one
                step through K4 + K3 against one through the dense joint and the
                plain lattice
+  lifecycle    after the other fits, a training run that survives a restart, at
+               full width on the long-form config and the train phase's manifests:
+               the CTC training CLI
+               (speech_to_text_ctc.main) fits 2 steps with an experiment manager
+               (per-step K1/K2 launch counts as in train; metrics.jsonl, step_2/,
+               last); a fresh model resumes from the checkpoint, bit for bit
+               (parameters, BatchNorm statistics, Adam moments and count, generator,
+               step), and one more step from each on the same batch gives the same
+               loss; save_portable with the tokenizer as an artifact, then
+               restore_portable: the same bits, texts and log-probs (<= 1e-3);
+               transcribe_speech.main serves the archive (K2-fwd launches, the same
+               texts); the timings of the async save's two halves, the resume's
+               restore and the archive's save and restore, and their bytes
   kernels      each kernel against its plain PyTorch version on the card, on
                the same inputs, at the shapes and lengths of the counted
                transcribe's and train step's own calls and a few edge cases,
@@ -77,8 +92,10 @@ import importlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 import types
@@ -124,6 +141,12 @@ PARITY_GRAD_COSINE = 0.99
 # invariance; the depthwise bias before training BatchNorm): their relative
 # error between two summation orders is meaningless
 ZERO_GRAD = ("self_attn.linear_k.bias", "conv.depthwise_conv.bias")
+LIFECYCLE_STEPS = 2
+# resume: the next step's loss from the restored model against the saved
+# model's, relative, where the two are not bitwise equal
+NEXT_LOSS_REL = 1e-4
+# the restored archive's CTC log-probs against the saved model's (bf16 compute)
+LOGPROB_ATOL = 1e-3
 PER_STEP_LAUNCHES = {"K2-fwd": 36, "K2-bwd-dq": 18, "K2-bwd-dkv": 18, "K1-fwd": 1, "K1-bwd": 1,
                      "K1-bwd-grad": 1}
 RNNT_CONFIG = os.path.join(ROOT, "configs", "conformer_transducer_bpe.yaml")
@@ -267,6 +290,10 @@ def phase_env() -> dict:
         "python": sys.version.split()[0], "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvcc": nvcc,
         "triton": _import_version("triton"), "yaml": _import_version("yaml"),
+        # the port needs none of these: it reads and writes flax's msgpack
+        # itself, and logs to TensorBoard only where a writer imports
+        "msgpack": _import_version("msgpack"), "tensorboardX": _import_version("tensorboardX"),
+        "tensorboard": _import_version("tensorboard"),
         "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         "nvidia_smi": gpu_line(),
     }
@@ -1050,13 +1077,13 @@ def _write_manifest(tmp: str, name: str, n: int, lo_s: float, hi_s: float, rng) 
     return path
 
 
-def _counted_steps(model, log: list):
-    """Wrap `model._make_train_step` so that each step records its time,
-    audio, metrics, launches per kernel and whether the watched parameters
-    and BatchNorm statistics changed."""
+def _counted_steps(model, log: list, orig=None):
+    """Wrap `model._make_train_step` (or `orig`, its unwrapped version) so
+    that each step records its time, audio, metrics, launches per kernel and
+    whether the watched parameters and BatchNorm statistics changed."""
     from conformer_nemo_tpu_torch.ops.build import launch_counts
 
-    orig = model._make_train_step
+    orig = orig or model._make_train_step
     watch = watched(model)
 
     def make(optimizer):
@@ -1132,10 +1159,171 @@ def phase_train(tmp: str, gpu: str) -> dict:
     info = {"by_shape": by_shape, "t": t_enc,
             "lens": [n for n in enc_lens for _ in range(enc.n_heads)],
             "ctc": (batch.tokens, enc_lens, batch.token_lens),
-            "cfg": model.cfg, "train_manifest": train_m}
+            "cfg": model.cfg, "train_manifest": train_m, "val_manifest": val_m}
     del model, step
     free_cuda()
     return info
+
+
+def _states_equal(a, b) -> dict:
+    """Which parts of two CTC models' train states are bitwise equal."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    ta, tb = a.train_state, b.train_state
+    moments = lambda t: [x for key in ("mu", "nu") for x in t.opt_state[key]]
+    return {"state_dict": sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+            "adam_moments": all(torch.equal(x, y) for x, y in zip(moments(ta), moments(tb))),
+            "adam_count": ta.opt_state["count"] == tb.opt_state["count"],
+            "generator": torch.equal(ta.generator.get_state(), tb.generator.get_state()),
+            "step": ta.step == tb.step}
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_lifecycle(tmp: str, train_m: str, val_m: str, gpu: str) -> None:
+    """Train from the CLI with an experiment manager, resume bit for bit,
+    write and restore the portable archive, serve it from the transcribe
+    CLI; the long-form config at full width, the train phase's manifests."""
+    import contextlib
+    import io
+
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.ops.build import launch_counts, reset_launch_counts
+    from conformer_nemo_tpu_torch.scripts import speech_to_text_ctc, transcribe_speech
+    from conformer_nemo_tpu_torch.train import checkpoint as ckpt
+    from conformer_nemo_tpu_torch.train.exp_manager import ExpManagerConfig, ExperimentManager
+
+    exp_dir = os.path.join(tmp, "lifecycle")
+    argv = ["--config", LONGFORM, *(f"{k}={v}" for k, v in TRAIN_OVERRIDES.items()),
+            f"model.train_ds.manifest_filepath={train_m}",
+            f"model.validation_ds.manifest_filepath={val_m}",
+            f"trainer.max_steps={LIFECYCLE_STEPS}", "trainer.log_every_n_steps=1",
+            f"exp_manager.exp_dir={exp_dir}", "exp_manager.name=lifecycle",
+            "exp_manager.checkpoint_callback_params.save_top_k=1",
+            # the archive is written and timed below, with the tokenizer inside
+            "exp_manager.checkpoint_callback_params.always_save_portable=false"]
+
+    # 1. train from the CLI, each step counted
+    steps: list = []
+    unwrapped = ConformerCTC._make_train_step
+    ConformerCTC._make_train_step = lambda self, opt: _counted_steps(
+        self, steps, unwrapped.__get__(self))(opt)
+    reset_launch_counts()
+    try:
+        (model, result), fit_s = _timed(lambda: speech_to_text_ctc.main(argv))
+    finally:
+        ConformerCTC._make_train_step = unwrapped
+    path_launches = launch_counts()
+    check(result["steps"] == LIFECYCLE_STEPS and len(steps) == LIFECYCLE_STEPS, result)
+    for i, s in enumerate(steps):
+        got = {k: s["launches"].get(k, 0) for k in PER_STEP_LAUNCHES}
+        check(got == PER_STEP_LAUNCHES, ("lifecycle step", i, "launches", got))
+        check(math.isfinite(s["loss"]) and all(s["changed"].values()), ("lifecycle step", i))
+    run_dir = os.path.join(exp_dir, "lifecycle", "version_0")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    logged = {r["step"]: r for r in rows if "train_loss" in r}
+    check(sorted(logged) == [1, 2] and all({"grad_norm", "train_step_timing"} <= set(r)
+                                           for r in logged.values()), rows)
+    check(any("val_wer" in r for r in rows), ("no validation logged", rows))
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    with open(os.path.join(ckpt_dir, "last")) as f:
+        check(f.read() == f"step_{LIFECYCLE_STEPS}", "last")
+    with open(os.path.join(ckpt_dir, f"step_{LIFECYCLE_STEPS}", "meta.json")) as f:
+        check(json.load(f)["step"] == LIFECYCLE_STEPS, "meta.json step")
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"step_{LIFECYCLE_STEPS}",
+                                              ckpt.STATE_FILE))
+
+    # 2. resume: a fresh model from the experiment's last checkpoint
+    fresh = ConformerCTC.from_config_file(LONGFORM, overrides=TRAIN_OVERRIDES, seed=SEED + 7)
+    em = ExperimentManager(ExpManagerConfig(exp_dir=exp_dir, name="lifecycle",
+                                            resume_if_exists=True))
+    meta, resume_s = _timed(lambda: fresh.maybe_resume(em))
+    check(meta["step"] == LIFECYCLE_STEPS, meta)
+    same = _states_equal(model, fresh)
+    check(all(same.values()), ("resumed state differs", same))
+    batch = steps[0]["batch"]
+
+    def next_step(m):
+        metrics = m._make_train_step(m._make_optimizer())(batch)
+        m.model.eval()
+        return float(metrics["loss"])
+
+    loss_saved, loss_resumed = next_step(model), next_step(fresh)
+    sa, sb = model.state_dict(), fresh.state_dict()
+    param_rel = max(((sa[k].float() - sb[k].float()).abs().max()
+                     / sa[k].float().abs().max().clamp(min=1e-30)).item() for k in sa)
+    next_bitwise = all(_states_equal(model, fresh).values())
+    loss_rel = abs(loss_saved - loss_resumed) / abs(loss_saved)
+    check(math.isfinite(loss_saved) and loss_rel <= NEXT_LOSS_REL,
+          ("next-step loss", loss_saved, loss_resumed))
+    del fresh, sb
+    free_cuda()
+
+    # the async save's halves, timed: the host copy on this thread, the write on the worker
+    async_dir = os.path.join(tmp, "lifecycle_async")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fut = ckpt.save_train_state_async(async_dir, model.train_state, model.train_state.step, {})
+    copy_s = time.perf_counter() - t0
+    fut.result()
+    write_s = time.perf_counter() - t0 - copy_s
+    shutil.rmtree(async_dir)
+
+    # 3. the portable archive: saved, restored, the same bits, texts and log-probs
+    archive = os.path.join(tmp, "lifecycle.cntpu")
+    _, save_s = _timed(lambda: model.save_portable(archive,
+                                                   artifacts={"tokenizer_model": TOKENIZER}))
+    with tarfile.open(archive, "r:gz") as tar:
+        weights_bytes = tar.getmember("model_weights.msgpack").size
+    restored, restore_s = _timed(lambda: ConformerCTC.restore_portable(archive, seed=SEED + 9))
+    sa, sr = model.state_dict(), restored.state_dict()
+    check(sa.keys() == sr.keys() and all(torch.equal(sa[k], sr[k]) for k in sa),
+          "the restored archive's weights differ")
+    with open(train_m, encoding="utf-8") as f:
+        entries = sorted((json.loads(line) for line in f), key=lambda x: x["duration"])
+    files = [x["audio_filepath"] for x in entries[:2] + entries[-1:]]
+    check(entries[-1]["duration"] > 60.0, "the served files hold a whole-utterance long file")
+    texts = model.transcribe(files)
+    check(restored.transcribe(files) == texts, "the restored archive transcribes otherwise")
+    lp_err = max(float(np.abs(a - b).max()) for a, b in zip(
+        model.transcribe(files, logprobs=True), restored.transcribe(files, logprobs=True)))
+    check(lp_err <= LOGPROB_ATOL, ("log-probs", lp_err))
+    del restored, sr
+    free_cuda()
+
+    # 4. served from the archive by the transcribe CLI
+    out = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        served = transcribe_speech.main(["--model", archive, "--audio", *files])
+    serve_launches = launch_counts()
+    print(out.getvalue(), end="", flush=True)
+    check(served == texts and out.getvalue().splitlines() == [
+        f"{p}\t{t}" for p, t in zip(files, texts)], ("transcribe_speech", served, texts))
+    check(serve_launches.get("K2-fwd", 0) >= model.cfg.encoder.n_layers, serve_launches)
+    emit("lifecycle", config="configs/conformer_ctc_bpe_longform.yaml", gpu=gpu,
+         params=sum(p.numel() for p in model.model.parameters()),
+         cli_fit_s=fit_s, cli_steps=[{k: v for k, v in s.items() if k != "batch"}
+                                     for s in steps],
+         path_launches=path_launches, metrics_rows=len(rows), resumed_equal=same,
+         next_loss_saved=loss_saved, next_loss_resumed=loss_resumed, next_loss_rel=loss_rel,
+         next_step_bitwise=next_bitwise, next_step_max_param_rel=param_rel,
+         async_save_copy_s=copy_s, async_save_write_s=write_s, checkpoint_bytes=ckpt_bytes,
+         resume_restore_s=resume_s, archive_save_s=save_s, archive_restore_s=restore_s,
+         archive_bytes=os.path.getsize(archive), archive_weights_bytes=weights_bytes,
+         logprob_max_abs_err=lp_err, tol_logprob=LOGPROB_ATOL, served_files=len(files),
+         served_seconds=[x["duration"] for x in entries[:2] + entries[-1:]],
+         serve_launches=serve_launches, sample_text=texts[-1][:80])
+    del model
+    shutil.rmtree(exp_dir)
+    os.remove(archive)
+    free_cuda()
 
 
 def phase_bpe_step(tmp: str) -> None:
@@ -1283,6 +1471,14 @@ def phase_rnnt_train(tmp: str, gpu: str) -> dict:
     torch.cuda.synchronize()
     transcribe_s = time.perf_counter() - t0
     check(len(texts) == len(wavs) and all(isinstance(x, str) for x in texts), texts)
+    # the traced step follows the fit and the transcribe; the archive round
+    # trip's host work and cache release come after it
+    step = model._make_train_step(model._make_optimizer())
+    _profile(lambda: step(batch), "profile_rnnt", config="configs/conformer_transducer_bpe.yaml",
+             batch=int(batch.audio.shape[0]), encoder_t=t_enc)
+    model.model.eval()
+    del step
+    portable = _rnnt_round_trip(model, os.path.join(tmp, "rnnt.cntpu"), wavs)
     steady = steps[1:]
     emit("rnnt_train", config="configs/conformer_transducer_bpe.yaml",
          overrides={k: v for k, v in RNNT_OVERRIDES.items() if "tokenizer" not in k},
@@ -1297,16 +1493,56 @@ def phase_rnnt_train(tmp: str, gpu: str) -> dict:
              s["seconds"] for s in steady),
          launches_by_shape={k: {str(sh): n for sh, n in v.items()} for k, v in by_shape.items()},
          transcribe_files=len(wavs), transcribe_s=transcribe_s,
-         transcribe_audio_s=sum(x["duration"] for x in entries), sample_text=texts[0][:80])
-    step = model._make_train_step(model._make_optimizer())
-    _profile(lambda: step(batch), "profile_rnnt", config="configs/conformer_transducer_bpe.yaml",
-             batch=int(batch.audio.shape[0]), encoder_t=t_enc)
+         transcribe_audio_s=sum(x["duration"] for x in entries), sample_text=texts[0][:80],
+         portable=portable)
     info = {"by_shape": by_shape, "t": t_enc, "enc_lens": enc_lens, "tokens": batch.tokens,
             "token_lens": batch.token_lens.tolist(), "manifest": manifest,
             "h": cfg.joint.joint_hidden, "v": cfg.num_classes_with_blank}
-    del model, step
+    del model
     free_cuda()
     return info
+
+
+def _rnnt_round_trip(model, archive: str, wavs: list) -> dict:
+    """save_portable and restore_portable of the trained transducer: every
+    tensor bit for bit but the LSTM forget chunk b, which travels as b - c
+    (c = forget_gate_bias) and is held within one ulp of max(|b|, |b - c|);
+    the same greedy texts of `wavs`."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+
+    texts = model.transcribe(wavs, batch_size=len(wavs))
+    _, save_s = _timed(lambda: model.save_portable(archive,
+                                                   artifacts={"tokenizer_model": TOKENIZER}))
+    restored, restore_s = _timed(lambda: ConformerTransducer.restore_portable(archive,
+                                                                             seed=SEED + 9))
+    dcfg = model.cfg.model.decoder
+    h, c = dcfg.pred_hidden, float(dcfg.forget_gate_bias)
+    sa, sr = model.state_dict(), restored.state_dict()
+    check(sa.keys() == sr.keys(), "the restored transducer's keys differ")
+    bitwise, differ, chunk_ulps = 0, [], 0.0
+    for k in sa:
+        if torch.equal(sa[k], sr[k]):
+            bitwise += 1
+            continue
+        rest = torch.ones_like(sa[k], dtype=torch.bool)
+        rest[h: 2 * h] = False
+        if ".dec_rnn.lstm.bias_ih_l" not in k or not torch.equal(sa[k][rest], sr[k][rest]):
+            differ.append(k)
+            continue
+        b, back = sa[k][h: 2 * h].float(), sr[k][h: 2 * h].float()
+        ulp = torch.finfo(torch.float32).eps * torch.maximum(b.abs(), (b - c).abs())
+        chunk_ulps = max(chunk_ulps, float(((back - b).abs() / ulp.clamp(min=1e-45)).max()))
+    check(not differ and chunk_ulps <= 1.0, ("the restored transducer differs", differ,
+                                             chunk_ulps))
+    texts_r = restored.transcribe(wavs, batch_size=len(wavs))
+    check(texts_r == texts, ("the restored transducer transcribes otherwise", texts_r, texts))
+    out = {"archive_save_s": save_s, "archive_restore_s": restore_s,
+           "archive_bytes": os.path.getsize(archive), "forget_chunk_max_ulps": chunk_ulps,
+           "bitwise_tensors": bitwise, "tensors": len(sa)}
+    del restored
+    os.remove(archive)
+    free_cuda()
+    return out
 
 
 def phase_rnnt_dense_step(manifest: str) -> None:
@@ -1590,6 +1826,8 @@ def main() -> int:
         rnnt = phase_rnnt_train(tmp, env["nvidia_smi"])
         phase_rnnt_dense_step(rnnt["manifest"])
         phase_rnnt_parity(rnnt["manifest"])
+        # last of the fits, so that its host buffers and save thread precede no timed step
+        phase_lifecycle(tmp, train["train_manifest"], train["val_manifest"], env["nvidia_smi"])
     rows = phase_kernels(dev, cfg, flash_calls, train, rnnt)
 
     kernels = kernel_summary(rows, {"transcribe": {"K2-fwd": fwd_by_shape},

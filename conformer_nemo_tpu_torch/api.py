@@ -11,24 +11,32 @@ of conformer_nemo_tpu/api.py, with their shared `_BaseASRModel`).
 `ConformerTransducer` takes the same calls (greedy / greedy_batch decoding;
 `change_decoding_strategy`).
 
+Training runs survive a restart: `fit(exp_manager=...)` logs, checkpoints
+at each validation (train/checkpoint.py, the write on a background thread)
+and resumes from the last checkpoint (`resume_if_exists`), as does
+`trainer.resume_from_checkpoint`. `save_portable` / `restore_portable` write
+and read the JAX package's `.cntpu` archive, so either package serves the
+other's models; `from_pretrained` resolves a registered name in the local
+archive cache (pretrained.py).
+
 Batching follows the JAX package: files up to `longform_threshold_s` are
 sorted by length and decoded `batch_size` at a time, padded to a multiple
 of 1600 samples and to `batch_size` rows with zero rows; each longer file
 takes an exact whole-utterance forward alone, padded to threshold * 2^k.
 
 `fit` trains on one device with the config's optimizer, schedule, loader
-and validation cadence. An experiment manager (checkpoints, logging),
-`trainer.resume_from_checkpoint` and a multi-device mesh raise, as do
-save/restore, timestamps, buffered/streaming decode and beam search with an
-LM: they wait for later slices (ROADMAP.md). For the transducer, so do
-`change_vocabulary`, word timestamps, buffered decode, export, save/restore
-and the beam strategies.
+and validation cadence. A multi-device mesh raises, as do timestamps,
+buffered/streaming decode and beam search with an LM: they wait for later
+slices (ROADMAP.md). For the transducer, so do `change_vocabulary`, word
+timestamps, buffered decode, export and the beam strategies.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import tempfile
 import time
 from typing import List, Optional, Sequence
 
@@ -41,6 +49,12 @@ from conformer_nemo_tpu_torch.config.loader import (
     build_ctc_model_config,
     build_rnnt_model_config,
     load_config,
+)
+from conformer_nemo_tpu_torch.convert.jax_params import (
+    ctc_state_dict_from_jax,
+    ctc_variables_to_jax,
+    rnnt_state_dict_from_jax,
+    rnnt_variables_to_jax,
 )
 from conformer_nemo_tpu_torch.data.audio_io import load_audio
 from conformer_nemo_tpu_torch.data.dataset import BucketedAudioTextDataset, BucketedLoader
@@ -56,6 +70,12 @@ from conformer_nemo_tpu_torch.models.conformer import (
 )
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, ctc_forward
 from conformer_nemo_tpu_torch.models.rnnt import PredictionNetwork, RNNTModel, check_joint_dtype
+from conformer_nemo_tpu_torch.train.checkpoint import (
+    load_portable,
+    restore_train_state,
+    save_portable,
+)
+from conformer_nemo_tpu_torch.train.exp_manager import ExperimentManager
 from conformer_nemo_tpu_torch.train.lr_schedule import make_lr_schedule
 from conformer_nemo_tpu_torch.train.optim import make_optimizer, with_grad_accumulation
 from conformer_nemo_tpu_torch.train.rnnt_trainer import (
@@ -94,6 +114,30 @@ def _tokenizer_from_model_cfg(m: dict, tokenizer_dir: Optional[str] = None):
     return build_tokenizer(tok_cfg)
 
 
+def _tokenizer_from_archive(m: dict, artifacts: dict):
+    """The JAX package's restore rules: `labels`; an HF `tokenizer`
+    artifact; or the config's tokenizer over the archive's files. A set
+    `model_file` is read where it points, as the JAX package reads it, or,
+    where that path is gone (an archive from another machine), from the
+    archive's file of the same base name."""
+    if m.get("labels"):
+        return build_tokenizer({"labels": m["labels"]})
+    if "tokenizer" in artifacts:
+        raise NotImplementedError("an archive's HuggingFace tokenizer artifact is not ported yet "
+                                  "(ROADMAP.md queue 1 item 7)")
+    if artifacts and m.get("tokenizer"):
+        tcfg = {k: v for k, v in m["tokenizer"].items() if k != "dir"}
+        if tcfg.get("type") == "agg":
+            raise NotImplementedError("aggregate (multilang) tokenizers are not ported yet "
+                                      "(ROADMAP.md queue 1 item 7)")
+        tdir = os.path.dirname(next(iter(artifacts.values())))
+        mf = tcfg.get("model_file")
+        if mf and not os.path.isfile(mf):
+            tcfg["model_file"] = os.path.join(tdir, os.path.basename(mf))
+        return build_tokenizer({**tcfg, "dir": tdir})
+    raise ValueError("no tokenizer artifact in portable archive")
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with the JAX package's rules: LeCun-normal
@@ -118,9 +162,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 class _BaseASRModel:
     """What ConformerCTC and ConformerTransducer share: construction on a
     device, the state_dict, the optimizer from the config, the loader, `fit`
-    on one device and transcribe's bucketing. A subclass builds `self.cfg`
-    and `self.model` in `_build` and implements `_init_state`,
-    `_make_train_step`, `_evaluate` and `_decode_audio_batch`."""
+    on one device with checkpoints and resume, transcribe's bucketing and
+    the portable archive. A subclass builds `self.cfg` and `self.model` in
+    `_build` and implements `_init_state`, `_make_train_step`, `_evaluate`,
+    `_decode_audio_batch` and the weight bridge `_to_jax` / `_from_jax`."""
 
     def __init__(self, raw_cfg: dict, tokenizer, dtype: torch.dtype = torch.bfloat16,
                  device=None, seed: int = 0):
@@ -141,6 +186,61 @@ class _BaseASRModel:
         raw = load_config(path, overrides)
         return cls(raw, _tokenizer_from_model_cfg(raw["model"], tokenizer_dir), dtype=dtype,
                    device=device, seed=seed)
+
+    @classmethod
+    def list_available_models(cls):
+        from conformer_nemo_tpu_torch.pretrained import list_available_models
+
+        return list_available_models(cls.__name__)
+
+    @classmethod
+    def from_pretrained(cls, model_name: str, cache_dir: Optional[str] = None,
+                        dtype: torch.dtype = torch.bfloat16, device=None, seed: int = 0):
+        """A registered name (or a path) resolved in the local archive cache
+        (pretrained.py), restored with `restore_portable`."""
+        from conformer_nemo_tpu_torch.pretrained import resolve_pretrained
+
+        resolve_device(device)
+        return cls.restore_portable(resolve_pretrained(model_name, cache_dir), dtype=dtype,
+                                    device=device, seed=seed)
+
+    @classmethod
+    def restore_portable(cls, path: str, dtype: torch.dtype = torch.bfloat16, device=None,
+                         seed: int = 0):
+        """A `.cntpu` archive written by either package -> a model on
+        `device`. The tokenizer follows the JAX package's rules: the
+        config's `labels`; else an HF `tokenizer` artifact (not ported yet);
+        else the config's tokenizer over the archive's files. The weights are
+        the archive's, BatchNorm statistics included (a params-only archive
+        keeps the construction values); `seed` draws only the construction
+        weights that the archive then replaces."""
+        resolve_device(device)  # fail before any work when CUDA is missing
+        with tempfile.TemporaryDirectory(prefix="cntpu_") as tmp:
+            config, restored, artifacts = load_portable(path, extract_dir=tmp)
+            model = cls(config, _tokenizer_from_archive(config["model"], artifacts),
+                        dtype=dtype, device=device, seed=seed)
+        variables = (restored if isinstance(restored, dict) and "params" in restored
+                     else {"params": restored})  # a legacy params-only archive
+        missing, unexpected = model.model.load_state_dict(model._from_jax(variables),
+                                                          strict=False)
+        stale = [k for k in missing if not k.endswith((".running_mean", ".running_var"))]
+        if stale or unexpected:
+            raise ValueError(f"{path}: the archive does not fit the model "
+                             f"(missing {stale}, unexpected {unexpected})")
+        return model
+
+    @property
+    def portable_variables(self) -> dict:
+        """The JAX package's `{"params", "batch_stats"}` tree (numpy) of this
+        model's weights: what a `.cntpu` archive holds."""
+        return self._to_jax(self.model.state_dict())
+
+    def save_portable(self, path: str, artifacts: Optional[dict] = None) -> None:
+        """Write the `.cntpu` archive: this model's config, its weights and
+        the artifact files ({key: path}); pass a SentencePiece model as
+        {"tokenizer_model": path} (not the key "tokenizer", which names an
+        HF tokenizer) so that either package can restore the archive."""
+        save_portable(path, self.raw_cfg, self.portable_variables, artifacts)
 
     def state_dict(self) -> dict:
         return self.model.state_dict()
@@ -185,19 +285,36 @@ class _BaseASRModel:
             bucketing_strategy=ds_cfg.get("bucketing_strategy", "synced_randomized"),
             num_workers=int(ds_cfg.get("num_workers", 0) or 0))
 
+    def maybe_resume(self, exp_manager: ExperimentManager) -> Optional[dict]:
+        """Restore the experiment's last checkpoint into this model's train
+        state (made first if there is none) when its config says
+        resume_if_exists. -> the checkpoint's meta, or None."""
+        if self.train_state is None:
+            self.train_state = self._init_state(self._make_optimizer())
+        _, meta = exp_manager.maybe_resume(self.train_state)
+        return meta
+
     def fit(self, train_manifest: Optional[str] = None, val_manifest: Optional[str] = None,
             max_steps: Optional[int] = None, max_epochs: Optional[int] = None,
-            exp_manager=None) -> dict:
-        """Train on this model's device. Validation (greedy WER) runs at the
-        trainer's val_check_interval (an int count of steps, or a fraction of
-        an epoch) and at each epoch's end. The model is in eval mode again on
-        return. -> {"steps", "time_s", "last_loss", "val"}."""
-        if exp_manager is not None:
-            raise NotImplementedError(f"an experiment manager {_WAITS}")
+            exp_manager: Optional[ExperimentManager] = None,
+            val_every_n_steps: Optional[int] = None, log_every_n_steps: Optional[int] = None,
+            max_time_s: Optional[float] = None) -> dict:
+        """Train on this model's device, counting steps from the train
+        state's (a restored checkpoint's) step. Validation (greedy WER) runs
+        every `val_every_n_steps`, else at the trainer's val_check_interval
+        (an int count of steps, or a fraction of an epoch), and at each
+        epoch's end; with an experiment manager each validation logs
+        val_wer (and val_loss) and checkpoints, and every
+        `log_every_n_steps` (else trainer.log_every_n_steps) steps the one
+        host read of the window logs train_loss, grad_norm and train_step_timing (the
+        window's wall time per step). Past `max_time_s` seconds the run
+        checkpoints and stops. `trainer.resume_from_checkpoint` (a checkpoint
+        dir) and the experiment manager's resume_if_exists restore before
+        the first step. The model is in eval mode again on return, with
+        every checkpoint on disk. -> {"steps", "time_s", "val", "last_loss",
+        and "stopped": "max_time" when the time ran out}."""
         m = self.raw_cfg["model"]
         tr = self.raw_cfg.get("trainer", {})
-        if tr.get("resume_from_checkpoint"):
-            raise NotImplementedError(f"trainer.resume_from_checkpoint {_WAITS}")
         mesh = tr.get("mesh") or {}
         if int(mesh.get("model", 1) or 1) > 1 or int(mesh.get("data", 1) or 1) > 1:
             raise NotImplementedError(f"a multi-device mesh {_WAITS}; fit uses one device")
@@ -211,6 +328,7 @@ class _BaseASRModel:
             (m.get("validation_ds") or {}).get("manifest_filepath"))
         max_epochs = max_epochs or tr.get("max_epochs", 1)
         max_steps = max_steps or tr.get("max_steps")
+        log_every = log_every_n_steps or tr.get("log_every_n_steps", 10)
 
         train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True)
         # the longest batch's frames decide whether "auto" attention takes
@@ -223,41 +341,71 @@ class _BaseASRModel:
         optimizer = self._make_optimizer()
         if self.train_state is None:
             self.train_state = self._init_state(optimizer)
+        rfc = tr.get("resume_from_checkpoint")
+        if rfc and restore_train_state(rfc, self.train_state)[0] is None:
+            raise FileNotFoundError(f"resume_from_checkpoint: no checkpoint in {rfc}")
+        if exp_manager is not None:
+            self.maybe_resume(exp_manager)
         step_fn = self._make_train_step(optimizer)
         val_loader = (self._loader(val_manifest, m.get("validation_ds", {}), shuffle=False)
                       if val_manifest else None)
         vci = tr.get("val_check_interval")
-        val_every_n_steps = None
-        if isinstance(vci, int) and vci > 0:
+        if val_every_n_steps is None and isinstance(vci, int) and vci > 0:
             val_every_n_steps = vci
-        elif isinstance(vci, float) and 0 < vci <= 1:
+        elif val_every_n_steps is None and isinstance(vci, float) and 0 < vci <= 1:
             val_every_n_steps = max(1, int(round(vci * len(train_loader))))
 
         val: dict = {}
 
-        def validate():
+        def validate(step: int):
             if val_loader is not None:
                 val.update(self._evaluate(val_loader))
+                if exp_manager:
+                    exp_manager.logger.log(
+                        step, val_wer=val["wer"], **({"val_loss": val["loss"]} if "loss" in val
+                                                     else {}))
+            if exp_manager:
+                exp_manager.save(self.train_state, step, {"val_wer": val.get("wer")})
 
-        t0 = time.time()
+        step = self.train_state.step
+        t0 = t_window = time.time()
         metrics: dict = {}
+        stopped = None
         try:
             for _ in range(max_epochs):
                 for batch in train_loader:
                     metrics = step_fn(batch)
                     step = self.train_state.step
+                    if exp_manager and step % log_every == 0:
+                        loss = float(metrics["loss"])  # the window's one host read
+                        now = time.time()
+                        exp_manager.logger.log(
+                            step, train_loss=loss, grad_norm=float(metrics["grad_norm"]),
+                            train_step_timing=(now - t_window) / log_every)
+                        t_window = now
                     if val_every_n_steps and step % val_every_n_steps == 0:
-                        validate()
+                        validate(step)
                     if max_steps and step >= max_steps:
                         break
-                validate()  # end of epoch
-                if max_steps and self.train_state.step >= max_steps:
+                    if max_time_s and time.time() - t0 > max_time_s:
+                        stopped = "max_time"
+                        if exp_manager:
+                            exp_manager.save(self.train_state, step, {})
+                        break
+                if stopped:
+                    break
+                validate(step)  # end of epoch
+                if max_steps and step >= max_steps:
                     break
         finally:
             self.model.eval()
-        out = {"steps": self.train_state.step, "time_s": time.time() - t0, "val": dict(val)}
+            if exp_manager:
+                exp_manager.wait_for_saves()
+        out = {"steps": step, "time_s": time.time() - t0, "val": dict(val)}
         if metrics:
             out["last_loss"] = float(metrics["loss"])
+        if stopped:
+            out["stopped"] = stopped
         return out
 
     # -- inference ----------------------------------------------------------
@@ -326,6 +474,12 @@ class ConformerCTC(_BaseASRModel):
     def _evaluate(self, loader) -> dict:
         return evaluate_wer(self.cfg, self.model, loader, self.tokenizer)
 
+    def _to_jax(self, state_dict: dict) -> dict:
+        return ctc_variables_to_jax(state_dict, self.cfg)
+
+    def _from_jax(self, variables: dict) -> dict:
+        return ctc_state_dict_from_jax(variables, self.cfg)
+
     @torch.inference_mode()
     def _decode_audio_batch(self, audio: np.ndarray, lens: np.ndarray, mode: str = "text"):
         log_probs, enc_lens = ctc_forward(self.model, torch.from_numpy(audio).to(self.device),
@@ -383,8 +537,11 @@ class ConformerTransducer(_BaseASRModel):
     def export(self, *args, **kwargs):
         raise NotImplementedError(f"export {_RNNT_WAITS}")
 
-    def save_portable(self, *args, **kwargs):
-        raise NotImplementedError(f"save/restore {_RNNT_WAITS}")
+    def _to_jax(self, state_dict: dict) -> dict:
+        return rnnt_variables_to_jax(state_dict, self.cfg.model)
+
+    def _from_jax(self, variables: dict) -> dict:
+        return rnnt_state_dict_from_jax(variables, self.cfg.model)
 
     def _init_state(self, optimizer):
         return init_rnnt_state(self.model, optimizer, seed=self.seed)

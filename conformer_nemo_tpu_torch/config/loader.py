@@ -1,8 +1,11 @@
 """Config loading (port of conformer_nemo_tpu/config/loader.py).
 
 `load_config` reads the repo's reference-shaped YAML recipes, applies
-dotted-key overrides and resolves `${a.b}` interpolation; the builders map
-the sections onto the port's dataclass configs.
+dotted-key overrides and resolves `${a.b}` interpolation, then warns
+(`ConfigKeyWarning`) of keys nothing consumes and of keys accepted for the
+reference's sake that do nothing here (`audit_config`: the JAX package's
+schema, so both flag the same key paths); the builders map the sections
+onto the port's dataclass configs.
 
 PyYAML reads the files (checked present, 6.0.3, on the H100 machine).
 """
@@ -10,6 +13,7 @@ PyYAML reads the files (checked present, 6.0.3, on the H100 machine).
 from __future__ import annotations
 
 import re
+import warnings
 from typing import Any, Optional
 
 import torch
@@ -50,7 +54,9 @@ def _resolve(node: Any, root: dict) -> Any:
 
 
 def load_config(path: str, overrides: Optional[dict] = None) -> dict:
-    """Read YAML + apply dotted-key overrides + resolve interpolation."""
+    """Read YAML + apply dotted-key overrides + resolve interpolation, then
+    warn of unconsumed and no-op keys (a misspelled key must not pass in
+    silence)."""
     with open(path, encoding="utf-8") as f:
         cfg = yaml.safe_load(f)
     for dotted, value in (overrides or {}).items():
@@ -59,7 +65,100 @@ def load_config(path: str, overrides: Optional[dict] = None) -> dict:
         for p in parts[:-1]:
             cur = cur.setdefault(p, {})
         cur[parts[-1]] = value
-    return _resolve(cfg, cfg)
+    cfg = _resolve(cfg, cfg)
+    for msg in audit_config(cfg):
+        warnings.warn(msg, ConfigKeyWarning, stacklevel=2)
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# Audit: the JAX package's schema of consumed keys
+# ---------------------------------------------------------------------------
+
+
+class ConfigKeyWarning(UserWarning):
+    pass
+
+
+_DS_KEYS = {
+    "manifest_filepath", "sample_rate", "batch_size", "shuffle", "num_buckets",
+    "trim_silence", "use_start_end_token", "augmentor", "num_workers",
+    "bucketing_strategy", "bucketing_batch_size", "min_duration", "max_duration",
+    "max_utts", "is_tarred", "tarred_audio_filepaths", "shuffle_n",
+    "tarred_shard_strategy", "parser", "labels", "pin_memory", "drop_last",
+    "bucketing_weights", "normalize_transcripts",
+    "transport",  # the JAX package's host-to-device wire format (f32 | pcm16 | mulaw8)
+}
+_ONE_DEVICE = "fit trains on one device (the model's device=)"
+_PRECISION = "the precision is fixed: parameters fp32, compute in the model's dtype (bf16 default)"
+# accepted for the reference recipes' sake, but no-ops in the port
+_NOOP_KEYS = {
+    "model.train_ds.pin_memory": "the loader's batches are copied to the device as they come",
+    "model.validation_ds.pin_memory": "the loader's batches are copied to the device as they come",
+    "model.test_ds.pin_memory": "the loader's batches are copied to the device as they come",
+    "trainer.devices": _ONE_DEVICE,
+    "trainer.gpus": _ONE_DEVICE,
+    "trainer.num_nodes": _ONE_DEVICE,
+    "trainer.strategy": _ONE_DEVICE,
+    "trainer.accelerator": "the device comes from the model's device= (CUDA unless the CPU is asked)",
+    "trainer.precision": _PRECISION,
+    "trainer.amp_level": _PRECISION,
+    "trainer.amp_backend": _PRECISION,
+}
+
+_SECTION_KEYS = {
+    "": {"name", "model", "trainer", "exp_manager", "init_from_nemo_model",
+         "init_from_pretrained_model", "init_from_ptl_ckpt"},
+    "model": {
+        "sample_rate", "labels", "tokenizer", "train_ds", "validation_ds",
+        "test_ds", "preprocessor", "spec_augment", "encoder", "decoder",
+        "joint", "decoding", "optim", "model_defaults", "loss",
+        "variational_noise", "skip_nan_grad", "ctc_reduction",
+        "compute_eval_loss", "log_prediction", "log_every_n_steps",
+        "gradient_mask",  # a config-only stanza in the reference too
+    },
+    "model.train_ds": _DS_KEYS, "model.validation_ds": _DS_KEYS,
+    "model.test_ds": _DS_KEYS,
+    "trainer": {
+        "max_epochs", "max_steps", "log_every_n_steps",
+        "accumulate_grad_batches", "gradient_clip_val", "val_check_interval",
+        "check_val_every_n_epoch", "resume_from_checkpoint", "mesh",
+        "enable_progress_bar", "num_sanity_val_steps", "sync_batchnorm",
+        "benchmark", "logger", "enable_checkpointing", "max_time",
+    } | {k.split(".", 1)[1] for k in _NOOP_KEYS if k.startswith("trainer.")},
+    "exp_manager": {
+        "exp_dir", "name", "version", "resume_if_exists",
+        "resume_ignore_no_checkpoint", "create_checkpoint_callback",
+        "checkpoint_callback_params", "create_wandb_logger",
+        "wandb_logger_kwargs", "create_tensorboard_logger",
+        "create_dllogger_logger", "log_every_n_steps",
+    },
+}
+
+
+def audit_config(cfg: dict) -> list:
+    """-> warning messages for unknown or no-op keys in the audited
+    sections. Sections without a schema (encoder, preprocessor, optim, ...,
+    whose builders raise on bad fields, and pass-throughs such as augmentor
+    and decoding) are not audited."""
+    msgs = []
+
+    def walk(section: str, node):
+        known = _SECTION_KEYS.get(section)
+        if known is None or not isinstance(node, dict):
+            return
+        for key, val in node.items():
+            path = f"{section}.{key}" if section else key
+            if path in _NOOP_KEYS:
+                msgs.append(f"config key '{path}' is accepted for reference "
+                            f"compatibility but is a no-op here: {_NOOP_KEYS[path]}")
+            elif key not in known and not key.startswith("_"):
+                msgs.append(f"config key '{path}' is not consumed by anything "
+                            "(typo, or an unsupported reference knob?)")
+            walk(path, val)
+
+    walk("", cfg)
+    return msgs
 
 
 # ---------------------------------------------------------------------------

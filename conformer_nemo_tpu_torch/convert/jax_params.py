@@ -1,10 +1,14 @@
-"""JAX-package variables -> the port's state_dict (NeMo names and layouts).
+"""The JAX package's variables <-> the port's state_dict (NeMo names and layouts).
 
-The exact inverses of `convert_ctc_model_state` and
-`convert_rnnt_model_state` in conformer_nemo_tpu/convert/nemo_weights.py,
-which map a NeMo state_dict onto the JAX package's flax tree. Inputs are plain numpy arrays (the
-`{"params", "batch_stats"}` tree moved off the JAX device); nothing here
-imports JAX. Layout rules (flax -> torch):
+`ctc_state_dict_from_jax` and `rnnt_state_dict_from_jax` are the exact
+inverses of `convert_ctc_model_state` and `convert_rnnt_model_state` in
+conformer_nemo_tpu/convert/nemo_weights.py, which map a NeMo state_dict onto
+the JAX package's flax tree; `ctc_variables_to_jax` and
+`rnnt_variables_to_jax` are the port's own copies of those two converters
+(the port's state_dict has NeMo's names), used to write `.cntpu` archives
+the JAX package restores. Inputs and outputs are plain numpy arrays (the
+`{"params", "batch_stats"}` tree off the device); nothing here imports JAX.
+Layout rules (flax -> torch; the other direction inverts each):
 
   Dense kernel [in, out]          -> Linear weight [out, in]        (T)
   Conv kernel [kh, kw, in, out]   -> Conv2d weight [out, in, kh, kw]
@@ -28,14 +32,37 @@ from conformer_nemo_tpu_torch.models.conformer import calc_sub_length
 
 
 def _np(x) -> np.ndarray:
-    return np.asarray(x, dtype=np.float32)
+    """A leaf (numpy, or a torch tensor on any device) as fp32 numpy of its own."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.float32)
+    return np.array(x, dtype=np.float32)
 
 
 def _tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32).copy())
 
 
+def _check_striding(cfg) -> int:
+    """-> the number of stride-2 convolutions; other modes raise."""
+    if cfg.subsampling != "striding" or cfg.subsampling_factor <= 1:
+        raise NotImplementedError(
+            f"weight bridge for subsampling={cfg.subsampling!r} is not ported yet "
+            "(ROADMAP.md queue 1 item 4)")
+    return int(math.log2(cfg.subsampling_factor))
+
+
+def _out_perm(cfg, reps: int) -> np.ndarray:
+    """Row r of the JAX pre_encode.out kernel (f-major, f*C + c) is row
+    perm[r] of NeMo's (c-major, c*F' + f)."""
+    channels = cfg.subsampling_conv_channels if cfg.subsampling_conv_channels > 0 else cfg.d_model
+    f_out = int(calc_sub_length(torch.tensor(cfg.feat_in), "striding", reps))
+    r = np.arange(channels * f_out)
+    return (r % channels) * f_out + (r // channels)
+
+
 def _encoder_state(p: dict, stats: dict, cfg, prefix: str) -> dict:
+    """BatchNorm statistics absent from `stats` (a params-only archive) are
+    left out, so the model keeps its construction values."""
     sd: dict[str, np.ndarray] = {}
 
     def dense(key: str, node: dict):
@@ -51,22 +78,15 @@ def _encoder_state(p: dict, stats: dict, cfg, prefix: str) -> dict:
         sd[key + ".weight"] = _np(node["scale"])
         sd[key + ".bias"] = _np(node["bias"])
 
-    if cfg.subsampling != "striding" or cfg.subsampling_factor <= 1:
-        raise NotImplementedError(
-            f"weight bridge for subsampling={cfg.subsampling!r} is not ported yet")
-    reps = int(math.log2(cfg.subsampling_factor))
+    reps = _check_striding(cfg)
     pe = p["pre_encode"]
     for j in range(reps):
         node = pe[f"conv{j}"]
         sd[prefix + f"pre_encode.conv.{2 * j}.weight"] = _np(node["kernel"]).transpose(3, 2, 0, 1)
         sd[prefix + f"pre_encode.conv.{2 * j}.bias"] = _np(node["bias"])
-    channels = cfg.subsampling_conv_channels if cfg.subsampling_conv_channels > 0 else cfg.d_model
-    f_out = int(calc_sub_length(torch.tensor(cfg.feat_in), "striding", reps))
     kernel = _np(pe["out"]["kernel"])  # rows f*C + c
-    r = np.arange(channels * f_out)
-    perm = (r % channels) * f_out + (r // channels)  # JAX row f*C+c <- NeMo row c*F'+f
     w_t = np.empty_like(kernel)
-    w_t[perm] = kernel
+    w_t[_out_perm(cfg, reps)] = kernel
     sd[prefix + "pre_encode.out.weight"] = w_t.T
     sd[prefix + "pre_encode.out.bias"] = _np(pe["out"]["bias"])
 
@@ -98,7 +118,7 @@ def _encoder_state(p: dict, stats: dict, cfg, prefix: str) -> dict:
         sd[lp + "conv.depthwise_conv.weight"] = _np(conv["depthwise_kernel"]).transpose(2, 1, 0)
         sd[lp + "conv.depthwise_conv.bias"] = _np(conv["depthwise_bias"])
         norm(lp + "conv.batch_norm", conv["norm"])
-        if cfg.conv_norm_type == "batch_norm":
+        if cfg.conv_norm_type == "batch_norm" and f"layers_{i}" in stats:
             st = stats[f"layers_{i}"]["conv"]["norm"]
             sd[lp + "conv.batch_norm.running_mean"] = _np(st["mean"])
             sd[lp + "conv.batch_norm.running_var"] = _np(st["var"])
@@ -156,3 +176,128 @@ def rnnt_state_dict_from_jax(variables: dict, cfg) -> dict[str, torch.Tensor]:
     sd["joint.joint_net.2.weight"] = _np(joint["out_kernel"]).T
     sd["joint.joint_net.2.bias"] = _np(joint["out_bias"])
     return {k: _tensor(v) for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# The port's state_dict -> the JAX package's variables
+# ---------------------------------------------------------------------------
+
+
+def _dense(sd: dict, key: str) -> dict:
+    out = {"kernel": np.ascontiguousarray(_np(sd[key + ".weight"]).T)}
+    if key + ".bias" in sd:
+        out["bias"] = _np(sd[key + ".bias"])
+    return out
+
+
+def _scale_bias(sd: dict, key: str) -> dict:
+    return {"scale": _np(sd[key + ".weight"]), "bias": _np(sd[key + ".bias"])}
+
+
+def _conv1x1(sd: dict, key: str) -> dict:
+    return {"kernel": np.ascontiguousarray(_np(sd[key + ".weight"])[:, :, 0].T),
+            "bias": _np(sd[key + ".bias"])}
+
+
+def _encoder_variables(sd: dict, cfg, prefix: str = "encoder.") -> tuple:
+    """-> (params, batch_stats) of the JAX ConformerEncoder
+    (`convert_conformer_encoder`, striding subsampling)."""
+    g = lambda k: sd[prefix + k]
+    reps = _check_striding(cfg)
+    pe = {}
+    for j in range(reps):
+        w = _np(g(f"pre_encode.conv.{2 * j}.weight"))  # [out, in, kh, kw] -> [kh, kw, in, out]
+        pe[f"conv{j}"] = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                          "bias": _np(g(f"pre_encode.conv.{2 * j}.bias"))}
+    w = np.ascontiguousarray(_np(g("pre_encode.out.weight")).T)  # rows c*F' + f
+    pe["out"] = {"kernel": np.ascontiguousarray(w[_out_perm(cfg, reps)]),
+                 "bias": _np(g("pre_encode.out.bias"))}
+    p = {"pre_encode": pe}
+    stats = {}
+    if not cfg.untie_biases and cfg.self_attention_model == "rel_pos":
+        p["pos_bias_u"] = _np(g("layers.0.self_attn.pos_bias_u"))
+        p["pos_bias_v"] = _np(g("layers.0.self_attn.pos_bias_v"))
+    for i in range(cfg.n_layers):
+        lp = prefix + f"layers.{i}."
+        layer = {name: _scale_bias(sd, lp + name)
+                 for name in ("norm_feed_forward1", "norm_self_att", "norm_conv",
+                              "norm_feed_forward2", "norm_out")}
+        for ff in ("feed_forward1", "feed_forward2"):
+            layer[ff] = {"linear1": _dense(sd, lp + ff + ".linear1"),
+                         "linear2": _dense(sd, lp + ff + ".linear2")}
+        attn = {name: _dense(sd, lp + "self_attn." + name)
+                for name in ("linear_q", "linear_k", "linear_v", "linear_out")}
+        if cfg.self_attention_model == "rel_pos":
+            attn["linear_pos_kernel"] = np.ascontiguousarray(
+                _np(sd[lp + "self_attn.linear_pos.weight"]).T)
+            if cfg.untie_biases:
+                attn["pos_bias_u"] = _np(sd[lp + "self_attn.pos_bias_u"])
+                attn["pos_bias_v"] = _np(sd[lp + "self_attn.pos_bias_v"])
+        layer["self_attn"] = attn
+        dw = _np(sd[lp + "conv.depthwise_conv.weight"])  # [d, 1, k] -> [k, 1, d]
+        layer["conv"] = {
+            "pointwise_conv1": _conv1x1(sd, lp + "conv.pointwise_conv1"),
+            "pointwise_conv2": _conv1x1(sd, lp + "conv.pointwise_conv2"),
+            "depthwise_kernel": np.ascontiguousarray(dw.transpose(2, 1, 0)),
+            "depthwise_bias": _np(sd[lp + "conv.depthwise_conv.bias"]),
+            "norm": _scale_bias(sd, lp + "conv.batch_norm"),
+        }
+        if cfg.conv_norm_type == "batch_norm":
+            stats[f"layers_{i}"] = {"conv": {"norm": {
+                "mean": _np(sd[lp + "conv.batch_norm.running_mean"]),
+                "var": _np(sd[lp + "conv.batch_norm.running_var"])}}}
+        p[f"layers_{i}"] = layer
+    if cfg.feat_out > 0 and cfg.feat_out != cfg.d_model:
+        p["out_proj"] = _dense(sd, prefix + "out_proj")
+    return p, stats
+
+
+def _with_stats(params: dict, enc_stats: dict) -> dict:
+    out = {"params": params}
+    if enc_stats:
+        out["batch_stats"] = {"encoder": enc_stats}
+    return out
+
+
+def ctc_variables_to_jax(state_dict: dict, cfg) -> dict:
+    """The port's CTCModel state_dict -> the JAX CTCModel's `{"params",
+    "batch_stats"}` (numpy), as `convert_ctc_model_state` maps NeMo's.
+    `cfg`: the port's (or the JAX package's) CTCModelConfig."""
+    enc_p, enc_s = _encoder_variables(state_dict, cfg.encoder)
+    return _with_stats({"encoder": enc_p,
+                        "decoder": {"decoder_layers": _conv1x1(state_dict,
+                                                               "decoder.decoder_layers.0")}},
+                       enc_s)
+
+
+def rnnt_variables_to_jax(state_dict: dict, cfg) -> dict:
+    """The port's RNNTModel state_dict -> the JAX RNNTModel's `{"params",
+    "batch_stats"}` (numpy), as `convert_rnnt_model_state` maps NeMo's.
+    `cfg`: the port's (or the JAX package's) RNNTModelConfig.
+
+    The LSTM bias is bias_ih + bias_hh less forget_gate_bias in the forget
+    chunk (the JAX cell adds it at run time), in fp32 as the JAX converter
+    computes it. Written back, b - c + c is b exactly while b lies in
+    [c/2, 2c] (Sterbenz); elsewhere it may differ from b by an ulp."""
+    sd = state_dict
+    enc_p, enc_s = _encoder_variables(sd, cfg.encoder)
+    dcfg = cfg.decoder
+    h = dcfg.pred_hidden
+    pre = "decoder.prediction."
+    dec = {"embed": {"embedding": _np(sd[pre + "embed.weight"])}}
+    lstm = pre + "dec_rnn.lstm."
+    for k in range(dcfg.pred_rnn_layers):
+        dec[f"lstm{k}_wx"] = np.ascontiguousarray(_np(sd[lstm + f"weight_ih_l{k}"]).T)
+        dec[f"lstm{k}_wh"] = np.ascontiguousarray(_np(sd[lstm + f"weight_hh_l{k}"]).T)
+        b = _np(sd[lstm + f"bias_ih_l{k}"]) + _np(sd[lstm + f"bias_hh_l{k}"])
+        if dcfg.t_max is None and dcfg.forget_gate_bias:
+            b[h: 2 * h] -= float(dcfg.forget_gate_bias)
+        dec[f"lstm{k}_b"] = b
+        if dcfg.norm == "layer":
+            for name in ("ln_i", "ln_h", "ln_c"):
+                dec[f"lstm{k}_{name}_scale"] = _np(sd[lstm + f"{name}_l{k}.weight"])
+                dec[f"lstm{k}_{name}_bias"] = _np(sd[lstm + f"{name}_l{k}.bias"])
+    joint = {"enc": _dense(sd, "joint.enc"), "pred": _dense(sd, "joint.pred"),
+             "out_kernel": np.ascontiguousarray(_np(sd["joint.joint_net.2.weight"]).T),
+             "out_bias": _np(sd["joint.joint_net.2.bias"])}
+    return _with_stats({"encoder": enc_p, "decoder": dec, "joint": joint}, enc_s)

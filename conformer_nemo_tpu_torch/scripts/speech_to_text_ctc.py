@@ -1,0 +1,24 @@
+"""Train a Conformer-CTC model (char or BPE vocabulary).
+
+    python -m conformer_nemo_tpu_torch.scripts.speech_to_text_ctc \
+        --config configs/conformer_ctc_bpe.yaml [--device cpu] \
+        model.train_ds.manifest_filepath=train.json \
+        model.validation_ds.manifest_filepath=val.json \
+        trainer.max_steps=1000 exp_manager.exp_dir=runs [+fast_dev_run=true]
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from conformer_nemo_tpu_torch.api import ConformerCTC
+from conformer_nemo_tpu_torch.scripts.common import train
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """-> (model, fit result)."""
+    return train(ConformerCTC, "configs/conformer_ctc_bpe.yaml", argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,65 @@
+"""Offline transcription from a portable `.cntpu` archive (either package's).
+
+    python -m conformer_nemo_tpu_torch.scripts.transcribe_speech \
+        --model model.cntpu [--model-type ctc|rnnt] [--device cpu] \
+        --audio a.wav b.wav [--manifest test.json --wer] [--output hyps.jsonl]
+
+Prints one `path<TAB>text` line per file. Word timestamps (`--timestamps`,
+`--ctm-dir`) are not ported yet and raise before any work.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Optional, Sequence
+
+from conformer_nemo_tpu_torch.scripts.common import add_device_arg, parse_overrides
+
+
+def main(argv: Optional[Sequence[str]] = None) -> list:
+    """-> the texts, in the order of --audio then the manifest's files."""
+    _, leftover = parse_overrides(sys.argv[1:] if argv is None else list(argv))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", required=True, help=".cntpu portable archive")
+    ap.add_argument("--model-type", choices=["ctc", "rnnt"], default="ctc")
+    ap.add_argument("--audio", nargs="*", default=[])
+    ap.add_argument("--manifest", default=None)
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--wer", action="store_true")
+    ap.add_argument("--output", default=None, help="write hypotheses JSONL")
+    ap.add_argument("--timestamps", action="store_true")
+    ap.add_argument("--ctm-dir", default=None)
+    add_device_arg(ap)
+    args = ap.parse_args(leftover)
+    if args.timestamps or args.ctm_dir:
+        raise NotImplementedError("word timestamps (--timestamps, --ctm-dir) are not ported yet "
+                                  "(ROADMAP.md queue 1 item 9)")
+
+    from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
+    from conformer_nemo_tpu_torch.data.manifest import read_manifest
+    from conformer_nemo_tpu_torch.decode.wer import word_error_rate
+
+    cls = ConformerCTC if args.model_type == "ctc" else ConformerTransducer
+    model = cls.restore_portable(args.model, device=args.device)
+    paths, refs = list(args.audio), []
+    if args.manifest:
+        for s in read_manifest(args.manifest):
+            paths.append(s.audio_file)
+            refs.append(s.text)
+    hyps = model.transcribe(paths, batch_size=args.batch_size)
+    for p, h in zip(paths, hyps):
+        print(f"{p}\t{h}")
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            for p, h in zip(paths, hyps):
+                f.write(json.dumps({"audio_filepath": p, "pred_text": h}) + "\n")
+    if args.wer and refs:
+        print(f"WER: {word_error_rate(hyps[-len(refs):], refs):.4f}")
+    sys.stdout.flush()
+    return hyps
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,213 @@
+"""Checkpoints: resumable train state and the portable `.cntpu` archive
+(port of conformer_nemo_tpu/train/checkpoint.py).
+
+Resumable state keeps the JAX package's layout: `ckpt_dir/step_N/` holds the
+state file and `meta.json` (`step`, `metrics`); `ckpt_dir/last` names the
+newest; pruning keeps the top k by a monitored metric and `last`. The state
+file is the port's own (`state.pt`, `torch.save`): the model's state_dict
+(parameters and BatchNorm statistics), the optimizer state, the train
+state's CPU generator (`get_state()`) and the step. Each step's seeds come
+from that generator and the LR schedule reads the optimizer's count, so a
+restored run continues bit for bit.
+
+The train step updates parameters and Adam moments in place, so an async
+save copies every tensor to the host on the calling thread before it
+returns; only the write runs on the background thread (one worker: saves
+stay ordered and `last` only moves forward).
+
+The portable archive is the JAX package's: a tar.gz of `model_config.yaml`,
+`model_weights.msgpack` (flax's msgpack tree, convert/flax_msgpack.py),
+`artifacts.json` and the artifact files, so either package restores the
+other's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tarfile
+import tempfile
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Callable, Optional
+
+import torch
+import yaml
+
+from conformer_nemo_tpu_torch.convert import flax_msgpack
+
+STATE_FILE = "state.pt"
+
+# ---------------------------------------------------------------------------
+# Resumable train-state checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _map_tensors(obj: Any, fn) -> Any:
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(v, fn) for v in obj)
+    return obj
+
+
+def _host_copy(state) -> dict:
+    """The train state as host tensors that nothing else holds: a copy made
+    now, on this thread, so later in-place steps cannot reach it."""
+    payload = {"model": state.model.state_dict(), "opt_state": state.opt_state,
+               "generator": state.generator.get_state(), "step": int(state.step)}
+    return _map_tensors(payload, lambda t: t.detach().to("cpu", copy=True))
+
+
+def _write_train_state(ckpt_dir: str, payload: dict, step: int,
+                       metrics: Optional[dict]) -> str:
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    os.makedirs(path, exist_ok=True)
+    torch.save(payload, os.path.join(path, STATE_FILE))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"step": step, "metrics": metrics or {}}, f)
+    with open(os.path.join(ckpt_dir, "last"), "w") as f:
+        f.write(f"step_{step}")
+    return path
+
+
+def save_train_state(ckpt_dir: str, state, step: int, metrics: Optional[dict] = None) -> str:
+    """Write the train state to ckpt_dir/step_{step}/ and point `last` at it."""
+    return _write_train_state(ckpt_dir, _host_copy(state), step, metrics)
+
+
+_SAVE_POOL: Optional[ThreadPoolExecutor] = None
+
+
+def _save_pool() -> ThreadPoolExecutor:
+    global _SAVE_POOL
+    if _SAVE_POOL is None:
+        _SAVE_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-save")
+    return _SAVE_POOL
+
+
+def save_train_state_async(ckpt_dir: str, state, step: int, metrics: Optional[dict] = None,
+                           then: Optional[Callable[[], None]] = None) -> Future:
+    """The host copy now (it returns only once every tensor is on the host),
+    the write on the background thread, then `then()` on that thread (the
+    experiment manager's pruning), so the Future resolves after both.
+    -> a Future of the path."""
+    payload = _host_copy(state)
+
+    def write() -> str:
+        path = _write_train_state(ckpt_dir, payload, step, metrics)
+        if then is not None:
+            then()
+        return path
+
+    return _save_pool().submit(write)
+
+
+def restore_train_state(ckpt_dir: str, state, step: Optional[int] = None):
+    """Load a checkpoint into `state` in place (step None: `last`), tensors
+    onto the device of the model's parameters. -> (state, meta), or (None,
+    None) when the directory has no `last`."""
+    if step is None:
+        last = os.path.join(ckpt_dir, "last")
+        if not os.path.exists(last):
+            return None, None
+        with open(last) as f:
+            name = f.read().strip()
+    else:
+        name = f"step_{step}"
+    path = os.path.join(ckpt_dir, name)
+    payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["model"], strict=True)
+    dev = next(state.model.parameters()).device
+    state.opt_state = _map_tensors(payload["opt_state"], lambda t: t.to(dev))
+    state.generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    return state, meta
+
+
+def list_checkpoints(ckpt_dir: str) -> list:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        mpath = os.path.join(ckpt_dir, name, "meta.json")
+        if name.startswith("step_") and os.path.exists(mpath):
+            with open(mpath) as f:
+                out.append((name, json.load(f)))
+    return sorted(out, key=lambda x: x[1]["step"])
+
+
+def prune_checkpoints(ckpt_dir: str, save_top_k: int, monitor: str = "val_wer",
+                      mode: str = "min") -> None:
+    """Keep the top k by the monitored metric, and the `last` checkpoint."""
+    ckpts = list_checkpoints(ckpt_dir)
+    scored = [(name, meta["metrics"].get(monitor)) for name, meta in ckpts
+              if meta["metrics"].get(monitor) is not None]
+    scored.sort(key=lambda x: x[1], reverse=mode == "max")
+    keep = {name for name, _ in scored[:save_top_k]}
+    last = None
+    last_path = os.path.join(ckpt_dir, "last")
+    if os.path.exists(last_path):
+        with open(last_path) as f:
+            last = f.read().strip()
+    for name, _meta in ckpts:
+        if name not in keep and name != last:
+            shutil.rmtree(os.path.join(ckpt_dir, name), ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Portable archive (.cntpu)
+# ---------------------------------------------------------------------------
+
+
+def save_portable(out_path: str, config: dict, variables: Any,
+                  artifacts: Optional[dict] = None) -> None:
+    """tar.gz of model_config.yaml, model_weights.msgpack (the JAX package's
+    variables tree, numpy or CPU tensors), artifacts.json and the artifact
+    files (stored under their base names). A SentencePiece model given as
+    the artifact "tokenizer_model" is stored as tokenizer.model, and the
+    archived tokenizer config drops its model_file and dir: either package
+    then builds the tokenizer from the extracted archive (its `dir` rule),
+    not from a path of the machine that wrote it."""
+    names = {key: os.path.basename(src) for key, src in (artifacts or {}).items()}
+    tok = (config.get("model") or {}).get("tokenizer")
+    if "tokenizer_model" in names:
+        names["tokenizer_model"] = "tokenizer.model"
+        if tok:
+            tok = {k: v for k, v in tok.items() if k not in ("model_file", "dir")}
+            config = {**config, "model": {**config["model"], "tokenizer": tok}}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "model_config.yaml"), "w") as f:
+            yaml.safe_dump(config, f)
+        with open(os.path.join(tmp, "model_weights.msgpack"), "wb") as f:
+            f.write(flax_msgpack.dumps(variables))
+        for key, src in (artifacts or {}).items():
+            shutil.copy(src, os.path.join(tmp, names[key]))
+        with open(os.path.join(tmp, "artifacts.json"), "w") as f:
+            json.dump(names, f)
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with tarfile.open(out_path, "w:gz") as tar:
+            for name in os.listdir(tmp):
+                tar.add(os.path.join(tmp, name), arcname=name)
+
+
+def load_portable(path: str, extract_dir: Optional[str] = None):
+    """-> (config dict, variables tree of numpy leaves, {artifact key:
+    extracted path})."""
+    tmp = extract_dir or tempfile.mkdtemp(prefix="cntpu_")
+    with tarfile.open(path, "r:gz") as tar:
+        tar.extractall(tmp, filter="data")
+    with open(os.path.join(tmp, "model_config.yaml")) as f:
+        config = yaml.safe_load(f)
+    with open(os.path.join(tmp, "model_weights.msgpack"), "rb") as f:
+        variables = flax_msgpack.loads(f.read())
+    artifacts = {}
+    art_json = os.path.join(tmp, "artifacts.json")
+    if os.path.exists(art_json):
+        with open(art_json) as f:
+            artifacts = {k: os.path.join(tmp, v) for k, v in json.load(f).items()}
+    return config, variables, artifacts

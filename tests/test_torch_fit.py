@@ -1,8 +1,9 @@
 """`ConformerCTC.fit` on the CPU: a tiny config (2 layers, d_model 64,
 remat and the flash path on, whose kernels run their plain versions here)
 trains two steps on a 4-utterance manifest with validation, returns a
-finite loss, leaves the model in eval mode, and transcribes; what this
-slice does not port raises."""
+finite loss, leaves the model in eval mode, and transcribes; it takes an
+experiment manager, a missing `trainer.resume_from_checkpoint` raises
+FileNotFoundError as in the JAX package, and what is not ported raises."""
 
 import json
 import math
@@ -14,6 +15,7 @@ import torch
 
 from conformer_nemo_tpu_torch.api import ConformerCTC
 from conformer_nemo_tpu_torch.data.audio_io import write_wav
+from conformer_nemo_tpu_torch.train.exp_manager import ExpManagerConfig, ExperimentManager
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "conformer_ctc_bpe.yaml")
@@ -57,13 +59,18 @@ def test_fit_on_cpu_then_transcribe(manifest):
     assert len(texts) == 1 and isinstance(texts[0], str)
 
 
-def test_fit_refuses_what_is_not_ported(manifest):
+def test_fit_refuses_what_is_not_ported(manifest, tmp_path):
     model = ConformerCTC.from_config_file(CONFIG, overrides=TINY, device="cpu",
                                           dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.fit(manifest, exp_manager=object())
-    for key, value in (("trainer.resume_from_checkpoint", "/nowhere"),
-                       ("trainer.mesh", {"data": 2, "model": 1}),
+    em = ExperimentManager(ExpManagerConfig(exp_dir=str(tmp_path), create_tensorboard_logger=False))
+    assert model.fit(manifest, max_steps=1, exp_manager=em)["steps"] == 1
+    assert os.path.exists(os.path.join(em.ckpt_dir, "step_1", "meta.json"))
+    m = ConformerCTC.from_config_file(
+        CONFIG, overrides={**TINY, "trainer.resume_from_checkpoint": "/nowhere"}, device="cpu",
+        dtype=torch.float32)
+    with pytest.raises(FileNotFoundError, match="no checkpoint in /nowhere"):
+        m.fit(manifest, max_steps=1)  # as the JAX package's fit raises
+    for key, value in (("trainer.mesh", {"data": 2, "model": 1}),
                        ("model.optim.name", "novograd"),
                        ("model.train_ds.transport", "pcm16"),
                        ("model.train_ds.transport", "mulaw8"),

@@ -1,6 +1,7 @@
 """The port stands alone: no module of conformer_nemo_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package; and no entry point runs on
-the CPU unless asked."""
+chip_smoke.py, imports JAX, the JAX package or msgpack (the port reads and
+writes flax's msgpack format itself); and no entry point runs on the CPU
+unless asked."""
 
 import os
 import subprocess
@@ -13,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "conformer_nemo_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "conformer_nemo_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import conformer_nemo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(conformer_nemo_tpu_torch.__path__,
@@ -21,7 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(conformer_nemo_tpu_torch.__path__
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                                               "msgpack")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print(len(names))
@@ -34,7 +36,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 36  # every module was walked
+    assert int(r.stdout.split()[-1]) >= 46  # every module was walked
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

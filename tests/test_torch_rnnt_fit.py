@@ -74,7 +74,7 @@ def test_transducer_refuses_what_is_not_ported(manifest):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.change_decoding_strategy({"strategy": "beam"})
     for call in (model.change_vocabulary, model.transcribe_with_timestamps,
-                 model.transcribe_buffered, model.export, model.save_portable):
+                 model.transcribe_buffered, model.export):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call(None)
     with pytest.raises(ValueError, match="CTC-only"):
