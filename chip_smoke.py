@@ -5,7 +5,9 @@
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   env          torch/CUDA/nvcc versions, triton and yaml presence, the card
-  build        compiles every CUDA kernel from conformer_nemo_tpu_torch/ops/csrc
+  build        compiles every CUDA kernel from conformer_nemo_tpu_torch/ops/csrc, and
+               the data pipeline's host libraries (FLAC decoder, Ogg/Vorbis and
+               Ogg/Opus shims) from conformer_nemo_tpu_torch/data/csrc
   transcribe   ConformerCTC.transcribe at full width (configs/conformer_ctc_bpe.yaml,
                18 layers, d_model 512, seeded random weights) over generated
                WAVs: a dense-attention bucket, a batched flash bucket and one
@@ -41,6 +43,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   rnnt_parity  the same weights and batch, dropout, SpecAugment and dither off: one
                step through K4 + K3 against one through the dense joint and the
                plain lattice
+  multilang    the data pipeline into both multilang recipes at full width: 16
+               generated 10-16 s FLAC files (half en, half es) checked bit for bit
+               against the int16 they were written from, the fixture FLACs' lengths,
+               an MP3, Ogg/Vorbis and Ogg/Opus copy within CODEC_MIN_SNR_DB of its
+               source where the card box has the codec (an absent one must raise
+               naming its library), host decode rates; configs/conformer_ctc_bpe_multilang.yaml
+               (aggregate tokenizer, V + 1 584) fits 3 steps through the pcm16
+               transport, 8 loader workers, a speed + white-noise augmentor and
+               the prefetch (K1 launches, no K2: T < 1024), then transcribes its
+               files and the fixture FLACs; H2D bytes per batch of each transport,
+               the loader's seconds per batch, the traced step fed by the prefetch
+               against the synchronous copy in turns (idle shares);
+               configs/conformer_transducer_bpe_multilang.yaml with the flash joint
+               fits 3 steps (K3, K4 at V 584) and greedy-transcribes 3 files
   lifecycle    after the other fits, a training run that survives a restart, at
                full width on the long-form config and the train phase's manifests:
                the CTC training CLI
@@ -73,7 +89,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                K4-bwd's scratch bytes; K2-fwd at the main shapes also timed
                at both query-tile heights in turns (64, 128, 128, 64 rows),
                and at the top of its range (d1 1152, dv 128), and the dQ
-               kernel alone past the dK/dV kernel's 576 columns (d1 656)
+               kernel alone past the dK/dV kernel's 576 columns (d1 656); and K1
+               and K4 at the multilang steps' shapes (V + 1 584, V 584), whose
+               rows go into the summary line under the path `multilang`
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -163,6 +181,26 @@ LATTICE_REL_TOL = 1e-5
 JOINT_REL_TOL = 2e-2
 # the JAX joint kernel's flagship vocabulary: 1024 BPE pieces and the blank
 JOINT_FLAGSHIP_V = 1025
+
+# multilang: the aggregate tokenizer over two fixture models (295 + 288
+# pieces, V + 1 = 584), FLAC audio, the pcm16 transport, 8 loader workers
+# and a speed + white-noise augmentor on the training loader
+MULTILANG_CTC = os.path.join(ROOT, "configs", "conformer_ctc_bpe_multilang.yaml")
+MULTILANG_RNNT = os.path.join(ROOT, "configs", "conformer_transducer_bpe_multilang.yaml")
+LANG_MODELS = {"en": TOKENIZER, "es": os.path.join(ROOT, "tests", "fixtures", "sp_unigram.model")}
+MULTILANG_OVERRIDES = {
+    **{f"model.tokenizer.langs.{lang}.model_file": path for lang, path in LANG_MODELS.items()},
+    "model.train_ds.num_buckets": 1, "model.train_ds.num_workers": 8,
+    "model.train_ds.transport": "pcm16",
+    "model.train_ds.augmentor": {"speed": {"prob": 0.5}, "white_noise": {"prob": 1.0}}}
+MULTILANG_V1 = 584
+MULTILANG_FILES = 16
+# a lossy round trip against its source, as tests/test_torch_codecs.py fixes it
+CODEC_MIN_SNR_DB = 10.0
+CODEC_LIBRARIES = {"mp3": ("libmpg123",), "ogg": ("libvorbisfile",), "opus": ("libopus", "libogg")}
+FIXTURE_FLAC_SAMPLES = {"utt1.flac": 16320, "utt3.flac": 14080, "utt5.flac": 14080}
+PREFETCH_TURNS = ("prefetch", "sync", "sync", "prefetch")
+
 
 def watched(model) -> tuple:
     """Parameters and BatchNorm statistics a train step must change."""
@@ -302,13 +340,16 @@ def phase_env() -> dict:
 
 
 def phase_build() -> None:
-    from conformer_nemo_tpu_torch.ops.build import build_all
+    from conformer_nemo_tpu_torch.ops.build import build_all, build_host_all
 
     t0 = time.perf_counter()
+    host = build_host_all(force=True)  # the data pipeline's g++/gcc libraries: seconds
     report = build_all(force=True, verbose=True)
     ptxas = {src: [ln.strip() for ln in r["log"].splitlines()
                    if "registers" in ln or "spill" in ln] for src, r in report.items()}
-    emit("build", seconds=time.perf_counter() - t0, sources=sorted(report), ptxas=ptxas)
+    check("seconds" in host["flac_decoder"], ("the FLAC decoder did not build", host))
+    emit("build", seconds=time.perf_counter() - t0, sources=sorted(report), ptxas=ptxas,
+         host_libraries=host)
 
 
 # ---------------------------------------------------------------------------
@@ -955,7 +996,7 @@ def _write_inputs(tmp: str) -> dict:
     return paths
 
 
-def _profile(run, phase: str, **fields) -> None:
+def _profile(run, phase: str, **fields) -> dict:
     """One traced run of `run()`: how busy the device was and which kernels
     took its time (torch.profiler, CUPTI). Only device-side events (kernels,
     memcpys, memsets) count: an `aten::` op's device time is that of the
@@ -974,9 +1015,11 @@ def _profile(run, phase: str, **fields) -> None:
     busy_s = sum(dev_us(e) for e in events) / 1e6
     check(busy_s > 0, "the profiler saw no device time")
     top = sorted(events, key=dev_us, reverse=True)[:15]
-    emit(phase, traced_wall_s=wall, device_busy_s=busy_s, device_idle_share=1.0 - busy_s / wall,
-         top=[{"name": e.key[:100], "device_ms": dev_us(e) / 1e3, "calls": e.count}
-              for e in top], **fields)
+    out = {"traced_wall_s": wall, "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall,
+           "top": [{"name": e.key[:100], "device_ms": dev_us(e) / 1e3, "calls": e.count}
+                   for e in top], **fields}
+    emit(phase, **out)
+    return out
 
 
 def phase_transcribe(model, groups, gpu: str) -> tuple:
@@ -1639,11 +1682,261 @@ def phase_rnnt_parity(manifest: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# multilang: the data pipeline into both multilang recipes
+# ---------------------------------------------------------------------------
+
+
+def _write_multilang_manifest(tmp: str, rng) -> tuple:
+    """MULTILANG_FILES FLAC files of 10-16 s written from int16 with the
+    port's encoder, half `en` and half `es`, texts drawn from each
+    language's pieces -> (manifest, [(path, int16 source)])."""
+    from conformer_nemo_tpu_torch.data.flac_encode import write_flac
+    from conformer_nemo_tpu_torch.data.tokenizers import SentencePieceTokenizer
+
+    pieces = {}
+    for lang, path in LANG_MODELS.items():
+        tok = SentencePieceTokenizer(path)
+        pieces[lang] = [p for p, t in zip(tok.pieces, tok.types) if t == 1 and p != "▁"]
+    manifest, sources = os.path.join(tmp, "multilang.json"), []
+    with open(manifest, "w", encoding="utf-8") as f:
+        for i in range(MULTILANG_FILES):
+            lang = ("en", "es")[i % 2]
+            secs = float(np.round(rng.uniform(10.0, 16.0), 2))
+            pcm = np.clip(np.round(_wav(rng, secs) * 32768.0), -32768, 32767).astype(np.int16)
+            path = os.path.join(tmp, f"multilang_{i}.flac")
+            write_flac(path, pcm)
+            sources.append((path, pcm))
+            words = rng.choice(pieces[lang], size=int(secs * rng.uniform(2.0, 3.0)))
+            text = "".join(words).replace("▁", " ").strip()
+            f.write(json.dumps({"audio_filepath": path, "duration": secs, "text": text,
+                                "lang": lang}, ensure_ascii=False) + "\n")
+    return manifest, sources
+
+
+def _audio_checks(tmp: str, sources: list) -> dict:
+    """FLAC bit for bit, the fixture FLACs' lengths, each codec the card
+    box has within CODEC_MIN_SNR_DB of its source (an absent one raises
+    naming its library), and host decode rates in audio-seconds per second."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from conformer_nemo_tpu_torch.data import audio_io, codecs
+    from conformer_nemo_tpu_torch.ops.build import MissingSystemLibrary
+
+    for path, pcm in sources:
+        check(np.array_equal(audio_io.load_audio_pcm16(path), pcm), ("FLAC bits", path))
+    for name, n in FIXTURE_FLAC_SAMPLES.items():
+        got = audio_io.read_flac(os.path.join(ROOT, "tests", "fixtures", "speech", name))[0]
+        check(got.shape == (n,), ("fixture FLAC length", name, got.shape))
+    present = {name: codecs.have_codec(name) for name in CODEC_LIBRARIES}
+    emit("multilang_codecs", present=present, libraries=CODEC_LIBRARIES)
+    paths = [p for p, _ in sources]
+    audio_s = sum(len(pcm) for _, pcm in sources) / SR
+    rates = {}
+    t0 = time.perf_counter()
+    for path in paths:
+        audio_io.read_flac(path)
+    rates["flac_1_thread"] = audio_s / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(audio_io.read_flac, paths))
+        rates["flac_8_workers"] = audio_s / (time.perf_counter() - t0)
+    snr, encoders = {}, {}
+    src = sources[0][1].astype(np.float32) / 32768.0
+    for name, write in (("mp3", codecs.write_mp3), ("ogg", codecs.write_ogg),
+                        ("opus", codecs.write_opus)):
+        copy = os.path.join(tmp, f"multilang_0.{name}")
+        if not present[name]:  # an absent codec refuses, naming its library
+            head = {"mp3": b"ID3\x03", "ogg": b"OggS", "opus": b"OggS"}[name]
+            with open(copy, "wb") as f:
+                f.write(head + bytes(256))
+            try:
+                audio_io.load_audio(copy)
+            except MissingSystemLibrary as e:
+                check(any(lib in str(e) for lib in CODEC_LIBRARIES[name]), (name, str(e)))
+                continue
+            check(False, ("an absent codec decoded", name))
+        try:
+            write(copy, src)
+        except MissingSystemLibrary as e:  # a decoder without its encoder: no fixture
+            encoders[name] = str(e)
+            continue
+        audio_io.load_audio(copy)  # warm-up: the first resample imports scipy.signal
+        t0 = time.perf_counter()
+        decoded = audio_io.load_audio(copy)
+        rates[name] = (len(src) / SR) / (time.perf_counter() - t0)
+        snr[name] = codecs.snr_db(src, decoded)[0]
+        check(snr[name] >= CODEC_MIN_SNR_DB, ("codec SNR", name, snr[name]))
+    return {"decode_audio_s_per_s": rates, "codec_snr_db": snr, "min_snr_db": CODEC_MIN_SNR_DB,
+            "codecs_present": present, "encoders_absent": encoders}
+
+
+def _transport_bytes(model, manifest: str) -> dict:
+    """H2D bytes of one batch in each wire format (the validation loader's
+    batch: no augmentor), the integer batches dequantised on the card
+    against the f32 batch (pcm16 from lossless FLAC: the same floats), and
+    their features' largest difference."""
+    from conformer_nemo_tpu_torch.audio.features import _decode_transport, log_mel_spectrogram
+
+    ds_cfg = model.raw_cfg["model"]["train_ds"]
+    out, wav, feats = {}, {}, {}
+    for transport in ("f32", "pcm16", "mulaw8"):
+        b = next(iter(model._loader(manifest, {**ds_cfg, "transport": transport}, shuffle=False)))
+        out[transport] = int(sum(getattr(b, k).nbytes for k in ("audio", "audio_lens", "tokens",
+                                                                 "token_lens")))
+        audio = torch.from_numpy(b.audio).to(model.device)
+        wav[transport] = _decode_transport(audio)
+        with torch.no_grad():
+            feats[transport] = log_mel_spectrogram(
+                model.cfg.preprocessor, audio, torch.from_numpy(b.audio_lens).to(model.device))[0]
+    check(torch.equal(wav["pcm16"], wav["f32"]), "pcm16 dequantised != f32 on lossless audio")
+    return {"h2d_bytes_per_batch": out,
+            "features_max_abs_diff_vs_f32": {t: float((feats[t] - feats["f32"]).abs().max())
+                                             for t in ("pcm16", "mulaw8")}}
+
+
+def _prefetch_turns(model, host_batches: list) -> list:
+    """The traced train step's idle share fed by device_prefetch against
+    the synchronous copy (the step's own pageable `.to`), in turns."""
+    from conformer_nemo_tpu_torch.data.prefetch import device_prefetch
+
+    step = model._make_train_step(model._make_optimizer())
+    runs = {"prefetch": lambda: [step(b) for b in device_prefetch(iter(host_batches),
+                                                                   model.device)],
+            "sync": lambda: [step(b) for b in host_batches]}
+    runs["sync"]()  # warm-up of both paths
+    runs["prefetch"]()
+    turns = []
+    for mode in PREFETCH_TURNS:
+        r = _profile(runs[mode], "profile_multilang_feed", feed=mode, steps=len(host_batches))
+        turns.append({"feed": mode, "traced_wall_s": r["traced_wall_s"],
+                      "device_idle_share": r["device_idle_share"]})
+    return turns
+
+
+def phase_multilang(tmp: str, gpu: str) -> dict:
+    """Both multilang recipes at full width on FLAC audio through the whole
+    data pipeline: CTC (K1 at V + 1 584, dense attention) 3 steps and a
+    transcribe of its files and the fixture FLACs; the transducer (flash
+    joint: K3, K4 at V 584) 3 steps and a greedy transcribe of 3 files."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
+    from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    timeline = {}  # seconds since the phase began, at the end of each part
+    manifest, sources = _write_multilang_manifest(tmp, np.random.RandomState(SEED + 7))
+    timeline["write_flac"] = time.perf_counter() - t_phase
+    audio = _audio_checks(tmp, sources)
+    timeline["audio_checks"] = time.perf_counter() - t_phase
+
+    model = ConformerCTC.from_config_file(MULTILANG_CTC, overrides=MULTILANG_OVERRIDES, seed=SEED)
+    check(model.tokenizer.vocab_size + 1 == MULTILANG_V1 and model.cfg.blank_id == 583,
+          ("vocabulary", model.tokenizer.vocab_size, model.cfg.blank_id))
+    enc = model.cfg.encoder
+    loader = model._loader(manifest, model.raw_cfg["model"]["train_ds"], shuffle=True)
+    host_batches = [next(iter(loader))]  # one batch an epoch (one bucket); warms the workers
+    t0 = time.perf_counter()
+    host_batches += [next(iter(loader)) for _ in range(3)]
+    loader_s = (time.perf_counter() - t0) / 3
+    host_batches = host_batches[:2]
+    check(host_batches[0].audio.dtype == np.int16, host_batches[0].audio.dtype)
+    timeline["ctc_model_and_loader"] = time.perf_counter() - t_phase
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    ctc_kernels = ("K1-fwd", "K1-bwd", "K1-bwd-grad")
+    reset_launch_counts()
+    model.fit(manifest, max_steps=TRAIN_STEPS)
+    ctc_by_shape = {k: dict(launch_count(k).by_shape) for k in ctc_kernels}
+    del model._make_train_step
+    check(len(steps) == TRAIN_STEPS, len(steps))
+    for i, st in enumerate(steps):
+        got = {k: st["launches"].get(k, 0) for k in PER_STEP_LAUNCHES}
+        want = {k: int(k in ctc_kernels) for k in PER_STEP_LAUNCHES}
+        check(got == want, ("multilang ctc step", i, got))
+        check(math.isfinite(st["loss"]) and all(st["changed"].values()), ("ctc step", i, st))
+    batch = steps[0]["batch"]
+    t_enc = encoder_frames(model.cfg, [batch.audio.shape[1]])[0]
+    check(t_enc < enc.flash_attention_min_t, ("dense attention expected", t_enc))
+    fixtures = [os.path.join(ROOT, "tests", "fixtures", "speech", n) for n in FIXTURE_FLAC_SAMPLES]
+    t0 = time.perf_counter()
+    texts = model.transcribe([p for p, _ in sources] + fixtures, batch_size=BATCH)
+    torch.cuda.synchronize()
+    transcribe_s = time.perf_counter() - t0
+    check(len(texts) == MULTILANG_FILES + 3 and all(isinstance(x, str) for x in texts), texts)
+    timeline["ctc_fit_transcribe"] = time.perf_counter() - t_phase
+    transport = _transport_bytes(model, manifest)
+    timeline["transports"] = time.perf_counter() - t_phase
+    turns = _prefetch_turns(model, host_batches)
+    timeline["prefetch_turns"] = time.perf_counter() - t_phase
+    steady = steps[1:]
+    ctc = {"config": "configs/conformer_ctc_bpe_multilang.yaml", "n_layers": enc.n_layers,
+           "d_model": enc.d_model, "batch": int(batch.audio.shape[0]), "encoder_t": t_enc,
+           "u_cap": int(batch.tokens.shape[1]), "v1": MULTILANG_V1,
+           "steps": [{k: v for k, v in st.items() if k != "batch"} for st in steps],
+           "steady_step_s": sum(st["seconds"] for st in steady) / len(steady),
+           "loader_s_per_batch": loader_s, "transcribe_files": len(texts),
+           "transcribe_s": transcribe_s, "sample_text": texts[0][:60],
+           "fixture_texts": [x[:40] for x in texts[-3:]], **transport,
+           "prefetch_turns": turns}
+    kernels_ctc = {"t": t_enc, "tokens": batch.tokens,
+                   "enc_lens": encoder_frames(model.cfg, batch.audio_lens.tolist()),
+                   "token_lens": batch.token_lens, "by_shape": ctc_by_shape}
+    del model, steps, batch, loader, host_batches
+    free_cuda()
+
+    model = ConformerTransducer.from_config_file(
+        MULTILANG_RNNT, overrides={**MULTILANG_OVERRIDES, "model.joint.joint_impl": "flash"},
+        seed=SEED)
+    cfg = model.cfg.model
+    check(cfg.num_classes_with_blank == MULTILANG_V1, cfg.num_classes_with_blank)
+    steps = []
+    model._make_train_step = _counted_steps(model, steps)
+    reset_launch_counts()
+    model.fit(manifest, max_steps=TRAIN_STEPS)
+    rnnt_by_shape = {k: dict(launch_count(k).by_shape) for k in RNNT_KERNELS}
+    del model._make_train_step
+    check(len(steps) == TRAIN_STEPS, len(steps))
+    for i, st in enumerate(steps):
+        want = rnnt_step_launches(model, st["batch"])
+        st["windows"] = want["K4-bwd"]
+        got = {k: st["launches"].get(k, 0) for k in RNNT_KERNELS + NOT_RNNT}
+        check(got == want, ("multilang rnnt step", i, got, want))
+        check(math.isfinite(st["loss"]) and all(st["changed"].values()), ("rnnt step", i, st))
+    batch = steps[0]["batch"]
+    t_rnnt = _frames(model, [batch.audio.shape[1]])[0]
+    t0 = time.perf_counter()
+    rnnt_texts = model.transcribe([p for p, _ in sources[:RNNT_TRANSCRIBE_FILES]],
+                                  batch_size=RNNT_TRANSCRIBE_FILES)
+    torch.cuda.synchronize()
+    rnnt_transcribe_s = time.perf_counter() - t0
+    check(len(rnnt_texts) == RNNT_TRANSCRIBE_FILES, rnnt_texts)
+    timeline["rnnt"] = time.perf_counter() - t_phase
+    steady = steps[1:]
+    rnnt = {"config": "configs/conformer_transducer_bpe_multilang.yaml",
+            "n_layers": cfg.encoder.n_layers, "d_model": cfg.encoder.d_model,
+            "joint_hidden": cfg.joint.joint_hidden, "vocab_with_blank": cfg.num_classes_with_blank,
+            "batch": int(batch.audio.shape[0]), "encoder_t": t_rnnt,
+            "u_cap": int(batch.tokens.shape[1]),
+            "steps": [{k: v for k, v in st.items() if k != "batch"} for st in steps],
+            "steady_step_s": sum(st["seconds"] for st in steady) / len(steady),
+            "transcribe_files": len(rnnt_texts), "transcribe_s": rnnt_transcribe_s,
+            "sample_text": rnnt_texts[0][:60]}
+    kernels_rnnt = {"t": t_rnnt, "enc_lens": _frames(model, batch.audio_lens.tolist()),
+                    "tokens": batch.tokens, "token_lens": batch.token_lens.tolist(),
+                    "h": cfg.joint.joint_hidden, "v": cfg.num_classes_with_blank,
+                    "by_shape": rnnt_by_shape}
+    del model, steps, batch
+    free_cuda()
+    emit("multilang", gpu=gpu, audio=audio, ctc=ctc, rnnt=rnnt,
+         phase_s=time.perf_counter() - t_phase, timeline=timeline)
+    return {"ctc": kernels_ctc, "rnnt": kernels_rnnt}
+
+
+# ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
+def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1671,7 +1964,7 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
     v1, blank = cfg.num_classes + 1, cfg.blank_id
     b = len(enc_lens)
     lp = torch.log_softmax(torch.randn(b, t, v1, generator=gen, device=dev) * 3, dim=-1)
-    as_i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    as_i32 = lambda x: torch.as_tensor(x).to(dev, torch.int32)
     rows["train"] += _ctc_case(f"train_b{b}_t{t}_u{tokens.shape[1]}", lp, as_i32(tokens),
                                as_i32(enc_lens), as_i32(token_lens), blank)
     # a U = 0 row, an infeasible row (25 labels in 17 frames), a 1-frame zero row
@@ -1728,6 +2021,19 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict) -> dict:
     _joint_fwd_wide_case("joint_fwd_wide_h1376", 3, 37, 8, 1376, 41, [37, 20, 1], [8, 3, 0], gen,
                          dev)
     _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev)
+
+    # the multilang steps' K1 (V + 1 584, blank 583) and K4 (V 584) calls
+    ml = multilang["ctc"]
+    t, b = ml["t"], len(ml["enc_lens"])
+    lp = torch.log_softmax(torch.randn(b, t, MULTILANG_V1, generator=gen, device=dev) * 3, dim=-1)
+    rows["multilang"] = _ctc_case(f"multilang_b{b}_t{t}_u{ml['tokens'].shape[1]}", lp,
+                                  as_i32(ml["tokens"]), as_i32(ml["enc_lens"]),
+                                  as_i32(ml["token_lens"]), MULTILANG_V1 - 1)
+    ml = multilang["rnnt"]
+    b, u = ml["tokens"].shape
+    rows["multilang"] += _joint_case(f"multilang_rnnt_b{b}_t{ml['t']}_u1{u + 1}", b, ml["t"], u,
+                                     ml["h"], ml["v"], ml["enc_lens"], ml["token_lens"], gen,
+                                     dev, drop_t=26)
     return rows
 
 
@@ -1826,12 +2132,15 @@ def main() -> int:
         rnnt = phase_rnnt_train(tmp, env["nvidia_smi"])
         phase_rnnt_dense_step(rnnt["manifest"])
         phase_rnnt_parity(rnnt["manifest"])
+        multilang = phase_multilang(tmp, env["nvidia_smi"])
         # last of the fits, so that its host buffers and save thread precede no timed step
         phase_lifecycle(tmp, train["train_manifest"], train["val_manifest"], env["nvidia_smi"])
-    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt)
+    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang)
 
     kernels = kernel_summary(rows, {"transcribe": {"K2-fwd": fwd_by_shape},
-                                    "train": train["by_shape"], "rnnt_train": rnnt["by_shape"]})
+                                    "train": train["by_shape"], "rnnt_train": rnnt["by_shape"],
+                                    "multilang": {**multilang["ctc"]["by_shape"],
+                                                  **multilang["rnnt"]["by_shape"]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

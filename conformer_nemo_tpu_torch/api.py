@@ -25,7 +25,11 @@ of 1600 samples and to `batch_size` rows with zero rows; each longer file
 takes an exact whole-utterance forward alone, padded to threshold * 2^k.
 
 `fit` trains on one device with the config's optimizer, schedule, loader
-and validation cadence. A multi-device mesh raises, as do timestamps,
+and validation cadence. The loader reads WAV, FLAC, MP3 and Ogg
+(Vorbis/Opus) from a manifest or from tar shards, in the config's wire
+format (`transport`: f32 | pcm16 | mulaw8), trimmed and augmented where the
+config asks; `device_prefetch` copies its batches to the device ahead of
+the step. A multi-device mesh raises, as do timestamps,
 buffered/streaming decode and beam search with an LM: they wait for later
 slices (ROADMAP.md). For the transducer, so do `change_vocabulary`, word
 timestamps, buffered decode, export and the beam strategies.
@@ -33,6 +37,7 @@ timestamps, buffered decode, export and the beam strategies.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -45,6 +50,7 @@ import torch
 from torch import nn
 
 from conformer_nemo_tpu_torch.audio.features import log_mel_spectrogram, mel_seq_len
+from conformer_nemo_tpu_torch.audio.perturb import process_augmentations
 from conformer_nemo_tpu_torch.config.loader import (
     build_ctc_model_config,
     build_rnnt_model_config,
@@ -59,6 +65,9 @@ from conformer_nemo_tpu_torch.convert.jax_params import (
 from conformer_nemo_tpu_torch.data.audio_io import load_audio
 from conformer_nemo_tpu_torch.data.dataset import BucketedAudioTextDataset, BucketedLoader
 from conformer_nemo_tpu_torch.data.manifest import read_manifest
+from conformer_nemo_tpu_torch.data.tarred import TarredAudioTextDataset, TarredBatchIterator
+from conformer_nemo_tpu_torch.data.hf_tokenizer import HFJsonTokenizer
+from conformer_nemo_tpu_torch.data.prefetch import device_prefetch
 from conformer_nemo_tpu_torch.data.tokenizers import build_tokenizer
 from conformer_nemo_tpu_torch.decode.ctc_greedy import collapse_ctc_ids, ctc_greedy_decode
 from conformer_nemo_tpu_torch.decode.rnnt_decoding import RNNTDecoding
@@ -105,9 +114,15 @@ class TranscriptionHypothesis:
     timestep: Optional[List[int]] = None
 
 
+def _char_parser(m: dict) -> str:
+    """The char tokenizer's parser: the training set's `parser`, as the JAX
+    package builds it."""
+    return (m.get("train_ds") or {}).get("parser") or "base"
+
+
 def _tokenizer_from_model_cfg(m: dict, tokenizer_dir: Optional[str] = None):
     if m.get("labels"):
-        return build_tokenizer({"labels": m["labels"]})
+        return build_tokenizer({"labels": m["labels"]}, parser=_char_parser(m))
     tok_cfg = dict(m.get("tokenizer") or {})
     if tokenizer_dir:
         tok_cfg["dir"] = tokenizer_dir
@@ -115,22 +130,33 @@ def _tokenizer_from_model_cfg(m: dict, tokenizer_dir: Optional[str] = None):
 
 
 def _tokenizer_from_archive(m: dict, artifacts: dict):
-    """The JAX package's restore rules: `labels`; an HF `tokenizer`
-    artifact; or the config's tokenizer over the archive's files. A set
+    """The JAX package's restore rules: `labels` (with the training set's
+    parser); an HF `tokenizer` artifact; or the config's tokenizer over the
+    archive's files. An aggregate tokenizer's per-language `model_file`
+    entries are base names of files stored flat in the archive. A set
     `model_file` is read where it points, as the JAX package reads it, or,
     where that path is gone (an archive from another machine), from the
     archive's file of the same base name."""
     if m.get("labels"):
-        return build_tokenizer({"labels": m["labels"]})
+        return build_tokenizer({"labels": m["labels"]}, parser=_char_parser(m))
     if "tokenizer" in artifacts:
-        raise NotImplementedError("an archive's HuggingFace tokenizer artifact is not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
+        return HFJsonTokenizer(artifacts["tokenizer"])
     if artifacts and m.get("tokenizer"):
         tcfg = {k: v for k, v in m["tokenizer"].items() if k != "dir"}
-        if tcfg.get("type") == "agg":
-            raise NotImplementedError("aggregate (multilang) tokenizers are not ported yet "
-                                      "(ROADMAP.md queue 1 item 7)")
         tdir = os.path.dirname(next(iter(artifacts.values())))
+        if tcfg.get("type") == "agg":
+            langs = {}
+            for lang, sub in (tcfg.get("langs") or {}).items():
+                sub = {k: v for k, v in sub.items() if k != "dir"}
+                if not sub.get("model_file"):
+                    # the files are stored flat: a shared dir would load one
+                    # language's model for every language
+                    raise ValueError(f"aggregate tokenizer config for lang {lang!r} has no "
+                                     "model_file entry")
+                if not os.path.isabs(sub["model_file"]):
+                    sub["model_file"] = os.path.join(tdir, sub["model_file"])
+                langs[lang] = sub
+            return build_tokenizer({**tcfg, "langs": langs})
         mf = tcfg.get("model_file")
         if mf and not os.path.isfile(mf):
             tcfg["model_file"] = os.path.join(tdir, os.path.basename(mf))
@@ -264,26 +290,41 @@ class _BaseASRModel:
         return with_grad_accumulation(opt, int(tr.get("accumulate_grad_batches", 1) or 1))
 
     def _loader(self, manifest: str, ds_cfg: dict, shuffle: bool):
-        """The bucketed loader of a manifest. It shuffles with seed 0 whatever
-        the model's `seed`, as the JAX package's `fit` builds its loaders:
-        the model's seed draws the weights and the dropout, not the batch
-        order, so a model of any seed sees the reference's batches."""
-        for key, what in (("is_tarred", "tarred datasets"), ("augmentor", "the waveform augmentor"),
-                          ("trim_silence", "silence trimming")):
-            if ds_cfg.get(key):
-                raise NotImplementedError(f"{what} {_WAITS}")
-        if ds_cfg.get("transport") not in (None, "f32"):
-            raise NotImplementedError(f"transport={ds_cfg['transport']!r} {_WAITS}; f32 is")
+        """The loader of a manifest (or of tar shards with `is_tarred`). It
+        shuffles with seed 0 whatever the model's `seed`, as the JAX
+        package's `fit` builds its loaders: the model's seed draws the
+        weights and the dropout, not the batch order. The training loader
+        (shuffle) alone augments, its augmentor seeded with that seed too."""
+        seed = 0
+        augmentor = None
+        if shuffle and ds_cfg.get("augmentor"):
+            augmentor = process_augmentations(ds_cfg["augmentor"], seed=seed)
+        sr = ds_cfg.get("sample_rate", 16000)
+        if ds_cfg.get("is_tarred"):
+            max_dur = float(ds_cfg.get("max_duration") or 20.0)
+            ds = TarredAudioTextDataset(
+                ds_cfg["tarred_audio_filepaths"], manifest, self.tokenizer, sample_rate=sr,
+                shuffle_n=int(ds_cfg.get("shuffle_n", 0)) if shuffle else 0,
+                min_duration=ds_cfg.get("min_duration"), max_duration=ds_cfg.get("max_duration"),
+                shard_strategy=ds_cfg.get("tarred_shard_strategy", "scatter"), seed=seed,
+                augmentor=augmentor)
+            return TarredBatchIterator(ds, ds_cfg.get("batch_size", 16),
+                                       max_samples_len=int(max_dur * sr),
+                                       max_tokens=max(16, int(max_dur * 8)),
+                                       transport=ds_cfg.get("transport"))
         samples = read_manifest(manifest, min_duration=ds_cfg.get("min_duration"),
                                 max_duration=ds_cfg.get("max_duration"),
                                 max_number=ds_cfg.get("max_utts"))
-        ds = BucketedAudioTextDataset(samples, self.tokenizer,
-                                      sample_rate=ds_cfg.get("sample_rate", 16000),
-                                      n_buckets=ds_cfg.get("num_buckets", 8))
+        ds = BucketedAudioTextDataset(
+            samples, self.tokenizer, sample_rate=sr, n_buckets=ds_cfg.get("num_buckets", 8),
+            trim_silence=bool(ds_cfg.get("trim_silence", False)),
+            use_start_end_token=bool(ds_cfg.get("use_start_end_token", False)),
+            augmentor=augmentor)
         return BucketedLoader(
-            ds, ds_cfg.get("batch_size", 16), shuffle=shuffle, seed=0,
+            ds, ds_cfg.get("batch_size", 16), shuffle=shuffle, seed=seed,
             bucketing_strategy=ds_cfg.get("bucketing_strategy", "synced_randomized"),
-            num_workers=int(ds_cfg.get("num_workers", 0) or 0))
+            num_workers=int(ds_cfg.get("num_workers", 0) or 0),
+            transport=ds_cfg.get("transport"))
 
     def maybe_resume(self, exp_manager: ExperimentManager) -> Optional[dict]:
         """Restore the experiment's last checkpoint into this model's train
@@ -333,8 +374,9 @@ class _BaseASRModel:
         train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True)
         # the longest batch's frames decide whether "auto" attention takes
         # the flash path; refuse a depth its backward cannot take before a step
-        longest = mel_seq_len(self.cfg.preprocessor,
-                              torch.tensor([train_loader.ds.boundaries[-1]]))
+        longest = mel_seq_len(self.cfg.preprocessor, torch.tensor(
+            [train_loader.max_len if isinstance(train_loader, TarredBatchIterator)
+             else train_loader.ds.boundaries[-1]]))
         enc = self._encoder_config
         check_flash_training(enc, self.device, int(calc_sub_length(
             longest, enc.subsampling, int(math.log2(enc.subsampling_factor)))[0]))
@@ -353,7 +395,12 @@ class _BaseASRModel:
         if val_every_n_steps is None and isinstance(vci, int) and vci > 0:
             val_every_n_steps = vci
         elif val_every_n_steps is None and isinstance(vci, float) and 0 < vci <= 1:
-            val_every_n_steps = max(1, int(round(vci * len(train_loader))))
+            if hasattr(train_loader, "__len__"):
+                val_every_n_steps = max(1, int(round(vci * len(train_loader))))
+            elif vci < 1:  # 1.0 is the end-of-epoch validation, which runs anyway
+                raise ValueError("val_check_interval as a fraction of an epoch needs the "
+                                 "epoch's length, which a tarred stream does not know: give "
+                                 "a number of steps")
 
         val: dict = {}
 
@@ -373,25 +420,27 @@ class _BaseASRModel:
         stopped = None
         try:
             for _ in range(max_epochs):
-                for batch in train_loader:
-                    metrics = step_fn(batch)
-                    step = self.train_state.step
-                    if exp_manager and step % log_every == 0:
-                        loss = float(metrics["loss"])  # the window's one host read
-                        now = time.time()
-                        exp_manager.logger.log(
-                            step, train_loss=loss, grad_norm=float(metrics["grad_norm"]),
-                            train_step_timing=(now - t_window) / log_every)
-                        t_window = now
-                    if val_every_n_steps and step % val_every_n_steps == 0:
-                        validate(step)
-                    if max_steps and step >= max_steps:
-                        break
-                    if max_time_s and time.time() - t0 > max_time_s:
-                        stopped = "max_time"
-                        if exp_manager:
-                            exp_manager.save(self.train_state, step, {})
-                        break
+                # batches reach the step on the device, copied `depth` ahead
+                with contextlib.closing(device_prefetch(train_loader, self.device)) as batches:
+                    for batch in batches:
+                        metrics = step_fn(batch)
+                        step = self.train_state.step
+                        if exp_manager and step % log_every == 0:
+                            loss = float(metrics["loss"])  # the window's one host read
+                            now = time.time()
+                            exp_manager.logger.log(
+                                step, train_loss=loss, grad_norm=float(metrics["grad_norm"]),
+                                train_step_timing=(now - t_window) / log_every)
+                            t_window = now
+                        if val_every_n_steps and step % val_every_n_steps == 0:
+                            validate(step)
+                        if max_steps and step >= max_steps:
+                            break
+                        if max_time_s and time.time() - t0 > max_time_s:
+                            stopped = "max_time"
+                            if exp_manager:
+                                exp_manager.save(self.train_state, step, {})
+                            break
                 if stopped:
                     break
                 validate(step)  # end of epoch

@@ -90,12 +90,13 @@ _DS_KEYS = {
     "transport",  # the JAX package's host-to-device wire format (f32 | pcm16 | mulaw8)
 }
 _ONE_DEVICE = "fit trains on one device (the model's device=)"
+_PINNED = "fit always copies training batches to the card from pinned memory (data/prefetch.py)"
 _PRECISION = "the precision is fixed: parameters fp32, compute in the model's dtype (bf16 default)"
 # accepted for the reference recipes' sake, but no-ops in the port
 _NOOP_KEYS = {
-    "model.train_ds.pin_memory": "the loader's batches are copied to the device as they come",
-    "model.validation_ds.pin_memory": "the loader's batches are copied to the device as they come",
-    "model.test_ds.pin_memory": "the loader's batches are copied to the device as they come",
+    "model.train_ds.pin_memory": _PINNED,
+    "model.validation_ds.pin_memory": _PINNED,
+    "model.test_ds.pin_memory": _PINNED,
     "trainer.devices": _ONE_DEVICE,
     "trainer.gpus": _ONE_DEVICE,
     "trainer.num_nodes": _ONE_DEVICE,

@@ -8,9 +8,14 @@ batches padded with zero rows (audio_lens = 0, which the trainer weights
 0). The epoch plan is a pure function of (seed, epoch, strategy), so the
 serial path and the thread-pool path emit the same batches.
 
-The f32 wire format is ported; the pcm16/mulaw8 transports, tarred data,
-waveform augmentation, silence trimming and multi-process sharding are
-not (ROADMAP.md): `ConformerCTC._loader` refuses configs that ask for them.
+An item is decoded, optionally trimmed of silence and augmented (the
+augmentor draws from a stream of (seed, epoch, index) alone, so the
+batches do not depend on the worker count), and tokenized (with the
+manifest's `lang` for an aggregate tokenizer, and bos/eos around the ids
+with `use_start_end_token` where the tokenizer has them). The wire format
+(`transport`) is f32, pcm16 (int16) or mulaw8 (int8 mu-law); the frontend
+dequantises on the device (audio/features.py). Sharding the plan across
+processes waits for multi-GPU (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -18,23 +23,25 @@ from __future__ import annotations
 import dataclasses
 import math
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from conformer_nemo_tpu_torch.data.audio_io import load_audio
+from conformer_nemo_tpu_torch.data.audio_io import load_audio, load_audio_pcm16, mulaw8_encode
 from conformer_nemo_tpu_torch.data.manifest import AudioTextSample
 
 TOKEN_CAP_PER_SEC = 8.0  # token cap of a bucket per second of its audio
 MIN_TOKEN_CAP = 16
 PREFETCH_BATCHES = 2  # collated batches the thread-pool path keeps ready
+WIRE_DTYPES = {"f32": np.float32, "pcm16": np.int16, "mulaw8": np.int8}
 
 
 @dataclasses.dataclass
 class Batch:
-    audio: np.ndarray  # [B, T] float32
+    audio: np.ndarray  # [B, T] float32, int16 (pcm16) or int8 (mulaw8)
     audio_lens: np.ndarray  # [B] int32
     tokens: np.ndarray  # [B, U] int32
     token_lens: np.ndarray  # [B] int32
@@ -60,10 +67,17 @@ class BucketedAudioTextDataset:
     """Maps manifest samples to tokenized entries grouped by duration bucket."""
 
     def __init__(self, samples: List[AudioTextSample], tokenizer, sample_rate: int = 16000,
-                 n_buckets: int = 8):
+                 n_buckets: int = 8, trim_silence: bool = False,
+                 use_start_end_token: bool = False, augmentor=None):
         self.samples = samples
         self.tokenizer = tokenizer
         self.sample_rate = sample_rate
+        self.trim_silence = trim_silence
+        self.augmentor = augmentor
+        # the reference's AudioToBPEDataset wraps the ids with bos/eos where
+        # the tokenizer defines them
+        self.bos_id = getattr(tokenizer, "bos_id", None) if use_start_end_token else None
+        self.eos_id = getattr(tokenizer, "eos_id", None) if use_start_end_token else None
         self.boundaries = make_bucket_boundaries([s.duration for s in samples], n_buckets,
                                                  sample_rate)
         # token cap per bucket: proportional to duration (rounded to 8)
@@ -80,16 +94,37 @@ class BucketedAudioTextDataset:
                 return i
         return len(self.boundaries) - 1
 
-    def load_item(self, idx: int):
-        """Decode and tokenize one sample -> (audio float32 [n], ids, text)."""
+    def encode_text(self, s: AudioTextSample) -> Optional[List[int]]:
+        if s.lang is not None and hasattr(self.tokenizer, "offsets"):
+            ids = self.tokenizer.text_to_ids(s.text, s.lang)
+        else:
+            ids = self.tokenizer.text_to_ids(s.text)
+        if ids is not None:
+            if self.bos_id is not None and self.bos_id >= 0:
+                ids = [self.bos_id] + ids
+            if self.eos_id is not None and self.eos_id >= 0:
+                ids = ids + [self.eos_id]
+        return ids
+
+    def load_item(self, idx: int, rng: Optional[random.Random] = None, pcm16: bool = False):
+        """Decode, trim, augment (drawing from `rng`) and tokenize one sample
+        -> (audio [n], ids, text). With `pcm16` and neither trimming nor an
+        augmentor the audio is int16 (`load_audio_pcm16`), else float32."""
         s = self.samples[idx]
+        if pcm16 and self.augmentor is None and not self.trim_silence:
+            audio = load_audio_pcm16(s.audio_file, target_sr=self.sample_rate, offset=s.offset,
+                                     duration=s.duration)
+            return audio, self.encode_text(s), s.text
         audio = load_audio(s.audio_file, target_sr=self.sample_rate, offset=s.offset,
-                           duration=s.duration)
-        return audio, self.tokenizer.text_to_ids(s.text), s.text
+                           duration=s.duration, trim=self.trim_silence)
+        if self.augmentor is not None:
+            audio = self.augmentor.perturb(audio, self.sample_rate, rng=rng)
+        return audio, self.encode_text(s), s.text
 
 
 class BucketedLoader:
-    """Epoch iterator yielding fixed-shape Batches (token padding id 0).
+    """Epoch iterator yielding fixed-shape Batches (token padding id 0) in
+    the wire format `transport` (f32 | pcm16 | mulaw8).
 
     num_workers > 0 decodes items on a thread pool while a builder thread
     collates up to PREFETCH_BATCHES batches ahead of the consumer; the
@@ -98,7 +133,11 @@ class BucketedLoader:
     def __init__(self, dataset: BucketedAudioTextDataset, batch_size: int, *,
                  shuffle: bool = True, seed: int = 0,
                  bucketing_strategy: str = "synced_randomized", bucketing_batch_size=None,
-                 num_workers: int = 0):
+                 num_workers: int = 0, transport: Optional[str] = None):
+        transport = transport or "f32"
+        if transport not in WIRE_DTYPES:
+            raise ValueError(f"unknown transport {transport!r} (expected f32 | pcm16 | mulaw8)")
+        self.transport = transport
         self.ds = dataset
         n_buckets = len(dataset.boundaries)
         if bucketing_batch_size is None:
@@ -146,13 +185,22 @@ class BucketedLoader:
     def __len__(self) -> int:
         return len(self._plan())
 
+    def _item_rng(self, idx: int) -> random.Random:
+        """An item's augmentation stream: a function of (seed, epoch, idx)
+        only, as the JAX package's, so any worker count augments alike."""
+        return random.Random((self.seed * 1000003 + self.epoch) * 1000003 + idx)
+
+    def _load(self, idx: int):
+        return self.ds.load_item(idx, rng=self._item_rng(idx),
+                                 pcm16=self.transport in ("pcm16", "mulaw8"))
+
     def __iter__(self) -> Iterator[Batch]:
         batches = self._plan()
         if self.num_workers > 0:
             yield from self._iter_workers(batches)
         else:
             for b, idxs in batches:
-                yield self._collate(b, idxs, [self.ds.load_item(i) for i in idxs])
+                yield self._collate(b, idxs, [self._load(i) for i in idxs])
         self.epoch += 1
 
     def _iter_workers(self, batches) -> Iterator[Batch]:
@@ -176,8 +224,7 @@ class BucketedLoader:
                     inflight = []
                     plan = iter(batches)
                     for b, idxs in plan:
-                        inflight.append((b, idxs, [pool.submit(self.ds.load_item, i)
-                                                   for i in idxs]))
+                        inflight.append((b, idxs, [pool.submit(self._load, i) for i in idxs]))
                         if len(inflight) > PREFETCH_BATCHES:
                             break
                     while inflight and not stop.is_set():
@@ -185,7 +232,7 @@ class BucketedLoader:
                         put(("batch", self._collate(b, idxs, [f.result() for f in futs])))
                         nxt = next(plan, None)
                         if nxt is not None:
-                            inflight.append((nxt[0], nxt[1], [pool.submit(self.ds.load_item, i)
+                            inflight.append((nxt[0], nxt[1], [pool.submit(self._load, i)
                                                               for i in nxt[1]]))
             except BaseException as e:  # surface worker errors in the consumer
                 put(("error", e))
@@ -208,21 +255,31 @@ class BucketedLoader:
             builder.join(timeout=5.0)
 
     def _collate(self, bucket: int, idxs: List[int], items) -> Batch:
-        t_cap = self.ds.boundaries[bucket]
-        u_cap = self.ds.token_caps[bucket]
-        bsz = self.bucket_batch[bucket]  # pad the batch dim too: fixed shapes
-        audio = np.zeros((bsz, t_cap), dtype=np.float32)
-        audio_lens = np.zeros((bsz,), dtype=np.int32)
-        tokens = np.zeros((bsz, u_cap), dtype=np.int32)
-        token_lens = np.zeros((bsz,), dtype=np.int32)
-        texts: List[str] = []
-        for row, (wav, toks, text) in enumerate(items):
-            n = min(len(wav), t_cap)
+        # pad the batch dim too: fixed shapes
+        return collate(items, self.ds.boundaries[bucket], self.ds.token_caps[bucket],
+                       self.bucket_batch[bucket], self.transport)
+
+
+def collate(items, t_cap: int, u_cap: int, bsz: int, transport: str = "f32") -> Batch:
+    """(audio, ids, text) items -> a Batch of `bsz` rows (zero rows past the
+    items) of t_cap samples in the wire format and u_cap tokens."""
+    audio = np.zeros((bsz, t_cap), dtype=WIRE_DTYPES[transport])
+    audio_lens = np.zeros((bsz,), dtype=np.int32)
+    tokens = np.zeros((bsz, u_cap), dtype=np.int32)
+    token_lens = np.zeros((bsz,), dtype=np.int32)
+    texts: List[str] = []
+    for row, (wav, toks, text) in enumerate(items):
+        n = min(len(wav), t_cap)
+        if transport == "mulaw8":
+            audio[row, :n] = mulaw8_encode(wav[:n])
+        elif transport == "pcm16" and wav.dtype != np.int16:
+            audio[row, :n] = np.clip(wav[:n] * 32768.0, -32768, 32767).astype(np.int16)
+        else:
             audio[row, :n] = wav[:n]
-            audio_lens[row] = n
-            toks = (toks or [])[:u_cap]
-            tokens[row, : len(toks)] = toks
-            token_lens[row] = len(toks)
-            texts.append(text)
-        texts.extend([""] * (bsz - len(idxs)))
-        return Batch(audio, audio_lens, tokens, token_lens, texts)
+        audio_lens[row] = n
+        toks = (toks or [])[:u_cap]
+        tokens[row, : len(toks)] = toks
+        token_lens[row] = len(toks)
+        texts.append(text)
+    texts.extend([""] * (bsz - len(texts)))
+    return Batch(audio, audio_lens, tokens, token_lens, texts)

@@ -1,13 +1,17 @@
 """Tokenizers (port of conformer_nemo_tpu/data/tokenizers.py).
 
-A dependency-free SentencePiece model reader (hand-rolled protobuf
-wire-format parse) that encodes (`text_to_ids`: the model's normalizer,
-then BPE merges in score order for BPE models or Viterbi segmentation for
-unigram models, with byte fallback) and decodes (`ids_to_text`), and the
-char tokenizer for `labels` configs with the reference CharParser's
-rules. The HuggingFace `tokenizer.json` path, the "en" char parser and the
-aggregate multilang tokenizer wait for the ROADMAP.md queue-1 item "HF
-tokenizer": the first needs the `tokenizers` package.
+- A dependency-free SentencePiece model reader (hand-rolled protobuf
+  wire-format parse) that encodes (`text_to_ids`: the model's normalizer,
+  then BPE merges in score order for BPE models or Viterbi segmentation
+  for unigram models, with byte fallback) and decodes (`ids_to_text`).
+- The char tokenizer for `labels` configs with the reference CharParser's
+  rules, and the "en" parser's cleaning (data/cleaners.py).
+- HuggingFace `tokenizer.json` files through the port's own reader
+  (data/hf_tokenizer.py), a word tokenizer over a vocab file, and the
+  aggregate multilang tokenizer: per-language tokenizers whose id spaces
+  follow one another in config order.
+
+`build_tokenizer` takes a config section as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -16,16 +20,21 @@ import heapq
 import os
 import struct
 import unicodedata
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+from conformer_nemo_tpu_torch.data.cleaners import clean_text, make_table
+from conformer_nemo_tpu_torch.data.hf_tokenizer import HFJsonTokenizer
 
 
 class CharTokenizer:
     """Char-level tokenizer over a `labels` list with the reference
     CharParser's rules (strip, lowercase, per-word special labels, unknown
-    characters dropped)."""
+    characters dropped). `parser="en"` first runs the ENCharParser cleaning
+    (ascii-fold, number and abbreviation expansion, punctuation words:
+    data/cleaners.py); the default "base" does not, as in the JAX package."""
 
     def __init__(self, labels: List[str], *, unk_id: int = -1, blank_id: int = -1,
-                 do_lowercase: bool = True, do_normalize: bool = True):
+                 do_lowercase: bool = True, do_normalize: bool = True, parser: str = "base"):
         self.labels = list(labels)
         self._labels_map = {label: i for i, label in enumerate(self.labels)}
         self._special_labels = {label for label in self.labels if len(label) > 1}
@@ -33,12 +42,17 @@ class CharTokenizer:
         self._blank_id = blank_id
         self._do_lowercase = do_lowercase
         self._do_normalize = do_normalize
+        if parser not in ("base", "en"):
+            raise ValueError(f"unknown parser {parser!r} (base | en)")
+        self._en_table = make_table(self.labels) if parser == "en" else None
 
     @property
     def vocab_size(self) -> int:
         return len(self.labels)
 
     def text_to_ids(self, text: str) -> List[int]:
+        if self._en_table is not None:
+            text = clean_text(text, self._en_table)
         if self._do_normalize:
             text = text.strip()
             if self._do_lowercase:
@@ -312,20 +326,102 @@ class SentencePieceTokenizer:
         return "".join(out).replace(_SP_SPACE, " ").strip()
 
 
-def build_tokenizer(cfg: dict):
-    """Tokenizer from a config dict: {'labels': [...]} (char),
-    {'model_file': path} or {'dir': d} with d/tokenizer.model."""
+class AggregateTokenizer:
+    """Per-language tokenizers whose id spaces follow one another in config
+    order (the reference AggregateTokenizer): `text_to_ids(text, lang)`
+    offsets the language's ids; `ids_to_text` decodes each run of ids with
+    the language that owns them and joins the runs with a space."""
+
+    def __init__(self, tokenizers_by_lang: Dict[str, object]):
+        self.langs = list(tokenizers_by_lang)
+        self.tokenizers = tokenizers_by_lang
+        self.offsets: Dict[str, int] = {}
+        off = 0
+        for lang in self.langs:
+            self.offsets[lang] = off
+            off += tokenizers_by_lang[lang].vocab_size
+        self._total = off
+
+    @property
+    def vocab_size(self) -> int:
+        return self._total
+
+    def text_to_ids(self, text: str, lang: str) -> List[int]:
+        off = self.offsets[lang]
+        return [i + off for i in self.tokenizers[lang].text_to_ids(text)]
+
+    def _owner(self, idx: int) -> tuple:
+        for lang in reversed(self.langs):
+            if idx >= self.offsets[lang]:
+                return lang, idx - self.offsets[lang]
+        raise ValueError(f"id {idx} out of range")
+
+    def ids_to_text(self, ids: List[int]) -> str:
+        out, group, cur = [], [], None
+        for idx in ids:
+            lang, local = self._owner(idx)
+            if lang != cur and group:
+                out.append(self.tokenizers[cur].ids_to_text(group))
+                group = []
+            cur = lang
+            group.append(local)
+        if group:
+            out.append(self.tokenizers[cur].ids_to_text(group))
+        return " ".join(t for t in out if t)
+
+
+class WordTokenizer:
+    """Word-level tokenizer over a vocabulary list (the reference
+    WordTokenizer): whitespace-split words, unknown words -> the unk token."""
+
+    def __init__(self, vocab: List[str], unk_token: str = "<unk>"):
+        self.labels = list(vocab)
+        if unk_token not in self.labels:
+            self.labels.append(unk_token)
+        self._map = {w: i for i, w in enumerate(self.labels)}
+        self._unk_id = self._map[unk_token]
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.labels)
+
+    def text_to_ids(self, text: str) -> List[int]:
+        return [self._map.get(w, self._unk_id) for w in text.strip().split()]
+
+    def ids_to_text(self, ids: List[int]) -> str:
+        return " ".join(self.labels[i] for i in ids if 0 <= i < len(self.labels))
+
+
+def _read_lines(path: str) -> List[str]:
+    with open(path, encoding="utf-8") as f:
+        return [line.rstrip("\n") for line in f if line.rstrip("\n")]
+
+
+def build_tokenizer(cfg: dict, parser: str = "base"):
+    """Tokenizer from a config section, case for case as the JAX package's:
+    {'labels': [...]} (char, with `parser`); {'type': 'agg', 'langs':
+    {lang: section}}; {'type': 'word', 'vocab_file' or 'dir'}; {'model_file':
+    path} (SentencePiece); else {'dir': d} with d/tokenizer.json (HF),
+    d/tokenizer.model (SentencePiece) or d/vocab.txt (char labels, case
+    kept), in that order."""
     if "labels" in cfg:
-        return CharTokenizer(cfg["labels"])
+        return CharTokenizer(cfg["labels"], parser=parser)
+    ttype = cfg.get("type", "bpe")
+    if ttype == "agg":
+        return AggregateTokenizer({lang: build_tokenizer(sub)
+                                   for lang, sub in cfg["langs"].items()})
+    if ttype == "word":
+        return WordTokenizer(_read_lines(cfg.get("vocab_file")
+                                         or os.path.join(cfg["dir"], "vocab.txt")))
     if cfg.get("model_file"):
         return SentencePieceTokenizer(cfg["model_file"])
-    d = cfg["dir"]
-    # same precedence as the JAX package: tokenizer.json before tokenizer.model
-    if os.path.exists(os.path.join(d, "tokenizer.json")):
-        raise NotImplementedError(
-            f"{d}/tokenizer.json: HuggingFace tokenizers are not ported yet "
-            "(ROADMAP.md queue 1, 'HF tokenizer')")
-    sp_model = os.path.join(d, "tokenizer.model")
-    if os.path.exists(sp_model):
-        return SentencePieceTokenizer(sp_model)
-    raise FileNotFoundError(f"no tokenizer.model found in {d}")
+    d = cfg.get("dir")
+    if not d or d == "???":
+        raise ValueError(f"tokenizer config {cfg} names neither model_file nor dir")
+    for name, build in (("tokenizer.json", HFJsonTokenizer),
+                        ("tokenizer.model", SentencePieceTokenizer),
+                        ("vocab.txt", lambda p: CharTokenizer(_read_lines(p), do_lowercase=False))):
+        path = os.path.join(d, name)
+        if os.path.exists(path):
+            return build(path)
+    raise FileNotFoundError(f"no tokenizer artifacts found in {d}")

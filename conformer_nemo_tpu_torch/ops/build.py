@@ -10,14 +10,24 @@ all at once.
 Each kernel wrapper counts its launches in a `LaunchCount` registered here
 under the kernel's name, so a caller can show that a path went through the
 kernels (`launch_counts`, `reset_launch_counts`).
+
+The host data pipeline's native libraries (data/csrc/: the FLAC decoder and
+the Ogg/Vorbis and Ogg/Opus shims) build here too, with the host compiler,
+into the same directory (`host_library`, `build_host_all`). A shim links
+against the system codec library by full path, so no development headers
+are needed; a missing system library raises, naming it, when the shim is
+first asked for. A failed build raises with the compiler's output; nothing
+remembers a failure.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -126,3 +136,89 @@ def load(source: str) -> ctypes.CDLL:
             _finish(source, *_start(source, verbose=False))
         lib = _LIBS[source] = ctypes.CDLL(_lib_path(source))
     return lib
+
+
+HOST_CSRC_DIR = os.path.join(os.path.dirname(_HERE), "data", "csrc")
+# host library -> (source in data/csrc, compiler and flags, system libraries it links)
+HOST_LIBS = {
+    "flac_decoder": ("flac_decoder.cpp", ("g++", "-O3", "-std=c++17"), ()),
+    "ogg_mem": ("ogg_mem.c", ("gcc", "-O2"), ("libvorbisfile",)),
+    "opus_mem": ("opus_mem.c", ("gcc", "-O2"), ("libopus", "libogg")),
+}
+_SYSTEM_LIB_DIRS = ("/usr/lib/x86_64-linux-gnu", "/lib/x86_64-linux-gnu", "/usr/lib64", "/lib64",
+                    "/usr/lib", "/usr/local/lib")
+# loader worker threads reach a library's first build at once: one build at a time
+_HOST_LOCK = threading.Lock()
+_HOST_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+class MissingSystemLibrary(RuntimeError):
+    """A system codec library that a host library links against is absent."""
+
+
+def find_system_library(stem: str) -> str | None:
+    """Full path of a versioned runtime library (`stem`.so*), or None; hosts
+    often ship no unversioned development symlink."""
+    for d in _SYSTEM_LIB_DIRS:
+        hits = sorted(glob.glob(os.path.join(d, f"{stem}.so*")))
+        if hits:
+            return hits[0]
+    return None
+
+
+def _host_lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _build_host(name: str, force: bool) -> bool:
+    """Compile host library `name` if stale (or forced); -> whether it
+    compiled. Raises MissingSystemLibrary, or RuntimeError with the
+    compiler's output."""
+    source, compiler, stems = HOST_LIBS[name]
+    deps = [(stem, find_system_library(stem)) for stem in stems]
+    missing = [stem for stem, path in deps if path is None]
+    if missing:
+        raise MissingSystemLibrary(
+            f"{name} needs the system librar{'ies' if len(missing) > 1 else 'y'} "
+            f"{', '.join(missing)}, which this host does not have")
+    src, so = os.path.join(HOST_CSRC_DIR, source), _host_lib_path(name)
+    if not force and os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return False
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        proc = subprocess.run([*compiler, "-shared", "-fPIC", src, *[p for _, p in deps],
+                               "-o", tmp], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{compiler[0]} failed for {source}:\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: another process never loads half a library
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return True
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library `name` (a key of HOST_LIBS), built first if needed."""
+    with _HOST_LOCK:
+        lib = _HOST_LIBS.get(name)
+        if lib is None:
+            _build_host(name, force=False)
+            lib = _HOST_LIBS[name] = ctypes.CDLL(_host_lib_path(name))
+        return lib
+
+
+def build_host_all(force: bool = False) -> dict:
+    """Compile every host library. -> {name: {"seconds"} or {"missing": message}}
+    (a host without a codec's system library still builds the others)."""
+    report = {}
+    with _HOST_LOCK:
+        for name in HOST_LIBS:
+            t0 = time.perf_counter()
+            try:
+                _build_host(name, force)
+            except MissingSystemLibrary as e:
+                report[name] = {"missing": str(e)}
+                continue
+            report[name] = {"seconds": time.perf_counter() - t0}
+    return report

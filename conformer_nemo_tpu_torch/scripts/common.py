@@ -69,15 +69,25 @@ def build_exp_manager(raw_cfg: dict):
 
 
 def tokenizer_artifacts(raw_cfg: dict, tokenizer_dir: Optional[str] = None) -> dict:
-    """The SentencePiece model of a BPE config as a portable-archive
-    artifact ({} for char labels), so that the archive restores in either
-    package without the training machine's files."""
+    """The tokenizer files of a config as portable-archive artifacts, so
+    that the archive restores in either package without the training
+    machine's files: {} for char labels; {"tokenizer_<lang>.model": path}
+    for each language of an aggregate tokenizer (its SentencePiece models);
+    else an HF tokenizer.json as "tokenizer" or the SentencePiece model as
+    "tokenizer_model", whichever the builder would read."""
     m = raw_cfg["model"]
     if m.get("labels"):
         return {}
     tok = m.get("tokenizer") or {}
-    path = tok.get("model_file") or os.path.join(tokenizer_dir or tok.get("dir") or "",
-                                                 "tokenizer.model")
+    if tok.get("type") == "agg":
+        return {f"tokenizer_{lang}.model": path for lang, sub in tok["langs"].items()
+                for path in [sub.get("model_file")
+                             or os.path.join(sub.get("dir") or "", "tokenizer.model")]
+                if os.path.isfile(path)}
+    d = tokenizer_dir or tok.get("dir") or ""
+    if not tok.get("model_file") and os.path.isfile(os.path.join(d, "tokenizer.json")):
+        return {"tokenizer": os.path.join(d, "tokenizer.json")}
+    path = tok.get("model_file") or os.path.join(d, "tokenizer.model")
     return {"tokenizer_model": path} if os.path.isfile(path) else {}
 
 

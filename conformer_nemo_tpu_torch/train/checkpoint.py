@@ -172,14 +172,28 @@ def save_portable(out_path: str, config: dict, variables: Any,
     the artifact "tokenizer_model" is stored as tokenizer.model, and the
     archived tokenizer config drops its model_file and dir: either package
     then builds the tokenizer from the extracted archive (its `dir` rule),
-    not from a path of the machine that wrote it."""
+    not from a path of the machine that wrote it. An aggregate tokenizer's
+    languages are given as the artifacts "tokenizer_<lang>.model" (every
+    language's), stored flat under those names, and the archived config
+    points each language's `model_file` at its base name: the JAX package's
+    rule for multilang archives."""
     names = {key: os.path.basename(src) for key, src in (artifacts or {}).items()}
     tok = (config.get("model") or {}).get("tokenizer")
     if "tokenizer_model" in names:
         names["tokenizer_model"] = "tokenizer.model"
         if tok:
             tok = {k: v for k, v in tok.items() if k not in ("model_file", "dir")}
-            config = {**config, "model": {**config["model"], "tokenizer": tok}}
+    elif tok and tok.get("type") == "agg" and names:
+        langs = {}
+        for lang, sub in tok["langs"].items():
+            key = f"tokenizer_{lang}.model"
+            if key not in names:
+                raise ValueError(f"an aggregate tokenizer's archive needs the artifact {key!r}")
+            names[key] = key
+            langs[lang] = {"type": (sub or {}).get("type", "bpe"), "model_file": key}
+        tok = {"type": "agg", "langs": langs}
+    if tok is not None:
+        config = {**config, "model": {**config["model"], "tokenizer": tok}}
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "model_config.yaml"), "w") as f:
             yaml.safe_dump(config, f)

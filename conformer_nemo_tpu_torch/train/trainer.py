@@ -50,7 +50,10 @@ def init_ctc_state(model: CTCModel, optimizer: Transformation, seed: int = 0) ->
 
 
 def _device_batch(batch, device) -> dict:
-    """A Batch or dict of numpy arrays / tensors -> dict of tensors on device."""
+    """A Batch or dict of numpy arrays / tensors -> dict of tensors on
+    device. `fit` hands the step batches that data/prefetch.py already put
+    on the device (then nothing is copied here); a direct caller's numpy
+    batch is copied synchronously."""
     get = batch.__getitem__ if isinstance(batch, dict) else lambda k: getattr(batch, k)
     return {k: torch.as_tensor(get(k)).to(device) for k in _BATCH_KEYS}
 

@@ -1,6 +1,9 @@
 """Port WAV reading and resampling vs the JAX package's (both numpy/scipy:
-results must be identical)."""
+results must be identical); FLAC through the port's own decoder equals the
+JAX package's bit for bit (tests/test_torch_codecs.py holds the rest of
+the formats)."""
 
+import os
 import wave
 
 import numpy as np
@@ -8,6 +11,8 @@ import pytest
 
 from conformer_nemo_tpu.data import audio_io as jax_io
 from conformer_nemo_tpu_torch.data import audio_io as port_io
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _write(path, width, channels, sr, rng):
@@ -44,5 +49,11 @@ def test_write_wav_round_trip_and_other_containers_raise(tmp_path):
     port_io.write_wav(path, x)
     np.testing.assert_array_equal(port_io.load_audio(path), jax_io.load_audio(path))
     assert np.abs(port_io.load_audio(path) - x).max() < 1e-4  # PCM16 rounding
-    with pytest.raises(NotImplementedError, match="FLAC/MP3"):
-        port_io.load_audio(str(tmp_path / "z.flac"))
+    # FLAC, once refused, now decodes as the JAX package decodes it
+    flac = os.path.join(ROOT, "tests", "fixtures", "speech", "utt1.flac")
+    np.testing.assert_array_equal(port_io.load_audio(flac), jax_io.load_audio(flac))
+    # a container neither package knows raises in both
+    (tmp_path / "z.bin").write_bytes(b"not audio at all")
+    for io in (port_io, jax_io):
+        with pytest.raises(ValueError, match="unrecognized audio container"):
+            io.load_audio(str(tmp_path / "z.bin"))

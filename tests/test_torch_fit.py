@@ -3,16 +3,20 @@ remat and the flash path on, whose kernels run their plain versions here)
 trains two steps on a 4-utterance manifest with validation, returns a
 finite loss, leaves the model in eval mode, and transcribes; it takes an
 experiment manager, a missing `trainer.resume_from_checkpoint` raises
-FileNotFoundError as in the JAX package, and what is not ported raises."""
+FileNotFoundError as in the JAX package, and what is not ported raises;
+the integer transports, tar shards, silence trimming and the augmentor
+train on the JAX package's loader batches."""
 
 import json
 import math
 import os
+import tarfile
 
 import numpy as np
 import pytest
 import torch
 
+from conformer_nemo_tpu.api import ConformerCTC as JaxConformerCTC
 from conformer_nemo_tpu_torch.api import ConformerCTC
 from conformer_nemo_tpu_torch.data.audio_io import write_wav
 from conformer_nemo_tpu_torch.train.exp_manager import ExpManagerConfig, ExperimentManager
@@ -60,6 +64,10 @@ def test_fit_on_cpu_then_transcribe(manifest):
 
 
 def test_fit_refuses_what_is_not_ported(manifest, tmp_path):
+    """What fit still refuses (a mesh, novograd) raises naming ROADMAP.md;
+    the data options it once refused (integer transports, tar shards,
+    silence trimming, the augmentor) now train, on the loader batches of
+    the JAX package's `_loader` for the same config."""
     model = ConformerCTC.from_config_file(CONFIG, overrides=TINY, device="cpu",
                                           dtype=torch.float32)
     em = ExperimentManager(ExpManagerConfig(exp_dir=str(tmp_path), create_tensorboard_logger=False))
@@ -71,13 +79,32 @@ def test_fit_refuses_what_is_not_ported(manifest, tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint in /nowhere"):
         m.fit(manifest, max_steps=1)  # as the JAX package's fit raises
     for key, value in (("trainer.mesh", {"data": 2, "model": 1}),
-                       ("model.optim.name", "novograd"),
-                       ("model.train_ds.transport", "pcm16"),
-                       ("model.train_ds.transport", "mulaw8"),
-                       ("model.train_ds.is_tarred", True),
-                       ("model.train_ds.trim_silence", True),
-                       ("model.train_ds.augmentor", {"white_noise": {"prob": 1.0}})):
+                       ("model.optim.name", "novograd")):
         m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, key: value}, device="cpu",
                                           dtype=torch.float32)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.fit(manifest, max_steps=1)
+    d = os.path.dirname(manifest)
+    with tarfile.open(os.path.join(d, "audio_0.tar"), "w") as tar:
+        for i in range(4):
+            tar.add(os.path.join(d, f"{i}.wav"), arcname=f"{i}.wav")
+    for key, value in (("model.train_ds.transport", "pcm16"),
+                       ("model.train_ds.transport", "mulaw8"),
+                       ("model.train_ds.is_tarred", True),
+                       ("model.train_ds.trim_silence", True),
+                       ("model.train_ds.augmentor", {"white_noise": {"prob": 1.0}})):
+        overrides = {**TINY, key: value,
+                     "model.train_ds.tarred_audio_filepaths": os.path.join(d, "audio_{0..0}.tar")}
+        m = ConformerCTC.from_config_file(CONFIG, overrides=overrides, device="cpu",
+                                          dtype=torch.float32)
+        jm = JaxConformerCTC.from_config_file(CONFIG, overrides=overrides)
+        ds_cfg = m.raw_cfg["model"]["train_ds"]
+        got, want = list(m._loader(manifest, ds_cfg, True)), list(jm._loader(manifest, ds_cfg,
+                                                                           True))
+        assert len(got) == len(want) > 0, key
+        for a, b in zip(got, want):
+            assert a.audio.dtype == b.audio.dtype, key
+            for k in ("audio", "audio_lens", "tokens", "token_lens"):
+                np.testing.assert_array_equal(getattr(a, k), getattr(b, k), err_msg=f"{key} {k}")
+        out = m.fit(manifest, max_steps=1)
+        assert out["steps"] == 1 and math.isfinite(out["last_loss"]), (key, out)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of conformer_nemo_tpu_torch, and not
 chip_smoke.py, imports JAX, the JAX package or msgpack (the port reads and
-writes flax's msgpack format itself); and no entry point runs on the CPU
-unless asked."""
+writes flax's msgpack format itself); its native host libraries build from
+its own sources and nothing loads from or reads the JAX package's
+`native/`; and no entry point runs on the CPU unless asked."""
 
 import os
 import subprocess
@@ -26,6 +27,26 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
                                                                "msgpack")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
+# every library the decoders load comes from the port's own build (scipy,
+# which resamples, probes sys.modules for jax: drop the import blocks first)
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "conformer_nemo_tpu"):
+    del sys.modules[name]
+import ctypes, os, tempfile
+loaded = []
+real_cdll = ctypes.CDLL.__init__
+def spy(self, name, *a, **kw):
+    loaded.append(str(name))
+    real_cdll(self, name, *a, **kw)
+ctypes.CDLL.__init__ = spy
+from conformer_nemo_tpu_torch.data import audio_io, codecs, flac_encode
+x = audio_io.load_audio("tests/fixtures/speech/utt1.flac")
+tmp = tempfile.mkdtemp()
+for ext, write in ((".ogg", codecs.write_ogg), (".opus", codecs.write_opus), (".mp3", codecs.write_mp3)):
+    write(os.path.join(tmp, "a" + ext), x)
+    audio_io.load_audio(os.path.join(tmp, "a" + ext))
+assert not [p for p in loaded if "native" in p.split(os.sep)], loaded
+assert any(p.endswith("ops/_build/libflac_decoder.so") for p in loaded), loaded
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "conformer_nemo_tpu")]
 print(len(names))
 """
 
@@ -36,7 +57,32 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 46  # every module was walked
+    assert int(r.stdout.split()[-1]) >= 53  # every module was walked
+
+
+def test_no_port_source_reads_the_jax_packages_native_tree():
+    """No port module or native source names `native/` (the JAX package's
+    C sources and its build directory); the host libraries build from the
+    port's data/csrc into its own ignored build directory."""
+    from conformer_nemo_tpu_torch.ops import build
+
+    port = os.path.join(ROOT, "conformer_nemo_tpu_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(port):
+        for name in files:
+            if name.endswith((".py", ".c", ".cpp", ".cu", ".cuh")):
+                with open(os.path.join(dirpath, name), encoding="utf-8") as f:
+                    text = f.read()
+                if "native/" in text or '"native"' in text or "native_dir" in text:
+                    offenders.append(os.path.relpath(os.path.join(dirpath, name), ROOT))
+    with open(os.path.join(ROOT, "chip_smoke.py"), encoding="utf-8") as f:
+        if "native/" in f.read():
+            offenders.append("chip_smoke.py")
+    assert not offenders, offenders
+    assert build.HOST_CSRC_DIR == os.path.join(port, "data", "csrc")
+    assert build.BUILD_DIR == os.path.join(port, "ops", "_build")
+    for source, _, _ in build.HOST_LIBS.values():
+        assert os.path.isfile(os.path.join(build.HOST_CSRC_DIR, source)), source
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

@@ -13,8 +13,9 @@ layers, d_model 64; the transducer's prediction and joint width 32).
 - the transducer's LSTM bias travels as JAX keeps it (without
   forget_gate_bias c): back in the port the forget chunk b is within one
   ulp of max(|b|, |b - c|), every other tensor bit for bit.
-- a legacy params-only archive, the refused tokenizers, and
-  `from_pretrained` through `cache_dir` and `$CONFORMER_NEMO_TPU_CACHE`.
+- a legacy params-only archive; an HF tokenizer.json artifact and an
+  aggregate tokenizer both ways; and `from_pretrained` through
+  `cache_dir` and `$CONFORMER_NEMO_TPU_CACHE`.
 """
 
 import os
@@ -266,19 +267,36 @@ def test_legacy_params_only_archive(tmp_path):
 
 
 def test_restore_refuses_what_is_not_ported(tmp_path):
-    pm = _port_model("ctc", "bpe")
-    hf = tmp_path / "tokenizer.json"
-    hf.write_text("{}")
-    for name, artifacts, tok in (
-            ("hf", {"tokenizer": str(hf)}, None),
-            ("agg", ARTIFACTS, {"type": "agg", "langs": {"en": {"model_file": "x.model"}}})):
+    """An HF `tokenizer` artifact and an aggregate tokenizer, once refused,
+    now restore in the port as in the JAX package (the same texts and
+    log-probs); an archive with no tokenizer artifact still raises."""
+    from conformer_nemo_tpu.data.tokenizers import train_bpe_tokenizer
+    from conformer_nemo_tpu_torch.scripts.common import tokenizer_artifacts
+
+    hf_dir = tmp_path / "hf"
+    hf_dir.mkdir()
+    with open(os.path.join(FIXTURES, "sp_corpus.txt"), encoding="utf-8") as f:
+        train_bpe_tokenizer([line.strip() for line in f], 120, str(hf_dir / "tokenizer.json"))
+    agg = {f"model.tokenizer.langs.{lang}.model_file": os.path.join(FIXTURES, name)
+           for lang, name in (("en", "sp_bpe_bytefallback.model"), ("es", "sp_unigram.model"))}
+    for name, config, overrides in (
+            ("hf", "conformer_ctc_bpe.yaml", {**ENC, "model.tokenizer.dir": str(hf_dir)}),
+            ("agg", "conformer_ctc_bpe_multilang.yaml", {**ENC, **agg})):
+        pm = ConformerCTC.from_config_file(os.path.join(ROOT, "configs", config),
+                                           overrides=overrides, device="cpu",
+                                           dtype=torch.float32)
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(2)
+            for p in pm.model.parameters():
+                p.add_(0.2 * torch.randn(p.shape, generator=gen))
+        artifacts = tokenizer_artifacts(pm.raw_cfg)
+        assert ("tokenizer" in artifacts) == (name == "hf")
         path = str(tmp_path / f"{name}.cntpu")
-        cfg = {**pm.raw_cfg, "model": {**pm.raw_cfg["model"]}}
-        if tok is not None:
-            cfg["model"]["tokenizer"] = tok
-        ckpt.save_portable(path, cfg, pm.portable_variables, artifacts)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-            ConformerCTC.restore_portable(path, device="cpu")
+        pm.save_portable(path, artifacts)
+        _assert_same_outputs("ctc", JaxConformerCTC.restore_portable(path, dtype=jnp.float32),
+                             ConformerCTC.restore_portable(path, dtype=torch.float32,
+                                                           device="cpu"))
+    pm = _port_model("ctc", "bpe")
     path = str(tmp_path / "none.cntpu")
     ckpt.save_portable(path, pm.raw_cfg, pm.portable_variables)
     with pytest.raises(ValueError, match="no tokenizer artifact"):
