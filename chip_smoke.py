@@ -6,8 +6,9 @@
 Phases, one JSON line each (any failure raises and exits non-zero):
   env          torch/CUDA/nvcc versions, triton and yaml presence, the card
   build        compiles every CUDA kernel from conformer_nemo_tpu_torch/ops/csrc, and
-               the data pipeline's host libraries (FLAC decoder, Ogg/Vorbis and
-               Ogg/Opus shims) from conformer_nemo_tpu_torch/data/csrc
+               the host libraries (FLAC decoder, Ogg/Vorbis and Ogg/Opus shims, the
+               CTC beam decoder and its KenLM readers) from
+               conformer_nemo_tpu_torch/data/csrc
   transcribe   ConformerCTC.transcribe at full width (configs/conformer_ctc_bpe.yaml,
                18 layers, d_model 512, seeded random weights) over generated
                WAVs: a dense-attention bucket, a batched flash bucket and one
@@ -15,6 +16,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                path went through the kernel, and a second model with the flash
                path switched off must agree with it (profile: one traced
                transcribe, device busy share and the kernels that take its time)
+  decode_ctc   on the same model: beamsearch_ngram through change_decoding_strategy
+               (beam 64, alpha 1.0, beta 1.5, a 3-gram ARPA the phase writes) over
+               the short bucket and one 30-50 s file, whose batch launches K2-fwd
+               (counted); twice, the same texts; the same texts from the port's
+               decoder on transcribe(logprobs=True)'s arrays; word timestamps
+               (non-decreasing, within the audio, joined = the greedy transcript)
   train        ConformerCTC.fit at full width on configs/conformer_ctc_bpe_longform.yaml
                (batch 8, remat, flash) over 16 generated 45-75 s WAVs, 3 steps
                with validation; per step the launch counts of all six kernels,
@@ -38,6 +45,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                train step); then save_portable and restore_portable of that model
                (the same bits but the LSTM forget chunk, held to one ulp; the same
                greedy texts), timed
+  decode_rnnt  that archive through scripts/evaluate.main once per strategy
+               (greedy_batch, beam, tsd, alsd, maes, beam_batch; the JAX script's
+               options) on the phase's two shortest files, each evaluate's texts
+               equal to a second call's; alsd with the config's own beam block; the
+               card's encoder output in fp32 decoded on the card and on the CPU
+               with the same fp32 weights (equal tokens, or best scores within
+               DECODE_SCORE_ATOL: near-ties counted); word timestamps; seconds per
+               file and audio-s/s per strategy; one file's default beam traced
+               (profile_decode_beam: joint calls, wall and device ms per call).
+               evaluate's restore of the archive reuses the phase's one restore
   rnnt_dense_step two steps with joint_impl auto, which resolves to the dense
                joint: K3 launches, no K4 launch, each step's time
   rnnt_parity  the same weights and batch, dropout, SpecAugment and dither off: one
@@ -117,6 +134,7 @@ import tarfile
 import tempfile
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -200,6 +218,15 @@ CODEC_MIN_SNR_DB = 10.0
 CODEC_LIBRARIES = {"mp3": ("libmpg123",), "ogg": ("libvorbisfile",), "opus": ("libopus", "libogg")}
 FIXTURE_FLAC_SAMPLES = {"utt1.flac": 16320, "utt3.flac": 14080, "utt5.flac": 14080}
 PREFETCH_TURNS = ("prefetch", "sync", "sync", "prefetch")
+# decode: CTC prefix beam search with a 3-gram the phase writes, the transducer's
+# strategies through scripts/evaluate.main with the JAX script's options
+CTC_BEAM = {"beam_width": 64, "alpha": 1.0, "beta": 1.5}
+LM_WORDS = 18  # the 3-gram's vocabulary: the fixture tokenizer's pieces of 2+ letters
+RNNT_STRATEGIES = ("greedy_batch", "beam", "tsd", "alsd", "maes", "beam_batch")
+RNNT_BEAM_SIZE = 4  # the JAX script's --beam-size default
+RNNT_DECODE_FILES = 2
+# the card's fp32 decode against the CPU's: equal tokens, or best scores this close
+DECODE_SCORE_ATOL = 1e-3
 
 
 def watched(model) -> tuple:
@@ -348,6 +375,7 @@ def phase_build() -> None:
     ptxas = {src: [ln.strip() for ln in r["log"].splitlines()
                    if "registers" in ln or "spill" in ln] for src, r in report.items()}
     check("seconds" in host["flac_decoder"], ("the FLAC decoder did not build", host))
+    check("seconds" in host["ctc_beam"], ("the CTC beam decoder did not build", host))
     emit("build", seconds=time.perf_counter() - t0, sources=sorted(report), ptxas=ptxas,
          host_libraries=host)
 
@@ -1095,6 +1123,296 @@ def phase_transcribe(model, groups, gpu: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# decode: the beam strategies, an n-gram LM, word timestamps
+# ---------------------------------------------------------------------------
+
+
+def _write_arpa(path: str) -> str:
+    """A 3-gram ARPA over the fixture tokenizer's LM_WORDS pieces of two
+    letters or more, '▁' stripped (seeded): every unigram, the bigrams and
+    trigrams of a seeded word stream."""
+    from conformer_nemo_tpu_torch.data.tokenizers import SentencePieceTokenizer
+
+    tok = SentencePieceTokenizer(TOKENIZER)
+    words = sorted({p.lstrip("▁") for p, t in zip(tok.pieces, tok.types)
+                    if t == 1 and len(p.lstrip("▁")) > 1})[:LM_WORDS]
+    rng = np.random.RandomState(SEED + 11)
+    stream = ["<s>"] + [words[i] for i in rng.randint(0, len(words), 400)] + ["</s>"]
+    bi = sorted(set(zip(stream, stream[1:])))
+    tri = sorted(set(zip(stream, stream[1:], stream[2:])))
+    uni = ["<unk>", "<s>", "</s>"] + words
+    lp = lambda: f"{-rng.uniform(0.2, 2.0):.4f}"
+    lines = ["\\data\\", f"ngram 1={len(uni)}", f"ngram 2={len(bi)}", f"ngram 3={len(tri)}", "",
+             "\\1-grams:"]
+    lines += [f"{lp()}\t{w}" + ("" if w in ("</s>", "<unk>") else f"\t{lp()}") for w in uni]
+    lines += ["", "\\2-grams:"] + [f"{lp()}\t{a} {b}\t{lp()}" for a, b in bi]
+    lines += ["", "\\3-grams:"] + [f"{lp()}\t{a} {b} {c}" for a, b, c in tri]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines + ["", "\\end\\", ""]))
+    return path
+
+
+def _timed_call(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check_words(words: list, audio_s: float, time_per_frame: float, transcript: str, what):
+    """Word timestamps are non-decreasing, lie within the audio (to one
+    encoder frame: the last frame may end past the last sample), and their
+    words joined give the greedy transcript (whitespace collapsed: a word
+    boundary of the text is a word of its own, or a separator, in the list)."""
+    ends = [w.start_s + w.duration_s for w in words]
+    starts = [w.start_s for w in words]
+    check(all(w.duration_s > 0 for w in words), (what, "a word of no duration"))
+    check(all(s0 <= s1 for s0, s1 in zip(starts, starts[1:])), (what, "starts decrease"))
+    check(all(e <= s1 + 1e-9 for e, s1 in zip(ends, starts[1:])), (what, "words overlap"))
+    check(not words or (starts[0] >= 0 and ends[-1] <= audio_s + time_per_frame + 1e-9),
+          (what, "a word outside the audio", starts[:1], ends[-1:], audio_s))
+    joined = " ".join(" ".join(w.word for w in words).split())
+    check(joined == " ".join(transcript.split()), (what, "words", joined[:80], transcript[:80]))
+
+
+def phase_decode_ctc(model, groups, tmp: str, gpu: str) -> tuple:
+    """CTC beamsearch_ngram through change_decoding_strategy on the
+    transcribe phase's model: the short bucket and one 30-50 s file (T >=
+    flash_attention_min_t: K2-fwd launches), twice; the port's decoder on
+    transcribe(logprobs=True)'s arrays; word timestamps. -> (K2-fwd launches
+    by shape, the flash calls)."""
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio
+    from conformer_nemo_tpu_torch.decode.ctc_beam import BeamSearchDecoderWithLM
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+    from conformer_nemo_tpu_torch.ops.build import reset_launch_counts
+
+    enc = model.cfg.encoder
+    # the beam's host C++ is quadratic in T here: the shortest 30-50 s file
+    # whose batch reaches the flash path (T >= flash_attention_min_t)
+    pad = lambda n: int(math.ceil(n / 1600.0)) * 1600
+    longs = sorted((len(load_audio(p, target_sr=SR)), p) for p in groups["flash_batched"])
+    long_file = next(p for n, p in longs
+                     if encoder_frames(model.cfg, [pad(n)])[0] >= enc.flash_attention_min_t)
+    files = groups["dense"] + [long_file]
+    samples = [len(load_audio(p, target_sr=SR)) for p in files]
+    audio_s = sum(samples) / SR
+    arpa = _write_arpa(os.path.join(tmp, "lm3.arpa"))
+    greedy, greedy_s = _timed_call(lambda: model.transcribe(files, batch_size=BATCH))
+    beam_cfg = {"strategy": "beamsearch_ngram", "beam": {**CTC_BEAM, "lm_path": arpa}}
+    model.change_decoding_strategy(beam_cfg)
+    reset_launch_counts()
+    texts, beam_s = _timed_call(lambda: model.transcribe(files, batch_size=BATCH))
+    launches, by_shape = fa.fwd_launches.total, dict(fa.fwd_launches.by_shape)
+    # the long file decodes alone, BATCH rows padded to a multiple of 1600 samples
+    t_long = encoder_frames(model.cfg, [pad(samples[-1])])[0]
+    check(t_long >= enc.flash_attention_min_t and launches == enc.n_layers,
+          ("decode K2-fwd launches", launches, "T", t_long))
+    flash_calls = [(t_long, [n for n in encoder_frames(model.cfg, [samples[-1]] + [0] * (BATCH - 1))
+                             for _ in range(enc.n_heads)])]
+    lps = model.transcribe(files, batch_size=BATCH, logprobs=True)
+    vocab = model.tokenizer.ids_to_tokens(list(range(model.tokenizer.vocab_size)))
+    dec = BeamSearchDecoderWithLM(vocab, **CTC_BEAM, lm_path=arpa)
+    # a second API call and the decoder on the log-probs, side by side (the
+    # native search releases the GIL; each runs the long file on one thread)
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        again_f = ex.submit(lambda: _timed_call(lambda: model.transcribe(files, batch_size=BATCH)))
+        direct = [cands[0][0].replace("▁", " ").strip() for cands in dec(
+            np.stack([np.pad(lp, ((0, max(len(x) for x in lps) - len(lp)), (0, 0))) for lp in lps]),
+            seq_lens=np.array([len(lp) for lp in lps]))]
+        again, again_s = again_f.result()
+    check(again == texts, ("two beam calls differ", again, texts))
+    check(direct == texts, ("the API's beam texts are not the decoder's", direct, texts))
+    check(dec.lm_score([], "<unk>") < 0 and os.path.exists(arpa + ".binlm"), "the LM did not load")
+    model.change_decoding_strategy({"strategy": "greedy"})
+    check(model.transcribe(files, batch_size=BATCH) == greedy, "greedy after the beam differs")
+    words, words_s = _timed_call(lambda: model.transcribe_with_timestamps(files, batch_size=BATCH))
+    tpf = model.cfg.preprocessor.window_stride * enc.subsampling_factor
+    for p, n, w, g in zip(files, samples, words, greedy):
+        _check_words(w, n / SR, tpf, g, os.path.basename(p))
+    rate = lambda s: {"seconds": s, "s_per_file": s / len(files), "audio_s_per_s": audio_s / s}
+    emit("decode_ctc", config="configs/conformer_ctc_bpe.yaml", files=len(files),
+         audio_s=audio_s, longest_t=t_long, beam=CTC_BEAM, lm_words=LM_WORDS,
+         k2_fwd_launches=launches, greedy=rate(greedy_s), beamsearch_ngram=rate(beam_s),
+         beamsearch_ngram_again_beside_the_decoder=rate(again_s), timestamps=rate(words_s),
+         words=sum(len(w) for w in words), sample_beam=texts[0][:60],
+         sample_words=[(w.word, round(w.start_s, 2)) for w in words[0][:5]], gpu=gpu)
+    return by_shape, flash_calls
+
+
+def _decode_fp32(model_fp32, strategy: str, enc, enc_lens) -> list:
+    """The port's decode of `enc` by `strategy` with the JAX script's beam
+    options -> per sample (tokens, the score the search ranks by)."""
+    from conformer_nemo_tpu_torch.decode.rnnt_beam import BeamRNNTInfer
+    from conformer_nemo_tpu_torch.decode.rnnt_beam_batched import rnnt_beam_batched_decode
+
+    m = model_fp32.model
+    enc, enc_lens = enc.to(model_fp32.device), enc_lens.to(model_fp32.device)
+    if strategy == "beam_batch":
+        tok, tl, sc = rnnt_beam_batched_decode(m, enc, enc_lens, beam_size=RNNT_BEAM_SIZE,
+                                               max_sym_exp=2)
+        return [(tok[i, : int(tl[i])].tolist(), float(sc[i])) for i in range(len(tl))]
+    search = "default" if strategy == "beam" else strategy
+    hyps = BeamRNNTInfer(m, beam_size=RNNT_BEAM_SIZE, search_type=search,
+                         tsd_max_sym_exp=2)(enc, enc_lens)
+    return [(h.y_sequence, h.score / max(len(h.y_sequence), 1)) for h in hyps]
+
+
+def _beam_round_trip(model, beam_cfg: dict, path: str) -> dict:
+    """One file's default beam search, traced: its joint calls (each one
+    host read of the log-probs), the wall and device time per call."""
+    from conformer_nemo_tpu_torch.decode import rnnt_beam
+
+    calls = [0]
+    joint = rnnt_beam.BeamRNNTInfer._joint
+
+    def counted(self, e, ps):
+        calls[0] += 1
+        return joint(self, e, ps)
+
+    model.change_decoding_strategy(beam_cfg)
+    rnnt_beam.BeamRNNTInfer._joint = counted
+    try:
+        prof = _profile(lambda: model.transcribe([path], batch_size=1), "profile_decode_beam")
+    finally:
+        rnnt_beam.BeamRNNTInfer._joint = joint
+    n = calls[0]
+    return {"joint_calls": n, "wall_s": prof["traced_wall_s"],
+            "device_busy_s": prof["device_busy_s"], "idle_share": prof["device_idle_share"],
+            "wall_ms_per_call": prof["traced_wall_s"] / n * 1e3,
+            "device_ms_per_call": prof["device_busy_s"] / n * 1e3}
+
+
+def phase_decode_rnnt(archive: str, manifest: str, tmp: str, gpu: str) -> dict:
+    """The transducer's strategies at full width on the rnnt_train phase's
+    model (its archive): scripts/evaluate.main once per strategy with the
+    JAX script's options on the phase's shortest files, each evaluate's
+    texts against a second call; one strategy through
+    change_decoding_strategy with the config's own beam block; the card's
+    encoder output in fp32 decoded on the card and on the CPU; word
+    timestamps."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+    from conformer_nemo_tpu_torch.decode.wer import word_error_rate
+    from conformer_nemo_tpu_torch.scripts import evaluate
+
+    with open(manifest, encoding="utf-8") as f:
+        entries = sorted((json.loads(line) for line in f), key=lambda x: x["duration"])
+    entries = entries[:RNNT_DECODE_FILES]
+    files, refs = [x["audio_filepath"] for x in entries], [x["text"] for x in entries]
+    audio_s = sum(x["duration"] for x in entries)
+    sub = os.path.join(tmp, "decode.json")
+    with open(sub, "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(x) + "\n" for x in entries)
+    restored, restore_s = _timed_call(lambda: ConformerTransducer.restore_portable(archive,
+                                                                                   seed=SEED))
+    model = restored
+    config_decoding = json.loads(json.dumps(model.raw_cfg["model"]["decoding"]))
+    seen: list = []
+    orig = ConformerTransducer.transcribe
+
+    def recorded(self, *a, **kw):
+        out, s = _timed_call(lambda: orig(self, *a, **kw))
+        seen.append((out, s))
+        return out
+
+    def restore_once(path, **kw):
+        """evaluate.main's restore: this archive, restored once above (the
+        round trip in rnnt_train held a restore to the saved bits)."""
+        check(path == archive and kw.get("device") is None, ("evaluate restored", path, kw))
+        return restored
+
+    strategies = {}
+    # on the class (the base class's methods, shadowed): evaluate.main's own calls
+    ConformerTransducer.transcribe, ConformerTransducer.restore_portable = recorded, restore_once
+    try:
+        for strategy in RNNT_STRATEGIES:
+            seen.clear()
+            wer = evaluate.main(["--model", archive, "--model-type", "rnnt", "--manifest", sub,
+                                 "--batch-size", str(len(files)), "--decoding-strategy",
+                                 strategy, "--beam-size", str(RNNT_BEAM_SIZE)])
+            check(len(seen) == 1 and model.decoding.strategy == strategy,
+                  ("evaluate transcribed", len(seen), model.decoding.strategy))
+            texts, s = seen[0]
+            again = model.transcribe(files, batch_size=len(files))
+            check(again == texts, (strategy, "two calls differ", again, texts))
+            check(word_error_rate(again, refs) == wer, (strategy, "WER", wer))
+            strategies[strategy] = {"seconds": s, "again_s": seen[1][1],
+                                    "s_per_file": s / len(files), "audio_s_per_s": audio_s / s,
+                                    "wer": wer, "tokens_first_file": len(texts[0])}
+        # the config's own beam block (beam_size 2, return_best_hypothesis false,
+        # alsd_max_target_len 2.0)
+        cfg_beam = {**config_decoding, "strategy": "alsd"}
+        model.change_decoding_strategy(cfg_beam)
+        seen.clear()
+        model.transcribe(files, batch_size=len(files))
+        strategies["alsd_config_block"] = {"seconds": seen[0][1], "beam": cfg_beam["beam"]}
+        greedy_cfg = evaluate.decoding_config(types.SimpleNamespace(
+            model_type="rnnt", decoding_strategy="greedy_batch", beam_size=RNNT_BEAM_SIZE))
+        beam_cfg = evaluate.decoding_config(types.SimpleNamespace(
+            model_type="rnnt", decoding_strategy="beam", beam_size=RNNT_BEAM_SIZE))
+    finally:
+        del ConformerTransducer.transcribe, ConformerTransducer.restore_portable
+    round_trip = _beam_round_trip(model, beam_cfg, files[0])
+
+    # the card against the CPU: the card's encoder output in fp32, the same
+    # weights in fp32 on both
+    from conformer_nemo_tpu_torch.api import _pad_batch
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio
+
+    audio, lens = _pad_batch([load_audio(p, target_sr=SR) for p in files], len(files))
+    with torch.inference_mode():
+        enc, enc_lens = model._encode(audio, lens)
+    enc = enc.float()
+    raw = json.loads(json.dumps(model.raw_cfg))
+    raw["model"]["encoder"]["use_flash_attention"] = False  # fp32: dense attention and joint
+    raw["model"]["joint"]["joint_impl"] = "dense"
+    copies = {}
+    for dev in ("cuda", "cpu"):
+        copies[dev] = ConformerTransducer(raw, model.tokenizer, dtype=torch.float32, device=dev,
+                                          seed=SEED)
+        copies[dev].load_state_dict({k: v.to(copies[dev].device)
+                                     for k, v in model.state_dict().items()})
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(4, threads))  # small CPU products: fewer threads, less contention
+    near_ties, parity = 0, {}
+    try:
+        for strategy in RNNT_STRATEGIES[1:]:
+            card, card_s = _timed_call(lambda: _decode_fp32(copies["cuda"], strategy, enc,
+                                                            enc_lens))
+            t0 = time.perf_counter()
+            cpu = _decode_fp32(copies["cpu"], strategy, enc.cpu(), enc_lens.cpu())
+            cpu_s = time.perf_counter() - t0
+            differ = [i for i, (a, b) in enumerate(zip(card, cpu)) if a[0] != b[0]]
+            for i in differ:
+                check(abs(card[i][1] - cpu[i][1]) <= DECODE_SCORE_ATOL,
+                      (strategy, "card and CPU differ beyond a near-tie", i, card[i][1], cpu[i][1]))
+            near_ties += len(differ)
+            parity[strategy] = {"card_fp32_s": card_s, "cpu_fp32_s": cpu_s, "differ": differ,
+                                "max_score_diff": max(abs(a[1] - b[1]) for a, b in zip(card, cpu))}
+    finally:
+        torch.set_num_threads(threads)
+    del copies
+    free_cuda()
+
+    model.change_decoding_strategy(greedy_cfg)  # the script's greedy: max_symbols 10
+    greedy = model.transcribe(files, batch_size=len(files))
+    words, words_s = _timed_call(lambda: model.transcribe_with_timestamps(files,
+                                                                          batch_size=len(files)))
+    tpf = model.cfg.preprocessor.window_stride * model.cfg.model.encoder.subsampling_factor
+    for x, w, g in zip(entries, words, greedy):
+        _check_words(w, x["duration"], tpf, g, os.path.basename(x["audio_filepath"]))
+    emit("decode_rnnt", config="configs/conformer_transducer_bpe.yaml", files=len(files),
+         audio_s=audio_s, encoder_t=int(enc.shape[1]), beam_size=RNNT_BEAM_SIZE,
+         archive_restore_s=restore_s, round_trip=round_trip,
+         strategies=strategies, card_vs_cpu=parity, near_ties=near_ties,
+         score_atol=DECODE_SCORE_ATOL, timestamps_s=words_s,
+         words=sum(len(w) for w in words), gpu=gpu)
+    del model
+    free_cuda()
+    return {"near_ties": near_ties}
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -1540,7 +1858,8 @@ def phase_rnnt_train(tmp: str, gpu: str) -> dict:
          portable=portable)
     info = {"by_shape": by_shape, "t": t_enc, "enc_lens": enc_lens, "tokens": batch.tokens,
             "token_lens": batch.token_lens.tolist(), "manifest": manifest,
-            "h": cfg.joint.joint_hidden, "v": cfg.num_classes_with_blank}
+            "h": cfg.joint.joint_hidden, "v": cfg.num_classes_with_blank,
+            "archive": os.path.join(tmp, "rnnt.cntpu")}
     del model
     free_cuda()
     return info
@@ -1550,7 +1869,7 @@ def _rnnt_round_trip(model, archive: str, wavs: list) -> dict:
     """save_portable and restore_portable of the trained transducer: every
     tensor bit for bit but the LSTM forget chunk b, which travels as b - c
     (c = forget_gate_bias) and is held within one ulp of max(|b|, |b - c|);
-    the same greedy texts of `wavs`."""
+    the same greedy texts of `wavs`. The archive stays for the decode phase."""
     from conformer_nemo_tpu_torch.api import ConformerTransducer
 
     texts = model.transcribe(wavs, batch_size=len(wavs))
@@ -1583,7 +1902,6 @@ def _rnnt_round_trip(model, archive: str, wavs: list) -> dict:
            "archive_bytes": os.path.getsize(archive), "forget_chunk_max_ulps": chunk_ulps,
            "bitwise_tensors": bitwise, "tensors": len(sa)}
     del restored
-    os.remove(archive)
     free_cuda()
     return out
 
@@ -1936,7 +2254,8 @@ def phase_multilang(tmp: str, gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict) -> dict:
+def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict,
+                  decode_calls: list) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1944,6 +2263,9 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
     rows = {"transcribe": [_flash_case(f"main_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
                                        (-1, -1), gen, dev, compare_rows=True)
                            for t, lens in flash_calls]}
+    # the decode phase's CTC beam transcribe: its 30-50 s file alone in a batch
+    rows["decode"] = [_flash_case(f"decode_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
+                                  (-1, -1), gen, dev) for t, lens in decode_calls]
     t, lens = train["t"], train["lens"]
     rows["train"] = [_flash_case(f"train_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
                                  (-1, -1), gen, dev, compare_rows=True)]
@@ -2123,6 +2445,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         groups = _write_inputs(tmp)
         fwd_by_shape, flash_calls = phase_transcribe(model, groups, env["nvidia_smi"])
+        decode_by_shape, decode_calls = phase_decode_ctc(model, groups, tmp, env["nvidia_smi"])
         cfg = model.cfg
         del model
         free_cuda()
@@ -2130,14 +2453,17 @@ def main() -> int:
         phase_bpe_step(tmp)
         phase_train_parity(train["train_manifest"])
         rnnt = phase_rnnt_train(tmp, env["nvidia_smi"])
+        phase_decode_rnnt(rnnt["archive"], rnnt["manifest"], tmp, env["nvidia_smi"])
+        os.remove(rnnt["archive"])
         phase_rnnt_dense_step(rnnt["manifest"])
         phase_rnnt_parity(rnnt["manifest"])
         multilang = phase_multilang(tmp, env["nvidia_smi"])
         # last of the fits, so that its host buffers and save thread precede no timed step
         phase_lifecycle(tmp, train["train_manifest"], train["val_manifest"], env["nvidia_smi"])
-    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang)
+    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls)
 
     kernels = kernel_summary(rows, {"transcribe": {"K2-fwd": fwd_by_shape},
+                                    "decode": {"K2-fwd": decode_by_shape},
                                     "train": train["by_shape"], "rnnt_train": rnnt["by_shape"],
                                     "multilang": {**multilang["ctc"]["by_shape"],
                                                   **multilang["rnnt"]["by_shape"]}})

@@ -8,8 +8,13 @@ of conformer_nemo_tpu/api.py, with their shared `_BaseASRModel`).
     model.fit("train.json", "val.json", max_steps=1000)
     texts = model.transcribe(["a.wav", "b.wav"])
 
-`ConformerTransducer` takes the same calls (greedy / greedy_batch decoding;
-`change_decoding_strategy`).
+`ConformerTransducer` takes the same calls. Decoding follows the JAX
+package: `change_decoding_strategy` takes greedy or beamsearch_ngram (CTC
+prefix beam search with an n-gram LM: ARPA, its `.binlm` cache, or a
+probing/trie KenLM `.bin`, through the native decoder built from
+data/csrc/ctc_beam.cpp) for CTC, and greedy, greedy_batch, beam, tsd,
+alsd, maes or beam_batch for the transducer; `transcribe_with_timestamps`
+gives word timestamps from greedy alignments for both.
 
 Training runs survive a restart: `fit(exp_manager=...)` logs, checkpoints
 at each validation (train/checkpoint.py, the write on a background thread)
@@ -29,10 +34,8 @@ and validation cadence. The loader reads WAV, FLAC, MP3 and Ogg
 (Vorbis/Opus) from a manifest or from tar shards, in the config's wire
 format (`transport`: f32 | pcm16 | mulaw8), trimmed and augmented where the
 config asks; `device_prefetch` copies its batches to the device ahead of
-the step. A multi-device mesh raises, as do timestamps,
-buffered/streaming decode and beam search with an LM: they wait for later
-slices (ROADMAP.md). For the transducer, so do `change_vocabulary`, word
-timestamps, buffered decode, export and the beam strategies.
+the step. A multi-device mesh raises, as do buffered/streaming decode,
+`change_vocabulary` and export: they wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -69,8 +72,16 @@ from conformer_nemo_tpu_torch.data.tarred import TarredAudioTextDataset, TarredB
 from conformer_nemo_tpu_torch.data.hf_tokenizer import HFJsonTokenizer
 from conformer_nemo_tpu_torch.data.prefetch import device_prefetch
 from conformer_nemo_tpu_torch.data.tokenizers import build_tokenizer
+from conformer_nemo_tpu_torch.decode.ctc_beam import BeamSearchDecoderWithLM
 from conformer_nemo_tpu_torch.decode.ctc_greedy import collapse_ctc_ids, ctc_greedy_decode
 from conformer_nemo_tpu_torch.decode.rnnt_decoding import RNNTDecoding
+from conformer_nemo_tpu_torch.decode.rnnt_greedy import rnnt_greedy_decode_batched
+from conformer_nemo_tpu_torch.decode.timestamps import (
+    FrameAlignedToken,
+    WordTimestamp,
+    ctc_frame_alignments,
+    words_from_alignments,
+)
 from conformer_nemo_tpu_torch.device import resolve_device
 from conformer_nemo_tpu_torch.models.conformer import (
     calc_sub_length,
@@ -106,7 +117,8 @@ _RNNT_WAITS = "is not ported yet (ROADMAP.md, slice 3 leftovers)"
 
 @dataclasses.dataclass
 class TranscriptionHypothesis:
-    """Decode result: score, token ids, text (and timesteps, not ported yet)."""
+    """Decode result: score, token ids, text and, from the transducer's
+    greedy decode, each token's emission frame."""
 
     score: float
     y_sequence: List[int]
@@ -162,6 +174,18 @@ def _tokenizer_from_archive(m: dict, artifacts: dict):
             tcfg["model_file"] = os.path.join(tdir, os.path.basename(mf))
         return build_tokenizer({**tcfg, "dir": tdir})
     raise ValueError("no tokenizer artifact in portable archive")
+
+
+def _pad_batch(wavs: list, rows: int) -> tuple:
+    """Waveforms -> (audio [rows, t_cap] f32, lens [rows] int32): padded to
+    a multiple of 1600 samples, zero rows past the waveforms."""
+    t_cap = int(math.ceil(max(len(w) for w in wavs) / 1600.0)) * 1600
+    audio = np.zeros((rows, t_cap), np.float32)
+    lens = np.zeros((rows,), np.int32)
+    for row, w in enumerate(wavs):
+        audio[row, : len(w)] = w
+        lens[row] = len(w)
+    return audio, lens
 
 
 @torch.no_grad()
@@ -477,14 +501,8 @@ class _BaseASRModel:
         out = [None] * len(wavs)
         for i in range(0, len(order), batch_size):
             idxs = order[i : i + batch_size]
-            chunk = [wavs[j] for j in idxs]
-            t_cap = int(math.ceil(max(len(w) for w in chunk) / 1600.0)) * 1600
-            audio = np.zeros((batch_size, t_cap), np.float32)
-            lens = np.zeros((batch_size,), np.int32)
-            for row, w in enumerate(chunk):
-                audio[row, : len(w)] = w
-                lens[row] = len(w)
-            results = self._decode_audio_batch(audio, lens, mode=mode)[: len(chunk)]
+            audio, lens = _pad_batch([wavs[j] for j in idxs], batch_size)
+            results = self._decode_audio_batch(audio, lens, mode=mode)[: len(idxs)]
             for j, r in zip(idxs, results):
                 out[j] = r
         for j, w in enumerate(wavs):
@@ -504,7 +522,55 @@ class ConformerCTC(_BaseASRModel):
         self.cfg = build_ctc_model_config(self.raw_cfg, vocab_size=self.tokenizer.vocab_size,
                                           dtype=dtype)
         check_flash_dtype(self.cfg.encoder, self.device)
+        self._beam_decoder = None
         return CTCModel(self.cfg)
+
+    def change_decoding_strategy(self, decoding_cfg: dict) -> None:
+        """greedy (the default) or beamsearch_ngram: prefix beam search with
+        an optional n-gram LM in the native decoder (decode/ctc_beam.py; NeMo's
+        ctc_decoders Scorer, beam_search_decoder.py:21-103). `beam` keys:
+        beam_width, alpha, beta, lm_path (ARPA, its .binlm cache, or a KenLM
+        .bin with kenlm_bin, kenlm_probing being its older spelling)."""
+        strategy = decoding_cfg.get("strategy", "greedy")
+        if strategy not in ("greedy", "beamsearch_ngram"):
+            raise ValueError(f"unknown CTC decoding strategy {strategy!r}")
+        self.raw_cfg["model"]["decoding"] = decoding_cfg
+        self._beam_decoder = None
+
+    def _get_beam_decoder(self) -> BeamSearchDecoderWithLM:
+        if self._beam_decoder is None:
+            beam = (self.raw_cfg["model"].get("decoding") or {}).get("beam") or {}
+            vocab = self.tokenizer.ids_to_tokens(list(range(self.tokenizer.vocab_size)))
+            self._beam_decoder = BeamSearchDecoderWithLM(
+                vocab, beam_width=int(beam.get("beam_width", 64)),
+                alpha=float(beam.get("alpha", 1.0)), beta=float(beam.get("beta", 1.5)),
+                lm_path=beam.get("lm_path"),
+                kenlm_bin=bool(beam.get("kenlm_bin", beam.get("kenlm_probing", False))))
+            # SentencePiece pieces mark word starts with '▁'
+            self._beam_is_spm = any(t.startswith("▁") for t in vocab)
+        return self._beam_decoder
+
+    @torch.inference_mode()
+    def transcribe_with_timestamps(self, audio_paths: Sequence[str],
+                                   batch_size: int = 16) -> List[List[WordTimestamp]]:
+        """Per file, word timestamps from the greedy CTC frame alignments
+        (decode/timestamps.py), whatever the decoding strategy; files sorted
+        by length, `batch_size` rows a batch, as the JAX package's."""
+        sr = self.raw_cfg["model"].get("sample_rate", 16000)
+        time_per_frame = self.cfg.preprocessor.window_stride * self.cfg.encoder.subsampling_factor
+        wavs = [load_audio(p, target_sr=sr) for p in audio_paths]
+        out = [None] * len(wavs)
+        order = np.argsort([len(w) for w in wavs])
+        for i in range(0, len(order), batch_size):
+            idxs = order[i : i + batch_size]
+            audio, lens = _pad_batch([wavs[j] for j in idxs], batch_size)
+            log_probs, enc_lens = ctc_forward(self.model, torch.from_numpy(audio).to(self.device),
+                                              torch.from_numpy(lens).to(self.device))
+            aligns = ctc_frame_alignments(ctc_greedy_decode(log_probs).cpu().numpy(),
+                                          enc_lens.cpu().numpy(), self.cfg.blank_id)
+            for row, j in enumerate(idxs):
+                out[j] = words_from_alignments(aligns[row], self.tokenizer, time_per_frame)
+        return out
 
     @property
     def _encoder_config(self):
@@ -531,6 +597,18 @@ class ConformerCTC(_BaseASRModel):
 
     @torch.inference_mode()
     def _decode_audio_batch(self, audio: np.ndarray, lens: np.ndarray, mode: str = "text"):
+        strategy = (self.raw_cfg["model"].get("decoding") or {}).get("strategy", "greedy")
+        if mode == "text" and strategy == "beamsearch_ngram":
+            # the beam decodes the log-probs of every row on the host
+            dec = self._get_beam_decoder()
+            lps = self._decode_audio_batch(audio, lens, mode="logprobs")
+            t_max = max(lp.shape[0] for lp in lps)
+            nbest = dec(np.stack([np.pad(lp, ((0, t_max - lp.shape[0]), (0, 0))) for lp in lps]),
+                        seq_lens=np.array([lp.shape[0] for lp in lps]))
+            texts = [cands[0][0] if cands else "" for cands in nbest]
+            if self._beam_is_spm:
+                texts = [t.replace("▁", " ").strip() for t in texts]
+            return texts
         log_probs, enc_lens = ctc_forward(self.model, torch.from_numpy(audio).to(self.device),
                                           torch.from_numpy(lens).to(self.device))
         enc_lens = enc_lens.cpu().numpy()
@@ -553,7 +631,8 @@ class ConformerCTC(_BaseASRModel):
 class ConformerTransducer(_BaseASRModel):
     """Conformer-Transducer: the encoder, an LSTM prediction network and the
     joint (models/rnnt.py); training through the RNN-T loss (the flash joint
-    K4 and the lattice K3 on CUDA), transcription by batched greedy decode."""
+    K4 and the lattice K3 on CUDA); transcription by the decoding config's
+    strategy (decode/rnnt_decoding.py)."""
 
     def _build(self, dtype: torch.dtype) -> RNNTModel:
         self.cfg = build_rnnt_model_config(self.raw_cfg, vocab_size=self.tokenizer.vocab_size,
@@ -569,16 +648,40 @@ class ConformerTransducer(_BaseASRModel):
         return self.cfg.model.encoder
 
     def change_decoding_strategy(self, decoding_cfg: dict) -> None:
-        """Swap the decoding strategy without touching the weights; the beam
-        strategies raise (ROADMAP.md)."""
+        """Swap the decoding strategy without touching the weights: greedy,
+        greedy_batch, beam, tsd, alsd, maes or beam_batch, with the config's
+        `greedy` and `beam` blocks (NeMo's change_decoding_strategy,
+        rnnt_models.py:403)."""
         self.decoding = RNNTDecoding(self.model, self.tokenizer, decoding_cfg)
         self.raw_cfg["model"]["decoding"] = decoding_cfg
 
     def change_vocabulary(self, *args, **kwargs):
         raise NotImplementedError(f"change_vocabulary {_RNNT_WAITS}")
 
-    def transcribe_with_timestamps(self, *args, **kwargs):
-        raise NotImplementedError(f"word timestamps {_RNNT_WAITS}")
+    @torch.inference_mode()
+    def transcribe_with_timestamps(self, audio_paths: Sequence[str],
+                                   batch_size: int = 16) -> List[List[WordTimestamp]]:
+        """Per file, word timestamps from the batched greedy decode's
+        emission frames (the decoding config's max_symbols), whatever the
+        strategy; files in the given order, `batch_size` a batch, as the JAX
+        package's. A token emitted at frame t spans [t, t + 1); the JAX
+        package gives it t + 1 frames (its `FrameAlignedToken` takes a
+        length, and it passes t + 1), so its word ends run past the audio."""
+        sr = self.raw_cfg["model"].get("sample_rate", 16000)
+        stride = self.cfg.preprocessor.window_stride * self.cfg.model.encoder.subsampling_factor
+        wavs = [load_audio(p, target_sr=sr) for p in audio_paths]
+        results = []
+        for i in range(0, len(wavs), batch_size):
+            chunk = wavs[i : i + batch_size]
+            enc, enc_lens = self._encode(*_pad_batch(chunk, len(chunk)))
+            toks, tlens, steps = (x.cpu().numpy() for x in rnnt_greedy_decode_batched(
+                self.model, enc, enc_lens, max_symbols=self.decoding.max_symbols,
+                return_timestamps=True))
+            for row in range(len(chunk)):
+                units = [FrameAlignedToken(int(toks[row, j]), int(steps[row, j]), 1)
+                         for j in range(int(tlens[row]))]
+                results.append(words_from_alignments(units, self.tokenizer, stride))
+        return results
 
     def transcribe_buffered(self, *args, **kwargs):
         raise NotImplementedError(f"buffered decode {_RNNT_WAITS}")
@@ -610,19 +713,25 @@ class ConformerTransducer(_BaseASRModel):
             make_rnnt_eval_step(self.cfg, max_symbols=self.decoding.max_symbols),
             loss_step=loss_step)
 
+    def _encode(self, audio: np.ndarray, lens: np.ndarray) -> tuple:
+        """Padded waveforms -> the encoder's output [B, T, D] and lengths."""
+        self.model.eval()
+        feats, feat_lens = log_mel_spectrogram(self.cfg.preprocessor,
+                                               torch.from_numpy(audio).to(self.device),
+                                               torch.from_numpy(lens).to(self.device))
+        return self.model.encode(feats, feat_lens)
+
     @torch.inference_mode()
     def _decode_audio_batch(self, audio: np.ndarray, lens: np.ndarray, mode: str = "text"):
         if mode == "logprobs":
             raise ValueError("logprobs=True is CTC-only (the transducer's transcribe has no "
                              "logprobs)")
-        self.model.eval()
-        feats, feat_lens = log_mel_spectrogram(self.cfg.preprocessor,
-                                               torch.from_numpy(audio).to(self.device),
-                                               torch.from_numpy(lens).to(self.device))
-        enc, enc_lens = self.model.encode(feats, feat_lens)
+        enc, enc_lens = self._encode(audio, lens)
         ids = self.decoding.decode(enc, enc_lens, preserve_alignments=mode == "hypotheses")
         if mode == "text":
             return [self.tokenizer.ids_to_text(seq) for seq in ids]
+        # the greedy strategies keep emission frames, the beam ones none
+        frames = self.decoding.last_alignments or [None] * len(ids)
         return [TranscriptionHypothesis(score=0.0, y_sequence=seq,
-                                        text=self.tokenizer.ids_to_text(seq), timestep=frames)
-                for seq, frames in zip(ids, self.decoding.last_alignments)]
+                                        text=self.tokenizer.ids_to_text(seq), timestep=fr)
+                for seq, fr in zip(ids, frames)]

@@ -517,6 +517,12 @@ class HFJsonTokenizer:
                     ids.extend(self.model.tokenize(word))
         return ids
 
+    def ids_to_tokens(self, ids: List[int]) -> List[str]:
+        """Each id's token, added tokens included (ids outside the
+        vocabulary are dropped)."""
+        table = {**self.id_to_token, **{i: t for t, i in self.added.items()}}
+        return [table[i] for i in ids if i in table]
+
     def ids_to_text(self, ids: List[int]) -> str:
         tokens = [self.id_to_token[i] for i in ids
                   if i in self.id_to_token and i not in self.special]

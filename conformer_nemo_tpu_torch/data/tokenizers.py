@@ -71,6 +71,9 @@ class CharTokenizer:
     def ids_to_text(self, ids: List[int]) -> str:
         return "".join(self.labels[i] for i in ids if 0 <= i < len(self.labels))
 
+    def ids_to_tokens(self, ids: List[int]) -> List[str]:
+        return [self.labels[i] for i in ids if 0 <= i < len(self.labels)]
+
 
 def _read_varint(buf: bytes, i: int):
     shift, out = 0, 0
@@ -325,6 +328,9 @@ class SentencePieceTokenizer:
             out.append(byte_buf.decode("utf-8", errors="replace"))
         return "".join(out).replace(_SP_SPACE, " ").strip()
 
+    def ids_to_tokens(self, ids: List[int]) -> List[str]:
+        return [self.pieces[i] for i in ids if 0 <= i < len(self.pieces)]
+
 
 class AggregateTokenizer:
     """Per-language tokenizers whose id spaces follow one another in config
@@ -388,8 +394,11 @@ class WordTokenizer:
     def text_to_ids(self, text: str) -> List[int]:
         return [self._map.get(w, self._unk_id) for w in text.strip().split()]
 
+    def ids_to_tokens(self, ids: List[int]) -> List[str]:
+        return [self.labels[i] for i in ids if 0 <= i < len(self.labels)]
+
     def ids_to_text(self, ids: List[int]) -> str:
-        return " ".join(self.labels[i] for i in ids if 0 <= i < len(self.labels))
+        return " ".join(self.ids_to_tokens(ids))
 
 
 def _read_lines(path: str) -> List[str]:

@@ -11,13 +11,14 @@ Each kernel wrapper counts its launches in a `LaunchCount` registered here
 under the kernel's name, so a caller can show that a path went through the
 kernels (`launch_counts`, `reset_launch_counts`).
 
-The host data pipeline's native libraries (data/csrc/: the FLAC decoder and
-the Ogg/Vorbis and Ogg/Opus shims) build here too, with the host compiler,
-into the same directory (`host_library`, `build_host_all`). A shim links
-against the system codec library by full path, so no development headers
-are needed; a missing system library raises, naming it, when the shim is
-first asked for. A failed build raises with the compiler's output; nothing
-remembers a failure.
+The host libraries (data/csrc/: the FLAC decoder, the Ogg/Vorbis and
+Ogg/Opus shims, and the CTC beam decoder with its KenLM readers) build here
+too, with the host compiler, into the same directory (`host_library`,
+`build_host_all`), and are rebuilt when the source or one of the headers
+it includes is newer. A shim links against the system codec library by
+full path, so no development headers are needed; a missing system library
+raises, naming it, when the shim is first asked for. A failed build raises
+with the compiler's output; nothing remembers a failure.
 """
 
 from __future__ import annotations
@@ -139,11 +140,14 @@ def load(source: str) -> ctypes.CDLL:
 
 
 HOST_CSRC_DIR = os.path.join(os.path.dirname(_HERE), "data", "csrc")
-# host library -> (source in data/csrc, compiler and flags, system libraries it links)
+# host library -> (source in data/csrc, compiler and flags, system libraries it
+# links, the headers in data/csrc it includes)
 HOST_LIBS = {
-    "flac_decoder": ("flac_decoder.cpp", ("g++", "-O3", "-std=c++17"), ()),
-    "ogg_mem": ("ogg_mem.c", ("gcc", "-O2"), ("libvorbisfile",)),
-    "opus_mem": ("opus_mem.c", ("gcc", "-O2"), ("libopus", "libogg")),
+    "flac_decoder": ("flac_decoder.cpp", ("g++", "-O3", "-std=c++17"), (), ()),
+    "ogg_mem": ("ogg_mem.c", ("gcc", "-O2"), ("libvorbisfile",), ()),
+    "opus_mem": ("opus_mem.c", ("gcc", "-O2"), ("libopus", "libogg"), ()),
+    "ctc_beam": ("ctc_beam.cpp", ("g++", "-O3", "-std=c++17"), (),
+                 ("kenlm_probing.h", "kenlm_trie.h")),
 }
 _SYSTEM_LIB_DIRS = ("/usr/lib/x86_64-linux-gnu", "/lib/x86_64-linux-gnu", "/usr/lib64", "/lib64",
                     "/usr/lib", "/usr/local/lib")
@@ -174,7 +178,7 @@ def _build_host(name: str, force: bool) -> bool:
     """Compile host library `name` if stale (or forced); -> whether it
     compiled. Raises MissingSystemLibrary, or RuntimeError with the
     compiler's output."""
-    source, compiler, stems = HOST_LIBS[name]
+    source, compiler, stems, headers = HOST_LIBS[name]
     deps = [(stem, find_system_library(stem)) for stem in stems]
     missing = [stem for stem, path in deps if path is None]
     if missing:
@@ -182,7 +186,8 @@ def _build_host(name: str, force: bool) -> bool:
             f"{name} needs the system librar{'ies' if len(missing) > 1 else 'y'} "
             f"{', '.join(missing)}, which this host does not have")
     src, so = os.path.join(HOST_CSRC_DIR, source), _host_lib_path(name)
-    if not force and os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(os.path.join(HOST_CSRC_DIR, f)) for f in (source, *headers))
+    if not force and os.path.exists(so) and os.path.getmtime(so) >= newest:
         return False
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"

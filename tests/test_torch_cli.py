@@ -9,8 +9,8 @@
 - `speech_to_text_ctc.main` in-process with an experiment manager writes
   the run dir, the checkpoints and a `.cntpu` archive that both packages
   restore; `speech_to_text_rnnt.main` takes one step;
-- what is not ported raises before any work, and no entry point takes the
-  CPU unless asked.
+- an unknown decoding strategy raises before any work, the beam and
+  timestamp options run, and no entry point takes the CPU unless asked.
 """
 
 import dataclasses
@@ -19,6 +19,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import warnings
@@ -212,18 +213,40 @@ def test_transcribe_and_evaluate_subprocesses(archive, manifest, tmp_path):
 
 def test_entry_points_refuse_before_any_work(archive, manifest):
     missing = "/nonexistent/model.cntpu"  # never opened: the refusal comes first
-    for extra in (["--timestamps"], ["--ctm-dir", "ctm"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-            transcribe_speech.main(["--model", missing, "--audio", "a.wav", *extra])
-    for extra in (["--decoding-strategy", "beamsearch_ngram"], ["--lm-path", "lm.arpa"],
-                  ["--model-type", "rnnt", "--decoding-strategy", "beam"],
-                  ["--model-type", "rnnt", "--decoding-strategy", "maes"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-            evaluate.main(["--model", missing, "--manifest", manifest, *extra])
     with pytest.raises(ValueError, match="unknown CTC decoding strategy"):  # as the JAX one
         evaluate.main(["--model", missing, "--manifest", manifest, "--decoding-strategy", "x"])
+    for strategy in ("beam", "beamsearch_ngram_typo"):
+        with pytest.raises(ValueError, match="unknown CTC decoding strategy"):
+            evaluate.main(["--model", missing, "--manifest", manifest,
+                           "--decoding-strategy", strategy])
+    with pytest.raises(ValueError, match="unknown RNN-T decoding strategy"):
+        evaluate.main(["--model", missing, "--manifest", manifest, "--model-type", "rnnt",
+                       "--decoding-strategy", "beamsearch_ngram"])
     if not torch.cuda.is_available():
+        for extra in ([], ["--timestamps", "--ctm-dir", "ctm"]):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                transcribe_speech.main(["--model", archive, "--audio", "a.wav", *extra])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            transcribe_speech.main(["--model", archive, "--audio", "a.wav"])
+            evaluate.main(["--model", archive, "--manifest", manifest,
+                           "--decoding-strategy", "beamsearch_ngram"])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             speech_to_text_ctc.main(["--config", CONFIG, *TINY])
+
+
+def test_beam_and_timestamp_options_run(archive, manifest, tmp_path, capsys):
+    """The options that raised before the decoding slice now run: the CTC
+    beam with and without an ARPA LM, and the word timestamps with a CTM
+    directory, on the CPU."""
+    lm = str(tmp_path / "lm.arpa")  # a copy: the decoder writes its cache beside it
+    shutil.copy(os.path.join(ROOT, "tests", "fixtures", "lm_edge.arpa"), lm)
+    for extra in (["--decoding-strategy", "beamsearch_ngram"],
+                  ["--decoding-strategy", "beamsearch_ngram", "--lm-path", lm, "--beam-size", "8"],
+                  ["--lm-path", lm]):  # an LM without the beam strategy: greedy, as in JAX
+        wer = evaluate.main(["--model", archive, "--device", "cpu", "--manifest", manifest, *extra])
+        assert 0.0 <= wer < float("inf")
+    wavs = [os.path.join(os.path.dirname(manifest), f"{i}.wav") for i in range(2)]
+    ctm = str(tmp_path / "ctm")
+    texts = transcribe_speech.main(["--model", archive, "--device", "cpu", "--audio", *wavs,
+                                    "--timestamps", "--ctm-dir", ctm])
+    assert len(texts) == 2 and sorted(os.listdir(ctm)) == ["0.ctm", "1.ctm"]
+    assert capsys.readouterr().out.count("wrote ") == 2

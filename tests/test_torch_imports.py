@@ -1,8 +1,9 @@
 """The port stands alone: no module of conformer_nemo_tpu_torch, and not
 chip_smoke.py, imports JAX, the JAX package or msgpack (the port reads and
-writes flax's msgpack format itself); its native host libraries build from
-its own sources and nothing loads from or reads the JAX package's
-`native/`; and no entry point runs on the CPU unless asked."""
+writes flax's msgpack format itself); its native host libraries (the
+codecs and the CTC beam decoder) build from its own sources and nothing
+loads from or reads the JAX package's `native/`; and no entry point runs
+on the CPU unless asked."""
 
 import os
 import subprocess
@@ -44,8 +45,11 @@ tmp = tempfile.mkdtemp()
 for ext, write in ((".ogg", codecs.write_ogg), (".opus", codecs.write_opus), (".mp3", codecs.write_mp3)):
     write(os.path.join(tmp, "a" + ext), x)
     audio_io.load_audio(os.path.join(tmp, "a" + ext))
+from conformer_nemo_tpu_torch.decode.ctc_beam import BeamSearchDecoderWithLM
+BeamSearchDecoderWithLM(["a", " "], lm_path="tests/fixtures/lm_edge.arpa", lm_binary_cache=False)
 assert not [p for p in loaded if "native" in p.split(os.sep)], loaded
 assert any(p.endswith("ops/_build/libflac_decoder.so") for p in loaded), loaded
+assert any(p.endswith("ops/_build/libctc_beam.so") for p in loaded), loaded
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "conformer_nemo_tpu")]
 print(len(names))
 """
@@ -57,7 +61,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 53  # every module was walked
+    assert int(r.stdout.split()[-1]) >= 58  # every module was walked, the decoders included
 
 
 def test_no_port_source_reads_the_jax_packages_native_tree():
@@ -81,8 +85,10 @@ def test_no_port_source_reads_the_jax_packages_native_tree():
     assert not offenders, offenders
     assert build.HOST_CSRC_DIR == os.path.join(port, "data", "csrc")
     assert build.BUILD_DIR == os.path.join(port, "ops", "_build")
-    for source, _, _ in build.HOST_LIBS.values():
-        assert os.path.isfile(os.path.join(build.HOST_CSRC_DIR, source)), source
+    for source, _, _, headers in build.HOST_LIBS.values():
+        for f in (source, *headers):
+            assert os.path.isfile(os.path.join(build.HOST_CSRC_DIR, f)), f
+    assert "ctc_beam" in build.HOST_LIBS
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

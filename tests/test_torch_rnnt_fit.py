@@ -3,8 +3,8 @@
 manifest with validation (greedy WER and, with compute_eval_loss, the
 loss), through the flash joint and through the dense one (on the CPU the
 K3 / K4 wrappers run their plain versions), returns a finite loss, leaves
-the model in eval mode and transcribes; what this slice does not port
-raises."""
+the model in eval mode and transcribes; the beam strategies and word
+timestamps run; what is not ported raises."""
 
 import json
 import math
@@ -71,10 +71,14 @@ def test_transducer_refuses_what_is_not_ported(manifest):
                                                  dtype=torch.float32)
     model.change_decoding_strategy({"strategy": "greedy", "greedy": {"max_symbols": 2}})
     assert model.decoding.max_symbols == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.change_decoding_strategy({"strategy": "beam"})
-    for call in (model.change_vocabulary, model.transcribe_with_timestamps,
-                 model.transcribe_buffered, model.export):
+    wav = os.path.join(os.path.dirname(manifest), "0.wav")
+    model.change_decoding_strategy({"strategy": "beam", "beam": {"beam_size": 2}})
+    assert isinstance(model.transcribe([wav])[0], str)  # the beam strategies are ported
+    words = model.transcribe_with_timestamps([wav])[0]  # and word timestamps
+    assert all(w.duration_s > 0 for w in words)
+    with pytest.raises(ValueError, match="unknown decoding strategy"):
+        model.change_decoding_strategy({"strategy": "beamsearch_ngram"})
+    for call in (model.change_vocabulary, model.transcribe_buffered, model.export):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call(None)
     with pytest.raises(ValueError, match="CTC-only"):

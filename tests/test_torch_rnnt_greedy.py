@@ -80,5 +80,7 @@ def test_decoding_facade(models):
     ids = dec.decode(enc, lens)
     assert [len(a) for a in dec.last_alignments] == [len(i) for i in ids]
     assert dec.decode_to_text(enc, lens) == [" ".join(map(str, i)) for i in ids]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RNNTDecoding(pm, Tok(), {"strategy": "beam"})
+    beam = RNNTDecoding(pm, Tok(), {"strategy": "beam"})  # ported: no alignments kept
+    assert len(beam.decode(enc, lens)) == 2 and beam.last_alignments is None
+    with pytest.raises(ValueError, match="unknown decoding strategy"):
+        RNNTDecoding(pm, Tok(), {"strategy": "beamsearch_ngram"})
