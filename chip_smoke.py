@@ -66,6 +66,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                an MP3, Ogg/Vorbis and Ogg/Opus copy within CODEC_MIN_SNR_DB of its
                source where the card box has the codec (an absent one must raise
                naming its library), host decode rates; configs/conformer_ctc_bpe_multilang.yaml
+               (both multilang configs at full width, their depth cut to
+               MULTILANG_LAYERS)
                (aggregate tokenizer, V + 1 584) fits 3 steps through the pcm16
                transport, 8 loader workers, a speed + white-noise augmentor and
                the prefetch (K1 launches, no K2: T < 1024), then transcribes its
@@ -74,8 +76,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                against the synchronous copy in turns (idle shares);
                configs/conformer_transducer_bpe_multilang.yaml with the flash joint
                fits 3 steps (K3, K4 at V 584) and greedy-transcribes 3 files
+  distributed  multi-GPU training on the one card: NCCL at world 1 in this process,
+               the train phase's 3-step long-form fit through the distributed path
+               (gradient all-reduce, synchronised BatchNorm, the global loss), its
+               losses the train phase's bit for bit and its K1/K2 launches per step
+               as train's; NCCL asked for two ranks on the one card (its answer
+               reported); a gloo world of two ranks sharing the card (child
+               processes, `--dist-worker`), full width at DIST_LAYERS layers,
+               dropout, SpecAugment and dither off: CTC at dp2 (4 rows a rank) and at
+               dp1 x tp2 (K2 at half the heads), the transducer at dp2 with the
+               flash joint and its dropout on (each rank hashes its rows at their
+               offset in the global batch); each against one process's first step
+               on the whole global batch (loss within DIST_LOSS_REL, gradient
+               cosine >= DIST_GRAD_COSINE), the ranks' losses equal and their
+               tensors bit for bit where they hold the same slice; a control, CTC
+               dp2 with its BatchNorm unsynchronised, must fall outside those
+               limits; steady step, the gradient all-reduce's bytes and time,
+               launches by shape
   lifecycle    after the other fits, a training run that survives a restart, at
-               full width on the long-form config and the train phase's manifests:
+               full width on the long-form config (its depth cut to LIFECYCLE_LAYERS)
+               and the train phase's manifests:
                the CTC training CLI
                (speech_to_text_ctc.main) fits 2 steps with an experiment manager
                (per-step K1/K2 launch counts as in train; metrics.jsonl, step_2/,
@@ -98,7 +118,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                of its dependent step, the joint at V 401, at the step's shapes
                at V 1025 (joint_v1025) and its forward alone at H 1376 (64-cell
                tiles), and CTC at U 4200,
-               and the dropout mask read back bit for bit); the K1 and K4
+               and the dropout mask read back bit for bit, also at a rank's row
+               offset whose hash base wraps, and the joint's kernels at a row
+               offset); K2 at the distributed phase's dp1 x tp2 shape (summary
+               path `distributed`); the K1 and K4
                backwards also as whole functions (rows of their own in the
                summary, against the library's whole backward), run twice for
                the same bits, as K4-fwd and K2's forward, dQ and dK/dV kernels are,
@@ -111,6 +134,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                rows go into the summary line under the path `multilang`
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --dist-worker SPEC RANK
+
+is one rank of the distributed phase's gloo world (or of its NCCL probe),
+started by that phase.
 
     python3 chip_smoke.py --joint-bench DIR
 
@@ -183,8 +211,19 @@ LIFECYCLE_STEPS = 2
 NEXT_LOSS_REL = 1e-4
 # the restored archive's CTC log-probs against the saved model's (bf16 compute)
 LOGPROB_ATOL = 1e-3
-PER_STEP_LAUNCHES = {"K2-fwd": 36, "K2-bwd-dq": 18, "K2-bwd-dkv": 18, "K1-fwd": 1, "K1-bwd": 1,
-                     "K1-bwd-grad": 1}
+
+
+def per_step_launches(n_layers: int) -> dict:
+    """A long-form CTC step's launches: K2's forward twice a layer (remat),
+    its two backward kernels once, K1's three kernels once."""
+    return {"K2-fwd": 2 * n_layers, "K2-bwd-dq": n_layers, "K2-bwd-dkv": n_layers, "K1-fwd": 1,
+            "K1-bwd": 1, "K1-bwd-grad": 1}
+
+
+PER_STEP_LAUNCHES = per_step_launches(18)
+# the lifecycle phase at full width, its depth cut (the run's time budget)
+LIFECYCLE_LAYERS = 6
+LIFECYCLE_OVERRIDES = {**TRAIN_OVERRIDES, "model.encoder.n_layers": LIFECYCLE_LAYERS}
 RNNT_CONFIG = os.path.join(ROOT, "configs", "conformer_transducer_bpe.yaml")
 RNNT_OVERRIDES = {**TRAIN_OVERRIDES, "model.joint.joint_impl": "flash"}
 # one transducer step through the flash joint: K4-bwd is the cells and sums
@@ -206,8 +245,11 @@ JOINT_FLAGSHIP_V = 1025
 MULTILANG_CTC = os.path.join(ROOT, "configs", "conformer_ctc_bpe_multilang.yaml")
 MULTILANG_RNNT = os.path.join(ROOT, "configs", "conformer_transducer_bpe_multilang.yaml")
 LANG_MODELS = {"en": TOKENIZER, "es": os.path.join(ROOT, "tests", "fixtures", "sp_unigram.model")}
+# full width, depth cut to 6 layers (the distributed phase's share of the run's time)
+MULTILANG_LAYERS = 6
 MULTILANG_OVERRIDES = {
     **{f"model.tokenizer.langs.{lang}.model_file": path for lang, path in LANG_MODELS.items()},
+    "model.encoder.n_layers": MULTILANG_LAYERS,
     "model.train_ds.num_buckets": 1, "model.train_ds.num_workers": 8,
     "model.train_ds.transport": "pcm16",
     "model.train_ds.augmentor": {"speed": {"prob": 0.5}, "white_noise": {"prob": 1.0}}}
@@ -223,6 +265,25 @@ PREFETCH_TURNS = ("prefetch", "sync", "sync", "prefetch")
 CTC_BEAM = {"beam_width": 64, "alpha": 1.0, "beta": 1.5}
 LM_WORDS = 18  # the 3-gram's vocabulary: the fixture tokenizer's pieces of 2+ letters
 RNNT_STRATEGIES = ("greedy_batch", "beam", "tsd", "alsd", "maes", "beam_batch")
+# the distributed phase's gloo worlds share the one card: full width, depth
+# cut to DIST_LAYERS, dropout, SpecAugment and dither off, DIST_STEPS steps
+# on one global batch split by data index
+DIST_LAYERS = 4
+DIST_STEPS = 3
+DIST_QUIET = {"model.encoder.dropout": 0.0, "model.encoder.dropout_att": 0.0,
+              "model.encoder.dropout_emb": 0.0, "model.spec_augment.freq_masks": 0,
+              "model.spec_augment.time_masks": 0, "model.preprocessor.dither": 0.0,
+              "model.encoder.n_layers": DIST_LAYERS}
+DIST_TIMEOUT_S = 420
+# a gloo variant's first step against one process's step on the whole
+# global batch (bf16): the limits lie between the sound variants' readings
+# (loss 2.7e-6 to 6.9e-6 relative, cosine 0.999992 and above) and those of
+# the control, dp2 with its BatchNorm left unsynchronised (each rank
+# normalising by its own rows' statistics: 1.17e-4, 0.99939), at about the
+# geometric mean of each pair; the control must fall outside them, or the
+# check could not tell the two apart
+DIST_LOSS_REL = 3e-5
+DIST_GRAD_COSINE = 0.99993
 RNNT_BEAM_SIZE = 4  # the JAX script's --beam-size default
 RNNT_DECODE_FILES = 2
 # the card's fp32 decode against the CPU's: equal tokens, or best scores this close
@@ -723,11 +784,12 @@ def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev, chain):
 
 
 def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu", drop_t=26,
-                fastemit=0.0, clamp=-1.0, bt=16):
+                fastemit=0.0, clamp=-1.0, bt=16, row_offset=0):
     """K4-fwd and the three K4-bwd kernels against their plain versions, on
     posteriors from the K3 lattice of the kernel's own forward; the forward
     and the whole backward checked for the same bits on a second call, the
-    backward timed as one function and its scratch measured."""
+    backward timed as one function and its scratch measured. row_offset:
+    the rows' first index in a global batch (the hash base, `joint_seed`)."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
     from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
     from conformer_nemo_tpu_torch.ops.rnnt_loss import posteriors
@@ -739,7 +801,7 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     targets = torch.randint(0, v - 1, (b, u), generator=gen, device=dev).to(torch.int32)
     tl = torch.tensor(t_lens, dtype=torch.int32, device=dev)
     ul = torch.tensor(u_lens, dtype=torch.int32, device=dev)
-    seed = torch.tensor([20250], dtype=torch.int32)
+    seed = jt.joint_seed(20250, row_offset, t, u + 1, h, bt)
     kw = dict(t_lens=tl, u_lens=ul, blank_id=v - 1, activation=activation, drop_t=drop_t, bt=bt)
     fwd = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
     fwd_ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
@@ -954,11 +1016,12 @@ def _joint_fwd_wide_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, drop_t=2
     return out
 
 
-def _dropout_mask_probe(b, t, u, h, gen, dev, bt=16, drop_t=26) -> dict:
+def _dropout_mask_probe(b, t, u, h, gen, dev, bt=16, drop_t=26, row_offset=0) -> dict:
     """W_lab the identity, p = 0, e a positive constant: each cell's label
     logit is its h at the target column, c * inv_keep if kept and 0 if
     dropped, so the kernel's keep bit there is read off label_lp + lse and
-    held against hash_keep_mask_reference bit for bit."""
+    held against hash_keep_mask_reference bit for bit (with row_offset, at
+    that offset in a global batch: `joint_seed`'s hash base)."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
 
     targets = torch.randint(0, h, (b, u), generator=gen, device=dev).to(torch.int32)
@@ -966,7 +1029,7 @@ def _dropout_mask_probe(b, t, u, h, gen, dev, bt=16, drop_t=26) -> dict:
     p = torch.zeros((b, u + 1, h), dtype=torch.bfloat16, device=dev)
     w = torch.cat([torch.eye(h, device=dev), torch.zeros(h, 1, device=dev)], 1).to(torch.bfloat16)
     bias = torch.zeros(h + 1, dtype=torch.bfloat16, device=dev)
-    seed = torch.tensor([-987654321], dtype=torch.int32)
+    seed = jt.joint_seed(-987654321, row_offset, t, u + 1, h, bt)
     full = lambda n: torch.full((b,), n, dtype=torch.int32, device=dev)
     _, label_lp, lse = jt.joint_flash_fwd(e, p, w, bias, targets, seed, t_lens=full(t),
                                           u_lens=full(u), blank_id=h, drop_t=drop_t, bt=bt)
@@ -978,6 +1041,7 @@ def _dropout_mask_probe(b, t, u, h, gen, dev, bt=16, drop_t=26) -> dict:
     mismatches = int((kept != want).sum().item())
     check(mismatches == 0, ("dropout mask", mismatches))
     out = {"case": "dropout_mask_probe", "shape": [b, t, u + 1, h], "drop_t": drop_t,
+           "row_offset": row_offset, "hash_base": int(seed[1]) & 0xFFFFFFFF,
            "cells_probed": kept.numel(), "mismatches": mismatches,
            "kept_share": want.float().mean().item()}
     emit("kernels", **out)
@@ -1517,7 +1581,7 @@ def phase_train(tmp: str, gpu: str) -> dict:
     step = model._make_train_step(model._make_optimizer())
     _profile(lambda: step(batch), "profile_train", config="configs/conformer_ctc_bpe_longform.yaml",
              batch=int(batch.audio.shape[0]), encoder_t=t_enc)
-    info = {"by_shape": by_shape, "t": t_enc,
+    info = {"by_shape": by_shape, "t": t_enc, "losses": [s["loss"] for s in steps],
             "lens": [n for n in enc_lens for _ in range(enc.n_heads)],
             "ctc": (batch.tokens, enc_lens, batch.token_lens),
             "cfg": model.cfg, "train_manifest": train_m, "val_manifest": val_m}
@@ -1549,7 +1613,8 @@ def _timed(fn):
 def phase_lifecycle(tmp: str, train_m: str, val_m: str, gpu: str) -> None:
     """Train from the CLI with an experiment manager, resume bit for bit,
     write and restore the portable archive, serve it from the transcribe
-    CLI; the long-form config at full width, the train phase's manifests."""
+    CLI; the long-form config at full width and LIFECYCLE_LAYERS deep, the
+    train phase's manifests."""
     import contextlib
     import io
 
@@ -1560,7 +1625,7 @@ def phase_lifecycle(tmp: str, train_m: str, val_m: str, gpu: str) -> None:
     from conformer_nemo_tpu_torch.train.exp_manager import ExpManagerConfig, ExperimentManager
 
     exp_dir = os.path.join(tmp, "lifecycle")
-    argv = ["--config", LONGFORM, *(f"{k}={v}" for k, v in TRAIN_OVERRIDES.items()),
+    argv = ["--config", LONGFORM, *(f"{k}={v}" for k, v in LIFECYCLE_OVERRIDES.items()),
             f"model.train_ds.manifest_filepath={train_m}",
             f"model.validation_ds.manifest_filepath={val_m}",
             f"trainer.max_steps={LIFECYCLE_STEPS}", "trainer.log_every_n_steps=1",
@@ -1581,9 +1646,10 @@ def phase_lifecycle(tmp: str, train_m: str, val_m: str, gpu: str) -> None:
         ConformerCTC._make_train_step = unwrapped
     path_launches = launch_counts()
     check(result["steps"] == LIFECYCLE_STEPS and len(steps) == LIFECYCLE_STEPS, result)
+    want = per_step_launches(LIFECYCLE_LAYERS)
     for i, s in enumerate(steps):
-        got = {k: s["launches"].get(k, 0) for k in PER_STEP_LAUNCHES}
-        check(got == PER_STEP_LAUNCHES, ("lifecycle step", i, "launches", got))
+        got = {k: s["launches"].get(k, 0) for k in want}
+        check(got == want, ("lifecycle step", i, "launches", got))
         check(math.isfinite(s["loss"]) and all(s["changed"].values()), ("lifecycle step", i))
     run_dir = os.path.join(exp_dir, "lifecycle", "version_0")
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
@@ -1601,7 +1667,7 @@ def phase_lifecycle(tmp: str, train_m: str, val_m: str, gpu: str) -> None:
                                               ckpt.STATE_FILE))
 
     # 2. resume: a fresh model from the experiment's last checkpoint
-    fresh = ConformerCTC.from_config_file(LONGFORM, overrides=TRAIN_OVERRIDES, seed=SEED + 7)
+    fresh = ConformerCTC.from_config_file(LONGFORM, overrides=LIFECYCLE_OVERRIDES, seed=SEED + 7)
     em = ExperimentManager(ExpManagerConfig(exp_dir=exp_dir, name="lifecycle",
                                             resume_if_exists=True))
     meta, resume_s = _timed(lambda: fresh.maybe_resume(em))
@@ -1668,7 +1734,8 @@ def phase_lifecycle(tmp: str, train_m: str, val_m: str, gpu: str) -> None:
     check(served == texts and out.getvalue().splitlines() == [
         f"{p}\t{t}" for p, t in zip(files, texts)], ("transcribe_speech", served, texts))
     check(serve_launches.get("K2-fwd", 0) >= model.cfg.encoder.n_layers, serve_launches)
-    emit("lifecycle", config="configs/conformer_ctc_bpe_longform.yaml", gpu=gpu,
+    emit("lifecycle", config="configs/conformer_ctc_bpe_longform.yaml",
+         n_layers=LIFECYCLE_LAYERS, gpu=gpu,
          params=sum(p.numel() for p in model.model.parameters()),
          cli_fit_s=fit_s, cli_steps=[{k: v for k, v in s.items() if k != "batch"}
                                      for s in steps],
@@ -2254,8 +2321,387 @@ def phase_multilang(tmp: str, gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# distributed: NCCL at world 1 in this process, gloo worlds of two ranks
+# sharing the card in child processes (`--dist-worker`)
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _launcher_env(world: int, rank: int, port: int) -> dict:
+    return {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
+            "RANK": str(rank), "LOCAL_RANK": "0"}
+
+
+def _digests(state_dict: dict) -> dict:
+    import hashlib
+
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+            .hexdigest() for k, v in state_dict.items()}
+
+
+def _dist_variant(v: dict, rank: int) -> dict:
+    """One variant of a gloo world on this rank: the model of v's config
+    with the weights the parent saved, on the mesh (v["data"], v["model"]),
+    DIST_STEPS steps on this rank's rows of the saved global batch, each
+    timed; the first step's reduced gradients (gathered to full tensors,
+    written by rank 0), the gradient all-reduce timed alone, launches per
+    kernel and a digest of every local tensor after the steps."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
+    from conformer_nemo_tpu_torch.ops.build import launch_count, launch_counts
+    from conformer_nemo_tpu_torch.parallel import distributed as pdist
+    from conformer_nemo_tpu_torch.parallel.mesh import make_mesh
+    from conformer_nemo_tpu_torch.parallel.sharding import (
+        gather_tensor,
+        param_spec,
+        set_sync_batchnorm,
+        tp_of,
+    )
+    from conformer_nemo_tpu_torch.train.optim import Transformation
+    from conformer_nemo_tpu_torch.train.trainer import distribute_state
+
+    cls = ConformerCTC if v["family"] == "ctc" else ConformerTransducer
+    model = cls.from_config_file(v["config"], overrides=v["overrides"], seed=SEED)
+    model.load_state_dict(torch.load(v["weights"], weights_only=True))
+    mesh = make_mesh(v["data"], v["model"])
+    opt = model._make_optimizer(mesh)
+    first: list = []
+
+    def update(grads, state, params):
+        if not first:
+            first.extend(g.detach().clone() for g in grads)
+        return opt.update(grads, state, params)
+
+    wrapped = Transformation(opt.init, update)
+    model.train_state = model._init_state(wrapped)
+    distribute_state(model.train_state, mesh)
+    if v.get("control"):  # each rank's BatchNorm on its own rows' statistics
+        set_sync_batchnorm(model.model, None)
+    step = model._make_train_step(wrapped)
+    data = dict(np.load(v["batch"]))
+    rows = data["audio"].shape[0] // mesh.data
+    batch = {k: a[mesh.data_index * rows: (mesh.data_index + 1) * rows] for k, a in data.items()}
+    kernels = ("K2-fwd", "K2-bwd-dq", "K2-bwd-dkv", "K1-fwd", "K1-bwd", "K3-alpha", "K4-fwd")
+    out = {"steps": [], "mesh": [mesh.data, mesh.model, mesh.data_index, mesh.model_index]}
+    before_all = {k: dict(launch_count(k).by_shape) for k in kernels}
+    for _ in range(DIST_STEPS):
+        pdist.GRAD_ALL_REDUCE.update(bytes=0, calls=0)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = launch_counts()
+        out["steps"].append({"loss": float(metrics["loss"]),
+                             "grad_norm": float(metrics["grad_norm"]), "seconds": seconds,
+                             "all_reduce_bytes": pdist.GRAD_ALL_REDUCE["bytes"],
+                             "all_reduce_calls": pdist.GRAD_ALL_REDUCE["calls"],
+                             "launches": {k: after[k] - before.get(k, 0) for k in after
+                                          if after[k] - before.get(k, 0)}})
+    out["by_shape"] = {k: {sh: n - before_all[k].get(sh, 0)
+                           for sh, n in launch_count(k).by_shape.items()
+                           if n - before_all[k].get(sh, 0)} for k in kernels}
+    # the gradient all-reduce alone, on the first step's gradients, 3 calls
+    params = model.train_state.params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        model.train_state.mesh_or_single.reduce_grads(list(first), params)
+    torch.cuda.synchronize()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    tp = tp_of(model.model)
+    names = [n for n, _ in model.model.named_parameters()]
+    full = [gather_tensor(g, *param_spec(n), tp) if tp is not None and param_spec(n) else g
+            for n, g in zip(names, first)]
+    if rank == 0:
+        torch.save([g.float().cpu() for g in full], v["grads_out"])
+    out["digests"] = _digests(model.model.state_dict())
+    out["sharded"] = sorted(k for k in out["digests"] if tp is not None and param_spec(k))
+    del model, step, first, full
+    free_cuda()
+    return out
+
+
+def dist_worker(spec_path: str, rank: int) -> int:
+    """A rank of the distributed phase's gloo world (or its NCCL probe),
+    on cuda:0 with the other ranks."""
+    import torch.distributed as dist
+
+    from conformer_nemo_tpu_torch.parallel import distributed as pdist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    os.environ.update(_launcher_env(spec["world"], rank, spec["port"]))
+    pdist.initialize_distributed(backend=spec["backend"], timeout_s=spec["timeout_s"])
+    if spec.get("probe"):
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        print(json.dumps({"rank": rank, "sum": float(x)}), flush=True)
+    else:
+        results = {v["name"]: _dist_variant(v, rank) for v in spec["variants"]}
+        torch.save(results, spec["out"].format(rank=rank))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_world(tmp: str, name: str, world: int, timeout_s: float, **spec) -> list:
+    """Start `world` ranks of `--dist-worker` on this card and wait (each at
+    most timeout_s, then every rank is killed) -> [(returncode, stdout,
+    stderr)]."""
+    spec = {**spec, "world": world, "port": _free_port(), "timeout_s": timeout_s / 2,
+            "out": os.path.join(tmp, f"{name}_rank{{rank}}.pt")}
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker", path,
+                               str(rank)], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(world)]
+    t_end = time.monotonic() + timeout_s
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append((*p.communicate(timeout=max(1.0, t_end - time.monotonic())),))
+            except subprocess.TimeoutExpired:
+                outs.append(("", "timed out"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+def _reference_step(cls, config: str, overrides: dict, weights: str, batch: dict) -> tuple:
+    """One process's first step on the whole global batch: (loss, gradients)."""
+    from conformer_nemo_tpu_torch.train.optim import Transformation
+
+    model = cls.from_config_file(config, overrides=overrides, seed=SEED)
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    grads: list = []
+
+    def capture(g, state, params):
+        grads.extend(x.detach().float().cpu() for x in g)
+        return [torch.zeros_like(x) for x in g], state
+
+    probe = Transformation(lambda params: {}, capture)
+    model.train_state = model._init_state(probe)
+    loss = float(model._make_train_step(probe)(batch)["loss"])
+    del model
+    free_cuda()
+    return loss, grads
+
+
+def _cosine(a: list, b: list) -> float:
+    dot = sum((x.double() * y.double()).sum() for x, y in zip(a, b)).item()
+    na = math.sqrt(sum((x.double() ** 2).sum().item() for x in a))
+    nb = math.sqrt(sum((y.double() ** 2).sum().item() for y in b))
+    return dot / (na * nb)
+
+
+def _save_variant_inputs(tmp: str, name: str, cls, config: str, overrides: dict,
+                         manifest: str) -> tuple:
+    """The variant's weights (a seeded model's) and one global batch of its
+    loader, written for the ranks; -> (weights path, batch path, batch)."""
+    model = cls.from_config_file(config, overrides=overrides, seed=SEED)
+    batch = next(iter(model._loader(manifest, model.raw_cfg["model"]["train_ds"],
+                                    shuffle=True)))
+    arrays = {k: np.asarray(getattr(batch, k)) for k in ("audio", "audio_lens", "tokens",
+                                                           "token_lens")}
+    weights, path = os.path.join(tmp, f"{name}_w.pt"), os.path.join(tmp, f"{name}_batch.npz")
+    torch.save(model.state_dict(), weights)
+    np.savez(path, **arrays)
+    del model
+    free_cuda()
+    return weights, path, arrays
+
+
+def phase_distributed(tmp: str, train: dict, rnnt: dict, gpu: str) -> dict:
+    """NCCL at world 1: the train phase's 3-step fit through the distributed
+    path (the same losses bit for bit); NCCL refusing two ranks on one card
+    (reported); a gloo world of two ranks on the card: CTC at dp2 and at
+    dp1 x tp2 (K2 at half the heads) and the transducer at dp2 with the
+    flash joint, each against one process's step on the whole global batch."""
+    import torch.distributed as dist
+
+    from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
+    from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
+    from conformer_nemo_tpu_torch.parallel import distributed as pdist
+    from conformer_nemo_tpu_torch.parallel.mesh import make_mesh
+    from conformer_nemo_tpu_torch.parallel.sharding import set_sync_batchnorm
+
+    t_phase = time.perf_counter()
+    # -- NCCL, world 1, this process ------------------------------------------
+    env = _launcher_env(1, 0, _free_port())
+    os.environ.update(env)
+    try:
+        check(pdist.initialize_distributed(timeout_s=DIST_TIMEOUT_S) == (0, 1), "world 1")
+        check(dist.get_backend() == "nccl", ("backend", dist.get_backend()))
+        model = ConformerCTC.from_config_file(LONGFORM, overrides=TRAIN_OVERRIDES, seed=SEED)
+        steps: list = []
+        model._make_train_step = _counted_steps(model, steps)
+        reset_launch_counts()
+        pdist.GRAD_ALL_REDUCE.update(bytes=0, calls=0)
+        out = model.fit(train["train_manifest"], train["val_manifest"], max_steps=TRAIN_STEPS)
+        nccl_by_shape = {k: dict(launch_count(k).by_shape) for k in PER_STEP_LAUNCHES}
+        del model._make_train_step
+        reduced = dict(pdist.GRAD_ALL_REDUCE)
+        losses = [s["loss"] for s in steps]
+        check(out["steps"] == TRAIN_STEPS and losses == train["losses"],
+              ("NCCL world-1 losses", losses, "train phase", train["losses"]))
+        for i, s in enumerate(steps):
+            got = {k: s["launches"].get(k, 0) for k in PER_STEP_LAUNCHES}
+            check(got == PER_STEP_LAUNCHES, ("NCCL step", i, "launches", got))
+        check(reduced["bytes"] > 0, "the gradients went through the all-reduce")
+        grads = [torch.ones_like(p) for p in model.model.parameters()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pdist.all_reduce_coalesced(grads, None)
+        torch.cuda.synchronize()
+        nccl_ms = (time.perf_counter() - t0) / 3 * 1e3
+        # the fit's first batch in turns: one process's step, the step on the
+        # NCCL mesh (the same optimizer, the collectives on or off)
+        mesh = make_mesh()
+        batch = steps[0]["batch"]
+        step = model._make_train_step(model._make_optimizer(mesh))
+
+        def turn(on: bool) -> float:
+            model.train_state.mesh = mesh if on else None
+            set_sync_batchnorm(model.model, mesh.data_group if on else None)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t_step
+
+        turns = [(name, turn(name == "nccl")) for name in ("plain", "nccl", "nccl", "plain")]
+        turn(True)  # warm
+        _profile(lambda: step(batch), "profile_distributed_nccl", batch=int(batch.audio.shape[0]),
+                 config="configs/conformer_ctc_bpe_longform.yaml", world=1, backend="nccl")
+        model.train_state.mesh = None
+        set_sync_batchnorm(model.model, None)
+        steady = steps[1:]
+        emit("distributed_nccl_world1", config="configs/conformer_ctc_bpe_longform.yaml",
+             backend="nccl", world=1, losses=losses, train_phase_losses=train["losses"],
+             all_reduce_bytes_per_step=reduced["bytes"] // TRAIN_STEPS,
+             all_reduce_calls_per_step=reduced["calls"] // TRAIN_STEPS,
+             all_reduce_ms=nccl_ms, steady_step_s=sum(s["seconds"] for s in steady) / len(steady),
+             turns_s=turns,
+             launches_per_step=PER_STEP_LAUNCHES, val=out["val"], gpu=gpu)
+        del model, grads, step
+        free_cuda()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+    # -- NCCL, two ranks on the one card: reported, not used ---------------------
+    probe = _spawn_world(tmp, "nccl_probe", 2, 120, backend="nccl", probe=True)
+    said = lambda err: [line[-400:] for line in err.splitlines()
+                        if "rror" in line or "uplicate" in line][-3:]
+    emit("distributed_nccl_two_ranks_one_card", returncodes=[p[0] for p in probe],
+         stdout=[p[1].strip()[-300:] for p in probe], errors=[said(p[2]) for p in probe])
+
+    # -- gloo, two ranks sharing the card ------------------------------------------
+    ctc_over = {**TRAIN_OVERRIDES, **DIST_QUIET}
+    # the prediction network's dropout off too; the joint's stays on: each
+    # rank hashes its rows at their offset in the global batch (K4)
+    rnnt_over = {**RNNT_OVERRIDES, **DIST_QUIET, "model.decoder.prednet.dropout": 0.0,
+                 "model.spec_augment.specshot_ratio": 0.0}
+    w_ctc, b_ctc, arr_ctc = _save_variant_inputs(tmp, "ctc", ConformerCTC, LONGFORM, ctc_over,
+                                                 train["train_manifest"])
+    w_rnnt, b_rnnt, arr_rnnt = _save_variant_inputs(tmp, "rnnt", ConformerTransducer,
+                                                    RNNT_CONFIG, rnnt_over, rnnt["manifest"])
+    refs = {"ctc": _reference_step(ConformerCTC, LONGFORM, ctc_over, w_ctc, arr_ctc),
+            "rnnt": _reference_step(ConformerTransducer, RNNT_CONFIG, rnnt_over, w_rnnt,
+                                    arr_rnnt)}
+    ctc = {"family": "ctc", "config": LONGFORM, "overrides": ctc_over, "weights": w_ctc,
+           "batch": b_ctc}
+    variants = [
+        {**ctc, "name": "ctc_dp2", "data": 2, "model": 1},
+        {**ctc, "name": "ctc_dp2_unsynced_bn", "data": 2, "model": 1, "control": True},
+        {**ctc, "name": "ctc_dp1_tp2", "data": 1, "model": 2},
+        {"name": "rnnt_dp2", "family": "rnnt", "config": RNNT_CONFIG, "overrides": rnnt_over,
+         "weights": w_rnnt, "batch": b_rnnt, "data": 2, "model": 1},
+    ]
+    for v in variants:
+        v["grads_out"] = os.path.join(tmp, f"{v['name']}_grads.pt")
+    t_world = time.perf_counter()
+    ranks = _spawn_world(tmp, "gloo", 2, DIST_TIMEOUT_S, backend="gloo", variants=variants)
+    world_s = time.perf_counter() - t_world
+    for rank, (rc, o, e) in enumerate(ranks):
+        check(rc == 0, (f"gloo rank {rank} failed", o[-2000:], e[-3000:]))
+    results = [torch.load(os.path.join(tmp, f"gloo_rank{r}.pt"), weights_only=False)
+               for r in range(2)]
+    summary = {}
+    for v in variants:
+        name = v["name"]
+        r0, r1 = results[0][name], results[1][name]
+        ref_loss, ref_grads = refs[v["family"]]
+        grads = torch.load(v["grads_out"], weights_only=True)
+        loss_rel = abs(r0["steps"][0]["loss"] - ref_loss) / abs(ref_loss)
+        cosine = _cosine(grads, ref_grads)
+        check([s["loss"] for s in r0["steps"]] == [s["loss"] for s in r1["steps"]],
+              (name, "the ranks' losses differ", r0["steps"], r1["steps"]))
+        if v.get("control"):
+            check(loss_rel > DIST_LOSS_REL or cosine < DIST_GRAD_COSINE,
+                  (name, "an unsynchronised BatchNorm passes the limits", loss_rel, cosine))
+            summary[name] = {"loss_rel_err": loss_rel, "grad_cosine": cosine,
+                             "losses": [s["loss"] for s in r0["steps"]],
+                             "reference_loss": ref_loss}
+            continue
+        same = [k for k in r0["digests"] if k not in r0["sharded"]]
+        check(loss_rel <= DIST_LOSS_REL, (name, "loss", r0["steps"][0]["loss"], ref_loss))
+        check(cosine >= DIST_GRAD_COSINE, (name, "gradient cosine", cosine))
+        check(all(r0["digests"][k] == r1["digests"][k] for k in same),
+              (name, "parameters differ across ranks",
+               [k for k in same if r0["digests"][k] != r1["digests"][k]][:5]))
+        want = ("K2-fwd", "K1-fwd") if v["family"] == "ctc" else ("K4-fwd", "K3-alpha")
+        check(all(r0["steps"][0]["launches"].get(k, 0) > 0 for k in want),
+              (name, "kernels", r0["steps"][0]["launches"]))
+        steady = r0["steps"][1:]
+        rows = (arr_ctc if v["family"] == "ctc" else arr_rnnt)["audio"].shape[0] // v["data"]
+        summary[name] = {
+            "mesh": r0["mesh"][:2], "rows_per_rank": int(rows),
+            "losses": [s["loss"] for s in r0["steps"]], "reference_loss": ref_loss,
+            "loss_rel_err": loss_rel, "grad_cosine": cosine,
+            "steady_step_s": sum(s["seconds"] for s in steady) / len(steady),
+            "step_s": [s["seconds"] for s in r0["steps"]],
+            "all_reduce_bytes_per_step": r0["steps"][-1]["all_reduce_bytes"],
+            "all_reduce_calls_per_step": r0["steps"][-1]["all_reduce_calls"],
+            "all_reduce_ms": r0["all_reduce_ms"],
+            "launches_first_step": r0["steps"][0]["launches"],
+            "by_shape": {k: {str(sh): n for sh, n in d.items()} for k, d in r0["by_shape"].items()
+                         if d},
+            "params_identical_across_ranks": len(same), "sharded_tensors": len(r0["sharded"])}
+    emit("distributed", backend="gloo", world=2, card="shared by both ranks",
+         layers=DIST_LAYERS, steps=DIST_STEPS, tol_loss_rel=DIST_LOSS_REL,
+         min_cosine=DIST_GRAD_COSINE, variants=summary, world_s=world_s,
+         phase_s=time.perf_counter() - t_phase, gpu=gpu)
+    # K2 of the dp1 x tp2 variant: every row, half the heads a rank
+    cfg = train["cfg"]
+    enc_lens = encoder_frames(cfg, arr_ctc["audio_lens"].tolist())
+    return {"nccl_by_shape": nccl_by_shape,
+            "tp_by_shape": {k: d for k, d in results[0]["ctc_dp1_tp2"]["by_shape"].items()
+                            if k.startswith("K2")},
+            "tp_t": encoder_frames(cfg, [arr_ctc["audio"].shape[1]])[0],
+            "tp_lens": [n for n in enc_lens for _ in range(cfg.encoder.n_heads // 2)]}
+
+
 def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict,
-                  decode_calls: list) -> dict:
+                  decode_calls: list, dist: dict) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2281,6 +2727,12 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
     _flash_bwd_case("bwd_band_128_32", 8, 1876, d1, dv, [1876, 1500, 1126, 700, 300, 64, 1, 0],
                     (128, 32), gen, dev)
     _flash_dq_wide_case("dq_wide_d656", 3, 301, 656, 64, [301, 256, 0], gen, dev)
+    # the distributed phase's dp1 x tp2 step: every row at half the heads
+    t_tp, lens_tp = dist["tp_t"], dist["tp_lens"]
+    rows["distributed"] = [_flash_case(f"tp2_bh{len(lens_tp)}_t{t_tp}", len(lens_tp), t_tp, d1,
+                                       dv, lens_tp, (-1, -1), gen, dev)]
+    rows["distributed"] += _flash_bwd_case(f"tp2_bh{len(lens_tp)}_t{t_tp}", len(lens_tp), t_tp,
+                                           d1, dv, lens_tp, (-1, -1), gen, dev)
 
     tokens, enc_lens, token_lens = train["ctc"]
     v1, blank = cfg.num_classes + 1, cfg.blank_id
@@ -2343,6 +2795,10 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
     _joint_fwd_wide_case("joint_fwd_wide_h1376", 3, 37, 8, 1376, 41, [37, 20, 1], [8, 3, 0], gen,
                          dev)
     _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev)
+    # a data-parallel rank's rows far into a global batch: the hash base wraps
+    _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev, row_offset=1000 * b + 3)
+    _joint_case("joint_row_offset", 3, 37, 8, rnnt["h"], rnnt["v"], [37, 20, 1], [8, 3, 0], gen,
+                dev, drop_t=26, row_offset=4099)
 
     # the multilang steps' K1 (V + 1 584, blank 583) and K4 (V 584) calls
     ml = multilang["ctc"]
@@ -2433,6 +2889,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return dist_worker(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["--joint-bench"]:
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         return joint_bench(sys.argv[2])
@@ -2458,13 +2916,18 @@ def main() -> int:
         phase_rnnt_dense_step(rnnt["manifest"])
         phase_rnnt_parity(rnnt["manifest"])
         multilang = phase_multilang(tmp, env["nvidia_smi"])
+        dist = phase_distributed(tmp, train, rnnt, env["nvidia_smi"])
         # last of the fits, so that its host buffers and save thread precede no timed step
         phase_lifecycle(tmp, train["train_manifest"], train["val_manifest"], env["nvidia_smi"])
-    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls)
+    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls, dist)
 
+    # the NCCL world-1 fit ran the train phase's calls again
+    train_launches = {k: {sh: n + dist["nccl_by_shape"].get(k, {}).get(sh, 0)
+                          for sh, n in d.items()} for k, d in train["by_shape"].items()}
     kernels = kernel_summary(rows, {"transcribe": {"K2-fwd": fwd_by_shape},
                                     "decode": {"K2-fwd": decode_by_shape},
-                                    "train": train["by_shape"], "rnnt_train": rnnt["by_shape"],
+                                    "distributed": dist["tp_by_shape"],
+                                    "train": train_launches, "rnnt_train": rnnt["by_shape"],
                                     "multilang": {**multilang["ctc"]["by_shape"],
                                                   **multilang["rnnt"]["by_shape"]}})
     print(json.dumps({"kernels": kernels}), flush=True)

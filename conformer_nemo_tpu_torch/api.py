@@ -29,19 +29,29 @@ sorted by length and decoded `batch_size` at a time, padded to a multiple
 of 1600 samples and to `batch_size` rows with zero rows; each longer file
 takes an exact whole-utterance forward alone, padded to threshold * 2^k.
 
-`fit` trains on one device with the config's optimizer, schedule, loader
-and validation cadence. The loader reads WAV, FLAC, MP3 and Ogg
-(Vorbis/Opus) from a manifest or from tar shards, in the config's wire
-format (`transport`: f32 | pcm16 | mulaw8), trimmed and augmented where the
-config asks; `device_prefetch` copies its batches to the device ahead of
-the step. A multi-device mesh raises, as do buffered/streaming decode,
-`change_vocabulary` and export: they wait for later slices (ROADMAP.md).
+`fit` trains with the config's optimizer, schedule, loader and validation
+cadence. The loader reads WAV, FLAC, MP3 and Ogg (Vorbis/Opus) from a
+manifest or from tar shards, in the config's wire format (`transport`:
+f32 | pcm16 | mulaw8), trimmed and augmented where the config asks;
+`device_prefetch` copies its batches to the device ahead of the step.
+
+Under a launcher (`torchrun --nproc-per-node N`, one process per GPU,
+parallel/distributed.py `initialize_distributed` called first, as the
+training scripts do) `fit` trains on every rank over `trainer.mesh`
+(parallel/mesh.py: `data: -1` takes world // model ranks): data
+parallelism with a synchronised BatchNorm over the data axis, the
+tensor-parallel encoder over the model axis (parallel/sharding.py). Each
+rank loads `batch_size` rows of its own, so the global batch is
+batch_size x data. Outside a launcher it trains on the model's one device
+and logs that. Buffered/streaming decode, `change_vocabulary` and export
+raise: they wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import math
 import os
 import tempfile
@@ -90,6 +100,9 @@ from conformer_nemo_tpu_torch.models.conformer import (
 )
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, ctc_forward
 from conformer_nemo_tpu_torch.models.rnnt import PredictionNetwork, RNNTModel, check_joint_dtype
+from conformer_nemo_tpu_torch.parallel.distributed import all_reduce_min, is_main_process
+from conformer_nemo_tpu_torch.parallel.mesh import Mesh, make_mesh, parse_mesh
+from conformer_nemo_tpu_torch.parallel.sharding import full_state_dict
 from conformer_nemo_tpu_torch.train.checkpoint import (
     load_portable,
     restore_train_state,
@@ -106,13 +119,16 @@ from conformer_nemo_tpu_torch.train.rnnt_trainer import (
     make_rnnt_train_step,
 )
 from conformer_nemo_tpu_torch.train.trainer import (
+    distribute_state,
     evaluate_wer,
     init_ctc_state,
     make_ctc_train_step,
+    undistribute_state,
 )
 
-_WAITS = "is not ported yet (ROADMAP.md, slice 2 leftovers)"
 _RNNT_WAITS = "is not ported yet (ROADMAP.md, slice 3 leftovers)"
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -186,6 +202,29 @@ def _pad_batch(wavs: list, rows: int) -> tuple:
         audio[row, : len(w)] = w
         lens[row] = len(w)
     return audio, lens
+
+
+def _while_every_rank_has_one(batches, mesh: Mesh):
+    """The batches of a stream of unknown length (tar shards), while every
+    rank has one: the ranks agree step by step (one all-reduce on the host,
+    here in the consumer's thread and not in the prefetch's)."""
+    if not mesh.distributed:
+        yield from batches
+        return
+    it = iter(batches)
+    while True:
+        batch = next(it, None)
+        if all_reduce_min(int(batch is not None)) == 0:
+            if batch is not None:
+                log.info("fit: rank %d ends its stream early: another rank's has ended",
+                         mesh.rank)
+            return
+        yield batch
+
+
+def _any_rank(flag: bool, mesh: Mesh) -> bool:
+    """Whether the flag is set on any rank (so that every rank stops together)."""
+    return all_reduce_min(int(not flag)) == 0 if mesh.distributed else flag
 
 
 @torch.no_grad()
@@ -282,15 +321,19 @@ class _BaseASRModel:
     @property
     def portable_variables(self) -> dict:
         """The JAX package's `{"params", "batch_stats"}` tree (numpy) of this
-        model's weights: what a `.cntpu` archive holds."""
-        return self._to_jax(self.model.state_dict())
+        model's weights: what a `.cntpu` archive holds (gathered from the
+        ranks of a tensor-parallel model: collective)."""
+        return self._to_jax(full_state_dict(self.model))
 
     def save_portable(self, path: str, artifacts: Optional[dict] = None) -> None:
         """Write the `.cntpu` archive: this model's config, its weights and
         the artifact files ({key: path}); pass a SentencePiece model as
         {"tokenizer_model": path} (not the key "tokenizer", which names an
-        HF tokenizer) so that either package can restore the archive."""
-        save_portable(path, self.raw_cfg, self.portable_variables, artifacts)
+        HF tokenizer) so that either package can restore the archive.
+        Across ranks every rank calls it and rank 0 writes."""
+        variables = self.portable_variables
+        if is_main_process():
+            save_portable(path, self.raw_cfg, variables, artifacts)
 
     def state_dict(self) -> dict:
         return self.model.state_dict()
@@ -301,7 +344,9 @@ class _BaseASRModel:
 
     # -- training -----------------------------------------------------------
 
-    def _make_optimizer(self):
+    def _make_optimizer(self, mesh: Optional[Mesh] = None):
+        """The config's optimizer; on a tensor-parallel mesh its clipping
+        reads the norm of the full gradients."""
         ocfg = self.raw_cfg["model"].get("optim", {"name": "adamw", "lr": 1.0})
         sched_cfg = dict(ocfg.get("sched", {"name": "NoamAnnealing", "d_model": 256,
                                              "warmup_steps": 1000}))
@@ -310,16 +355,21 @@ class _BaseASRModel:
                              make_lr_schedule(sched_cfg, ocfg.get("lr", 1.0)),
                              weight_decay=float(ocfg.get("weight_decay", 0.0)),
                              betas=tuple(ocfg.get("betas", (0.9, 0.98))),
-                             grad_clip=tr.get("gradient_clip_val") or None)
+                             grad_clip=tr.get("gradient_clip_val") or None,
+                             grad_norm=mesh.grad_norm if mesh is not None and mesh.model > 1
+                             else None)
         return with_grad_accumulation(opt, int(tr.get("accumulate_grad_batches", 1) or 1))
 
-    def _loader(self, manifest: str, ds_cfg: dict, shuffle: bool):
+    def _loader(self, manifest: str, ds_cfg: dict, shuffle: bool, mesh: Optional[Mesh] = None):
         """The loader of a manifest (or of tar shards with `is_tarred`). It
         shuffles with seed 0 whatever the model's `seed`, as the JAX
         package's `fit` builds its loaders: the model's seed draws the
         weights and the dropout, not the batch order. The training loader
-        (shuffle) alone augments, its augmentor seeded with that seed too."""
+        (shuffle) alone augments, its augmentor seeded with that seed too.
+        On a mesh it reads the slice of the rank's data index (the manifest
+        order, or the tar shards, partitioned by rank)."""
         seed = 0
+        mesh = mesh or Mesh()
         augmentor = None
         if shuffle and ds_cfg.get("augmentor"):
             augmentor = process_augmentations(ds_cfg["augmentor"], seed=seed)
@@ -330,7 +380,8 @@ class _BaseASRModel:
                 ds_cfg["tarred_audio_filepaths"], manifest, self.tokenizer, sample_rate=sr,
                 shuffle_n=int(ds_cfg.get("shuffle_n", 0)) if shuffle else 0,
                 min_duration=ds_cfg.get("min_duration"), max_duration=ds_cfg.get("max_duration"),
-                shard_strategy=ds_cfg.get("tarred_shard_strategy", "scatter"), seed=seed,
+                shard_strategy=ds_cfg.get("tarred_shard_strategy", "scatter"),
+                world_size=mesh.data, global_rank=mesh.data_index, seed=seed,
                 augmentor=augmentor)
             return TarredBatchIterator(ds, ds_cfg.get("batch_size", 16),
                                        max_samples_len=int(max_dur * sr),
@@ -346,6 +397,7 @@ class _BaseASRModel:
             augmentor=augmentor)
         return BucketedLoader(
             ds, ds_cfg.get("batch_size", 16), shuffle=shuffle, seed=seed,
+            process_index=mesh.data_index, process_count=mesh.data, drop_uneven=shuffle,
             bucketing_strategy=ds_cfg.get("bucketing_strategy", "synced_randomized"),
             num_workers=int(ds_cfg.get("num_workers", 0) or 0),
             transport=ds_cfg.get("transport"))
@@ -364,25 +416,34 @@ class _BaseASRModel:
             exp_manager: Optional[ExperimentManager] = None,
             val_every_n_steps: Optional[int] = None, log_every_n_steps: Optional[int] = None,
             max_time_s: Optional[float] = None) -> dict:
-        """Train on this model's device, counting steps from the train
-        state's (a restored checkpoint's) step. Validation (greedy WER) runs
-        every `val_every_n_steps`, else at the trainer's val_check_interval
-        (an int count of steps, or a fraction of an epoch), and at each
-        epoch's end; with an experiment manager each validation logs
-        val_wer (and val_loss) and checkpoints, and every
-        `log_every_n_steps` (else trainer.log_every_n_steps) steps the one
-        host read of the window logs train_loss, grad_norm and train_step_timing (the
-        window's wall time per step). Past `max_time_s` seconds the run
-        checkpoints and stops. `trainer.resume_from_checkpoint` (a checkpoint
-        dir) and the experiment manager's resume_if_exists restore before
-        the first step. The model is in eval mode again on return, with
-        every checkpoint on disk. -> {"steps", "time_s", "val", "last_loss",
-        and "stopped": "max_time" when the time ran out}."""
+        """Train, counting steps from the train state's (a restored
+        checkpoint's) step. Validation (greedy WER) runs every
+        `val_every_n_steps`, else at the trainer's val_check_interval (an
+        int count of steps, or a fraction of an epoch), and at each epoch's
+        end; with an experiment manager each validation logs val_wer (and
+        val_loss) and checkpoints, and every `log_every_n_steps` (else
+        trainer.log_every_n_steps) steps the one host read of the window
+        logs train_loss, grad_norm and train_step_timing (the window's wall
+        time per step). Past `max_time_s` seconds the run checkpoints and
+        stops. `trainer.resume_from_checkpoint` (a checkpoint dir) and the
+        experiment manager's resume_if_exists restore before the first step.
+
+        In a process group (parallel/distributed.py) every rank calls fit:
+        the mesh comes from trainer.mesh and must fit the world (it raises
+        before the first step otherwise); the encoder is sharded over the
+        model axis for the run and gathered back at its end; each epoch
+        every rank's manifest loader emits the least number of batches any
+        rank's plan holds, a rank with more dropping the rest (logged), and
+        the ranks of a tarred stream agree at each step whether every one
+        still has a batch, so no rank waits in a collective for one that
+        has finished. The model is
+        in eval mode again on return, with every checkpoint on disk. ->
+        {"steps", "time_s", "val", "last_loss", and "stopped": "max_time"
+        when the time ran out}."""
         m = self.raw_cfg["model"]
         tr = self.raw_cfg.get("trainer", {})
-        mesh = tr.get("mesh") or {}
-        if int(mesh.get("model", 1) or 1) > 1 or int(mesh.get("data", 1) or 1) > 1:
-            raise NotImplementedError(f"a multi-device mesh {_WAITS}; fit uses one device")
+        mesh = make_mesh(*parse_mesh(tr.get("mesh")))
+        log.info("fit: %s", mesh.describe(int(m["train_ds"].get("batch_size", 16))))
         # "???" is the configs' mark of a value left to the caller
         given = lambda v: v if v not in (None, "???") else None
         train_manifest = given(train_manifest) or given(m["train_ds"].get("manifest_filepath"))
@@ -395,7 +456,8 @@ class _BaseASRModel:
         max_steps = max_steps or tr.get("max_steps")
         log_every = log_every_n_steps or tr.get("log_every_n_steps", 10)
 
-        train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True)
+        train_loader = self._loader(train_manifest, m.get("train_ds", {}), shuffle=True,
+                                    mesh=mesh)
         # the longest batch's frames decide whether "auto" attention takes
         # the flash path; refuse a depth its backward cannot take before a step
         longest = mel_seq_len(self.cfg.preprocessor, torch.tensor(
@@ -404,7 +466,7 @@ class _BaseASRModel:
         enc = self._encoder_config
         check_flash_training(enc, self.device, int(calc_sub_length(
             longest, enc.subsampling, int(math.log2(enc.subsampling_factor)))[0]))
-        optimizer = self._make_optimizer()
+        optimizer = self._make_optimizer(mesh)
         if self.train_state is None:
             self.train_state = self._init_state(optimizer)
         rfc = tr.get("resume_from_checkpoint")
@@ -412,15 +474,19 @@ class _BaseASRModel:
             raise FileNotFoundError(f"resume_from_checkpoint: no checkpoint in {rfc}")
         if exp_manager is not None:
             self.maybe_resume(exp_manager)
+        distribute_state(self.train_state, mesh)
         step_fn = self._make_train_step(optimizer)
-        val_loader = (self._loader(val_manifest, m.get("validation_ds", {}), shuffle=False)
-                      if val_manifest else None)
+        val_loader = (self._loader(val_manifest, m.get("validation_ds", {}), shuffle=False,
+                                   mesh=mesh) if val_manifest else None)
+        # a manifest's ranks emit equal counts (BucketedLoader's drop_uneven);
+        # a tarred stream's length is unknown, and its ranks agree each step
+        epoch_batches = len(train_loader) if isinstance(train_loader, BucketedLoader) else None
         vci = tr.get("val_check_interval")
         if val_every_n_steps is None and isinstance(vci, int) and vci > 0:
             val_every_n_steps = vci
         elif val_every_n_steps is None and isinstance(vci, float) and 0 < vci <= 1:
-            if hasattr(train_loader, "__len__"):
-                val_every_n_steps = max(1, int(round(vci * len(train_loader))))
+            if epoch_batches is not None:
+                val_every_n_steps = max(1, int(round(vci * epoch_batches)))
             elif vci < 1:  # 1.0 is the end-of-epoch validation, which runs anyway
                 raise ValueError("val_check_interval as a fraction of an epoch needs the "
                                  "epoch's length, which a tarred stream does not know: give "
@@ -430,7 +496,7 @@ class _BaseASRModel:
 
         def validate(step: int):
             if val_loader is not None:
-                val.update(self._evaluate(val_loader))
+                val.update(self._evaluate(val_loader, mesh))
                 if exp_manager:
                     exp_manager.logger.log(
                         step, val_wer=val["wer"], **({"val_loss": val["loss"]} if "loss" in val
@@ -442,10 +508,13 @@ class _BaseASRModel:
         t0 = t_window = time.time()
         metrics: dict = {}
         stopped = None
+        done = False
         try:
             for _ in range(max_epochs):
                 # batches reach the step on the device, copied `depth` ahead
                 with contextlib.closing(device_prefetch(train_loader, self.device)) as batches:
+                    if epoch_batches is None:
+                        batches = _while_every_rank_has_one(batches, mesh)
                     for batch in batches:
                         metrics = step_fn(batch)
                         step = self.train_state.step
@@ -460,7 +529,7 @@ class _BaseASRModel:
                             validate(step)
                         if max_steps and step >= max_steps:
                             break
-                        if max_time_s and time.time() - t0 > max_time_s:
+                        if max_time_s and _any_rank(time.time() - t0 > max_time_s, mesh):
                             stopped = "max_time"
                             if exp_manager:
                                 exp_manager.save(self.train_state, step, {})
@@ -470,10 +539,13 @@ class _BaseASRModel:
                 validate(step)  # end of epoch
                 if max_steps and step >= max_steps:
                     break
+            done = True
         finally:
             self.model.eval()
             if exp_manager:
                 exp_manager.wait_for_saves()
+            if done:  # collective: a rank that raised would leave the others waiting
+                undistribute_state(self.train_state)
         out = {"steps": step, "time_s": time.time() - t0, "val": dict(val)}
         if metrics:
             out["last_loss"] = float(metrics["loss"])
@@ -586,8 +658,8 @@ class ConformerCTC(_BaseASRModel):
             skip_nan_grad=bool(self.raw_cfg["model"].get("skip_nan_grad", False)))
         return lambda batch: step(self.train_state, batch)
 
-    def _evaluate(self, loader) -> dict:
-        return evaluate_wer(self.cfg, self.model, loader, self.tokenizer)
+    def _evaluate(self, loader, mesh: Optional[Mesh] = None) -> dict:
+        return evaluate_wer(self.cfg, self.model, loader, self.tokenizer, mesh)
 
     def _to_jax(self, state_dict: dict) -> dict:
         return ctc_variables_to_jax(state_dict, self.cfg)
@@ -705,13 +777,13 @@ class ConformerTransducer(_BaseASRModel):
             skip_nan_grad=bool(self.raw_cfg["model"].get("skip_nan_grad", False)))
         return lambda batch: step(self.train_state, batch)
 
-    def _evaluate(self, loader) -> dict:
+    def _evaluate(self, loader, mesh: Optional[Mesh] = None) -> dict:
         loss_step = (make_rnnt_loss_eval_step(self.cfg)
                      if self.raw_cfg["model"].get("compute_eval_loss", False) else None)
         return evaluate_rnnt_wer(
             self.cfg, self.model, loader, self.tokenizer,
             make_rnnt_eval_step(self.cfg, max_symbols=self.decoding.max_symbols),
-            loss_step=loss_step)
+            loss_step=loss_step, mesh=mesh)
 
     def _encode(self, audio: np.ndarray, lens: np.ndarray) -> tuple:
         """Padded waveforms -> the encoder's output [B, T, D] and lengths."""

@@ -89,7 +89,8 @@ _DS_KEYS = {
     "bucketing_weights", "normalize_transcripts",
     "transport",  # the JAX package's host-to-device wire format (f32 | pcm16 | mulaw8)
 }
-_ONE_DEVICE = "fit trains on one device (the model's device=)"
+_LAUNCHER = ("the port reads the topology from the launcher (torchrun: one process per GPU, "
+             "WORLD_SIZE/RANK/LOCAL_RANK), laid out on the trainer's data x model axes")
 _PINNED = "fit always copies training batches to the card from pinned memory (data/prefetch.py)"
 _PRECISION = "the precision is fixed: parameters fp32, compute in the model's dtype (bf16 default)"
 # accepted for the reference recipes' sake, but no-ops in the port
@@ -97,10 +98,11 @@ _NOOP_KEYS = {
     "model.train_ds.pin_memory": _PINNED,
     "model.validation_ds.pin_memory": _PINNED,
     "model.test_ds.pin_memory": _PINNED,
-    "trainer.devices": _ONE_DEVICE,
-    "trainer.gpus": _ONE_DEVICE,
-    "trainer.num_nodes": _ONE_DEVICE,
-    "trainer.strategy": _ONE_DEVICE,
+    "trainer.devices": _LAUNCHER,
+    "trainer.gpus": _LAUNCHER,
+    "trainer.num_nodes": _LAUNCHER,
+    "trainer.strategy": "the trainer's data axis reduces gradients as DDP does, with a "
+                        "synchronised BatchNorm; its model axis shards the encoder",
     "trainer.accelerator": "the device comes from the model's device= (CUDA unless the CPU is asked)",
     "trainer.precision": _PRECISION,
     "trainer.amp_level": _PRECISION,

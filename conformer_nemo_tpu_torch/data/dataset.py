@@ -14,13 +14,19 @@ batches do not depend on the worker count), and tokenized (with the
 manifest's `lang` for an aggregate tokenizer, and bos/eos around the ids
 with `use_start_end_token` where the tokenizer has them). The wire format
 (`transport`) is f32, pcm16 (int16) or mulaw8 (int8 mu-law); the frontend
-dequantises on the device (audio/features.py). Sharding the plan across
-processes waits for multi-GPU (ROADMAP.md queue 1 item 10).
+dequantises on the device (audio/features.py). Across data-parallel
+ranks each loader takes every `process_count`-th sample of the shuffled
+order from `process_index` on, as the JAX package's loader takes
+`jax.process_index()`'s, before it fills the buckets. A training loader
+(`drop_uneven`) then emits the least of the ranks' batch counts, which
+every rank computes alone from the shared order, so that no rank waits in
+a collective for one whose epoch has ended.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import queue
 import random
@@ -32,6 +38,8 @@ import numpy as np
 
 from conformer_nemo_tpu_torch.data.audio_io import load_audio, load_audio_pcm16, mulaw8_encode
 from conformer_nemo_tpu_torch.data.manifest import AudioTextSample
+
+log = logging.getLogger(__name__)
 
 TOKEN_CAP_PER_SEC = 8.0  # token cap of a bucket per second of its audio
 MIN_TOKEN_CAP = 16
@@ -131,7 +139,8 @@ class BucketedLoader:
     batches are the ones the serial path (num_workers = 0) emits."""
 
     def __init__(self, dataset: BucketedAudioTextDataset, batch_size: int, *,
-                 shuffle: bool = True, seed: int = 0,
+                 shuffle: bool = True, seed: int = 0, process_index: int = 0,
+                 process_count: int = 1, drop_uneven: bool = False,
                  bucketing_strategy: str = "synced_randomized", bucketing_batch_size=None,
                  num_workers: int = 0, transport: Optional[str] = None):
         transport = transport or "f32"
@@ -153,6 +162,11 @@ class BucketedLoader:
             self.bucket_batch = [int(x) for x in bucketing_batch_size]
         self.shuffle = shuffle
         self.seed = seed
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is outside {process_count} processes")
+        self.process_index = process_index
+        self.process_count = process_count
+        self.drop_uneven = drop_uneven
         self.bucketing_strategy = bucketing_strategy
         self.num_workers = int(num_workers or 0)
         self.epoch = 0
@@ -160,15 +174,32 @@ class BucketedLoader:
 
     def _plan(self) -> list[tuple[int, list[int]]]:
         """The epoch's batch plan: (bucket, sample indices) in emission order;
-        a pure function of (seed, epoch, strategy), built once per epoch."""
+        a pure function of (seed, epoch, strategy), built once per epoch.
+        With `drop_uneven`, cut to the least of the ranks' plan lengths."""
         if self._plan_cache is not None and self._plan_cache[0] == self.epoch:
             return self._plan_cache[1]
+        batches = self._rank_plan(self.process_index)
+        if self.drop_uneven and self.process_count > 1:
+            n = min(len(self._rank_plan(r)) for r in range(self.process_count))
+            if n < len(batches):
+                log.info("loader: rank %d drops %d of its %d batches in epoch %d (a rank "
+                         "has %d)", self.process_index, len(batches) - n, len(batches),
+                         self.epoch, n)
+            batches = batches[:n]
+        self._plan_cache = (self.epoch, batches)
+        return batches
+
+    def _rank_plan(self, rank: int) -> list[tuple[int, list[int]]]:
+        """Process `rank`'s whole plan of the epoch, as the JAX package's
+        loader plans it: every process_count-th sample of the shuffled
+        order from `rank` on, filled into buckets, the batches shuffled."""
         rng = np.random.RandomState(
             self.seed if self.bucketing_strategy == "synced_randomized"
             else self.seed + self.epoch)
         order = np.arange(len(self.ds.samples))
         if self.shuffle:
             rng.shuffle(order)
+        order = order[rank:: self.process_count]
         pending: dict[int, list[int]] = {}
         batches: list[tuple[int, list[int]]] = []
         for idx in order:
@@ -179,7 +210,6 @@ class BucketedLoader:
         batches.extend(pending.items())
         if self.shuffle:
             rng.shuffle(batches)
-        self._plan_cache = (self.epoch, batches)
         return batches
 
     def __len__(self) -> int:
@@ -195,13 +225,17 @@ class BucketedLoader:
                                  pcm16=self.transport in ("pcm16", "mulaw8"))
 
     def __iter__(self) -> Iterator[Batch]:
+        """One epoch; the next starts whether this one ran to its end or was
+        closed early (a max_steps stop)."""
         batches = self._plan()
-        if self.num_workers > 0:
-            yield from self._iter_workers(batches)
-        else:
-            for b, idxs in batches:
-                yield self._collate(b, idxs, [self._load(i) for i in idxs])
-        self.epoch += 1
+        try:
+            if self.num_workers > 0:
+                yield from self._iter_workers(batches)
+            else:
+                for b, idxs in batches:
+                    yield self._collate(b, idxs, [self._load(i) for i in idxs])
+        finally:
+            self.epoch += 1
 
     def _iter_workers(self, batches) -> Iterator[Batch]:
         """Decode on a thread pool, collate on a builder thread, and hand

@@ -3,9 +3,10 @@
 Shard paths brace-expand (`audio_{0..127}.tar` or `audio__OP_0..127_CL_.tar`),
 shards are read in a seeded order with the standard library's `tarfile` as
 a stream, members match manifest entries by base name, and a ring buffer
-of `shuffle_n` items shuffles within the stream. One process reads every
-shard: partitioning shards by rank (`scatter`) waits for multi-GPU
-(ROADMAP.md queue 1 item 10), and `world_size > 1` raises.
+of `shuffle_n` items shuffles within the stream. Across data-parallel
+ranks the shards are partitioned as the JAX package partitions them:
+`scatter` gives each rank a contiguous 1 / world_size of the expanded list
+(which world_size must divide), `replicate` gives every rank every shard.
 """
 
 from __future__ import annotations
@@ -26,11 +27,8 @@ _BRACE = re.compile(r"(\{|_OP_)(\d+)\.\.(\d+)(\}|_CL_)")
 
 def expand_sharded_filepaths(paths, shard_strategy: str = "scatter", world_size: int = 1,
                              global_rank: int = 0) -> List[str]:
-    """Brace-expanded shard paths of one process (one process only)."""
-    if world_size != 1 or global_rank != 0:
-        raise NotImplementedError(
-            f"tarred shards across {world_size} processes wait for multi-GPU "
-            "(ROADMAP.md queue 1 item 10); the port reads every shard in one process")
+    """Brace-expanded shard paths, then rank `global_rank`'s part of them
+    under `shard_strategy` (scatter | replicate)."""
     if shard_strategy not in ("scatter", "replicate"):
         raise ValueError(f"unknown shard_strategy: {shard_strategy}")
     if isinstance(paths, str):
@@ -43,7 +41,13 @@ def expand_sharded_filepaths(paths, shard_strategy: str = "scatter", world_size:
                             for i in range(int(m.group(2)), int(m.group(3)) + 1))
         else:
             expanded.append(p)
-    return expanded
+    if shard_strategy == "replicate":
+        return expanded
+    if len(expanded) % world_size != 0:
+        raise ValueError(f"number of shards ({len(expanded)}) must be divisible by "
+                         f"world_size ({world_size}) for the 'scatter' strategy")
+    per = len(expanded) // world_size
+    return expanded[global_rank * per: (global_rank + 1) * per]
 
 
 class TarredAudioTextDataset:

@@ -2,13 +2,20 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """None -> cuda (raises when no GPU is present); otherwise the device
-    the caller named. There is no silent fall-back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
+    """None -> cuda, or cuda:LOCAL_RANK under a launcher that sets
+    LOCAL_RANK (torchrun: one process per GPU); raises when no GPU is
+    present. Otherwise the device the caller named. There is no silent
+    fall-back to the CPU."""
+    if device is None:
+        local = os.environ.get("LOCAL_RANK")
+        device = "cuda" if local is None else f"cuda:{int(local)}"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: this entry point runs on the GPU by "

@@ -23,6 +23,11 @@ flax's statistics, whose running update the encoder applies once per
 forward, outside the checkpoint. `self.training` selects training mode;
 the encoder's `dropout_seed` seeds the masks. The non-striding subsampling
 modes wait for later slices (ROADMAP.md).
+
+Across GPUs (parallel/): the training BatchNorm sums its statistics over
+the mesh's data group (`BatchNorm.sync_group`), and the feed-forward,
+attention and convolution modules run tensor-parallel over its model
+group when `tp` is set (parallel/sharding.py holds the sharding rules).
 """
 
 from __future__ import annotations
@@ -38,6 +43,12 @@ import torch.utils.checkpoint
 from torch import nn
 
 from conformer_nemo_tpu_torch.ops.flash_attention import check_bwd_depth, flash_attention
+from conformer_nemo_tpu_torch.parallel.distributed import all_reduce_sum
+from conformer_nemo_tpu_torch.parallel.sharding import (
+    TensorParallel,
+    copy_to_tp,
+    reduce_from_tp,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +146,26 @@ def sub_seed(seed: Optional[int], index: int) -> Optional[int]:
     return None if seed is None else (seed * 1_000_003 + index + 1) % (1 << 62)
 
 
+# the sub-sites of a data-parallel rank's and a tensor-parallel shard's
+# streams: past every layer's and every site's index
+_RANK_SITE, _SHARD_SITE = 1 << 32, 2 << 32
+
+
+def rank_seed(seed: int, data_index: int) -> int:
+    """A step seed as data-parallel rank `data_index` draws it: each rank's
+    rows get masks of their own, and index 0 keeps the step's seed, so a
+    world of one draws as one process does."""
+    return seed if data_index == 0 else sub_seed(seed, _RANK_SITE + data_index)
+
+
+def shard_seed(seed: Optional[int], tp: Optional[TensorParallel]) -> Optional[int]:
+    """The dropout seed of a sharded activation: the ranks of a model group
+    share the step's seed, and each shard draws a mask of its own."""
+    if seed is None or tp is None or tp.rank == 0:
+        return seed
+    return sub_seed(seed, _SHARD_SITE + tp.rank)
+
+
 def fast_dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
     """The JAX package's FastDropout: uint8 random bits, drop iff
     bits < t with t = round(rate * 256), rescale by the realised keep rate
@@ -180,6 +211,17 @@ def _linear(mod: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), mod.weight.to(dtype), bias)
 
 
+def _row_linear(weight: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, dtype: torch.dtype,
+                tp) -> torch.Tensor:
+    """x @ weight^T + bias in the compute dtype; under tensor parallelism
+    weight holds this rank's input columns: the ranks' partial products are
+    summed in fp32 and the bias added after the sum."""
+    if tp is None:
+        return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+    y = reduce_from_tp(F.linear(x.to(dtype), weight.to(dtype)).to(torch.float32), tp)
+    return (y + bias.to(torch.float32)).to(dtype)
+
+
 def _layer_norm(d: int) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=1e-6)  # flax LayerNorm's epsilon
 
@@ -199,9 +241,17 @@ class BatchNorm(nn.Module):
     batch statistics beside the output instead of updating the buffers, so
     a recomputed forward (remat) cannot update them twice: the encoder calls
     `update_running_stats` once. (F.batch_norm's running variance is the
-    unbiased estimate, which does not match.)"""
+    unbiased estimate, which does not match; nor does nn.SyncBatchNorm's.)
+
+    With `sync_group` set (the mesh's data group, parallel/sharding.py
+    `set_sync_batchnorm`), the per-channel sums of x and x*x and the count
+    of (B, T) positions are summed over the group by an all-reduce that
+    carries the gradient, so every rank normalises with the global batch's
+    statistics, as the JAX package's data-sharded BatchNorm does, and every
+    rank's running statistics stay equal."""
 
     momentum = 0.9
+    sync_group = None
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -217,8 +267,13 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps), None
-        mean = x.mean(dim=(0, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        sums = torch.cat([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
+                          torch.full((1,), float(x.shape[0] * x.shape[2]), device=x.device)])
+        if self.sync_group is not None:
+            sums = all_reduce_sum(sums, self.sync_group)
+        c = x.shape[1]
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c: 2 * c] / sums[2 * c] - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
         return y, (mean.detach(), var.detach())
@@ -278,7 +333,14 @@ class RelPosMultiHeadAttention(nn.Module):
     so no [B,H,T,2T-1] tensor and no shift is needed; the rel_shift form is
     kept for pos-emb dropout (dropout_emb > 0), which the decomposition cannot
     express. With the decomposition the whole score is one extended-depth
-    product Qs Ks^T, which the flash kernel takes."""
+    product Qs Ks^T, which the flash kernel takes.
+
+    Under tensor parallelism (`tp`, parallel/sharding.py) the module holds
+    n_heads / tp.size heads: q, k, v, pos and the biases u, v are
+    head-sharded, linear_out row-parallel."""
+
+    TENSOR_PARALLEL = True
+    tp = None
 
     def __init__(self, cfg: ConformerEncoderConfig, shared_biases=None):
         super().__init__()
@@ -311,10 +373,11 @@ class RelPosMultiHeadAttention(nn.Module):
         """sin_cos: the encoder's (sin, cos) tables [T, D/2] in the compute
         dtype (decomposition); pos_emb: [2T-1, D] (rel_shift path only);
         seed: this site's dropout seed (None = no attention dropout)."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         dt = cfg.dtype
-        h, dk, d_model = cfg.n_heads, cfg.d_head, cfg.d_model
+        h, dk, d_model = cfg.n_heads // (tp.size if tp else 1), cfg.d_head, cfg.d_model
         b, t, _ = x.shape
+        x = copy_to_tp(x, tp)
         q = _linear(self.linear_q, x, dt).reshape(b, t, h, dk)
         k = _linear(self.linear_k, x, dt).reshape(b, t, h, dk)
         v = _linear(self.linear_v, x, dt).reshape(b, t, h, dk)
@@ -350,7 +413,7 @@ class RelPosMultiHeadAttention(nn.Module):
             out = o.reshape(b, h, t, dk).permute(0, 2, 1, 3).reshape(b, t, h * dk)
             valid = torch.arange(t, device=x.device)[None, :, None] < lengths[:, None, None]
             out = torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
-            return _linear(self.linear_out, out, dt)
+            return _row_linear(self.linear_out.weight, self.linear_out.bias, out, dt, tp)
 
         # dense-score path
         matrix_ac = torch.einsum("bthd,bshd->bhts", qu, k)
@@ -365,12 +428,15 @@ class RelPosMultiHeadAttention(nn.Module):
         masked = att_mask[:, None, :, :]
         scores = scores.masked_fill(masked, -10000.0)
         attn = torch.softmax(scores, dim=-1).masked_fill(masked, 0.0).to(dt)
-        attn = fast_dropout(attn, cfg.dropout_att, seed)
+        attn = fast_dropout(attn, cfg.dropout_att, shard_seed(seed, tp))
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, h * dk)
-        return _linear(self.linear_out, out, dt)
+        return _row_linear(self.linear_out.weight, self.linear_out.bias, out, dt, tp)
 
 
 class AbsPosMultiHeadAttention(nn.Module):
+    TENSOR_PARALLEL = True
+    tp = None
+
     def __init__(self, cfg: ConformerEncoderConfig):
         super().__init__()
         self.cfg = cfg
@@ -381,9 +447,10 @@ class AbsPosMultiHeadAttention(nn.Module):
         self.linear_out = nn.Linear(d, d)
 
     def forward(self, x, att_mask, seed=None):
-        cfg = self.cfg
-        dt, h, dk = cfg.dtype, cfg.n_heads, cfg.d_head
+        cfg, tp = self.cfg, self.tp
+        dt, h, dk = cfg.dtype, cfg.n_heads // (tp.size if tp else 1), cfg.d_head
         b, t, _ = x.shape
+        x = copy_to_tp(x, tp)
         q = _linear(self.linear_q, x, dt).reshape(b, t, h, dk)
         k = _linear(self.linear_k, x, dt).reshape(b, t, h, dk)
         v = _linear(self.linear_v, x, dt).reshape(b, t, h, dk)
@@ -391,12 +458,18 @@ class AbsPosMultiHeadAttention(nn.Module):
         masked = att_mask[:, None, :, :]
         scores = scores.masked_fill(masked, -10000.0)
         attn = torch.softmax(scores, dim=-1).masked_fill(masked, 0.0)
-        attn = fast_dropout(attn, cfg.dropout_att, seed)  # fp32, as the JAX module
+        attn = fast_dropout(attn, cfg.dropout_att, shard_seed(seed, tp))  # fp32, as JAX's
         out = torch.einsum("bhts,bshd->bthd", attn.to(dt), v).reshape(b, t, h * dk)
-        return _linear(self.linear_out, out, dt)
+        return _row_linear(self.linear_out.weight, self.linear_out.bias, out, dt, tp)
 
 
 class ConformerFeedForward(nn.Module):
+    """linear1 (column-parallel under `tp`) -> swish -> dropout -> linear2
+    (row-parallel)."""
+
+    TENSOR_PARALLEL = True
+    tp = None
+
     def __init__(self, cfg: ConformerEncoderConfig):
         super().__init__()
         self.cfg = cfg
@@ -404,13 +477,19 @@ class ConformerFeedForward(nn.Module):
         self.linear2 = nn.Linear(cfg.d_ff, cfg.d_model)
 
     def forward(self, x, seed=None):
-        dt = self.cfg.dtype
-        y = fast_dropout(F.silu(_linear(self.linear1, x, dt)), self.cfg.dropout, seed)
-        return _linear(self.linear2, y, dt)
+        dt, tp = self.cfg.dtype, self.tp
+        y = _linear(self.linear1, copy_to_tp(x, tp), dt)
+        y = fast_dropout(F.silu(y), self.cfg.dropout, shard_seed(seed, tp))
+        return _row_linear(self.linear2.weight, self.linear2.bias, y, dt, tp)
 
 
 class ConformerConvolution(nn.Module):
-    """pointwise(2d) -> GLU -> pad-masked depthwise(k) -> norm -> swish -> pointwise."""
+    """pointwise(2d) -> GLU -> pad-masked depthwise(k) -> norm -> swish -> pointwise.
+    Under `tp`: pointwise_conv1 column-parallel on each GLU half, the
+    depthwise conv and BatchNorm by channel, pointwise_conv2 row-parallel."""
+
+    TENSOR_PARALLEL = True
+    tp = None
 
     def __init__(self, cfg: ConformerEncoderConfig):
         super().__init__()
@@ -424,15 +503,16 @@ class ConformerConvolution(nn.Module):
 
     def forward(self, x, pad_mask):
         """-> (y, BatchNorm batch statistics or None)."""
-        dt = self.cfg.dtype
+        dt, tp = self.cfg.dtype, self.tp
         pw1, pw2, dw = self.pointwise_conv1, self.pointwise_conv2, self.depthwise_conv
+        x = copy_to_tp(x, tp)
         x = F.linear(x.to(dt), pw1.weight[..., 0].to(dt), pw1.bias.to(dt))
         a, gate = x.chunk(2, dim=-1)
         x = a * torch.sigmoid(gate)  # GLU
         # zero padded frames so no padding leaks into valid ones
         x = x.masked_fill(pad_mask[:, :, None], 0.0)
         x = F.conv1d(x.transpose(1, 2), dw.weight.to(dt), dw.bias.to(dt),
-                     padding=dw.padding, groups=dw.groups)  # [B, D, T]
+                     padding=dw.padding, groups=dw.weight.shape[0])  # [B, D, T]
         stats = None
         if isinstance(self.batch_norm, BatchNorm):
             x, stats = self.batch_norm(x)
@@ -440,7 +520,7 @@ class ConformerConvolution(nn.Module):
         else:
             x = _fp32_norm(self.batch_norm, x.transpose(1, 2))
         x = F.silu(x)
-        return F.linear(x.to(dt), pw2.weight[..., 0].to(dt), pw2.bias.to(dt)), stats
+        return _row_linear(pw2.weight[..., 0], pw2.bias, x, dt, tp), stats
 
 
 # dropout sites of a layer (sub-seeds of the layer's seed)

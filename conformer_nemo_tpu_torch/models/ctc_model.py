@@ -74,9 +74,12 @@ def ctc_forward(model: CTCModel, audio: torch.Tensor, audio_lens: torch.Tensor):
 def ctc_model_loss(cfg: CTCModelConfig, log_probs: torch.Tensor, enc_lengths: torch.Tensor,
                    tokens: torch.Tensor, token_lens: torch.Tensor,
                    sample_weight: Optional[torch.Tensor] = None,
-                   impl: str = "auto") -> torch.Tensor:
+                   impl: str = "auto",
+                   denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CTC loss over the rows with weight (the trainer passes
-    audio_lens > 0, so the loader's zero rows count 0).
+    audio_lens > 0, so the loader's zero rows count 0):
+    sum(nll * w) / max(denominator, 1), the denominator sum(w) unless given
+    (a data-parallel rank passes the global batch's).
 
     impl: "kernel" (K1-fwd/bwd, `CTCLossKernel`; the JAX package's "pallas"),
     "plain" (autograd through the recursion; its "scan"), or "auto": the
@@ -93,4 +96,5 @@ def ctc_model_loss(cfg: CTCModelConfig, log_probs: torch.Tensor, enc_lengths: to
     if sample_weight is None:
         return nll.mean()
     w = sample_weight.to(nll.dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    denominator = w.sum() if denominator is None else denominator.to(nll.dtype)
+    return (nll * w).sum() / torch.clamp(denominator, min=1.0)

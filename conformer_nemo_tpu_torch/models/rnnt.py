@@ -32,7 +32,9 @@ whole-batch dense joint (ops/rnnt_loss.py, K3 on CUDA). Randomness is
 explicit: one per-step `dropout_seed` seeds a host generator that draws
 the encoder's mask seed, the flash joint's hash seed and the seed of a
 generator on the model's device, which draws the prediction network's and
-the dense joint's masks where the tensors live.
+the dense joint's masks where the tensors live. Under data parallelism
+every rank takes the step's seed; the torch-drawn masks mix in the rank's
+data index, and the flash joint's hash takes the rank's row offset.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ from conformer_nemo_tpu_torch.models.conformer import (
     ConformerEncoder,
     ConformerEncoderConfig,
     _linear,
+    rank_seed,
 )
 from conformer_nemo_tpu_torch.ops.rnnt_fused import rnnt_loss_fused
-from conformer_nemo_tpu_torch.ops.rnnt_joint import ACTIVATIONS, check_smem
+from conformer_nemo_tpu_torch.ops.rnnt_joint import ACTIVATIONS, check_smem, joint_seed
 from conformer_nemo_tpu_torch.ops.rnnt_loss import rnnt_loss_from_logits
 
 
@@ -395,15 +398,21 @@ class RNNTModel(nn.Module):
         return encoded.transpose(1, 2), enc_lens  # [B, T, D] fp32
 
     def forward(self, features, feat_lengths, targets, target_lengths,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None, data_index: int = 0,
+                row_offset: int = 0) -> torch.Tensor:
         """Training forward (dropout iff self.training, seeded by
-        `dropout_seed`) -> per-sample RNN-T nll [B]."""
+        `dropout_seed`) -> per-sample RNN-T nll [B]. A data-parallel rank
+        passes its data index, which gives its encoder and prediction
+        network masks of their own (`rank_seed`), and the offset of its
+        first row in the global batch, which places its rows in the flash
+        joint's hash layout of the global batch (`joint_seed`)."""
         cfg = self.cfg
         gen = dev_gen = enc_seed = None
         if self.training and dropout_seed is not None:
             gen = torch.Generator().manual_seed(int(dropout_seed))  # host: seeds only
-            enc_seed = _draw_seed(gen)
-            dev_gen = torch.Generator(device=features.device).manual_seed(_draw_seed(gen))
+            enc_seed = rank_seed(_draw_seed(gen), data_index)
+            dev_gen = torch.Generator(device=features.device).manual_seed(
+                rank_seed(_draw_seed(gen), data_index))
         enc, enc_lens = self.encode(features, feat_lengths, enc_seed)
         g = self.decoder(targets, generator=dev_gen)
         dev = enc.device
@@ -413,7 +422,8 @@ class RNNTModel(nn.Module):
             e, p = self.joint.project(enc, g)
             dt = cfg.joint.dtype
             drop_t = int(round(cfg.joint.dropout * 256)) if gen is not None else 0
-            seed = torch.tensor([_draw_seed(gen) if drop_t > 0 else 0], dtype=torch.int32)
+            seed = joint_seed(_draw_seed(gen) if drop_t > 0 else 0, row_offset, enc.shape[1],
+                              g.shape[1], cfg.joint.joint_hidden, cfg.joint_flash_bt)
             return rnnt_loss_fused(
                 e.to(dt), p.to(dt), self.joint.out.weight.t().to(dt), self.joint.out.bias.to(dt),
                 targets, enc_lens, target_lengths, seed, cfg.blank_id, cfg.fastemit_lambda,

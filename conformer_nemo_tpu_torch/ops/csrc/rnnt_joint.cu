@@ -32,7 +32,9 @@
 // (`_tile_keep`); keep iff (bits >> 24) >= drop_t, rescaled by
 // 1 / (1 - drop_t / 256). The kernels tile rows their own way but compute
 // the index from (b, t, u, h), so the mask is `hash_keep_mask_reference`'s
-// bit for bit.
+// bit for bit. `hash_base` is added to every index: a data-parallel rank
+// passes its first row's offset in the global batch's layout, so that its
+// rows draw the mask of the same rows in one process's run of that batch.
 //
 // Both kernels compute only the cells inside each sample's lattice (t <
 // t_len, u <= u_len): the loss reads no other. The loader pads U to its
@@ -153,7 +155,7 @@ struct Joint {
   const bf16* bias;    // [V]
   const int* targets;  // [B, U1 - 1]
   int B, T, U1, H, V, VL, Tp, act, drop_t;
-  uint32_t seed;
+  uint32_t seed, hash_base;
   float inv_keep;
   // the lattice: t_lens, u_lens [B] and each sample's first cell in the
   // global order, off [B + 1] (off[B]: the lattice's cells)
@@ -242,6 +244,7 @@ __device__ inline void hidden8(const Joint& J, int b, int t, int u, int h0, uint
   const bf16* p8 = reinterpret_cast<const bf16*>(&pv);
   uint32_t hw[4], gw[4];
   const uint32_t base =
+      J.hash_base +
       ((uint32_t)b * (uint32_t)J.Tp + (uint32_t)t) * ((uint32_t)J.U1 * (uint32_t)J.H) +
       (uint32_t)u * (uint32_t)J.H + (uint32_t)h0;
 #pragma unroll
@@ -1148,7 +1151,7 @@ __global__ void joint_bwd_reduce_kernel(int B, int T, int H, int V, int VLp,
 
 Joint make_joint(const void* e, const void* p, const void* bias,
                  const void* targets, int B, int T, int U1, int H, int V, int Tp, int act,
-                 int drop_t, int seed) {
+                 int drop_t, int seed, int hash_base) {
   Joint J;
   J.e = (const bf16*)e;
   J.p = (const bf16*)p;
@@ -1158,6 +1161,7 @@ Joint make_joint(const void* e, const void* p, const void* bias,
   J.act = act;
   J.drop_t = drop_t;
   J.seed = (uint32_t)seed;
+  J.hash_base = (uint32_t)hash_base;
   J.inv_keep = drop_t > 0 ? (float)(1.0 / (1.0 - drop_t / 256.0)) : 1.f;
   J.t_lens = J.u_lens = nullptr;
   J.off = nullptr;
@@ -1194,7 +1198,8 @@ extern "C" int rnnt_joint_bwd_pass_cols() { return PASS_COLS; }
 // [b, t, u1] fp32 (-1e30, -1e30 and 1e30 outside each lattice). All
 // contiguous and 16-byte aligned; h a multiple of 16 that `fwd_rows` takes.
 // tp: the dropout layout's padded t; act 0 relu, 1 sigmoid, 2 tanh; drop_t 0
-// disables dropout; grid >= 1: the blocks of the persistent grid (any count
+// disables dropout; hash_base: added to every dropout index (a row offset
+// times tp * u1 * h, mod 2^32); grid >= 1: the blocks of the persistent grid (any count
 // covers every cell; the wrapper takes one per SM, at most one per tile of
 // the b * t * u1 cells). Launches on `stream`; returns the cudaError_t of the
 // launch.
@@ -1202,8 +1207,9 @@ extern "C" int rnnt_joint_fwd_bf16(const void* e, const void* p, const void* w, 
                                    const void* targets, const void* t_lens, const void* u_lens,
                                    const void* cell_off, void* blank_lp, void* label_lp, void* lse,
                                    int b, int t, int u1, int h, int v, int vt, int tp, int act,
-                                   int drop_t, int seed, int grid, void* stream) {
-  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
+                                   int drop_t, int seed, int hash_base, int grid,
+                                   void* stream) {
+  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed, hash_base);
   J.t_lens = (const int*)t_lens;
   J.u_lens = (const int*)u_lens;
   J.off = (const long long*)cell_off;
@@ -1232,9 +1238,9 @@ extern "C" int rnnt_joint_bwd_cells_bf16(
     const void* lse, const void* total, const void* gb, const void* gy, const void* g,
     void* dlab, void* dblank, void* dx, void* h_win, void* dbl_part, void* dh_part, int b, int t,
     int u1, int h,
-    int v, int vlp, int tp, int act, int drop_t, int seed, int win, long long c0, float clamp,
-    void* stream) {
-  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed);
+    int v, int vlp, int tp, int act, int drop_t, int seed, int hash_base, int win, long long c0,
+    float clamp, void* stream) {
+  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed, hash_base);
   J.t_lens = (const int*)t_lens;
   J.u_lens = (const int*)u_lens;
   J.off = (const long long*)cell_off;
@@ -1261,7 +1267,7 @@ extern "C" int rnnt_joint_bwd_sums_f32(const void* t_lens, const void* u_lens,
                                        void* dw_part, void* dwb_part, void* db_acc, int b, int t,
                                        int u1, int h, int v, int vlp, int win, long long c0,
                                        void* stream) {
-  Joint J = make_joint(nullptr, nullptr, nullptr, nullptr, b, t, u1, h, v, t, 0, 0, 0);
+  Joint J = make_joint(nullptr, nullptr, nullptr, nullptr, b, t, u1, h, v, t, 0, 0, 0, 0);
   J.t_lens = (const int*)t_lens;
   J.u_lens = (const int*)u_lens;
   J.off = (const long long*)cell_off;

@@ -24,7 +24,12 @@ Dropout is a counter-based hash: murmur3's fmix32 of (index ^ seed) over
 the padded [B, Tp, U+1, H] layout, Tp = ceil(T / bt) * bt with
 bt = `pick_bt(T, bt)`, indices in uint32 with wrap-around; keep iff the top
 byte >= drop_t, rescaled by 1 / (1 - drop_t / 256). `hash_keep_mask_reference`
-gives the same mask outside the kernels, bit for bit.
+gives the same mask outside the kernels, bit for bit. A seed tensor of two
+entries carries a hash base beside the seed, added to every index
+(`joint_seed`): a data-parallel rank passes its first row's offset in the
+global batch, so its rows draw the mask that one process's run of the
+global batch draws for them (the JAX package's data-sharded step hashes
+the global row).
 
 For CUDA tensors `joint_flash_fwd` / `joint_flash_bwd` launch the
 hand-written bf16 kernels of ops/csrc/rnnt_joint.cu (design and bound
@@ -81,16 +86,38 @@ def keep_from_bits(bits: torch.Tensor, drop_t: int) -> torch.Tensor:
 
 def hash_keep_mask_reference(shape, seed, drop_t: int, device=None) -> torch.Tensor:
     """The keep mask the kernels generate for a [B, Tp, U1, H] tensor; seed a
-    length-1 int tensor (or an int)."""
+    length-1 int tensor (or an int), or `joint_seed`'s pair."""
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape) + _hash_base(seed)
     return keep_from_bits(hash_bits(idx, _seed_int(seed)), drop_t)
 
 
 def _seed_int(seed) -> int:
     return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+
+
+def _hash_base(seed) -> int:
+    """The hash base a seed tensor carries as its second entry (0 if none),
+    in [0, 2^32)."""
+    if not torch.is_tensor(seed) or seed.numel() < 2:
+        return 0
+    return int(seed.reshape(-1)[1]) & _MASK32
+
+
+def joint_seed(seed: int, row_offset: int, t: int, u1: int, h: int, bt: int) -> torch.Tensor:
+    """The seed tensor of rows that start at `row_offset` of the global
+    batch: [seed, hash base] int32, the base the flat index of the global
+    row `row_offset`'s first cell in the [B, Tp, U1, H] layout (mod 2^32,
+    as the kernels' uint32 index wraps)."""
+    return torch.tensor([seed, _i32((row_offset * padded_t(t, bt) * u1 * h) & _MASK32)],
+                        dtype=torch.int32)
+
+
+def _i32(x: int) -> int:
+    """A uint32 as the int32 of the same bits (a C int argument)."""
+    return x - (1 << 32) if x >= 1 << 31 else x
 
 
 def pick_bt(t: int, bt: int) -> int:
@@ -364,11 +391,12 @@ def _launch_fwd(e, p, w_fwd, bias, targets, seed, t_lens, u_lens, outs, v: int, 
                         torch.cuda.get_device_properties(e.device).multi_processor_count)
     cell_off = lattice_offsets(t_lens, u_lens, t, u1)
     with torch.cuda.device(e.device):
-        err = _c_fn("rnnt_joint_fwd_bf16", 11, 11)(
+        err = _c_fn("rnnt_joint_fwd_bf16", 11, 12)(
             e.data_ptr(), p.data_ptr(), w_fwd.data_ptr(), bias.data_ptr(), targets.data_ptr(),
             t_lens.data_ptr(), u_lens.data_ptr(), cell_off.data_ptr(),
             *(o.data_ptr() for o in outs), b, t, u1, h, v, w_fwd.shape[1], padded_t(t, bt), act,
-            drop_t, _seed_int(seed), int(grid), torch.cuda.current_stream().cuda_stream)
+            drop_t, _seed_int(seed), _i32(_hash_base(seed)), int(grid),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"joint_flash_fwd kernel launch failed: CUDA error {err}")
     fwd_launches.add((b, t, u1, h, v))
@@ -532,7 +560,7 @@ def _cell_hidden(e, p, cells, seed, activation: str, drop_t: int, bt: int):
     keep = None
     if drop_t > 0:
         idx = ((bi * padded_t(t, bt) + ti) * u1 + ui)[:, None] * h_dim + \
-            torch.arange(h_dim, device=e.device)
+            torch.arange(h_dim, device=e.device) + _hash_base(seed)
         keep = keep_from_bits(hash_bits(idx, _seed_int(seed)), drop_t)
         h = torch.where(keep, h * inv_keep(drop_t), torch.zeros((), dtype=e.dtype))
     return x, h, keep
@@ -670,10 +698,10 @@ def _launch_cells(cells_in, t_lens, u_lens, cell_off, scratch, dh_part, c0: int,
     ptrs = (e, p, w_pad, w_blank, bias, targets, t_lens, u_lens, cell_off, lse, total, gb, gy, g,
             *scratch)
     _launch("cells", bwd_launches, (b, t, u1, h, v), e.device,
-            _c_fn("rnnt_joint_bwd_cells_bf16", 20, 11, (ctypes.c_longlong, ctypes.c_float)),
+            _c_fn("rnnt_joint_bwd_cells_bf16", 20, 12, (ctypes.c_longlong, ctypes.c_float)),
             *(x.data_ptr() for x in ptrs), None if dh_part is None else dh_part.data_ptr(),
             b, t, u1, h, v, w_pad.shape[1], padded_t(t, bt), _act_code(activation), int(drop_t),
-            _seed_int(seed), win, c0, float(clamp))
+            _seed_int(seed), _i32(_hash_base(seed)), win, c0, float(clamp))
 
 
 def _launch_sums(t_lens, u_lens, cell_off, scratch, acc, c0: int, win: int) -> None:

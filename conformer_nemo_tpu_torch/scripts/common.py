@@ -8,11 +8,22 @@ set `a.b` to 1, `c.d` to "x" (a leading + is dropped), true/false to
 booleans, null/none to None, and ints and floats to numbers; every other
 argument goes to argparse. Every entry point runs on CUDA unless given
 `--device cpu`.
+
+The training scripts run one process per GPU under a launcher:
+
+    torchrun --nproc-per-node 8 -m conformer_nemo_tpu_torch.scripts.speech_to_text_ctc \
+        --config configs/conformer_ctc_bpe.yaml trainer.mesh.data=-1 ...
+
+Each process joins the process group (parallel/distributed.py, from the
+launcher's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK/LOCAL_RANK) before it
+builds its model on cuda:LOCAL_RANK; only rank 0 prints the result and
+writes the archive.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import sys
 from typing import Optional, Sequence
@@ -108,14 +119,24 @@ def train(cls, default_config: str, argv: Optional[Sequence[str]] = None):
     add_device_arg(ap)
     args = ap.parse_args(leftover)
     fast_dev_run = bool(overrides.pop("fast_dev_run", False))
+    from conformer_nemo_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        is_main_process,
+    )
+
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    initialize_distributed(device=args.device)  # a no-op outside a launcher
     model = cls.from_config_file(args.config, tokenizer_dir=args.tokenizer_dir,
                                  overrides=overrides, device=args.device)
     em = None if fast_dev_run else build_exp_manager(model.raw_cfg)
     result = model.fit(max_steps=1 if fast_dev_run else None,
                        max_epochs=1 if fast_dev_run else None, exp_manager=em)
-    print(f"done: {result}", flush=True)
+    main = is_main_process()
+    if main:
+        print(f"done: {result}", flush=True)
     if em is not None and em.cfg.always_save_portable:
-        print("portable:", em.save_portable(model.raw_cfg, model.portable_variables,
-                                            tokenizer_artifacts(model.raw_cfg, args.tokenizer_dir)),
-              flush=True)
+        path = em.save_portable(model.raw_cfg, model.portable_variables,
+                                tokenizer_artifacts(model.raw_cfg, args.tokenizer_dir))
+        if main:
+            print("portable:", path, flush=True)
     return model, result

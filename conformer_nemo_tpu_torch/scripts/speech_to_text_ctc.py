@@ -5,6 +5,10 @@
         model.train_ds.manifest_filepath=train.json \
         model.validation_ds.manifest_filepath=val.json \
         trainer.max_steps=1000 exp_manager.exp_dir=runs [+fast_dev_run=true]
+
+On N GPUs, one process each (the global batch is N x batch_size):
+
+    torchrun --nproc-per-node N -m conformer_nemo_tpu_torch.scripts.speech_to_text_ctc ...
 """
 
 from __future__ import annotations

@@ -15,6 +15,13 @@ save copies every tensor to the host on the calling thread before it
 returns; only the write runs on the background thread (one worker: saves
 stay ordered and `last` only moves forward).
 
+Across ranks a save is collective, as the JAX package's is: every rank
+calls it, the tensor-parallel shards are gathered to full NeMo-layout
+tensors (parallel/sharding.py), rank 0 alone copies them to the host and
+writes, and the synchronous save leaves through a barrier. A restore
+waits at a barrier, loads the full state and cuts it to the live layout,
+so a checkpoint written at dp x tp resumes at world 1, and the reverse.
+
 The portable archive is the JAX package's: a tar.gz of `model_config.yaml`,
 `model_weights.msgpack` (flax's msgpack tree, convert/flax_msgpack.py),
 `artifacts.json` and the artifact files, so either package restores the
@@ -35,6 +42,14 @@ import torch
 import yaml
 
 from conformer_nemo_tpu_torch.convert import flax_msgpack
+from conformer_nemo_tpu_torch.parallel.distributed import barrier, is_main_process
+from conformer_nemo_tpu_torch.parallel.sharding import (
+    full_state_dict,
+    gather_opt_state,
+    shard_opt_state,
+    shard_state_dict,
+    tp_of,
+)
 
 STATE_FILE = "state.pt"
 
@@ -53,10 +68,16 @@ def _map_tensors(obj: Any, fn) -> Any:
     return obj
 
 
-def _host_copy(state) -> dict:
-    """The train state as host tensors that nothing else holds: a copy made
-    now, on this thread, so later in-place steps cannot reach it."""
-    payload = {"model": state.model.state_dict(), "opt_state": state.opt_state,
+def _host_copy(state) -> Optional[dict]:
+    """The train state as full host tensors that nothing else holds: a copy
+    made now, on this thread, so later in-place steps cannot reach it.
+    Collective for a tensor-parallel model (every rank gathers); rank 0
+    alone copies, the others get None."""
+    model_sd = full_state_dict(state.model)
+    opt_state = gather_opt_state(state.opt_state, state.model)
+    if not is_main_process():
+        return None
+    payload = {"model": model_sd, "opt_state": opt_state,
                "generator": state.generator.get_state(), "step": int(state.step)}
     return _map_tensors(payload, lambda t: t.detach().to("cpu", copy=True))
 
@@ -74,8 +95,14 @@ def _write_train_state(ckpt_dir: str, payload: dict, step: int,
 
 
 def save_train_state(ckpt_dir: str, state, step: int, metrics: Optional[dict] = None) -> str:
-    """Write the train state to ckpt_dir/step_{step}/ and point `last` at it."""
-    return _write_train_state(ckpt_dir, _host_copy(state), step, metrics)
+    """Write the train state to ckpt_dir/step_{step}/ and point `last` at it
+    (collective across ranks: rank 0 writes, every rank leaves together)."""
+    payload = _host_copy(state)
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    if payload is not None:
+        path = _write_train_state(ckpt_dir, payload, step, metrics)
+    barrier()
+    return path
 
 
 _SAVE_POOL: Optional[ThreadPoolExecutor] = None
@@ -93,8 +120,13 @@ def save_train_state_async(ckpt_dir: str, state, step: int, metrics: Optional[di
     """The host copy now (it returns only once every tensor is on the host),
     the write on the background thread, then `then()` on that thread (the
     experiment manager's pruning), so the Future resolves after both.
-    -> a Future of the path."""
+    Across ranks the gather is collective and rank 0 alone writes; the
+    others get a resolved Future. -> a Future of the path."""
     payload = _host_copy(state)
+    if payload is None:
+        done: Future = Future()
+        done.set_result(os.path.join(ckpt_dir, f"step_{step}"))
+        return done
 
     def write() -> str:
         path = _write_train_state(ckpt_dir, payload, step, metrics)
@@ -107,8 +139,11 @@ def save_train_state_async(ckpt_dir: str, state, step: int, metrics: Optional[di
 
 def restore_train_state(ckpt_dir: str, state, step: Optional[int] = None):
     """Load a checkpoint into `state` in place (step None: `last`), tensors
-    onto the device of the model's parameters. -> (state, meta), or (None,
-    None) when the directory has no `last`."""
+    onto the device of the model's parameters, cut to the model's
+    tensor-parallel slices where it has them. Every rank waits at a
+    barrier first, so that none reads before the writer is done. ->
+    (state, meta), or (None, None) when the directory has no `last`."""
+    barrier()
     if step is None:
         last = os.path.join(ckpt_dir, "last")
         if not os.path.exists(last):
@@ -119,9 +154,11 @@ def restore_train_state(ckpt_dir: str, state, step: Optional[int] = None):
         name = f"step_{step}"
     path = os.path.join(ckpt_dir, name)
     payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"], strict=True)
+    tp = tp_of(state.model)
+    state.model.load_state_dict(shard_state_dict(payload["model"], tp), strict=True)
     dev = next(state.model.parameters()).device
-    state.opt_state = _map_tensors(payload["opt_state"], lambda t: t.to(dev))
+    state.opt_state = _map_tensors(shard_opt_state(payload["opt_state"], state.model, tp),
+                                   lambda t: t.to(dev))
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     with open(os.path.join(path, "meta.json")) as f:

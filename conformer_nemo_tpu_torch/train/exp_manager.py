@@ -7,6 +7,11 @@ torch.utils.tensorboard) and a W&B run when their packages import;
 otherwise that logger is skipped with one message. Checkpoints go to
 run_dir/checkpoints (train/checkpoint.py), by default with the write on a
 background thread.
+
+Across ranks (parallel/distributed.py) rank 0 picks the version and
+broadcasts it, and alone logs, writes `run-info.json` and prunes; every
+rank calls `save` (the gather of a tensor-parallel model is collective)
+and `maybe_resume` (each rank restores its own slices).
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import sys
 import time
 from typing import Optional
 
+import torch.distributed as dist
+
+from conformer_nemo_tpu_torch.parallel.distributed import get_world_size, is_main_process
 from conformer_nemo_tpu_torch.train import checkpoint as ckpt
 
 log = logging.getLogger(__name__)
@@ -93,12 +101,22 @@ class ScalarLogger:
             self._wandb.finish()
 
 
+class _NoLogger:
+    """The logger of a rank other than 0: scalars go nowhere."""
+
+    def log(self, step: int, **scalars):
+        pass
+
+    def close(self):
+        pass
+
+
 class ExperimentManager:
     def __init__(self, cfg: ExpManagerConfig):
         self.cfg = cfg
         exp_dir = cfg.exp_dir or "./experiments"
         version = cfg.version
-        if version is None:
+        if version is None and is_main_process():
             base = os.path.join(exp_dir, cfg.name)
             n = 0
             while os.path.exists(os.path.join(base, f"version_{n}")) and not cfg.resume_if_exists:
@@ -109,13 +127,20 @@ class ExperimentManager:
                 if versions:
                     n = int(versions[-1].split("_")[1])
             version = f"version_{n}"
+        if get_world_size() > 1:  # every rank takes rank 0's version
+            box = [version]
+            dist.broadcast_object_list(box, src=0)
+            version = box[0]
         self.run_dir = os.path.join(exp_dir, cfg.name, version)
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
+        self._pending_save = None
+        if not is_main_process():
+            self.logger = _NoLogger()
+            return
         self.logger = ScalarLogger(
             self.run_dir, (cfg.wandb_logger_kwargs or {}) if cfg.create_wandb_logger else None,
             tensorboard=cfg.create_tensorboard_logger)
-        self._pending_save = None
         self._write_env_info()
 
     def _write_env_info(self):
@@ -139,6 +164,8 @@ class ExperimentManager:
         return restored, meta
 
     def _prune(self):
+        if not is_main_process():
+            return
         ckpt.prune_checkpoints(self.ckpt_dir, self.cfg.save_top_k, self.cfg.monitor,
                                self.cfg.mode)
 
@@ -161,6 +188,8 @@ class ExperimentManager:
 
     def save_portable(self, config: dict, variables, artifacts=None,
                       name: Optional[str] = None) -> str:
+        """Rank 0 writes the archive; -> its path on every rank."""
         out = os.path.join(self.run_dir, (name or self.cfg.name) + ".cntpu")
-        ckpt.save_portable(out, config, variables, artifacts)
+        if is_main_process():
+            ckpt.save_portable(out, config, variables, artifacts)
         return out

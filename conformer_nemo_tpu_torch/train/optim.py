@@ -77,9 +77,10 @@ def _sgd(lr_schedule: Callable[[int], float], momentum: float) -> Transformation
     return Transformation(init, update)
 
 
-def _clip_by_global_norm(inner: Transformation, max_norm: float) -> Transformation:
+def _clip_by_global_norm(inner: Transformation, max_norm: float,
+                         grad_norm: Callable) -> Transformation:
     def update(grads, state, params):
-        norm = global_norm(grads)
+        norm = grad_norm(grads, params)
         keep = norm < max_norm
         return inner.update([torch.where(keep, g, g / norm * max_norm) for g in grads],
                             state, params)
@@ -91,7 +92,11 @@ _NOT_PORTED = ("novograd", "adafactor", "adadelta", "adamax", "adagrad", "rmspro
 
 
 def make_optimizer(name: str, lr_schedule: Callable[[int], float], *, weight_decay: float = 0.0,
-                   betas: tuple = (0.9, 0.98), grad_clip: Optional[float] = None) -> Transformation:
+                   betas: tuple = (0.9, 0.98), grad_clip: Optional[float] = None,
+                   grad_norm: Optional[Callable] = None) -> Transformation:
+    """grad_norm(grads, params): the norm that clipping reads (default the
+    global norm of `grads`; a tensor-parallel run passes the mesh's norm of
+    the full gradients)."""
     name = name.lower()
     if name == "adamw":
         opt = _adam(lr_schedule, betas[0], betas[1], EPS, weight_decay)
@@ -106,7 +111,8 @@ def make_optimizer(name: str, lr_schedule: Callable[[int], float], *, weight_dec
     else:
         raise ValueError(f"unknown optimizer {name}")
     if grad_clip and grad_clip > 0:
-        opt = _clip_by_global_norm(opt, float(grad_clip))
+        opt = _clip_by_global_norm(opt, float(grad_clip),
+                                   grad_norm or (lambda grads, params: global_norm(grads)))
     return opt
 
 

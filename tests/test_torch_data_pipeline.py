@@ -178,10 +178,20 @@ def test_tarred_batches_match_jax(corpus, shards, shuffle_n, transport):
 
 
 def test_tarred_refuses_more_than_one_process(corpus, shards):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        ptar.expand_sharded_filepaths(shards[0], world_size=3, global_rank=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+    """Ranks share the shards as the JAX package shares them: `scatter`
+    refuses a world that does not divide the shards, as the JAX package's
+    does (tests/test_torch_distributed_data.py holds the rank slices
+    against it index for index)."""
+    for mod in (ptar, jtar):  # three shards
+        with pytest.raises(ValueError, match="divisible by world_size"):
+            mod.expand_sharded_filepaths(shards[0], world_size=2, global_rank=1)
+    assert (ptar.expand_sharded_filepaths(shards[0], world_size=3, global_rank=1)
+            == jtar.expand_sharded_filepaths(shards[0], world_size=3, global_rank=1))
+    with pytest.raises(ValueError, match="divisible by world_size"):
         ptar.TarredAudioTextDataset(shards[0], corpus, None, world_size=2)
+    assert (ptar.expand_sharded_filepaths(shards[0], "replicate", world_size=2, global_rank=1)
+            == jtar.expand_sharded_filepaths(shards[0], "replicate", world_size=2,
+                                             global_rank=1))
 
 
 def test_prefetch_keeps_order_and_contents(corpus):

@@ -64,7 +64,8 @@ def test_fit_on_cpu_then_transcribe(manifest):
 
 
 def test_fit_refuses_what_is_not_ported(manifest, tmp_path):
-    """What fit still refuses (a mesh, novograd) raises naming ROADMAP.md;
+    """What fit still refuses (novograd) raises naming ROADMAP.md, and a
+    mesh that does not fit the world of processes raises before a step;
     the data options it once refused (integer transports, tar shards,
     silence trimming, the augmentor) now train, on the loader batches of
     the JAX package's `_loader` for the same config."""
@@ -78,12 +79,16 @@ def test_fit_refuses_what_is_not_ported(manifest, tmp_path):
         dtype=torch.float32)
     with pytest.raises(FileNotFoundError, match="no checkpoint in /nowhere"):
         m.fit(manifest, max_steps=1)  # as the JAX package's fit raises
-    for key, value in (("trainer.mesh", {"data": 2, "model": 1}),
-                       ("model.optim.name", "novograd")):
-        m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, key: value}, device="cpu",
-                                          dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, "model.optim.name": "novograd"},
+                                      device="cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.fit(manifest, max_steps=1)
+    for mesh in ({"data": 2, "model": 1}, {"data": -1, "model": 2}):
+        m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, "trainer.mesh": mesh},
+                                          device="cpu", dtype=torch.float32)
+        with pytest.raises(ValueError, match="world of 1"):
             m.fit(manifest, max_steps=1)
+        assert m.train_state is None  # before the first step
     d = os.path.dirname(manifest)
     with tarfile.open(os.path.join(d, "audio_0.tar"), "w") as tar:
         for i in range(4):

@@ -23,6 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(conformer_nemo_tpu_torch.__path__
                                                "conformer_nemo_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+parallel = {"conformer_nemo_tpu_torch.parallel." + m for m in ("distributed", "mesh", "sharding")}
+assert parallel <= set(names), sorted(parallel - set(names))
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                                                "msgpack")
@@ -61,7 +63,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 58  # every module was walked, the decoders included
+    # every module was walked, the decoders and the multi-GPU modules included
+    assert int(r.stdout.split()[-1]) >= 62
 
 
 def test_no_port_source_reads_the_jax_packages_native_tree():

@@ -533,3 +533,40 @@ def test_rnnt_joint_cuda_dropout_mask_is_the_hash_mask(cuda_device):
     want = torch.gather(mask, 3, tgt)[..., 0]
     assert torch.equal(kept, want)
     assert 0.6 < want.float().mean().item() < 0.9
+
+
+@pytest.mark.gpu
+def test_rnnt_joint_cuda_mask_and_gradients_at_a_row_offset(cuda_device):
+    """A data-parallel rank's rows: with `joint_seed`'s hash base (here past
+    2^32, so it wraps) the forward's mask is hash_keep_mask_reference's at
+    that base, bit for bit, and the backward regenerates it: K4's gradients
+    follow the plain version's at the same base (2e-2 of max|plain|, as the
+    card's other K4 checks) and differ from the base-0 run's."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    b, t, u, h, v, bt, drop_t = 2, 35, 15, 64, 9, 16, 64
+    dev = cuda_device
+    gen = torch.Generator().manual_seed(5)
+    e = (0.5 * torch.randn(b, t, h, generator=gen)).to(dev, torch.bfloat16)
+    p = (0.5 * torch.randn(b, u + 1, h, generator=gen)).to(dev, torch.bfloat16)
+    w = (torch.randn(h, v, generator=gen) / 8).to(dev, torch.bfloat16)
+    bias = torch.zeros(v, dtype=torch.bfloat16, device=dev)
+    targets = torch.randint(0, v - 1, (b, u), generator=gen).to(dev, torch.int32)
+    row = 1_000_003
+    seed = jt.joint_seed(77, row, t, u + 1, h, bt)
+    assert (row * jt.padded_t(t, bt) * (u + 1) * h) >> 32 and int(seed[1])  # the base wraps
+    full = lambda n: torch.full((b,), n, dtype=torch.int32, device=dev)
+    kw = dict(t_lens=full(t), u_lens=full(u), blank_id=v - 1, drop_t=drop_t, bt=bt)
+    outs = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    refs = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    for o, r in zip(outs, refs):
+        assert (o - r).abs().max() <= 2e-2 * r.abs().max()
+    g_in = [torch.rand(b, t, u + 1, generator=gen).to(dev) for _ in range(3)]
+    args = (e, p, w, bias, targets, outs[2], *g_in, torch.ones(b, device=dev))
+    grads = jt.joint_flash_bwd(*args, seed, **kw)
+    want = jt.joint_flash_bwd_reference(*args, seed, **kw)
+    base0 = jt.joint_flash_bwd(*args, torch.tensor([77], dtype=torch.int32), **kw)
+    for g, r in zip(grads, want):
+        g, r = g.float(), r.float()
+        assert (g - r).abs().max() <= 2e-2 * r.abs().max()
+    assert not torch.equal(grads[0], base0[0])
