@@ -107,6 +107,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                transcribe_speech.main serves the archive (K2-fwd launches, the same
                texts); the timings of the async save's two halves, the resume's
                restore and the archive's save and restore, and their bytes
+  streaming    after lifecycle: configs/conformer_ctc_bpe_streaming.yaml at full width
+               and depth (18 layers, d_model 512, band [128, 32], remat, bf16, batch 8)
+               fits 3 steps over 16 generated 60-120 s files (encoder T 1,500-3,000):
+               per step K2-fwd x36, dQ x18, dK/dV x18, every one keyed with the band,
+               and K1 once each, finite loss and gradient norm, changed parameters, the
+               steady step and audio-s/s; 3 of those files through transcribe (whole
+               utterances, banded K2-fwd) and through a flash-off copy (argmax agreement
+               >= ARGMAX_AGREEMENT_MIN) (profile_streaming: one traced step before them);
+               transcribe_buffered twice at its defaults (the
+               same texts, no K2 launch: T 100) and once with a 24 s buffer (T 600: banded
+               K2-fwd counted), times, one traced buffered call (busy and idle share); the
+               transducer's transcribe_buffered on rnnt_train's archive (2 files, twice,
+               the same texts); each model cut to its first STREAMING_SERVE_LAYERS
+               layers (full width) for export and .nemo loading: export of the streaming
+               model (batch 2, 30 s) reloaded with load_exported: K2-fwd's count rises
+               while the program runs, log-probs within EXPORT_LOGPROB_ATOL of the live
+               forward, argmax equal; the transducer's encoder and decoder_joint exported
+               and reloaded, greedy through them = transcribe's tokens; a .nemo of each
+               model (NeMo's layout,
+               the tokenizer md5-mangled; the transducer's joint with dropout, so
+               joint_net.2) through scripts/convert_nemo.main and restore_portable: the
+               same tensors and texts (CTC log-probs within LOGPROB_ATOL), the CTC one
+               served by transcribe_speech.main; change_vocabulary of both to the 288-piece
+               unigram model (the encoder bit for bit) and one step each: K1 at V+1 289,
+               K3 and K4 at V 289
   kernels      each kernel against its plain PyTorch version on the card, on
                the same inputs, at the shapes and lengths of the counted
                transcribe's and train step's own calls and a few edge cases,
@@ -131,7 +156,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                and at the top of its range (d1 1152, dv 128), and the dQ
                kernel alone past the dK/dV kernel's 576 columns (d1 656); and K1
                and K4 at the multilang steps' shapes (V + 1 584, V 584), whose
-               rows go into the summary line under the path `multilang`
+               rows go into the summary line under the path `multilang`; K2-fwd,
+               dQ and dK/dV at the streaming step's shapes, lengths and band (path
+               `streaming`)
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -288,6 +315,24 @@ RNNT_BEAM_SIZE = 4  # the JAX script's --beam-size default
 RNNT_DECODE_FILES = 2
 # the card's fp32 decode against the CPU's: equal tokens, or best scores this close
 DECODE_SCORE_ATOL = 1e-3
+# streaming: the banded recipe at full width and depth (18 layers, d_model
+# 512, band [128, 32], remat, bf16, batch 8) over generated 60-120 s files
+# (encoder T 1,500-3,000), then buffered decode of both families,
+# change_vocabulary, export and .nemo loading
+STREAMING_CONFIG = os.path.join(ROOT, "configs", "conformer_ctc_bpe_streaming.yaml")
+STREAMING_BAND = (128, 32)
+STREAMING_FILES = 16
+STREAMING_TRANSCRIBE_FILES = 3
+# buffered decode at its defaults (encoder T 100: the dense banded path) and
+# with a 24 s buffer (T 600 >= flash_attention_min_t 512: K2-fwd)
+BUFFERED_DEFAULT = {"frame_len": 1.6, "total_buffer": 4.0, "batch_size": 4}
+BUFFERED_FLASH = {"frame_len": 8.0, "total_buffer": 24.0, "batch_size": 4}
+EXPORT_BATCH, EXPORT_SECONDS = 2, 30.0
+# export and .nemo loading serve each model cut to its first 6 layers (full
+# width): at full depth their saves and loads took 200 s of the run
+STREAMING_SERVE_LAYERS = 6
+# the exported program's log-probs against the live model's on the same card
+EXPORT_LOGPROB_ATOL = 1e-3
 
 
 def watched(model) -> tuple:
@@ -1754,6 +1799,399 @@ def phase_lifecycle(tmp: str, train_m: str, val_m: str, gpu: str) -> None:
     free_cuda()
 
 
+# ---------------------------------------------------------------------------
+# streaming: the banded recipe, buffered decode, change_vocabulary, export, .nemo
+# ---------------------------------------------------------------------------
+
+
+def _k2_keys_banded(by_shape: dict) -> bool:
+    """Every K2 launch of `by_shape` ({kernel: {shape: n}}) with the band."""
+    return all(tuple(sh[-2:]) == STREAMING_BAND for k, d in by_shape.items()
+               if k.startswith("K2") for sh in d)
+
+
+def _exported_greedy(fns: dict, audio, lens, blank: int, max_symbols: int, layers: int,
+                     hidden: int) -> list:
+    """Batched greedy decoding through an exported transducer's `encoder` and
+    `decoder_joint` alone, the rule of decode/rnnt_greedy.py: per frame up to
+    max_symbols steps; a sample whose argmax is blank is done with the frame,
+    and keeps its LSTM state and last label; tokens past 2T are dropped.
+    -> tokens per sample."""
+    enc, enc_lens = fns["encoder"](audio, lens)
+    b, t_max, _ = enc.shape
+    cap = 2 * t_max
+    dev = enc.device
+    h = torch.zeros((layers, b, hidden), device=dev)
+    c = torch.zeros_like(h)
+    last = torch.full((b,), blank, dtype=torch.int32, device=dev)
+    out = [[] for _ in range(b)]
+    for t in range(t_max):
+        done = t >= enc_lens
+        for _ in range(max_symbols):
+            if bool(done.all()):
+                break
+            logits, nh, nc = fns["decoder_joint"](enc[:, t].contiguous(), last, h, c)
+            k = logits.argmax(dim=-1)
+            advance = ~done & (k != blank)
+            for row in advance.nonzero().flatten().tolist():
+                if len(out[row]) < cap:
+                    out[row].append(int(k[row]))
+            last = torch.where(advance, k.to(torch.int32), last)
+            h = torch.where(advance[None, :, None], nh, h)
+            c = torch.where(advance[None, :, None], nc, c)
+            done = done | (k == blank)
+    return out
+
+
+def _write_nemo(path: str, model, tokenizer_file: str) -> str:
+    """A NeMo archive of `model` as NeMo writes one: model_config.yaml (the
+    model section, manifests dropped, the tokenizer as `model_path:
+    nemo:<md5>_tokenizer.model`), torch.save(state_dict) as
+    model_weights.ckpt with BatchNorm's num_batches_tracked, and the
+    tokenizer under its md5-mangled name (an uncompressed tar)."""
+    import hashlib
+
+    import yaml
+
+    m = {k: v for k, v in json.loads(json.dumps(model.raw_cfg["model"])).items()
+         if k not in ("train_ds", "validation_ds", "test_ds")}
+    with open(tokenizer_file, "rb") as f:
+        member = hashlib.md5(f.read()).hexdigest() + "_tokenizer.model"
+    m["tokenizer"] = {"dir": "/nemo/run/tokenizer", "type": "bpe",
+                      "model_path": f"nemo:{member}"}
+    sd = {}
+    for k, v in model.state_dict().items():
+        sd[k] = v.detach().cpu()
+        if k.endswith("batch_norm.running_var"):
+            sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(1000)
+    work = path + ".d"
+    os.makedirs(work)
+    with open(os.path.join(work, "model_config.yaml"), "w") as f:
+        yaml.safe_dump(m, f)
+    torch.save(sd, os.path.join(work, "model_weights.ckpt"))
+    shutil.copy(tokenizer_file, os.path.join(work, member))
+    with tarfile.open(path, "w") as tar:
+        for name in os.listdir(work):
+            tar.add(os.path.join(work, name), arcname=name)
+    shutil.rmtree(work)
+    return path
+
+
+def _nemo_round_trip(cls, model, nemo: str, cntpu: str, files: list) -> dict:
+    """scripts/convert_nemo.main on `nemo`, restore_portable of its `.cntpu`:
+    the source model's tensors (the LSTM forget chunk within one ulp) and
+    texts; for CTC its log-probs within LOGPROB_ATOL."""
+    import contextlib
+    import io
+
+    from conformer_nemo_tpu_torch.scripts import convert_nemo
+
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        kind, convert_s = _timed(lambda: convert_nemo.main([nemo, cntpu]))
+    print(said.getvalue(), end="", flush=True)
+    check(kind == ("ctc" if cls.__name__ == "ConformerCTC" else "rnnt"), kind)
+    restored, restore_s = _timed(lambda: cls.restore_portable(cntpu, seed=SEED + 13))
+    if kind == "ctc":
+        sa, sb = model.state_dict(), restored.state_dict()
+        differ, ulps = [k for k in sa if sb.get(k) is None or not torch.equal(sa[k], sb[k])], 0.0
+    else:
+        _, differ, ulps = _same_but_forget_chunk(model, restored)
+    check(not differ and ulps <= 1.0, ("the converted model's tensors differ", differ[:5], ulps))
+    texts = model.transcribe(files, batch_size=len(files))
+    check(restored.transcribe(files, batch_size=len(files)) == texts,
+          "the converted model transcribes otherwise")
+    out = {"nemo_bytes": os.path.getsize(nemo), "cntpu_bytes": os.path.getsize(cntpu),
+           "convert_s": convert_s, "restore_s": restore_s, "files": len(files),
+           "forget_chunk_max_ulps": ulps,
+           "dropped_line": said.getvalue().splitlines()[0][:160]}
+    if kind == "ctc":
+        out["logprob_max_abs_err"] = max(float(np.abs(a - b).max()) for a, b in zip(
+            model.transcribe(files, logprobs=True), restored.transcribe(files, logprobs=True)))
+        check(out["logprob_max_abs_err"] <= LOGPROB_ATOL, out)
+    del restored
+    free_cuda()
+    return out
+
+
+def _shares(profile: dict) -> dict:
+    """A traced run's wall, device busy time and idle share."""
+    return {k: profile[k] for k in ("traced_wall_s", "device_busy_s", "device_idle_share")}
+
+
+def _depth_cut(cls, config: str, overrides: dict, full):
+    """A model of `config` at STREAMING_SERVE_LAYERS layers holding `full`'s
+    first layers, the rest of its encoder and its head."""
+    cut = cls.from_config_file(config, overrides={
+        **overrides, "model.encoder.n_layers": STREAMING_SERVE_LAYERS}, seed=SEED)
+    want = cut.state_dict()
+    cut.load_state_dict({k: v for k, v in full.state_dict().items() if k in want})
+    return cut
+
+
+def phase_streaming(tmp: str, rnnt_archive: str, rnnt_manifest: str, gpu: str) -> dict:
+    """The banded streaming recipe on the card, and what it trains a model
+    for: buffered decode of both families, change_vocabulary, export through
+    torch.export and .nemo loading. -> the counted step's K2 calls."""
+    import contextlib
+    import io
+
+    from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer, _pad_batch
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio
+    from conformer_nemo_tpu_torch.data.tokenizers import SentencePieceTokenizer
+    from conformer_nemo_tpu_torch.models.ctc_model import ctc_forward
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+    from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
+    from conformer_nemo_tpu_torch.scripts import transcribe_speech
+    from conformer_nemo_tpu_torch.utils.export import load_exported
+
+    t_phase = time.perf_counter()
+    out: dict = {"config": "configs/conformer_ctc_bpe_streaming.yaml", "gpu": gpu}
+
+    # 1. the streaming fit: per step K2 with the band, K1
+    train_m = _write_manifest(tmp, "st_train", STREAMING_FILES, 60.0, 120.0,
+                              np.random.RandomState(SEED + 11))
+    model = ConformerCTC.from_config_file(STREAMING_CONFIG, overrides=TRAIN_OVERRIDES, seed=SEED)
+    enc = model.cfg.encoder
+    check(tuple(enc.att_context_size) == STREAMING_BAND and enc.n_layers == 18
+          and enc.d_model == 512 and enc.remat and enc.flash_attention_min_t == 512,
+          ("the streaming recipe", enc))
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    reset_launch_counts()
+    fit = model.fit(train_m, max_steps=TRAIN_STEPS)
+    fit_by_shape = {k: dict(launch_count(k).by_shape) for k in PER_STEP_LAUNCHES}
+    del model._make_train_step
+    check(len(steps) == TRAIN_STEPS and fit["steps"] == TRAIN_STEPS, (len(steps), fit))
+    for i, s in enumerate(steps):
+        got = {k: s["launches"].get(k, 0) for k in PER_STEP_LAUNCHES}
+        check(got == PER_STEP_LAUNCHES, ("streaming step", i, "launches", got))
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]), ("step", i, s))
+        check(all(s["changed"].values()), ("streaming step", i, "unchanged", s["changed"]))
+    check(_k2_keys_banded(fit_by_shape), ("K2 launches without the band", fit_by_shape))
+    batch = steps[0]["batch"]
+    t_enc = encoder_frames(model.cfg, [batch.audio.shape[1]])[0]
+    check(t_enc >= enc.flash_attention_min_t, ("streaming T", t_enc))
+    enc_lens = encoder_frames(model.cfg, batch.audio_lens.tolist())
+    steady = steps[1:]
+    out["fit"] = {
+        "n_layers": enc.n_layers, "d_model": enc.d_model, "band": list(STREAMING_BAND),
+        "remat": enc.remat, "batch": int(batch.audio.shape[0]), "encoder_t": t_enc,
+        "params": sum(p.numel() for p in model.model.parameters()),
+        "steps": [{k: v for k, v in s.items() if k != "batch"} for s in steps],
+        "steady_step_s": sum(s["seconds"] for s in steady) / len(steady),
+        "steady_audio_s_per_s": sum(s["audio_s"] for s in steady) / sum(
+            s["seconds"] for s in steady),
+        "launches_by_shape": {k: {str(sh): n for sh, n in d.items()}
+                              for k, d in fit_by_shape.items()}}
+
+    step = model._make_train_step(model._make_optimizer())
+    out["fit"]["profile"] = _shares(_profile(
+        lambda: step(batch), "profile_streaming", config="configs/conformer_ctc_bpe_streaming.yaml",
+        batch=int(batch.audio.shape[0]), encoder_t=t_enc))
+    model.model.eval()
+    del step
+
+    # 2. whole-utterance transcribe (K2 with the band), flash against dense
+    with open(train_m, encoding="utf-8") as f:
+        entries = [json.loads(line) for line in f][:STREAMING_TRANSCRIBE_FILES]
+    files = [x["audio_filepath"] for x in entries]
+    audio_s = sum(x["duration"] for x in entries)
+    reset_launch_counts()
+    texts, transcribe_s = _timed(lambda: model.transcribe(files, batch_size=BATCH))
+    tr_by_shape, tr_total = {"K2-fwd": dict(fa.fwd_launches.by_shape)}, fa.fwd_launches.total
+    check(tr_total == enc.n_layers * len(files) and _k2_keys_banded(tr_by_shape),
+          ("whole-utterance K2-fwd", tr_by_shape))
+    lp_flash = model.transcribe(files, batch_size=BATCH, logprobs=True)
+    dense = ConformerCTC.from_config_file(
+        STREAMING_CONFIG, overrides={**TRAIN_OVERRIDES, "model.encoder.use_flash_attention": False})
+    dense.load_state_dict(model.state_dict())
+    lp_dense = dense.transcribe(files, batch_size=BATCH, logprobs=True)
+    del dense
+    free_cuda()
+    for a, b in zip(lp_flash, lp_dense):
+        check(a.shape == b.shape and np.isfinite(a).all() and np.isfinite(b).all(),
+              ("log-probs", a.shape, b.shape))
+    agreement = float(np.concatenate([a.argmax(-1) == b.argmax(-1)
+                                      for a, b in zip(lp_flash, lp_dense)]).mean())
+    check(agreement >= ARGMAX_AGREEMENT_MIN, ("streaming flash vs dense argmax", agreement))
+    out["transcribe"] = {
+        "files": len(files), "audio_s": audio_s, "seconds": transcribe_s,
+        "audio_s_per_s": audio_s / transcribe_s, "k2_fwd_launches": tr_total,
+        "launches_by_shape": {str(k): n for k, n in tr_by_shape["K2-fwd"].items()},
+        "argmax_agreement_vs_dense": agreement, "agreement_min": ARGMAX_AGREEMENT_MIN,
+        "flash_vs_dense_max_abs_logprob": max(float(np.abs(a - b).max())
+                                              for a, b in zip(lp_flash, lp_dense)),
+        "sample_text": texts[0][:60]}
+
+    # 3. buffered decode: the defaults twice (dense banded, no K2), a 24 s buffer (K2)
+    reset_launch_counts()
+    buf, buf_s = _timed(lambda: model.transcribe_buffered(files, **BUFFERED_DEFAULT))
+    again, again_s = _timed(lambda: model.transcribe_buffered(files, **BUFFERED_DEFAULT))
+    check(again == buf and all(isinstance(x, str) for x in buf), ("buffered texts", buf, again))
+    check(fa.fwd_launches.total == 0, ("K2 launched at the 4 s buffer", fa.fwd_launches.total))
+    reset_launch_counts()
+    buf_k2, buf_k2_s = _timed(lambda: model.transcribe_buffered(files, **BUFFERED_FLASH))
+    k2_by_shape = {"K2-fwd": dict(fa.fwd_launches.by_shape)}
+    total = fa.fwd_launches.total
+    check(total > 0 and total % enc.n_layers == 0 and _k2_keys_banded(k2_by_shape)
+          and all(sh[1] == 600 for sh in k2_by_shape["K2-fwd"]),
+          ("the 24 s buffer's K2-fwd", k2_by_shape))
+    rate = lambda sec: {"seconds": sec, "audio_s_per_s": audio_s / sec}
+    out["buffered"] = {
+        "default": {**BUFFERED_DEFAULT, **rate(buf_s), "again": rate(again_s),
+                    "k2_fwd_launches": 0, "sample_text": buf[0][:60]},
+        "flash": {**BUFFERED_FLASH, **rate(buf_k2_s), "k2_fwd_launches": total,
+                  "launches_by_shape": {str(k): n for k, n in k2_by_shape["K2-fwd"].items()},
+                  "sample_text": buf_k2[0][:60]}}
+    out["buffered"]["profile"] = _shares(_profile(
+        lambda: model.transcribe_buffered(files[:1], **BUFFERED_DEFAULT), "profile_buffered",
+        config="configs/conformer_ctc_bpe_streaming.yaml", files=1,
+        audio_s=entries[0]["duration"], **BUFFERED_DEFAULT))
+
+    # 4. the transducer's buffered decode, on the rnnt_train phase's archive
+    with open(rnnt_manifest, encoding="utf-8") as f:
+        r_entries = [json.loads(line) for line in f][:2]
+    r_files = [x["audio_filepath"] for x in r_entries]
+    rm, r_restore_s = _timed(lambda: ConformerTransducer.restore_portable(rnnt_archive,
+                                                                          seed=SEED + 9))
+    r_buf, r_buf_s = _timed(lambda: rm.transcribe_buffered(r_files, **BUFFERED_DEFAULT))
+    r_again, r_again_s = _timed(lambda: rm.transcribe_buffered(r_files, **BUFFERED_DEFAULT))
+    check(r_again == r_buf, ("transducer buffered texts", r_buf, r_again))
+    r_audio_s = sum(x["duration"] for x in r_entries)
+    out["buffered"]["transducer"] = {
+        **BUFFERED_DEFAULT, "files": len(r_files), "audio_s": r_audio_s,
+        "archive_restore_s": r_restore_s, "seconds": r_buf_s, "again_s": r_again_s,
+        "audio_s_per_s": r_audio_s / r_buf_s, "max_symbols": rm.decoding.max_symbols,
+        "tokens": [len(rm.tokenizer.text_to_ids(x)) for x in r_buf]}
+
+    # 5. export: the streaming CTC model (banded K2-fwd inside), the transducer's two;
+    # both cut to STREAMING_SERVE_LAYERS layers for this and the .nemo round trips
+    serve = _depth_cut(ConformerCTC, STREAMING_CONFIG, TRAIN_OVERRIDES, model)
+    r_serve = _depth_cut(ConformerTransducer, RNNT_CONFIG, RNNT_OVERRIDES, rm)
+    n_serve = STREAMING_SERVE_LAYERS
+    path = os.path.join(tmp, "streaming_export.tar.gz")
+    _, export_s = _timed(lambda: serve.export(path, batch_size=EXPORT_BATCH,
+                                              seconds=EXPORT_SECONDS))
+    fns, load_s = _timed(lambda: load_exported(path))
+    n = int(EXPORT_SECONDS * SR)
+    wavs = [load_audio(p, target_sr=SR)[:n] for p in files[:EXPORT_BATCH]]
+    wavs[-1] = wavs[-1][: n * 5 // 6]  # a padded row
+    audio, lens = _pad_batch(wavs, EXPORT_BATCH)
+    audio_t, lens_t = torch.from_numpy(audio).to(serve.device), torch.from_numpy(lens).to(
+        serve.device)
+    reset_launch_counts()
+    lp_e, el_e = fns["forward"](audio_t, lens_t)
+    torch.cuda.synchronize()
+    e_by_shape, e_total = {"K2-fwd": dict(fa.fwd_launches.by_shape)}, fa.fwd_launches.total
+    t_export = encoder_frames(model.cfg, [n])[0]
+    check(e_total == n_serve and _k2_keys_banded(e_by_shape)
+          and all(sh[:2] == (EXPORT_BATCH * enc.n_heads, t_export)
+                  for sh in e_by_shape["K2-fwd"]),
+          ("the exported program's K2-fwd", e_by_shape))
+    lp_live, el_live = ctc_forward(serve.model, audio_t, lens_t)
+    check(torch.equal(el_e, el_live), ("exported lengths", el_e, el_live))
+    err, argmax_equal = 0.0, True
+    for row, m_ in enumerate(el_live.tolist()):
+        err = max(err, float((lp_e[row, :m_] - lp_live[row, :m_]).abs().max()))
+        argmax_equal &= torch.equal(lp_e[row, :m_].argmax(-1), lp_live[row, :m_].argmax(-1))
+    check(err <= EXPORT_LOGPROB_ATOL and argmax_equal, ("exported log-probs", err, argmax_equal))
+    out["export"] = {"layers": n_serve,
+                     "ctc": {"batch": EXPORT_BATCH, "seconds_of_audio": EXPORT_SECONDS,
+                             "encoder_t": t_export, "archive_bytes": os.path.getsize(path),
+                             "export_s": export_s, "load_s": load_s,
+                             "k2_fwd_launches": e_total,
+                             "launches_by_shape": {str(k): v for k, v in
+                                                   e_by_shape["K2-fwd"].items()},
+                             "logprob_max_abs_err": err, "tol": EXPORT_LOGPROB_ATOL,
+                             "argmax_equal": argmax_equal}}
+    del fns, lp_e, lp_live
+    os.remove(path)
+    r_audio, r_lens = _pad_batch([load_audio(p, target_sr=SR) for p in r_files], len(r_files))
+    hyps = r_serve.transcribe(r_files, batch_size=len(r_files), return_hypotheses=True)
+    r_path = os.path.join(tmp, "rnnt_export.tar.gz")
+    _, r_export_s = _timed(lambda: r_serve.export(r_path, batch_size=len(r_files),
+                                                  seconds=r_audio.shape[1] / SR))
+    r_fns, r_load_s = _timed(lambda: load_exported(r_path))
+    dcfg = r_serve.cfg.model.decoder
+    tokens, greedy_s = _timed(lambda: _exported_greedy(
+        r_fns, torch.from_numpy(r_audio).to(r_serve.device),
+        torch.from_numpy(r_lens).to(r_serve.device), r_serve.cfg.model.blank_id,
+        r_serve.decoding.max_symbols, dcfg.pred_rnn_layers, dcfg.pred_hidden))
+    check(tokens == [h.y_sequence for h in hyps],
+          ("the exported transducer's tokens differ from transcribe's",
+           [len(x) for x in tokens], [len(h.y_sequence) for h in hyps]))
+    out["export"]["transducer"] = {"files": len(r_files), "samples": int(r_audio.shape[1]),
+                                   "archive_bytes": os.path.getsize(r_path),
+                                   "export_s": r_export_s, "load_s": r_load_s,
+                                   "greedy_s": greedy_s, "tokens": [len(x) for x in tokens]}
+    del r_fns
+    os.remove(r_path)
+
+    # 6. .nemo loading: the streaming CTC model and a transducer whose joint has dropout
+    nemo = _write_nemo(os.path.join(tmp, "streaming.nemo"), serve, TOKENIZER)
+    cntpu = os.path.join(tmp, "streaming_from_nemo.cntpu")
+    out["nemo"] = {"layers": n_serve,
+                   "ctc": _nemo_round_trip(ConformerCTC, serve, nemo, cntpu, files)}
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        served = transcribe_speech.main(["--model", cntpu, "--audio", *files])
+    print(said.getvalue(), end="", flush=True)
+    check(served == serve.transcribe(files, batch_size=BATCH), ("transcribe_speech", served))
+    check(r_serve.raw_cfg["model"]["joint"]["jointnet"]["dropout"] > 0
+          and "joint.joint_net.2.weight" in r_serve.state_dict(), "the transducer's joint dropout")
+    r_nemo = _write_nemo(os.path.join(tmp, "rnnt.nemo"), r_serve, TOKENIZER)
+    r_cntpu = os.path.join(tmp, "rnnt_from_nemo.cntpu")
+    out["nemo"]["transducer"] = _nemo_round_trip(ConformerTransducer, r_serve, r_nemo, r_cntpu,
+                                                 r_files)
+    for p in (nemo, cntpu, r_nemo, r_cntpu):
+        os.remove(p)
+    del serve, r_serve
+    free_cuda()
+
+    # 7. change_vocabulary to the 288-piece unigram model, then one step each
+    es = SentencePieceTokenizer(LANG_MODELS["es"])
+    before = {k: v.clone() for k, v in model.model.encoder.state_dict().items()}
+    model.change_vocabulary(es)
+    after = model.model.encoder.state_dict()
+    check(all(torch.equal(before[k], after[k]) for k in before), "the encoder moved")
+    check(model.model.decoder.decoder_layers[0].weight.shape[0] == es.vocab_size + 1 == 289,
+          "the new CTC head")
+    del before, after
+    cv_steps: list = []
+    model._make_train_step = _counted_steps(model, cv_steps)
+    reset_launch_counts()
+    model.fit(train_m, max_steps=1)
+    k1 = {k: dict(launch_count(k).by_shape) for k in ("K1-fwd", "K1-bwd", "K1-bwd-grad")}
+    del model._make_train_step
+    check(len(cv_steps) == 1 and math.isfinite(cv_steps[0]["loss"])
+          and all(sh[-1] == 289 for d in k1.values() for sh in d) and all(k1.values()),
+          ("the step on the new vocabulary", cv_steps, k1))
+    r_steps: list = []
+    rm.change_vocabulary(es)
+    rm._make_train_step = _counted_steps(rm, r_steps)
+    reset_launch_counts()
+    rm.fit(rnnt_manifest, max_steps=1)
+    del rm._make_train_step
+    k4 = dict(launch_count("K4-fwd").by_shape)
+    want = rnnt_step_launches(rm, r_steps[0]["batch"])
+    got = {k: r_steps[0]["launches"].get(k, 0) for k in want}
+    check(got == want and math.isfinite(r_steps[0]["loss"])
+          and all(sh[-1] == 289 for sh in k4), ("the transducer's step", got, want, k4))
+    out["change_vocabulary"] = {
+        "vocab_with_blank": 289,
+        "ctc_step": {k: v for k, v in cv_steps[0].items() if k != "batch"},
+        "ctc_k1_by_shape": {k: {str(sh): n for sh, n in d.items()} for k, d in k1.items()},
+        "transducer_step": {k: v for k, v in r_steps[0].items() if k != "batch"},
+        "transducer_k4_fwd_by_shape": {str(sh): n for sh, n in k4.items()}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit("streaming", **out)
+    del model, rm
+    free_cuda()
+    return {"by_shape": fit_by_shape, "t": t_enc,
+            "lens": [n_ for n_ in enc_lens for _ in range(enc.n_heads)]}
+
+
 def phase_bpe_step(tmp: str) -> None:
     """conformer_ctc_bpe.yaml trains through the dense attention (its
     dropout_att is 0.1) and the K1 kernels."""
@@ -1932,18 +2370,11 @@ def phase_rnnt_train(tmp: str, gpu: str) -> dict:
     return info
 
 
-def _rnnt_round_trip(model, archive: str, wavs: list) -> dict:
-    """save_portable and restore_portable of the trained transducer: every
-    tensor bit for bit but the LSTM forget chunk b, which travels as b - c
-    (c = forget_gate_bias) and is held within one ulp of max(|b|, |b - c|);
-    the same greedy texts of `wavs`. The archive stays for the decode phase."""
-    from conformer_nemo_tpu_torch.api import ConformerTransducer
-
-    texts = model.transcribe(wavs, batch_size=len(wavs))
-    _, save_s = _timed(lambda: model.save_portable(archive,
-                                                   artifacts={"tokenizer_model": TOKENIZER}))
-    restored, restore_s = _timed(lambda: ConformerTransducer.restore_portable(archive,
-                                                                             seed=SEED + 9))
+def _same_but_forget_chunk(model, restored) -> tuple:
+    """A transducer and its restore from an archive: every tensor bit for
+    bit but the LSTM forget chunk b, which travels as b - c (c =
+    forget_gate_bias). -> (tensors bit for bit, tensors that differ
+    otherwise, the forget chunk's largest error in ulps of max(|b|, |b - c|))."""
     dcfg = model.cfg.model.decoder
     h, c = dcfg.pred_hidden, float(dcfg.forget_gate_bias)
     sa, sr = model.state_dict(), restored.state_dict()
@@ -1961,13 +2392,29 @@ def _rnnt_round_trip(model, archive: str, wavs: list) -> dict:
         b, back = sa[k][h: 2 * h].float(), sr[k][h: 2 * h].float()
         ulp = torch.finfo(torch.float32).eps * torch.maximum(b.abs(), (b - c).abs())
         chunk_ulps = max(chunk_ulps, float(((back - b).abs() / ulp.clamp(min=1e-45)).max()))
+    return bitwise, differ, chunk_ulps
+
+
+def _rnnt_round_trip(model, archive: str, wavs: list) -> dict:
+    """save_portable and restore_portable of the trained transducer: every
+    tensor bit for bit but the LSTM forget chunk b, which travels as b - c
+    (c = forget_gate_bias) and is held within one ulp of max(|b|, |b - c|);
+    the same greedy texts of `wavs`. The archive stays for the decode phase."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+
+    texts = model.transcribe(wavs, batch_size=len(wavs))
+    _, save_s = _timed(lambda: model.save_portable(archive,
+                                                   artifacts={"tokenizer_model": TOKENIZER}))
+    restored, restore_s = _timed(lambda: ConformerTransducer.restore_portable(archive,
+                                                                             seed=SEED + 9))
+    bitwise, differ, chunk_ulps = _same_but_forget_chunk(model, restored)
     check(not differ and chunk_ulps <= 1.0, ("the restored transducer differs", differ,
                                              chunk_ulps))
     texts_r = restored.transcribe(wavs, batch_size=len(wavs))
     check(texts_r == texts, ("the restored transducer transcribes otherwise", texts_r, texts))
     out = {"archive_save_s": save_s, "archive_restore_s": restore_s,
            "archive_bytes": os.path.getsize(archive), "forget_chunk_max_ulps": chunk_ulps,
-           "bitwise_tensors": bitwise, "tensors": len(sa)}
+           "bitwise_tensors": bitwise, "tensors": len(model.state_dict())}
     del restored
     free_cuda()
     return out
@@ -2701,7 +3148,7 @@ def phase_distributed(tmp: str, train: dict, rnnt: dict, gpu: str) -> dict:
 
 
 def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict,
-                  decode_calls: list, dist: dict) -> dict:
+                  decode_calls: list, dist: dict, streaming: dict) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2717,6 +3164,13 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
                                  (-1, -1), gen, dev, compare_rows=True)]
     rows["train"] += _flash_bwd_case(f"train_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens,
                                      (-1, -1), gen, dev)
+    # the streaming step's banded calls (band 128/32, BH 64 at the step's T)
+    t_st, lens_st = streaming["t"], streaming["lens"]
+    rows["streaming"] = [_flash_case(f"streaming_bh{len(lens_st)}_t{t_st}", len(lens_st), t_st,
+                                     d1, dv, lens_st, STREAMING_BAND, gen, dev)]
+    rows["streaming"] += _flash_bwd_case(f"streaming_bh{len(lens_st)}_t{t_st}", len(lens_st),
+                                         t_st, d1, dv, lens_st, STREAMING_BAND, gen, dev)
+    free_cuda()
     # tiny depths, empty rows, a two-sided band, the top of the forward's range
     # (d1 1152, dv 128), dQ past the dK/dV kernel's 576 columns
     _flash_case("tiny", 4, 200, 80, 16, [200, 100, 1, 0], (-1, -1), gen, dev)
@@ -2835,7 +3289,7 @@ def kernel_summary(rows: dict, launches: dict) -> list:
             if "shape" in r:
                 shape = tuple(r["shape"])
             elif k.startswith("K2"):
-                shape = (r["bh"], r["t"], r["d1"], r["dv"])
+                shape = (r["bh"], r["t"], r["d1"], r["dv"], *r["band"])
             else:
                 shape = (r["b"], r["t"], r["u"], r["v1"])
             source, replaces = sources[k]
@@ -2912,14 +3366,16 @@ def main() -> int:
         phase_train_parity(train["train_manifest"])
         rnnt = phase_rnnt_train(tmp, env["nvidia_smi"])
         phase_decode_rnnt(rnnt["archive"], rnnt["manifest"], tmp, env["nvidia_smi"])
-        os.remove(rnnt["archive"])
         phase_rnnt_dense_step(rnnt["manifest"])
         phase_rnnt_parity(rnnt["manifest"])
         multilang = phase_multilang(tmp, env["nvidia_smi"])
         dist = phase_distributed(tmp, train, rnnt, env["nvidia_smi"])
         # last of the fits, so that its host buffers and save thread precede no timed step
         phase_lifecycle(tmp, train["train_manifest"], train["val_manifest"], env["nvidia_smi"])
-    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls, dist)
+        streaming = phase_streaming(tmp, rnnt["archive"], rnnt["manifest"], env["nvidia_smi"])
+        os.remove(rnnt["archive"])
+    rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls, dist,
+                         streaming)
 
     # the NCCL world-1 fit ran the train phase's calls again
     train_launches = {k: {sh: n + dist["nccl_by_shape"].get(k, {}).get(sh, 0)
@@ -2928,6 +3384,7 @@ def main() -> int:
                                     "decode": {"K2-fwd": decode_by_shape},
                                     "distributed": dist["tp_by_shape"],
                                     "train": train_launches, "rnnt_train": rnnt["by_shape"],
+                                    "streaming": streaming["by_shape"],
                                     "multilang": {**multilang["ctc"]["by_shape"],
                                                   **multilang["rnnt"]["by_shape"]}})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -43,8 +43,15 @@ parallelism with a synchronised BatchNorm over the data axis, the
 tensor-parallel encoder over the model axis (parallel/sharding.py). Each
 rank loads `batch_size` rows of its own, so the global batch is
 batch_size x data. Outside a launcher it trains on the model's one device
-and logs that. Buffered/streaming decode, `change_vocabulary` and export
-raise: they wait for later slices (ROADMAP.md).
+and logs that.
+
+Both families also decode long audio in buffers (`transcribe_buffered`:
+chunks of `frame_len` seconds in buffers of `total_buffer`, decode/streaming.py,
+the CTC middle-token merge or the transducer's LCS merge), swap their
+vocabulary for fine-tuning (`change_vocabulary`: a new head, the encoder
+kept), and export their inference functions through `torch.export`
+(`export`, read back by utils/export.py `load_exported`). A NeMo `.nemo`
+archive becomes a `.cntpu` through scripts/convert_nemo.py.
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ from conformer_nemo_tpu_torch.decode.ctc_beam import BeamSearchDecoderWithLM
 from conformer_nemo_tpu_torch.decode.ctc_greedy import collapse_ctc_ids, ctc_greedy_decode
 from conformer_nemo_tpu_torch.decode.rnnt_decoding import RNNTDecoding
 from conformer_nemo_tpu_torch.decode.rnnt_greedy import rnnt_greedy_decode_batched
+from conformer_nemo_tpu_torch.decode.streaming import BatchedFrameASRRNNT, FrameBatchASR
 from conformer_nemo_tpu_torch.decode.timestamps import (
     FrameAlignedToken,
     WordTimestamp,
@@ -125,8 +133,7 @@ from conformer_nemo_tpu_torch.train.trainer import (
     make_ctc_train_step,
     undistribute_state,
 )
-
-_RNNT_WAITS = "is not ported yet (ROADMAP.md, slice 3 leftovers)"
+from conformer_nemo_tpu_torch.utils.export import export_fn, save_exported
 
 log = logging.getLogger(__name__)
 
@@ -227,6 +234,49 @@ def _any_rank(flag: bool, mesh: Mesh) -> bool:
     return all_reduce_min(int(not flag)) == 0 if mesh.distributed else flag
 
 
+class _CTCForward(nn.Module):
+    """The exported CTC function: audio [B, T] f32, lens [B] int32 ->
+    (log_probs [B, T', V+1], enc_lens [B]), the frontend in eval mode."""
+
+    def __init__(self, model: CTCModel):
+        super().__init__()
+        self.model = model
+
+    def forward(self, audio, lens):
+        feats, feat_lens = log_mel_spectrogram(self.model.cfg.preprocessor, audio, lens)
+        return self.model(feats, feat_lens)
+
+
+class _Encoder(nn.Module):
+    """The exported transducer encoder: audio [B, T] f32, lens [B] int32 ->
+    (enc [B, T', D] f32, enc_lens [B])."""
+
+    def __init__(self, encoder: nn.Module, preprocessor):
+        super().__init__()
+        self.encoder = encoder
+        self.preprocessor = preprocessor
+
+    def forward(self, audio, lens):
+        feats, feat_lens = log_mel_spectrogram(self.preprocessor, audio, lens)
+        enc, enc_lens = self.encoder(feats, feat_lens)
+        return enc.transpose(1, 2), enc_lens
+
+
+class _DecoderJoint(nn.Module):
+    """The exported decode step: (enc_t [B, D] f32, last_label [B] int32,
+    h, c [L, B, H] f32) -> (logits [B, V+1], h, c): one prediction-network
+    step from (h, c) on the last label, and the joint."""
+
+    def __init__(self, decoder: PredictionNetwork, joint: nn.Module):
+        super().__init__()
+        self.decoder = decoder
+        self.joint = joint
+
+    def forward(self, enc_t, last_label, h, c):
+        g, (h, c) = self.decoder.step(last_label, (h, c))
+        return self.joint(enc_t, g), h, c
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with the JAX package's rules: LeCun-normal
@@ -254,7 +304,8 @@ class _BaseASRModel:
     on one device with checkpoints and resume, transcribe's bucketing and
     the portable archive. A subclass builds `self.cfg` and `self.model` in
     `_build` and implements `_init_state`, `_make_train_step`, `_evaluate`,
-    `_decode_audio_batch` and the weight bridge `_to_jax` / `_from_jax`."""
+    `_decode_audio_batch`, `_export_functions` and the weight bridge
+    `_to_jax` / `_from_jax`."""
 
     def __init__(self, raw_cfg: dict, tokenizer, dtype: torch.dtype = torch.bfloat16,
                  device=None, seed: int = 0):
@@ -337,6 +388,67 @@ class _BaseASRModel:
 
     def state_dict(self) -> dict:
         return self.model.state_dict()
+
+    def change_vocabulary(self, tokenizer) -> None:
+        """Swap the tokenizer and the head for fine-tuning on a new
+        vocabulary (NeMo's change_vocabulary): the head at the new size (the
+        CTC decoder; the transducer's prediction network and joint) is drawn
+        by `init_weights` from the model's seed, as a model built with this
+        seed and tokenizer would have it; the encoder's parameters and
+        BatchNorm statistics stay as they are. The optimizer state goes
+        (`fit` makes new state), and so do the cached decoders."""
+        encoder = self.model.encoder
+        self.tokenizer = tokenizer
+        model = self._build(self._encoder_config.dtype)
+        init_weights(model, torch.Generator().manual_seed(self.seed))
+        model.encoder = encoder
+        self.model = model.to(self.device).eval()
+        self.train_state = None
+
+    def export(self, path: str, batch_size: int = 8, seconds: float = 15.0) -> str:
+        """Export the inference functions (`_export_functions`) through
+        `torch.export` at batch_size rows of `seconds` of audio, on the
+        model's device, into one archive (utils/export.py; read back with
+        `load_exported`). Shapes are static: export once per serving
+        bucket. -> path."""
+        t = int(round(seconds * self.raw_cfg["model"].get("sample_rate", 16000)))
+        self.model.eval()
+        return save_exported(path, {name: export_fn(fn, args) for name, (fn, args)
+                                    in self._export_functions(batch_size, t).items()})
+
+    def _audio_example(self, batch_size: int, t_samples: int) -> tuple:
+        return (torch.zeros((batch_size, t_samples), device=self.device),
+                torch.full((batch_size,), t_samples, dtype=torch.int32, device=self.device))
+
+    def _buffered_setup(self, frame_len: float, total_buffer: float) -> tuple:
+        """Buffered decode's geometry and frontend: (seconds per encoder
+        frame, tokens_per_chunk = ceil(frame_len / stride), mid_delay =
+        ceil((frame_len + (total_buffer - frame_len) / 2) / stride), and
+        feature_fn: samples -> log-mel [D, Tf] in numpy, computed in eval
+        mode on the model's device)."""
+        pre = self.cfg.preprocessor
+        stride = pre.window_stride * self._encoder_config.subsampling_factor
+        tokens_per_chunk = math.ceil(frame_len / stride)
+        mid_delay = math.ceil((frame_len + (total_buffer - frame_len) / 2) / stride)
+
+        def feature_fn(samples: np.ndarray) -> np.ndarray:
+            wav = torch.from_numpy(np.asarray(samples, np.float32))[None].to(self.device)
+            feats, _ = log_mel_spectrogram(pre, wav, torch.tensor(
+                [len(samples)], dtype=torch.int32, device=self.device))
+            return feats[0].cpu().numpy()
+
+        return stride, tokens_per_chunk, mid_delay, feature_fn
+
+    def _each_buffered(self, audio_paths: Sequence[str], asr, mid_delay: int, stride: float,
+                       transcribe) -> List[str]:
+        """Each file through the buffered decoder `asr`, delay-padded."""
+        sr = self.raw_cfg["model"].get("sample_rate", 16000)
+        out = []
+        for p in audio_paths:
+            asr.reset()
+            asr.read_audio_samples(load_audio(p, target_sr=sr), mid_delay, stride)
+            out.append(transcribe(asr))
+        return out
 
     def load_state_dict(self, state_dict: dict) -> None:
         """Load a state_dict with NeMo's names (e.g. from convert.jax_params)."""
@@ -644,6 +756,38 @@ class ConformerCTC(_BaseASRModel):
                 out[j] = words_from_alignments(aligns[row], self.tokenizer, time_per_frame)
         return out
 
+    @torch.no_grad()
+    def transcribe_buffered(self, audio_paths: Sequence[str], frame_len: float = 1.6,
+                            total_buffer: float = 4.0, batch_size: int = 4) -> List[str]:
+        """Long audio in buffers (NeMo's FrameBatchASR, decode/streaming.py):
+        each file's features in chunks of `frame_len` seconds, each chunk
+        the end of a buffer of `total_buffer` seconds; `batch_size` buffers
+        a forward (eval mode, the fixed buffer length), argmax; from each
+        buffer the tokens_per_chunk predictions that end mid_delay frames
+        before its end, merged with collapse-repeats. Memory stays bounded
+        by the buffer whatever the file's length."""
+        stride, tokens_per_chunk, mid_delay, feature_fn = self._buffered_setup(frame_len,
+                                                                                total_buffer)
+        self.model.eval()
+
+        def forward_fn(feats: np.ndarray, lens: np.ndarray) -> np.ndarray:
+            log_probs, _ = self.model(torch.from_numpy(feats).to(self.device),
+                                      torch.from_numpy(lens).to(self.device))
+            return log_probs.argmax(dim=-1).cpu().numpy()
+
+        pre = self.cfg.preprocessor
+        asr = FrameBatchASR(forward_fn, feature_fn, self.tokenizer, self.cfg.blank_id,
+                            n_feat=pre.features, frame_len=frame_len, total_buffer=total_buffer,
+                            batch_size=batch_size, window_stride=pre.window_stride,
+                            sample_rate=self.raw_cfg["model"].get("sample_rate", 16000))
+        return self._each_buffered(audio_paths, asr, mid_delay, stride,
+                                   lambda a: a.transcribe(tokens_per_chunk, mid_delay))
+
+    def _export_functions(self, batch_size: int, t_samples: int) -> dict:
+        """One function, `forward`: (audio [B, T] f32, lens [B] int32) ->
+        (log_probs, enc_lens) (NeMo's forward_for_export)."""
+        return {"forward": (_CTCForward(self.model), self._audio_example(batch_size, t_samples))}
+
     @property
     def _encoder_config(self):
         return self.cfg.encoder
@@ -727,9 +871,6 @@ class ConformerTransducer(_BaseASRModel):
         self.decoding = RNNTDecoding(self.model, self.tokenizer, decoding_cfg)
         self.raw_cfg["model"]["decoding"] = decoding_cfg
 
-    def change_vocabulary(self, *args, **kwargs):
-        raise NotImplementedError(f"change_vocabulary {_RNNT_WAITS}")
-
     @torch.inference_mode()
     def transcribe_with_timestamps(self, audio_paths: Sequence[str],
                                    batch_size: int = 16) -> List[List[WordTimestamp]]:
@@ -755,11 +896,47 @@ class ConformerTransducer(_BaseASRModel):
                 results.append(words_from_alignments(units, self.tokenizer, stride))
         return results
 
-    def transcribe_buffered(self, *args, **kwargs):
-        raise NotImplementedError(f"buffered decode {_RNNT_WAITS}")
+    @torch.no_grad()
+    def transcribe_buffered(self, audio_paths: Sequence[str], frame_len: float = 1.6,
+                            total_buffer: float = 4.0, batch_size: int = 4) -> List[str]:
+        """Long audio in buffers (NeMo's LCS-merging BatchedFrameASRRNNT,
+        decode/streaming.py): buffers as in ConformerCTC's, each batch
+        encoded and decoded by batched greedy with the decoding config's
+        max_symbols, each buffer's tokens joined to the file's at their
+        longest common subsequence."""
+        stride, _, mid_delay, feature_fn = self._buffered_setup(frame_len, total_buffer)
+        self.model.eval()
 
-    def export(self, *args, **kwargs):
-        raise NotImplementedError(f"export {_RNNT_WAITS}")
+        def decode_fn(feats: np.ndarray, lens: np.ndarray) -> tuple:
+            enc, enc_lens = self.model.encode(torch.from_numpy(feats).to(self.device),
+                                              torch.from_numpy(lens).to(self.device))
+            toks, tlens = rnnt_greedy_decode_batched(self.model, enc, enc_lens,
+                                                     max_symbols=self.decoding.max_symbols)
+            return toks.cpu().numpy(), tlens.cpu().numpy()
+
+        pre = self.cfg.preprocessor
+        asr = BatchedFrameASRRNNT(decode_fn, feature_fn, self.tokenizer, n_feat=pre.features,
+                                  frame_len=frame_len, total_buffer=total_buffer,
+                                  batch_size=batch_size, window_stride=pre.window_stride,
+                                  sample_rate=self.raw_cfg["model"].get("sample_rate", 16000))
+        return self._each_buffered(audio_paths, asr, mid_delay, stride, lambda a: a.transcribe())
+
+    def _export_functions(self, batch_size: int, t_samples: int) -> dict:
+        """Two functions, as NeMo splits the transducer: `encoder`: (audio,
+        lens) -> (enc [B, T', D], enc_lens); `decoder_joint`: (enc_t [B, D],
+        last_label [B] int32, h, c [L, B, H]) -> (logits, h, c), one
+        prediction-network step and the joint."""
+        m = self.model
+        d_out = m.joint.enc.in_features
+        dcfg = self.cfg.model.decoder
+        state = torch.zeros((dcfg.pred_rnn_layers, batch_size, dcfg.pred_hidden),
+                            device=self.device)
+        step_args = (torch.zeros((batch_size, d_out), device=self.device),
+                     torch.full((batch_size,), dcfg.vocab_size, dtype=torch.int32,
+                                device=self.device), state, state.clone())
+        return {"encoder": (_Encoder(m.encoder, self.cfg.preprocessor),
+                            self._audio_example(batch_size, t_samples)),
+                "decoder_joint": (_DecoderJoint(m.decoder, m.joint), step_args)}
 
     def _to_jax(self, state_dict: dict) -> dict:
         return rnnt_variables_to_jax(state_dict, self.cfg.model)

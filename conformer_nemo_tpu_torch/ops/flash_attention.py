@@ -49,6 +49,13 @@ CUDA tensors and raise on anything they do not take; for CPU tensors they
 run `flash_attention_fwd_reference` / `flash_attention_bwd_reference`, the
 plain PyTorch versions of the same functions. No CUDA call falls back to a
 plain version.
+
+The forward is the operator `torch.ops.conformer_nemo_tpu_torch.flash_attention_fwd`
+(`torch.library.custom_op`, with a fake implementation that gives the
+output shapes), so `torch.export` records one call of it in place of the
+ctypes launch it cannot trace, and an exported program launches the
+kernel on the card (counted as any launch). Inference calls it directly;
+`FlashAttention` calls it inside its forward when a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, launch_count, load
 _NEG_INF = -1e30
 MAX_DV = 128
 
-# launches per kernel, keyed by (bh, t, d1, dv)
+# launches per kernel, keyed by (bh, t, d1, dv, left, right)
 fwd_launches = launch_count("K2-fwd")
 dq_launches = launch_count("K2-bwd-dq")
 dkv_launches = launch_count("K2-bwd-dkv")
@@ -178,19 +185,33 @@ def _check_fwd_cuda(qs, ks, v, lens) -> None:
                          f"(flash_attention_fwd_smem_bytes); a block has {SMEM_LIMIT}")
 
 
-def flash_attention_fwd(qs, ks, v, lens, scale: float, left: int = -1, right: int = -1):
-    """softmax(qs ks^T * scale + mask) v over [BH, T, d1] x [BH, T, dv] with
-    per-row key lengths lens [BH] and an optional (left, right) band
-    (-1 = unlimited). -> (o [BH, T, dv] in qs.dtype, lse [BH, T] fp32)."""
+@torch.library.custom_op(
+    "conformer_nemo_tpu_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor qs, Tensor ks, Tensor v, Tensor lens, float scale, int left, int right) "
+           "-> (Tensor, Tensor)")
+def _flash_fwd_op(qs, ks, v, lens, scale, left, right):
     _check(qs, ks, v, lens)
     if qs.device.type == "cpu":
         return flash_attention_fwd_reference(qs, ks, v, lens, scale, left, right)
     if qs.device.type != "cuda":
         raise ValueError(f"unsupported device {qs.device}")
-    bh, t, d1 = qs.shape
-    dv = v.shape[-1]
     _check_fwd_cuda(qs, ks, v, lens)
     return _launch_fwd(qs, ks, v, lens, scale, left, right)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(qs, ks, v, lens, scale, left, right):
+    _check(qs, ks, v, lens)
+    bh, t, _ = qs.shape
+    return qs.new_empty((bh, t, v.shape[-1])), qs.new_empty((bh, t), dtype=_acc_dtype(qs))
+
+
+def flash_attention_fwd(qs, ks, v, lens, scale: float, left: int = -1, right: int = -1):
+    """softmax(qs ks^T * scale + mask) v over [BH, T, d1] x [BH, T, dv] with
+    per-row key lengths lens [BH] and an optional (left, right) band
+    (-1 = unlimited). -> (o [BH, T, dv] in qs.dtype, lse [BH, T] fp32).
+    One call of the operator conformer_nemo_tpu_torch::flash_attention_fwd."""
+    return _flash_fwd_op(qs, ks, v, lens, float(scale), int(left), int(right))
 
 
 def _launch_fwd(qs, ks, v, lens, scale, left, right, rows: int = 0):
@@ -210,7 +231,7 @@ def _launch_fwd(qs, ks, v, lens, scale, left, right, rows: int = 0):
             int(rows), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {err}")
-    fwd_launches.add((bh, t, qs.shape[2], dv))
+    fwd_launches.add((bh, t, qs.shape[2], dv, int(left), int(right)))
     return o, lse
 
 
@@ -274,7 +295,7 @@ def _bwd_kernel(name: str, counter, outs, qs, ks, v, do, lse, delta, lens, scale
             float(scale), int(left), int(right), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd {name} kernel launch failed: CUDA error {err}")
-    counter.add((bh, t, d1, dv))
+    counter.add((bh, t, d1, dv, int(left), int(right)))
 
 
 def _launch_dq(qs, ks, v, do, lse, delta, lens, scale, left, right):
@@ -351,5 +372,8 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(qs, ks, v, lens, scale: float, left: int = -1, right: int = -1):
-    """Differentiable o of `flash_attention_fwd` (see `FlashAttention`)."""
-    return FlashAttention.apply(qs, ks, v, lens, float(scale), int(left), int(right))
+    """o of `flash_attention_fwd`: through `FlashAttention` where a gradient
+    is wanted, else the operator alone (inference, `torch.export`)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (qs, ks, v)):
+        return FlashAttention.apply(qs, ks, v, lens, float(scale), int(left), int(right))
+    return flash_attention_fwd(qs, ks, v, lens, scale, left, right)[0]

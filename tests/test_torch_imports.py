@@ -25,6 +25,10 @@ for name in names:
     importlib.import_module(name)
 parallel = {"conformer_nemo_tpu_torch.parallel." + m for m in ("distributed", "mesh", "sharding")}
 assert parallel <= set(names), sorted(parallel - set(names))
+streaming = {"conformer_nemo_tpu_torch." + m for m in (
+    "decode.streaming", "utils.export", "convert.nemo_archive", "convert.nemo_state",
+    "scripts.convert_nemo")}
+assert streaming <= set(names), sorted(streaming - set(names))
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                                                "msgpack")
@@ -63,8 +67,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
-    # every module was walked, the decoders and the multi-GPU modules included
-    assert int(r.stdout.split()[-1]) >= 62
+    # every module was walked: the decoders, the multi-GPU modules, buffered
+    # decode, export and the .nemo converter included
+    assert int(r.stdout.split()[-1]) >= 68
 
 
 def test_no_port_source_reads_the_jax_packages_native_tree():
@@ -114,6 +119,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
             os.path.join(ROOT, "configs", "conformer_transducer_bpe.yaml"),
             overrides={"model.tokenizer.model_file": os.path.join(
                 ROOT, "tests", "fixtures", "sp_bpe_bytefallback.model")})
+    from conformer_nemo_tpu_torch.scripts import convert_nemo
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert_nemo.convert("model.nemo", "model.cntpu")  # before it reads the file
     assert resolve_device("cpu") == torch.device("cpu")
 
 

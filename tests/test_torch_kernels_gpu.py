@@ -67,6 +67,34 @@ def test_flash_fwd_cuda_kernel_matches_plain(cuda_device, t, d1, dv, band):
 
 
 @pytest.mark.gpu
+def test_flash_fwd_operator_launches_the_kernel(cuda_device):
+    """The operator conformer_nemo_tpu_torch::flash_attention_fwd on CUDA
+    tensors launches K2-fwd (counted under its shape and band), matches the
+    plain version and gives the ctypes launch's bits; a program that
+    torch.export traced through it launches the kernel too."""
+    from conformer_nemo_tpu_torch.utils.export import export_fn
+
+    qs, ks, v, _ = _flash_inputs(cuda_device, 4, 700, 576, 64)
+    lens = torch.tensor([700, 513, 1, 0], dtype=torch.int32, device=cuda_device)
+    key = (4, 700, 576, 64, 128, 32)
+    before = port.fwd_launches.by_shape.get(key, 0)
+    o, lse = torch.ops.conformer_nemo_tpu_torch.flash_attention_fwd(qs, ks, v, lens, 0.125,
+                                                                     128, 32)
+    assert port.fwd_launches.by_shape[key] == before + 1
+    o_ref, lse_ref = port.flash_attention_fwd_reference(qs, ks, v, lens, 0.125, 128, 32)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 2e-3
+    direct = port._launch_fwd(qs, ks, v, lens, 0.125, 128, 32)
+    assert torch.equal(o, direct[0]) and torch.equal(lse, direct[1])
+    program = export_fn(lambda q, k, vv, n: port.flash_attention_fwd(q, k, vv, n, 0.125, 128,
+                                                                      32)[0], (qs, ks, v, lens))
+    before = port.fwd_launches.by_shape[key]
+    assert torch.equal(program.module()(qs, ks, v, lens), o)
+    torch.cuda.synchronize()
+    assert port.fwd_launches.by_shape[key] == before + 1
+
+
+@pytest.mark.gpu
 def test_flash_fwd_refuses_past_its_shared_memory(cuda_device):
     """The 64-row tile with its key ring fits up to d1 1216: past it the
     wrapper raises before a launch."""

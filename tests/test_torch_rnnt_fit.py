@@ -4,7 +4,8 @@ manifest with validation (greedy WER and, with compute_eval_loss, the
 loss), through the flash joint and through the dense one (on the CPU the
 K3 / K4 wrappers run their plain versions), returns a finite loss, leaves
 the model in eval mode and transcribes; the beam strategies and word
-timestamps run; what is not ported raises."""
+timestamps run; buffered decode, export and change_vocabulary run; what
+is not ported raises."""
 
 import json
 import math
@@ -16,6 +17,8 @@ import torch
 
 from conformer_nemo_tpu_torch.api import ConformerTransducer, TranscriptionHypothesis
 from conformer_nemo_tpu_torch.data.audio_io import write_wav
+from conformer_nemo_tpu_torch.data.tokenizers import SentencePieceTokenizer
+from conformer_nemo_tpu_torch.utils.export import load_exported
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "conformer_transducer_bpe.yaml")
@@ -66,7 +69,7 @@ def test_fit_on_cpu_then_transcribe(manifest, joint_impl):
     assert all(sorted(h.timestep) == h.timestep for h in hyps)
 
 
-def test_transducer_refuses_what_is_not_ported(manifest):
+def test_transducer_refuses_what_is_not_ported(manifest, tmp_path):
     model = ConformerTransducer.from_config_file(CONFIG, overrides=TINY, device="cpu",
                                                  dtype=torch.float32)
     model.change_decoding_strategy({"strategy": "greedy", "greedy": {"max_symbols": 2}})
@@ -78,9 +81,15 @@ def test_transducer_refuses_what_is_not_ported(manifest):
     assert all(w.duration_s > 0 for w in words)
     with pytest.raises(ValueError, match="unknown decoding strategy"):
         model.change_decoding_strategy({"strategy": "beamsearch_ngram"})
-    for call in (model.change_vocabulary, model.transcribe_buffered, model.export):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(None)
+    # buffered decode, export and change_vocabulary are ported
+    model.change_decoding_strategy({"strategy": "greedy_batch", "greedy": {"max_symbols": 2}})
+    assert isinstance(model.transcribe_buffered([wav], frame_len=0.8, total_buffer=1.6)[0], str)
+    fns = load_exported(model.export(str(tmp_path / "rnnt.pt2.tar.gz"), batch_size=1,
+                                     seconds=0.5))
+    assert set(fns) == {"encoder", "decoder_joint"}
+    tok = SentencePieceTokenizer(os.path.join(ROOT, "tests", "fixtures", "sp_unigram.model"))
+    model.change_vocabulary(tok)
+    assert model.model.joint.out.out_features == tok.vocab_size + 1
     with pytest.raises(ValueError, match="CTC-only"):
         model.transcribe([os.path.join(os.path.dirname(manifest), "0.wav")], logprobs=True)
     with pytest.raises(ValueError, match="loss_name"):
