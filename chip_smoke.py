@@ -19,8 +19,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   decode_ctc   on the same model: beamsearch_ngram through change_decoding_strategy
                (beam 64, alpha 1.0, beta 1.5, a 3-gram ARPA the phase writes) over
                the short bucket and one 30-50 s file, whose batch launches K2-fwd
-               (counted); twice, the same texts; the same texts from the port's
-               decoder on transcribe(logprobs=True)'s arrays; word timestamps
+               (counted); twice at once, the same texts; the same texts from the
+               port's decoder on transcribe(logprobs=True)'s arrays, run beside the
+               two calls; word timestamps
                (non-decreasing, within the audio, joined = the greedy transcript)
   train        ConformerCTC.fit at full width on configs/conformer_ctc_bpe_longform.yaml
                (batch 8, remat, flash) over 16 generated 45-75 s WAVs, 3 steps
@@ -132,6 +133,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                served by transcribe_speech.main; change_vocabulary of both to the 288-piece
                unigram model (the encoder bit for bit) and one step each: K1 at V+1 289,
                K3 and K4 at V 289
+  frontends    after streaming, every subsampling mode and optimizer: resnet CTC
+               (conformer_ctc_bpe.yaml with subsampling resnet, in memory) at full
+               width and depth: flash against a flash-off copy as seeded (argmax >=
+               ARGMAX_AGREEMENT_MIN), 3 fit steps on bpe_step's manifest (K1 once each
+               a step, no K2), the transcribe phase's files (K2-fwd x36, counted by
+               shape), the train state written as the JAX package's state.msgpack and
+               as state.pt, two fresh models resuming one each: the next loss and
+               every tensor after that step bit for bit; the subencoder transducer
+               (flash joint) at full depth, 3 steps (K3, K4 per window) and a greedy
+               transcribe; vggnet, stacking and factor 1 at FRONTEND_LAYERS layers, 3
+               steps each; per mode the steady step, audio-s/s, a traced step with the
+               pre-encode's device seconds in it and their share of its busy time,
+               peak memory; each of the ten optimizers 3 fit steps through K1 at
+               FRONTEND_LAYERS layers, and OPT_UPDATES updates of fixed gradients on the
+               card against the CPU (within OPT_UPDATE_REL)
   kernels      each kernel against its plain PyTorch version on the card, on
                the same inputs, at the shapes and lengths of the counted
                transcribe's and train step's own calls and a few edge cases,
@@ -158,7 +174,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                and K4 at the multilang steps' shapes (V + 1 584, V 584), whose
                rows go into the summary line under the path `multilang`; K2-fwd,
                dQ and dK/dV at the streaming step's shapes, lengths and band (path
-               `streaming`)
+               `streaming`); K2-fwd at the resnet serve's calls, K1 at its fit's, K3
+               and K4 at the subencoder fit's (path `frontends`)
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -177,6 +194,7 @@ It imports nothing of JAX or of the JAX package, and exits non-zero without
 printing a result when CUDA is not available.
 """
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -335,6 +353,23 @@ STREAMING_SERVE_LAYERS = 6
 EXPORT_LOGPROB_ATOL = 1e-3
 
 
+# frontends (PR 15): every subsampling mode and optimizer on the card
+FRONTEND_LAYERS = 6  # vggnet, stacking and factor 1, and the optimizers' model
+# the subencoder transducer's greedy transcribe: random weights emit up to
+# max_symbols a frame, one host sync each (5 s a file on the card)
+FRONTEND_TRANSCRIBE_FILES = 1
+OPT_UPDATES = 2  # rprop's first update moves nothing (optax 0.2.6), its second does
+# card vs CPU, the same fp32 update from the same parameters and gradients:
+# reductions (norms, factored means, block RMS) sum in other orders and the
+# card's rsqrt, pow and division round otherwise, a few ulps of each
+# update entry; each update held within 1e-3 of its largest entry
+OPT_UPDATE_REL = 1e-3
+# a CTC step of conformer_ctc_bpe.yaml: K1 once each; its dropout_att 0.1
+# keeps training attention dense
+CTC_STEP_LAUNCHES = {"K1-fwd": 1, "K1-bwd": 1, "K1-bwd-grad": 1, "K2-fwd": 0, "K2-bwd-dq": 0,
+                     "K2-bwd-dkv": 0}
+
+
 def watched(model) -> tuple:
     """Parameters and BatchNorm statistics a train step must change."""
     enc = model.model.cfg.encoder
@@ -379,8 +414,12 @@ def check(ok: bool, what) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; `t_s` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def gpu_line() -> str:
@@ -1101,11 +1140,10 @@ def _dropout_mask_probe(b, t, u, h, gen, dev, bt=16, drop_t=26, row_offset=0) ->
 def encoder_frames(cfg, samples) -> list:
     """Encoder frames for each sample count under the model config `cfg`."""
     from conformer_nemo_tpu_torch.audio.features import mel_seq_len
-    from conformer_nemo_tpu_torch.models.conformer import calc_sub_length
+    from conformer_nemo_tpu_torch.models.conformer import encoder_lengths
 
-    enc = cfg.encoder
     feats = mel_seq_len(cfg.preprocessor, torch.tensor(samples, dtype=torch.int64))
-    return calc_sub_length(feats, enc.subsampling, int(math.log2(enc.subsampling_factor))).tolist()
+    return encoder_lengths(cfg.encoder, feats, int(feats.max())).tolist()
 
 
 def _wav(rng, seconds: float) -> np.ndarray:
@@ -1133,12 +1171,43 @@ def _write_inputs(tmp: str) -> dict:
     return paths
 
 
-def _profile(run, phase: str, **fields) -> dict:
+def _span_device_s(events: list, span: str) -> float:
+    """Device seconds of the work of the `record_function` range `span` in
+    a trace's events: the kernels launched inside the range, and those of
+    the backward nodes of the ops recorded inside it (a node's event bears
+    the sequence number of the forward op that made it). An op that makes
+    no node records the number the next node takes, so at most the first
+    node after the range may count with it."""
+    from torch.autograd import DeviceType
+
+    ranges = [e for e in events if e.name == span and e.device_type == DeviceType.CPU]
+    check(ranges, ("no trace range", span))
+    inside, seq = set(), set()
+    stack = list(ranges)
+    while stack:
+        e = stack.pop()
+        inside.add(e.id)
+        if e.sequence_nr >= 0 and e.name != span:
+            seq.add(e.sequence_nr)
+        stack += e.cpu_children
+    is_node = lambda e: (e.id not in inside and e.device_type == DeviceType.CPU
+                         and e.sequence_nr in seq and "Backward" in e.name)
+    nodes = [e for e in events if is_node(e)]
+    outer = [e for e in nodes if e.cpu_parent is None or not is_node(e.cpu_parent)]
+    check(outer, ("no backward node of", span))
+    return (sum(e.device_time_total for e in ranges)
+            + sum(e.device_time_total for e in outer)) / 1e6
+
+
+def _profile(run, phase: str, span: str | None = None, **fields) -> dict:
     """One traced run of `run()`: how busy the device was and which kernels
     took its time (torch.profiler, CUPTI). Only device-side events (kernels,
     memcpys, memsets) count: an `aten::` op's device time is that of the
     kernels it launched, which are listed too. They run on one stream, so
-    their times add up without overlap."""
+    their times add up without overlap. With `span`, the name of a
+    `record_function` range in the run, also that range's device seconds
+    (`_span_device_s`) and their share of the busy time (the range's own
+    device-side annotation is not a kernel and counts in neither)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1147,7 +1216,8 @@ def _profile(run, phase: str, **fields) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.key != span]
     dev_us = lambda e: e.self_device_time_total
     busy_s = sum(dev_us(e) for e in events) / 1e6
     check(busy_s > 0, "the profiler saw no device time")
@@ -1155,6 +1225,10 @@ def _profile(run, phase: str, **fields) -> dict:
     out = {"traced_wall_s": wall, "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall,
            "top": [{"name": e.key[:100], "device_ms": dev_us(e) / 1e3, "calls": e.count}
                    for e in top], **fields}
+    if span is not None:
+        span_s = _span_device_s(prof.events(), span)
+        check(0 < span_s <= busy_s, (span, span_s, busy_s))
+        out.update({f"{span}_device_s": span_s, f"{span}_share": span_s / busy_s})
     emit(phase, **out)
     return out
 
@@ -1232,6 +1306,356 @@ def phase_transcribe(model, groups, gpu: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# frontends: the subsampling modes, the optimizers, the JAX checkpoint
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _pre_encode_span(model, span: str):
+    """Mark the encoder's pre-encode forward as the trace range `span`
+    (module hooks; the factor-1 Linear, which the encoder applies through
+    `_linear`, by wrapping that call)."""
+    from conformer_nemo_tpu_torch.models import conformer as conf
+    from torch.profiler import record_function
+
+    pre = model.model.encoder.pre_encode
+    if isinstance(pre, torch.nn.Linear):
+        orig = conf._linear
+
+        def spanned(mod, x, dtype):
+            if mod is not pre:
+                return orig(mod, x, dtype)
+            with record_function(span):
+                return orig(mod, x, dtype)
+
+        conf._linear = spanned
+        try:
+            yield
+        finally:
+            conf._linear = orig
+        return
+    open_ranges = []
+
+    def enter(mod, args):
+        open_ranges.append(record_function(span).__enter__())
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    hooks = [pre.register_forward_pre_hook(enter), pre.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _mode_fit(cls, config: str, overrides: dict, manifest: str, want: dict, gpu: str,
+              mode: str) -> tuple:
+    """fit 3 steps of one subsampling mode; per step the launches `want`
+    and finite, changed state; the steady step, audio-s/s, peak memory, a
+    traced step and the pre-encode's device ms. -> (model, its row, the
+    counted steps). `want`: launches per step, or a function of (model,
+    batch) giving them."""
+    from conformer_nemo_tpu_torch.ops.build import reset_launch_counts
+
+    model = cls.from_config_file(config, overrides=overrides, seed=SEED)
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = model.fit(manifest, max_steps=TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    del model._make_train_step
+    check(len(steps) == TRAIN_STEPS and out["steps"] == TRAIN_STEPS, (mode, len(steps)))
+    for i, s in enumerate(steps):
+        w = want(model, s["batch"]) if callable(want) else want
+        got = {k: s["launches"].get(k, 0) for k in w}
+        check(got == w, (mode, "step", i, "launches", got, "want", w))
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]), (mode, i, s["loss"]))
+        check(all(s["changed"].values()), (mode, "step", i, "unchanged", s["changed"]))
+    batch = steps[0]["batch"]
+    step = model._make_train_step(model._make_optimizer())
+    with _pre_encode_span(model, "pre_encode"):
+        prof = _profile(lambda: step(batch), f"profile_frontends_{mode}", span="pre_encode",
+                        mode=mode)
+    model.model.eval()  # as fit leaves it
+    del step
+    enc = model._encoder_config
+    steady = steps[1:]
+    row = {"mode": mode, "n_layers": enc.n_layers, "d_model": enc.d_model,
+           "subsampling_factor": enc.subsampling_factor, "batch": int(batch.audio.shape[0]),
+           "encoder_t": encoder_frames(types.SimpleNamespace(
+               encoder=enc, preprocessor=model.cfg.preprocessor), [batch.audio.shape[1]])[0],
+           "params": sum(p.numel() for p in model.model.parameters()),
+           "losses": [s["loss"] for s in steps], "step_s": [s["seconds"] for s in steps],
+           "steady_step_s": sum(s["seconds"] for s in steady) / len(steady),
+           "steady_audio_s_per_s": sum(s["audio_s"] for s in steady) / sum(
+               s["seconds"] for s in steady),
+           "launches_per_step": steps[-1]["launches"],
+           "peak_memory_bytes": peak, "traced_step_device_busy_s": prof["device_busy_s"],
+           "traced_step_idle_share": prof["device_idle_share"],
+           "pre_encode_device_s": prof["pre_encode_device_s"],
+           "pre_encode_share": prof["pre_encode_share"], "gpu": gpu}
+    return model, row, steps
+
+
+def _resnet_parity(model, paths: list) -> dict:
+    """The resnet model's log-probs through flash (T >= 1024) against a
+    flash-off copy's: argmax agreement >= ARGMAX_AGREEMENT_MIN. Taken on the
+    model as seeded, before its fit: three steps from random weights leave
+    bf16 log-probs whose top two tie on many frames (my chip call 2, PR 15),
+    where either path's rounding picks the argmax."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+
+    lp_flash = model.transcribe(paths, batch_size=BATCH, logprobs=True)
+    dense = ConformerCTC.from_config_file(CONFIG, overrides={
+        **OVERRIDES, "model.encoder.subsampling": "resnet",
+        "model.encoder.use_flash_attention": False})
+    dense.load_state_dict(model.state_dict())
+    lp_dense = dense.transcribe(paths, batch_size=BATCH, logprobs=True)
+    del dense
+    free_cuda()
+    for a, b in zip(lp_flash, lp_dense):
+        check(a.shape == b.shape and np.isfinite(a).all() and np.isfinite(b).all(),
+              (a.shape, b.shape))
+    agree = np.concatenate([a.argmax(-1) == b.argmax(-1) for a, b in zip(lp_flash, lp_dense)])
+    top2 = np.concatenate([np.sort(b, -1)[:, -2:] for b in lp_dense])
+    out = {"argmax_agreement": float(agree.mean()),
+           "tied_share": float((top2[:, 1] == top2[:, 0]).mean()),
+           "max_abs_logprob_diff": max(float(np.abs(a - b).max())
+                                       for a, b in zip(lp_flash, lp_dense))}
+    check(out["argmax_agreement"] >= ARGMAX_AGREEMENT_MIN, ("resnet argmax agreement", out))
+    return out
+
+
+def _resnet_serve(model, paths: list) -> tuple:
+    """The transcribe phase's buckets through the trained resnet model:
+    K2-fwd at the two flash forwards, counted by shape; texts, audio-s/s.
+    -> (its summary, K2-fwd launches by shape, the flash calls as
+    `phase_transcribe` returns them)."""
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+    from conformer_nemo_tpu_torch.ops.build import reset_launch_counts
+
+    model.transcribe(paths[:2], batch_size=BATCH)  # warm-up
+    batches = []
+    orig = model._decode_audio_batch
+
+    def seen(audio, lens, mode="text"):
+        batches.append((audio.shape[1], lens.tolist()))
+        return orig(audio, lens, mode=mode)
+
+    model._decode_audio_batch = seen
+    reset_launch_counts()
+    texts, seconds = _timed(lambda: model.transcribe(paths, batch_size=BATCH))
+    launches, by_shape = fa.fwd_launches.total, dict(fa.fwd_launches.by_shape)
+    del model._decode_audio_batch
+    enc = model.cfg.encoder
+    check(launches == 2 * enc.n_layers and len(by_shape) == 2
+          and min(sh[1] for sh in by_shape) >= 1024, ("resnet K2-fwd", launches, by_shape))
+    check(len(texts) == len(paths) and all(isinstance(x, str) for x in texts), texts)
+    flash_calls = []
+    for samples, lens in batches:
+        t = encoder_frames(model.cfg, [samples])[0]
+        if t >= enc.flash_attention_min_t:
+            flash_calls.append((t, [n for n in encoder_frames(model.cfg, lens)
+                                    for _ in range(enc.n_heads)]))
+    check(len(flash_calls) == 2, ("resnet flash forwards", flash_calls))
+    audio_s = sum(_wav_seconds(p) for p in paths)
+    return {"files": len(paths), "seconds": seconds, "audio_s_per_s": audio_s / seconds,
+            "k2_fwd_launches": launches,
+            "k2_fwd_by_shape": {str(k): v for k, v in by_shape.items()}}, by_shape, flash_calls
+
+
+def _wav_seconds(path: str) -> float:
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio
+
+    return len(load_audio(path, target_sr=SR)) / SR
+
+
+def _checkpoint_crossing(model, steps: list, tmp: str) -> dict:
+    """The resnet run's train state written as the JAX package's
+    state.msgpack and as state.pt; two fresh models resume one each, take
+    one generator state (the random stream crosses by rule, not bit for
+    bit) and step on the same batch: the same loss, bit for bit."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.convert import jax_train_state
+    from conformer_nemo_tpu_torch.train import checkpoint as ckpt
+
+    state = model.train_state
+    jdir, pdir = os.path.join(tmp, "ck_jax"), os.path.join(tmp, "ck_pt")
+    step_dir = os.path.join(jdir, f"step_{state.step}")
+    os.makedirs(step_dir, exist_ok=True)
+    _, write_s = _timed(lambda: jax_train_state.write_train_state(
+        os.path.join(step_dir, jax_train_state.STATE_FILE), state, "adamw",
+        model.raw_cfg.get("trainer", {}).get("gradient_clip_val")))
+    with open(os.path.join(step_dir, "meta.json"), "w") as f:
+        json.dump({"step": state.step, "metrics": {}}, f)
+    with open(os.path.join(jdir, "last"), "w") as f:
+        f.write(f"step_{state.step}")
+    ckpt.save_train_state(pdir, state, state.step)
+    losses, restore_s, after = [], [], []
+    for d in (jdir, pdir):
+        m = ConformerCTC.from_config_file(CONFIG, overrides={
+            **TRAIN_OVERRIDES, "model.encoder.subsampling": "resnet"}, seed=SEED + 5)
+        m.train_state = m._init_state(m._make_optimizer())
+        (_, meta), sec = _timed(lambda: ckpt.restore_train_state(d, m.train_state))
+        check(meta["step"] == state.step and m.train_state.step == state.step, meta)
+        m.train_state.generator.set_state(state.generator.get_state())
+        losses.append(float(m._make_train_step(m._make_optimizer())(steps[0]["batch"])["loss"]))
+        restore_s.append(sec)
+        # the step's update read the optimizer state: its parameters and
+        # statistics after it hold the moments and counts that crossed
+        after.append({k: v.detach().cpu() for k, v in m.model.state_dict().items()})
+        del m
+        free_cuda()
+    check(losses[0] == losses[1], ("state.msgpack vs state.pt resume", losses))
+    differ = [k for k in after[1] if not torch.equal(after[0][k], after[1][k])]
+    check(after[0].keys() == after[1].keys() and not differ,
+          ("state.msgpack vs state.pt: tensors after the next step", differ[:10]))
+    return {"next_loss_msgpack": losses[0], "next_loss_pt": losses[1],
+            "tensors_equal_after_the_step": len(after[1]), "write_msgpack_s": write_s,
+            "restore_msgpack_s": restore_s[0], "restore_pt_s": restore_s[1],
+            "msgpack_bytes": os.path.getsize(os.path.join(step_dir, jax_train_state.STATE_FILE))}
+
+
+def _update_card_vs_cpu(model) -> dict:
+    """Each optimizer's OPT_UPDATES updates of the model's parameters with
+    fixed seeded gradients, on the card and on the CPU (fp32 both): the
+    largest difference of an update entry over the update's largest entry,
+    per optimizer (an update of zeros must be zeros on both)."""
+    from conformer_nemo_tpu_torch.train.optim import NAMES, apply_updates, make_optimizer
+
+    base = [p.detach().float().cpu() for p in model.model.parameters()]
+    gen = torch.Generator().manual_seed(SEED + 7)
+    grads = [[1e-3 * torch.randn(p.shape, generator=gen) for p in base]
+             for _ in range(OPT_UPDATES)]
+    out = {}
+    for name in NAMES:
+        updates = {}
+        for dev in ("cuda", "cpu"):
+            params = [p.clone().to(dev) for p in base]
+            opt = make_optimizer(name, lambda count: 1e-3, weight_decay=1e-3, grad_clip=1.0)
+            st = opt.init(params)
+            updates[dev] = []
+            for g in grads:
+                upd, st = opt.update([x.to(dev) for x in g], st, params)
+                apply_updates(params, upd)
+                updates[dev].append([u.cpu() for u in upd])
+        rel = []
+        for card, cpu in zip(updates["cuda"], updates["cpu"]):
+            diff = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+            size = max(float(b.abs().max()) for b in cpu)
+            check(diff <= OPT_UPDATE_REL * size, (name, "card vs cpu update", diff, size))
+            rel.append(diff / size if size else 0.0)
+        out[name] = {"update_rel_diff": rel, "update_max": [
+            max(float(b.abs().max()) for b in cpu) for cpu in updates["cpu"]]}
+    return out
+
+
+def phase_frontends(tmp: str, groups: dict, rnnt_manifest: str, gpu: str) -> dict:
+    """The fork's subsampling front ends, the remaining optimizers and the
+    JAX checkpoint, each on its main path at full width. -> the resnet and
+    subencoder runs' launches by shape and their kernels' inputs."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
+    from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
+    from conformer_nemo_tpu_torch.train.optim import NAMES
+
+    t_start = time.perf_counter()
+    ctc_m = os.path.join(tmp, "bpe_train.json")  # bpe_step's 16 files of 10-16 s
+    modes = []
+    # resnet CTC at full width and depth: flash against dense as seeded, fit,
+    # serve, cross the JAX checkpoint
+    paths = [p for g in ("dense", "flash_batched", "longform") for p in groups[g]]
+    resnet = {**TRAIN_OVERRIDES, "model.encoder.subsampling": "resnet"}
+    parity = _resnet_parity(ConformerCTC.from_config_file(CONFIG, overrides=resnet, seed=SEED),
+                            paths)
+    free_cuda()
+    model, row, steps = _mode_fit(ConformerCTC, CONFIG, resnet, ctc_m, CTC_STEP_LAUNCHES, gpu,
+                                  "resnet")
+    by_shape = {k: dict(launch_count(k).by_shape) for k in ("K1-fwd", "K1-bwd", "K1-bwd-grad")}
+    row["serve"], by_shape["K2-fwd"], flash_calls = _resnet_serve(model, paths)
+    row["flash_vs_dense_as_seeded"] = parity
+    row["checkpoint_crossing"] = _checkpoint_crossing(model, steps, tmp)
+    modes.append(row)
+    batch = steps[0]["batch"]
+    cfg = model.cfg
+    # the main path's kernel calls, for phase_kernels: K1 at the resnet
+    # step's shapes and lengths, K2-fwd at the serve's
+    inputs = {"flash_calls": flash_calls, "v1": cfg.num_classes + 1, "blank": cfg.blank_id,
+              "ctc_t": encoder_frames(cfg, [batch.audio.shape[1]])[0],
+              "ctc": (batch.tokens, encoder_frames(cfg, batch.audio_lens.tolist()),
+                      batch.token_lens)}
+    del model, steps, batch
+    free_cuda()
+    # subencoder transducer at full width and depth with the flash joint
+    model, row, steps = _mode_fit(ConformerTransducer, RNNT_CONFIG, {
+        **RNNT_OVERRIDES, "model.encoder.subsampling": "subencoder"}, rnnt_manifest,
+        rnnt_step_launches, gpu, "subencoder")
+    by_shape.update({k: dict(launch_count(k).by_shape) for k in RNNT_KERNELS})
+    batch = steps[0]["batch"]
+    cfg = model.cfg.model
+    # K3 and K4 at the subencoder step's shapes and lengths, for phase_kernels
+    inputs["rnnt"] = {"t": _frames(model, [batch.audio.shape[1]])[0],
+                      "enc_lens": _frames(model, batch.audio_lens.tolist()),
+                      "tokens": batch.tokens, "token_lens": batch.token_lens.tolist(),
+                      "h": cfg.joint.joint_hidden, "v": cfg.num_classes_with_blank}
+    with open(rnnt_manifest, encoding="utf-8") as f:
+        wavs = [json.loads(line)["audio_filepath"] for line in f][:FRONTEND_TRANSCRIBE_FILES]
+    texts, row["transcribe_s"] = _timed(lambda: model.transcribe(wavs, batch_size=len(wavs)))
+    check(len(texts) == len(wavs) and all(isinstance(x, str) for x in texts), texts)
+    row["transcribe_files"] = len(wavs)
+    modes.append(row)
+    del model, steps, batch
+    free_cuda()
+    # vggnet, stacking and factor 1 at full width, FRONTEND_LAYERS layers
+    for mode, over in (("vggnet", {"model.encoder.subsampling": "vggnet"}),
+                       ("stacking", {"model.encoder.subsampling": "stacking"}),
+                       ("none", {"model.encoder.subsampling": "none",
+                                 "model.encoder.subsampling_factor": 1})):
+        model, row, _ = _mode_fit(ConformerCTC, CONFIG, {
+            **TRAIN_OVERRIDES, "model.encoder.n_layers": FRONTEND_LAYERS, **over}, ctc_m,
+            CTC_STEP_LAUNCHES, gpu, mode)
+        modes.append(row)
+        del model
+        free_cuda()
+    # the ten optimizers: 3 fit steps each through K1 on a striding model of
+    # FRONTEND_LAYERS layers, then one update on the card against the CPU
+    model = ConformerCTC.from_config_file(CONFIG, overrides={
+        **TRAIN_OVERRIDES, "model.encoder.n_layers": FRONTEND_LAYERS}, seed=SEED)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    optims = {}
+    for name in NAMES:
+        model.load_state_dict(init)
+        model.raw_cfg["model"]["optim"]["name"] = name
+        model.train_state = None
+        steps = []
+        model._make_train_step = _counted_steps(model, steps)
+        reset_launch_counts()
+        model.fit(ctc_m, max_steps=TRAIN_STEPS)
+        del model._make_train_step
+        for i, s in enumerate(steps):
+            got = {k: s["launches"].get(k, 0) for k in ("K1-fwd", "K1-bwd", "K1-bwd-grad")}
+            check(all(v == 1 for v in got.values()), (name, i, got))
+            check(math.isfinite(s["loss"]), (name, i, s["loss"]))
+        check(any(not torch.equal(init[k], v) for k, v in model.state_dict().items()
+                  if k in init and "running" not in k), (name, "no parameter moved"))
+        optims[name] = {"losses": [s["loss"] for s in steps],
+                        "steady_step_s": sum(s["seconds"] for s in steps[1:]) / (len(steps) - 1)}
+    updates = _update_card_vs_cpu(model)
+    for name in NAMES:
+        optims[name].update(updates[name])
+    del model
+    free_cuda()
+    emit("frontends",
+         config="configs/conformer_ctc_bpe.yaml, configs/conformer_transducer_bpe.yaml",
+         modes=modes, optimizers=optims, opt_update_rel=OPT_UPDATE_REL,
+         launches_by_shape={k: {str(sh): n for sh, n in d.items()} for k, d in by_shape.items()},
+         phase_s=time.perf_counter() - t_start, gpu=gpu)
+    return {"by_shape": by_shape, **inputs}
+
+
+# ---------------------------------------------------------------------------
 # decode: the beam strategies, an n-gram LM, word timestamps
 # ---------------------------------------------------------------------------
 
@@ -1288,9 +1712,9 @@ def _check_words(words: list, audio_s: float, time_per_frame: float, transcript:
 def phase_decode_ctc(model, groups, tmp: str, gpu: str) -> tuple:
     """CTC beamsearch_ngram through change_decoding_strategy on the
     transcribe phase's model: the short bucket and one 30-50 s file (T >=
-    flash_attention_min_t: K2-fwd launches), twice; the port's decoder on
-    transcribe(logprobs=True)'s arrays; word timestamps. -> (K2-fwd launches
-    by shape, the flash calls)."""
+    flash_attention_min_t: K2-fwd launches), twice at once beside the port's
+    decoder on transcribe(logprobs=True)'s arrays; word timestamps. ->
+    (K2-fwd launches by shape, the flash calls)."""
     from conformer_nemo_tpu_torch.data.audio_io import load_audio
     from conformer_nemo_tpu_torch.decode.ctc_beam import BeamSearchDecoderWithLM
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
@@ -1308,28 +1732,31 @@ def phase_decode_ctc(model, groups, tmp: str, gpu: str) -> tuple:
     audio_s = sum(samples) / SR
     arpa = _write_arpa(os.path.join(tmp, "lm3.arpa"))
     greedy, greedy_s = _timed_call(lambda: model.transcribe(files, batch_size=BATCH))
+    lps = model.transcribe(files, batch_size=BATCH, logprobs=True)
+    vocab = model.tokenizer.ids_to_tokens(list(range(model.tokenizer.vocab_size)))
+    dec = BeamSearchDecoderWithLM(vocab, **CTC_BEAM, lm_path=arpa)  # writes the .binlm
     beam_cfg = {"strategy": "beamsearch_ngram", "beam": {**CTC_BEAM, "lm_path": arpa}}
     model.change_decoding_strategy(beam_cfg)
+    # two API calls and the decoder on the log-probs, side by side (the
+    # native search releases the GIL; each runs the long file on one thread
+    # of its own): the same texts from all three
     reset_launch_counts()
-    texts, beam_s = _timed_call(lambda: model.transcribe(files, batch_size=BATCH))
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        again_f = ex.submit(lambda: _timed_call(lambda: model.transcribe(files, batch_size=BATCH)))
+        direct_f = ex.submit(lambda: dec(
+            np.stack([np.pad(lp, ((0, max(len(x) for x in lps) - len(lp)), (0, 0))) for lp in lps]),
+            seq_lens=np.array([len(lp) for lp in lps])))
+        texts, beam_s = _timed_call(lambda: model.transcribe(files, batch_size=BATCH))
+        again, again_s = again_f.result()
+        direct = [cands[0][0].replace("▁", " ").strip() for cands in direct_f.result()]
     launches, by_shape = fa.fwd_launches.total, dict(fa.fwd_launches.by_shape)
-    # the long file decodes alone, BATCH rows padded to a multiple of 1600 samples
+    # the long file decodes alone, BATCH rows padded to a multiple of 1600
+    # samples, once in each of the two calls
     t_long = encoder_frames(model.cfg, [pad(samples[-1])])[0]
-    check(t_long >= enc.flash_attention_min_t and launches == enc.n_layers,
+    check(t_long >= enc.flash_attention_min_t and launches == 2 * enc.n_layers,
           ("decode K2-fwd launches", launches, "T", t_long))
     flash_calls = [(t_long, [n for n in encoder_frames(model.cfg, [samples[-1]] + [0] * (BATCH - 1))
                              for _ in range(enc.n_heads)])]
-    lps = model.transcribe(files, batch_size=BATCH, logprobs=True)
-    vocab = model.tokenizer.ids_to_tokens(list(range(model.tokenizer.vocab_size)))
-    dec = BeamSearchDecoderWithLM(vocab, **CTC_BEAM, lm_path=arpa)
-    # a second API call and the decoder on the log-probs, side by side (the
-    # native search releases the GIL; each runs the long file on one thread)
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        again_f = ex.submit(lambda: _timed_call(lambda: model.transcribe(files, batch_size=BATCH)))
-        direct = [cands[0][0].replace("▁", " ").strip() for cands in dec(
-            np.stack([np.pad(lp, ((0, max(len(x) for x in lps) - len(lp)), (0, 0))) for lp in lps]),
-            seq_lens=np.array([len(lp) for lp in lps]))]
-        again, again_s = again_f.result()
     check(again == texts, ("two beam calls differ", again, texts))
     check(direct == texts, ("the API's beam texts are not the decoder's", direct, texts))
     check(dec.lm_score([], "<unk>") < 0 and os.path.exists(arpa + ".binlm"), "the LM did not load")
@@ -1343,7 +1770,7 @@ def phase_decode_ctc(model, groups, tmp: str, gpu: str) -> tuple:
     emit("decode_ctc", config="configs/conformer_ctc_bpe.yaml", files=len(files),
          audio_s=audio_s, longest_t=t_long, beam=CTC_BEAM, lm_words=LM_WORDS,
          k2_fwd_launches=launches, greedy=rate(greedy_s), beamsearch_ngram=rate(beam_s),
-         beamsearch_ngram_again_beside_the_decoder=rate(again_s), timestamps=rate(words_s),
+         beamsearch_ngram_again_beside=rate(again_s), timestamps=rate(words_s),
          words=sum(len(w) for w in words), sample_beam=texts[0][:60],
          sample_words=[(w.word, round(w.start_s, 2)) for w in words[0][:5]], gpu=gpu)
     return by_shape, flash_calls
@@ -3147,8 +3574,30 @@ def phase_distributed(tmp: str, train: dict, rnnt: dict, gpu: str) -> dict:
             "tp_lens": [n for n in enc_lens for _ in range(cfg.encoder.n_heads // 2)]}
 
 
+def _frontends_rows(fr: dict, d1: int, dv: int, gen, dev, chain) -> list:
+    """The frontends phase's calls, as its runs made them: K2-fwd of the
+    resnet serve, K1 of the resnet fit, K3 and K4 of the subencoder
+    transducer's fit (T 390: its own length rule) with its lengths."""
+    as_i32 = lambda x: torch.as_tensor(x).to(dev, torch.int32)
+    rows = [_flash_case(f"frontends_bh{len(lens)}_t{t}", len(lens), t, d1, dv, lens, (-1, -1),
+                        gen, dev) for t, lens in fr["flash_calls"]]
+    tokens, enc_lens, token_lens = fr["ctc"]
+    b, t = len(enc_lens), fr["ctc_t"]
+    lp = torch.log_softmax(torch.randn(b, t, fr["v1"], generator=gen, device=dev) * 3, dim=-1)
+    rows += _ctc_case(f"frontends_resnet_b{b}_t{t}_u{tokens.shape[1]}", lp, as_i32(tokens),
+                      as_i32(enc_lens), as_i32(token_lens), fr["blank"])
+    r = fr["rnnt"]
+    b, u = r["tokens"].shape
+    name = f"frontends_subencoder_b{b}_t{r['t']}_u1{u + 1}"
+    rows += _lattice_case(name, r["t"], u + 1, r["enc_lens"], r["token_lens"], gen, dev, chain)
+    rows += _joint_case(name, b, r["t"], u, r["h"], r["v"], r["enc_lens"], r["token_lens"], gen,
+                        dev, drop_t=26)
+    free_cuda()
+    return rows
+
+
 def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict,
-                  decode_calls: list, dist: dict, streaming: dict) -> dict:
+                  decode_calls: list, dist: dict, streaming: dict, frontends: dict) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3248,6 +3697,7 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
     # column group of each 64-column box nothing but pad columns
     _joint_fwd_wide_case("joint_fwd_wide_h1376", 3, 37, 8, 1376, 41, [37, 20, 1], [8, 3, 0], gen,
                          dev)
+    rows["frontends"] = _frontends_rows(frontends, d1, dv, gen, dev, chain)
     _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev)
     # a data-parallel rank's rows far into a global batch: the hash base wraps
     _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev, row_offset=1000 * b + 3)
@@ -3374,8 +3824,9 @@ def main() -> int:
         phase_lifecycle(tmp, train["train_manifest"], train["val_manifest"], env["nvidia_smi"])
         streaming = phase_streaming(tmp, rnnt["archive"], rnnt["manifest"], env["nvidia_smi"])
         os.remove(rnnt["archive"])
+        frontends = phase_frontends(tmp, groups, rnnt["manifest"], env["nvidia_smi"])
     rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls, dist,
-                         streaming)
+                         streaming, frontends)
 
     # the NCCL world-1 fit ran the train phase's calls again
     train_launches = {k: {sh: n + dist["nccl_by_shape"].get(k, {}).get(sh, 0)
@@ -3385,6 +3836,7 @@ def main() -> int:
                                     "distributed": dist["tp_by_shape"],
                                     "train": train_launches, "rnnt_train": rnnt["by_shape"],
                                     "streaming": streaming["by_shape"],
+                                    "frontends": frontends["by_shape"],
                                     "multilang": {**multilang["ctc"]["by_shape"],
                                                   **multilang["rnnt"]["by_shape"]}})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -102,9 +102,10 @@ from conformer_nemo_tpu_torch.decode.timestamps import (
 )
 from conformer_nemo_tpu_torch.device import resolve_device
 from conformer_nemo_tpu_torch.models.conformer import (
-    calc_sub_length,
     check_flash_dtype,
     check_flash_training,
+    encoder_lengths,
+    frame_factor,
 )
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, ctc_forward
 from conformer_nemo_tpu_torch.models.rnnt import PredictionNetwork, RNNTModel, check_joint_dtype
@@ -427,7 +428,7 @@ class _BaseASRModel:
         feature_fn: samples -> log-mel [D, Tf] in numpy, computed in eval
         mode on the model's device)."""
         pre = self.cfg.preprocessor
-        stride = pre.window_stride * self._encoder_config.subsampling_factor
+        stride = pre.window_stride * frame_factor(self._encoder_config)
         tokens_per_chunk = math.ceil(frame_len / stride)
         mid_delay = math.ceil((frame_len + (total_buffer - frame_len) / 2) / stride)
 
@@ -458,18 +459,21 @@ class _BaseASRModel:
 
     def _make_optimizer(self, mesh: Optional[Mesh] = None):
         """The config's optimizer; on a tensor-parallel mesh its clipping
-        reads the norm of the full gradients."""
+        reads the norm of the full gradients and its per-leaf reductions sum
+        a sharded leaf's ranks. eps and momentum keep their defaults: the
+        JAX package's `_make_optimizer` passes neither."""
         ocfg = self.raw_cfg["model"].get("optim", {"name": "adamw", "lr": 1.0})
         sched_cfg = dict(ocfg.get("sched", {"name": "NoamAnnealing", "d_model": 256,
                                              "warmup_steps": 1000}))
         tr = self.raw_cfg.get("trainer", {})
+        tensor_parallel = mesh is not None and mesh.model > 1
         opt = make_optimizer(ocfg.get("name", "adamw"),
                              make_lr_schedule(sched_cfg, ocfg.get("lr", 1.0)),
                              weight_decay=float(ocfg.get("weight_decay", 0.0)),
                              betas=tuple(ocfg.get("betas", (0.9, 0.98))),
                              grad_clip=tr.get("gradient_clip_val") or None,
-                             grad_norm=mesh.grad_norm if mesh is not None and mesh.model > 1
-                             else None)
+                             grad_norm=mesh.grad_norm if tensor_parallel else None,
+                             model_group=mesh.model_group if tensor_parallel else None)
         return with_grad_accumulation(opt, int(tr.get("accumulate_grad_batches", 1) or 1))
 
     def _loader(self, manifest: str, ds_cfg: dict, shuffle: bool, mesh: Optional[Mesh] = None):
@@ -576,8 +580,8 @@ class _BaseASRModel:
             [train_loader.max_len if isinstance(train_loader, TarredBatchIterator)
              else train_loader.ds.boundaries[-1]]))
         enc = self._encoder_config
-        check_flash_training(enc, self.device, int(calc_sub_length(
-            longest, enc.subsampling, int(math.log2(enc.subsampling_factor)))[0]))
+        check_flash_training(enc, self.device, int(encoder_lengths(enc, longest,
+                                                                   int(longest[0]))[0]))
         optimizer = self._make_optimizer(mesh)
         if self.train_state is None:
             self.train_state = self._init_state(optimizer)
@@ -741,7 +745,7 @@ class ConformerCTC(_BaseASRModel):
         (decode/timestamps.py), whatever the decoding strategy; files sorted
         by length, `batch_size` rows a batch, as the JAX package's."""
         sr = self.raw_cfg["model"].get("sample_rate", 16000)
-        time_per_frame = self.cfg.preprocessor.window_stride * self.cfg.encoder.subsampling_factor
+        time_per_frame = self.cfg.preprocessor.window_stride * frame_factor(self.cfg.encoder)
         wavs = [load_audio(p, target_sr=sr) for p in audio_paths]
         out = [None] * len(wavs)
         order = np.argsort([len(w) for w in wavs])
@@ -881,7 +885,7 @@ class ConformerTransducer(_BaseASRModel):
         package gives it t + 1 frames (its `FrameAlignedToken` takes a
         length, and it passes t + 1), so its word ends run past the audio."""
         sr = self.raw_cfg["model"].get("sample_rate", 16000)
-        stride = self.cfg.preprocessor.window_stride * self.cfg.model.encoder.subsampling_factor
+        stride = self.cfg.preprocessor.window_stride * frame_factor(self.cfg.model.encoder)
         wavs = [load_audio(p, target_sr=sr) for p in audio_paths]
         results = []
         for i in range(0, len(wavs), batch_size):
@@ -939,10 +943,26 @@ class ConformerTransducer(_BaseASRModel):
                 "decoder_joint": (_DecoderJoint(m.decoder, m.joint), step_args)}
 
     def _to_jax(self, state_dict: dict) -> dict:
-        return rnnt_variables_to_jax(state_dict, self.cfg.model)
+        """The bridge, with the LSTM biases taken from the model's own
+        leaves: the state_dict's bias_ih less c may round (c + b loses the
+        bits of a small leaf b)."""
+        variables = rnnt_variables_to_jax(state_dict, self.cfg.model)
+        lstm = self.model.decoder.prediction.dec_rnn.lstm
+        for k in range(lstm.layers):
+            variables["params"]["decoder"][f"lstm{k}_b"] = (
+                getattr(lstm, f"bias_l{k}").detach().to("cpu", torch.float32).numpy())
+        return variables
 
     def _from_jax(self, variables: dict) -> dict:
-        return rnnt_state_dict_from_jax(variables, self.cfg.model)
+        """The bridge, with the LSTM biases loaded as the JAX leaves
+        themselves (`bias_l{k}`) rather than through NeMo's bias pair."""
+        sd = rnnt_state_dict_from_jax(variables, self.cfg.model)
+        pre = "decoder.prediction.dec_rnn.lstm."
+        for k in range(self.cfg.model.decoder.pred_rnn_layers):
+            del sd[pre + f"bias_ih_l{k}"], sd[pre + f"bias_hh_l{k}"]
+            sd[pre + f"bias_l{k}"] = torch.tensor(
+                np.asarray(variables["params"]["decoder"][f"lstm{k}_b"], np.float32))
+        return sd
 
     def _init_state(self, optimizer):
         return init_rnnt_state(self.model, optimizer, seed=self.seed)

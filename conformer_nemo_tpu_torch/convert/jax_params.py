@@ -18,7 +18,10 @@ Layout rules (flax -> torch; the other direction inverts each):
                                      mean, var -> running_mean, running_var
   ConvSubsampling out kernel      -> rows un-permuted: the JAX model flattens
                                      [B, T, F', C] f-major, NeMo and the port
-                                     [B, C, T, F'] c-major.
+                                     [B, C, T, F'] c-major (F' the mode's own).
+  pre_encode convs and BatchNorms -> NeMo's module indices per mode
+                                     (`_conv_modules`); the BatchNorms'
+                                     statistics travel in batch_stats.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import math
 import numpy as np
 import torch
 
-from conformer_nemo_tpu_torch.models.conformer import calc_sub_length
+from conformer_nemo_tpu_torch.models.conformer import freq_out, uses_conv_subsampling
+from conformer_nemo_tpu_torch.models.rnnt import forget_offset
 
 
 def _np(x) -> np.ndarray:
@@ -42,22 +46,85 @@ def _tensor(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32).copy())
 
 
-def _check_striding(cfg) -> int:
-    """-> the number of stride-2 convolutions; other modes raise."""
-    if cfg.subsampling != "striding" or cfg.subsampling_factor <= 1:
-        raise NotImplementedError(
-            f"weight bridge for subsampling={cfg.subsampling!r} is not ported yet "
-            "(ROADMAP.md queue 1 item 4)")
-    return int(math.log2(cfg.subsampling_factor))
+def _conv_modules(mode: str, j: int) -> list:
+    """[(JAX conv name, NeMo conv key, JAX BatchNorm name or None, NeMo
+    BatchNorm key or None)] of repetition j of a conv mode (the JAX
+    converter's mapping, conformer_nemo_tpu/convert/nemo_weights.py)."""
+    if mode == "striding":
+        return [(f"conv{j}", f"pre_encode.conv.{2 * j}", None, None)]
+    if mode == "vggnet":
+        return [(f"conv{j}a", f"pre_encode.conv.{5 * j}", None, None),
+                (f"conv{j}b", f"pre_encode.conv.{5 * j + 2}", None, None)]
+    if mode == "resnet":
+        blk = f"pre_encode.conv.{2 * j}"
+        return [(f"res{j}{t}", f"{blk}.conv{n}", f"res{j}{t}_bn", f"{blk}.batchnorm{n}")
+                for t, n in (("a", 1), ("b", 2))]
+    blk = f"pre_encode.conv.{j}"  # subencoder
+    return [(f"se{j}{t}", f"{blk}.conv{n}", f"se{j}{t}_bn", f"{blk}.batchnorm{n}")
+            for t, n in (("a", 1), ("b", 2), ("c", 3))]
 
 
-def _out_perm(cfg, reps: int) -> np.ndarray:
+def _out_perm(cfg) -> np.ndarray:
     """Row r of the JAX pre_encode.out kernel (f-major, f*C + c) is row
-    perm[r] of NeMo's (c-major, c*F' + f)."""
+    perm[r] of NeMo's (c-major, c*F' + f), F' the mode's own frequency size."""
     channels = cfg.subsampling_conv_channels if cfg.subsampling_conv_channels > 0 else cfg.d_model
-    f_out = int(calc_sub_length(torch.tensor(cfg.feat_in), "striding", reps))
+    f_out = freq_out(cfg)
     r = np.arange(channels * f_out)
     return (r % channels) * f_out + (r // channels)
+
+
+def _pre_encode_state(pe: dict, pe_stats: dict, cfg, prefix: str) -> dict:
+    """The JAX pre_encode subtree (and its batch_stats, possibly empty) ->
+    NeMo-named entries, in every subsampling mode."""
+    sd: dict[str, np.ndarray] = {}
+    if cfg.subsampling == "stacking" and cfg.subsampling_factor > 1:
+        sd[prefix + "pre_encode.proj_out.weight"] = _np(pe["proj_out"]["kernel"]).T
+        sd[prefix + "pre_encode.proj_out.bias"] = _np(pe["proj_out"]["bias"])
+        return sd
+    if not uses_conv_subsampling(cfg):
+        sd[prefix + "pre_encode.weight"] = _np(pe["kernel"]).T
+        sd[prefix + "pre_encode.bias"] = _np(pe["bias"])
+        return sd
+    for j in range(int(math.log2(cfg.subsampling_factor))):
+        for conv, key, bn, bn_key in _conv_modules(cfg.subsampling, j):
+            sd[prefix + key + ".weight"] = _np(pe[conv]["kernel"]).transpose(3, 2, 0, 1)
+            sd[prefix + key + ".bias"] = _np(pe[conv]["bias"])
+            if bn is not None:
+                sd[prefix + bn_key + ".weight"] = _np(pe[bn]["scale"])
+                sd[prefix + bn_key + ".bias"] = _np(pe[bn]["bias"])
+                if bn in pe_stats:
+                    sd[prefix + bn_key + ".running_mean"] = _np(pe_stats[bn]["mean"])
+                    sd[prefix + bn_key + ".running_var"] = _np(pe_stats[bn]["var"])
+    kernel = _np(pe["out"]["kernel"])  # rows f*C + c
+    w_t = np.empty_like(kernel)
+    w_t[_out_perm(cfg)] = kernel
+    sd[prefix + "pre_encode.out.weight"] = w_t.T
+    sd[prefix + "pre_encode.out.bias"] = _np(pe["out"]["bias"])
+    return sd
+
+
+def _pre_encode_variables(sd: dict, cfg, prefix: str) -> tuple:
+    """NeMo-named pre_encode entries -> (the JAX pre_encode subtree, its
+    batch_stats subtree, empty where the mode has no BatchNorm)."""
+    g = lambda k: sd[prefix + k]
+    if cfg.subsampling == "stacking" and cfg.subsampling_factor > 1:
+        return {"proj_out": _dense(sd, prefix + "pre_encode.proj_out")}, {}
+    if not uses_conv_subsampling(cfg):
+        return _dense(sd, prefix + "pre_encode"), {}
+    pe, stats = {}, {}
+    for j in range(int(math.log2(cfg.subsampling_factor))):
+        for conv, key, bn, bn_key in _conv_modules(cfg.subsampling, j):
+            w = _np(g(key + ".weight"))  # [out, in, kh, kw] -> [kh, kw, in, out]
+            pe[conv] = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                        "bias": _np(g(key + ".bias"))}
+            if bn is not None:
+                pe[bn] = _scale_bias(sd, prefix + bn_key)
+                stats[bn] = {"mean": _np(g(bn_key + ".running_mean")),
+                             "var": _np(g(bn_key + ".running_var"))}
+    w = np.ascontiguousarray(_np(g("pre_encode.out.weight")).T)  # rows c*F' + f
+    pe["out"] = {"kernel": np.ascontiguousarray(w[_out_perm(cfg)]),
+                 "bias": _np(g("pre_encode.out.bias"))}
+    return pe, stats
 
 
 def _encoder_state(p: dict, stats: dict, cfg, prefix: str) -> dict:
@@ -78,17 +145,7 @@ def _encoder_state(p: dict, stats: dict, cfg, prefix: str) -> dict:
         sd[key + ".weight"] = _np(node["scale"])
         sd[key + ".bias"] = _np(node["bias"])
 
-    reps = _check_striding(cfg)
-    pe = p["pre_encode"]
-    for j in range(reps):
-        node = pe[f"conv{j}"]
-        sd[prefix + f"pre_encode.conv.{2 * j}.weight"] = _np(node["kernel"]).transpose(3, 2, 0, 1)
-        sd[prefix + f"pre_encode.conv.{2 * j}.bias"] = _np(node["bias"])
-    kernel = _np(pe["out"]["kernel"])  # rows f*C + c
-    w_t = np.empty_like(kernel)
-    w_t[_out_perm(cfg, reps)] = kernel
-    sd[prefix + "pre_encode.out.weight"] = w_t.T
-    sd[prefix + "pre_encode.out.bias"] = _np(pe["out"]["bias"])
+    sd.update(_pre_encode_state(p["pre_encode"], stats.get("pre_encode", {}), cfg, prefix))
 
     shared = not cfg.untie_biases and cfg.self_attention_model == "rel_pos"
     if shared:
@@ -161,8 +218,8 @@ def rnnt_state_dict_from_jax(variables: dict, cfg) -> dict[str, torch.Tensor]:
         sd[lstm + f"weight_ih_l{k}"] = _np(dec[f"lstm{k}_wx"]).T
         sd[lstm + f"weight_hh_l{k}"] = _np(dec[f"lstm{k}_wh"]).T
         b = _np(dec[f"lstm{k}_b"]).copy()
-        if dcfg.t_max is None and dcfg.forget_gate_bias:
-            b[h: 2 * h] += float(dcfg.forget_gate_bias)
+        if forget_offset(dcfg):
+            b[h: 2 * h] += forget_offset(dcfg)
         sd[lstm + f"bias_ih_l{k}"] = b
         sd[lstm + f"bias_hh_l{k}"] = np.zeros_like(b)
         if dcfg.norm == "layer":
@@ -201,19 +258,11 @@ def _conv1x1(sd: dict, key: str) -> dict:
 
 def _encoder_variables(sd: dict, cfg, prefix: str = "encoder.") -> tuple:
     """-> (params, batch_stats) of the JAX ConformerEncoder
-    (`convert_conformer_encoder`, striding subsampling)."""
+    (`convert_conformer_encoder`), in every subsampling mode."""
     g = lambda k: sd[prefix + k]
-    reps = _check_striding(cfg)
-    pe = {}
-    for j in range(reps):
-        w = _np(g(f"pre_encode.conv.{2 * j}.weight"))  # [out, in, kh, kw] -> [kh, kw, in, out]
-        pe[f"conv{j}"] = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
-                          "bias": _np(g(f"pre_encode.conv.{2 * j}.bias"))}
-    w = np.ascontiguousarray(_np(g("pre_encode.out.weight")).T)  # rows c*F' + f
-    pe["out"] = {"kernel": np.ascontiguousarray(w[_out_perm(cfg, reps)]),
-                 "bias": _np(g("pre_encode.out.bias"))}
+    pe, pe_stats = _pre_encode_variables(sd, cfg, prefix)
     p = {"pre_encode": pe}
-    stats = {}
+    stats = {"pre_encode": pe_stats} if pe_stats else {}
     if not cfg.untie_biases and cfg.self_attention_model == "rel_pos":
         p["pos_bias_u"] = _np(g("layers.0.self_attn.pos_bias_u"))
         p["pos_bias_v"] = _np(g("layers.0.self_attn.pos_bias_v"))
@@ -290,8 +339,8 @@ def rnnt_variables_to_jax(state_dict: dict, cfg) -> dict:
         dec[f"lstm{k}_wx"] = np.ascontiguousarray(_np(sd[lstm + f"weight_ih_l{k}"]).T)
         dec[f"lstm{k}_wh"] = np.ascontiguousarray(_np(sd[lstm + f"weight_hh_l{k}"]).T)
         b = _np(sd[lstm + f"bias_ih_l{k}"]) + _np(sd[lstm + f"bias_hh_l{k}"])
-        if dcfg.t_max is None and dcfg.forget_gate_bias:
-            b[h: 2 * h] -= float(dcfg.forget_gate_bias)
+        if forget_offset(dcfg):
+            b[h: 2 * h] -= forget_offset(dcfg)
         dec[f"lstm{k}_b"] = b
         if dcfg.norm == "layer":
             for name in ("ln_i", "ln_h", "ln_c"):

@@ -10,15 +10,15 @@ drops.
   with it; the port's is always 2. The largest index is taken, as the JAX
   converter takes it.
 - The LSTM's `bias_ih_l{k}` + `bias_hh_l{k}` pair loads as it is: the
-  port's prediction network sums it into the one bias it trains (NeMo's b,
-  forget-gate constant included; the JAX package keeps b - c instead).
+  port's prediction network sums it and subtracts the forget-gate
+  constant c, into the one bias it trains (the JAX package's leaf b - c).
 - Dropped: BatchNorm's `num_batches_tracked`, the preprocessor's
   `featurizer.fb` / `featurizer.window` buffers (the port builds its mel
   basis from the config), and any other entry the model has no place for.
 
-The model is built from the archive's config first, so another
-subsampling than striding has raised before this runs
-(scripts/convert_nemo.py checks it with the weight bridge's rule).
+Every subsampling mode loads: the front ends' modules carry NeMo's
+indices (`pre_encode.conv.{i}`, a ResNetBlock's `conv1`/`batchnorm1`, a
+stacking `pre_encode.proj_out`, the factor-1 `pre_encode` Linear).
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Conformer encoder (port of conformer_nemo_tpu/models/conformer.py).
 
-    conv-subsampling (striding: log2(f) x [Conv2d k3 s2 p1 + ReLU], Linear over
-    C*F') -> xscale * x + positional encoding -> N x [half-FF -> MHSA -> conv
-    module (pointwise -> GLU -> depthwise k -> norm -> swish -> pointwise)
-    -> half-FF -> LayerNorm].
+    subsampling (the conv modes striding, vggnet, resnet and subencoder,
+    Linear over C*F'; stacking; or a Linear at factor 1 / `none`) ->
+    xscale * x + positional encoding -> N x [half-FF -> MHSA -> conv module
+    (pointwise -> GLU -> depthwise k -> norm -> swish -> pointwise) ->
+    half-FF -> LayerNorm].
 
 Parameter names are NeMo's (`pre_encode.conv.0`, `layers.N.self_attn.linear_q`,
 `conv.depthwise_conv`, `conv.batch_norm`, ...), with NeMo's layouts, so a
@@ -21,8 +22,9 @@ per-step seed and the site, so a layer recomputed under `remat`
 (`torch.utils.checkpoint`) draws the same masks; training BatchNorm with
 flax's statistics, whose running update the encoder applies once per
 forward, outside the checkpoint. `self.training` selects training mode;
-the encoder's `dropout_seed` seeds the masks. The non-striding subsampling
-modes wait for later slices (ROADMAP.md).
+the encoder's `dropout_seed` seeds the masks. The resnet and subencoder
+front ends' 2-D BatchNorms train the same way; their statistics, like the
+layers', reach the running buffers once per forward.
 
 Across GPUs (parallel/): the training BatchNorm sums its statistics over
 the mesh's data group (`BatchNorm.sync_group`), and the feed-forward,
@@ -59,7 +61,7 @@ class ConformerEncoderConfig:
     n_layers: int = 18
     d_model: int = 512
     feat_out: int = -1
-    subsampling: str = "striding"  # only striding is ported
+    subsampling: str = "striding"  # striding | vggnet | resnet | subencoder | stacking | none
     subsampling_factor: int = 4
     subsampling_conv_channels: int = -1
     ff_expansion_factor: int = 4
@@ -109,6 +111,51 @@ def calc_sub_length(lengths: torch.Tensor, mode: str, reps: int) -> torch.Tensor
         out = (out + 2 * pad - k) / s + 1.0
         out = torch.ceil(out) if ceil else torch.floor(out)
     return out.to(torch.int32)
+
+
+def uses_conv_subsampling(cfg) -> bool:
+    return cfg.subsampling in _SUBSAMPLING_GEOM and cfg.subsampling_factor > 1
+
+
+def _stacking_pad(factor: int, t_in: int) -> int:
+    """Stacking pads the padded batch's T to a multiple of the factor, and
+    by a whole factor when it already is one (the reference always pads)."""
+    return factor - (t_in % factor) if t_in % factor else factor
+
+
+def _check_mode(cfg) -> None:
+    if cfg.subsampling_factor > 1 and cfg.subsampling not in (
+            *_SUBSAMPLING_GEOM, "stacking", "none", "", None):
+        raise ValueError(f"unknown subsampling mode: {cfg.subsampling!r} (striding | vggnet | "
+                         "resnet | subencoder | stacking | none)")
+
+
+def encoder_lengths(cfg, lengths: torch.Tensor, t_in: int) -> torch.Tensor:
+    """The encoder's output lengths for input lengths of a batch padded to
+    `t_in` frames, in every mode, as the JAX encoder computes them: the
+    conv modes' length rule, stacking's (lengths + pad) // f with the pad
+    taken from `t_in`, and the lengths themselves at factor 1 / `none`."""
+    lengths = torch.as_tensor(lengths)
+    if uses_conv_subsampling(cfg):
+        return calc_sub_length(lengths, cfg.subsampling, int(math.log2(cfg.subsampling_factor)))
+    if cfg.subsampling == "stacking" and cfg.subsampling_factor > 1:
+        f = cfg.subsampling_factor
+        return ((lengths + _stacking_pad(f, t_in)) // f).to(torch.int32)
+    return lengths.to(torch.int32)
+
+
+def frame_factor(cfg) -> int:
+    """Input frames per encoder frame: the subsampling factor, or 1 where
+    the encoder does not subsample (factor 1 / `none`)."""
+    subsampled = uses_conv_subsampling(cfg) or cfg.subsampling == "stacking"
+    return cfg.subsampling_factor if subsampled else 1
+
+
+def freq_out(cfg) -> int:
+    """The frequency size after a conv mode's subsampling (the time rule
+    applied to feat_in)."""
+    return int(calc_sub_length(torch.tensor(cfg.feat_in), cfg.subsampling,
+                               int(math.log2(cfg.subsampling_factor))))
 
 
 def _inv_freq(d_model: int) -> np.ndarray:
@@ -231,11 +278,13 @@ def _fp32_norm(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over channel dim 1 of [B, C, T] with NeMo's parameter names
-    (weight, bias, running_mean, running_var), in fp32 with eps 1e-5.
+    """BatchNorm over channel dim 1 of [B, C, T] (the conv module's) or
+    [B, C, T, F] (the resnet and subencoder front ends') with NeMo's
+    parameter names (weight, bias, running_mean, running_var), in fp32 with
+    eps 1e-5.
 
     Training mode has flax's semantics (the JAX package's nn.BatchNorm,
-    momentum 0.9): statistics over every (B, T) position, padded frames
+    momentum 0.9): statistics over every (B, T[, F]) position, padded frames
     included, with the biased variance E[x^2] - E[x]^2 (clipped at 0) in
     the normalisation and in the running update. `forward` returns the
     batch statistics beside the output instead of updating the buffers, so
@@ -267,15 +316,17 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps), None
-        sums = torch.cat([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
-                          torch.full((1,), float(x.shape[0] * x.shape[2]), device=x.device)])
+        dims = (0, *range(2, x.dim()))
+        sums = torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims),
+                          torch.full((1,), float(x.numel() // x.shape[1]), device=x.device)])
         if self.sync_group is not None:
             sums = all_reduce_sum(sums, self.sync_group)
         c = x.shape[1]
         mean = sums[:c] / sums[2 * c]
         var = torch.clamp(sums[c: 2 * c] / sums[2 * c] - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
+        per_channel = (c,) + (1,) * (x.dim() - 2)
+        y = (x - mean.view(per_channel)) * mul.view(per_channel) + self.bias.view(per_channel)
         return y, (mean.detach(), var.detach())
 
     @torch.no_grad()
@@ -577,40 +628,127 @@ class ConformerLayer(nn.Module):
         return _fp32_norm(self.norm_out, residual), stats
 
 
+def _conv2d(mod: nn.Conv2d, y: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """nn.Conv2d in the compute dtype (params stay fp32)."""
+    return F.conv2d(y.to(dt), mod.weight.to(dt), mod.bias.to(dt), stride=mod.stride,
+                    padding=mod.padding)
+
+
+class _ResNetBlock(nn.Module):
+    """The fork's ResNetBlock: two 3x3 convolutions, each added to its input
+    (the first block's 1-channel input broadcasts over C) and followed by a
+    2-D BatchNorm and ReLU."""
+
+    def __init__(self, in_ch: int, ch: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, ch, 3, stride=1, padding=1)
+        self.batchnorm1 = BatchNorm(ch)
+        self.conv2 = nn.Conv2d(ch, ch, 3, stride=1, padding=1)
+        self.batchnorm2 = BatchNorm(ch)
+
+    def forward(self, y, dt, stats: list):
+        for conv, bn in ((self.conv1, self.batchnorm1), (self.conv2, self.batchnorm2)):
+            y, st = bn(y + _conv2d(conv, y, dt))
+            y = F.relu(y).to(dt)
+            stats.append((bn, st))
+        return y
+
+
+class _SEEncoderLayer(nn.Module):
+    """The fork's SEEncoderLayer: a 4x4 stride-2 convolution + BatchNorm +
+    ReLU, then two residual 3x3 convolutions, each + BatchNorm + ReLU."""
+
+    def __init__(self, in_ch: int, ch: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, ch, 4, stride=2, padding=1)
+        self.batchnorm1 = BatchNorm(ch)
+        self.conv2 = nn.Conv2d(ch, ch, 3, stride=1, padding=1)
+        self.batchnorm2 = BatchNorm(ch)
+        self.conv3 = nn.Conv2d(ch, ch, 3, stride=1, padding=1)
+        self.batchnorm3 = BatchNorm(ch)
+
+    def forward(self, y, dt, stats: list):
+        for conv, bn in ((self.conv1, self.batchnorm1), (self.conv2, self.batchnorm2),
+                         (self.conv3, self.batchnorm3)):
+            z = _conv2d(conv, y, dt)
+            y, st = bn(z if conv is self.conv1 else y + z)
+            y = F.relu(y).to(dt)
+            stats.append((bn, st))
+        return y
+
+
 class ConvSubsampling(nn.Module):
-    """Striding conv subsampling: log2(f) x [Conv2d(C, k3 s2 p1) + ReLU], then
-    Linear over the flattened (C, F') axes, c-major as NeMo flattens them."""
+    """The conv front ends, log2(f) repetitions each, with NeMo's module
+    indices in `conv`, then Linear over the flattened (C, F') axes, c-major
+    as NeMo flattens them:
+
+      striding:   [Conv2d k3 s2 p1, ReLU]                   (conv.{2j})
+      vggnet:     [Conv2d k3 s1 p1, ReLU, Conv2d k3 s1 p1, ReLU,
+                   MaxPool2d k2 s2 ceil]                     (conv.{5j}, conv.{5j+2})
+      resnet:     [ResNetBlock, MaxPool2d k2 s2 ceil]       (conv.{2j})
+      subencoder: [SEEncoderLayer]                          (conv.{j})
+
+    The max pool with ceil_mode is the JAX package's -inf padding to an
+    even size and a 2x2 pool. `forward` returns the front end's BatchNorm
+    statistics beside the output (training mode), for the encoder to apply."""
 
     def __init__(self, cfg: ConformerEncoderConfig):
         super().__init__()
-        if cfg.subsampling != "striding":
-            raise NotImplementedError(
-                f"subsampling={cfg.subsampling!r} is not ported yet (ROADMAP.md "
-                "queue 1: the other subsampling modes); only 'striding' is")
         self.dtype = cfg.dtype
+        self.mode = mode = cfg.subsampling
         channels = cfg.subsampling_conv_channels if cfg.subsampling_conv_channels > 0 else cfg.d_model
         reps = int(math.log2(cfg.subsampling_factor))
         layers: list[nn.Module] = []
         in_ch = 1
         for _ in range(reps):
-            layers += [nn.Conv2d(in_ch, channels, 3, stride=2, padding=1), nn.ReLU()]
+            if mode == "striding":
+                layers += [nn.Conv2d(in_ch, channels, 3, stride=2, padding=1), nn.ReLU()]
+            elif mode == "vggnet":
+                layers += [nn.Conv2d(in_ch, channels, 3, stride=1, padding=1), nn.ReLU(),
+                           nn.Conv2d(channels, channels, 3, stride=1, padding=1), nn.ReLU(),
+                           nn.MaxPool2d(2, 2, ceil_mode=True)]
+            elif mode == "resnet":
+                layers += [_ResNetBlock(in_ch, channels), nn.MaxPool2d(2, 2, ceil_mode=True)]
+            else:
+                layers += [_SEEncoderLayer(in_ch, channels)]
             in_ch = channels
         self.conv = nn.Sequential(*layers)
-        f_out = int(calc_sub_length(torch.tensor(cfg.feat_in), "striding", reps))
-        self.out = nn.Linear(channels * f_out, cfg.d_model)
+        self.out = nn.Linear(channels * freq_out(cfg), cfg.d_model)
 
-    def forward(self, x):  # x: [B, T, F]
+    def forward(self, x):
+        """x [B, T, F] -> (y [B, T', d_model], [(BatchNorm, batch statistics)])."""
         dt = self.dtype
         y = x[:, None, :, :].to(dt)  # [B, 1, T, F]
+        stats: list = []
         for mod in self.conv:
             if isinstance(mod, nn.Conv2d):
-                y = F.conv2d(y, mod.weight.to(dt), mod.bias.to(dt), stride=mod.stride,
-                             padding=mod.padding)
-            else:
+                y = _conv2d(mod, y, dt)
+            elif isinstance(mod, nn.ReLU):
                 y = F.relu(y)
+            elif isinstance(mod, nn.MaxPool2d):
+                y = F.max_pool2d(y, 2, 2, ceil_mode=True)
+            else:
+                y = mod(y, dt, stats)
         b, c, t, f = y.shape
         y = y.transpose(1, 2).reshape(b, t, c * f)
-        return _linear(self.out, y, dt)
+        return _linear(self.out, y, dt), [(bn, st) for bn, st in stats if st is not None]
+
+
+class StackingSubsampling(nn.Module):
+    """Stacks f consecutive frames (T padded to a multiple of f, by a whole
+    f when it already is one), then `proj_out` to d_model."""
+
+    def __init__(self, cfg: ConformerEncoderConfig):
+        super().__init__()
+        self.dtype, self.factor = cfg.dtype, cfg.subsampling_factor
+        self.proj_out = nn.Linear(cfg.feat_in * cfg.subsampling_factor, cfg.d_model)
+
+    def forward(self, x):
+        b, t, d = x.shape
+        f = self.factor
+        pad = _stacking_pad(f, t)
+        x = F.pad(x, (0, 0, 0, pad)).reshape(b, (t + pad) // f, d * f)
+        return _linear(self.proj_out, x, self.dtype), []
 
 
 # encoder-level dropout sites (sub-seeds of the step's seed; layer i takes i)
@@ -623,9 +761,13 @@ class ConformerEncoder(nn.Module):
     def __init__(self, cfg: ConformerEncoderConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.subsampling_factor <= 1:
-            raise NotImplementedError("subsampling_factor <= 1 is not ported yet")
-        self.pre_encode = ConvSubsampling(cfg)
+        _check_mode(cfg)
+        if uses_conv_subsampling(cfg):
+            self.pre_encode = ConvSubsampling(cfg)
+        elif cfg.subsampling == "stacking" and cfg.subsampling_factor > 1:
+            self.pre_encode = StackingSubsampling(cfg)
+        else:  # factor 1 / none: NeMo's `pre_encode` Linear
+            self.pre_encode = nn.Linear(cfg.feat_in, cfg.d_model)
         shared = None
         if not cfg.untie_biases and cfg.self_attention_model == "rel_pos":
             self.pos_bias_u = nn.Parameter(torch.zeros(cfg.n_heads, cfg.d_head))
@@ -646,9 +788,14 @@ class ConformerEncoder(nn.Module):
         if seed is None and self.training and max(cfg.dropout, cfg.dropout_att,
                                                    cfg.dropout_emb) > 0.0:
             raise ValueError("training mode with dropout needs a dropout_seed")
-        x = self.pre_encode(features.transpose(1, 2))
-        out_lengths = calc_sub_length(lengths, cfg.subsampling,
-                                      int(math.log2(cfg.subsampling_factor)))
+        x = features.transpose(1, 2)
+        if isinstance(self.pre_encode, nn.Linear):
+            x, pre_stats = _linear(self.pre_encode, x, cfg.dtype), []
+        else:
+            x, pre_stats = self.pre_encode(x)
+        for bn, stats in pre_stats:
+            bn.update_running_stats(stats)
+        out_lengths = encoder_lengths(cfg, lengths, features.shape[-1])
         t = x.shape[1]
         x = x.to(torch.float32)
         if cfg.xscaling:

@@ -12,14 +12,19 @@ package's variables):
     joint.enc, joint.pred                              Linear to the joint width
     joint.joint_net.2                                  Linear to V+1 (after activation, dropout)
 
-The LSTM trains one bias per layer, `bias_l{k}`, as the JAX package does
-(two trainable biases would each take the full gradient: the global norm
-would count it twice and Adam would move their sum twice as far). The
-state_dict keeps NeMo's pair: it writes the bias as bias_ih and zeros as
-bias_hh, and loading sums the two. NeMo's bias convention holds:
-`forget_gate_bias` sits in the bias's forget chunk from initialisation
-and the cell adds no constant (the JAX package adds the constant at run
-time; the two are the same function). The LSTM cell is written out as the JAX package's `_cell`: the
+The LSTM trains one bias per layer, `bias_l{k}`, and it is the JAX
+package's leaf: NeMo's bias less c in the forget chunk, where c is
+`forget_gate_bias` (0 when `t_max` is set), which the cell adds to the
+forget gate at run time as the JAX `_cell` does. (Two trainable biases
+would each take the full gradient: the global norm would count it twice
+and Adam would move their sum twice as far; and a leaf that held c would
+decay c under weight decay, which the JAX package's leaf does not.) The
+state_dict keeps NeMo's convention: it writes the leaf plus c in the
+forget chunk as bias_ih and zeros as bias_hh, and loading sums the pair
+and subtracts c. A train-state checkpoint carries the leaf itself beside
+the state_dict (train/checkpoint.py), since fl(b + c) - c need not be b.
+
+The LSTM cell is written out as the JAX package's `_cell`: the
 products in the compute dtype, c and h in fp32 (cuDNN's LSTM rounds
 differently in bf16), with the input projection of the whole sequence
 hoisted out of the recursion. Layer-norm LSTM parameters, where configured,
@@ -167,15 +172,24 @@ def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> to
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def forget_offset(cfg: RNNTDecoderConfig) -> float:
+    """c, the constant the cell adds to the forget gate: forget_gate_bias,
+    or 0 with Chrono's initialisation (t_max set), as the JAX `_cell`."""
+    return 0.0 if cfg.t_max is not None else float(cfg.forget_gate_bias or 0.0)
+
+
 class _LSTMParams(nn.Module):
     """The stacked LSTM's parameters: nn.LSTM's weight names and one trained
-    bias per layer, `bias_l{k}`, kept in the state_dict as NeMo's
-    bias_ih_l{k} (the bias) and bias_hh_l{k} (zeros); loading sums the pair."""
+    bias per layer, `bias_l{k}` (the JAX package's leaf b - c), kept in the
+    state_dict as NeMo's bias_ih_l{k} (the leaf + c in the forget chunk)
+    and bias_hh_l{k} (zeros); loading sums the pair and subtracts c."""
 
     def __init__(self, cfg: RNNTDecoderConfig):
         super().__init__()
         h = cfg.pred_hidden
         self.layers = cfg.pred_rnn_layers
+        self.hidden = h
+        self.offset = forget_offset(cfg)
         for k in range(cfg.pred_rnn_layers):
             self.register_parameter(f"weight_ih_l{k}", nn.Parameter(torch.zeros(4 * h, h)))
             self.register_parameter(f"weight_hh_l{k}", nn.Parameter(torch.zeros(4 * h, h)))
@@ -186,16 +200,21 @@ class _LSTMParams(nn.Module):
 
     def _save_to_state_dict(self, destination, prefix, keep_vars):
         super()._save_to_state_dict(destination, prefix, keep_vars)
+        h = self.hidden
         for k in range(self.layers):
-            b = destination.pop(prefix + f"bias_l{k}")
+            b = destination.pop(prefix + f"bias_l{k}").detach().clone()
+            b[h: 2 * h] += self.offset
             destination[prefix + f"bias_ih_l{k}"] = b
-            destination[prefix + f"bias_hh_l{k}"] = torch.zeros_like(b.detach())
+            destination[prefix + f"bias_hh_l{k}"] = torch.zeros_like(b)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        h = self.hidden
         for k in range(self.layers):
             ih, hh = prefix + f"bias_ih_l{k}", prefix + f"bias_hh_l{k}"
             if ih in state_dict and hh in state_dict:
-                state_dict[prefix + f"bias_l{k}"] = state_dict.pop(ih) + state_dict.pop(hh)
+                b = state_dict.pop(ih) + state_dict.pop(hh)
+                b[h: 2 * h] -= self.offset
+                state_dict[prefix + f"bias_l{k}"] = b
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
@@ -231,8 +250,8 @@ class PredictionNetwork(nn.Module):
         """The JAX package's initialisers: the embedding N(0, 1/H), xavier-
         uniform input weights, orthogonal recurrent weights, zero biases or
         Chrono's (forget = log U(1, t_max - 1), input = -forget), all scaled
-        by weights_init_scale; then forget_gate_bias into the bias's forget
-        chunk (NeMo's place for the JAX package's run-time constant)."""
+        by weights_init_scale. forget_gate_bias is not in the leaf: the cell
+        adds it."""
         cfg = self.cfg
         h = cfg.pred_hidden
         scale = float(cfg.weights_init_scale)
@@ -251,8 +270,6 @@ class PredictionNetwork(nn.Module):
                                                        generator=generator))
                 b[h: 2 * h] = fb * scale
                 b[:h] = -fb * scale
-            elif cfg.forget_gate_bias:
-                b[h: 2 * h] += float(cfg.forget_gate_bias)
 
     def _embed(self, labels: torch.Tensor) -> torch.Tensor:
         v = self.cfg.vocab_size
@@ -272,7 +289,8 @@ class PredictionNetwork(nn.Module):
         return torch.matmul(x.to(dt), w.to(dt).t()).float()
 
     def _cell(self, layer: int, ig: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-        """The JAX `_cell`: ig = x W_ih^T (precomputed), fp32 state."""
+        """The JAX `_cell`: ig = x W_ih^T (precomputed), fp32 state, the
+        forget gate's constant c added at run time."""
         cfg = self.cfg
         lstm = self.prediction.dec_rnn.lstm
         dt = cfg.dtype
@@ -285,7 +303,7 @@ class PredictionNetwork(nn.Module):
         else:
             z = ig + hg + b
         i, f, g, o = z.chunk(4, dim=-1)
-        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        new_c = torch.sigmoid(f + lstm.offset) * c + torch.sigmoid(i) * torch.tanh(g)
         if cfg.norm == "layer":
             new_c = ln(new_c, "ln_c")
         return torch.sigmoid(o) * torch.tanh(new_c), new_c

@@ -43,20 +43,24 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCount:
-    """Launches of one kernel: the total and per shape key."""
+    """Launches of one kernel: the total and per shape key (under a lock:
+    a model may run in several threads at once)."""
 
     def __init__(self, name: str):
         self.name = name
         self.total = 0
         self.by_shape: dict[tuple, int] = {}
+        self._lock = threading.Lock()
 
     def add(self, shape: tuple) -> None:
-        self.total += 1
-        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+        with self._lock:
+            self.total += 1
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
 
     def reset(self) -> None:
-        self.total = 0
-        self.by_shape.clear()
+        with self._lock:
+            self.total = 0
+            self.by_shape.clear()
 
 
 _COUNTS: dict[str, LaunchCount] = {}

@@ -238,8 +238,15 @@ def _map_param_lists(obj: Any, n: int, fn) -> Any:
     return obj
 
 
-def _param_specs(model: nn.Module) -> list:
-    return [param_spec(name) for name, _ in model.named_parameters()]
+def _cut_along(t: torch.Tensor, spec: Optional[tuple], shape: torch.Size, size: int) -> bool:
+    """Whether a moment of a parameter with `spec` and (slice) `shape` is cut
+    along the sharded dim: it has the parameter's rank and the dim's full
+    length (size = model) or slice length (size = 1) there. Scalars
+    (novograd's per-leaf norm), placeholders and factored moments reduced
+    over the sharded dim (adafactor's, kept as size 1) hold the full
+    leaf's value on every rank."""
+    return (spec is not None and t.dim() == len(shape)
+            and t.shape[spec[0]] == shape[spec[0]] * size)
 
 
 def gather_opt_state(opt_state: Any, model: nn.Module) -> Any:
@@ -248,21 +255,31 @@ def gather_opt_state(opt_state: Any, model: nn.Module) -> Any:
     tp = tp_of(model)
     if tp is None:
         return opt_state
-    specs = _param_specs(model)
-    return _map_param_lists(opt_state, len(specs), lambda i, t: (
-        gather_tensor(t, *specs[i], tp) if specs[i] else t))
+    params = list(model.named_parameters())
+
+    def gather(i: int, t: torch.Tensor) -> torch.Tensor:
+        spec = param_spec(params[i][0])
+        return gather_tensor(t, *spec, tp) if _cut_along(t, spec, params[i][1].shape, 1) else t
+
+    return _map_param_lists(opt_state, len(params), gather)
 
 
 def shard_opt_state(opt_state: Any, model: nn.Module,
                     tp: Optional[TensorParallel] = None) -> Any:
     """A full optimizer state cut to the slices of `tp` (default: the
-    model's own place)."""
+    model's own place; the model holds its slices)."""
     tp = tp or tp_of(model)
     if tp is None:
         return opt_state
-    specs = _param_specs(model)
-    return _map_param_lists(opt_state, len(specs), lambda i, t: (
-        shard_tensor(t, *specs[i], tp.rank, tp.size) if specs[i] else t))
+    params = list(model.named_parameters())
+
+    def shard(i: int, t: torch.Tensor) -> torch.Tensor:
+        spec = param_spec(params[i][0])
+        if _cut_along(t, spec, params[i][1].shape, tp.size):
+            return shard_tensor(t, *spec, tp.rank, tp.size)
+        return t
+
+    return _map_param_lists(opt_state, len(params), shard)
 
 
 def set_sync_batchnorm(model: nn.Module, group) -> None:

@@ -75,7 +75,6 @@ def convert(in_path: str, out_path: str, config_path: Optional[str] = None,
         build_rnnt_model_config,
     )
     from conformer_nemo_tpu_torch.convert.jax_params import (
-        _check_striding,
         ctc_variables_to_jax,
         rnnt_variables_to_jax,
     )
@@ -107,13 +106,11 @@ def convert(in_path: str, out_path: str, config_path: Optional[str] = None,
         if model_type == "ctc":
             vocab = int(sd["decoder.decoder_layers.0.weight"].shape[0]) - 1
             cfg = build_ctc_model_config({"model": m}, vocab_size=vocab, dtype=torch.float32)
-            _check_striding(cfg.encoder)
             model, to_jax, mcfg = CTCModel(cfg), ctc_variables_to_jax, cfg
         else:
             vocab = int(sd["decoder.prediction.embed.weight"].shape[0]) - 1
             mcfg = build_rnnt_model_config({"model": m}, vocab_size=vocab,
                                            dtype=torch.float32).model
-            _check_striding(mcfg.encoder)
             model, to_jax = RNNTModel(mcfg), rnnt_variables_to_jax
         state, dropped = nemo_state_dict(sd, model)
         model = model.to(dev)

@@ -5,8 +5,10 @@ Resumable state keeps the JAX package's layout: `ckpt_dir/step_N/` holds the
 state file and `meta.json` (`step`, `metrics`); `ckpt_dir/last` names the
 newest; pruning keeps the top k by a monitored metric and `last`. The state
 file is the port's own (`state.pt`, `torch.save`): the model's state_dict
-(parameters and BatchNorm statistics), the optimizer state, the train
-state's CPU generator (`get_state()`) and the step. Each step's seeds come
+(parameters and BatchNorm statistics), the trained leaves that the
+state_dict writes under other names (`leaves`: the LSTM bias), the
+optimizer state, the train state's CPU generator (`get_state()`) and the
+step. Each step's seeds come
 from that generator and the LR schedule reads the optimizer's count, so a
 restored run continues bit for bit.
 
@@ -21,6 +23,11 @@ tensors (parallel/sharding.py), rank 0 alone copies them to the host and
 writes, and the synchronous save leaves through a barrier. A restore
 waits at a barrier, loads the full state and cuts it to the live layout,
 so a checkpoint written at dp x tp resumes at world 1, and the reverse.
+
+A step directory that holds the JAX package's `state.msgpack` and no
+`state.pt` restores through convert/jax_train_state.py, so
+`resume_from_checkpoint` and `resume_if_exists` resume a JAX run
+(scripts/convert_checkpoint.py writes the other direction).
 
 The portable archive is the JAX package's: a tar.gz of `model_config.yaml`,
 `model_weights.msgpack` (flax's msgpack tree, convert/flax_msgpack.py),
@@ -41,7 +48,7 @@ from typing import Any, Callable, Optional
 import torch
 import yaml
 
-from conformer_nemo_tpu_torch.convert import flax_msgpack
+from conformer_nemo_tpu_torch.convert import flax_msgpack, jax_train_state
 from conformer_nemo_tpu_torch.parallel.distributed import barrier, is_main_process
 from conformer_nemo_tpu_torch.parallel.sharding import (
     full_state_dict,
@@ -78,8 +85,25 @@ def _host_copy(state) -> Optional[dict]:
     if not is_main_process():
         return None
     payload = {"model": model_sd, "opt_state": opt_state,
-               "generator": state.generator.get_state(), "step": int(state.step)}
+               "generator": state.generator.get_state(), "step": int(state.step),
+               "leaves": unsaved_leaves(state.model, model_sd)}
     return _map_tensors(payload, lambda t: t.detach().to("cpu", copy=True))
+
+
+def unsaved_leaves(model, model_sd: dict) -> dict:
+    """The trained parameters that the state_dict carries under other
+    names (the LSTM's bias leaf, written as NeMo's bias pair, whose sum
+    less c need not give the leaf back bit for bit), by parameter name.
+    They are replicated under tensor parallelism."""
+    return {name: p.detach() for name, p in model.named_parameters() if name not in model_sd}
+
+
+def load_leaves(model, leaves: dict) -> None:
+    """Put `unsaved_leaves` back after the state_dict is loaded."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, t in leaves.items():
+            params[name].copy_(t)
 
 
 def _write_train_state(ckpt_dir: str, payload: dict, step: int,
@@ -153,14 +177,30 @@ def restore_train_state(ckpt_dir: str, state, step: Optional[int] = None):
     else:
         name = f"step_{step}"
     path = os.path.join(ckpt_dir, name)
+    if not os.path.exists(os.path.join(path, STATE_FILE)) and os.path.exists(
+            os.path.join(path, jax_train_state.STATE_FILE)):
+        return _restore_jax_state(path, state)
     payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
     tp = tp_of(state.model)
     state.model.load_state_dict(shard_state_dict(payload["model"], tp), strict=True)
+    load_leaves(state.model, payload.get("leaves", {}))
     dev = next(state.model.parameters()).device
     state.opt_state = _map_tensors(shard_opt_state(payload["opt_state"], state.model, tp),
                                    lambda t: t.to(dev))
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    return state, meta
+
+
+def _restore_jax_state(path: str, state):
+    """A step directory the JAX package wrote (state.msgpack): its train
+    state read into the port's (convert/jax_train_state.py), onto the
+    model's full tensors; `fit` cuts it to a mesh's slices afterwards."""
+    if tp_of(state.model) is not None:
+        raise ValueError("a JAX checkpoint restores into the full model, before it is sharded")
+    jax_train_state.read_train_state(os.path.join(path, jax_train_state.STATE_FILE), state)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return state, meta

@@ -64,8 +64,9 @@ def test_fit_on_cpu_then_transcribe(manifest):
 
 
 def test_fit_refuses_what_is_not_ported(manifest, tmp_path):
-    """What fit still refuses (novograd) raises naming ROADMAP.md, and a
-    mesh that does not fit the world of processes raises before a step;
+    """What fit still refuses raises before a step: an optimizer name the
+    JAX package does not know (every name it knows now trains), and a mesh
+    that does not fit the world of processes;
     the data options it once refused (integer transports, tar shards,
     silence trimming, the augmentor) now train, on the loader batches of
     the JAX package's `_loader` for the same config."""
@@ -79,10 +80,10 @@ def test_fit_refuses_what_is_not_ported(manifest, tmp_path):
         dtype=torch.float32)
     with pytest.raises(FileNotFoundError, match="no checkpoint in /nowhere"):
         m.fit(manifest, max_steps=1)  # as the JAX package's fit raises
-    m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, "model.optim.name": "novograd"},
+    m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, "model.optim.name": "lamb"},
                                       device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.fit(manifest, max_steps=1)
+    with pytest.raises(ValueError, match="unknown optimizer lamb"):
+        m.fit(manifest, max_steps=1)  # as the JAX package's make_optimizer raises
     for mesh in ({"data": 2, "model": 1}, {"data": -1, "model": 2}):
         m = ConformerCTC.from_config_file(CONFIG, overrides={**TINY, "trainer.mesh": mesh},
                                           device="cpu", dtype=torch.float32)

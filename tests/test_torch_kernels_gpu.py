@@ -598,3 +598,35 @@ def test_rnnt_joint_cuda_mask_and_gradients_at_a_row_offset(cuda_device):
         g, r = g.float(), r.float()
         assert (g - r).abs().max() <= 2e-2 * r.abs().max()
     assert not torch.equal(grads[0], base0[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,factor", [("vggnet", 4), ("resnet", 4), ("subencoder", 8),
+                                         ("stacking", 4), ("none", 1)])
+def test_subsampling_modes_on_the_card_match_the_cpu(cuda_device, mode, factor):
+    """A tiny fp32 encoder of each front end in training mode (its 2-D
+    BatchNorms' batch statistics) on the card and on the CPU: outputs
+    within 1e-4 absolute (cuDNN's and the CPU's convolution algorithms sum
+    in other orders), lengths and the running statistics equal within it."""
+    from conformer_nemo_tpu_torch.models.conformer import ConformerEncoder, ConformerEncoderConfig
+
+    cfg = ConformerEncoderConfig(feat_in=20, n_layers=1, d_model=32, n_heads=2,
+                                 conv_kernel_size=7, subsampling=mode, subsampling_factor=factor,
+                                 subsampling_conv_channels=8, dropout=0.0, dropout_att=0.0,
+                                 dtype=torch.float32, use_flash_attention=False)
+    torch.manual_seed(0)
+    cpu = ConformerEncoder(cfg).train()
+    card = ConformerEncoder(cfg).train()
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda_device)
+    g = torch.Generator().manual_seed(1)
+    feats = torch.randn(3, 20, 77, generator=g)
+    lens = torch.tensor([77, 59, 9], dtype=torch.int32)
+    with torch.no_grad():
+        y, yl = cpu(feats, lens)
+        z, zl = card(feats.to(cuda_device), lens.to(cuda_device))
+    assert torch.equal(yl, zl.cpu())
+    torch.testing.assert_close(z.cpu(), y, rtol=0, atol=1e-4)
+    want = cpu.state_dict()
+    for k, v in card.state_dict().items():
+        torch.testing.assert_close(v.cpu(), want[k], rtol=0, atol=1e-4)

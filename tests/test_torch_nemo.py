@@ -16,7 +16,7 @@ the tokenizer under an md5-mangled name.
   LSTM forget chunk within one ulp), the port's restore equals the source
   model (texts equal, CTC log-probs within 1e-4) and its tokenizer is the
   source's;
-- a non-striding subsampling raises, naming ROADMAP queue 1 item 4.
+- a vggnet `.nemo` (a non-striding front end, once refused) loads in both.
 """
 
 import hashlib
@@ -37,7 +37,7 @@ from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
 from conformer_nemo_tpu_torch.convert.nemo_archive import load_nemo_archive, load_torch_weights
 from conformer_nemo_tpu_torch.scripts import convert_nemo
 
-from test_torch_portable import ATOL, ENC, FIXTURES, ROOT, SP_MODEL, WAVS, _port_model
+from test_torch_portable import ATOL, CASES, ENC, FIXTURES, ROOT, SP_MODEL, WAVS, _port_model
 
 torch.set_num_threads(2)
 
@@ -248,9 +248,20 @@ def test_aggregate_tokenizer_nemo(tmp_path):
 
 
 def test_non_striding_subsampling_raises(tmp_path):
-    pm = _source("ctc", "char")
-    m = _nemo_config(pm)
-    m["encoder"]["subsampling"] = "vggnet"
-    nemo = _write_nemo(str(tmp_path / "vgg.nemo"), m, _nemo_state(pm))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        convert_nemo.convert(nemo, str(tmp_path / "vgg.cntpu"), device="cpu")
+    """Once refused: a vggnet `.nemo` (the front end's convolutions at
+    `pre_encode.conv.{5j}` and `{5j+2}`) now converts in the port as in the
+    JAX package, and the restore transcribes as the source model."""
+    name, overrides = CASES[("ctc", "char")]
+    pm = ConformerCTC.from_config_file(
+        os.path.join(ROOT, "configs", name), device="cpu", dtype=torch.float32, seed=12,
+        overrides={**overrides, "model.encoder.subsampling": "vggnet",
+                   "model.encoder.subsampling_conv_channels": 8})
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for p in pm.model.parameters():
+            p.add_(0.2 * torch.randn(p.shape, generator=gen))
+    sd = _nemo_state(pm)
+    assert "encoder.pre_encode.conv.7.weight" in sd  # the second repetition's second conv
+    nemo = _write_nemo(str(tmp_path / "vgg.nemo"), _nemo_config(pm), sd)
+    restored, _ = _check_both("ctc", pm, nemo, tmp_path)
+    assert restored.cfg.encoder.subsampling == "vggnet"

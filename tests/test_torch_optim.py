@@ -99,10 +99,56 @@ def test_optimizer_matches_optax(case):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
 
 
-def test_optimizer_registry_refuses_unported():
-    for name in ("novograd", "adafactor", "adadelta", "adamax", "adagrad", "rmsprop", "rprop"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            popt.make_optimizer(name, lambda s: 0.1)
+# a tree with leaves adafactor factors (two axes >= 128, one square, one
+# 4-D) and leaves it does not
+FACTORED_SHAPES = ((5, 7), (7,), (130, 140), (144, 144), (3, 3, 128, 136), (1,))
+
+
+@pytest.mark.parametrize("wrap", ["plain", "clip_accumulate"])
+@pytest.mark.parametrize("name", popt.NAMES)
+def test_optimizer_registry_refuses_unported(name, wrap):
+    """Once the seven optimizers past adamw, adam and sgd were refused; now
+    every name of the registry matches optax on the JAX package's
+    arguments, parameters within 1e-5 relative and 1e-6 absolute (the same
+    fp32 arithmetic in other orders; pow and rsqrt may round differently).
+    `plain`: eps and momentum passed as the JAX `make_optimizer` takes them,
+    five updates. `clip_accumulate`: clipping by global norm at 3.0 and
+    accumulation over 2 micro-batches, as the JAX package wraps them, on a
+    tree that adafactor factors, for 5 inner updates whose gradients grow
+    so that clipping holds on the later ones only."""
+    sched = {"name": "NoamAnnealing", "d_model": 64, "warmup_steps": 3}
+    if wrap == "plain":
+        kw, every, shapes, calls = (dict(betas=(0.9, 0.98), eps=1e-7, momentum=0.8,
+                                         weight_decay=1e-2), 1, ((5, 7), (7,), (3, 2, 2)), 5)
+        grad_scale = lambda call: 1.0
+    else:
+        kw, every, shapes, calls = (dict(betas=(0.9, 0.98), weight_decay=1e-2, grad_clip=3.0),
+                                    2, FACTORED_SHAPES, 10)
+        grad_scale = lambda call: 0.002 * (call + 1)
+    ref = jopt.with_grad_accumulation(
+        jopt.make_optimizer(name, jlr.make_lr_schedule(sched, 0.5), **kw), every)
+    port = popt.with_grad_accumulation(
+        popt.make_optimizer(name, plr.make_lr_schedule(sched, 0.5), **kw), every)
+    rng = np.random.RandomState(1 if wrap == "plain" else 0)
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    p_ref = [jnp.asarray(p) for p in params]
+    p_port = [torch.from_numpy(p.copy()) for p in params]
+    s_ref, s_port = ref.init(p_ref), port.init(p_port)
+    clipped = []
+    for call in range(calls):
+        grads = [grad_scale(call) * rng.randn(*p.shape).astype(np.float32) for p in params]
+        grads[1][call % 7] = 0.0  # rprop's and adagrad's zero branches
+        clipped.append(float(popt.global_norm([torch.from_numpy(g) for g in grads])) >= 3.0)
+        u_ref, s_ref = ref.update([jnp.asarray(g) for g in grads], s_ref, p_ref)
+        p_ref = [p + u for p, u in zip(p_ref, u_ref)]
+        u_port, s_port = port.update([torch.from_numpy(g) for g in grads], s_port, p_port)
+        popt.apply_updates(p_port, u_port)
+        for i, (a, b) in enumerate(zip(p_port, p_ref)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{name} call {call} leaf {shapes[i]}")
+    if wrap == "clip_accumulate":
+        assert any(clipped) and not all(clipped)
+        assert s_port["gradient_step"] == int(s_ref.gradient_step) == 5
 
 
 def test_wer_num_denom_matches_jax():

@@ -156,7 +156,8 @@ def test_prednet_matches_jax_and_step_matches_sequence(dec):
 
 def test_prednet_init_rules():
     """Chrono init (forget = log U(1, t_max-1), input = -forget, no constant),
-    forget_gate_bias in the state_dict's bias_ih (bias_hh zeros),
+    forget_gate_bias not in the trained leaf but in the state_dict's
+    bias_ih (bias_hh zeros),
     weights_init_scale, blank embeds to zero."""
     gen = torch.Generator().manual_seed(0)
     chrono = port.PredictionNetwork(port.RNNTDecoderConfig(vocab_size=8, pred_hidden=16,
@@ -169,14 +170,17 @@ def test_prednet_init_rules():
                                                           dtype=torch.float32))
     plain.reset_parameters(torch.Generator().manual_seed(0))
     lstm = plain.prediction.dec_rnn.lstm
+    assert not lstm.bias_l0.detach().any()  # the leaf holds no constant
     sd = plain.state_dict()
     pre = "prediction.dec_rnn.lstm."
     assert torch.equal(sd[pre + "bias_ih_l0"][16:32], torch.ones(16))
     assert torch.equal(sd[pre + "bias_hh_l0"], torch.zeros(64))
     assert pre + "bias_l0" not in sd
-    # loading sums NeMo's pair into the one bias, and the pair round-trips
+    # loading sums NeMo's pair and subtracts forget_gate_bias from the
+    # forget chunk, into the one bias (the JAX leaf), and the pair round-trips
     sd[pre + "bias_hh_l0"] = torch.full((64,), 0.25)
     want = sd[pre + "bias_ih_l0"].clone() + 0.25
+    want[16:32] -= 1.0
     plain.load_state_dict(sd)
     torch.testing.assert_close(lstm.bias_l0.detach(), want)
     assert torch.equal(plain.state_dict()[pre + "bias_hh_l0"], torch.zeros(64))

@@ -27,9 +27,9 @@ def _optimizer(spec, mesh):
     from conformer_nemo_tpu_torch.train import lr_schedule, optim
 
     return optim.make_optimizer(
-        "adamw", lr_schedule.make_lr_schedule(spec["sched"], spec["lr"]),
+        spec.get("optim", "adamw"), lr_schedule.make_lr_schedule(spec["sched"], spec["lr"]),
         weight_decay=1e-3, betas=(0.9, 0.98), grad_clip=spec.get("grad_clip"),
-        grad_norm=mesh.grad_norm)
+        grad_norm=mesh.grad_norm, model_group=mesh.model_group if mesh.model > 1 else None)
 
 
 def _rows(batch: dict, mesh) -> dict:
