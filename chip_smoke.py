@@ -17,7 +17,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                path switched off must agree with it (profile: one traced
                transcribe, device busy share and the kernels that take its time)
   decode_ctc   on the same model: beamsearch_ngram through change_decoding_strategy
-               (beam 64, alpha 1.0, beta 1.5, a 3-gram ARPA the phase writes) over
+               (beam 16, alpha 1.0, beta 1.5, a 3-gram ARPA the phase writes) over
                the short bucket and one 30-50 s file, whose batch launches K2-fwd
                (counted); twice at once, the same texts; the same texts from the
                port's decoder on transcribe(logprobs=True)'s arrays, run beside the
@@ -42,13 +42,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                K3-beta and K4-bwd-reduce, one K4-bwd and one K4-bwd-dw per window
                of lattice cells, and none of K1/K2, finite loss
                and gradient norm, changed parameters, step time and audio-s/s; then
-               a timed greedy transcribe of a few files (profile_rnnt: one traced
+               a timed greedy transcribe of one file (profile_rnnt: one traced
                train step); then save_portable and restore_portable of that model
                (the same bits but the LSTM forget chunk, held to one ulp; the same
                greedy texts), timed
   decode_rnnt  that archive through scripts/evaluate.main once per strategy
                (greedy_batch, beam, tsd, alsd, maes, beam_batch; the JAX script's
-               options) on the phase's two shortest files, each evaluate's texts
+               options) on the phase's shortest file, each evaluate's texts
                equal to a second call's; alsd with the config's own beam block; the
                card's encoder output in fp32 decoded on the card and on the CPU
                with the same fp32 weights (equal tokens, or best scores within
@@ -76,7 +76,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                the loader's seconds per batch, the traced step fed by the prefetch
                against the synchronous copy in turns (idle shares);
                configs/conformer_transducer_bpe_multilang.yaml with the flash joint
-               fits 3 steps (K3, K4 at V 584) and greedy-transcribes 3 files
+               fits 3 steps (K3, K4 at V 584) and greedy-transcribes 1 file
   distributed  multi-GPU training on the one card: NCCL at world 1 in this process,
                the train phase's 3-step long-form fit through the distributed path
                (gradient all-reduce, synchronised BatchNorm, the global loss), its
@@ -119,7 +119,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                transcribe_buffered twice at its defaults (the
                same texts, no K2 launch: T 100) and once with a 24 s buffer (T 600: banded
                K2-fwd counted), times, one traced buffered call (busy and idle share); the
-               transducer's transcribe_buffered on rnnt_train's archive (2 files, twice,
+               transducer's transcribe_buffered on rnnt_train's archive (1 file, twice,
                the same texts); each model cut to its first STREAMING_SERVE_LAYERS
                layers (full width) for export and .nemo loading: export of the streaming
                model (batch 2, 30 s) reloaded with load_exported: K2-fwd's count rises
@@ -148,6 +148,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                peak memory; each of the ten optimizers 3 fit steps through K1 at
                FRONTEND_LAYERS layers, and OPT_UPDATES updates of fixed gradients on the
                card against the CPU (within OPT_UPDATE_REL)
+  ssl          after frontends: scripts/ssl_pretrain.main on configs/conformer_ctc_bpe_longform.yaml
+               with quantised targets at full width and depth (18 layers, d_model 512,
+               remat, bf16) at the config's own optim.lr, 3 steps over 32 files of
+               45-71 s (SSL_SPANS: the fit's 4 buckets each hold one full batch of 8):
+               per step K2-fwd x36, dQ x18, dK/dV x18 and no K1, K3 or K4; finite
+               losses and weights; the written .cntpu restored bit for bit; one traced
+               step (the contrastive loss's share of its device time); on the longest
+               timed batch, a flash step against a dense one from the same weights,
+               masks, negatives and dropout, from the CLI's initial weights (loss
+               within PARITY_LOSS_REL, gradient cosine >= PARITY_GRAD_COSINE) and from
+               its trained ones (finite gradients, loss within PARITY_LOSS_REL; the
+               cosine reported: scores in the millions, past an fp32 softmax's
+               resolution); K2 on the trained model's first and last layers' own
+               inputs against the plain version in fp64 (ssl_trained_layer*, each
+               error within CAPTURED_ERR_RATIO of the plain fp32 version's);
+               transfer_encoder_to a ConformerCTC of the config and one finite fit
+               step; steady step, audio-s/s, peak memory
+  labels       the label models at their default widths through their CLIs:
+               speech_classification (MatchboxNet 3x1x64, 64 mel features, 3 steps at
+               batch 32 x 4 s, then --predict), speaker_tasks train / verify / embed
+               (ECAPA 512 x 4 + 1536, embedding 192, 3 steps at batch 32 x 3 s), the
+               classification model's vad_frame_probs over a 60 s file (0.63 s
+               windows every 0.01 s, batch 256) into postprocess_frame_predictions;
+               logits, embeddings and frame probabilities against a CPU copy of the
+               same weights (LABEL_CARD_CPU_ATOL, VAD_CARD_CPU_ATOL; cuDNN's TF32 off;
+               the logits under cuDNN's TF32 as a control that must exceed
+               LABEL_CARD_CPU_ATOL); steady step, rows/s, VAD audio-s/s;
+               no kernel of the port runs
   kernels      each kernel against its plain PyTorch version on the card, on
                the same inputs, at the shapes and lengths of the counted
                transcribe's and train step's own calls and a few edge cases,
@@ -175,7 +203,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                rows go into the summary line under the path `multilang`; K2-fwd,
                dQ and dK/dV at the streaming step's shapes, lengths and band (path
                `streaming`); K2-fwd at the resnet serve's calls, K1 at its fit's, K3
-               and K4 at the subencoder fit's (path `frontends`)
+               and K4 at the subencoder fit's (path `frontends`); K2-fwd, dQ and dK/dV
+               at the SSL step's (path `ssl`), and at the same shapes on exact
+               scores of 1e9 and more (ssl_extreme: lse equal to the plain one bit
+               for bit, the backward within BWD_REL_TOL)
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -236,6 +267,13 @@ ARGMAX_AGREEMENT_MIN = 0.99
 # K2-bwd vs its plain version, max|kernel - plain| / max|plain| per output:
 # the kernel rounds P and dS to bf16 before the dV, dQ and dK products
 BWD_REL_TOL = 2e-2
+# K2 on a trained SSL model's own attention inputs (scores in the millions):
+# each output's error against the plain version in fp64, at most this many
+# times the plain fp32 version's
+CAPTURED_ERR_RATIO = 4.0
+# the extreme-score K2 case: qs entries are integers times this (scores 1e9+)
+EXTREME_Q_SCALE = 2.0 ** 24
+EXP_F32_MAX_ARG = 88.72  # expf of more is past fp32's range
 # K1 vs its plain version in fp32: nll relative (rounding accumulated over
 # ~1900 log-sum-exp steps); gradient absolute (posteriors lie in [0, 1] and
 # alpha + beta - ll cancels at |ll| ~ T log V, leaving ~ulp(|ll|))
@@ -276,7 +314,9 @@ RNNT_OVERRIDES = {**TRAIN_OVERRIDES, "model.joint.joint_impl": "flash"}
 # flash-attention kernel
 RNNT_KERNELS = ("K3-alpha", "K3-beta", "K4-fwd", "K4-bwd", "K4-bwd-dw", "K4-bwd-reduce")
 NOT_RNNT = ("K2-fwd", "K2-bwd-dq", "K2-bwd-dkv", "K1-fwd", "K1-bwd", "K1-bwd-grad")
-RNNT_TRANSCRIBE_FILES = 3
+# one file: greedy at max_symbols 30 on random weights is host-bound
+# (13.4 s for 3 files on the card)
+RNNT_TRANSCRIBE_FILES = 1
 # K3 vs its plain version in fp32: the same recursion in the same order
 LATTICE_REL_TOL = 1e-5
 # K4 vs its plain version in bf16: max|kernel - plain| <= 2e-2 * max|plain| per output
@@ -307,7 +347,8 @@ FIXTURE_FLAC_SAMPLES = {"utt1.flac": 16320, "utt3.flac": 14080, "utt5.flac": 140
 PREFETCH_TURNS = ("prefetch", "sync", "sync", "prefetch")
 # decode: CTC prefix beam search with a 3-gram the phase writes, the transducer's
 # strategies through scripts/evaluate.main with the JAX script's options
-CTC_BEAM = {"beam_width": 64, "alpha": 1.0, "beta": 1.5}
+# beam 16: the host C++ search took 86-89 s at beam 64 on the card
+CTC_BEAM = {"beam_width": 16, "alpha": 1.0, "beta": 1.5}
 LM_WORDS = 18  # the 3-gram's vocabulary: the fixture tokenizer's pieces of 2+ letters
 RNNT_STRATEGIES = ("greedy_batch", "beam", "tsd", "alsd", "maes", "beam_batch")
 # the distributed phase's gloo worlds share the one card: full width, depth
@@ -330,7 +371,7 @@ DIST_TIMEOUT_S = 420
 DIST_LOSS_REL = 3e-5
 DIST_GRAD_COSINE = 0.99993
 RNNT_BEAM_SIZE = 4  # the JAX script's --beam-size default
-RNNT_DECODE_FILES = 2
+RNNT_DECODE_FILES = 1  # every strategy decodes on the host
 # the card's fp32 decode against the CPU's: equal tokens, or best scores this close
 DECODE_SCORE_ATOL = 1e-3
 # streaming: the banded recipe at full width and depth (18 layers, d_model
@@ -341,6 +382,9 @@ STREAMING_CONFIG = os.path.join(ROOT, "configs", "conformer_ctc_bpe_streaming.ya
 STREAMING_BAND = (128, 32)
 STREAMING_FILES = 16
 STREAMING_TRANSCRIBE_FILES = 3
+# the transducer's buffered decode: one file (1.1-1.2 audio-s/s on random
+# weights at max_symbols 30)
+STREAMING_RNNT_FILES = 1
 # buffered decode at its defaults (encoder T 100: the dense banded path) and
 # with a 24 s buffer (T 600 >= flash_attention_min_t 512: K2-fwd)
 BUFFERED_DEFAULT = {"frame_len": 1.6, "total_buffer": 4.0, "batch_size": 4}
@@ -348,22 +392,51 @@ BUFFERED_FLASH = {"frame_len": 8.0, "total_buffer": 24.0, "batch_size": 4}
 EXPORT_BATCH, EXPORT_SECONDS = 2, 30.0
 # export and .nemo loading serve each model cut to its first 6 layers (full
 # width): at full depth their saves and loads took 200 s of the run
-STREAMING_SERVE_LAYERS = 6
+STREAMING_SERVE_LAYERS = 3
 # the exported program's log-probs against the live model's on the same card
 EXPORT_LOGPROB_ATOL = 1e-3
 
 
 # frontends (PR 15): every subsampling mode and optimizer on the card
-FRONTEND_LAYERS = 6  # vggnet, stacking and factor 1, and the optimizers' model
+FRONTEND_LAYERS = 3  # vggnet, stacking and factor 1, and the optimizers' model
 # the subencoder transducer's greedy transcribe: random weights emit up to
 # max_symbols a frame, one host sync each (5 s a file on the card)
 FRONTEND_TRANSCRIBE_FILES = 1
+# the host-bound transducer decodes on random weights (up to max_symbols
+# symbols a frame, one host read each) take the first DECODE_CLIP_S seconds
+# of their file (a whole 10-16 s file took 13-19 s a greedy transcribe),
+# the buffered decode the first STREAMING_CLIP_S (two and more 4 s buffers)
+DECODE_CLIP_S = 4.0
+STREAMING_CLIP_S = 8.0
 OPT_UPDATES = 2  # rprop's first update moves nothing (optax 0.2.6), its second does
 # card vs CPU, the same fp32 update from the same parameters and gradients:
 # reductions (norms, factored means, block RMS) sum in other orders and the
 # card's rsqrt, pow and division round otherwise, a few ulps of each
 # update entry; each update held within 1e-3 of its largest entry
 OPT_UPDATE_REL = 1e-3
+# ssl: the SSL CLI at full width and depth on the long-form config
+# with quantised targets; a step is K2's forward twice a layer (remat) and its
+# two backward kernels once, and nothing of K1, K3 or K4
+SSL_STEPS = 3
+# the SSL manifest: 8 files in each quarter of these spans, so that each of
+# the fit's 4 duration buckets (quantile boundaries) holds one full batch
+SSL_SPANS = ((45.0, 50.0), (52.0, 57.0), (59.0, 64.0), (66.0, 71.0))
+SSL_FILES_PER_SPAN = 8
+SSL_STEP_LAUNCHES = {"K2-fwd": 36, "K2-bwd-dq": 18, "K2-bwd-dkv": 18}
+NOT_SSL = ("K1-fwd", "K1-bwd", "K1-bwd-grad", "K3-alpha", "K3-beta", "K4-fwd", "K4-bwd",
+           "K4-bwd-dw", "K4-bwd-reduce")
+# labels: the label models' fits, and their outputs on the card
+# against a CPU copy of the same weights; both fp32 (cuDNN's TF32 is off),
+# their convolutions and reductions summed in other orders: logits and
+# embeddings of order 1-10 within 1e-3, probabilities within 1e-4
+LABEL_STEPS = 3
+# fp32 with TF32 off reads 2.1e-7 to 2.7e-7 (logits) and 1.4e-6 to 1.7e-6
+# (embeddings) card vs CPU; cuDNN's TF32 reads 7.4e-5 to 7.9e-5 on the
+# logits (PERF.md): the limit sits between, and the TF32 control must fail it
+LABEL_CARD_CPU_ATOL = 1e-5
+VAD_CARD_CPU_ATOL = 1e-4
+VAD_SECONDS = 60
+VAD_CPU_WINDOWS = 512  # the card's first windows recomputed on the CPU
 # a CTC step of conformer_ctc_bpe.yaml: K1 once each; its dropout_att 0.1
 # keeps training attention dense
 CTC_STEP_LAUNCHES = {"K1-fwd": 1, "K1-bwd": 1, "K1-bwd-grad": 1, "K2-fwd": 0, "K2-bwd-dq": 0,
@@ -678,6 +751,81 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev):
     emit("kernels", case=name, kernel="K2-bwd pair", ms=rows[0]["ms"] + rows[1]["ms"],
          **bound(2.0 * pairs * (3 * d1 + 2 * dv), inputs + 2 * bh * t * (2 * d1 + dv)))
     return rows
+
+
+def _flash_extreme_inputs(bh, t, d1, dv, lens, gen, dev) -> tuple:
+    """K2 inputs whose scores lie far past fp32's integer range and still come
+    out exact from any order of summation: qs holds integers in [-8, 8] times
+    EXTREME_Q_SCALE in its first d1 / 2 columns and 0 past them, ks integers
+    in [-8, 8], keys 2i and 2i + 1 equal in those columns (each score tied
+    with its pair's). Every partial sum of S is an integer below 2^15 times
+    EXTREME_Q_SCALE, so the kernels and the plain version see the same
+    scores (~1e9 to 1e10 after the scale), and each softmax row splits
+    evenly over its top pair (or pairs): dQ, dK and dV are well defined."""
+    half = d1 // 2
+
+    def ints(*shape):
+        return torch.randint(-8, 9, shape, generator=gen, device=dev).float()
+
+    qs = torch.zeros(bh, t, d1, device=dev)
+    qs[..., :half] = ints(bh, t, half) * EXTREME_Q_SCALE
+    ks = ints(bh, t, d1)
+    ks[:, 1::2, :half] = ks[:, 0::2, :half][:, : t // 2]
+    v, do = (torch.randn(bh, t, dv, generator=gen, device=dev) for _ in range(2))
+    return (*(x.to(torch.bfloat16) for x in (qs, ks, v, do)),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _flash_extreme_case(name, bh, t, d1, dv, lens, gen, dev) -> dict:
+    """K2-fwd, dQ and dK/dV against their plain versions at scores of 1e9 and
+    more (_flash_extreme_inputs): lse equal to the plain one bit for bit, o
+    within O_TOL, dQ, dK and dV finite and within BWD_REL_TOL. Beside them,
+    the rows where the forward's earlier lse (the row max kept as
+    x * scale * log2 e, back through ln 2) would have put exp(x - lse) past
+    fp32's range, as an SSL step at the long-form config's rate met it."""
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    qs, ks, v, do, lens_t = _flash_extreme_inputs(bh, t, d1, dv, lens, gen, dev)
+    scale = 1.0 / math.sqrt(64.0)
+    o, lse = fa.flash_attention_fwd(qs, ks, v, lens_t, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(qs, ks, v, lens_t, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (qs, ks, v, do, lse, delta, lens_t, scale, -1, -1)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dvv = fa.flash_attention_bwd_dkv(*args)
+    ref = fa.flash_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    lse_equal = torch.equal(lse, lse_ref)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    errs = {}
+    for out_name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dvv), ref):
+        check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+              (name, out_name, "not finite"))
+        errs[out_name] = ((a.float() - b.float()).abs().max()
+                          / b.float().abs().max().clamp_min(1e-30)).item()
+    # the earlier lse: m2 = fl(S * fl(scale * log2 e)) at the row max, then
+    # fl(m2 * ln 2 + log 2) (the pair's tie); the backward's exponent was
+    # fl(x - lse) with x the row max exactly
+    s_max = lse_ref.double() / scale  # the raw row max: lse is that max exactly here
+    sl2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                                  dtype=torch.float32)
+    m2 = (s_max * sl2.double()).float().double()
+    lse_old = (m2 * float(torch.tensor(0.6931471805599453, dtype=torch.float32))
+               + math.log(2.0)).float()
+    gap = (lse_ref.double() - lse_old.double()).float()
+    rows_old_overflow = int((gap > EXP_F32_MAX_ARG).sum())
+    row = {"case": name, "kernel": "K2-fwd + K2-bwd", "bh": bh, "t": t, "d1": d1, "dv": dv,
+           "q_scale": EXTREME_Q_SCALE, "max_abs_lse": lse_ref.abs().max().item(),
+           "lse_equal": lse_equal, "max_abs_err_o": err_o, "tol_o": O_TOL, "rel_err": errs,
+           "tol_rel": BWD_REL_TOL, "rows": bh * t, "rows_past_exp_range_before": rows_old_overflow}
+    emit("kernels", **row)
+    check(lse_equal, (name, "lse differs from the plain version's"))
+    check(err_o <= O_TOL, (name, "o", err_o))
+    for out_name, err in errs.items():
+        check(err <= BWD_REL_TOL, (name, out_name, err))
+    # the inputs reach the fault's regime (a property of the data, not of a kernel)
+    check(rows_old_overflow > 0, (name, "no row reaches past exp's range", row))
+    return row
 
 
 def _ctc_case(name, lp, targets, il, tl, blank, timed=True):
@@ -1311,6 +1459,27 @@ def phase_transcribe(model, groups, gpu: str) -> tuple:
 
 
 @contextlib.contextmanager
+def _module_span(module, span: str):
+    """Mark `module`'s forward as the trace range `span` (module hooks)."""
+    from torch.profiler import record_function
+
+    open_ranges = []
+
+    def enter(mod, args):
+        open_ranges.append(record_function(span).__enter__())
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    hooks = [module.register_forward_pre_hook(enter), module.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
 def _pre_encode_span(model, span: str):
     """Mark the encoder's pre-encode forward as the trace range `span`
     (module hooks; the factor-1 Linear, which the encoder applies through
@@ -1334,20 +1503,8 @@ def _pre_encode_span(model, span: str):
         finally:
             conf._linear = orig
         return
-    open_ranges = []
-
-    def enter(mod, args):
-        open_ranges.append(record_function(span).__enter__())
-
-    def leave(mod, args, out):
-        open_ranges.pop().__exit__(None, None, None)
-
-    hooks = [pre.register_forward_pre_hook(enter), pre.register_forward_hook(leave)]
-    try:
+    with _module_span(pre, span):
         yield
-    finally:
-        for h in hooks:
-            h.remove()
 
 
 def _mode_fit(cls, config: str, overrides: dict, manifest: str, want: dict, gpu: str,
@@ -1601,7 +1758,8 @@ def phase_frontends(tmp: str, groups: dict, rnnt_manifest: str, gpu: str) -> dic
                       "tokens": batch.tokens, "token_lens": batch.token_lens.tolist(),
                       "h": cfg.joint.joint_hidden, "v": cfg.num_classes_with_blank}
     with open(rnnt_manifest, encoding="utf-8") as f:
-        wavs = [json.loads(line)["audio_filepath"] for line in f][:FRONTEND_TRANSCRIBE_FILES]
+        wavs = [_crop_wav(json.loads(line)["audio_filepath"], tmp, DECODE_CLIP_S)
+                for line in f][:FRONTEND_TRANSCRIBE_FILES]
     texts, row["transcribe_s"] = _timed(lambda: model.transcribe(wavs, batch_size=len(wavs)))
     check(len(texts) == len(wavs) and all(isinstance(x, str) for x in texts), texts)
     row["transcribe_files"] = len(wavs)
@@ -1653,6 +1811,492 @@ def phase_frontends(tmp: str, groups: dict, rnnt_manifest: str, gpu: str) -> dic
          launches_by_shape={k: {str(sh): n for sh, n in d.items()} for k, d in by_shape.items()},
          phase_s=time.perf_counter() - t_start, gpu=gpu)
     return {"by_shape": by_shape, **inputs}
+
+
+# ---------------------------------------------------------------------------
+# ssl: self-supervised pretraining through the flash kernels
+# ---------------------------------------------------------------------------
+
+
+def _ssl_grads(model, spec, lens, masked, spec_masks, noise, seed) -> tuple:
+    """One SSL objective and its gradients (fp32 copies) on fixed inputs."""
+    params = list(model.model.parameters())
+    loss = model.loss(spec, lens, masked, spec_masks, step=model.train_state.step, noise=noise,
+                      dropout_seed=seed)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    model.model.eval()
+    return float(loss), [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                         for p, g in zip(params, grads)]
+
+
+def _ssl_flash_vs_dense(model, inputs: tuple, what: str, hold_cosine: bool = True) -> dict:
+    """One step of `model` (flash attention) against a dense-attention copy of
+    its weights on the same features, masks, negatives and dropout seed:
+    both gradients finite, the losses within PARITY_LOSS_REL and, with
+    hold_cosine, the gradients' cosine at least PARITY_GRAD_COSINE."""
+    from conformer_nemo_tpu_torch.api_ssl import SpeechSSLModel
+    from conformer_nemo_tpu_torch.ops.build import launch_counts
+
+    loss_f, g_f = _ssl_grads(model, *inputs, SEED + 7)
+    dense = SpeechSSLModel(encoder=dataclasses.replace(model.enc_cfg, use_flash_attention=False),
+                           mel=model.mel, loss=model.loss_cfg, seed=SEED)
+    dense.model.load_state_dict(model.model.state_dict())
+    dense.train_state = model.train_state
+    before = launch_counts()
+    loss_d, g_d = _ssl_grads(dense, *inputs, SEED + 7)
+    check(launch_counts().get("K2-fwd", 0) == before.get("K2-fwd", 0), "the dense step ran K2")
+    finite = [all(bool(torch.isfinite(g).all()) for g in gs) for gs in (g_f, g_d)]
+    dot = sum((a.double() * b.double()).sum() for a, b in zip(g_f, g_d)).item()
+    nf = math.sqrt(sum((a.double() ** 2).sum().item() for a in g_f))
+    nd = math.sqrt(sum((b.double() ** 2).sum().item() for b in g_d))
+    out = {"weights": what, "loss_flash": loss_f, "loss_dense": loss_d,
+           "loss_rel_err": abs(loss_f - loss_d) / abs(loss_d), "tol_loss_rel": PARITY_LOSS_REL,
+           "grad_cosine": dot / (nf * nd), "min_cosine": PARITY_GRAD_COSINE,
+           "grads_finite": {"flash": finite[0], "dense": finite[1]}}
+    del dense, g_f, g_d
+    free_cuda()
+    check(all(finite), ("ssl gradients not finite", what, out))
+    check(math.isfinite(loss_f) and out["loss_rel_err"] <= PARITY_LOSS_REL, ("ssl loss", out))
+    check(not hold_cosine or out["grad_cosine"] >= PARITY_GRAD_COSINE,
+          ("ssl gradient cosine", out))
+    return out
+
+
+@contextlib.contextmanager
+def _captured_attention(out: list, calls: tuple):
+    """Keep the inputs (qs, ks, v, lens, scale, left, right) of the encoder's
+    flash attention calls numbered `calls` (counted over forwards that
+    record a gradient: the layers in order, before remat recomputes them)."""
+    from conformer_nemo_tpu_torch.models import conformer
+
+    orig, seen = conformer.flash_attention, [0]
+
+    def keep(*args):
+        if torch.is_grad_enabled():
+            if seen[0] in calls:
+                out.append(tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args))
+            seen[0] += 1
+        return orig(*args)
+
+    conformer.flash_attention = keep
+    try:
+        yield
+    finally:
+        conformer.flash_attention = orig
+
+
+def _flash_captured_case(name, qs, ks, v, lens, scale, left, right, gen) -> dict:
+    """K2 on attention inputs captured from a model: the kernels and the
+    plain fp32 version, each against the plain version in fp64 on the same
+    bf16 inputs (a random dO). Where the scores reach millions, fp32 itself
+    cannot resolve the softmax (a unit in the last place of the scores is
+    worth a factor e in P), so the kernels are held to what the plain fp32
+    version achieves there: every output finite, and each error at most
+    CAPTURED_ERR_RATIO times the plain fp32 version's, or within the
+    usual limits (O_TOL, BWD_REL_TOL)."""
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    dev = qs.device
+    band = (left, right)
+    do = torch.randn(v.shape, generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(qs, ks, v, lens, scale, *band)
+    got = (fa.flash_attention_bwd_dq(qs, ks, v, do, lse, (do.float() * o.float()).sum(-1), lens,
+                                     scale, *band),
+           *fa.flash_attention_bwd_dkv(qs, ks, v, do, lse, (do.float() * o.float()).sum(-1),
+                                       lens, scale, *band))
+    o32, lse32 = fa.flash_attention_fwd_reference(qs, ks, v, lens, scale, *band)
+    plain = fa.flash_attention_bwd_reference(qs, ks, v, do, lse32,
+                                             (do.float() * o32.float()).sum(-1), lens, scale,
+                                             *band)
+    q64, k64, v64, do64 = (x.double() for x in (qs, ks, v, do))
+    o64, lse64 = fa.flash_attention_fwd_reference(q64, k64, v64, lens, scale, *band)
+    exact = fa.flash_attention_bwd_reference(q64, k64, v64, do64, lse64, (do64 * o64).sum(-1),
+                                             lens, scale, *band)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((a.double() - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
+
+    errs, limits = {}, {"o": O_TOL, "dq": BWD_REL_TOL, "dk": BWD_REL_TOL, "dv": BWD_REL_TOL}
+    for out_name, k_out, p_out, x_out in zip(("o", "dq", "dk", "dv"), (o, *got),
+                                             (o32, *plain), (o64, *exact)):
+        check(bool(torch.isfinite(k_out).all()), (name, out_name, "not finite"))
+        errs[out_name] = {"kernel": rel(k_out, x_out), "plain_fp32": rel(p_out, x_out)}
+    row = {"case": name, "kernel": "K2-fwd + K2-bwd", "bh": qs.shape[0], "t": qs.shape[1],
+           "d1": qs.shape[2], "dv": v.shape[2], "scale": scale,
+           "max_abs_lse": lse64.abs().max().item(),
+           "lse_abs_err": {"kernel": (lse.double() - lse64).abs().max().item(),
+                           "plain_fp32": (lse32.double() - lse64).abs().max().item()},
+           "rel_err_vs_fp64": errs, "max_ratio": CAPTURED_ERR_RATIO, "limits": limits}
+    emit("kernels", **row)
+    for out_name, e in errs.items():
+        check(e["kernel"] <= max(limits[out_name], CAPTURED_ERR_RATIO * e["plain_fp32"]),
+              (name, out_name, e))
+    return row
+
+
+def _write_ssl_manifest(tmp: str) -> str:
+    """SSL_FILES_PER_SPAN files in each of SSL_SPANS, one manifest."""
+    rng = np.random.RandomState(SEED + 5)
+    lines = []
+    for i, (lo, hi) in enumerate(SSL_SPANS):
+        with open(_write_manifest(tmp, f"ssl_{i}", SSL_FILES_PER_SPAN, lo, hi, rng),
+                  encoding="utf-8") as f:
+            lines += f.readlines()
+    path = os.path.join(tmp, "ssl_train.json")
+    with open(path, "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    return path
+
+
+def phase_ssl(tmp: str, gpu: str) -> dict:
+    """The SSL CLI at full width and depth on the long-form config with
+    quantised targets, at the config's own rate: SSL_STEPS steps over full
+    batches of 45-71 s files, per step K2-fwd x36, dQ x18 and dK/dV x18 and
+    no other kernel; the archive restored bit for bit; one traced step (the
+    contrastive loss's share of its device time); on the longest timed
+    batch, a flash step against a dense one from the same weights, masks and
+    negatives, at the CLI's initial weights and at its trained ones; the
+    encoder transferred into a ConformerCTC of the same config, which takes
+    one finite fit step."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+    from conformer_nemo_tpu_torch.api_ssl import SpeechSSLModel, mask_inputs
+    from conformer_nemo_tpu_torch.audio.features import log_mel_spectrogram
+    from conformer_nemo_tpu_torch.config.loader import load_config
+    from conformer_nemo_tpu_torch.ops.build import (
+        launch_count,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from conformer_nemo_tpu_torch.scripts import ssl_pretrain
+    from conformer_nemo_tpu_torch.train.optim import constant_adamw
+    from conformer_nemo_tpu_torch.train.trainer import TrainState
+
+    t_start = time.perf_counter()
+    train_manifest = _write_ssl_manifest(tmp)
+    out_path = os.path.join(tmp, "ssl.cntpu")
+    steps: list = []
+    orig = SpeechSSLModel.make_train_step
+
+    def counted(self, optimizer):
+        step = orig(self, optimizer)
+
+        def run(batch):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = launch_counts()
+            audio_s = float(batch.audio_lens.sum()) / SR
+            steps.append({"seconds": seconds, "audio_s": audio_s,
+                          "audio_s_per_s": audio_s / seconds, "loss": float(metrics["loss"]),
+                          "rows": int(batch.audio.shape[0]),
+                          "rows_live": int((batch.audio_lens > 0).sum()),
+                          "launches": {k: after[k] - before.get(k, 0) for k in after},
+                          "batch": batch})
+            return metrics
+
+        return run
+
+    # the script's own rate: adamw at the config's model.optim.lr, as the JAX
+    # package's script takes it (2.0 in this config)
+    argv = ["--config", LONGFORM, "--quantized-targets", "--out", out_path,
+            f"model.train_ds.manifest_filepath={train_manifest}",
+            f"trainer.max_steps={SSL_STEPS}", "trainer.log_every_n_steps=1"]
+    SpeechSSLModel.make_train_step = counted
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        model, result = ssl_pretrain.main(argv)
+    finally:
+        SpeechSSLModel.make_train_step = orig
+    by_shape = {k: dict(launch_count(k).by_shape) for k in SSL_STEP_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    enc = model.enc_cfg
+    lr = float(load_config(LONGFORM)["model"]["optim"]["lr"])
+    check(len(steps) == SSL_STEPS and result["steps"] == SSL_STEPS, (len(steps), result))
+    for i, s in enumerate(steps):
+        got = {k: s["launches"].get(k, 0) for k in (*SSL_STEP_LAUNCHES, *NOT_SSL)}
+        want = {**SSL_STEP_LAUNCHES, **{k: 0 for k in NOT_SSL}}
+        check(got == want, ("ssl step", i, "launches", got, "want", want))
+        check(math.isfinite(s["loss"]), ("ssl step", i, s["loss"]))
+        check(s["rows_live"] == s["rows"], ("ssl step", i, "rows with audio", s["rows_live"],
+                                            "of", s["rows"]))
+    bad = [n for n, p in model.model.named_parameters() if not bool(torch.isfinite(p).all())]
+    check(not bad, ("non-finite parameters after the CLI's steps", bad[:5]))
+
+    # the written archive, restored into a fresh model: bit for bit
+    restored = SpeechSSLModel(encoder=enc, mel=model.mel, loss=model.loss_cfg, seed=SEED + 3)
+    _, restore_s = _timed(lambda: restored.restore_weights(out_path))
+    saved = model.model.state_dict()
+    same = sum(torch.equal(v, saved[k]) for k, v in restored.model.state_dict().items())
+    check(same == len(saved), ("ssl archive restore", same, len(saved)))
+    del restored
+    free_cuda()
+
+    # the parity's inputs: the longest timed batch, its features, masks,
+    # negatives and a dropout seed, fixed
+    batch = max((s["batch"] for s in steps), key=lambda b: b.audio.shape[1])
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        spec, flens = log_mel_spectrogram(model.mel, torch.as_tensor(batch.audio).to(dev),
+                                          torch.as_tensor(batch.audio_lens).to(dev),
+                                          generator=gen, training=True)
+        masked, spec_masks = mask_inputs(spec, flens, model.patch_size, model.mask_patches,
+                                         mask_generator=gen)
+    noise = model.model.loss.draw_noise(spec.shape[0], spec.shape[2], gen, dev)
+    enc_lens = encoder_frames(types.SimpleNamespace(encoder=enc, preprocessor=model.mel),
+                              batch.audio_lens.tolist())
+    t_enc = encoder_frames(types.SimpleNamespace(encoder=enc, preprocessor=model.mel),
+                           [batch.audio.shape[1]])[0]
+    check(t_enc >= enc.flash_attention_min_t, ("ssl T", t_enc))
+    check(bool(torch.isfinite(spec).all()) and int(spec_masks.sum()) > 0,
+          ("parity inputs", bool(torch.isfinite(spec).all()), int(spec_masks.sum())))
+    inputs = (spec, flens, masked, spec_masks, noise)
+
+    # flash against dense: from the CLI's initial weights (the same seed), then
+    # from the weights its steps trained
+    initial = SpeechSSLModel(encoder=enc, mel=model.mel, loss=model.loss_cfg,
+                             patch_size=model.patch_size, mask_patches=model.mask_patches,
+                             seed=model.seed)
+    initial.train_state = TrainState(model=initial.model, opt_state={},
+                                     generator=torch.Generator())
+    initial.train_state.step = model.train_state.step
+    parity = [_ssl_flash_vs_dense(initial, inputs, "initial")]
+    del initial
+    free_cuda()
+    # at the trained weights the scores reach millions, past what fp32 can
+    # resolve in a softmax: flash and dense (bf16 scores, masked to -10000)
+    # are held to finite gradients and their losses; the kernels to the
+    # plain version on the first and last layers' own inputs
+    captured: list = []
+    with _captured_attention(captured, (0, enc.n_layers - 1)):
+        parity.append(_ssl_flash_vs_dense(model, inputs, "trained", hold_cosine=False))
+    gen_do = torch.Generator(device=dev).manual_seed(SEED + 9)
+    captured_rows = [_flash_captured_case(f"ssl_trained_layer{i}", *args, gen_do)
+                     for i, args in zip((0, enc.n_layers - 1), captured)]
+    check(len(captured_rows) == 2, ("captured attention calls", len(captured)))
+    del captured
+    free_cuda()
+
+    # one traced step: the contrastive loss's share of its device time
+    step = orig(model, constant_adamw(lr, 1e-3))
+    with _module_span(model.model.loss, "contrastive_loss"):
+        prof = _profile(lambda: step(batch), "profile_ssl", span="contrastive_loss",
+                        batch=int(batch.audio.shape[0]), encoder_t=t_enc)
+    model.model.eval()
+    del step
+    bad = [n for n, p in model.model.named_parameters() if not bool(torch.isfinite(p).all())]
+    check(not bad, ("non-finite parameters after the traced step", bad[:5]))
+
+    # the pretrained encoder into a ConformerCTC of the same config: one fit step
+    ctc = ConformerCTC.from_config_file(LONGFORM, overrides=TRAIN_OVERRIDES, seed=SEED + 4)
+    model.transfer_encoder_to(ctc)
+    src = model.model.encoder.state_dict()
+    moved = sum(torch.equal(v, src[k]) for k, v in ctc.model.encoder.state_dict().items())
+    check(moved == len(src), ("transferred encoder tensors", moved, len(src)))
+    fine = ctc.fit(train_manifest, max_steps=1)
+    check(math.isfinite(fine["last_loss"]), ("fine-tune step after transfer", fine))
+
+    steady = steps[1:]
+    emit("ssl", config="configs/conformer_ctc_bpe_longform.yaml", quantized_targets=True,
+         n_layers=enc.n_layers, d_model=enc.d_model, remat=enc.remat, lr=lr,
+         batch=int(batch.audio.shape[0]), rows_live=int((batch.audio_lens > 0).sum()),
+         encoder_t=t_enc, params=sum(p.numel() for p in model.model.parameters()),
+         steps=[{k: v for k, v in s.items() if k != "batch"} for s in steps],
+         steady_step_s=sum(s["seconds"] for s in steady) / len(steady),
+         steady_audio_s_per_s=sum(s["audio_s"] for s in steady) / sum(
+             s["seconds"] for s in steady),
+         peak_memory_bytes=peak, archive_bytes=os.path.getsize(out_path),
+         archive_restore_s=restore_s, archive_tensors_equal=same,
+         traced_step_device_busy_s=prof["device_busy_s"],
+         traced_step_idle_share=prof["device_idle_share"],
+         contrastive_loss_device_s=prof["contrastive_loss_device_s"],
+         contrastive_loss_share=prof["contrastive_loss_share"],
+         flash_vs_dense={"batch": "the longest timed", "encoder_t": t_enc,
+                         "audio_s": float(batch.audio_lens.sum()) / SR, "runs": parity},
+         transfer={"tensors_equal": moved, "fine_tune_loss": fine["last_loss"]},
+         launches_by_shape={k: {str(sh): n for sh, n in d.items()} for k, d in by_shape.items()},
+         phase_s=time.perf_counter() - t_start, gpu=gpu)
+    info = {"by_shape": by_shape, "t": t_enc,
+            "lens": [n for n in enc_lens for _ in range(enc.n_heads)]}
+    del model, ctc
+    free_cuda()
+    return info
+
+
+# ---------------------------------------------------------------------------
+# labels: classification, speaker and VAD models (cuDNN convolutions, fp32)
+# ---------------------------------------------------------------------------
+
+
+def _label_wavs(tmp: str, name: str, classes: list, n: int, lo_s: float, hi_s: float,
+                rng) -> tuple:
+    """n WAVs of lo_s..hi_s seconds, class i of `classes` a tone at its own
+    pitch over noise (or noise alone for "background"), and their JSONL
+    manifest with `label`. -> (manifest, paths)."""
+    from conformer_nemo_tpu_torch.data.audio_io import write_wav
+
+    rows = []
+    for i in range(n):
+        label = classes[i % len(classes)]
+        t = np.arange(int(rng.uniform(lo_s, hi_s) * SR)) / SR
+        sig = 0.02 * rng.randn(len(t))
+        if label != "background":
+            f0 = 150.0 * (1.0 + classes.index(label) / 2.0)
+            sig += 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(2 * np.pi * 2.7 * f0 * t)
+        path = os.path.join(tmp, f"{name}_{i:03d}.wav")
+        write_wav(path, sig.astype(np.float32), SR)
+        rows.append({"audio_filepath": path, "duration": len(t) / SR, "label": label})
+    manifest = os.path.join(tmp, f"{name}.json")
+    with open(manifest, "w", encoding="utf-8") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    return manifest, [r["audio_filepath"] for r in rows]
+
+
+def _timed_label_steps(log: list):
+    """Wrap `_EncDecLabelModel.make_train_step` on the class: each step's
+    seconds (synchronised), rows and loss."""
+    from conformer_nemo_tpu_torch.api_label import _EncDecLabelModel
+
+    orig = _EncDecLabelModel.make_train_step
+
+    def make(self, optimizer, augment=False):
+        step = orig(self, optimizer, augment)
+
+        def run(audio, lens, labels):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(audio, lens, labels)
+            torch.cuda.synchronize()
+            log.append({"seconds": time.perf_counter() - t0, "rows": int(len(lens)),
+                        "loss": float(metrics["loss"])})
+            return metrics
+
+        return run
+
+    return orig, make
+
+
+def _steady(steps: list) -> dict:
+    steady = steps[1:]
+    s = sum(x["seconds"] for x in steady)
+    return {"step_s": [x["seconds"] for x in steps], "losses": [x["loss"] for x in steps],
+            "steady_step_s": s / len(steady), "rows_per_s": sum(x["rows"] for x in steady) / s}
+
+
+def phase_labels(tmp: str, gpu: str) -> None:
+    """The label models at their default widths through their CLIs, each
+    against a CPU copy of the same weights: MatchboxNet 3x1x64 on 64 mel
+    features (speech_classification: LABEL_STEPS fit steps at batch 32 x
+    4 s, then predict), ECAPA 512 x 4 + 1536 with a 192-wide embedding
+    (speaker_tasks train, verify and embed; LABEL_STEPS steps at batch 32 x
+    3 s), and the classification model's VAD over a 60 s file (0.63 s
+    windows every 0.01 s, batch 256) into postprocess_frame_predictions."""
+    from conformer_nemo_tpu_torch.api_label import (
+        ClassificationModel,
+        SpeakerLabelModel,
+        _EncDecLabelModel,
+    )
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio
+    from conformer_nemo_tpu_torch.decode.vad import postprocess_frame_predictions
+    from conformer_nemo_tpu_torch.ops.build import launch_counts, reset_launch_counts
+    from conformer_nemo_tpu_torch.scripts import speaker_tasks, speech_classification
+
+    t_start = time.perf_counter()
+    rng = np.random.RandomState(SEED + 11)
+    cls_m, cls_files = _label_wavs(tmp, "cls", ["background", "speech"], 64, 1.0, 4.0, rng)
+    spk_m, spk_files = _label_wavs(tmp, "spk", [f"spk{i}" for i in range(8)], 64, 1.5, 3.0, rng)
+    cls_path, spk_path = os.path.join(tmp, "cls.cntpu"), os.path.join(tmp, "spk.cntpu")
+    out = {}
+    reset_launch_counts()
+    steps: list = []
+    orig, timed = _timed_label_steps(steps)
+    _EncDecLabelModel.make_train_step = timed
+    try:
+        model, fit, _ = speech_classification.main([
+            "--train-manifest", cls_m, "--max-steps", str(LABEL_STEPS), "--batch-size", "32",
+            "--fixed-seconds", "4", "--out", cls_path])
+        cls_steps = list(steps)
+        steps.clear()
+        spk_model, spk_fit = speaker_tasks.main([
+            "train", "--train-manifest", spk_m, "--max-steps", str(LABEL_STEPS),
+            "--batch-size", "32", "--fixed-seconds", "3", "--out", spk_path])
+        spk_steps = list(steps)
+    finally:
+        _EncDecLabelModel.make_train_step = orig
+    # no kernel of the port runs here: cuDNN convolves, as XLA does in the JAX package
+    check(not any(launch_counts().values()), ("the label models launched", launch_counts()))
+    check(len(cls_steps) == len(spk_steps) == LABEL_STEPS, (len(cls_steps), len(spk_steps)))
+    for s in cls_steps + spk_steps:
+        check(math.isfinite(s["loss"]), ("label step", s))
+
+    # classification: predict through the CLI, the same weights on the CPU
+    from conformer_nemo_tpu_torch.data.audio_to_label import repeat_to_length
+
+    files = cls_files[:8]
+    _, _, preds = speech_classification.main(["--model", cls_path, "--predict", *files,
+                                              "--fixed-seconds", "4"])
+    cpu_cls = ClassificationModel.restore_portable(cls_path, device="cpu")
+    audio = np.stack([repeat_to_length(load_audio(p, target_sr=SR), 4 * SR) for p in files])
+    lens = np.full(len(files), 4 * SR, np.int32)
+    card = model._infer_logits(audio, lens).cpu()
+    cpu = cpu_cls._infer_logits(audio, lens)
+    logit_err = float((card - cpu).abs().max())
+    check(logit_err <= LABEL_CARD_CPU_ATOL, ("classification logits card vs CPU", logit_err))
+    check(preds == [model.labels[j] for j in card.argmax(-1).tolist()], ("predict", preds))
+    # the control: what cuDNN's default TF32 (not used by the port) gives on
+    # these inputs must fail the limit that the port's fp32 meets
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True), torch.no_grad():
+        tf32 = model.model(*model._features(audio, lens)).cpu()
+    tf32_err = float((tf32 - cpu).abs().max())
+    check(tf32_err > LABEL_CARD_CPU_ATOL, ("the TF32 control meets the fp32 limit", tf32_err))
+    out["classification"] = {"arch": "MatchboxNet 3x1x64", "features": 64, "batch": 32,
+                             "fixed_s": 4.0, **_steady(cls_steps),
+                             "params": sum(p.numel() for p in model.model.parameters()),
+                             "predict": preds, "logits_card_vs_cpu": logit_err,
+                             "logits_tf32_vs_cpu": tf32_err,
+                             "tol": LABEL_CARD_CPU_ATOL}
+
+    # speaker: verify and embed through the CLI, the same weights on the CPU
+    _, same = speaker_tasks.main(["verify", "--model", spk_path, spk_files[0], spk_files[8]])
+    _, embs = speaker_tasks.main(["embed", "--model", spk_path, spk_files[1]])
+    cpu_spk = SpeakerLabelModel.restore_portable(spk_path, device="cpu")
+    emb_cpu = cpu_spk.get_embedding(spk_files[1])
+    emb_err = float(np.abs(embs[spk_files[1]] - emb_cpu).max())
+    check(emb_cpu.shape == (192,) and emb_err <= LABEL_CARD_CPU_ATOL,
+          ("speaker embedding card vs CPU", emb_err))
+    out["speaker"] = {"arch": "ECAPA 512x4 + 1536, emb 192, attentive pool, angular",
+                      "features": 80, "batch": 32, "fixed_s": 3.0, **_steady(spk_steps),
+                      "params": sum(p.numel() for p in spk_model.model.parameters()),
+                      "verify_same": bool(same), "embedding_card_vs_cpu": emb_err,
+                      "tol": LABEL_CARD_CPU_ATOL}
+    del spk_model, cpu_spk
+    free_cuda()
+
+    # VAD: 60 s of noise with tone stretches, frame probabilities, segments
+    wav = 0.02 * rng.randn(VAD_SECONDS * SR)
+    t = np.arange(len(wav)) / SR
+    on = ((t % 12.0) > 4.0) & ((t % 12.0) < 9.0)
+    wav = (wav + on * 0.3 * np.sin(2 * np.pi * 225.0 * t)).astype(np.float32)
+    probs, vad_s = _timed(lambda: model.vad_frame_probs(wav, 0.63, 0.01, batch_size=256))
+    segs = postprocess_frame_predictions(probs, {"onset": 0.5, "offset": 0.5})
+    n_cpu = VAD_CPU_WINDOWS
+    head = wav[: (n_cpu - 1) * int(0.01 * SR) + int(0.63 * SR)]
+    cpu_probs = cpu_cls.vad_frame_probs(head, 0.63, 0.01, batch_size=256)
+    vad_err = float(np.abs(probs[:n_cpu] - cpu_probs).max())
+    check(len(probs) == (len(wav) - int(0.63 * SR)) // int(0.01 * SR) + 1, len(probs))
+    check(np.isfinite(probs).all() and vad_err <= VAD_CARD_CPU_ATOL, ("VAD card vs CPU", vad_err))
+    out["vad"] = {"seconds_of_audio": VAD_SECONDS, "windows": len(probs), "batch": 256,
+                  "seconds": vad_s, "audio_s_per_s": VAD_SECONDS / vad_s,
+                  "segments": len(segs), "card_vs_cpu_windows": n_cpu,
+                  "probs_card_vs_cpu": vad_err, "tol": VAD_CARD_CPU_ATOL}
+    emit("labels", **out, phase_s=time.perf_counter() - t_start, gpu=gpu)
+    del model, cpu_cls
+    free_cuda()
 
 
 # ---------------------------------------------------------------------------
@@ -1833,7 +2477,8 @@ def phase_decode_rnnt(archive: str, manifest: str, tmp: str, gpu: str) -> dict:
 
     with open(manifest, encoding="utf-8") as f:
         entries = sorted((json.loads(line) for line in f), key=lambda x: x["duration"])
-    entries = entries[:RNNT_DECODE_FILES]
+    entries = [{**x, "audio_filepath": _crop_wav(x["audio_filepath"], tmp, DECODE_CLIP_S),
+                "duration": min(x["duration"], DECODE_CLIP_S)} for x in entries[:RNNT_DECODE_FILES]]
     files, refs = [x["audio_filepath"] for x in entries], [x["text"] for x in entries]
     audio_s = sum(x["duration"] for x in entries)
     sub = os.path.join(tmp, "decode.json")
@@ -1951,6 +2596,17 @@ def phase_decode_rnnt(archive: str, manifest: str, tmp: str, gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
+
+
+def _crop_wav(path: str, tmp: str, seconds: float) -> str:
+    """The first `seconds` of an audio file as a WAV in `tmp` (written once)."""
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio, write_wav
+
+    stem = os.path.splitext(os.path.basename(path))[0]
+    out = os.path.join(tmp, f"clip{seconds:g}s_{stem}.wav")
+    if not os.path.exists(out):
+        write_wav(out, load_audio(path, target_sr=SR)[: int(seconds * SR)], SR)
+    return out
 
 
 def _write_manifest(tmp: str, name: str, n: int, lo_s: float, hi_s: float, rng) -> str:
@@ -2478,7 +3134,9 @@ def phase_streaming(tmp: str, rnnt_archive: str, rnnt_manifest: str, gpu: str) -
 
     # 4. the transducer's buffered decode, on the rnnt_train phase's archive
     with open(rnnt_manifest, encoding="utf-8") as f:
-        r_entries = [json.loads(line) for line in f][:2]
+        r_entries = [json.loads(line) for line in f][:STREAMING_RNNT_FILES]
+    r_entries = [{**x, "audio_filepath": _crop_wav(x["audio_filepath"], tmp, STREAMING_CLIP_S),
+                  "duration": min(x["duration"], STREAMING_CLIP_S)} for x in r_entries]
     r_files = [x["audio_filepath"] for x in r_entries]
     rm, r_restore_s = _timed(lambda: ConformerTransducer.restore_portable(rnnt_archive,
                                                                           seed=SEED + 9))
@@ -2757,6 +3415,8 @@ def phase_rnnt_train(tmp: str, gpu: str) -> dict:
     enc_lens = _frames(model, batch.audio_lens.tolist())
     with open(manifest, encoding="utf-8") as f:
         entries = [json.loads(line) for line in f][:RNNT_TRANSCRIBE_FILES]
+    entries = [{**x, "audio_filepath": _crop_wav(x["audio_filepath"], tmp, DECODE_CLIP_S),
+                "duration": min(x["duration"], DECODE_CLIP_S)} for x in entries]
     wavs = [x["audio_filepath"] for x in entries]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3163,7 +3823,8 @@ def phase_multilang(tmp: str, gpu: str) -> dict:
     batch = steps[0]["batch"]
     t_rnnt = _frames(model, [batch.audio.shape[1]])[0]
     t0 = time.perf_counter()
-    rnnt_texts = model.transcribe([p for p, _ in sources[:RNNT_TRANSCRIBE_FILES]],
+    rnnt_texts = model.transcribe([_crop_wav(p, tmp, DECODE_CLIP_S)
+                                   for p, _ in sources[:RNNT_TRANSCRIBE_FILES]],
                                   batch_size=RNNT_TRANSCRIBE_FILES)
     torch.cuda.synchronize()
     rnnt_transcribe_s = time.perf_counter() - t0
@@ -3597,7 +4258,8 @@ def _frontends_rows(fr: dict, d1: int, dv: int, gen, dev, chain) -> list:
 
 
 def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict,
-                  decode_calls: list, dist: dict, streaming: dict, frontends: dict) -> dict:
+                  decode_calls: list, dist: dict, streaming: dict, frontends: dict,
+                  ssl: dict) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3619,6 +4281,16 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
                                      d1, dv, lens_st, STREAMING_BAND, gen, dev)]
     rows["streaming"] += _flash_bwd_case(f"streaming_bh{len(lens_st)}_t{t_st}", len(lens_st),
                                          t_st, d1, dv, lens_st, STREAMING_BAND, gen, dev)
+    # the SSL step's calls (BH 64 at its longest batch's T)
+    t_ss, lens_ss = ssl["t"], ssl["lens"]
+    rows["ssl"] = [_flash_case(f"ssl_bh{len(lens_ss)}_t{t_ss}", len(lens_ss), t_ss, d1, dv,
+                               lens_ss, (-1, -1), gen, dev)]
+    rows["ssl"] += _flash_bwd_case(f"ssl_bh{len(lens_ss)}_t{t_ss}", len(lens_ss), t_ss, d1, dv,
+                                   lens_ss, (-1, -1), gen, dev)
+    # the same shapes at scores past fp32's integer range, where the SSL CLI's
+    # own rate takes the encoder
+    _flash_extreme_case(f"ssl_extreme_bh{len(lens_ss)}_t{t_ss}", len(lens_ss), t_ss, d1, dv,
+                        lens_ss, gen, dev)
     free_cuda()
     # tiny depths, empty rows, a two-sided band, the top of the forward's range
     # (d1 1152, dv 128), dQ past the dK/dV kernel's 576 columns
@@ -3825,8 +4497,10 @@ def main() -> int:
         streaming = phase_streaming(tmp, rnnt["archive"], rnnt["manifest"], env["nvidia_smi"])
         os.remove(rnnt["archive"])
         frontends = phase_frontends(tmp, groups, rnnt["manifest"], env["nvidia_smi"])
+        ssl = phase_ssl(tmp, env["nvidia_smi"])
+        phase_labels(tmp, env["nvidia_smi"])
     rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls, dist,
-                         streaming, frontends)
+                         streaming, frontends, ssl)
 
     # the NCCL world-1 fit ran the train phase's calls again
     train_launches = {k: {sh: n + dist["nccl_by_shape"].get(k, {}).get(sh, 0)
@@ -3837,6 +4511,7 @@ def main() -> int:
                                     "train": train_launches, "rnnt_train": rnnt["by_shape"],
                                     "streaming": streaming["by_shape"],
                                     "frontends": frontends["by_shape"],
+                                    "ssl": ssl["by_shape"],
                                     "multilang": {**multilang["ctc"]["by_shape"],
                                                   **multilang["rnnt"]["by_shape"]}})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -132,6 +132,7 @@ from conformer_nemo_tpu_torch.train.trainer import (
     evaluate_wer,
     init_ctc_state,
     make_ctc_train_step,
+    run_epochs,
     undistribute_state,
 )
 from conformer_nemo_tpu_torch.utils.export import export_fn, save_exported
@@ -620,53 +621,50 @@ class _BaseASRModel:
             if exp_manager:
                 exp_manager.save(self.train_state, step, {"val_wer": val.get("wer")})
 
-        step = self.train_state.step
-        t0 = t_window = time.time()
-        metrics: dict = {}
-        stopped = None
+        t0 = time.time()
+        t_window = [t0]
+
+        @contextlib.contextmanager
+        def epoch():
+            # batches reach the step on the device, copied `depth` ahead
+            with contextlib.closing(device_prefetch(train_loader, self.device)) as batches:
+                yield (batches if epoch_batches is not None
+                       else _while_every_rank_has_one(batches, mesh))
+
+        def after_step(step: int, metrics: dict) -> bool:
+            """Log and validate; True stops the run (max_time_s passed)."""
+            if exp_manager and step % log_every == 0:
+                loss = float(metrics["loss"])  # the window's one host read
+                now = time.time()
+                exp_manager.logger.log(
+                    step, train_loss=loss, grad_norm=float(metrics["grad_norm"]),
+                    train_step_timing=(now - t_window[0]) / log_every)
+                t_window[0] = now
+            if val_every_n_steps and step % val_every_n_steps == 0:
+                validate(step)
+            if max_steps and step >= max_steps:
+                return False  # the loop ends here anyway
+            if max_time_s and _any_rank(time.time() - t0 > max_time_s, mesh):
+                if exp_manager:
+                    exp_manager.save(self.train_state, step, {})
+                return True
+            return False
+
         done = False
         try:
-            for _ in range(max_epochs):
-                # batches reach the step on the device, copied `depth` ahead
-                with contextlib.closing(device_prefetch(train_loader, self.device)) as batches:
-                    if epoch_batches is None:
-                        batches = _while_every_rank_has_one(batches, mesh)
-                    for batch in batches:
-                        metrics = step_fn(batch)
-                        step = self.train_state.step
-                        if exp_manager and step % log_every == 0:
-                            loss = float(metrics["loss"])  # the window's one host read
-                            now = time.time()
-                            exp_manager.logger.log(
-                                step, train_loss=loss, grad_norm=float(metrics["grad_norm"]),
-                                train_step_timing=(now - t_window) / log_every)
-                            t_window = now
-                        if val_every_n_steps and step % val_every_n_steps == 0:
-                            validate(step)
-                        if max_steps and step >= max_steps:
-                            break
-                        if max_time_s and _any_rank(time.time() - t0 > max_time_s, mesh):
-                            stopped = "max_time"
-                            if exp_manager:
-                                exp_manager.save(self.train_state, step, {})
-                            break
-                if stopped:
-                    break
-                validate(step)  # end of epoch
-                if max_steps and step >= max_steps:
-                    break
+            metrics, stopped = run_epochs(self.train_state, step_fn, epoch, max_epochs,
+                                          max_steps, after_step, after_epoch=validate)
             done = True
         finally:
-            self.model.eval()
             if exp_manager:
                 exp_manager.wait_for_saves()
             if done:  # collective: a rank that raised would leave the others waiting
                 undistribute_state(self.train_state)
-        out = {"steps": step, "time_s": time.time() - t0, "val": dict(val)}
+        out = {"steps": self.train_state.step, "time_s": time.time() - t0, "val": dict(val)}
         if metrics:
             out["last_loss"] = float(metrics["loss"])
         if stopped:
-            out["stopped"] = stopped
+            out["stopped"] = "max_time"
         return out
 
     # -- inference ----------------------------------------------------------

@@ -16,6 +16,7 @@ the same stream gives the same waveform in both packages.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import random
 from typing import List, Optional
 
@@ -23,14 +24,20 @@ import numpy as np
 
 from conformer_nemo_tpu_torch.data.audio_io import load_audio, resample_poly
 
+log = logging.getLogger(__name__)
 
-def _refuse_tarred(**paths) -> None:
-    """Noise and impulse banks are read from manifests; tarred banks are
-    not read (in the JAX package either), so asking for one raises."""
-    given = [k for k, v in paths.items() if v]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: tarred noise/impulse banks are not "
-                                  "read (ROADMAP.md queue 1 item 3); give a manifest")
+
+_TAR_NOTED: set = set()
+
+
+def _ignore_tarred(**paths) -> None:
+    """Noise and impulse banks are read from their manifests' paths, as the
+    JAX package reads them: a tar list is accepted and ignored, which is
+    logged once per argument name."""
+    for name in sorted(k for k, v in paths.items() if v and k not in _TAR_NOTED):
+        _TAR_NOTED.add(name)
+        log.warning("%s is ignored: the bank is read from its manifest's audio paths, as the "
+                    "JAX package reads it", name)
 
 
 class Perturbation:
@@ -229,7 +236,7 @@ class NoisePerturbation(Perturbation):
                  audio_tar_filepaths=None, orig_sr: int = 16000):
         from conformer_nemo_tpu_torch.data.manifest import read_manifest
 
-        _refuse_tarred(audio_tar_filepaths=audio_tar_filepaths)
+        _ignore_tarred(audio_tar_filepaths=audio_tar_filepaths)
         self.samples_meta = read_manifest(manifest_path)
         self.min_snr = min_snr_db
         self.max_snr = max_snr_db
@@ -302,7 +309,7 @@ class ImpulsePerturbation(Perturbation):
                  audio_tar_filepaths=None, shuffle_n: int = 128):
         from conformer_nemo_tpu_torch.data.manifest import read_manifest
 
-        _refuse_tarred(audio_tar_filepaths=audio_tar_filepaths)
+        _ignore_tarred(audio_tar_filepaths=audio_tar_filepaths)
         self.samples_meta = read_manifest(manifest_path)
         self.shift_impulse = shift_impulse
 
@@ -353,7 +360,7 @@ class RirAndNoisePerturbation(Perturbation):
         bg_noise_tar_filepaths=None,
         bg_orig_sample_rate=None,
     ):
-        _refuse_tarred(rir_tar_filepaths=rir_tar_filepaths,
+        _ignore_tarred(rir_tar_filepaths=rir_tar_filepaths,
                        noise_tar_filepaths=noise_tar_filepaths,
                        bg_noise_tar_filepaths=bg_noise_tar_filepaths)
         self.rir_prob = rir_prob

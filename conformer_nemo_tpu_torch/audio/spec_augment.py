@@ -10,9 +10,10 @@ SpecShot zeroes each bin with probability `specshot_ratio`.
 
 Random numbers come from an explicit `torch.Generator` on the spectrogram's
 device, in a fixed order of draws; the distributions match the JAX
-package's, the streams do not. `masked_patch_augmentation` and
-`crop_or_pad_spectrogram` (SSL and classification) are not ported yet
-(ROADMAP.md).
+package's, the streams do not. `masked_patch_augmentation` (SSL
+pretraining's fixed-size time patches) and `crop_or_pad_spectrogram` take
+their draws as optional arguments too (`scores`, `offsets`), so that a test
+can feed the JAX package's.
 """
 
 from __future__ import annotations
@@ -127,3 +128,66 @@ def apply_spectrogram_augmentation(cfg: SpecAugmentConfig, gen: torch.Generator,
     if kind == "spec_cutout":
         return spec_cutout(cfg, gen, spec)
     return spec_shot(cfg, gen, spec)
+
+
+def masked_patch_augmentation(spec: torch.Tensor, lengths: torch.Tensor, patch_size: int = 48,
+                              mask_patches: int = 10, *, generator: torch.Generator | None = None,
+                              scores: torch.Tensor | None = None) -> torch.Tensor:
+    """Zero fixed-size time patches of spec [B, D, T] for SSL pretraining.
+
+    Every row masks the same number of patches, m = min(mask_patches,
+    shortest // patch_size), where rows too short for one patch are left
+    out of the minimum. Row b's candidates are its first
+    len_b // patch_size - 1 patches, of which it masks the min(m,
+    candidates) with the lowest scores: uniform sampling without
+    replacement. `scores` [B, max(T // patch_size, 1)] are those uniform
+    draws; without them they come from `generator`."""
+    b, d, t = spec.shape
+    dev = spec.device
+    max_patches = max(t // patch_size, 1)
+    lens = lengths.to(device=dev, dtype=torch.int64)
+    big = torch.iinfo(torch.int64).max
+    min_len = torch.where(lens >= patch_size, lens, torch.full_like(lens, big)).min()
+    min_len = torch.where(min_len == big, torch.zeros_like(min_len), min_len)
+    m_eff = torch.where(min_len < patch_size * mask_patches, min_len // patch_size,
+                        torch.full_like(min_len, mask_patches))
+    n_candidates = lens // patch_size - 1
+    valid = torch.arange(max_patches, device=dev)[None, :] < n_candidates[:, None]
+    if scores is None:
+        if generator is None:
+            raise ValueError("masked_patch_augmentation needs a generator or scores")
+        scores = torch.rand((b, max_patches), generator=generator, device=dev)
+    scores = torch.where(valid, scores.to(dev, torch.float32), torch.full((), float("inf"),
+                                                                           device=dev))
+    # rank of each patch among its row's scores (a stable sort, as XLA's)
+    order = torch.sort(scores, dim=1, stable=True).indices
+    ranks = torch.argsort(order, dim=1)
+    patch_masked = valid & (ranks < m_eff)
+    frame_patch = torch.clamp(torch.arange(t, device=dev) // patch_size, max=max_patches - 1)
+    frame_masked = patch_masked[:, frame_patch]  # [B, T]
+    return torch.where(frame_masked[:, None, :], torch.zeros((), dtype=spec.dtype, device=dev),
+                       spec)
+
+
+def crop_or_pad_spectrogram(spec: torch.Tensor, lengths: torch.Tensor, audio_length: int, *,
+                            generator: torch.Generator | None = None,
+                            offsets: torch.Tensor | None = None) -> tuple:
+    """Crop spec [B, D, T] at a random offset per row, or zero-pad it
+    symmetrically (the odd frame on the right), to exactly `audio_length`
+    frames. -> (spec [B, D, audio_length], lengths all audio_length).
+    `offsets` [B] (in [0, T - audio_length]) are the crop's draws; without
+    them they come from `generator`."""
+    b, d, t = spec.shape
+    dev = spec.device
+    out_lengths = torch.full_like(lengths, audio_length)
+    if t > audio_length:
+        if offsets is None:
+            if generator is None:
+                raise ValueError("crop_or_pad_spectrogram needs a generator or offsets to crop")
+            offsets = torch.randint(0, t - audio_length + 1, (b,), generator=generator,
+                                    device=dev)
+        idx = offsets.to(dev, torch.int64)[:, None] + torch.arange(audio_length, device=dev)
+        return torch.gather(spec, 2, idx[:, None, :].expand(b, d, audio_length)), out_lengths
+    pad_left = (audio_length - t) // 2
+    pad_right = pad_left + (audio_length - t) % 2
+    return torch.nn.functional.pad(spec, (pad_left, pad_right)), out_lengths

@@ -350,3 +350,131 @@ def rnnt_variables_to_jax(state_dict: dict, cfg) -> dict:
              "out_kernel": np.ascontiguousarray(_np(sd["joint.joint_net.2.weight"]).T),
              "out_bias": _np(sd["joint.joint_net.2.bias"])}
     return _with_stats({"encoder": enc_p, "decoder": dec, "joint": joint}, enc_s)
+
+
+# ---------------------------------------------------------------------------
+# Mirrored trees: modules whose submodules carry the flax names (the SSL
+# decoder and loss head, the label models). Each leaf maps by its module's
+# type: Linear (kernel [in, out] <-> weight [out, in]), Conv1d (kernel
+# [k, in/groups, out] <-> weight [out, in/groups, k]), the port's BatchNorm
+# (scale, bias; batch_stats mean, var), LayerNorm and GroupNorm (scale,
+# bias); any other parameter keeps its name and layout.
+# ---------------------------------------------------------------------------
+
+
+def _mirror_leaves(module, prefix: str = "") -> dict:
+    """-> {state_dict key: (collection, flax path, layout function)}; every
+    layout function is its own inverse."""
+    from torch import nn
+
+    from conformer_nemo_tpu_torch.models.conformer import BatchNorm
+
+    same = lambda x: x
+    out = {}
+    for name, mod in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        key = prefix + (name + "." if name else "")
+        if isinstance(mod, nn.Linear):
+            rules = {"weight": ("params", "kernel", lambda x: x.T), "bias": ("params", "bias", same)}
+        elif isinstance(mod, nn.Conv1d):
+            rules = {"weight": ("params", "kernel", lambda x: x.transpose(2, 1, 0)),
+                     "bias": ("params", "bias", same)}
+        elif isinstance(mod, BatchNorm):
+            rules = {"weight": ("params", "scale", same), "bias": ("params", "bias", same),
+                     "running_mean": ("batch_stats", "mean", same),
+                     "running_var": ("batch_stats", "var", same)}
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            rules = {"weight": ("params", "scale", same), "bias": ("params", "bias", same)}
+        else:
+            rules = {}
+        owned = list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False))
+        for leaf, tensor in owned:
+            if tensor is None or leaf in getattr(mod, "_non_persistent_buffers_set", ()):
+                continue
+            coll, flax_name, fn = rules.get(leaf, ("params", leaf, same))
+            out[key + leaf] = (coll, path + (flax_name,), fn)
+    return out
+
+
+def _nested_get(tree: dict, path: tuple):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _nested_set(tree: dict, path: tuple, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def mirrored_to_jax(state_dict: dict, module, prefix: str = "") -> dict:
+    """The `prefix`-ed leaves of a mirrored module's state_dict -> the flax
+    {"params", "batch_stats"} subtrees (numpy)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, (coll, path, fn) in _mirror_leaves(module, prefix).items():
+        _nested_set(out[coll], path, np.ascontiguousarray(fn(_np(state_dict[key]))))
+    return out
+
+
+def mirrored_from_jax(variables: dict, module, prefix: str = "") -> dict:
+    """The flax {"params", "batch_stats"} subtrees of a mirrored module ->
+    its state_dict entries (numpy), keys `prefix`-ed."""
+    return {key: fn(_np(_nested_get(variables[coll], path)))
+            for key, (coll, path, fn) in _mirror_leaves(module, prefix).items()}
+
+
+def _ssl_heads(dec_cfg, loss_cfg) -> tuple:
+    """The decoder and loss modules of these configs, on the meta device
+    (only their structure is read)."""
+    from conformer_nemo_tpu_torch.models.ssl import ReconstructionDecoder
+    from conformer_nemo_tpu_torch.ops.contrastive_loss import ContrastiveLoss
+
+    with torch.device("meta"):
+        return ReconstructionDecoder(dec_cfg), ContrastiveLoss(loss_cfg)
+
+
+def ssl_variables_to_jax(state_dict: dict, enc_cfg, dec_cfg, loss_cfg) -> dict:
+    """The port's SSLNet state_dict (api_ssl.py) -> the JAX `_SSLNet`'s
+    {"params", "batch_stats"} (numpy): the encoder by the CTC bridge's
+    rules, `decoder_ssl` and `loss` (target_proj or quantizer) mirrored."""
+    enc_p, enc_s = _encoder_variables(state_dict, enc_cfg)
+    dec, loss = _ssl_heads(dec_cfg, loss_cfg)
+    d = mirrored_to_jax(state_dict, dec, "decoder_ssl.")
+    lo = mirrored_to_jax(state_dict, loss, "loss.")
+    out = {"params": {"encoder": enc_p, "decoder_ssl": d["params"], "loss": lo["params"]},
+           "batch_stats": {}}
+    if enc_s:
+        out["batch_stats"]["encoder"] = enc_s
+    if d["batch_stats"]:
+        out["batch_stats"]["decoder_ssl"] = d["batch_stats"]
+    return out
+
+
+def ssl_state_dict_from_jax(variables: dict, enc_cfg, dec_cfg, loss_cfg) -> dict:
+    """The JAX `_SSLNet`'s {"params", "batch_stats"} (numpy) -> the port's
+    SSLNet state_dict; the exact inverse of `ssl_variables_to_jax`."""
+    params = variables["params"]
+    stats = variables.get("batch_stats") or {}
+    sd = _encoder_state(params["encoder"], stats.get("encoder", {}), enc_cfg, "encoder.")
+    dec, loss = _ssl_heads(dec_cfg, loss_cfg)
+    sd.update(mirrored_from_jax({"params": params["decoder_ssl"],
+                                 "batch_stats": stats.get("decoder_ssl", {})},
+                                dec, "decoder_ssl."))
+    sd.update(mirrored_from_jax({"params": params["loss"], "batch_stats": {}}, loss, "loss."))
+    return {k: _tensor(v) for k, v in sd.items()}
+
+
+def label_variables_to_jax(state_dict: dict, net) -> dict:
+    """A label model's state_dict (api_label.py: classification, regression
+    or speaker; every submodule carries the flax name) -> the JAX model's
+    {"params", "batch_stats"} (numpy). `net`: the model's module, or one of
+    the same architecture (its structure is read)."""
+    return mirrored_to_jax(state_dict, net)
+
+
+def label_state_dict_from_jax(variables: dict, net) -> dict:
+    """The exact inverse of `label_variables_to_jax`."""
+    return {k: _tensor(v) for k, v in mirrored_from_jax(
+        {"params": variables["params"], "batch_stats": variables.get("batch_stats") or {}},
+        net).items()}

@@ -297,16 +297,23 @@ class BatchNorm(nn.Module):
     of (B, T) positions are summed over the group by an all-reduce that
     carries the gradient, so every rank normalises with the global batch's
     statistics, as the JAX package's data-sharded BatchNorm does, and every
-    rank's running statistics stay equal."""
+    rank's running statistics stay equal.
+
+    `eps` is flax's epsilon (the label models' 1e-3 and 1e-5); `affine=False`
+    is flax's BatchNorm without scale and bias."""
 
     momentum = 0.9
     sync_group = None
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, affine: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:  # flax's use_scale=False, use_bias=False: unit scale, zero shift
+            self.register_buffer("weight", torch.ones(channels), persistent=False)
+            self.register_buffer("bias", torch.zeros(channels), persistent=False)
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 

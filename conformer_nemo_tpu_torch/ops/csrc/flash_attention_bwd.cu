@@ -6,7 +6,7 @@
 // `_flash_bwd_streamed`) of conformer_nemo_tpu/ops/pallas/flash_attention.py.
 // Given the forward's inputs, its per-row lse, dO and delta = rowsum(dO * O):
 //
-//     P_ij  = exp(qs_i . ks_j * scale - lse_i)      over visible (i, j)
+//     P_ij  = exp(min(qs_i . ks_j * scale - lse_i, 0))   over visible (i, j)
 //     dS_ij = P_ij * (dO_i . v_j - delta_i) * scale
 //     dQ_i  = sum_j dS_ij ks_j,   dK_j = sum_i dS_ij qs_i,   dV_j = sum_i P_ij dO_i
 //
@@ -39,8 +39,9 @@
 //     tile serves both S = Qs Ks^T and dQ += dS Ks;
 //   * tensor cores from registers: warp (rg, cg) forms S and dP = dO V^T for
 //     queries 16rg.. x keys 16cg.. by mma.sync m16n8k16 from ldmatrix
-//     fragments in fp32 registers (two accumulator sets over alternate depth
-//     steps), then P and dS in registers; dS is exchanged once a key tile
+//     fragments in fp32 registers (S in one chain in the forward's depth
+//     order, so its bits are the forward's), then P and dS in registers; dS
+//     is exchanged once a key tile
 //     through shared memory as bf16 (4.5 KB, two buffers, so one barrier of
 //     the consumer warps a tile), where it is rounded for the dQ product
 //     anyway;
@@ -68,10 +69,10 @@
 //     and dK += dS^T Qs, so it is read from device memory once per block;
 //   * tensor cores from registers: every product is mma.sync m16n8k16 bf16
 //     (fp32 accumulate) from ldmatrix fragments; warp (rg, cg) forms S^T and
-//     dP^T = V dO^T for keys 16rg.. x queries 16cg.. in fp32 registers (two
-//     accumulator sets over alternate depth steps, for independent chains;
-//     the depth loop unrolled by 4, which timed faster than no unrolling on
-//     an H100), then P^T and dS^T in registers;
+//     dP^T = V dO^T for keys 16rg.. x queries 16cg.. in fp32 registers (S^T
+//     in one chain in the forward's depth order, so its bits are the
+//     forward's; the depth loop unrolled by 4), then P^T and dS^T in
+//     registers;
 //   * dK and dV accumulate in fp32 registers across the whole query loop:
 //     each warp owns all 32 key rows x its share of the columns (up to 9
 //     n-tiles of 8 of dK, so d1 <= 576: 72 accumulators a thread; up to 2 of
@@ -102,6 +103,19 @@ using namespace flash;
 using namespace tc;
 
 namespace {
+
+// P of a visible pair from its S accumulator: x = fl(S * scale), rounded as
+// the forward rounds it (never fused into the subtraction), then
+// exp(min(x - lse, 0)). Both kernels sum S's products in the forward's
+// chain (one accumulator, depth steps in order), so x is the forward's x
+// bit for bit and x - lse <= 0 (lse = fl(m + log l) >= m >= x). That
+// matters where the scores run to millions: there a unit in the last place
+// of x is worth a factor e or more in P, and sums in another order put P
+// far from the forward's softmax, or past fp32's range. The cap at 0 is a
+// guard that never bites when the sums agree.
+__device__ inline float p_of(float sv, float scale, float lse) {
+  return expf(fminf(__fmul_rn(sv, scale) - lse, 0.f));
+}
 
 // ---------------------------------------------------------------------------
 // dQ kernel
@@ -269,13 +283,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
     const bf16* Vt = Kt + L.kboxes * BK * 64;
     bf16* Ds = reinterpret_cast<bf16*>(smem + L.ds + (i & 1) * align128(sizeof(bf16) * DQ_ROWS * L.ldd));
 
-    // S = Qs Kt^T over the depth (alternate steps into two accumulator sets,
-    // for independent chains) and dP = dO Vt^T; Kt and Vt are swizzled boxes
-    float s[2][NS][4], dp[NS][4];
+    // S = Qs Kt^T over the depth in one chain, in the forward's order (so S is
+    // the forward's bit for bit: see p_of), and dP = dO Vt^T; Kt and Vt are
+    // swizzled boxes
+    float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[0][j][e] = s[1][j][e] = dp[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     // B fragments of keys BK / 4 * cg.. at depth 16 kk.. of [BK x 64] boxes
     auto b_frag = [&](uint32_t* b, const bf16* boxes, int kk) {
       const bf16* box = boxes + (kk >> 2) * BK * 64;
@@ -292,13 +307,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
       mma16816(acc[0], a, b[0], b[1]);
       if constexpr (NS == 2) mma16816(acc[1], a, b[2], b[3]);
     };
-    int kk = 0;
 #pragma unroll 2
-    for (; kk + 1 < nkk; kk += 2) {
-      s_step(s[0], kk);
-      s_step(s[1], kk + 1);
-    }
-    if (kk < nkk) s_step(s[0], kk);
+    for (int kk = 0; kk < nkk; ++kk) s_step(s, kk);
 #pragma unroll
     for (int kv = 0; kv < nvk; ++kv) {
       uint32_t a[4], b[4];
@@ -319,8 +329,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
         for (int e = 0; e < 2; ++e) {
           const int col = BK / 4 * cg + 8 * j + c2 + e, kj = k0 + col;
           const bool ok = qi < klim && kj < klim && in_band(qi, kj, left, right);
-          const float sv = s[0][j][2 * h + e] + s[1][j][2 * h + e];
-          const float p = ok ? expf(sv * scale - lse_r[h]) : 0.f;
+          const float p = ok ? p_of(s[j][2 * h + e], scale, lse_r[h]) : 0.f;
           ds[e] = ok ? p * (dp[j][2 * h + e] - delta_r[h]) * scale : 0.f;
         }
         *reinterpret_cast<uint32_t*>(Ds + row * L.ldd + BK / 4 * cg + 8 * j + c2) =
@@ -539,25 +548,15 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ ks,
     const float* lse_s = reinterpret_cast<const float*>(smem + L.lse) + st * TILE;
     const float* delta_s = reinterpret_cast<const float*>(smem + L.delta) + st * TILE;
 
-    // S^T = K Qs^T over the depth, alternate steps into two accumulator sets
-    float s[4][4], dp[2][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    // S^T = K Qs^T over the depth in one chain, in the forward's order: the
+    // same products into the same chain, so S is the forward's bit for bit
+    float s[2][4], dp[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-    int kk = 0;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll 4
-    for (; kk + 1 < nkk; kk += 2) {
-      mma_step_nk(s[0], s[1], a_addr(Ks, L.ldk, 16 * rg, 16 * kk, l),
-                  bn_addr(Qt, L.ldk, 16 * kk, 16 * cg, l));
-      mma_step_nk(s[2], s[3], a_addr(Ks, L.ldk, 16 * rg, 16 * kk + 16, l),
-                  bn_addr(Qt, L.ldk, 16 * kk + 16, 16 * cg, l));
-    }
-    if (kk < nkk)
+    for (int kk = 0; kk < nkk; ++kk)
       mma_step_nk(s[0], s[1], a_addr(Ks, L.ldk, 16 * rg, 16 * kk, l),
                   bn_addr(Qt, L.ldk, 16 * kk, 16 * cg, l));
     // dP^T = V dO^T
@@ -577,8 +576,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ ks,
         for (int e = 0; e < 2; ++e) {
           const int col = 16 * cg + 8 * j + c2 + e, qi = q0 + col;
           const bool ok = kj < klim && qi < klim && in_band(qi, kj, left, right);
-          const float sv = s[j][2 * h + e] + s[j + 2][2 * h + e];
-          p[e] = ok ? expf(sv * scale - lse_s[col]) : 0.f;
+          p[e] = ok ? p_of(s[j][2 * h + e], scale, lse_s[col]) : 0.f;
           ds[e] = ok ? p[e] * (dp[j][2 * h + e] - delta_s[col]) * scale : 0.f;
         }
         const int o = row * LDP + 16 * cg + 8 * j + c2;

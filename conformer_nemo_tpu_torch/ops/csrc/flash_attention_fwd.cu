@@ -34,9 +34,15 @@
 //     block-wide barrier in the loop;
 //   * S = Qs Ks^T is mma.sync m16n8k16 bf16 from ldmatrix fragments into
 //     fp32 registers (16 x 64 a warp, 32 a thread); the online softmax runs
-//     on those accumulator fragments in the exp2 domain, with row max by
-//     quad shuffles, the TPU kernel's m_safe / l_safe guards and its
-//     empty-row rule; masking is per element (length, then band);
+//     on those accumulator fragments, with row max by quad shuffles, the TPU
+//     kernel's m_safe / l_safe guards and its empty-row rule; masking is per
+//     element (length, then band);
+//   * the row max m and lse = m + log(l) are kept in the scores' own units
+//     (S * scale, the value the backward recomputes), and each exponent is
+//     exp2((x - m) * log2 e) of the difference: at scores past fp32's
+//     integer range (|x| > 2^24) a detour through x * log2 e and back
+//     rounds by many units, which the backward's exp(x - lse) would
+//     amplify past fp32's range;
 //   * P goes from the C fragments, rounded to bf16 in pairs, straight into
 //     the A fragments of P V (tensor_core.cuh's pairing): no shared-memory
 //     round trip; the row sums l are taken from the fp32 P before rounding;
@@ -74,7 +80,6 @@ constexpr int BOX = 64;     // columns of a tensor-copy box (128 bytes: the swiz
 constexpr int FDC = 192;    // depth of a Ks piece: three boxes
 constexpr int NSLOT = 3;    // ring slots
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr size_t BOX_BYTES = sizeof(bf16) * BK * BOX;
 
 // a barrier of the first n threads of the block (the consumer warps)
@@ -183,7 +188,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
 
   // the consumer warps: warp w owns query rows 16w..16w+15 of the tile
   const int g = l >> 2, c2 = 2 * (l & 3);
-  const float sl2 = scale * LOG2E;  // scores in the exp2 domain
   float s[8][4], oacc[NV][4];
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};  // rows g, g + 8
 #pragma unroll
@@ -232,7 +236,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
           const int h = e >> 1;
           const int qi = q0 + 16 * warp + g + 8 * h, kj = k0 + 8 * j + c2 + (e & 1);
           const bool ok = kj < klim && in_band(qi, kj, left, right);
-          s[j][e] = ok ? s[j][e] * sl2 : NEG_INF;
+          // rounded here, never fused into the exponent's subtraction: the
+          // backward recomputes exactly this value
+          s[j][e] = ok ? __fmul_rn(s[j][e], scale) : NEG_INF;
           mx[h] = fmaxf(mx[h], s[j][e]);
         }
       float alpha[2], m_safe[2];
@@ -242,7 +248,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
         const float m_new = fmaxf(m_run[h], mx[h]);
         m_safe[h] = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
-        alpha[h] = m_run[h] <= NEG_INF * 0.5f ? 0.f : exp2f(m_run[h] - m_safe[h]);
+        alpha[h] = m_run[h] <= NEG_INF * 0.5f ? 0.f : exp2f((m_run[h] - m_safe[h]) * LOG2E);
         m_run[h] = m_new;
       }
       float sum[2] = {0.f, 0.f};
@@ -251,7 +257,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           // a masked score is -1e30: exp2 of it is exactly 0
-          s[j][e] = exp2f(s[j][e] - m_safe[e >> 1]);
+          s[j][e] = exp2f((s[j][e] - m_safe[e >> 1]) * LOG2E);
           sum[e >> 1] += s[j][e];
         }
 #pragma unroll
@@ -303,7 +309,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
             pack2(oacc[j][2 * h] * inv, oacc[j][2 * h + 1] * inv);
     if ((l & 3) == 0 && q0 + row < T)
       lse[(size_t)bh * T + q0 + row] =
-          (m_run[h] <= NEG_INF * 0.5f ? 0.f : m_run[h] * LN2) + logf(l_safe);
+          (m_run[h] <= NEG_INF * 0.5f ? 0.f : m_run[h]) + logf(l_safe);
   }
   consumers_sync(NW * 32);
   const int vec = dv / 8;

@@ -114,7 +114,9 @@ def flash_attention_fwd_reference(qs, ks, v, lens, scale: float, left: int = -1,
 def flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, scale: float,
                                   left: int = -1, right: int = -1):
     """Plain PyTorch version of the backward: dense fp32 recomputation of
-    P = exp(S * scale - lse) over the visible pairs of valid query rows.
+    P = exp(min(S * scale - lse, 0)) over the visible pairs of valid query
+    rows (lse is at least every score of its row, so the cap only bounds P
+    by 1 where the scores pass fp32's resolution, as the kernels do).
     -> (dq, dk, dv) in the dtypes of qs, ks, v."""
     t = qs.shape[1]
     acc = _acc_dtype(qs)
@@ -122,7 +124,7 @@ def flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, scale: float,
     mask = visible_mask(t, lens, left, right) & q_valid[:, :, None]
     qf, kf, vf, dof = qs.to(acc), ks.to(acc), v.to(acc), do.to(acc)
     s = torch.einsum("btd,bsd->bts", qf, kf) * scale
-    p = torch.where(mask, torch.exp(s - lse.to(acc)[..., None]),
+    p = torch.where(mask, torch.exp((s - lse.to(acc)[..., None]).clamp(max=0.0)),
                     torch.zeros((), dtype=acc, device=s.device))
     dp = torch.einsum("btd,bsd->bts", dof, vf)
     ds = p * (dp - delta.to(acc)[..., None]) * scale

@@ -382,6 +382,13 @@ def make_optimizer(name: str, lr_schedule: Callable[[int], float], *, weight_dec
     return opt
 
 
+def constant_adamw(lr: float, weight_decay: float) -> Transformation:
+    """optax.adamw(lr, weight_decay=...) with optax's defaults (b2 0.999,
+    eps 1e-8): the SSL and label models' `fit`."""
+    return make_optimizer("adamw", lambda count: lr, weight_decay=weight_decay,
+                          betas=(0.9, 0.999), eps=1e-8)
+
+
 def with_grad_accumulation(opt: Transformation, every: int) -> Transformation:
     """Average the gradients of `every` micro-batches before one update of
     `opt` (optax.MultiSteps); the other calls return zero updates."""

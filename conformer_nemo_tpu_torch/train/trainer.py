@@ -94,6 +94,40 @@ def undistribute_state(state: TrainState) -> None:
     state.mesh = None
 
 
+def run_epochs(state: TrainState, step_fn: Callable, epoch_batches: Callable, max_epochs: int,
+               max_steps: Optional[int] = None, after_step: Optional[Callable] = None,
+               after_epoch: Optional[Callable] = None) -> tuple:
+    """The epoch loop of every model's `fit`: `step_fn(batch)` over the
+    batches of `epoch_batches()` (a context manager that gives one epoch's
+    iterable and closes it when the epoch ends or is cut), for up to
+    `max_epochs` epochs, until `state.step` reaches `max_steps` (when given)
+    or `after_step(step, metrics)` returns True. `after_epoch(step)` runs at
+    the end of each epoch that `after_step` did not stop, the one that
+    max_steps cut included. The model is in eval mode again on return.
+    -> (the last step's metrics, {} when none ran; whether after_step stopped)."""
+    metrics: dict = {}
+    try:
+        for _ in range(max_epochs):
+            stopped = False
+            with epoch_batches() as batches:
+                for batch in batches:
+                    metrics = step_fn(batch)
+                    if after_step is not None and after_step(state.step, metrics):
+                        stopped = True
+                        break
+                    if max_steps and state.step >= max_steps:
+                        break
+            if stopped:
+                return metrics, True
+            if after_epoch is not None:
+                after_epoch(state.step)
+            if max_steps and state.step >= max_steps:
+                break
+        return metrics, False
+    finally:
+        state.model.eval()
+
+
 def _device_batch(batch, device) -> dict:
     """A Batch or dict of numpy arrays / tensors -> dict of tensors on
     device. `fit` hands the step batches that data/prefetch.py already put

@@ -105,6 +105,22 @@ def test_flash_attention_function_matches_jax_vjp(band):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=ATOL)
 
 
+def test_flash_bwd_plain_version_caps_p_at_one():
+    """An lse below a visible score by more than exp's fp32 range (what a
+    forward and a backward that sum the same products in different orders
+    can leave at scores past 2^24) gives P = 1, not inf: the backward stays
+    finite, and a row with one visible key keeps dV = dO there."""
+    qs, ks, v, do, lens = (torch.from_numpy(a) for a in _inputs(5, 2, 16, 8, 4, [16, 1]))
+    o, lse = port.flash_attention_fwd(qs, ks, v, lens, 0.5)
+    delta = (do * o).sum(-1)
+    low = lse - 200.0
+    assert not torch.isfinite(torch.exp(qs[1, 0] @ ks[1, 0] * 0.5 - low[1, 0]))
+    got = port.flash_attention_bwd(qs, ks, v, do, low, delta, lens, 0.5)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    want = port.flash_attention_bwd(qs, ks, v, do, lse, delta, lens, 0.5)
+    assert torch.equal(got[2][1], want[2][1]) and torch.equal(got[2][1, 0], do[1, 0])
+
+
 def test_flash_attention_gradcheck_fp64():
     """torch.autograd.gradcheck of the plain path in fp64. Query rows past
     the length are padding whose gradient the backward drops, so the output

@@ -29,6 +29,12 @@ streaming = {"conformer_nemo_tpu_torch." + m for m in (
     "decode.streaming", "utils.export", "convert.nemo_archive", "convert.nemo_state",
     "scripts.convert_nemo")}
 assert streaming <= set(names), sorted(streaming - set(names))
+labels = {"conformer_nemo_tpu_torch." + m for m in (
+    "api_ssl", "api_label", "models.ssl", "models.conv_asr", "models.tdnn",
+    "models.classification", "ops.contrastive_loss", "ops.classification_losses",
+    "data.audio_to_label", "data.feature_to_label", "decode.vad", "scripts.ssl_pretrain",
+    "scripts.speech_classification", "scripts.speaker_tasks")}
+assert labels <= set(names), sorted(labels - set(names))
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                                                "msgpack")
@@ -68,8 +74,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     # every module was walked: the decoders, the multi-GPU modules, buffered
-    # decode, export and the .nemo converter included
-    assert int(r.stdout.split()[-1]) >= 68
+    # decode, export, the .nemo converter, SSL and the label models included
+    assert int(r.stdout.split()[-1]) >= 82
 
 
 def test_no_port_source_reads_the_jax_packages_native_tree():
@@ -124,6 +130,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert_nemo.convert("model.nemo", "model.cntpu")  # before it reads the file
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_ssl_and_label_entry_points_raise_without_cuda():
+    """The SSL and label models, their restores and the three CLIs default
+    to CUDA too, and raise before any work without it."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    from conformer_nemo_tpu_torch import api_label, api_ssl
+    from conformer_nemo_tpu_torch.scripts import (
+        speaker_tasks,
+        speech_classification,
+        ssl_pretrain,
+    )
+
+    for make in (api_ssl.SpeechSSLModel, lambda: api_label.ClassificationModel(["a", "b"]),
+                 api_label.RegressionModel, lambda: api_label.SpeakerLabelModel(["a", "b"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    for cls in (api_label.ClassificationModel, api_label.RegressionModel,
+                api_label.SpeakerLabelModel):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls.restore_portable("model.cntpu")  # before it reads the file
+    for main, argv in ((ssl_pretrain.main, ["--config", os.path.join(
+            ROOT, "configs", "conformer_ctc_bpe.yaml"), "model.train_ds.manifest_filepath=m.json"]),
+                       (speech_classification.main, ["--model", "model.cntpu"]),
+                       (speaker_tasks.main, ["embed", "--model", "model.cntpu", "a.wav"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert api_label.ClassificationModel(["a", "b"], device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_cuda():

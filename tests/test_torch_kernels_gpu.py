@@ -135,6 +135,39 @@ def test_flash_bwd_cuda_kernels_match_plain(cuda_device, t, d1, dv, band):
 
 
 @pytest.mark.gpu
+def test_flash_kernels_stay_finite_at_scores_past_fp32_integer_range(cuda_device):
+    """Scores of 1e9 and more, exact in fp32 from any order of summation:
+    qs integers times 2^24 in its first half of columns (0 past them), ks
+    integers with keys 2i and 2i + 1 equal there, so each softmax row splits
+    over its top pair. The forward's lse equals the plain one bit for bit,
+    and dQ, dK and dV are finite and agree with the plain backward (an lse
+    kept in the exp2 domain drifted by hundreds there, and exp(x - lse) went
+    past fp32's range)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    bh, t, d1, dv, half = 4, 1843, 576, 64, 288
+    qs = torch.zeros(bh, t, d1)
+    qs[..., :half] = torch.randint(-8, 9, (bh, t, half), generator=g).float() * 2.0 ** 24
+    ks = torch.randint(-8, 9, (bh, t, d1), generator=g).float()
+    ks[:, 1::2, :half] = ks[:, 0::2, :half][:, : t // 2]
+    v, do = (torch.randn(bh, t, dv, generator=g) for _ in range(2))
+    qs, ks, v, do = (x.to(cuda_device, torch.bfloat16) for x in (qs, ks, v, do))
+    lens = torch.tensor([t, 1700, 901, 2], dtype=torch.int32, device=cuda_device)
+    o, lse = port.flash_attention_fwd(qs, ks, v, lens, 0.125)
+    o_ref, lse_ref = port.flash_attention_fwd_reference(qs, ks, v, lens, 0.125)
+    assert lse_ref.abs().max().item() > 1e9
+    assert torch.equal(lse, lse_ref)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    delta = (do.float() * o.float()).sum(-1)
+    got = port.flash_attention_bwd(qs, ks, v, do, lse, delta, lens, 0.125)
+    want = port.flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, 0.125)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+        assert rel.item() <= BWD_REL_TOL, (name, rel.item())
+
+
+@pytest.mark.gpu
 def test_flash_bwd_dkv_refuses_a_depth_past_its_registers(cuda_device):
     """d1 584 rounds up to 592 dK columns, past the 576 the dK/dV kernel's
     warps hold: the whole backward raises before either kernel launches,
@@ -630,3 +663,86 @@ def test_subsampling_modes_on_the_card_match_the_cpu(cuda_device, mode, factor):
     want = cpu.state_dict()
     for k, v in card.state_dict().items():
         torch.testing.assert_close(v.cpu(), want[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["projected", "quantised"])
+def test_ssl_objective_on_the_card_matches_the_cpu(cuda_device, quantized):
+    """A tiny fp32 SSL model (dense attention) on the card and on the CPU
+    with the same weights, masks and Gumbel draws: the contrastive loss
+    within 1e-4 relative and every gradient within 1e-3 of its tensor's
+    largest entry (fp32 on both; the card's reductions sum in other orders);
+    the two biases whose gradient is zero in exact arithmetic (the attention
+    key bias under softmax's shift invariance, the depthwise-conv bias that
+    training BatchNorm subtracts) hold rounding only, within 1e-5."""
+    from conformer_nemo_tpu_torch.api_ssl import SpeechSSLModel, mask_inputs
+    from conformer_nemo_tpu_torch.audio.features import MelFeatureConfig
+    from conformer_nemo_tpu_torch.models.conformer import ConformerEncoderConfig
+    from conformer_nemo_tpu_torch.ops.contrastive_loss import ContrastiveLossConfig
+
+    enc = ConformerEncoderConfig(feat_in=16, n_layers=1, d_model=32, n_heads=2,
+                                 conv_kernel_size=7, dropout=0.0, dropout_att=0.0,
+                                 dtype=torch.float32, use_flash_attention=False)
+    loss = ContrastiveLossConfig(in_dim=16, proj_dim=8, num_negatives=5,
+                                 quantized_targets=quantized, codebook_size=12)
+    models = {d: SpeechSSLModel(encoder=enc, mel=MelFeatureConfig(features=16), loss=loss,
+                                patch_size=4, mask_patches=3, device=d)
+              for d in ("cpu", cuda_device)}
+    models[cuda_device].model.load_state_dict(models["cpu"].model.state_dict())
+    g = torch.Generator().manual_seed(2)
+    spec = torch.randn(3, 16, 96, generator=g)
+    lens = torch.tensor([96, 80, 50])
+    masked, spec_masks = mask_inputs(spec, lens, 4, 3, mask_generator=g)
+    noise = models["cpu"].model.loss.draw_noise(3, 96, g, "cpu")
+    out = []
+    for d, m in models.items():
+        move = lambda x: x.to(d)
+        value = m.loss(move(spec), move(lens), move(masked), move(spec_masks), step=5,
+                       noise={k: move(v) for k, v in noise.items()})
+        names, params = zip(*m.model.named_parameters())
+        grads = torch.autograd.grad(value, params, allow_unused=True)
+        out.append((float(value.detach()), [None if x is None else x.cpu() for x in grads]))
+    (lc, gc), (lg, gg) = out
+    assert lg == pytest.approx(lc, rel=1e-4)
+    for name, a, b in zip(names, gg, gc):
+        if b is None:
+            continue
+        err = float((a - b).abs().max())
+        if name.endswith(("self_attn.linear_k.bias", "conv.depthwise_conv.bias")):
+            assert err <= 1e-5, name
+        else:
+            assert err <= 1e-3 * float(b.abs().max()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["classification", "speaker"])
+def test_label_models_on_the_card_match_the_cpu(cuda_device, kind):
+    """MatchboxNet and a narrow ECAPA, fp32, on the card (cuDNN, TF32 off)
+    and on the CPU with the same weights: logits and embeddings within 1e-4
+    absolute in inference, and a training forward's BatchNorm statistics
+    within it too (convolution algorithms sum in other orders)."""
+    from conformer_nemo_tpu_torch.api_label import ClassificationModel, SpeakerLabelModel
+
+    def make(d):
+        if kind == "classification":
+            return ClassificationModel(["a", "b", "c"], device=d)
+        return SpeakerLabelModel(["a", "b", "c"], filters=(64, 64, 64, 64, 192), device=d)
+
+    cpu, card = make("cpu"), make(cuda_device)
+    card.model.load_state_dict(cpu.model.state_dict())
+    g = torch.Generator().manual_seed(3)
+    audio = (0.1 * torch.randn(4, 16000, generator=g)).numpy()
+    lens = np.array([16000, 12000, 16000, 9000], np.int32)
+    outputs = lambda x: x if isinstance(x, tuple) else (x,)  # the speaker's (logits, emb)
+    for a, b in zip(outputs(card._infer(audio, lens)), outputs(cpu._infer(audio, lens))):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    feats, flens = cpu._features(audio, lens)
+    cpu.model.train()
+    card.model.train()
+    with torch.no_grad():
+        cpu.model(feats, flens, torch.Generator().manual_seed(0))
+        card.model(feats.to(cuda_device), flens.to(cuda_device),
+                   torch.Generator(device=cuda_device).manual_seed(0))
+    ref = cpu.model.state_dict()
+    for k, v in card.model.state_dict().items():
+        torch.testing.assert_close(v.cpu(), ref[k], rtol=0, atol=1e-4)

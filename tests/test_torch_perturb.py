@@ -110,8 +110,36 @@ def test_what_the_port_cannot_honour_raises(banks):
         port_pt.process_augmentations({"reverb": {"prob": 1.0}})
     with pytest.raises(ValueError, match="codec 'amr-nb'"):
         port_pt.process_augmentations({"transcode_aug": {"codecs": ["g711", "amr-nb"]}})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        port_pt.NoisePerturbation(banks["noise"], audio_tar_filepaths="noise_{0..3}.tar")
-    with pytest.raises(NotImplementedError, match="noise_tar_filepaths"):
-        port_pt.RirAndNoisePerturbation(noise_manifest_paths=[banks["noise"]],
-                                        noise_tar_filepaths=["n.tar"])
+
+
+TARRED = {
+    "noise": ("NoisePerturbation", {"manifest_path": "noise", "min_snr_db": 0,
+                                    "max_snr_db": 20, "audio_tar_filepaths": "noise_{0..3}.tar"}),
+    "impulse": ("ImpulsePerturbation", {"manifest_path": "rir",
+                                        "audio_tar_filepaths": ["rir_0.tar"]}),
+    "rir_noise": ("RirAndNoisePerturbation", {
+        "rir_manifest_path": "rir", "rir_prob": 0.7, "noise_manifest_paths": ["noise"],
+        "min_snr_db": [0], "max_snr_db": [30], "bg_noise_manifest_paths": ["noise"],
+        "apply_noise_rir": True, "max_additions": 3, "rir_tar_filepaths": "rir.tar",
+        "noise_tar_filepaths": ["n.tar"], "bg_noise_tar_filepaths": ["bg.tar"]}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TARRED))
+def test_tarred_bank_arguments_read_the_manifest_as_jax(case, banks, caplog):
+    """A tar list given to a noise or impulse bank is accepted and ignored,
+    as the JAX package does: the bank is the manifest's, so the port's draws
+    equal the JAX augmentor's; the port logs that the tar list is ignored."""
+    cls, kwargs = TARRED[case]
+    kwargs = _kwargs(kwargs, banks)
+    port_pt._TAR_NOTED.clear()
+    with caplog.at_level("WARNING", logger=port_pt.__name__):
+        port = getattr(port_pt, cls)(**kwargs)
+    assert "is ignored" in caplog.text and "tar_filepaths" in caplog.text
+    ref = getattr(jax_pt, cls)(**kwargs)
+    x = _wave(seed=len(case))
+    for seed in range(4):
+        rp, rj = random.Random(seed), random.Random(seed)
+        np.testing.assert_array_equal(port.perturb(x.copy(), 16000, rp),
+                                      ref.perturb(x.copy(), 16000, rj))
+        assert rp.getstate() == rj.getstate()
