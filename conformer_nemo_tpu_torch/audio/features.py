@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from conformer_nemo_tpu_torch.utils.typecheck import typecheck
+
 LOG_GUARD = 2.0 ** -24  # reference log_zero_guard_value
 STD_GUARD = 1e-5  # reference CONSTANT added to std
 
@@ -209,6 +211,7 @@ def _bernoulli(gen: torch.Generator, p: float, shape, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device) < p
 
 
+@typecheck(waveform=("B", "T"), lengths=("B",))
 def log_mel_spectrogram(cfg: MelFeatureConfig, waveform: torch.Tensor, lengths: torch.Tensor,
                         *, generator: torch.Generator | None = None,
                         training: bool = False) -> tuple[torch.Tensor, torch.Tensor]:

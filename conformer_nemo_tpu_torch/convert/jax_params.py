@@ -478,3 +478,71 @@ def label_state_dict_from_jax(variables: dict, net) -> dict:
     return {k: _tensor(v) for k, v in mirrored_from_jax(
         {"params": variables["params"], "batch_stats": variables.get("batch_stats") or {}},
         net).items()}
+
+
+# ---------------------------------------------------------------------------
+# The RNN encoder and the LSTM head (models/rnn_encoder.py): the pre-encode by
+# the conformer front end's rules, every other submodule mirrored (the LSTM
+# leaves wx, wh, b keep the JAX names and layouts)
+# ---------------------------------------------------------------------------
+
+
+def _rnn_children(module):
+    """(name, submodule) of every child but the pre-encode."""
+    return [(n, m) for n, m in module.named_children() if n != "pre_encode"]
+
+
+def _rnn_encoder_module(cfg):
+    """An RNNEncoder of `cfg` on the CPU (only its structure is read; the
+    front end's sizes need real tensors, which the meta device lacks)."""
+    from conformer_nemo_tpu_torch.models.rnn_encoder import RNNEncoder
+
+    with torch.device("cpu"):
+        return RNNEncoder(cfg)
+
+
+def rnn_encoder_state_dict_from_jax(variables: dict, cfg) -> dict:
+    """The JAX `RNNEncoder`'s {"params"(, "batch_stats")} (numpy) -> the
+    port's RNNEncoder state_dict."""
+    from conformer_nemo_tpu_torch.models.rnn_encoder import pre_encode_config
+
+    params = variables["params"]
+    stats = variables.get("batch_stats") or {}
+    sd = _pre_encode_state(params["pre_encode"], stats.get("pre_encode", {}),
+                           pre_encode_config(cfg), "")
+    for name, child in _rnn_children(_rnn_encoder_module(cfg)):
+        sd.update(mirrored_from_jax({"params": params[name], "batch_stats": {}}, child,
+                                    name + "."))
+    return {k: _tensor(v) for k, v in sd.items()}
+
+
+def rnn_encoder_variables_to_jax(state_dict: dict, cfg) -> dict:
+    """The exact inverse of `rnn_encoder_state_dict_from_jax`."""
+    from conformer_nemo_tpu_torch.models.rnn_encoder import pre_encode_config
+
+    pe, pe_stats = _pre_encode_variables(state_dict, pre_encode_config(cfg), "")
+    out = {"params": {"pre_encode": pe}}
+    for name, child in _rnn_children(_rnn_encoder_module(cfg)):
+        out["params"][name] = mirrored_to_jax(state_dict, child, name + ".")["params"]
+    if pe_stats:
+        out["batch_stats"] = {"pre_encode": pe_stats}
+    return out
+
+
+def lstm_decoder_state_dict_from_jax(variables: dict, cfg) -> dict:
+    """The JAX `LSTMDecoder`'s {"params"} (numpy) -> the port's state_dict."""
+    from conformer_nemo_tpu_torch.models.rnn_encoder import LSTMDecoder
+
+    with torch.device("meta"):
+        head = LSTMDecoder(cfg)
+    return {k: _tensor(v) for k, v in mirrored_from_jax(
+        {"params": variables["params"], "batch_stats": {}}, head).items()}
+
+
+def lstm_decoder_variables_to_jax(state_dict: dict, cfg) -> dict:
+    """The exact inverse of `lstm_decoder_state_dict_from_jax`."""
+    from conformer_nemo_tpu_torch.models.rnn_encoder import LSTMDecoder
+
+    with torch.device("meta"):
+        head = LSTMDecoder(cfg)
+    return {"params": mirrored_to_jax(state_dict, head)["params"]}

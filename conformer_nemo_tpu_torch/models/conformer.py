@@ -541,10 +541,28 @@ class ConformerFeedForward(nn.Module):
         return _row_linear(self.linear2.weight, self.linear2.bias, y, dt, tp)
 
 
+def _tp_layer_norm(norm: nn.LayerNorm, x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """A LayerNorm over channels that the model group shards: x [B, T, C / model]
+    holds this rank's channels and `norm` their weight and bias. The mean
+    and variance come from the sum and sum of squares over every rank's
+    channels (one all-reduce of [2, B, T] in fp32, whose backward sums the
+    ranks' gradients), with flax's E[x^2] - E[x]^2 variance clipped at 0;
+    each rank normalises its own channels."""
+    x = x.to(torch.float32)
+    c = x.shape[-1] * tp.size
+    sums = all_reduce_sum(torch.stack([x.sum(dim=-1), (x * x).sum(dim=-1)]), tp.group)
+    mean = sums[0] / c
+    var = torch.clamp(sums[1] / c - mean * mean, min=0.0)
+    y = (x - mean[..., None]) * torch.rsqrt(var + norm.eps)[..., None]
+    return y * norm.weight + norm.bias
+
+
 class ConformerConvolution(nn.Module):
     """pointwise(2d) -> GLU -> pad-masked depthwise(k) -> norm -> swish -> pointwise.
     Under `tp`: pointwise_conv1 column-parallel on each GLU half, the
-    depthwise conv and BatchNorm by channel, pointwise_conv2 row-parallel."""
+    depthwise conv and the norm by channel (a BatchNorm's statistics are per
+    channel; a LayerNorm's come from every rank's channels,
+    `_tp_layer_norm`), pointwise_conv2 row-parallel."""
 
     TENSOR_PARALLEL = True
     tp = None
@@ -575,8 +593,10 @@ class ConformerConvolution(nn.Module):
         if isinstance(self.batch_norm, BatchNorm):
             x, stats = self.batch_norm(x)
             x = x.transpose(1, 2)
-        else:
+        elif tp is None:
             x = _fp32_norm(self.batch_norm, x.transpose(1, 2))
+        else:
+            x = _tp_layer_norm(self.batch_norm, x.transpose(1, 2), tp)
         x = F.silu(x)
         return _row_linear(pw2.weight[..., 0], pw2.bias, x, dt, tp), stats
 

@@ -12,10 +12,10 @@ under the kernel's name, so a caller can show that a path went through the
 kernels (`launch_counts`, `reset_launch_counts`).
 
 The host libraries (data/csrc/: the FLAC decoder, the Ogg/Vorbis and
-Ogg/Opus shims, and the CTC beam decoder with its KenLM readers) build here
-too, with the host compiler, into the same directory (`host_library`,
-`build_host_all`), and are rebuilt when the source or one of the headers
-it includes is newer. A shim links against the system codec library by
+Ogg/Opus shims, the CTC beam decoder with its KenLM readers, and the edit
+distance) build here too, with the host compiler, into the same directory
+(`host_library`, `build_host_all`), and are rebuilt when the source or one
+of the headers it includes is newer. A shim links against the system codec library by
 full path, so no development headers are needed; a missing system library
 raises, naming it, when the shim is first asked for. A failed build raises
 with the compiler's output; nothing remembers a failure.
@@ -152,6 +152,7 @@ HOST_LIBS = {
     "opus_mem": ("opus_mem.c", ("gcc", "-O2"), ("libopus", "libogg"), ()),
     "ctc_beam": ("ctc_beam.cpp", ("g++", "-O3", "-std=c++17"), (),
                  ("kenlm_probing.h", "kenlm_trie.h")),
+    "edit_distance": ("edit_distance.cpp", ("g++", "-O3", "-std=c++17"), (), ()),
 }
 _SYSTEM_LIB_DIRS = ("/usr/lib/x86_64-linux-gnu", "/lib/x86_64-linux-gnu", "/usr/lib64", "/lib64",
                     "/usr/lib", "/usr/local/lib")

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, launch_count, load
+from conformer_nemo_tpu_torch.utils.typecheck import typecheck
 
 _NEG_INF = -1e30
 
@@ -384,6 +385,8 @@ class CTCLossKernel(torch.autograd.Function):
         return grad.to(ctx.in_dtype), None, None, None, None
 
 
+@typecheck(log_probs=("B", "T", "V"), targets=("B", "U"), input_lengths=("B",),
+           target_lengths=("B",))
 def ctc_loss(log_probs, targets, input_lengths, target_lengths, *, blank_id: int,
              reduction: str = "mean_batch", zero_infinity: bool = False,
              impl: str = "plain"):

@@ -35,6 +35,7 @@ from conformer_nemo_tpu_torch.ops.rnnt_lattice import (
     terminal_cells,
     valid_cells,
 )
+from conformer_nemo_tpu_torch.utils.typecheck import typecheck
 
 
 def lattice_fns(impl: str, device: torch.device):
@@ -138,6 +139,7 @@ def rnnt_loss_from_logits(logits, targets, t_lens, u_lens, blank_id: int,
                                     float(fastemit_lambda), float(clamp), impl)
 
 
+@typecheck(logits=("B", "T", "U1", "V"), targets=("B", "U"), t_lens=("B",), u_lens=("B",))
 def rnnt_loss(logits, targets, t_lens, u_lens, *, blank_id: int, reduction: str = "mean_batch",
               fastemit_lambda: float = 0.0, clamp: float = -1.0, impl: str = "auto"):
     """RNN-T loss with the reference's reductions: mean_batch (mean of the

@@ -9,7 +9,8 @@ and gloo for the CPU unless the caller names one. A world of one with no
 launcher environment is a no-op; a failed initialisation raises, and
 nothing carries on as a single process.
 
-Besides the bootstrap: the rank and world size, `is_main_process`,
+Besides the bootstrap: the rank and world size, `AppState` (a snapshot of
+the topology), `is_main_process`,
 `barrier`, `host_psum_scalars` (host scalars summed over a group, as the
 WER counts are), `all_reduce_sum` (a sum whose gradient is the sum of the
 ranks' gradients, for the synchronised BatchNorm), and the coalesced
@@ -18,6 +19,7 @@ all-reduce of gradients with its byte count.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import List, Optional
@@ -88,6 +90,31 @@ def get_world_size() -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+@dataclasses.dataclass
+class AppState:
+    """A snapshot of the topology (NeMo's AppState): this process's rank and
+    the world's size from torch.distributed when it is initialised (else 0
+    and 1), the GPUs this process sees (the CPU counts as one device where
+    there is none), and the world's devices: one a rank, as the port runs
+    (one process per GPU), or this process's own outside a process group."""
+
+    process_index: int
+    process_count: int
+    local_device_count: int
+    global_device_count: int
+
+    @classmethod
+    def current(cls) -> "AppState":
+        local = torch.cuda.device_count() or 1
+        world = get_world_size()
+        return cls(process_index=get_rank(), process_count=world, local_device_count=local,
+                   global_device_count=world if is_initialized() else local)
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
 
 
 def barrier() -> None:

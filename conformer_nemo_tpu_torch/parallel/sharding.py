@@ -18,8 +18,10 @@ Rules, on NeMo's parameter names (torch layouts: a linear's weight is
     k-th slice of both;
   * row-parallel (input columns sharded, bias replicated): `linear2`,
     `linear_out`, `pointwise_conv2`;
-  * by channel: the depthwise kernel, its bias and the conv BatchNorm
-    (weight, bias and running statistics); by head: `pos_bias_u/v`
+  * by channel: the depthwise kernel, its bias and the conv module's norm
+    (NeMo's `batch_norm` for both norm types: a BatchNorm's weight, bias
+    and running statistics, or a LayerNorm's weight and bias, whose
+    statistics the ranks all-reduce); by head: `pos_bias_u/v`
     [H, d_head] (the JAX package leaves those to XLA);
   * everything else (subsampling, LayerNorms, the CTC head, the prediction
     network and joint) replicated.
@@ -140,14 +142,10 @@ def gather_tensor(t: torch.Tensor, dim: int, glu: bool, tp: TensorParallel) -> t
 
 
 def _check_shardable(model: nn.Module, size: int) -> None:
-    for name, mod in model.named_modules():
+    for mod in model.modules():
         cfg = getattr(mod, "cfg", None)
         if not getattr(type(mod), "TENSOR_PARALLEL", False) or cfg is None:
             continue
-        if getattr(cfg, "conv_norm_type", "batch_norm") != "batch_norm":
-            raise NotImplementedError(
-                f"{name}: the tensor-parallel encoder shards the conv module's norm by channel, "
-                "which a LayerNorm over channels cannot take (conv_norm_type batch_norm only)")
         if cfg.n_heads % size or cfg.d_model % size or cfg.d_ff % size:
             raise ValueError(f"mesh model={size} must divide n_heads={cfg.n_heads}, "
                              f"d_model={cfg.d_model} and d_ff={cfg.d_ff}")

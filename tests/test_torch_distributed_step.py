@@ -118,16 +118,18 @@ def _random_pos_biases(params, seed: int = 1):
     return jax.tree_util.tree_map_with_path(draw, params)
 
 
-def jax_ctc(grad_clip=None):
+def jax_ctc(grad_clip=None, conv_norm_type="batch_norm"):
     """-> (a fresh copy of the initial JAX state, the jitted step, the port
     config, the encoder kwargs); the JAX step donates its state."""
-    host, step, pcfg, enc = _jax_ctc(grad_clip)
+    host, step, pcfg, enc = _jax_ctc(grad_clip, conv_norm_type)
     return jax.tree.map(jnp.array, host), step, pcfg, enc
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_ctc(grad_clip):
+def _jax_ctc(grad_clip, conv_norm_type):
     enc = dict(CTC_ENC)
+    if conv_norm_type != "batch_norm":
+        enc["conv_norm_type"] = conv_norm_type
     cfg = JaxCTCConfig(preprocessor=JaxMelConfig(features=16, dither=0.0),
                        encoder=JaxEncoderConfig(dtype=jnp.float32, **enc), num_classes=V)
     opt = jax_optim.make_optimizer("adamw", jax_lr.make_lr_schedule(SCHED, LR),

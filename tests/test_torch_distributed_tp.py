@@ -8,7 +8,9 @@ with clipping at global norm 1.0, so that the norm of the full gradients
 (the sharded parameters' squares summed over the model group) decides
 every update. The GLU halves of pointwise_conv1, the heads of q, k, v,
 pos and u, v, and the channels of the depthwise conv and its BatchNorm
-are each sharded; a wrong split changes the loss at the first step.
+(or, with conv_norm_type layer_norm, its LayerNorm, whose statistics the
+ranks all-reduce) are each sharded; a wrong split changes the loss at the
+first step.
 Tolerances as tests/test_torch_distributed_step.py: losses relative 1e-5,
 gradient norms 1e-4, parameters (gathered) within 1e-6 of JAX's outside
 the entries whose gradient is at rounding level, and those within a sign
@@ -92,6 +94,28 @@ def test_dp1_tp2_ctc_steps_match_jax(tmp_path):
     assert local["encoder.layers.0.self_attn.pos_bias_u"].shape == (2, 8)
     assert local["encoder.layers.0.conv.pointwise_conv1.weight"].shape == (32, 32, 1)
     assert local["encoder.layers.0.conv.batch_norm.running_var"].shape == (16,)
+    _assert_slices_equal(results)
+    state, noise = jax_steps(state, step, batches, results[0]["metrics"],
+                             lambda st: ctc_state_dict(st, pcfg))
+    assert_params_match(results[0]["full"], ctc_state_dict(state, pcfg), lr_sum(2), noise)
+
+
+def test_dp1_tp2_layer_norm_ctc_steps_match_jax(tmp_path):
+    """conv_norm_type layer_norm: each rank holds half the conv module's
+    LayerNorm weight and bias, and the norm's mean and variance come from
+    both ranks' channels (an all-reduce of the sums), as the JAX package's
+    replicated LayerNorm computes them over the whole channel axis; the
+    BatchNorm case's tolerances."""
+    state, step, pcfg, enc = jax_ctc(grad_clip=CLIP, conv_norm_type="layer_norm")
+    weights = str(tmp_path / "w.pt")
+    torch.save(ctc_state_dict(state, pcfg), weights)
+    batches = [global_batch(0, True, rows=2), global_batch(1, rows=2)]
+    results = _run(tmp_path, enc, 1, batches, weights)
+    assert [r["mesh"] for r in results] == [(1, 2, 0, 0), (1, 2, 0, 1)]
+    local = results[1]["local"]
+    assert local["encoder.layers.0.conv.batch_norm.weight"].shape == (16,)
+    assert local["encoder.layers.0.conv.batch_norm.bias"].shape == (16,)
+    assert "encoder.layers.0.conv.batch_norm.running_var" not in local
     _assert_slices_equal(results)
     state, noise = jax_steps(state, step, batches, results[0]["metrics"],
                              lambda st: ctc_state_dict(st, pcfg))

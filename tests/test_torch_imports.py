@@ -35,6 +35,10 @@ labels = {"conformer_nemo_tpu_torch." + m for m in (
     "data.audio_to_label", "data.feature_to_label", "decode.vad", "scripts.ssl_pretrain",
     "scripts.speech_classification", "scripts.speaker_tasks")}
 assert labels <= set(names), sorted(labels - set(names))
+rest = {"conformer_nemo_tpu_torch." + m for m in (
+    "decode.der", "decode.diarization", "decode.asr_diar", "audio.mfcc", "models.rnn_encoder",
+    "utils.typecheck", "utils.timers", "utils.profiling")}
+assert rest <= set(names), sorted(rest - set(names))
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                                                "msgpack")
@@ -62,6 +66,9 @@ BeamSearchDecoderWithLM(["a", " "], lm_path="tests/fixtures/lm_edge.arpa", lm_bi
 assert not [p for p in loaded if "native" in p.split(os.sep)], loaded
 assert any(p.endswith("ops/_build/libflac_decoder.so") for p in loaded), loaded
 assert any(p.endswith("ops/_build/libctc_beam.so") for p in loaded), loaded
+from conformer_nemo_tpu_torch.decode.wer import edit_distance
+assert edit_distance("kitten", "sitting") == 3
+assert any(p.endswith("ops/_build/libedit_distance.so") for p in loaded), loaded
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "conformer_nemo_tpu")]
 print(len(names))
 """
@@ -74,8 +81,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     # every module was walked: the decoders, the multi-GPU modules, buffered
-    # decode, export, the .nemo converter, SSL and the label models included
-    assert int(r.stdout.split()[-1]) >= 82
+    # decode, export, the .nemo converter, SSL, the label models,
+    # diarization, the RNN encoder, MFCC and the utilities included
+    assert int(r.stdout.split()[-1]) >= 90
 
 
 def test_no_port_source_reads_the_jax_packages_native_tree():
@@ -159,6 +167,37 @@ def test_ssl_and_label_entry_points_raise_without_cuda():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
     assert api_label.ClassificationModel(["a", "b"], device="cpu").device == torch.device("cpu")
+
+
+def test_diarization_rnn_encoder_and_mfcc_raise_without_cuda():
+    """The diarizer (given a speaker archive), the RNN encoder's and the LSTM
+    head's `create`, `mfcc` and the speaker CLI's diarize mode default to
+    CUDA too, and raise before any work without it; score mode needs no
+    device."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    import numpy as np
+
+    from conformer_nemo_tpu_torch.audio.mfcc import MFCCConfig, mfcc
+    from conformer_nemo_tpu_torch.decode.diarization import ClusteringDiarizer
+    from conformer_nemo_tpu_torch.models.rnn_encoder import (
+        LSTMDecoder,
+        LSTMDecoderConfig,
+        RNNEncoder,
+        RNNEncoderConfig,
+    )
+    from conformer_nemo_tpu_torch.scripts import speaker_tasks
+
+    wav, lens = np.zeros((1, 1600), np.float32), np.array([1600], np.int32)
+    for make in (lambda: ClusteringDiarizer("model.cntpu"),  # before it reads the file
+                 lambda: RNNEncoder.create(RNNEncoderConfig()),
+                 lambda: LSTMDecoder.create(LSTMDecoderConfig()),
+                 lambda: mfcc(MFCCConfig(), wav, lens),
+                 lambda: speaker_tasks.main(["diarize", "--model", "model.cntpu", "a.wav"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    out, _ = mfcc(MFCCConfig(), wav, lens, device="cpu")
+    assert out.device == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_cuda():

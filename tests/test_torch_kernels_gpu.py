@@ -746,3 +746,62 @@ def test_label_models_on_the_card_match_the_cpu(cuda_device, kind):
     ref = cpu.model.state_dict()
     for k, v in card.model.state_dict().items():
         torch.testing.assert_close(v.cpu(), ref[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_diarizer_embeddings_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """The diarizer's window embeddings (one batch of every window through a
+    narrow ECAPA, fp32, cuDNN's TF32 off) on the card and on the CPU with
+    the same weights within 1e-5, and the same turns."""
+    from conformer_nemo_tpu_torch.api_label import SpeakerLabelModel
+    from conformer_nemo_tpu_torch.data.audio_io import write_wav
+    from conformer_nemo_tpu_torch.decode.diarization import ClusteringDiarizer
+
+    sr = 16000
+    t = np.arange(3 * sr) / sr
+    rs = np.random.RandomState(0)
+    session = np.concatenate([0.3 * np.sin(2 * np.pi * f0 * t) + 0.01 * rs.randn(len(t))
+                              for f0 in (140, 520, 140)]).astype(np.float32)
+    path = str(tmp_path / "session.wav")
+    write_wav(path, session, sr)
+    cpu = SpeakerLabelModel(["a", "b"], filters=(64, 64, 64, 64, 192), device="cpu")
+    card = SpeakerLabelModel(["a", "b"], filters=(64, 64, 64, 64, 192), device=cuda_device)
+    card.model.load_state_dict(cpu.model.state_dict())
+    segs_c, emb_c = ClusteringDiarizer(card).window_embeddings(path)
+    segs_h, emb_h = ClusteringDiarizer(cpu).window_embeddings(path)
+    assert segs_c == segs_h and emb_c.shape == (len(segs_h), 192)
+    assert np.abs(emb_c - emb_h).max() <= 1e-5
+    assert ClusteringDiarizer(card).diarize(path, 2) == ClusteringDiarizer(cpu).diarize(path, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_rnn_encoder_on_the_card_matches_the_cpu(cuda_device, dtype, rel):
+    """RNNEncoder (4 bidirectional layers, d_model 256, striding x4) and an
+    LSTM head on the card and on the CPU with the same weights: outputs
+    within `rel` of their largest magnitude (fp32: summation orders; bf16:
+    the gates' products round to bf16, one ulp is 4e-3), lengths equal."""
+    from conformer_nemo_tpu_torch.models.rnn_encoder import (
+        LSTMDecoder,
+        LSTMDecoderConfig,
+        RNNEncoder,
+        RNNEncoderConfig,
+    )
+
+    cfg = RNNEncoderConfig(d_model=256, dtype=dtype)
+    head_cfg = LSTMDecoderConfig(feat_in=256, dtype=dtype)
+    enc_h, head_h = RNNEncoder.create(cfg, device="cpu"), LSTMDecoder.create(head_cfg, device="cpu")
+    enc_c = RNNEncoder.create(cfg, device=cuda_device)
+    head_c = LSTMDecoder.create(head_cfg, device=cuda_device)
+    enc_c.load_state_dict(enc_h.state_dict())
+    head_c.load_state_dict(head_h.state_dict())
+    g = torch.Generator().manual_seed(1)
+    feats = torch.randn(2, 80, 400, generator=g)
+    lens = torch.tensor([400, 311], dtype=torch.int32)
+    with torch.no_grad():
+        out_h, lens_h = enc_h(feats, lens)
+        out_c, lens_c = enc_c(feats.to(cuda_device), lens.to(cuda_device))
+        lp_h, lp_c = head_h(out_h), head_c(out_c)
+    assert torch.equal(lens_c.cpu(), lens_h) and out_c.shape == out_h.shape == (2, 256, 100)
+    for a, b in ((out_c, out_h), (lp_c, lp_h)):
+        assert float((a.cpu() - b).abs().max()) <= rel * float(b.abs().max())

@@ -10,7 +10,8 @@ archives both ways (the JAX package restores the port's and gives its
 outputs, and the port the JAX package's); `change_labels` and
 `change_se_context_window`; the speaker model's embeddings,
 `verify_speakers` and `get_batch_embeddings`; the VAD frame probabilities
-and `as_vad_callable`; and the two CLIs.
+and `as_vad_callable`; and the two CLIs (the speaker CLI's diarize and
+score modes against the library calls).
 
 Tolerances: logits, embeddings and probabilities 1e-4 absolute (fp32 on
 both sides; the two log-mel front ends agree to ~1e-6 and the encoder adds
@@ -379,6 +380,26 @@ def test_clis(data, tmp_path, capsys):
     _, embs = speaker_tasks.main(["embed", "--model", spk_path, data["wavs"][0],
                                   "--device", "cpu"])
     np.testing.assert_array_equal(embs[data["wavs"][0]], spk.get_embedding(data["wavs"][0]))
-    for mode in ("diarize", "score"):
-        with pytest.raises(NotImplementedError, match="item 11 slice 3"):
-            speaker_tasks.main([mode, "--model", spk_path, "--device", "cpu"])
+    # diarize and score through the CLI, against the library calls
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio
+    from conformer_nemo_tpu_torch.decode.der import score_rttm_files, write_rttm
+    from conformer_nemo_tpu_torch.decode.diarization import ClusteringDiarizer, to_rttm
+
+    session = str(tmp_path / "session.wav")
+    write_wav(session, np.concatenate([load_audio(p) for p in data["wavs"][:4]]), SR)
+    args = ["--model", spk_path, session, "--num-speakers", "2", "--window", "0.5", "--shift",
+            "0.25", "--device", "cpu"]
+    _, rttm = speaker_tasks.main(["diarize", *args])
+    turns = ClusteringDiarizer(spk, window=0.5, shift=0.25).diarize(session,
+                                                                     oracle_num_speakers=2)
+    assert rttm == to_rttm(turns, "session") and rttm.count("SPEAKER") == len(turns) > 0
+    out_path = str(tmp_path / "hyp.rttm")
+    _, again = speaker_tasks.main(["diarize", *args, "--rttm-out", out_path])
+    assert again == rttm and open(out_path).read() == rttm
+    ref = write_rttm(str(tmp_path / "ref.rttm"), [(0.0, 0.9, "low"), (0.9, 1.9, "high")],
+                     "session")
+    model, score = speaker_tasks.main(["score", "--ref-rttm", ref, "--hyp-rttm", out_path,
+                                       "--collar", "0.1"])
+    want = score_rttm_files([(ref, out_path)], collar=0.1, ignore_overlap=True)
+    assert model is None and score == {k: round(v, 4) for k, v in want.items()}
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == score

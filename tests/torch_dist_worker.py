@@ -3,7 +3,8 @@
     python tests/torch_dist_worker.py SPEC.json RANK
 
 SPEC names a scenario and its inputs (weights and batches that the test
-wrote from numpy), the world size and the rendezvous port. The worker
+wrote from numpy), the world size and the rendezvous port: that of a store
+the spawning process holds (`run_world`), which the ranks join as clients. The worker
 joins the process group through the port's `initialize_distributed`
 (one-minute collective timeout), runs the scenario on its rows and writes
 `torch.save` of its results to SPEC["out"] with {rank} filled in.
@@ -202,12 +203,15 @@ def cli(spec, rank):
 SCENARIOS = {"steps": steps, "batchnorm": batchnorm, "fit": fit, "cli": cli}
 
 
-def _free_port() -> int:
-    import socket
+def _agent_store(world: int):
+    """The world's rendezvous store, held by the test process as torchrun's
+    agent holds it: bound to a port the system picks before any rank learns
+    the port; the ranks join it as clients (TORCHELASTIC_USE_AGENT_STORE)."""
+    import datetime
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    return torch.distributed.TCPStore("localhost", 0, world, is_master=True,
+                                      wait_for_workers=False,
+                                      timeout=datetime.timedelta(seconds=60))
 
 
 def run_world(tmp_dir: str, scenario: str, world: int, timeout: float = 240, **spec) -> list:
@@ -216,7 +220,8 @@ def run_world(tmp_dir: str, scenario: str, world: int, timeout: float = 240, **s
     fails); -> each rank's results."""
     import subprocess
 
-    port = _free_port()
+    store = _agent_store(world)
+    port = store.port
     spec = {**spec, "scenario": scenario, "world": world, "port": port,
             "out": os.path.join(tmp_dir, f"{scenario}_{port}_rank{{rank}}.pt")}
     path = os.path.join(tmp_dir, f"{scenario}_{port}.json")
@@ -234,6 +239,7 @@ def run_world(tmp_dir: str, scenario: str, world: int, timeout: float = 240, **s
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        del store
     for rank, (p, (out, err)) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}\n{err[-3000:]}"
     return [torch.load(spec["out"].format(rank=r), weights_only=False) for r in range(world)]
@@ -245,7 +251,8 @@ def main() -> None:
     rank = int(sys.argv[2])
     torch.set_num_threads(1)
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(spec["port"]),
-                      WORLD_SIZE=str(spec["world"]), RANK=str(rank), LOCAL_RANK=str(rank))
+                      WORLD_SIZE=str(spec["world"]), RANK=str(rank), LOCAL_RANK=str(rank),
+                      TORCHELASTIC_USE_AGENT_STORE="True")
     pdist.initialize_distributed(device="cpu", timeout_s=60)
     out = SCENARIOS[spec["scenario"]](spec, rank)
     torch.save(out, spec["out"].format(rank=rank))
