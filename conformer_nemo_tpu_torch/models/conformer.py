@@ -44,7 +44,11 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from conformer_nemo_tpu_torch.ops.flash_attention import check_bwd_depth, flash_attention
+from conformer_nemo_tpu_torch.ops.flash_attention import (
+    check_bwd_depth,
+    check_depth,
+    flash_attention,
+)
 from conformer_nemo_tpu_torch.parallel.distributed import all_reduce_sum
 from conformer_nemo_tpu_torch.parallel.sharding import (
     TensorParallel,
@@ -344,40 +348,52 @@ class BatchNorm(nn.Module):
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
+def _can_flash(cfg: ConformerEncoderConfig) -> bool:
+    """The attention can take the flash path at some length."""
+    return (cfg.self_attention_model == "rel_pos" and cfg.dropout_emb == 0.0
+            and cfg.use_flash_attention is not False)
+
+
 def check_flash_dtype(cfg: ConformerEncoderConfig, device) -> None:
-    """The CUDA flash-attention kernel takes bf16 only. Refuse a CUDA encoder
-    in another compute dtype whose attention can take the flash path, before
-    any work, rather than at its first batch with T >= flash_attention_min_t."""
-    can_flash = (cfg.self_attention_model == "rel_pos" and cfg.dropout_emb == 0.0
-                 and cfg.use_flash_attention is not False)
-    if torch.device(device).type == "cuda" and cfg.dtype != torch.bfloat16 and can_flash:
+    """The CUDA flash kernels take bf16, fp16 and fp32 at d1 = d_head +
+    d_model, dv = d_head <= 128, and in the 16-bit types d1 up to the
+    forward's shared memory (`ops.flash_attention.check_depth`). Refuse a
+    CUDA encoder whose attention can take the flash path in a dtype or at a
+    depth no kernel takes, before any work, rather than at its first batch
+    with T >= flash_attention_min_t."""
+    if torch.device(device).type != "cuda" or not _can_flash(cfg):
+        return
+    try:
+        check_depth(cfg.d_head + cfg.d_model, cfg.d_head, cfg.dtype)
+    except (TypeError, ValueError) as e:
         raise ValueError(
-            f"the CUDA flash-attention kernel takes bf16 only, and the compute dtype is "
-            f"{cfg.dtype}: pass dtype=torch.bfloat16, or set "
-            "model.encoder.use_flash_attention=False for the dense path")
+            f"this encoder's flash attention cannot run on CUDA in {cfg.dtype} at "
+            f"d_model={cfg.d_model}, n_heads={cfg.n_heads}: {e}. Set "
+            "model.encoder.use_flash_attention=False for the dense path") from None
 
 
 def check_flash_training(cfg: ConformerEncoderConfig, device, longest_t: int) -> None:
-    """The CUDA flash backward takes a bounded depth d1 = d_head + d_model
-    (its kernels report their limits). Refuse, before the first training
-    step, a CUDA encoder whose attention can take the flash path in
-    training (`RelPosMultiHeadAttention.use_flash` in training mode, at the
-    longest batch of `longest_t` frames) at a depth the backward cannot
-    take; otherwise the forward would run and the first backward raise.
-    Inference is not refused: the forward takes any depth."""
+    """The CUDA flash backward kernels take every depth the forward takes
+    (their libraries report their limits). Refuse, before the first training
+    step, a CUDA encoder whose attention can take the flash path in training
+    (`RelPosMultiHeadAttention.use_flash` in training mode, at the longest
+    batch of `longest_t` frames) in a dtype or at a depth the kernels cannot
+    take; otherwise the forward would run and the first backward raise."""
     want = cfg.use_flash_attention is True or (
         cfg.use_flash_attention == "auto" and longest_t >= cfg.flash_attention_min_t)
     can_flash = (cfg.self_attention_model == "rel_pos" and cfg.dropout_emb == 0.0
                  and cfg.dropout_att == 0.0 and want)
     if torch.device(device).type != "cuda" or not can_flash:
         return
+    d1, dv = cfg.d_head + cfg.d_model, cfg.d_head
     try:
-        check_bwd_depth(cfg.d_head + cfg.d_model, cfg.d_head)
-    except ValueError as e:
+        check_depth(d1, dv, cfg.dtype)
+        check_bwd_depth(d1, dv, dtype=cfg.dtype)
+    except (TypeError, ValueError) as e:
         raise ValueError(
-            f"this encoder's flash attention cannot train on CUDA at d_model={cfg.d_model}, "
-            f"n_heads={cfg.n_heads}: {e}. Set model.encoder.use_flash_attention=False "
-            "for the dense path") from None
+            f"this encoder's flash attention cannot train on CUDA in {cfg.dtype} at "
+            f"d_model={cfg.d_model}, n_heads={cfg.n_heads}: {e}. Set "
+            "model.encoder.use_flash_attention=False for the dense path") from None
 
 
 class RelPosMultiHeadAttention(nn.Module):

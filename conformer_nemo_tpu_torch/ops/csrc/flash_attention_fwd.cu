@@ -110,8 +110,9 @@ __host__ __device__ inline FwdLayout fwd_layout(int rows, int d1, int dv) {
 }
 
 // BQ query rows (BQ / 16 consumer warps) and one producer warp; NV n-tiles
-// of 8 output columns a consumer warp holds (8 for dv <= 64, 16 for <= 128)
-template <int BQ, int NV>
+// of 8 output columns a consumer warp holds (8 for dv <= 64, 16 for <= 128);
+// F16: fp16 operands, else bf16
+template <int BQ, int NV, bool F16>
 __global__ void __launch_bounds__(BQ * 2 + 32, BQ == 64 ? 2 : 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                  const bf16* __restrict__ qs, const int* __restrict__ lens,
@@ -221,8 +222,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
         for (int n = 0; n < 4; ++n) {
           uint32_t b[4];  // keys 16n.. as two n-tiles, depth 16 (kk % 4)..
           ldsm4(b, swz128(box, 16 * n + (l & 7) + (l >> 4) * 8, 16 * (kk & 3) + ((l >> 3) & 1) * 8));
-          mma16816(s[2 * n], a, b[0], b[1]);
-          mma16816(s[2 * n + 1], a, b[2], b[3]);
+          mma<F16>(s[2 * n], a, b[0], b[1]);
+          mma<F16>(s[2 * n + 1], a, b[2], b[3]);
         }
       }
     } else {
@@ -269,18 +270,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         uint32_t a[4];
-        a[0] = pack2(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack2(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        a[0] = pack<F16>(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = pack<F16>(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = pack<F16>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = pack<F16>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
         for (int n = 0; n < NV / 2; ++n) {
           if (n < nvt) {
             uint32_t b[4];  // keys 16kk.., output columns 16n.. as two n-tiles
             ldsm4t(b, swz128(P + (n >> 2) * BK * BOX, 16 * kk + (l & 7) + ((l >> 3) & 1) * 8,
                              16 * (n & 3) + (l >> 4) * 8));
-            mma16816(oacc[2 * n], a, b[0], b[1]);
-            mma16816(oacc[2 * n + 1], a, b[2], b[3]);
+            mma<F16>(oacc[2 * n], a, b[0], b[1]);
+            mma<F16>(oacc[2 * n + 1], a, b[2], b[3]);
           }
         }
       }
@@ -306,7 +307,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__
     for (int j = 0; j < NV; ++j)
       if (j < 2 * nvt)
         *reinterpret_cast<uint32_t*>(Os + row * ldo + 8 * j + c2) =
-            pack2(oacc[j][2 * h] * inv, oacc[j][2 * h + 1] * inv);
+            pack<F16>(oacc[j][2 * h] * inv, oacc[j][2 * h + 1] * inv);
     if ((l & 3) == 0 && q0 + row < T)
       lse[(size_t)bh * T + q0 + row] =
           (m_run[h] <= NEG_INF * 0.5f ? 0.f : m_run[h]) + logf(l_safe);
@@ -329,7 +330,7 @@ int pick_rows(int bh, int t, int d1, int dv) {
   return fwd_layout(64, d1, dv).total <= SMEM_BLOCK ? 64 : 0;
 }
 
-template <int BQ, int NV>
+template <int BQ, int NV, bool F16>
 int launch(const void* qs, const void* ks, const void* v, const void* lens, void* o, void* lse,
            int bh, int t, int d1, int dv, float scale, int left, int right, void* stream) {
   CUtensorMap tk, tv;
@@ -338,13 +339,34 @@ int launch(const void* qs, const void* ks, const void* v, const void* lens, void
     return (int)cudaErrorNotSupported;
   const FwdLayout L = fwd_layout(BQ, d1, dv);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<BQ, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+      flash_fwd_kernel<BQ, NV, F16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<BQ, NV><<<grid, BQ * 2 + 32, L.total, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<BQ, NV, F16><<<grid, BQ * 2 + 32, L.total, (cudaStream_t)stream>>>(
       tk, tv, (const bf16*)qs, (const int*)lens, (bf16*)o, (float*)lse, t, d1, dv, scale, left,
       right);
   return (int)cudaGetLastError();
+}
+
+// The launch of either 16-bit type with the query-tile height given: 64 or
+// 128 rows (0 = the launch's own choice).
+template <bool F16>
+int fwd_rows(const void* qs, const void* ks, const void* v, const void* lens, void* o, void* lse,
+             int bh, int t, int d1, int dv, float scale, int left, int right, int rows,
+             void* stream) {
+  if (rows == 0) rows = pick_rows(bh, t, d1, dv);
+  if ((rows != 64 && rows != 128) || fwd_layout(rows, d1, dv).total > SMEM_BLOCK ||
+      dv > 128 || d1 % 8 || dv % 8)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 128)
+    return dv <= 64 ? launch<128, 8, F16>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left,
+                                          right, stream)
+                    : launch<128, 16, F16>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left,
+                                           right, stream);
+  return dv <= 64 ? launch<64, 8, F16>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left,
+                                       right, stream)
+                  : launch<64, 16, F16>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left,
+                                        right, stream);
 }
 
 }  // namespace
@@ -362,35 +384,24 @@ extern "C" int flash_attention_fwd_rows(int bh, int t, int d1, int dv) {
   return pick_rows(bh, t, d1, dv);
 }
 
-// As flash_attention_fwd_bf16 with the query-tile height given: 64 or 128
-// rows (0 = the launch's own choice).
+// qs, ks: [bh, t, d1] bf16; v: [bh, t, dv] bf16; lens: [bh] int32;
+// o: [bh, t, dv] bf16; lse: [bh, t] fp32; all contiguous, 16-byte aligned;
+// d1 and dv multiples of 8, dv <= 128; rows: the query-tile height, 64 or
+// 128 (0 = the launch's own choice). Launches on `stream` and returns the
+// cudaError_t of the launch.
 extern "C" int flash_attention_fwd_rows_bf16(const void* qs, const void* ks, const void* v,
                                              const void* lens, void* o, void* lse, int bh,
                                              int t, int d1, int dv, float scale, int left,
                                              int right, int rows, void* stream) {
-  if (rows == 0) rows = pick_rows(bh, t, d1, dv);
-  if ((rows != 64 && rows != 128) || fwd_layout(rows, d1, dv).total > SMEM_BLOCK ||
-      dv > 128 || d1 % 8 || dv % 8)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 128)
-    return dv <= 64 ? launch<128, 8>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left, right,
-                                     stream)
-                    : launch<128, 16>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left,
-                                      right, stream);
-  return dv <= 64 ? launch<64, 8>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left, right,
-                                  stream)
-                  : launch<64, 16>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left, right,
-                                   stream);
+  return fwd_rows<false>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left, right, rows,
+                         stream);
 }
 
-// qs, ks: [bh, t, d1] bf16; v: [bh, t, dv] bf16; lens: [bh] int32;
-// o: [bh, t, dv] bf16; lse: [bh, t] fp32; all contiguous, 16-byte aligned;
-// d1 and dv multiples of 8, dv <= 128. Launches on `stream` and returns the
-// cudaError_t of the launch.
-extern "C" int flash_attention_fwd_bf16(const void* qs, const void* ks, const void* v,
-                                        const void* lens, void* o, void* lse, int bh, int t,
-                                        int d1, int dv, float scale, int left, int right,
-                                        void* stream) {
-  return flash_attention_fwd_rows_bf16(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left,
-                                       right, 0, stream);
+// As flash_attention_fwd_rows_bf16 with fp16 qs, ks, v and o.
+extern "C" int flash_attention_fwd_rows_f16(const void* qs, const void* ks, const void* v,
+                                            const void* lens, void* o, void* lse, int bh,
+                                            int t, int d1, int dv, float scale, int left,
+                                            int right, int rows, void* stream) {
+  return fwd_rows<true>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left, right, rows,
+                        stream);
 }

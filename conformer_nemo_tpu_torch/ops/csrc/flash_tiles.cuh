@@ -13,8 +13,6 @@ namespace flash {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TILE = 64;               // query rows of a dK/dV kernel tile
-constexpr int LDP = TILE + 8;          // bf16 row stride of its P^T / dS^T tiles
 constexpr float NEG_INF = -1e30f;
 constexpr size_t SMEM_BLOCK = 232448;  // bytes of shared memory one block may use
 
@@ -27,9 +25,11 @@ __device__ inline bool in_band(int i, int j, int left, int right) {
   return (left < 0 || i - j <= left) && (right < 0 || j - i <= right);
 }
 
-// A 2D tensor map over a row-major [rows x cols] bf16 tensor for tensor
-// copies of [box_rows x 64] boxes with the 128-byte swizzle, zeros past the
-// tensor's edges (host code; the driver's encoder, found through the runtime).
+// A 2D tensor map over a row-major [rows x cols] tensor of 16-bit elements
+// (bf16 or fp16: a copy moves bits, so the map's bf16 type serves both) for
+// tensor copies of [box_rows x 64] boxes with the 128-byte swizzle, zeros
+// past the tensor's edges (host code; the CUDA driver API's encoder, found
+// through the runtime).
 inline bool tensor_map(CUtensorMap* map, const void* base, int cols, long long rows,
                        int box_rows) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;

@@ -1,7 +1,8 @@
 // Tensor-core and async-copy helpers shared by the kernels of rnnt_joint.cu,
 // flash_attention_fwd.cu, flash_attention_bwd.cu and (the copies only)
 // rnnt_lattice.cu: cp.async into shared memory,
-// ldmatrix fragments and mma.sync m16n8k16 bf16 with fp32 accumulation.
+// ldmatrix fragments and mma.sync m16n8k16 bf16 (or fp16) with fp32
+// accumulation.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, lane l, g = l / 4, c = 2 * (l % 4)):
 //   A [16 x 16]: a[0] = (row g, k c..c+1), a[1] = (row g+8, k c..c+1),
@@ -13,6 +14,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -150,6 +152,34 @@ __device__ inline const __nv_bfloat16* bn_addr(const __nv_bfloat16* s, int ld, i
 __device__ inline uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The same product and rounding for a 16-bit element type chosen at compile
+// time: bf16 (F16 false) or fp16 (F16 true). ldmatrix and the copies move
+// 16-bit elements whatever they mean, so a kernel written for bf16 takes
+// fp16 through these two alone.
+__device__ inline void mma16816_f16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <bool F16>
+__device__ inline void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (F16)
+    mma16816_f16(c, a, b0, b1);
+  else
+    mma16816(c, a, b0, b1);
+}
+template <bool F16>
+__device__ inline uint32_t pack(float lo, float hi) {
+  if constexpr (F16) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack2(lo, hi);
+  }
 }
 
 }  // namespace tc

@@ -20,29 +20,39 @@ and add nothing to dk and dv.
 
 The kernels are hand-written CUDA for sm_90a: ops/csrc/flash_attention_fwd.cu
 and ops/csrc/flash_attention_bwd.cu (a dQ kernel tiled by query and a dK/dV
-kernel tiled by key). What bounds them on an H100: `2 * pairs * (d1 + dv)`
-FLOPs forward and `2 * pairs * (3 * d1 + 2 * dv)` backward (S recomputed
-once) at 989 TFLOP/s bf16 dense, against the bytes each reads and writes
-once at 3.35 TB/s; with full-length rows at the flagship shapes that is
-several hundred operations per byte, over the ridge of ~295, so the tensor
-cores bound them. A bucket with many short rows does fewer operations on
-the same bytes and can fall under the ridge. All keep every score tile on
-chip (no [T, T] in device memory), multiply bf16 on the tensor cores with
-fp32 accumulation, and skip tiles outside the band and past the length.
-All three use mma.sync from ldmatrix fragments, keep the tile they own
-resident in shared memory while the other side streams through a ring, and
-accumulate in registers: the forward keeps Qs and streams Ks in (key tile x
-depth chunk) pieces and V, with S, P and O in registers; the dQ kernel
-keeps Qs and dO and streams Ks and V, with dQ in registers (in passes of
-576 columns), both streaming by tensor copies (the Tensor Memory
-Accelerator) from a producer warp; the dK/dV kernel keeps K and V and
-streams Qs and dO through a cp.async ring, with dK and dV in registers (so
-it takes d1 <= 576). Each kernel reports what
-bounds its range (`flash_attention_fwd_smem_bytes`,
-`flash_attention_bwd_dq_max_d1`, `flash_attention_bwd_dkv_max_d1` and
-`_smem_bytes`); the wrappers check them before launching, and
-`flash_attention_bwd` checks both backward kernels before either launches
-(`check_bwd_depth`, which a CUDA `fit` also asks before its first step).
+kernel tiled by key) for bf16 and fp16 operands (one template, fp32
+accumulation on the tensor cores), and ops/csrc/flash_attention_f32.cu,
+the same three functions in fp32 on the CUDA cores (fp32 FMA: TF32 would
+read about 1e-3 off an fp32 reference). What bounds them on an H100:
+`2 * pairs * (d1 + dv)` FLOPs forward and `2 * pairs * (3 * d1 + 2 * dv)`
+backward (S recomputed once) at 989 TFLOP/s bf16/fp16 dense or 67 TFLOP/s
+fp32, against the bytes each reads and writes once at 3.35 TB/s; with
+full-length rows at the flagship shapes that is several hundred operations
+per byte, over the ridge of ~295, so the arithmetic bounds them. A bucket
+with many short rows does fewer operations on the same bytes and can fall
+under the ridge. All keep every score tile on chip (no [T, T] in device
+memory) and skip tiles outside the band and past the length. The 16-bit
+kernels use mma.sync from ldmatrix fragments, keep the tile they own
+resident in shared memory while the other side streams through a ring,
+and accumulate in registers: the forward keeps Qs and streams Ks in (key
+tile x depth chunk) pieces and V, with S, P and O in registers; the dQ
+kernel keeps Qs and dO and streams Ks and V, the dK/dV kernel keeps K and V
+and streams Qs and dO, each with its gradient in registers in passes of
+576 columns, and a smaller or single-stage ring where the depth needs it.
+
+Widths: the 16-bit kernels load 16-byte rows, so the wrappers pad d1 and dv
+with zero columns up to multiples of 8 (`padded`) and slice o, dq, dk and
+dv back (`pad_fwd`, `pad_bwd`): a zero column changes no score and no true
+output column. Conformer-CTC Small's heads (d1 = 44 + 176 = 220, dv = 44)
+run at 224 and 48. What is left to refuse (`check_depth`): a dtype other
+than bf16, fp16 and fp32, dv > 128, and in the 16-bit types a d1 past the
+forward's shared memory (`flash_attention_fwd_smem_bytes`: 1216 padded);
+the backward kernels take every depth the forward takes and report their
+own limits (`flash_attention_bwd_dq_max_d1`, `flash_attention_bwd_dkv_max_d1`),
+which `check_bwd_depth` asks (a CUDA `fit` too, before its first step).
+Launches count per kernel and dtype (`counter`): K2-fwd, K2-bwd-dq and
+K2-bwd-dkv in bf16, the same names with "-f16" or "-f32" after them in the
+other dtypes, keyed at the caller's widths.
 
 `flash_attention_fwd` and `flash_attention_bwd` launch their kernels for
 CUDA tensors and raise on anything they do not take; for CPU tensors they
@@ -64,15 +74,34 @@ import ctypes
 
 import torch
 
-from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, launch_count, load
+from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, LaunchCount, launch_count, load
 
 _NEG_INF = -1e30
 MAX_DV = 128
 
-# launches per kernel, keyed by (bh, t, d1, dv, left, right)
-fwd_launches = launch_count("K2-fwd")
-dq_launches = launch_count("K2-bwd-dq")
-dkv_launches = launch_count("K2-bwd-dkv")
+# the dtypes the CUDA kernels take -> (forward source, backward source, the
+# entry points' suffix): bf16 and fp16 are one template's two instances,
+# fp32 has kernels of its own
+KERNELS = {
+    torch.bfloat16: ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "bf16"),
+    torch.float16: ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "f16"),
+    torch.float32: ("flash_attention_f32.cu", "flash_attention_f32.cu", "f32"),
+}
+
+
+def counter(kernel: str, dtype) -> LaunchCount:
+    """The launch count of K2's `kernel` ("fwd", "dq" or "dkv") in `dtype`,
+    keyed by the caller's (bh, t, d1, dv, left, right): K2-fwd, K2-bwd-dq and
+    K2-bwd-dkv in bf16, with "-f16" or "-f32" after the name in the others."""
+    name = {"fwd": "K2-fwd", "dq": "K2-bwd-dq", "dkv": "K2-bwd-dkv"}[kernel]
+    return launch_count(name if dtype == torch.bfloat16 else f"{name}-{KERNELS[dtype][2]}")
+
+
+for _dt in KERNELS:  # every count registered, so each reads 0 before its first launch
+    for _k in ("fwd", "dq", "dkv"):
+        counter(_k, _dt)
+fwd_launches, dq_launches, dkv_launches = (counter(k, torch.bfloat16)
+                                           for k in ("fwd", "dq", "dkv"))
 
 
 def visible_mask(t: int, lens: torch.Tensor, left: int = -1, right: int = -1) -> torch.Tensor:
@@ -156,11 +185,48 @@ def _check(qs, ks, v, lens):
         raise ValueError(f"lens must be [BH] = [{qs.shape[0]}], got {tuple(lens.shape)}")
 
 
+def padded(n: int) -> int:
+    """A head depth rounded up to the kernels' granule: 16-byte rows of
+    16-bit elements, a multiple of 8."""
+    return -(-n // 8) * 8
+
+
+def _pad(x: torch.Tensor) -> torch.Tensor:
+    """x with zero columns up to a multiple of 8 (x itself where it is one)."""
+    pad = padded(x.shape[-1]) - x.shape[-1]
+    return x if pad == 0 else torch.nn.functional.pad(x, (0, pad))
+
+
+def check_depth(d1: int, dv: int, dtype) -> None:
+    """Raise ValueError if no flash kernel takes depths (d1, dv) in `dtype`
+    on CUDA: the kernels take bf16, fp16 and fp32, dv <= MAX_DV, and in the
+    16-bit types a d1 whose query tile fits the forward's shared memory
+    (`flash_attention_fwd_smem_bytes`, at d1 and dv padded to multiples of
+    8); the fp32 kernels stream the depth and take any d1."""
+    if dtype not in KERNELS:
+        raise TypeError(f"the CUDA flash kernels take {', '.join(map(str, KERNELS))}; "
+                        f"got {dtype}")
+    if not (d1 > 0 and 0 < dv <= MAX_DV):
+        raise ValueError(f"the CUDA flash kernels take d1 > 0 and 0 < dv <= {MAX_DV}; got "
+                         f"d1={d1}, dv={dv}")
+    if dtype != torch.float32:
+        d1p, dvp = padded(d1), padded(dv)
+        smem = load("flash_attention_fwd.cu").flash_attention_fwd_smem_bytes(d1p, dvp)
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"the CUDA forward kernel keeps its query tile of qs and a ring of key pieces "
+                f"in shared memory and needs {smem} bytes at d1={d1p}, dv={dvp} "
+                f"(flash_attention_fwd_smem_bytes); a block has {SMEM_LIMIT}")
+
+
 def _check_cuda(tensors: dict, lens, bh: int, d1: int, dv: int) -> None:
-    """What the CUDA kernels take: bf16 operands, int32 lens, contiguous
-    16-byte-aligned tensors, BH <= 65535, d1 and dv multiples of 8."""
-    if any(x.dtype != torch.bfloat16 for x in tensors.values()) or lens.dtype != torch.int32:
-        raise TypeError("the CUDA kernel takes bf16 " + "/".join(tensors) + " and int32 lens, got "
+    """What the CUDA kernels take: operands of one dtype among bf16, fp16 and
+    fp32, int32 lens, contiguous 16-byte-aligned tensors, BH <= 65535, and
+    depths `check_depth` admits."""
+    dtypes = {x.dtype for x in tensors.values()}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in KERNELS or lens.dtype != torch.int32:
+        raise TypeError("the CUDA kernels take " + "/".join(tensors) + " of one dtype among "
+                        + ", ".join(map(str, KERNELS)) + " and int32 lens, got "
                         + "/".join(str(x.dtype) for x in tensors.values()) + f"/{lens.dtype}")
     if not all(x.is_contiguous() for x in (*tensors.values(), lens)) or any(
             x.data_ptr() % 16 for x in tensors.values()):  # the kernels load 16-byte vectors
@@ -168,23 +234,15 @@ def _check_cuda(tensors: dict, lens, bh: int, d1: int, dv: int) -> None:
                          + "/".join(tensors) + " 16-byte aligned")
     if bh > 65535:
         raise ValueError(f"the CUDA kernel takes BH <= 65535, got {bh}")
-    if d1 % 8 or dv % 8 or d1 <= 0 or not 0 < dv <= MAX_DV:
-        raise ValueError(f"the CUDA kernel takes d1 and dv <= {MAX_DV} as positive "
-                         f"multiples of 8; got d1={d1}, dv={dv}")
+    check_depth(d1, dv, next(iter(dtypes)))
 
 
 def _check_fwd_cuda(qs, ks, v, lens) -> None:
-    """What the forward kernel takes: `_check_cuda`, and its resident Qs
-    tile and key ring within a block's shared memory (the library's
-    `flash_attention_fwd_smem_bytes`)."""
+    """What the forward kernels take: `_check_cuda` on qs, ks and v, whose
+    `check_depth` holds the 16-bit forward's query tile and key ring to a
+    block's shared memory."""
     bh, _, d1 = qs.shape
-    dv = v.shape[-1]
-    _check_cuda({"qs": qs, "ks": ks, "v": v}, lens, bh, d1, dv)
-    smem = load("flash_attention_fwd.cu").flash_attention_fwd_smem_bytes(d1, dv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"the CUDA forward kernel keeps its query tile of qs and a ring of key "
-                         f"pieces in shared memory and needs {smem} bytes at d1={d1}, dv={dv} "
-                         f"(flash_attention_fwd_smem_bytes); a block has {SMEM_LIMIT}")
+    _check_cuda({"qs": qs, "ks": ks, "v": v}, lens, bh, d1, v.shape[-1])
 
 
 @torch.library.custom_op(
@@ -198,7 +256,8 @@ def _flash_fwd_op(qs, ks, v, lens, scale, left, right):
     if qs.device.type != "cuda":
         raise ValueError(f"unsupported device {qs.device}")
     _check_fwd_cuda(qs, ks, v, lens)
-    return _launch_fwd(qs, ks, v, lens, scale, left, right)
+    o, lse = pad_fwd(_launch_fwd, qs, ks, v, lens, scale, left, right)
+    return o.contiguous(), lse
 
 
 @_flash_fwd_op.register_fake
@@ -216,24 +275,42 @@ def flash_attention_fwd(qs, ks, v, lens, scale: float, left: int = -1, right: in
     return _flash_fwd_op(qs, ks, v, lens, float(scale), int(left), int(right))
 
 
-def _launch_fwd(qs, ks, v, lens, scale, left, right, rows: int = 0):
-    """Launch the forward kernel (CUDA tensors, checked) with a query tile of
-    `rows` rows, 64 or 128 (0: the library's choice)."""
-    bh, t, _ = qs.shape
+def pad_fwd(launch, qs, ks, v, lens, scale, left, right):
+    """`launch` (the forward's signature) on qs, ks and v with zero columns
+    up to the kernels' granule (`padded`), o sliced back to dv columns: zero
+    columns change neither a score nor an output column. Launches are
+    counted at the caller's widths."""
+    bh, t, d1 = qs.shape
     dv = v.shape[-1]
-    o = torch.empty((bh, t, dv), dtype=torch.bfloat16, device=qs.device)
+    o, lse = launch(_pad(qs), _pad(ks), _pad(v), lens, scale, left, right,
+                    key=(bh, t, d1, dv, int(left), int(right)))
+    return o[..., :dv], lse
+
+
+def _launch_fwd(qs, ks, v, lens, scale, left, right, rows: int = 0, key=None):
+    """Launch the forward kernel of qs's dtype (CUDA tensors, checked, d1 and
+    dv multiples of 8) with a query tile of `rows` rows, 64 or 128 (0: the
+    library's choice; the fp32 kernel has one height); count it under `key`
+    (default: these tensors' shape and band)."""
+    bh, t, d1 = qs.shape
+    dv = v.shape[-1]
+    o = torch.empty((bh, t, dv), dtype=qs.dtype, device=qs.device)
     lse = torch.empty((bh, t), dtype=torch.float32, device=qs.device)
     if bh == 0 or t == 0:
         return o, lse
+    source, _, suffix = KERNELS[qs.dtype]
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("flash_attention_fwd.cu", "flash_attention_fwd_rows_bf16", 6, 4, 1)(
-            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, t, qs.shape[2], dv, float(scale), int(left), int(right),
-            int(rows), stream)
+        args = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), bh, t, d1, dv, float(scale), int(left), int(right))
+        if qs.dtype == torch.float32:
+            err = _fn(source, "flash_attention_fwd_f32", 6, 4)(*args, stream)
+        else:
+            err = _fn(source, f"flash_attention_fwd_rows_{suffix}", 6, 4, 1)(
+                *args, int(rows), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {err}")
-    fwd_launches.add((bh, t, qs.shape[2], dv, int(left), int(right)))
+    counter("fwd", qs.dtype).add(key or (bh, t, d1, dv, int(left), int(right)))
     return o, lse
 
 
@@ -249,27 +326,27 @@ def _check_bwd(qs, ks, v, do, lse, delta, lens) -> None:
         raise ValueError(f"unsupported device {qs.device}")
 
 
-def check_bwd_depth(d1: int, dv: int, kernels: tuple = ("dq", "dkv")) -> None:
+def check_bwd_depth(d1: int, dv: int, kernels: tuple = ("dq", "dkv"),
+                    dtype=torch.bfloat16) -> None:
     """Raise ValueError if a backward kernel named in `kernels` ("dq",
-    "dkv") cannot take depths (d1, dv), by the limits its library reports."""
+    "dkv") cannot take depths (d1, dv) in `dtype`, by the limits its library
+    reports at the depths padded to multiples of 8. The fp32 kernels go in
+    passes of columns over any depth; the 16-bit kernels report the largest
+    d1 their shared memory takes at dv."""
+    if dtype == torch.float32:
+        return
+    d1p, dvp = padded(d1), padded(dv)
     lib = load("flash_attention_bwd.cu")
-    if "dq" in kernels:
-        max_d1 = lib.flash_attention_bwd_dq_max_d1(dv)
-        if d1 > max_d1:
-            raise ValueError(f"the CUDA dQ kernel keeps its query rows of qs in shared memory "
-                             f"beside a ring of key tiles and takes d1 <= {max_d1} at dv={dv} "
-                             f"(flash_attention_bwd_dq_max_d1); got d1={d1}")
-    if "dkv" in kernels:
-        max_d1 = lib.flash_attention_bwd_dkv_max_d1()
-        if -(-d1 // 16) * 16 > max_d1:
-            raise ValueError(f"the CUDA dK/dV kernel holds dK in registers, at most {max_d1} "
-                             f"columns (flash_attention_bwd_dkv_max_d1; d1 rounded up to 16); "
-                             f"got d1={d1}")
-        smem = lib.flash_attention_bwd_dkv_smem_bytes(d1, dv)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"the CUDA dK/dV kernel keeps its K tile and two query tiles in "
-                             f"shared memory and needs {smem} bytes at d1={d1}, dv={dv}; a "
-                             f"block has {SMEM_LIMIT}")
+    for name, what, limit in (
+            ("dq", "dQ kernel keeps its query rows of qs in shared memory beside a ring of "
+                   "key tiles", "flash_attention_bwd_dq_max_d1"),
+            ("dkv", "dK/dV kernel keeps its key rows of ks in shared memory beside a ring of "
+                    "query tiles", "flash_attention_bwd_dkv_max_d1")):
+        if name in kernels:
+            max_d1 = getattr(lib, limit)(dvp)
+            if d1p > max_d1:
+                raise ValueError(f"the CUDA {what} and takes d1 <= {max_d1} at dv={dvp} "
+                                 f"({limit}); got d1={d1p}")
 
 
 def _check_bwd_cuda(qs, ks, v, do, lse, delta, lens, kernels: tuple) -> None:
@@ -281,36 +358,52 @@ def _check_bwd_cuda(qs, ks, v, do, lse, delta, lens, kernels: tuple) -> None:
     if lse.dtype != torch.float32 or delta.dtype != torch.float32 or not (
             lse.is_contiguous() and delta.is_contiguous()):
         raise TypeError("the CUDA kernel takes contiguous fp32 lse and delta")
-    check_bwd_depth(d1, dv, kernels)
+    check_bwd_depth(d1, dv, kernels, qs.dtype)
 
 
-def _bwd_kernel(name: str, counter, outs, qs, ks, v, do, lse, delta, lens, scale, left, right):
-    """Launch one of the two backward kernels (CUDA tensors, checked)."""
+def _bwd_kernel(name: str, outs, qs, ks, v, do, lse, delta, lens, scale, left, right, key):
+    """Launch one of the two backward kernels of qs's dtype (CUDA tensors,
+    checked, d1 and dv multiples of 8), counted under `key`."""
     bh, t, d1 = qs.shape
     dv = v.shape[-1]
     if bh == 0 or t == 0:
         return
+    _, source, suffix = KERNELS[qs.dtype]
     with torch.cuda.device(qs.device):
-        err = _fn("flash_attention_bwd.cu", f"flash_attention_bwd_{name}_bf16", 7 + len(outs), 4)(
+        err = _fn(source, f"flash_attention_bwd_{name}_{suffix}", 7 + len(outs), 4)(
             qs.data_ptr(), ks.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), lens.data_ptr(), *(o.data_ptr() for o in outs), bh, t, d1, dv,
             float(scale), int(left), int(right), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd {name} kernel launch failed: CUDA error {err}")
-    counter.add((bh, t, d1, dv, int(left), int(right)))
+    counter(name, qs.dtype).add(key)
 
 
-def _launch_dq(qs, ks, v, do, lse, delta, lens, scale, left, right):
+def _launch_dq(qs, ks, v, do, lse, delta, lens, scale, left, right, key):
     dq = torch.empty_like(qs)
-    _bwd_kernel("dq", dq_launches, (dq,), qs, ks, v, do, lse, delta, lens, scale, left, right)
-    return dq
+    _bwd_kernel("dq", (dq,), qs, ks, v, do, lse, delta, lens, scale, left, right, key)
+    return (dq,)
 
 
-def _launch_dkv(qs, ks, v, do, lse, delta, lens, scale, left, right):
+def _launch_dkv(qs, ks, v, do, lse, delta, lens, scale, left, right, key):
     dk, dvo = torch.empty_like(ks), torch.empty_like(v)
-    _bwd_kernel("dkv", dkv_launches, (dk, dvo), qs, ks, v, do, lse, delta, lens, scale, left,
-                right)
+    _bwd_kernel("dkv", (dk, dvo), qs, ks, v, do, lse, delta, lens, scale, left, right, key)
     return dk, dvo
+
+
+def pad_bwd(launch, grads: str, qs, ks, v, do, lse, delta, lens, scale, left, right):
+    """`launch` (a backward's signature, returning the gradients that `grads`
+    names in order: "q", "k", "v") on qs, ks, v and dO with zero columns up
+    to the kernels' granule, each gradient sliced back to its true width. A
+    zero column of qs and ks adds nothing to a score, and one of v and dO
+    nothing to dO v^T, so the true columns are those of the unpadded
+    function. Launches are counted at the caller's widths."""
+    bh, t, d1 = qs.shape
+    dv = v.shape[-1]
+    outs = launch(_pad(qs), _pad(ks), _pad(v), _pad(do), lse, delta, lens, scale, left, right,
+                  key=(bh, t, d1, dv, int(left), int(right)))
+    width = {"q": d1, "k": d1, "v": dv}
+    return tuple(g[..., :width[name]] for name, g in zip(grads, outs))
 
 
 def flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
@@ -322,7 +415,7 @@ def flash_attention_bwd_dq(qs, ks, v, do, lse, delta, lens, scale: float, left: 
     if qs.device.type == "cpu":
         return flash_attention_bwd_reference(*args)[0]
     _check_bwd_cuda(*args[:7], ("dq",))
-    return _launch_dq(*args)
+    return pad_bwd(_launch_dq, "q", *args)[0].contiguous()
 
 
 def flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
@@ -334,7 +427,11 @@ def flash_attention_bwd_dkv(qs, ks, v, do, lse, delta, lens, scale: float, left:
     if qs.device.type == "cpu":
         return flash_attention_bwd_reference(*args)[1:]
     _check_bwd_cuda(*args[:7], ("dkv",))
-    return _launch_dkv(*args)
+    return tuple(g.contiguous() for g in pad_bwd(_launch_dkv, "kv", *args))
+
+
+def _launch_bwd(*args, key):
+    return (*_launch_dq(*args, key=key), *_launch_dkv(*args, key=key))
 
 
 def flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale: float, left: int = -1,
@@ -347,7 +444,7 @@ def flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale: float, left: int
     if qs.device.type == "cpu":
         return flash_attention_bwd_reference(*args)
     _check_bwd_cuda(*args[:7], ("dq", "dkv"))  # both kernels' limits before either launches
-    return (_launch_dq(*args), *_launch_dkv(*args))
+    return tuple(g.contiguous() for g in pad_bwd(_launch_bwd, "qkv", *args))
 
 
 class FlashAttention(torch.autograd.Function):

@@ -77,26 +77,47 @@ def test_ctc_model_matches_jax(path):
         assert model.encoder.layers[0].self_attn.use_flash(lp_p.shape[1], el_p)
 
 
-# (cfg fields, device, refused?): the CUDA flash kernel takes bf16 only, so a
-# CUDA model in another dtype that can reach the flash path is refused up front
+# (cfg fields, device, refusal or None): the CUDA flash kernels take bf16,
+# fp16 and fp32 at dv <= 128, and in the 16-bit types d1 up to the forward's
+# shared memory; a CUDA model that can reach the flash path in another dtype
+# or at another depth is refused up front
 FLASH_DTYPE_CASES = {
-    "cuda_fp32_auto": (dict(dtype=torch.float32), "cuda", True),
-    "cuda_fp32_flash": (dict(dtype=torch.float32, use_flash_attention=True), "cuda", True),
-    "cuda_bf16_auto": (dict(dtype=torch.bfloat16), "cuda", False),
-    "cuda_fp32_dense": (dict(dtype=torch.float32, use_flash_attention=False), "cuda", False),
-    "cuda_fp32_rel_shift": (dict(dtype=torch.float32, dropout_emb=0.1), "cuda", False),
+    "cuda_fp32_auto": (dict(dtype=torch.float32), "cuda", None),
+    "cuda_fp32_flash": (dict(dtype=torch.float32, use_flash_attention=True), "cuda", None),
+    "cuda_bf16_auto": (dict(dtype=torch.bfloat16), "cuda", None),
+    "cuda_fp32_dense": (dict(dtype=torch.float32, use_flash_attention=False), "cuda", None),
+    "cuda_fp32_rel_shift": (dict(dtype=torch.float32, dropout_emb=0.1), "cuda", None),
     "cuda_fp32_abs_pos": (dict(dtype=torch.float32, self_attention_model="abs_pos"), "cuda",
-                          False),
-    "cpu_fp32_flash": (dict(dtype=torch.float32, use_flash_attention=True), "cpu", False),
+                          None),
+    "cpu_fp32_flash": (dict(dtype=torch.float32, use_flash_attention=True), "cpu", None),
+    "cuda_fp16_small_heads": (dict(dtype=torch.float16, d_model=176, n_heads=4), "cuda", None),
+    "cuda_fp64_flash": (dict(dtype=torch.float64, use_flash_attention=True), "cuda",
+                        "take torch.bfloat16, torch.float16, torch.float32"),
+    # d1 = 72 + 1152 = 1224, past the 16-bit forward's 1216; fp32 streams the depth
+    "cuda_bf16_past_forward_depth": (dict(dtype=torch.bfloat16, d_model=1152, n_heads=16),
+                                     "cuda", "flash_attention_fwd_smem_bytes"),
+    "cuda_fp32_past_forward_depth": (dict(dtype=torch.float32, d_model=1152, n_heads=16),
+                                     "cuda", None),
 }
 
 
+class _FwdLimit:
+    """Stand-in for the forward library's shared-memory query: a block's
+    232,448 bytes reached at d1 1216, as the card's layout reports it."""
+
+    flash_attention_fwd_smem_bytes = staticmethod(lambda d1, dv: 232448 + 128 * (d1 - 1216))
+
+
 @pytest.mark.parametrize("case", sorted(FLASH_DTYPE_CASES))
-def test_check_flash_dtype(case):
+def test_check_flash_dtype(case, monkeypatch):
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "load", lambda source: _FwdLimit())
     fields, device, refused = FLASH_DTYPE_CASES[case]
     cfg = ConformerEncoderConfig(**fields)
     if refused:
-        with pytest.raises(ValueError, match="bf16 only"):
+        with pytest.raises(ValueError, match=refused) as err:
             check_flash_dtype(cfg, torch.device(device))
+        assert "model.encoder.use_flash_attention=False" in str(err.value)
     else:
         check_flash_dtype(cfg, torch.device(device))

@@ -170,25 +170,25 @@ class _Limits:
     """Stand-in for the flash libraries' limit queries (the layouts are the
     card's; this holds the wrappers' use of them)."""
 
-    def __init__(self, dq_max_d1, dkv_smem, dkv_max_d1=576, fwd_smem=1000):
+    def __init__(self, dq_max_d1, dkv_max_d1, fwd_smem=1000):
         self.flash_attention_bwd_dq_max_d1 = lambda dv: dq_max_d1
-        self.flash_attention_bwd_dkv_smem_bytes = lambda d1, dv: dkv_smem
-        self.flash_attention_bwd_dkv_max_d1 = lambda: dkv_max_d1
+        self.flash_attention_bwd_dkv_max_d1 = lambda dv: dkv_max_d1
         self.flash_attention_fwd_smem_bytes = lambda d1, dv: fwd_smem
 
 
-@pytest.mark.parametrize("d1,dq_max_d1,dkv_smem,refused", [
+@pytest.mark.parametrize("d1,dq_max_d1,dkv_max_d1,refused", [
     (576, 1000, 1000, None),
-    (584, 1000, 1000, "dK/dV kernel holds dK in registers"),  # d1 rounds up to 592
+    (1152, 1600, 1616, None),  # XLarge's depth at dv 128, the libraries' limits there
     (576, 568, 1000, "dQ kernel keeps its query rows"),
-    (576, 1000, 10 ** 6, "dK/dV kernel keeps its K tile"),
+    (584, 1000, 576, "dK/dV kernel keeps its key rows"),
 ])
-def test_flash_bwd_limits_are_per_kernel(monkeypatch, d1, dq_max_d1, dkv_smem, refused):
+def test_flash_bwd_limits_are_per_kernel(monkeypatch, d1, dq_max_d1, dkv_max_d1, refused):
     """Each backward kernel is held to its own limits, and the whole
     backward checks both before either launches."""
-    monkeypatch.setattr(port, "load", lambda source: _Limits(dq_max_d1, dkv_smem))
+    monkeypatch.setattr(port, "load", lambda source: _Limits(dq_max_d1, dkv_max_d1))
     bf = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
-    args = (bf(2, 64, d1), bf(2, 64, d1), bf(2, 64, 64), bf(2, 64, 64), torch.zeros(2, 64),
+    dv = 128 if d1 == 1152 else 64
+    args = (bf(2, 64, d1), bf(2, 64, d1), bf(2, 64, dv), bf(2, 64, dv), torch.zeros(2, 64),
             torch.zeros(2, 64), torch.tensor([64, 3], dtype=torch.int32))
     if refused is None:
         port._check_bwd_cuda(*args, ("dq", "dkv"))

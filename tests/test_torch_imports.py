@@ -1,6 +1,7 @@
 """The port stands alone: no module of conformer_nemo_tpu_torch, and not
-chip_smoke.py, imports JAX, the JAX package or msgpack (the port reads and
-writes flax's msgpack format itself); its native host libraries (the
+chip_smoke.py, imports JAX, the JAX package, msgpack (the port reads and
+writes flax's msgpack format itself) or Hugging Face `tokenizers` (the port
+reads and trains `tokenizer.json` itself); its native host libraries (the
 codecs and the CTC beam decoder) build from its own sources and nothing
 loads from or reads the JAX package's `native/`; and no entry point runs
 on the CPU unless asked."""
@@ -16,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "conformer_nemo_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "conformer_nemo_tpu", "tokenizers"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import conformer_nemo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(conformer_nemo_tpu_torch.__path__,
@@ -37,7 +38,8 @@ labels = {"conformer_nemo_tpu_torch." + m for m in (
 assert labels <= set(names), sorted(labels - set(names))
 rest = {"conformer_nemo_tpu_torch." + m for m in (
     "decode.der", "decode.diarization", "decode.asr_diar", "audio.mfcc", "models.rnn_encoder",
-    "utils.typecheck", "utils.timers", "utils.profiling")}
+    "utils.typecheck", "utils.timers", "utils.profiling", "data.bpe_trainer",
+    "scripts.train_tokenizer")}
 assert rest <= set(names), sorted(rest - set(names))
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -46,7 +48,7 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 assert not leaked, leaked
 # every library the decoders load comes from the port's own build (scipy,
 # which resamples, probes sys.modules for jax: drop the import blocks first)
-for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "conformer_nemo_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "conformer_nemo_tpu", "tokenizers"):
     del sys.modules[name]
 import ctypes, os, tempfile
 loaded = []
@@ -82,7 +84,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert r.returncode == 0, r.stderr[-2000:]
     # every module was walked: the decoders, the multi-GPU modules, buffered
     # decode, export, the .nemo converter, SSL, the label models,
-    # diarization, the RNN encoder, MFCC and the utilities included
+    # diarization, the RNN encoder, MFCC, the utilities and the tokenizer
+    # trainer included
     assert int(r.stdout.split()[-1]) >= 90
 
 

@@ -168,39 +168,40 @@ def test_flash_kernels_stay_finite_at_scores_past_fp32_integer_range(cuda_device
 
 
 @pytest.mark.gpu
-def test_flash_bwd_dkv_refuses_a_depth_past_its_registers(cuda_device):
-    """d1 584 rounds up to 592 dK columns, past the 576 the dK/dV kernel's
-    warps hold: the whole backward raises before either kernel launches,
-    while the dQ kernel alone still takes it."""
-    t, d1, dv = 200, 584, 64
+@pytest.mark.parametrize("t,d1,dv", [(200, 584, 64), (301, 1152, 128), (157, 1216, 128)])
+def test_flash_bwd_dkv_takes_every_depth_the_forward_takes(cuda_device, t, d1, dv):
+    """dK's columns go in passes of 576 (d1 584: 576 + 8), with 32-query
+    tiles and then a one-stage ring where the depth needs the shared memory
+    (d1 1152 and 1216 at dv 128, the forward's top): against the plain
+    version, the same bits on a second call."""
     qs, ks, v, do = _flash_inputs(cuda_device, 2, t, d1, dv, seed=2)
     lens = torch.tensor([t, 77], dtype=torch.int32, device=cuda_device)
     scale = 1.0 / np.sqrt(64)
     o, lse = port.flash_attention_fwd_reference(qs, ks, v, lens, scale)
     delta = (do.float() * o.float()).sum(-1)
     args = (qs, ks, v, do, lse, delta, lens, scale)
-    before = (port.dq_launches.total, port.dkv_launches.total)
-    with pytest.raises(ValueError, match="registers"):
-        port.flash_attention_bwd(*args)
-    with pytest.raises(ValueError, match="registers"):
-        port.flash_attention_bwd_dkv(*args)
-    assert (port.dq_launches.total, port.dkv_launches.total) == before
-    dq = port.flash_attention_bwd_dq(*args)
-    want = port.flash_attention_bwd_reference(*args)[0]
+    got = port.flash_attention_bwd(*args)
+    want = port.flash_attention_bwd_reference(*args)
     torch.cuda.synchronize()
-    rel = (dq.float() - want.float()).abs().max() / want.float().abs().max()
-    assert rel.item() <= BWD_REL_TOL
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        rel = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert rel.item() <= BWD_REL_TOL, (name, rel.item())
+    again = port.flash_attention_bwd_dkv(*args)
+    assert torch.equal(again[0], got[1]) and torch.equal(again[1], got[2])
+    lib = port.load("flash_attention_bwd.cu")
+    assert lib.flash_attention_bwd_dkv_max_d1(dv) >= 1216
+    assert lib.flash_attention_bwd_dq_max_d1(dv) >= 1216
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("t,d1,dv", [(301, 656, 64), (200, None, 64), (157, None, 128)])
 def test_flash_bwd_dq_kernel_past_576_columns(cuda_device, t, d1, dv):
     """d1 656: two passes of dQ columns (576 + 80) on 32-key tiles; d1 None:
-    the widest the kernel takes at dv (its library's limit, past which it
-    refuses). dQ alone, since the dK/dV kernel takes d1 <= 576."""
+    the widest the wrappers take at dv (the forward's 1216, under the dQ
+    kernel's own limit), past which they refuse."""
     widest = port.load("flash_attention_bwd.cu").flash_attention_bwd_dq_max_d1(dv)
-    assert widest > 576  # wider than the dK/dV kernel takes
-    d1 = d1 or widest
+    assert widest >= 1216
+    d1 = d1 or 1216
     qs, ks, v, do = _flash_inputs(cuda_device, 3, t, d1, dv, seed=3)
     lens = torch.tensor([t, t - 45, 0], dtype=torch.int32, device=cuda_device)
     scale = 1.0 / np.sqrt(64)
@@ -214,18 +215,68 @@ def test_flash_bwd_dq_kernel_past_576_columns(cuda_device, t, d1, dv):
     assert rel.item() <= BWD_REL_TOL
     assert dq[1, t - 45:].abs().max().item() == 0.0 and dq[2].abs().max().item() == 0.0
     assert torch.equal(dq, port.flash_attention_bwd_dq(*args))
-    with pytest.raises(ValueError, match="flash_attention_bwd_dq_max_d1"):
-        port.flash_attention_bwd_dq(*(torch.zeros(1, 8, widest + 8, dtype=torch.bfloat16,
+    with pytest.raises(ValueError, match="flash_attention_fwd_smem_bytes"):
+        port.flash_attention_bwd_dq(*(torch.zeros(1, 8, 1224, dtype=torch.bfloat16,
                                                   device=cuda_device) for _ in range(2)),
                                     v[:1, :8], do[:1, :8], lse[:1, :8], delta[:1, :8],
                                     lens[:1].clamp(max=8), scale)
 
 
+# K2 against its plain version by dtype: (o absolute, lse absolute, the
+# backward's relative error); fp16 rounds o, P and dS to 11 bits, the fp32
+# kernels sum in another order only
+K2_TOLS = {torch.bfloat16: (2e-2, 2e-3, BWD_REL_TOL), torch.float16: (4e-3, 2e-3, 4e-3),
+           torch.float32: (2e-5, 2e-5, 2e-5)}
+
+
 @pytest.mark.gpu
-def test_cuda_fit_refuses_a_flash_depth_past_the_backward_before_a_step(cuda_device, tmp_path):
-    """d_model 640 (d1 = 80 + 640 = 720, past the dK/dV kernel's 576 dK
-    columns) with flash attention on: `fit` raises before its first step,
-    and transcribe at that width runs through the forward kernel."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("t,d1,dv,band", [(1501, 220, 44, (-1, -1)), (333, 1152, 128, (-1, -1)),
+                                          (700, 576, 64, (128, 32)), (200, 44, 20, (16, -1)),
+                                          (333, 1152, 128, (48, 16)), (301, 720, 80, (40, 8))])
+def test_flash_kernels_at_every_width_and_dtype(cuda_device, dtype, t, d1, dv, band):
+    """Small's heads (d1 220, dv 44: padded to 224 and 48 and sliced back),
+    XLarge's (1152, 128), bands (also over the backward's 32-row tiles and
+    one-stage rings at d1 1152, and its 32-row two-stage tiles at d1 720),
+    and widths below a 16-column tile, in each dtype the kernels take:
+    forward and backward against the plain version, outputs in the input
+    dtype, launches counted under the dtype's kernel names at the caller's
+    widths, the same bits twice."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    qs, ks = (torch.randn(4, t, d1, generator=g).to(cuda_device, dtype) for _ in range(2))
+    v, do = (torch.randn(4, t, dv, generator=g).to(cuda_device, dtype) for _ in range(2))
+    lens = torch.tensor([t, t // 2 + 3, 1, 0], dtype=torch.int32, device=cuda_device)
+    scale = 1.0 / np.sqrt(64)
+    o_tol, lse_tol, rel_tol = K2_TOLS[dtype]
+    key = (4, t, d1, dv, *band)
+    counts = [port.counter(k, dtype) for k in ("fwd", "dq", "dkv")]
+    before = [c.by_shape.get(key, 0) for c in counts]
+    o, lse = port.flash_attention_fwd(qs, ks, v, lens, scale, *band)
+    o_ref, lse_ref = port.flash_attention_fwd_reference(qs, ks, v, lens, scale, *band)
+    delta = (do.float() * o.float()).sum(-1)
+    got = port.flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale, *band)
+    want = port.flash_attention_bwd_reference(qs, ks, v, do, lse, delta, lens, scale, *band)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == v.shape and lse.dtype == torch.float32
+    assert (o.float() - o_ref.float()).abs().max().item() <= o_tol
+    assert (lse - lse_ref).abs().max().item() <= lse_tol
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        rel = (a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)
+        assert rel.item() <= rel_tol, (name, rel.item())
+    assert [c.by_shape.get(key, 0) for c in counts] == [n + 1 for n in before]
+    assert torch.equal(port.flash_attention_fwd(qs, ks, v, lens, scale, *band)[0], o)
+    assert all(torch.equal(a, b) for a, b in zip(
+        port.flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale, *band), got))
+
+
+@pytest.mark.gpu
+def test_cuda_fit_trains_past_the_old_backward_depth(cuda_device, tmp_path):
+    """d_model 640 (d1 = 80 + 640 = 720, past the 576 dK columns the dK/dV
+    kernel once held) with flash attention on: `fit` takes a step through
+    K2's backward; a depth past the forward's shared memory (d_model 1152,
+    16 heads: d1 1224) is refused at construction."""
     import json
     import os
 
@@ -237,18 +288,19 @@ def test_cuda_fit_refuses_a_flash_depth_past_the_backward_before_a_step(cuda_dev
     write_wav(wav, (0.1 * np.random.RandomState(0).randn(32000)).astype(np.float32))
     manifest = tmp_path / "m.json"
     manifest.write_text(json.dumps({"audio_filepath": wav, "duration": 2.0, "text": "a"}) + "\n")
-    model = ConformerCTC.from_config_file(
-        os.path.join(root, "configs", "conformer_ctc_bpe_longform.yaml"), overrides={
-            "model.tokenizer.model_file": os.path.join(root, "tests", "fixtures",
-                                                       "sp_bpe_bytefallback.model"),
-            "model.encoder.n_layers": 2, "model.encoder.d_model": 640,
-            "model.encoder.use_flash_attention": True, "model.train_ds.batch_size": 1})
-    with pytest.raises(ValueError, match="flash_attention_bwd_dkv_max_d1"):
-        model.fit(str(manifest), max_steps=1)
-    assert model.train_state is None
-    before = port.fwd_launches.total
-    texts = model.transcribe([wav])
-    assert len(texts) == 1 and port.fwd_launches.total == before + 2
+    config = os.path.join(root, "configs", "conformer_ctc_bpe_longform.yaml")
+    overrides = {"model.tokenizer.model_file": os.path.join(root, "tests", "fixtures",
+                                                            "sp_bpe_bytefallback.model"),
+                 "model.encoder.n_layers": 2, "model.encoder.d_model": 640,
+                 "model.encoder.use_flash_attention": True, "model.train_ds.batch_size": 1}
+    model = ConformerCTC.from_config_file(config, overrides=overrides)
+    before = (port.dq_launches.total, port.dkv_launches.total)
+    out = model.fit(str(manifest), max_steps=1)
+    assert out["steps"] == 1
+    assert (port.dq_launches.total, port.dkv_launches.total) == (before[0] + 2, before[1] + 2)
+    with pytest.raises(ValueError, match="flash_attention_fwd_smem_bytes"):
+        ConformerCTC.from_config_file(config, overrides={
+            **overrides, "model.encoder.d_model": 1152, "model.encoder.n_heads": 16})
 
 
 @pytest.mark.gpu

@@ -1,9 +1,10 @@
 """Inputs where the port once refused late or diverged from the JAX package:
 
-* a CUDA `fit` whose flash attention would train at a depth d1 = d_head +
-  d_model past the backward kernels' limits is refused before its first
-  step (the library's limits stood in for, since this machine has no card);
-  inference is not refused;
+* a CUDA `fit` whose flash attention would train in a dtype or at a depth
+  d1 = d_head + d_model that no kernel takes is refused before its first
+  step (the libraries' limits stood in for, since this machine has no
+  card); every depth the forward takes trains, and inference past a
+  backward limit is not refused;
 * `joint_impl: auto` does not pick a flash joint whose backward cannot take
   the joint's width H (the joint library's shared-memory query stood in
   for);
@@ -40,32 +41,43 @@ SMEM_LIMIT = 232448
 
 
 class _BwdLimits:
-    """Stand-in for the flash backward library's limit queries: the dK/dV
-    kernel holds 576 dK columns in registers, the dQ kernel takes more."""
+    """Stand-in for the flash libraries' limit queries, as the card reports
+    them at dv 128: the backward kernels take more than the forward, whose
+    shared memory ends at d1 1216."""
 
-    flash_attention_bwd_dkv_max_d1 = staticmethod(lambda: 576)
-    flash_attention_bwd_dkv_smem_bytes = staticmethod(lambda d1, dv: 1000)
-    flash_attention_bwd_dq_max_d1 = staticmethod(lambda dv: 1152)
+    flash_attention_bwd_dkv_max_d1 = staticmethod(lambda dv: 1616)
+    flash_attention_bwd_dq_max_d1 = staticmethod(lambda dv: 1600)
+    flash_attention_fwd_smem_bytes = staticmethod(lambda d1, dv: 232448 + 128 * (d1 - 1216))
 
 
-def _encoder(d_model, use_flash):
+def _encoder(d_model, use_flash, n_heads=8):
     raw = load_config(LONGFORM, {"model.tokenizer.model_file": TOKENIZER,
                                  "model.encoder.d_model": d_model,
+                                 "model.encoder.n_heads": n_heads,
                                  "model.encoder.use_flash_attention": use_flash})
     return build_encoder_config(raw["model"]["encoder"])
 
 
 @pytest.mark.parametrize("d_model,use_flash,longest_t,refused", [
-    (640, "auto", 1843, True),   # d1 = 80 + 640 = 720 > 576
-    (640, True, 200, True),      # flash forced at any length
-    (512, "auto", 1843, False),  # d1 = 576, the flagship depth
-    (640, False, 1843, False),   # the dense path trains at any depth
-    (640, "auto", 900, False),   # "auto" stays dense below flash_attention_min_t
+    (640, "auto", 1843, None),   # d1 = 80 + 640 = 720: past the old dK/dV kernel's 576
+    (640, True, 200, None),      # flash forced at any length
+    (512, "auto", 1843, None),   # d1 = 576, the flagship depth
+    (640, False, 1843, None),    # the dense path trains at any depth
+    (640, "auto", 900, None),    # "auto" stays dense below flash_attention_min_t
+    (1024, "auto", 1843, None),  # XLarge: d1 = 128 + 1024 = 1152, dv 128
+    # 16 heads: d1 = 72 + 1152 = 1224, past the 16-bit forward's shared memory
+    ((1152, 16), True, 200, "flash_attention_fwd_smem_bytes"),
+    ((512, torch.float64), "auto", 1843, "take torch.bfloat16, torch.float16, torch.float32"),
 ])
 def test_cuda_flash_training_depth_is_checked_before_a_step(monkeypatch, d_model, use_flash,
                                                              longest_t, refused):
     monkeypatch.setattr(fa, "load", lambda source: _BwdLimits())
-    enc = _encoder(d_model, use_flash)
+    if d_model == (512, torch.float64):
+        enc = dataclasses.replace(_encoder(512, use_flash), dtype=torch.float64)
+    elif isinstance(d_model, tuple):
+        enc = _encoder(d_model[0], use_flash, n_heads=d_model[1])
+    else:
+        enc = _encoder(d_model, use_flash)
     assert enc.dropout_att == 0.0 and enc.flash_attention_min_t == 1024
     if not refused:
         conformer.check_flash_training(enc, "cuda", longest_t)
@@ -73,16 +85,17 @@ def test_cuda_flash_training_depth_is_checked_before_a_step(monkeypatch, d_model
     with pytest.raises(ValueError) as err:
         conformer.check_flash_training(enc, "cuda", longest_t)
     msg = str(err.value)
-    assert "at most 576" in msg and "flash_attention_bwd_dkv_max_d1" in msg
-    assert "model.encoder.use_flash_attention=False" in msg
+    assert refused in msg and "model.encoder.use_flash_attention=False" in msg
     conformer.check_flash_training(enc, "cpu", longest_t)  # the CPU path runs plain PyTorch
     # attention dropout keeps the flash path out of training
     conformer.check_flash_training(dataclasses.replace(enc, dropout_att=0.1), "cuda", longest_t)
 
 
-def test_flash_inference_past_the_backward_depth_is_not_refused():
-    """Construction checks only the dtype: transcribe at d1 720 runs through
-    the forward kernel, which takes any depth up to its shared memory."""
+def test_flash_inference_past_the_backward_depth_is_not_refused(monkeypatch):
+    """Construction checks the dtype and the forward's depth: transcribe at
+    d1 720 runs through the forward kernel, which takes any depth up to its
+    shared memory."""
+    monkeypatch.setattr(fa, "load", lambda source: _BwdLimits())
     enc = _encoder(640, "auto")
     conformer.check_flash_dtype(enc, "cuda")
 
