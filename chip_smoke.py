@@ -78,6 +78,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   rnnt_parity  the same weights and batch, dropout, SpecAugment and dither off: one
                step through K4 + K3 against one through the dense joint and the
                plain lattice
+  joints       K4 in every dtype and at the widths the JAX package runs, at full
+               width (conformer_transducer_bpe.yaml at RNNT_LAYERS) on rnnt_train's
+               manifest: in fp16 and fp32 (dtype= through the API) a flash-joint
+               probe step against a dense one at the same weights (quiet settings;
+               loss within WIDE_LOSS_REL, gradient cosine >= WIDE_GRAD_COSINE), one
+               fit step (K4's launches under the dtype's names, K4-fwd-f16, ...)
+               and a greedy transcribe of JOINT_SERVE_FILES files; in fp32 the
+               encoder output and the first decode step's joint logits on the card
+               (cuDNN's TF32 off) against the same weights on the CPU, within
+               JOINT_CARD_CPU_REL, with TF32 on as a control that must fall
+               outside it; bf16 at joint_hidden 1024 (probe pair, fit step) and at
+               joint_hidden 600 under joint_impl auto (its threshold lowered), which
+               must resolve to the flash joint (padded to 608 on the card); K4's
+               launches by kernel, dtype and shape
   multilang    the data pipeline into both multilang recipes at full width: 16
                generated 10-16 s FLAC files (half en, half es) checked bit for bit
                against the int16 they were written from, the fixture FLACs' lengths,
@@ -254,7 +268,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                widths phase's fits' calls (path `widths`): Small's (d1 220, dv 44),
                XLarge's (1152, 128), and the flagship shapes in fp16 and in fp32
                (the fp32 kernels of ops/csrc/flash_attention_f32.cu; bounds at the
-               fp32 FMA rate)
+               fp32 FMA rate); K4 at the joints phase's calls (path `joints`): fp16
+               and fp32 (ops/csrc/rnnt_joint_f32.cu, TF32 off) at the transducer
+               step's shapes, bf16 at joint widths 1024 and 600, each held to its
+               dtype's limit (JOINT_TOLS) and run twice for the same bits; and K4
+               in bf16 at the step's shapes at H 1376 and H 100 (edge rows)
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 gives them, and a last line {"ok": true, "device": {...}}.
 
@@ -267,7 +285,9 @@ started by that phase.
 
 runs env, build and the K4 cases alone (the transducer step's shapes at the
 config's V and at V 1025) with conformer_nemo_tpu_torch imported from the
-checkout at DIR, so that two versions of the joint can be timed in turns.
+checkout at DIR, so that two versions of the joint can be timed in turns (run
+each checkout's own script from its root with DIR `.`: the cases follow the
+package's interface).
 
 It imports nothing of JAX or of the JAX package, and exits non-zero without
 printing a result when CUDA is not available.
@@ -381,8 +401,27 @@ RNNT_TRANSCRIBE_FILES = 1
 LATTICE_REL_TOL = 1e-5
 # K4 vs its plain version in bf16: max|kernel - plain| <= 2e-2 * max|plain| per output
 JOINT_REL_TOL = 2e-2
+# by dtype, as K2's: fp16 rounds h, the logits, dlab, dh and dx to 11 bits
+# where bf16 rounds to 8; fp32 (FMA, TF32 off) sums in another order
+JOINT_TOLS = {torch.bfloat16: JOINT_REL_TOL, torch.float16: 4e-3, torch.float32: 2e-5}
 # the JAX joint kernel's flagship vocabulary: 1024 BPE pieces and the blank
 JOINT_FLAGSHIP_V = 1025
+# the joints phase: K4 in fp16 and fp32 at the shipped joint, and in bf16 at
+# joint widths past the old backward's 640 (JOINT_WIDE_H) and not a multiple
+# of 16 (JOINT_ODD_H, padded to 608 on the card); the fp32 serving path's
+# encoder output and first-step logits, card vs CPU, within this share of
+# the CPU's largest entry
+JOINT_WIDE_H = 1024
+JOINT_ODD_H = 600
+JOINT_SERVE_FILES = 2
+JOINT_CARD_CPU_REL = 1e-4
+# flash against dense at the same weights and batch: dropout, SpecAugment
+# and dither off
+JOINTS_QUIET = {"model.encoder.dropout": 0.0, "model.encoder.dropout_att": 0.0,
+                "model.encoder.dropout_emb": 0.0, "model.decoder.prednet.dropout": 0.0,
+                "model.joint.jointnet.dropout": 0.0, "model.spec_augment.freq_masks": 0,
+                "model.spec_augment.time_masks": 0, "model.spec_augment.specshot_ratio": 0.0,
+                "model.preprocessor.dither": 0.0}
 
 # multilang: the aggregate tokenizer over two fixture models (295 + 288
 # pieces, V + 1 = 584), FLAC audio, the pcm16 transport, 8 loader workers
@@ -624,6 +663,7 @@ JOINT_FWD = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_joint.cu",
 JOINT_BWD = ("conformer_nemo_tpu_torch/ops/csrc/rnnt_joint.cu",
              "conformer_nemo_tpu/ops/pallas/rnnt_joint_kernel.py:191 "
              "(_make_bwd_kernel, via joint_flash_bwd :372 -> :393)")
+JOINT_F32 = "conformer_nemo_tpu_torch/ops/csrc/rnnt_joint_f32.cu"
 
 
 def check(ok: bool, what) -> None:
@@ -1180,18 +1220,24 @@ def _lattice_case(name, t, u1, t_lens, u_lens, gen, dev, chain):
 
 
 def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu", drop_t=26,
-                fastemit=0.0, clamp=-1.0, bt=16, row_offset=0):
-    """K4-fwd and the three K4-bwd kernels against their plain versions, on
-    posteriors from the K3 lattice of the kernel's own forward; the forward
-    and the whole backward checked for the same bits on a second call, the
-    backward timed as one function and its scratch measured. row_offset:
-    the rows' first index in a global batch (the hash base, `joint_seed`)."""
+                fastemit=0.0, clamp=-1.0, bt=16, row_offset=0, dtype=torch.bfloat16):
+    """K4-fwd and the three K4-bwd kernels in `dtype` against their plain
+    versions (JOINT_TOLS), on posteriors from the K3 lattice of the kernel's
+    own forward; the forward and the whole backward checked for the same
+    bits on a second call, the backward timed as one function and its
+    scratch measured. row_offset: the rows' first index in a global batch
+    (the hash base, `joint_seed`). An H that is not a multiple of 16 runs the
+    pieces on e, p and W padded as the wrappers pad them (`pad_hidden`, the
+    hash at the true H)."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
     from conformer_nemo_tpu_torch.ops import rnnt_lattice as lat
     from conformer_nemo_tpu_torch.ops.rnnt_loss import posteriors
 
-    bf = lambda *shape, scale: (torch.randn(*shape, generator=gen, device=dev) * scale).to(
-        torch.bfloat16)
+    tol = JOINT_TOLS[dtype]
+    suffix = jt.counter("fwd", dtype).name[len("K4-fwd"):]
+    es = torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    bf = lambda *shape, scale: (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
     e, p = bf(b, t, h, scale=0.5), bf(b, u + 1, h, scale=0.5)
     w, bias = bf(h, v, scale=h ** -0.5), bf(v, scale=0.1)
     targets = torch.randint(0, v - 1, (b, u), generator=gen, device=dev).to(torch.int32)
@@ -1218,20 +1264,23 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     bwd = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
     bwd_ref = jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw)
     bwd2 = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
-    # each backward kernel against its plain version on the same inputs: the
-    # first window's cells, its sums into fresh accumulators, their reduce
-    w_pad, w_blank = jt.pad_label_block(w, v - 1)
+    # each backward kernel against its plain version on the same inputs (at
+    # the padded H, as the wrappers call them): the first window's cells,
+    # its sums into fresh accumulators, their reduce
+    ep, pp, wp = jt.pad_hidden(e, p, w)
+    hp = ep.shape[2]
+    w_pad, w_blank = jt.pad_label_block(wp, v - 1)
     cells_in = int(inside.sum().item())
-    win, n_win = jt.bwd_windows(b * t * (u + 1), h, v)
-    pkw = dict(t_lens=tl, u_lens=ul, activation=activation, drop_t=drop_t, bt=bt)
-    cells_args = (e, p, w_pad, w_blank, *args[3:])
-    new_acc = lambda: jt.bwd_accumulators(b, t, u + 1, h, v, dev)
+    win, n_win = jt.bwd_windows(b * t * (u + 1), h, v, dtype=dtype)
+    pkw = dict(t_lens=tl, u_lens=ul, activation=activation, drop_t=drop_t, bt=bt, hash_h=h)
+    cells_args = (ep, pp, w_pad, w_blank, *args[3:])
+    new_acc = lambda: jt.bwd_accumulators(b, t, u + 1, hp, v, dev)
     cells = jt.joint_flash_bwd_cells(*cells_args, c0=0, win=win, clamp=clamp, **pkw)
     cells_ref = jt.joint_flash_bwd_cells_reference(*cells_args, c0=0, win=win, clamp=clamp, **pkw)
     skw = dict(t_lens=tl, u_lens=ul, win=win)
-    acc = jt.joint_flash_bwd_sums(cells, new_acc(), c0=0, **skw)
+    acc = jt.joint_flash_bwd_sums(cells, new_acc(), c0=0, hash_h=h, **skw)
     acc_ref = jt.joint_flash_bwd_sums_reference(cells, new_acc(), c0=0, **skw)
-    red = jt.joint_flash_bwd_reduce(acc, e.dtype)
+    red = jt.joint_flash_bwd_reduce(acc, e.dtype, hash_h=h)
     red_ref = jt.joint_flash_bwd_reduce_reference(acc, e.dtype)
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(bwd, bwd2)), (name, "K4-bwd not deterministic"))
@@ -1254,7 +1303,7 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
         check(bool(torch.isfinite(a).all()), (name, out, "non-finite"))
         err = (a - r).abs().max().item()
         errs[out] = {"abs": err, "rel_to_max": err / max(r.abs().max().item(), 1e-30)}
-        check(errs[out]["rel_to_max"] <= JOINT_REL_TOL, (name, out, errs[out]))
+        check(errs[out]["rel_to_max"] <= tol, (name, out, errs[out]))
     del cells_ref, acc_ref
 
     # library yardstick: the dense torch joint (matmul, logsumexp, gather) over
@@ -1286,7 +1335,7 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     jt.joint_flash_bwd(*args, clamp=clamp, **kw)
     torch.cuda.synchronize()
     peak_bytes = torch.cuda.max_memory_allocated() - base
-    scratch_bytes = jt.bwd_scratch_bytes(b * t * (u + 1), b, t, u + 1, h, v)
+    scratch_bytes = jt.bwd_scratch_bytes(b * t * (u + 1), b, t, u + 1, h, v, dtype=dtype)
 
     # bytes and operations the function needs: the lattice's cells only (the
     # loss reads no other), the e and p rows they use, W and the bias; the
@@ -1296,17 +1345,16 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     u_in = sum(min(y, u) + 1 for y in u_lens)
     product = 2.0 * h * v  # FLOPs per cell of one [H] x [H, V] product
     vlp = jt.padded_vl(v)
-    in_bytes = 2 * (t_in * h + u_in * h + h * v + v) + 4 * (u_in - b) + 8 * b
+    in_bytes = es * (t_in * h + u_in * h + h * v + v) + 4 * (u_in - b) + 8 * b
     fwd_bytes = in_bytes + 12 * cells_all
-    out_bytes = 2 * b * t * h + 4 * (b * (u + 1) * h + h * v + v)
+    out_bytes = es * b * t * h + 4 * (b * (u + 1) * h + h * v + v)
     bwd_bytes = in_bytes + 16 * cells_in + 4 * b + out_bytes
-    scratch_io = cells_in * (2 * vlp + 4 + 4 * h) + 4 * n_win * (win // jt.TILE_CELLS) * v
+    scratch_io = cells_in * (es * vlp + 4 + 2 * es * h) + 4 * n_win * (win // jt.TILE_CELLS) * v
     acc_bytes = 4 * (b * t * h + b * (u + 1) * h + jt.KSPLIT * h * (vlp + 1) + v)
     # each kernel's device time in one whole backward (all its windows)
     times = kernel_device_ms(lambda: jt.joint_flash_bwd(*args, clamp=clamp, **kw),
-                             {"K4-bwd": "joint_bwd_cells_kernel",
-                              "K4-bwd-dw": "joint_bwd_sums_kernel",
-                              "K4-bwd-reduce": "joint_bwd_reduce_kernel"})
+                             {"K4-bwd": "joint_bwd_cells", "K4-bwd-dw": "joint_bwd_sums",
+                              "K4-bwd-reduce": "joint_bwd_reduce"})
     # the plain versions of the windows that hold cells
     active = range(-(-cells_in // win))
     plain = {"K4-bwd": time_ms(lambda: [jt.joint_flash_bwd_cells_reference(
@@ -1318,57 +1366,56 @@ def _joint_case(name, b, t, u, h, v, t_lens, u_lens, gen, dev, activation="relu"
     whole_plain_ms = time_ms(lambda: jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw), 1,
                              warmup=1)
     common = {"case": name, "shape": [b, t, u + 1, h, v], "t_lens": list(t_lens),
-              "u_lens": list(u_lens),
+              "u_lens": list(u_lens), "dtype": str(dtype), "padded_h": hp,
               "activation": activation, "drop_t": drop_t, "fastemit": fastemit, "clamp": clamp,
-              "errors": errs, "tol_rel_to_max": JOINT_REL_TOL, "cells": cells_all,
+              "errors": errs, "tol_rel_to_max": tol, "cells": cells_all,
               "lattice_cells": cells_in, "window_cells": win, "windows": n_win}
     rows = [
-        {**common, "kernel": "K4-fwd",
+        {**common, "kernel": "K4-fwd" + suffix,
          "max_abs_err": max(errs[k]["abs"] for k in ("blank_lp", "label_lp", "lse")),
          "ms": time_ms(lambda: jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw), 10),
          "plain_ms": time_ms(lambda: jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed,
                                                                   **kw), 1, warmup=1),
          "library_ms": lib_fwd_ms, "deterministic": True,
-         # a package timed by --joint-bench from an earlier checkout may not say
-         "tile_cells": jt.fwd_rows(h) if hasattr(jt, "fwd_rows") else None,
-         **bound(product * cells_in, fwd_bytes)},
+         "tile_cells": jt.fwd_rows(h, dtype),
+         **bound(product * cells_in, fwd_bytes, peak)},
         # the cells kernel: the logits again and dh, two products per lattice
         # cell, writing the windows' scratch (no PyTorch call computes this
         # piece alone)
-        {**common, "kernel": "K4-bwd",
+        {**common, "kernel": "K4-bwd" + suffix,
          "max_abs_err": max(errs[k]["abs"] for k in ("cells_dlab", "cells_dblank", "cells_dx",
                                                       "cells_h")),
          "ms": times["K4-bwd"], "plain_ms": plain["K4-bwd"], "library_ms": None,
          "deterministic": True, "scratch_bytes": scratch_bytes, "peak_bytes": peak_bytes,
-         **bound(2 * product * cells_in, in_bytes + 16 * cells_in + 4 * b + scratch_io)},
+         **bound(2 * product * cells_in, in_bytes + 16 * cells_in + 4 * b + scratch_io, peak)},
         # the sums: dW = h^T dlab (one product per cell) and the fixed-order
         # sums of de, dp and db from the scratch into the accumulators
-        {**common, "kernel": "K4-bwd-dw",
+        {**common, "kernel": "K4-bwd-dw" + suffix,
          "max_abs_err": max(errs[k]["abs"] for k in ("sums_de", "sums_dp", "sums_dw",
                                                       "sums_dw_blank", "sums_db")),
          "ms": times["K4-bwd-dw"], "plain_ms": plain["K4-bwd-dw"], "library_ms": None,
-         **bound(product * cells_in, in_bytes + scratch_io + acc_bytes)},
+         **bound(product * cells_in, in_bytes + scratch_io + acc_bytes, peak)},
         # the reduce: reads the K splits' label columns and dW[:, VL] splits,
         # db and de's fp32 sums once; writes dW, db and de once (dp passes
         # through untouched)
-        {**common, "kernel": "K4-bwd-reduce",
+        {**common, "kernel": "K4-bwd-reduce" + suffix,
          "max_abs_err": max(errs[k]["abs"] for k in ("reduce_de", "reduce_dp", "reduce_dw",
                                                       "reduce_db")),
          "ms": times["K4-bwd-reduce"],
          "plain_ms": time_ms(lambda: jt.joint_flash_bwd_reduce_reference(acc, e.dtype), 5),
          "library_ms": None,
-         **bound(float(jt.KSPLIT * h * v),
-                 4 * (jt.KSPLIT * h * (v - 1) + jt.KSPLIT * h + v + b * t * h)
-                 + 4 * (h * v + v) + 2 * b * t * h, PEAK_FP32_FLOPS)},
+         **bound(float(jt.KSPLIT * hp * v),
+                 4 * (jt.KSPLIT * hp * (v - 1) + jt.KSPLIT * hp + v + b * t * hp)
+                 + 4 * (hp * v + v) + es * b * t * hp, PEAK_FP32_FLOPS)},
         # the whole backward as one function (cells, dw and reduce over every
         # window): three products per lattice cell, against the dense joint's
         # autograd backward
-        {**common, "kernel": "K4-bwd-whole",
+        {**common, "kernel": "K4-bwd-whole" + suffix,
          "max_abs_err": max(errs[k]["abs"] for k in ("de", "dp", "dw", "db")),
          "ms": whole_ms, "plain_ms": whole_plain_ms, "library_ms": lib_bwd_ms,
          "split_ms": {k: times[k] for k in ("K4-bwd", "K4-bwd-dw", "K4-bwd-reduce")},
          "deterministic": True, "scratch_bytes": scratch_bytes, "peak_bytes": peak_bytes,
-         **bound(3 * product * cells_in, bwd_bytes)},
+         **bound(3 * product * cells_in, bwd_bytes, peak)},
     ]
     for row in rows:
         row["tflops"] = row["flops"] / max(row["ms"], 1e-9) / 1e9
@@ -4061,15 +4108,20 @@ def _frames(model, samples) -> list:
 
 def rnnt_step_launches(model, batch) -> dict:
     """Launches per kernel of one flash-joint train step on this batch: one
-    K4-bwd and one K4-bwd-dw per window of the B * T * U1 cells."""
+    K4-bwd and one K4-bwd-dw per window of the B * T * U1 cells (K4's names
+    in the joint's dtype)."""
     from conformer_nemo_tpu_torch.ops.rnnt_joint import bwd_windows
 
+    from conformer_nemo_tpu_torch.ops.rnnt_joint import counter
+
     cfg = model.cfg.model
+    dt = cfg.joint.dtype
     b, samples = batch.audio.shape
     cells = b * _frames(model, [samples])[0] * (batch.tokens.shape[1] + 1)  # B * T * U1
-    _, n_win = bwd_windows(cells, cfg.joint.joint_hidden, cfg.num_classes_with_blank)
-    return {"K3-alpha": 1, "K3-beta": 1, "K4-fwd": 1, "K4-bwd": n_win, "K4-bwd-dw": n_win,
-            "K4-bwd-reduce": 1, **{k: 0 for k in NOT_RNNT}}
+    _, n_win = bwd_windows(cells, cfg.joint.joint_hidden, cfg.num_classes_with_blank, dtype=dt)
+    k4 = {counter(k, dt).name: n for k, n in (("fwd", 1), ("cells", n_win), ("sums", n_win),
+                                               ("reduce", 1))}
+    return {"K3-alpha": 1, "K3-beta": 1, **k4, **{k: 0 for k in NOT_RNNT}}
 
 
 def phase_rnnt_train(tmp: str, gpu: str) -> dict:
@@ -4284,6 +4336,265 @@ def phase_rnnt_parity(manifest: str) -> None:
          median_tensor_rel_err=float(np.median(rel)))
     del kernel, plain, g_k, g_p
     free_cuda()
+
+
+# ---------------------------------------------------------------------------
+# joints: K4 in fp16 and fp32, and at joint widths 1024 and 600
+# ---------------------------------------------------------------------------
+
+
+def _rnnt_probe(model, batch) -> tuple:
+    """One train step of a transducer on `batch` through an optimizer that
+    only captures the gradients (the weights stay). -> (loss, [fp32 gradient
+    of each parameter])."""
+    from conformer_nemo_tpu_torch.train.optim import Transformation
+    from conformer_nemo_tpu_torch.train.rnnt_trainer import init_rnnt_state, make_rnnt_train_step
+
+    grads: list = []
+
+    def capture(g, state, params):
+        grads.extend(x.detach().float() for x in g)
+        return [torch.zeros_like(x) for x in g], state
+
+    probe = Transformation(lambda params: {}, capture)
+    metrics = make_rnnt_train_step(model.cfg, probe)(
+        init_rnnt_state(model.model, probe, seed=SEED), batch)
+    return float(metrics["loss"]), grads
+
+
+def _joint_flash_dense(overrides: dict, dtype, impl: str = "flash") -> tuple:
+    """Two transducers of RNNT_CONFIG with the same weights in `dtype`, under
+    the quiet settings: the joint `impl` ("flash", or "auto" where it
+    resolves to flash) and the dense joint."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+
+    quiet = {**RNNT_OVERRIDES, **JOINTS_QUIET, **overrides}
+    flash = ConformerTransducer.from_config_file(
+        RNNT_CONFIG, overrides={**quiet, "model.joint.joint_impl": impl}, seed=SEED, dtype=dtype)
+    dense = ConformerTransducer.from_config_file(
+        RNNT_CONFIG, overrides={**quiet, "model.joint.joint_impl": "dense"}, seed=SEED + 1,
+        dtype=dtype)
+    dense.load_state_dict(flash.state_dict())
+    return flash, dense
+
+
+def _joint_step_parity(flash, dense, batch, what: str) -> dict:
+    """One probe step of each model on `batch`: the flash one launched
+    K4-fwd (in its dtype's name) once, the loss within WIDE_LOSS_REL and the
+    gradients' cosine at least WIDE_GRAD_COSINE."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    fwd = jt.counter("fwd", flash.cfg.model.joint.dtype)
+    before = fwd.total
+    loss_f, g_f = _rnnt_probe(flash, batch)
+    check(fwd.total - before == 1, (what, fwd.name, "launches", fwd.total - before))
+    loss_d, g_d = _rnnt_probe(dense, batch)
+    cosine, nf, nd = _grad_cosine(g_f, g_d)
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    out = {"loss_flash": loss_f, "loss_dense": loss_d, "loss_rel_err": loss_rel,
+           "tol_loss_rel": WIDE_LOSS_REL, "grad_cosine": cosine, "min_cosine": WIDE_GRAD_COSINE,
+           "grad_norm_flash": nf, "grad_norm_dense": nd,
+           "grads_finite": all(bool(torch.isfinite(g).all()) for g in g_f)}
+    check(math.isfinite(loss_f) and loss_rel <= WIDE_LOSS_REL and out["grads_finite"],
+          (what, "flash joint against dense: loss", out))
+    check(cosine >= WIDE_GRAD_COSINE, (what, "flash joint against dense: gradient cosine", out))
+    return out
+
+
+def _joint_fit_step(model, manifest: str, what: str) -> dict:
+    """One `fit` step through the flash joint: the launches of
+    `rnnt_step_launches` in the model's dtype, a finite loss and gradient
+    norm, changed parameters."""
+    steps: list = []
+    model._make_train_step = _counted_steps(model, steps)
+    fit = model.fit(manifest, max_steps=1)
+    del model._make_train_step
+    check(len(steps) == 1 and fit["steps"] == 1, (what, len(steps), fit))
+    st = steps[0]
+    want = rnnt_step_launches(model, st["batch"])
+    got = {k: st["launches"].get(k, 0) for k in want}
+    check(got == want, (what, "fit step launches", got, "want", want))
+    check(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]), (what, st["loss"]))
+    check(all(st["changed"].values()), (what, "unchanged", st["changed"]))
+    return {"loss": st["loss"], "seconds": st["seconds"], "audio_s_per_s": st["audio_s_per_s"],
+            "batch": st["batch"]}
+
+
+def _serve_first_step(model, audio: np.ndarray, lens: np.ndarray) -> tuple:
+    """The serving path's first values: the encoder output [B, T, D] and the
+    joint's logits at the first decode step (frame 0, the prediction network
+    at its start state), in fp32 on the CPU."""
+    from conformer_nemo_tpu_torch.models.conformer import _linear
+
+    m = model.model
+    with torch.no_grad():
+        enc, _ = model._encode(audio, lens)
+        b, dev, dt = enc.shape[0], enc.device, m.joint.cfg.dtype
+        g, _ = m.decoder.step(torch.full((b,), m.cfg.blank_id, dtype=torch.int64, device=dev),
+                              m.decoder.zero_state(b, dev))
+        logits = m.joint.combine(_linear(m.joint.enc, enc[:, 0], dt)
+                                 + _linear(m.joint.pred, g, dt))
+    return enc.float().cpu(), logits.float().cpu()
+
+
+def _serve_card_vs_cpu(model, overrides: dict, wavs: list) -> dict:
+    """The fp32 model's encoder output and first-step joint logits on the
+    card (cuDNN's TF32 off; the matmul's is off by default) against the same
+    weights on the CPU, within JOINT_CARD_CPU_REL of the CPU's largest
+    entry; with TF32 on in both (cuDNN's default) the encoder output must
+    fall outside it (the control; cuDNN's TF32 alone moved it 1.4e-4 of its
+    largest entry on an H100, too near the limit to fail it reliably)."""
+    from conformer_nemo_tpu_torch.api import ConformerTransducer
+    from conformer_nemo_tpu_torch.data.audio_io import load_audio
+
+    cpu = ConformerTransducer.from_config_file(RNNT_CONFIG, overrides={
+        **RNNT_OVERRIDES, **JOINTS_QUIET, **overrides}, seed=SEED + 7, device="cpu",
+        dtype=torch.float32)
+    cpu.load_state_dict(model.state_dict())
+    waves = [load_audio(p, target_sr=SR) for p in wavs]
+    lens = np.array([len(w) for w in waves], np.int32)
+    audio = np.zeros((len(waves), int(lens.max())), np.float32)
+    for i, w in enumerate(waves):
+        audio[i, : len(w)] = w
+    want_enc, want_logits = _serve_first_step(cpu, audio, lens)
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        enc, logits = _serve_first_step(model, audio, lens)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            tf32_enc, tf32_logits = _serve_first_step(model, audio, lens)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    out = {"files": len(wavs), "encoder_t": int(enc.shape[1]),
+           "encoder_card_vs_cpu_rel": rel(enc, want_enc),
+           "logits_card_vs_cpu_rel": rel(logits, want_logits),
+           "encoder_tf32_vs_cpu_rel": rel(tf32_enc, want_enc),
+           "logits_tf32_vs_cpu_rel": rel(tf32_logits, want_logits), "tol": JOINT_CARD_CPU_REL}
+    check(out["encoder_card_vs_cpu_rel"] <= JOINT_CARD_CPU_REL and
+          out["logits_card_vs_cpu_rel"] <= JOINT_CARD_CPU_REL, ("fp32 serving card vs CPU", out))
+    check(out["encoder_tf32_vs_cpu_rel"] > JOINT_CARD_CPU_REL,
+          ("the TF32 control meets the fp32 limit", out))
+    del cpu
+    return out
+
+
+def phase_joints(manifest: str, tmp: str, gpu: str) -> dict:
+    """K4 in every dtype and at the widths the JAX package runs, through the
+    API at full width (d_model 512, LSTM 640, the encoder at RNNT_LAYERS) on
+    rnnt_train's manifest: in fp16 and fp32 a flash-joint probe step against
+    a dense one at the same weights (quiet settings), one fit step and a
+    greedy transcribe of JOINT_SERVE_FILES files, and in fp32 the serving
+    path card vs CPU; in bf16 at joint_hidden 1024 the probe pair and a fit
+    step; at joint_hidden 600 (padded to 608 on the card) the probe pair
+    under joint_impl auto, which must resolve to the flash joint. -> K4's
+    launches by kernel and shape over the phase, and each run's shapes (the
+    kernels phase's `joints` rows)."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+    from conformer_nemo_tpu_torch.ops.build import launch_count, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    names = [jt.counter(k, dt).name for dt in jt.KERNELS for k in ("fwd", "cells", "sums",
+                                                                    "reduce")]
+    by_shape: dict = {k: {} for k in names}
+
+    def collect():
+        for k in names:
+            for sh, n in launch_count(k).by_shape.items():
+                by_shape[k][sh] = by_shape[k].get(sh, 0) + n
+        reset_launch_counts()
+
+    with open(manifest, encoding="utf-8") as f:
+        entries = [json.loads(line) for line in f][:JOINT_SERVE_FILES]
+    wavs = [_crop_wav(x["audio_filepath"], tmp, DECODE_CLIP_S) for x in entries]
+    out: dict = {"gpu": gpu}
+    calls: dict = {}
+
+    def call(name, model, batch, dtype):
+        """The step's joint call: (b, t, u, h, v, enc_lens, token_lens, dtype)."""
+        cfg = model.cfg.model
+        calls[name] = (int(batch.audio.shape[0]), _frames(model, [batch.audio.shape[1]])[0],
+                       int(batch.tokens.shape[1]), cfg.joint.joint_hidden,
+                       cfg.num_classes_with_blank, _frames(model, batch.audio_lens.tolist()),
+                       batch.token_lens.tolist(), dtype)
+
+    reset_launch_counts()
+    # 1. fp16 and fp32 at the shipped joint (640)
+    for dtype in (torch.float16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        flash, dense = _joint_flash_dense({}, dtype)
+        batch = next(iter(flash._loader(manifest, flash.raw_cfg["model"]["train_ds"],
+                                        shuffle=True)))
+        parity = _joint_step_parity(flash, dense, batch, name)
+        del dense
+        free_cuda()
+        step = _joint_fit_step(flash, manifest, name)
+        call(name, flash, step.pop("batch"), dtype)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        texts = flash.transcribe(wavs, batch_size=len(wavs))
+        torch.cuda.synchronize()
+        check(len(texts) == len(wavs) and all(isinstance(x, str) for x in texts), (name, texts))
+        out[name] = {"dtype": str(dtype), "joint_hidden": flash.cfg.model.joint.joint_hidden,
+                     "parity": parity, "fit_step": step, "transcribe_s": time.perf_counter() - t1,
+                     "sample_text": texts[0][:80]}
+        if dtype == torch.float32:
+            out[name]["serve_card_vs_cpu"] = _serve_card_vs_cpu(flash, {}, wavs)
+        out[name]["seconds"] = time.perf_counter() - t0
+        collect()
+        del flash
+        free_cuda()
+    # 2. bf16 at joint_hidden 1024 (past the old backward's 640)
+    t0 = time.perf_counter()
+    wide = {"model.model_defaults.joint_hidden": JOINT_WIDE_H}
+    flash, dense = _joint_flash_dense(wide, torch.bfloat16)
+    check(flash.cfg.model.joint.joint_hidden == JOINT_WIDE_H, "joint_hidden override")
+    batch = next(iter(flash._loader(manifest, flash.raw_cfg["model"]["train_ds"], shuffle=True)))
+    parity = _joint_step_parity(flash, dense, batch, "h1024")
+    del dense
+    free_cuda()
+    step = _joint_fit_step(flash, manifest, "h1024")
+    call("h1024", flash, step.pop("batch"), torch.bfloat16)
+    out["h1024"] = {"joint_hidden": JOINT_WIDE_H, "parity": parity, "fit_step": step,
+                    "seconds": time.perf_counter() - t0}
+    collect()
+    del flash
+    free_cuda()
+    # 3. bf16 at joint_hidden 600 under auto, its dense estimate's threshold
+    # lowered so that auto takes the flash joint at this batch
+    t0 = time.perf_counter()
+    odd = {"model.model_defaults.joint_hidden": JOINT_ODD_H,
+           "model.joint.joint_flash_hbm_threshold": 1.0e6}
+    flash, dense = _joint_flash_dense(odd, torch.bfloat16, impl="auto")
+    cfg = flash.cfg.model
+    batch = next(iter(flash._loader(manifest, flash.raw_cfg["model"]["train_ds"], shuffle=True)))
+    b, u1 = int(batch.audio.shape[0]), int(batch.tokens.shape[1]) + 1
+    t = _frames(flash, [batch.audio.shape[1]])[0]
+    resolved = cfg.resolve_joint_impl(b, t, u1, "cuda")
+    check(cfg.joint_impl == "auto" and resolved == "flash", ("h600: auto resolved to", resolved))
+    parity = _joint_step_parity(flash, dense, batch, "h600")
+    call("h600", flash, batch, torch.bfloat16)
+    check(launch_count("K4-fwd").by_shape.get((b, t, u1, JOINT_ODD_H,
+                                               cfg.num_classes_with_blank), 0) == 1,
+          ("h600: K4-fwd at H 600", dict(launch_count("K4-fwd").by_shape)))
+    out["h600"] = {"joint_hidden": JOINT_ODD_H, "padded_to": jt.padded_h(JOINT_ODD_H),
+                   "joint_impl": "auto", "resolved": resolved,
+                   "dense_bytes_estimate": 3 * 2 * b * t * u1 * cfg.num_classes_with_blank,
+                   "threshold": cfg.joint_flash_hbm_threshold, "parity": parity,
+                   "seconds": time.perf_counter() - t0}
+    collect()
+    del flash, dense
+    free_cuda()
+    for dt in jt.KERNELS:
+        check(all(by_shape[jt.counter(k, dt).name] for k in ("fwd", "cells", "sums", "reduce")),
+              ("a K4 kernel did not launch in the joints phase", str(dt)))
+    emit("joints", config="configs/conformer_transducer_bpe.yaml", n_layers=RNNT_LAYERS,
+         seconds=time.perf_counter() - t_phase,
+         launches_by_shape={k: {str(sh): n for sh, n in d.items()} for k, d in by_shape.items()},
+         **out)
+    return {"by_shape": by_shape, "calls": calls}
 
 
 # ---------------------------------------------------------------------------
@@ -4977,7 +5288,7 @@ def _frontends_rows(fr: dict, d1: int, dv: int, gen, dev, chain) -> list:
 
 def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dict,
                   decode_calls: list, dist: dict, streaming: dict, frontends: dict,
-                  ssl: dict, diar: dict, widths: dict) -> dict:
+                  ssl: dict, diar: dict, widths: dict, joints: dict) -> dict:
     """Each main-path call as the counted runs made it, then edge cases off
     the main path. -> {kernel name: [rows]} for the main-path rows."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5107,6 +5418,22 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
     _dropout_mask_probe(b, t, u, rnnt["h"], gen, dev, row_offset=1000 * b + 3)
     _joint_case("joint_row_offset", 3, 37, 8, rnnt["h"], rnnt["v"], [37, 20, 1], [8, 3, 0], gen,
                 dev, drop_t=26, row_offset=4099)
+    free_cuda()
+    # the joints phase's calls: K4 in fp16 and fp32 (TF32 off) at the step's
+    # shapes, and in bf16 at joint widths 1024 and 600 (padded to 608), dropout on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows["joints"] = []
+    for name, (b_j, t_j, u_j, h_j, v_j, el_j, tl_j, dt_j) in joints["calls"].items():
+        rows["joints"] += _joint_case(f"joints_{name}_b{b_j}_t{t_j}_u1{u_j + 1}_h{h_j}", b_j, t_j,
+                                      u_j, h_j, v_j, el_j, tl_j, gen, dev, drop_t=26, dtype=dt_j)
+        free_cuda()
+    # the step's shapes at the widest H the forward takes (64-cell tiles; the
+    # cells kernel's two-stage ring) and at H 100 (padded to 112); no shipped
+    # configuration runs either, so they stay out of the summary line
+    for h_e in (1376, 100):
+        _joint_case(f"joint_h{h_e}", b, t, u, h_e, rnnt["v"], enc_lens, rnnt["token_lens"], gen,
+                    dev, drop_t=26)
+        free_cuda()
 
     # the multilang steps' K1 (V + 1 584, blank 583) and K4 (V 584) calls
     ml = multilang["ctc"]
@@ -5124,7 +5451,8 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
 
 
 # a whole backward runs once per call; its last kernel counts the calls
-WHOLE_COUNTED_BY = {"K1-bwd-whole": "K1-bwd-grad", "K4-bwd-whole": "K4-bwd-reduce"}
+WHOLE_COUNTED_BY = {"K1-bwd-whole": "K1-bwd-grad",
+                    **{f"K4-bwd-whole{x}": f"K4-bwd-reduce{x}" for x in ("", "-f16", "-f32")}}
 
 
 def kernel_summary(rows: dict, launches: dict) -> list:
@@ -5137,8 +5465,10 @@ def kernel_summary(rows: dict, launches: dict) -> list:
                "K2-bwd-dkv-f32": FLASH_F32_DKV,
                "K1-fwd": CTC_FWD, "K1-bwd": CTC_BWD, "K1-bwd-grad": CTC_BWD,
                "K1-bwd-whole": CTC_BWD, "K3-alpha": RNNT_ALPHA, "K3-beta": RNNT_BETA,
-               "K4-fwd": JOINT_FWD, "K4-bwd": JOINT_BWD, "K4-bwd-dw": JOINT_BWD,
-               "K4-bwd-reduce": JOINT_BWD, "K4-bwd-whole": JOINT_BWD}
+               **{f"K4-{k}{x}": (src, (JOINT_FWD if k == "fwd" else JOINT_BWD)[1])
+                  for x, src in (("", JOINT_FWD[0]), ("-f16", JOINT_FWD[0]),
+                                 ("-f32", JOINT_F32))
+                  for k in ("fwd", "bwd", "bwd-dw", "bwd-reduce", "bwd-whole")}}
     kernels = []
     for path, path_rows in rows.items():
         for r in path_rows:
@@ -5226,6 +5556,7 @@ def main() -> int:
         phase_decode_rnnt(rnnt["archive"], rnnt["manifest"], tmp, env["nvidia_smi"])
         phase_rnnt_dense_step(rnnt["manifest"])
         phase_rnnt_parity(rnnt["manifest"])
+        joints = phase_joints(rnnt["manifest"], tmp, env["nvidia_smi"])
         multilang = phase_multilang(tmp, env["nvidia_smi"])
         dist = phase_distributed(tmp, train, rnnt, env["nvidia_smi"])
         # last of the fits, so that its host buffers and save thread precede no timed step
@@ -5239,7 +5570,7 @@ def main() -> int:
         del model
         free_cuda()
     rows = phase_kernels(dev, cfg, flash_calls, train, rnnt, multilang, decode_calls, dist,
-                         streaming, frontends, ssl, diar, widths)
+                         streaming, frontends, ssl, diar, widths, joints)
 
     # the NCCL world-1 fit ran the train phase's calls again
     train_launches = {k: {sh: n + dist["nccl_by_shape"].get(k, {}).get(sh, 0)
@@ -5253,6 +5584,7 @@ def main() -> int:
                                     "ssl": ssl["by_shape"],
                                     "diarization": {"K2-fwd": diar["by_shape"]},
                                     "widths": widths["by_shape"],
+                                    "joints": joints["by_shape"],
                                     "multilang": {**multilang["ctc"]["by_shape"],
                                                   **multilang["rnnt"]["by_shape"]}})
     print(json.dumps({"kernels": kernels}), flush=True)

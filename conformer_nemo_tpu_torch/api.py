@@ -108,7 +108,7 @@ from conformer_nemo_tpu_torch.models.conformer import (
     frame_factor,
 )
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, ctc_forward
-from conformer_nemo_tpu_torch.models.rnnt import PredictionNetwork, RNNTModel, check_joint_dtype
+from conformer_nemo_tpu_torch.models.rnnt import PredictionNetwork, RNNTModel, check_joint
 from conformer_nemo_tpu_torch.parallel.distributed import all_reduce_min, is_main_process
 from conformer_nemo_tpu_torch.parallel.mesh import Mesh, make_mesh, parse_mesh
 from conformer_nemo_tpu_torch.parallel.sharding import full_state_dict
@@ -856,7 +856,7 @@ class ConformerTransducer(_BaseASRModel):
         self.cfg = build_rnnt_model_config(self.raw_cfg, vocab_size=self.tokenizer.vocab_size,
                                            dtype=dtype)
         check_flash_dtype(self.cfg.model.encoder, self.device)
-        check_joint_dtype(self.cfg.model, self.device)
+        check_joint(self.cfg.model, self.device)
         model = RNNTModel(self.cfg.model)
         self.decoding = RNNTDecoding(model, self.tokenizer, self.raw_cfg["model"].get("decoding"))
         return model

@@ -60,13 +60,14 @@ from conformer_nemo_tpu_torch.models.conformer import (
     rank_seed,
 )
 from conformer_nemo_tpu_torch.ops.rnnt_fused import rnnt_loss_fused
+from conformer_nemo_tpu_torch.ops.rnnt_joint import KERNELS as JOINT_KERNELS
 from conformer_nemo_tpu_torch.ops.rnnt_joint import ACTIVATIONS, check_smem, joint_seed
 from conformer_nemo_tpu_torch.ops.rnnt_loss import rnnt_loss_from_logits
 
 
 logger = logging.getLogger(__name__)
-# (H, V) for which "auto" took the dense joint because of the flash
-# joint's backward, said once each
+# (H, V) for which "auto" took the dense joint because the flash joint's
+# kernels cannot take H, said once each
 _DENSE_FOR_WIDTH: set = set()
 
 
@@ -106,7 +107,8 @@ class RNNTModelConfig:
     lattice_impl: str = "auto"
     # training joint: "dense" | "flash" (K4) | "auto": dense on the CPU; on
     # CUDA flash once the dense joint's transients (logits, their gradient
-    # and one prep transient, in the compute dtype) would pass the threshold
+    # and one prep transient, in the compute dtype) would pass the threshold,
+    # where the kernels take joint_hidden (`check_smem`)
     joint_impl: str = "auto"
     joint_flash_bt: int = 16  # the t-tile that lays out the flash joint's dropout index
     joint_flash_hbm_threshold: float = 5.0e9
@@ -117,10 +119,12 @@ class RNNTModelConfig:
         return self.lattice_impl
 
     def resolve_joint_impl(self, b: int, t: int, u1: int, device) -> str:
-        """"auto" takes the flash joint only where its backward's kernels
-        take the joint's width H; elsewhere the dense joint, sub-batched
-        where `fused_batch_size` says so, and a log line says why (once per
-        H, V). An explicit "flash" is checked before its forward instead."""
+        """"auto" takes the flash joint only where its kernels take the
+        joint's width H in the joint's dtype (`check_smem`: any H the
+        forward's shared memory holds, 1376 in the 16-bit dtypes); elsewhere
+        the dense joint, sub-batched where `fused_batch_size` says so, and a
+        log line says why (once per H, V). An explicit "flash" is checked at
+        construction (`check_joint`) and again before its forward."""
         if self.joint_impl != "auto":
             return self.joint_impl
         if torch.device(device).type != "cuda":
@@ -130,12 +134,12 @@ class RNNTModelConfig:
             return "dense"
         h, v = self.joint.joint_hidden, self.num_classes_with_blank
         try:
-            check_smem(h, v, (1, 2))
-        except ValueError as e:
+            check_smem(h, v, (0, 1, 2), self.joint.dtype)
+        except (TypeError, ValueError) as e:
             if (h, v) not in _DENSE_FOR_WIDTH:
                 _DENSE_FOR_WIDTH.add((h, v))
                 logger.warning("joint_impl auto: the dense joint, since the flash joint's "
-                               "backward cannot take joint_hidden=%d (%s)", h, e)
+                               "kernels cannot take joint_hidden=%d (%s)", h, e)
             return "dense"
         return "flash"
 
@@ -148,15 +152,25 @@ class RNNTModelConfig:
         return self.decoder.vocab_size + 1
 
 
-def check_joint_dtype(cfg: RNNTModelConfig, device) -> None:
-    """The CUDA flash-joint kernels take bf16 only: refuse a CUDA model in
-    another joint dtype that can take the flash path, before any work."""
-    if (torch.device(device).type == "cuda" and cfg.joint.dtype != torch.bfloat16
-            and cfg.joint_impl != "dense"):
+def check_joint(cfg: RNNTModelConfig, device) -> None:
+    """Refuse, before any work, a CUDA transducer whose flash joint no
+    kernel takes: a joint dtype other than bf16, fp16 and fp32 where the
+    flash path can run (joint_impl not dense), and with joint_impl flash a
+    joint_hidden past the kernels' shared memory (`check_smem`; "auto" takes
+    the dense joint there and says so)."""
+    if torch.device(device).type != "cuda" or cfg.joint_impl == "dense":
+        return
+    h, v, dt = cfg.joint.joint_hidden, cfg.num_classes_with_blank, cfg.joint.dtype
+    try:
+        if dt not in JOINT_KERNELS:
+            raise TypeError(f"the CUDA flash-joint kernels take "
+                            f"{', '.join(map(str, JOINT_KERNELS))}")
+        if cfg.joint_impl == "flash":
+            check_smem(h, v, (0, 1, 2), dt)
+    except (TypeError, ValueError) as e:
         raise ValueError(
-            f"the CUDA flash-joint kernels take bf16 only, and the joint's compute dtype is "
-            f"{cfg.joint.dtype}: pass dtype=torch.bfloat16, or set "
-            "model.joint.joint_impl=dense")
+            f"this transducer's flash joint cannot run on CUDA in {dt} at joint_hidden={h}, "
+            f"V={v}: {e}. Set model.joint.joint_impl=dense for the dense joint") from None
 
 
 def _draw_seed(gen: torch.Generator) -> int:

@@ -35,7 +35,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "flash_attention_f32.cu",
-           "ctc_loss.cu", "rnnt_lattice.cu", "rnnt_joint.cu")
+           "ctc_loss.cu", "rnnt_lattice.cu", "rnnt_joint.cu", "rnnt_joint_f32.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 

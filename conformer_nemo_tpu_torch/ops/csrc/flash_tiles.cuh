@@ -26,12 +26,13 @@ __device__ inline bool in_band(int i, int j, int left, int right) {
 }
 
 // A 2D tensor map over a row-major [rows x cols] tensor of 16-bit elements
-// (bf16 or fp16: a copy moves bits, so the map's bf16 type serves both) for
-// tensor copies of [box_rows x 64] boxes with the 128-byte swizzle, zeros
+// for tensor copies of [box_rows x 64] boxes with the 128-byte swizzle, zeros
 // past the tensor's edges (host code; the CUDA driver API's encoder, found
-// through the runtime).
+// through the runtime). A copy moves bits, so the default bf16 type serves
+// fp16 too; a caller may name the elements' own type.
 inline bool tensor_map(CUtensorMap* map, const void* base, int cols, long long rows,
-                       int box_rows) {
+                       int box_rows,
+                       CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -45,7 +46,7 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int cols, long long r
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+  return encode(map, dtype, 2, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;

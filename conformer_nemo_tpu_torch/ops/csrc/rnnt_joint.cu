@@ -1,6 +1,6 @@
 // RNN-T flash joint (K4): the joint network fused with the loss's
-// log-softmax prep, forward and backward, for NVIDIA Hopper (sm_90a), bf16,
-// plain C interface.
+// log-softmax prep, forward and backward, for NVIDIA Hopper (sm_90a), in
+// bf16 and fp16 (one template; fp32 is rnnt_joint_f32.cu), plain C interface.
 //
 // Replaces the TPU kernels `_make_fwd_kernel` (:166, via `joint_flash_fwd`
 // :326 -> pallas_call :344) and `_make_bwd_kernel` (:191, via
@@ -9,22 +9,24 @@
 // (b, t, u), with the vocabulary split blank-last (`_split_blank`: label
 // columns 0..V-2, blank column V-1 = VL):
 //
-//   h     = drop(act(e[b, t] + p[b, u]))                      [H], bf16
-//   lab_c = bf16(bf16(h . W[:, c]) + bias[c])   (fp32 product, c < VL)
-//   blank = bf16(bf16(h . W[:, VL]) + bias[VL]) (fp32 dot; the forward's
+//   h     = drop(act(e[b, t] + p[b, u]))      [H], the compute dtype dt
+//   lab_c = dt(dt(h . W[:, c]) + bias[c])   (fp32 product, c < VL)
+//   blank = dt(dt(h . W[:, VL]) + bias[VL]) (fp32 dot; the forward's
 //           product takes it as column VL)
 //   lse   = logsumexp(lab, blank); blank_lp = blank - lse; label_lp = lab[tgt] - lse
 //
 // The backward recomputes the tile and forms, per cell,
 //   dlab_c = clamp(softmax_c * total - gy 1[c = tgt]) * g[b],
 //   dblank = clamp(softmax_blank * total - gb) * g[b],
-//   dh = bf16(bf16(dlab) . W_lab^T + dblank * W[:, VL]), dropout, then
-//   dx = dh * act'(x) in bf16, and reduces
-//   de[b, t] = sum_u dx, dp[b, u] = sum_t dx, dW_lab = sum h^T bf16(dlab),
+//   dh = dt(dt(dlab) . W_lab^T + dblank * W[:, VL]), dropout, then
+//   dx = dh * act'(x) in dt, and reduces
+//   de[b, t] = sum_u dx, dp[b, u] = sum_t dx, dW_lab = sum h^T dt(dlab),
 //   dW[:, VL] = sum h * dblank, db = sum dlab, sum dblank.
 // Every rounding point is the TPU kernel's (`_joint_tile`, the backward's
-// dlab cast and bf16 dx), so the kernels follow the plain version to bf16
-// rounding. The [B, T, U+1, V] logits never reach device memory.
+// dlab cast and dx in dt), so the kernels follow the plain version to the
+// dtype's rounding. The [B, T, U+1, V] logits never reach device memory.
+// fp16 differs from bf16 only in the product's operand type (mma.sync's f16
+// variant), the conversions and the tensor map's element type.
 //
 // Dropout: murmur3's fmix32 of (index ^ seed) over the padded
 // [B, Tp, U+1, H] layout of the TPU kernels, Tp = ceil(T / bt) * bt with the
@@ -67,9 +69,9 @@
 //     blank joins the product) off its fragments, and runs the online max
 //     by quad shuffles and its lanes' sums; the four column groups' (max,
 //     sum) meet once per tile through shared memory. No fp32 logits tile
-//     exists anywhere. Range: H a multiple of 16 up to what `fwd_rows`'s
-//     layouts fit in a block's shared memory (128-row tiles to H 672,
-//     64-row tiles to H 1376), any V >= 2.
+//     exists anywhere. Range: H (padded to a multiple of 16 by the wrapper)
+//     up to what `fwd_rows`'s layouts fit in a block's shared memory
+//     (128-row tiles to H 672, 64-row tiles to H 1376), any V >= 2.
 //     What decided the shape (variants in turns on an H100): with two
 //     column groups (8 consumer warps) building h, the dropout hash per
 //     element, took close to half of the kernel's time, and more loads in
@@ -79,11 +81,11 @@
 //   * backward: three kernels, no atomics, so every output is bitwise the
 //     same from call to call. What the card asks of it: the tensor cores
 //     fed from registers and ldmatrix, W arriving in 16-byte vectors ahead
-//     of use, and as many warps as one block per SM allows (h, act' and the
-//     W ring fill most of its 227 KB); dW's [H, VL] sum cannot stay in one
+//     of use, and as many warps as one block per SM allows (h and the W
+//     ring fill most of its 227 KB at H 1376); dW's [H, VL] sum cannot stay in one
 //     block, and reading, adding to and writing back a per-block fp32 slice
 //     of it per 64 cells moves gigabytes, so dW is a product of its own over
-//     bf16 dlab kept in scratch; cross-block sums need fixed orders and
+//     dt dlab kept in scratch; cross-block sums need fixed orders and
 //     scratch that does not grow with B * T * (U+1) * H. The lattice's
 //     cells are numbered sample-major, t-major, and processed in windows
 //     of at most a fixed cell count (the wrapper sizes a window so that
@@ -91,24 +93,27 @@
 //     B * T * (U+1) cells, so the lattice's own count never leaves the card,
 //     and a window past it exits at once); per window:
 //     (cells) 16 warps per 64 cells (4 row blocks x 4 column groups, for
-//          latency hiding at one block per SM): h and act' (0 where
-//          dropped) built once per element into shared memory from 16-byte
-//          loads of e and p;
+//          latency hiding at one block per SM): h built once per element
+//          into shared memory from 16-byte loads of e and p, and act' (0
+//          where dropped) beside it into the window's dx scratch, which
+//          holds it until dx takes its place (a second 64 x H tile in
+//          shared memory would stop the kernel at H 640);
 //          the logits [64 x VLp] by mma.sync m16n8k16 (ldmatrix fragments,
 //          accumulators in registers) with W_pad's k-slices arriving through
-//          a 3-stage cp.async ring; dlab in registers, its fp32 column sums
+//          a 3-stage cp.async ring (2 stages where 3 do not fit beside h:
+//          past H 1008 at 320 label columns); dlab in registers, its fp32 column sums
 //          (db) reduced by shuffles in a fixed order, its bf16 copy into
 //          shared memory and the window's dlab scratch; dh = dlab W_lab^T
 //          by mma.sync from the same zero-padded W_pad (row-major [H, VLp]:
 //          ldmatrix without transpose gives W_lab^T's fragments, so both
 //          products read 16-byte vectors) through a 2-stage ring of 64
-//          hidden rows; dx = bf16(dh * act') into the window's dx scratch.
+//          hidden rows; dx = dt(dh * act') into the window's dx scratch.
 //          The cells kernel also writes h (as built) to the window's scratch.
 //          A label block wider than 320 columns (the accumulators a warp
 //          holds) takes passes of 320: each pass reloads h from the scratch,
 //          forms its columns' logits and dlab, and adds its share of dh to
 //          an fp32 scratch row that the last pass rounds, in pass order.
-//     (sums) dW_lab = h^T bf16(dlab) as a split-K product over the window's
+//     (sums) dW_lab = h^T dt(dlab) as a split-K product over the window's
 //          cells with a fixed number of splits (KSPLIT), each block owning
 //          64 hidden rows x up to 320 columns in registers, h and dlab arriving
 //          through a 2-stage cp.async ring; dW[:, VL] = sum h * dblank in
@@ -122,156 +127,62 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "rnnt_joint_common.cuh"
 #include "tensor_core.cuh"
 
+using namespace rj;
 using namespace tc;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr float NEG_INF = -1e30f;
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__device__ inline float rb(float x) { return __bfloat162float(__float2bfloat16(x)); }
-
-__device__ inline uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-// The joint's static parameters.
-struct Joint {
-  const bf16* e;       // [B, T, H]
-  const bf16* p;       // [B, U1, H]
-  const bf16* bias;    // [V]
-  const int* targets;  // [B, U1 - 1]
-  int B, T, U1, H, V, VL, Tp, act, drop_t;
-  uint32_t seed, hash_base;
-  float inv_keep;
-  // the lattice: t_lens, u_lens [B] and each sample's first cell in the
-  // global order, off [B + 1] (off[B]: the lattice's cells)
-  const int* t_lens;
-  const int* u_lens;
-  const long long* off;
-};
-
-__device__ inline float act_fn(float x, int act) {
-  if (act == 0) return x > 0.f ? x : 0.f;
-  if (act == 1) return rb(1.f / (1.f + expf(-x)));
-  return rb(tanhf(x));
-}
-
-// act'(x) from the pre-activation x and the un-dropped activation a, in bf16
-// arithmetic (`_act_grad`)
-__device__ inline float act_grad(float x, float a, int act) {
-  if (act == 0) return x > 0.f ? 1.f : 0.f;
-  if (act == 1) return rb(a * rb(1.f - a));
-  return rb(1.f - rb(a * a));
-}
-
-__device__ inline int target_of(const Joint& J, int b, int u) {
-  return u < J.U1 - 1 ? J.targets[(size_t)b * (J.U1 - 1) + u] : 0;  // dummy column: 0
-}
-
 // ---------------------------------------------------------------------------
 // shared helpers, and the backward's tiling constants (the mma.sync,
-// ldmatrix, cp.async, mbarrier and tensor-copy helpers are in tensor_core.cuh)
+// ldmatrix, cp.async, mbarrier and tensor-copy helpers are in tensor_core.cuh;
+// the dtype's rounding, the hash and the lattice in rnnt_joint_common.cuh).
+// Elements travel as 16-bit words in bf16 containers whatever K says they are.
 // ---------------------------------------------------------------------------
 
 constexpr int CELL_THREADS = 512;  // cells kernel: 16 warps, 4 row blocks x 4 column groups
-constexpr int SUM_THREADS = 256;   // sums kernel: 8 warps, 4 row blocks x 2 column halves
-constexpr int BROWS = 64;          // lattice cells per backward tile
 constexpr int NTQ = 10;            // n-tiles of 8 columns per cells-kernel warp
 constexpr int PASS_COLS = 4 * 8 * NTQ;  // label columns per pass over the block: 320
 constexpr int NTW = PASS_COLS / 16;  // n-tiles per sums-kernel warp
 constexpr int KSL = 32;          // depth of a W slice in the logits ring
-constexpr int LOGIT_STAGES = 3;
 constexpr int HCH = 64;          // hidden columns per dh chunk (and per dW block)
-constexpr int KSPLIT = 24;       // fixed number of K splits of the dW product
 
 // Columns of the padded label block (VLp, a multiple of 32) that one pass
 // holds; a wider block takes ceil(VLp / 320) passes.
 __host__ __device__ inline int pass_cols(int VLp) { return VLp < PASS_COLS ? VLp : PASS_COLS; }
 
-__device__ inline float clamp_g(float x, float clamp, float g) {
-  if (clamp > 0.f) x = fminf(fmaxf(x, -clamp), clamp);
-  return x * g;
-}
-
-// Sample b's lattice: n_t frames, n_u labels + 1. Its cells are numbered
-// from J.off[b] (sample-major, then t-major: cell j -> t = j / n_u, u = j % n_u).
-struct Lat {
-  int n_t, n_u;
-};
-__device__ inline Lat lat_of(const Joint& J, int b) {
-  Lat L;
-  L.n_t = max(0, min(J.t_lens[b], J.T));
-  L.n_u = max(0, min(J.u_lens[b], J.U1 - 1) + 1);
-  return L;
-}
-
-// (b, t, u) of global cell c < J.off[J.B]: a binary search over the offsets.
-__device__ inline void cell_btu(const Joint& J, long long c, int& b, int& t, int& u) {
-  int lo = 0, hi = J.B - 1;  // the last sample whose first cell is <= c
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (J.off[mid] <= c) lo = mid;
-    else hi = mid - 1;
-  }
-  b = lo;
-  const int n_u = lat_of(J, b).n_u;
-  const int j = (int)(c - J.off[b]);
-  t = j / n_u;
-  u = j % n_u;
-}
-
-// Eight hidden units h0..h0+7 of cell (b, t, u): x = bf16(e + p), h =
+// Eight hidden units h0..h0+7 of cell (b, t, u): x = dt(e + p), h =
 // drop(act(x)) and g = act'(x), zero where dropped (so dx = dh * g).
-__device__ inline void hidden8(const Joint& J, int b, int t, int u, int h0, uint4& hv,
+template <int K>
+__device__ inline void hidden8(const Joint<K>& J, int b, int t, int u, int h0, uint4& hv,
                                uint4& gv) {
   const uint4 ev = __ldg(reinterpret_cast<const uint4*>(J.e + ((size_t)b * J.T + t) * J.H + h0));
   const uint4 pv = __ldg(reinterpret_cast<const uint4*>(J.p + ((size_t)b * J.U1 + u) * J.H + h0));
   const bf16* e8 = reinterpret_cast<const bf16*>(&ev);
   const bf16* p8 = reinterpret_cast<const bf16*>(&pv);
   uint32_t hw[4], gw[4];
-  const uint32_t base =
-      J.hash_base +
-      ((uint32_t)b * (uint32_t)J.Tp + (uint32_t)t) * ((uint32_t)J.U1 * (uint32_t)J.H) +
-      (uint32_t)u * (uint32_t)J.H + (uint32_t)h0;
+  const uint32_t row = hash_row(J, b, t, u);
 #pragma unroll
   for (int k = 0; k < 8; k += 2) {
     float hh[2], gg[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float x = rb(__bfloat162float(e8[k + i]) + __bfloat162float(p8[k + i]));
-      const float a = act_fn(x, J.act);
-      float ag = act_grad(x, a, J.act);
-      float h = a;
-      if (J.drop_t > 0) {
-        const bool keep = (int)(fmix32((base + (uint32_t)(k + i)) ^ J.seed) >> 24) >= J.drop_t;
-        h = keep ? rb(a * J.inv_keep) : 0.f;
-        ag = keep ? ag : 0.f;
-      }
-      hh[i] = h;
-      gg[i] = ag;
-    }
-    hw[k / 2] = pack2(hh[0], hh[1]);
-    gw[k / 2] = pack2(gg[0], gg[1]);
+    for (int i = 0; i < 2; ++i)
+      hidden_unit(J, rnd<K>(cvt<K>(e8[k + i]) + cvt<K>(p8[k + i])), row, h0 + k + i, hh[i], gg[i]);
+    hw[k / 2] = pack<K == F16>(hh[0], hh[1]);
+    gw[k / 2] = pack<K == F16>(gg[0], gg[1]);
   }
   hv = make_uint4(hw[0], hw[1], hw[2], hw[3]);
   gv = make_uint4(gw[0], gw[1], gw[2], gw[3]);
 }
 
-// rows [r0, r0 + nr) x [0, ncol) of a bf16 [.., ld_g] array into smem [..][ld_s]
+// rows [r0, r0 + nr) x [0, ncol) of a 16-bit [.., ld_g] array into smem [..][ld_s]
 // by cp.async (16-byte vectors; ncol a multiple of 8); rows past `rmax` zero.
 __device__ inline void stage_rows(bf16* s, int ld_s, const bf16* g, int ld_g, int r0, int nr,
                                   int rmax, int ncol) {
@@ -304,7 +215,7 @@ __device__ inline void consumers_sync(int n) {
 }
 
 struct FwdLayout {
-  int ldh;  // bf16 row stride of the h tile
+  int ldh;  // row stride of the h tile, in elements
   // byte offsets from the block's 1024-aligned base, and the dynamic shared
   // memory a launch asks for (1024 bytes of it to align)
   size_t ring, bar, hs, meta, total;
@@ -324,8 +235,8 @@ __host__ __device__ inline FwdLayout fwd_layout(int rows, int H) {
   return L;
 }
 
-// The tile height a launch at H takes: 128 cells where the layout fits in a
-// block's shared memory, else 64; 0 where neither fits.
+// The tile height a launch at (padded) H takes: 128 cells where the layout
+// fits in a block's shared memory, else 64; 0 where neither fits.
 __host__ __device__ inline int fwd_rows(int H) {
   if (fwd_layout(128, H).total <= flash::SMEM_BLOCK) return 128;
   return fwd_layout(64, H).total <= flash::SMEM_BLOCK ? 64 : 0;
@@ -334,11 +245,12 @@ __host__ __device__ inline int fwd_rows(int H) {
 // RG row groups of 32 cells (a tile of 32 RG cells) x FCG column groups:
 // FCG RG consumer warps, then one producer warp. A persistent grid: block x
 // takes the lattice's tiles x, x + gridDim.x, ...
-template <int RG>
+template <int RG, int K>
 __global__ void __launch_bounds__(32 * FCG * RG + 32, 1)
-joint_fwd_kernel(const __grid_constant__ CUtensorMap tw, Joint J, float* __restrict__ blank_lp,
+joint_fwd_kernel(const __grid_constant__ CUtensorMap tw, Joint<K> J, float* __restrict__ blank_lp,
                  float* __restrict__ label_lp, float* __restrict__ lse_out) {
   constexpr int ROWS = 32 * RG, NCW = FCG * RG, NCT = 32 * NCW;
+  constexpr bool F = K == F16;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const FwdLayout L = fwd_layout(ROWS, J.H);
@@ -480,8 +392,8 @@ joint_fwd_kernel(const __grid_constant__ CUtensorMap tw, Joint J, float* __restr
                                   FCW * cg + 16 * n + (l >> 4) * 8));
 #pragma unroll
                 for (int mt = 0; mt < 2; ++mt) {
-                  mma16816(acc[j][mt][2 * n], a[mt], bb[0], bb[1]);
-                  mma16816(acc[j][mt][2 * n + 1], a[mt], bb[2], bb[3]);
+                  mma<F>(acc[j][mt][2 * n], a[mt], bb[0], bb[1]);
+                  mma<F>(acc[j][mt][2 * n + 1], a[mt], bb[2], bb[3]);
                 }
               }
             }
@@ -503,7 +415,7 @@ joint_fwd_kernel(const __grid_constant__ CUtensorMap tw, Joint J, float* __restr
 #pragma unroll
           for (int k = 0; k < 2; ++k) {
             const int c = cbase + j * FBOX + 8 * n + k;
-            bv[j][n][k] = j < nb && c < J.V ? __bfloat162float(J.bias[c]) : 0.f;
+            bv[j][n][k] = j < nb && c < J.V ? cvt<K>(J.bias[c]) : 0.f;
           }
       float mx[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
 #pragma unroll
@@ -517,7 +429,7 @@ joint_fwd_kernel(const __grid_constant__ CUtensorMap tw, Joint J, float* __restr
               const int c = cbase + j * FBOX + 8 * n + (e & 1), qr = 2 * mt + (e >> 1);
               float x = NEG_INF;
               if (j < nb && c < J.V) {
-                x = rb(rb(acc[j][mt][n][e]) + bv[j][n][e & 1]);
+                x = rnd<K>(rnd<K>(acc[j][mt][n][e]) + bv[j][n][e & 1]);
                 if (c == tgt[qr]) m_lab[row[qr]] = x;
                 if (c == J.VL) m_blank[row[qr]] = x;
               }
@@ -579,17 +491,20 @@ joint_fwd_kernel(const __grid_constant__ CUtensorMap tw, Joint J, float* __restr
   }
 }
 
-template <int RG>
-int launch_fwd(const Joint& J, const void* w, int vt, int grid, float* blank_lp, float* label_lp,
-               float* lse, cudaStream_t stream) {
+template <int RG, int K>
+int launch_fwd(const Joint<K>& J, const void* w, int vt, int grid, float* blank_lp,
+               float* label_lp, float* lse, cudaStream_t stream) {
   CUtensorMap tw;
-  if (!flash::tensor_map(&tw, w, vt, J.H, FBOX)) return (int)cudaErrorNotSupported;
+  if (!flash::tensor_map(&tw, w, vt, J.H, FBOX,
+                         K == F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16))
+    return (int)cudaErrorNotSupported;
   const size_t smem = fwd_layout(32 * RG, J.H).total;
-  cudaError_t err = cudaFuncSetAttribute(joint_fwd_kernel<RG>,
+  cudaError_t err = cudaFuncSetAttribute(joint_fwd_kernel<RG, K>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  joint_fwd_kernel<RG><<<grid, 32 * FCG * RG + 32, smem, stream>>>(tw, J, blank_lp, label_lp,
-                                                                    lse);
+  joint_fwd_kernel<RG, K><<<grid, 32 * FCG * RG + 32, smem, stream>>>(tw, J, blank_lp, label_lp,
+                                                                       lse);
   return (int)cudaGetLastError();
 }
 
@@ -598,30 +513,37 @@ int launch_fwd(const Joint& J, const void* w, int vt, int grid, float* blank_lp,
 // ---------------------------------------------------------------------------
 
 struct CellLayout {
-  int ldh, ldl;
-  size_t hs, gs, ring, dl, dbw, meta, total;
+  int ldh, ldl, stages;
+  size_t hs, ring, dl, dbw, meta, total;
 };
 
-__host__ __device__ inline CellLayout cell_layout(int H, int VLp) {
+// the layout with `stages` slices in the logits ring
+__host__ __device__ inline CellLayout cell_layout_n(int H, int VLp, int stages) {
   CellLayout L;
   const int PW = pass_cols(VLp);
   L.ldh = H + 8;
   L.ldl = PW + 8;
+  L.stages = stages;
   size_t off = 0;
-  // Hs: h, bf16; after the logits the region holds the dh ring (2 x [64][ldl])
+  // Hs: h; after the logits the region holds the dh ring (2 x [64][ldl])
   const size_t hs_elems = BROWS * (size_t)(L.ldh > 2 * L.ldl ? L.ldh : 2 * L.ldl);
   L.hs = off; off = align128(off + sizeof(bf16) * hs_elems);
-  L.gs = off; off = align128(off + sizeof(bf16) * BROWS * (size_t)L.ldh);
-  // the logits ring (3 x [32][ldl]); after the logits, Dl and the db partial
+  // the logits ring (stages x [32][ldl]); after the logits, Dl and the db partial
   L.ring = off;
   L.dl = off;
   L.dbw = align128(L.dl + sizeof(bf16) * BROWS * (size_t)L.ldl);
-  const size_t ring_end = L.ring + sizeof(bf16) * LOGIT_STAGES * KSL * (size_t)L.ldl;
+  const size_t ring_end = L.ring + sizeof(bf16) * stages * KSL * (size_t)L.ldl;
   const size_t dl_end = L.dbw + sizeof(float) * 4 * (size_t)PW;
   off = align128(ring_end > dl_end ? ring_end : dl_end);
   L.meta = off; off = align128(off + sizeof(float) * BROWS * 10);
   L.total = off;
   return L;
+}
+
+// three ring stages where they fit in a block's shared memory, else two
+__host__ __device__ inline CellLayout cell_layout(int H, int VLp) {
+  const CellLayout L = cell_layout_n(H, VLp, 3);
+  return L.total <= flash::SMEM_BLOCK ? L : cell_layout_n(H, VLp, 2);
 }
 
 struct CellMeta {
@@ -643,18 +565,19 @@ __device__ inline CellMeta cell_meta_at(unsigned char* p) {
   return M;
 }
 
+template <int K>
 __global__ void __launch_bounds__(CELL_THREADS)
-joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __restrict__ w_blank,
+joint_bwd_cells_kernel(Joint<K> J, const bf16* __restrict__ w_pad, const bf16* __restrict__ w_blank,
                        int VLp, const float* __restrict__ lse, const float* __restrict__ total,
                        const float* __restrict__ gb, const float* __restrict__ gy,
                        const float* __restrict__ g, float clamp, long long c0, int win,
                        bf16* __restrict__ dlab_out, float* __restrict__ dblank_out,
                        bf16* __restrict__ dx_out, bf16* __restrict__ h_out,
                        float* __restrict__ dbl_part, float* __restrict__ dh_part) {
+  constexpr bool F = K == F16;
   extern __shared__ __align__(128) unsigned char smem[];
   const CellLayout L = cell_layout(J.H, VLp);
   bf16* Hs = reinterpret_cast<bf16*>(smem + L.hs);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + L.gs);
   bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
   bf16* Dl = reinterpret_cast<bf16*>(smem + L.dl);
   float* dbw = reinterpret_cast<float*>(smem + L.dbw);
@@ -667,7 +590,7 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
   const size_t row0 = (size_t)(tile0 - c0);  // the tile's first row in the window's scratch
   const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
   const int mblk = warp & 3, nq = warp >> 2;  // row block, column group
-  const int H = J.H, VL = J.VL, ldh = L.ldh, ldl = L.ldl;
+  const int H = J.H, VL = J.VL, ldh = L.ldh, ldl = L.ldl, ns = L.stages;
   const int hv8 = H / 8;
 
   if (threadIdx.x < BROWS) {
@@ -704,26 +627,30 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
       stage_rows(Hs, ldh, h_out + row0 * H, H, 0, BROWS, rows, H);
       cp_commit();
     }
-    // the first two W slices of the logits ring, in flight while h is built
+    // the first W slices of the logits ring (ns - 1 of them), in flight
+    // while h is built
     auto load_slice = [&](int s) {
       const int k0 = s * KSL;
-      stage_rows(ring + (size_t)(s % LOGIT_STAGES) * KSL * ldl, ldl, w_pad + p0, VLp, k0,
+      stage_rows(ring + (size_t)(s % ns) * KSL * ldl, ldl, w_pad + p0, VLp, k0,
                  min(KSL, H - k0), H, PW);
     };
     load_slice(0);
     cp_commit();
-    if (n_sl > 1) load_slice(1);
-    cp_commit();
+    if (ns == 3) {
+      if (n_sl > 1) load_slice(1);
+      cp_commit();
+    }
     __syncthreads();
 
     if (pass == 0) {
-      // h and act' (0 where dropped), once per element
+      // h into shared memory, and act' (0 where dropped) into the dx
+      // scratch, once per element
       for (int i = threadIdx.x; i < BROWS * hv8; i += CELL_THREADS) {
         const int r = i / hv8, h0 = (i % hv8) * 8;
         uint4 hv = make_uint4(0, 0, 0, 0), gv = make_uint4(0, 0, 0, 0);
         if (M.b[r] >= 0) hidden8(J, M.b[r], M.t[r], M.u[r], h0, hv, gv);
         *reinterpret_cast<uint4*>(Hs + (size_t)r * ldh + h0) = hv;
-        *reinterpret_cast<uint4*>(Gs + (size_t)r * ldh + h0) = gv;
+        if (r < rows) *reinterpret_cast<uint4*>(dx_out + (row0 + r) * H + h0) = gv;
       }
       __syncthreads();
       // h into the window's scratch for the dW product (16-byte vectors)
@@ -737,9 +664,8 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
       const int r = threadIdx.x / 8, q = threadIdx.x % 8;
       float s = 0.f;
       for (int h = 2 * q; h < H; h += 16) {
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            Hs + (size_t)r * ldh + h));
-        const float2 wb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w_blank + h));
+        const float2 x = cvt2<K>(Hs + (size_t)r * ldh + h);
+        const float2 wb = cvt2<K>(w_blank + h);
         s += x.x * wb.x + x.y * wb.y;
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -748,7 +674,7 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
       if (q == 0) {
         float d = 0.f;
         if (M.b[r] >= 0) {
-          const float blank = rb(rb(s) + __bfloat162float(J.bias[VL]));
+          const float blank = rnd<K>(rnd<K>(s) + cvt<K>(J.bias[VL]));
           d = clamp_g(expf(blank - M.lse[r]) * M.total[r] - M.gb[r], clamp, M.g[r]);
           dblank_out[row0 + r] = d;
         }
@@ -764,11 +690,12 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
 #pragma unroll
     for (int j = 0; j < NTQ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     for (int s = 0; s < n_sl; ++s) {
-      cp_wait<1>();
+      if (ns == 3) cp_wait<1>();
+      else cp_wait<0>();
       __syncthreads();
-      if (s + 2 < n_sl) load_slice(s + 2);
+      if (s + ns - 1 < n_sl) load_slice(s + ns - 1);
       cp_commit();
-      const bf16* Ws = ring + (size_t)(s % LOGIT_STAGES) * KSL * ldl;
+      const bf16* Ws = ring + (size_t)(s % ns) * KSL * ldl;
       const int ks = min(KSL, H - s * KSL) / 16;
       for (int kk = 0; kk < ks; ++kk) {
         uint32_t a[4];
@@ -778,12 +705,12 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
           if (j + 1 < NTQ && j + 1 < nt) {
             uint32_t bb[4];
             ldsm4t(bb, bt_addr(Ws, ldl, 16 * kk, cb + 8 * j, l));
-            mma16816(acc[j], a, bb[0], bb[1]);
-            mma16816(acc[j + 1], a, bb[2], bb[3]);
+            mma<F>(acc[j], a, bb[0], bb[1]);
+            mma<F>(acc[j + 1], a, bb[2], bb[3]);
           } else if (j < nt) {
             uint32_t bb[2];
             ldsm2t(bb, bt_addr(Ws, ldl, 16 * kk, cb + 8 * j, l & 15));
-            mma16816(acc[j], a, bb[0], bb[1]);
+            mma<F>(acc[j], a, bb[0], bb[1]);
           }
         }
       }
@@ -792,7 +719,7 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
     __syncthreads();  // every warp is done with the ring: Dl and dbw take its place
 
     // dlab = clamp(softmax * total - gy 1[tgt]) * g in fp32: db sums it, Dl
-    // holds it in bf16 (zero in the pad columns and empty rows)
+    // holds it in the dtype (zero in the pad columns and empty rows)
     {
       const int g0 = l >> 2, r_lo = 16 * mblk + g0, r_hi = r_lo + 8;
       const bool live_lo = M.b[r_lo] >= 0, live_hi = M.b[r_hi] >= 0;
@@ -808,14 +735,14 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
           const int c = p0 + lc + (e & 1);
           float x = 0.f;
           if (live && c < VL) {
-            const float lab = rb(rb(acc[j][e]) + __bfloat162float(J.bias[c]));
+            const float lab = rnd<K>(rnd<K>(acc[j][e]) + cvt<K>(J.bias[c]));
             x = expf(lab - M.lse[r]) * M.total[r] - (c == M.tgt[r] ? M.gy[r] : 0.f);
             x = clamp_g(x, clamp, M.g[r]);
           }
           d[e] = x;
         }
-        *reinterpret_cast<uint32_t*>(Dl + (size_t)r_lo * ldl + lc) = pack2(d[0], d[1]);
-        *reinterpret_cast<uint32_t*>(Dl + (size_t)r_hi * ldl + lc) = pack2(d[2], d[3]);
+        *reinterpret_cast<uint32_t*>(Dl + (size_t)r_lo * ldl + lc) = pack<F>(d[0], d[1]);
+        *reinterpret_cast<uint32_t*>(Dl + (size_t)r_hi * ldl + lc) = pack<F>(d[2], d[3]);
         // column sums over this warp's 16 rows, in a fixed order
         float s0 = d[0] + d[2], s1 = d[1] + d[3];
 #pragma unroll
@@ -838,7 +765,7 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
       for (int r = 0; r < BROWS; ++r) s += M.dblank[r];
       dbl_row[VL] = s;
     }
-    // the bf16 dlab rows into the window's scratch (16-byte vectors)
+    // the dlab rows into the window's scratch (16-byte vectors)
     {
       const int vec = PW / 8;
       for (int i = threadIdx.x; i < rows * vec; i += CELL_THREADS) {
@@ -850,7 +777,7 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
 
     // dh += Dl @ W_pad[:, p0 : p0 + PW]^T, 64 hidden columns at a time, with
     // W_pad's rows for the next chunk in flight (ring in the Hs region);
-    // after the last pass, + dblank w_blank, dropout and dx = bf16(dh * act')
+    // after the last pass, + dblank w_blank, dropout and dx = dt(dh * act')
     bf16* dring = Hs;
     const size_t dstage = (size_t)HCH * ldl;
     const int n_hc = (H + HCH - 1) / HCH;
@@ -865,6 +792,21 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
       cp_wait<1>();
       __syncthreads();
       const bf16* Wd = dring + (size_t)(hc & 1) * dstage;
+      const int g0 = l >> 2;
+      // the last pass: act' of this thread's dx entries from the scratch,
+      // loaded ahead of the product that hides their latency
+      uint32_t gpre[2][2] = {{0u, 0u}, {0u, 0u}};
+      if (last) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int h = hc * HCH + 16 * nq + 8 * j + (l & 3) * 2;
+            const int r = 16 * mblk + g0 + 8 * half;
+            if (h < H && r < rows)
+              gpre[j][half] = *reinterpret_cast<const uint32_t*>(dx_out + (row0 + r) * H + h);
+          }
+      }
       float acc2[2][4];
 #pragma unroll
       for (int j = 0; j < 2; ++j) acc2[j][0] = acc2[j][1] = acc2[j][2] = acc2[j][3] = 0.f;
@@ -872,15 +814,14 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
         uint32_t a[4], bb[4];
         ldsm4(a, a_addr(Dl, ldl, 16 * mblk, 16 * kk, l));
         ldsm4(bb, bn_addr(Wd, ldl, 16 * kk, 16 * nq, l));
-        mma16816(acc2[0], a, bb[0], bb[1]);
-        mma16816(acc2[1], a, bb[2], bb[3]);
+        mma<F>(acc2[0], a, bb[0], bb[1]);
+        mma<F>(acc2[1], a, bb[2], bb[3]);
       }
-      const int g0 = l >> 2;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int h = hc * HCH + 16 * nq + 8 * j + (l & 3) * 2;
         if (h >= H) continue;
-        const float wb0 = __bfloat162float(w_blank[h]), wb1 = __bfloat162float(w_blank[h + 1]);
+        const float2 wb = cvt2<K>(w_blank + h);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int r = 16 * mblk + g0 + 8 * half;
@@ -898,25 +839,20 @@ joint_bwd_cells_kernel(Joint J, const bf16* __restrict__ w_pad, const bf16* __re
               continue;
             }
           }
+          // act' (where the h build left it in the scratch); dx takes its place
+          const float2 ga = cvt2<K>(reinterpret_cast<const bf16*>(&gpre[j][half]));
           float dx[2];
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            float dh = rb((i ? sum.y : sum.x) + M.dblank[r] * (i ? wb1 : wb0));
-            if (J.drop_t > 0) dh = rb(dh * J.inv_keep);
-            dx[i] = rb(dh * __bfloat162float(Gs[(size_t)r * ldh + h + i]));
+            float dh = rnd<K>((i ? sum.y : sum.x) + M.dblank[r] * (i ? wb.y : wb.x));
+            if (J.drop_t > 0) dh = rnd<K>(dh * J.inv_keep);
+            dx[i] = rnd<K>(dh * (i ? ga.y : ga.x));
           }
-          // dx takes act's place in Gs (this thread alone reads and writes it)
-          *reinterpret_cast<uint32_t*>(Gs + (size_t)r * ldh + h) = pack2(dx[0], dx[1]);
+          *reinterpret_cast<uint32_t*>(dx_out + (row0 + r) * H + h) = pack<F>(dx[0], dx[1]);
         }
       }
       __syncthreads();  // every warp is done with this stage before it is reloaded
     }
-  }
-  // the dx rows into the window's scratch (16-byte vectors)
-  for (int i = threadIdx.x; i < rows * hv8; i += CELL_THREADS) {
-    const int r = i / hv8, h0 = (i % hv8) * 8;
-    *reinterpret_cast<uint4*>(dx_out + (row0 + r) * H + h0) =
-        *reinterpret_cast<const uint4*>(Gs + (size_t)r * ldh + h0);
   }
 }
 
@@ -947,9 +883,11 @@ __host__ __device__ inline SumLayout sum_layout(int VLp) {
 // (split s), added to dw_part[s]; with the first columns (p0 = 0) also
 // dW[:, VL] = sum h * dblank in fp32 into dwb_part[s]. h and dlab arrive
 // from the window's scratch through a 2-stage cp.async ring.
-__device__ void sums_dw(const Joint& J, int VLp, int cs, int ce, int s, int hx0, int p0,
+template <int K>
+__device__ void sums_dw(const Joint<K>& J, int VLp, int cs, int ce, int s, int hx0, int p0,
                         const bf16* dlab, const float* dblank, const bf16* hwin, float* dw_part,
                         float* dwb_part, unsigned char* smem) {
+  constexpr bool F = K == F16;
   const SumLayout L = sum_layout(VLp);
   bf16* Hc = reinterpret_cast<bf16*>(smem + L.hc);
   bf16* Dc = reinterpret_cast<bf16*>(smem + L.dc);
@@ -986,7 +924,7 @@ __device__ void sums_dw(const Joint& J, int VLp, int cs, int ce, int s, int hx0,
     const float* db = dbs + (ch & 1) * BROWS;
     if (p0 == 0)
       for (int r = 16 * q; r < 16 * q + 16; ++r)
-        dwb += __bfloat162float(Hs[(size_t)r * ldc + m]) * db[r];
+        dwb += cvt<K>(Hs[(size_t)r * ldc + m]) * db[r];
 #pragma unroll
     for (int kk = 0; kk < BROWS / 16; ++kk) {
       uint32_t a[4];
@@ -996,12 +934,12 @@ __device__ void sums_dw(const Joint& J, int VLp, int cs, int ce, int s, int hx0,
         if (j + 1 < NTW && j + 1 < nt) {
           uint32_t bb[4];
           ldsm4t(bb, bt_addr(D, ldd, 16 * kk, cb + 8 * j, l));
-          mma16816(acc[j], a, bb[0], bb[1]);
-          mma16816(acc[j + 1], a, bb[2], bb[3]);
+          mma<F>(acc[j], a, bb[0], bb[1]);
+          mma<F>(acc[j + 1], a, bb[2], bb[3]);
         } else if (j < nt) {
           uint32_t bb[2];
           ldsm2t(bb, bt_addr(D, ldd, 16 * kk, cb + 8 * j, l & 15));
-          mma16816(acc[j], a, bb[0], bb[1]);
+          mma<F>(acc[j], a, bb[0], bb[1]);
         }
       }
     }
@@ -1032,32 +970,9 @@ __device__ void sums_dw(const Joint& J, int VLp, int cs, int ce, int s, int hx0,
         dwq[3 * HCH + threadIdx.x];
 }
 
-// sum over k < n, in order, of the bf16 pairs src[k * stride] -> out (+=),
-// the loads issued four at a time ahead of the adds
-__device__ inline void sum_pairs(const __nv_bfloat162* src, size_t stride, int n, float* out) {
-  float sx = 0.f, sy = 0.f;
-  int k = 0;
-  for (; k + 4 <= n; k += 4) {
-    float2 v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = __bfloat1622float2(src[(size_t)(k + i) * stride]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sx += v[i].x;
-      sy += v[i].y;
-    }
-  }
-  for (; k < n; ++k) {
-    const float2 v = __bfloat1622float2(src[(size_t)k * stride]);
-    sx += v.x;
-    sy += v.y;
-  }
-  out[0] += sx;
-  out[1] += sy;
-}
-
+template <int K>
 __global__ void __launch_bounds__(SUM_THREADS)
-joint_bwd_sums_kernel(Joint J, int VLp, long long c0, int win,
+joint_bwd_sums_kernel(Joint<K> J, int VLp, long long c0, int win,
                       const bf16* __restrict__ dlab, const float* __restrict__ dblank,
                       const bf16* __restrict__ dx, const bf16* __restrict__ hwin,
                       const float* __restrict__ dbl_part, float* __restrict__ de_acc,
@@ -1067,10 +982,9 @@ joint_bwd_sums_kernel(Joint J, int VLp, long long c0, int win,
   const long long n_all = J.off[J.B];
   if (c0 >= n_all) return;
   const int n_w = (int)min((long long)win, n_all - c0);
-  const int H = J.H, H2 = J.H / 2;
-  const int n_ht = (H + HCH - 1) / HCH, n_cp = (VLp + PASS_COLS - 1) / PASS_COLS;
+  const int n_ht = (J.H + HCH - 1) / HCH, n_cp = (VLp + PASS_COLS - 1) / PASS_COLS;
   const int n_dw = KSPLIT * n_ht * n_cp;
-  int bid = blockIdx.x;
+  const int bid = blockIdx.x;
   if (bid < n_dw) {  // dW: split s of the window's 64-cell tiles, hidden block ht, columns cp
     const int s = bid / (n_ht * n_cp), ht = bid / n_cp % n_ht, cp = bid % n_cp;
     const int per = (((n_w + BROWS - 1) / BROWS + KSPLIT - 1) / KSPLIT) * BROWS;
@@ -1080,107 +994,85 @@ joint_bwd_sums_kernel(Joint J, int VLp, long long c0, int win,
               dwb_part, smem);
     return;
   }
-  bid -= n_dw;
-  const __nv_bfloat162* dx2 = reinterpret_cast<const __nv_bfloat162*>(dx);
-  if (bid < J.B * J.T) {  // de[b, t] += sum over u of dx, u in order
-    const int b = bid / J.T, t = bid % J.T;
-    const Lat L = lat_of(J, b);
-    if (t >= L.n_t) return;
-    const long long row = J.off[b] + (long long)t * L.n_u;
-    const long long lo = max(row, c0), hi = min(row + L.n_u, c0 + n_w);
-    if (lo >= hi) return;
-    for (int h2 = threadIdx.x; h2 < H2; h2 += SUM_THREADS)
-      sum_pairs(dx2 + (size_t)(lo - c0) * H2 + h2, H2, (int)(hi - lo),
-                de_acc + ((size_t)b * J.T + t) * H + 2 * h2);
-    return;
-  }
-  bid -= J.B * J.T;
-  if (bid < J.B * J.U1) {  // dp[b, u] += sum over t of dx, t in order
-    const int b = bid / J.U1, u = bid % J.U1;
-    const Lat L = lat_of(J, b);
-    if (u >= L.n_u) return;
-    const long long base = J.off[b] + u;  // cell (b, 0, u)
-    const long long a = c0 - base, z = c0 + n_w - 1 - base;
-    const int t_lo = a <= 0 ? 0 : (int)((a + L.n_u - 1) / L.n_u);
-    const int t_hi = z < 0 ? 0 : (int)min((long long)L.n_t, z / L.n_u + 1);
-    if (t_lo >= t_hi) return;
-    for (int h2 = threadIdx.x; h2 < H2; h2 += SUM_THREADS)
-      sum_pairs(dx2 + (size_t)(base + (long long)t_lo * L.n_u - c0) * H2 + h2,
-                (size_t)L.n_u * H2, t_hi - t_lo, dp + ((size_t)b * J.U1 + u) * H + 2 * h2);
-    return;
-  }
-  // db += the window's per-tile partials, tiles in order (db[VL]: dblank)
-  const int n_tiles = (n_w + BROWS - 1) / BROWS;
-  for (int c = threadIdx.x; c <= J.VL; c += SUM_THREADS) {
-    float s = 0.f;
-    for (int k = 0; k < n_tiles; ++k) s += dbl_part[(size_t)k * (J.VL + 1) + c];
-    db_acc[c] += s;
-  }
+  sums_rows(J, bid - n_dw, c0, n_w, dx, dbl_part, de_acc, dp, db_acc);
 }
 
 // ---------------------------------------------------------------------------
-// backward (reduce): dW [H, V] from the K splits, db [V], de in e's dtype
+// entry points for one compute dtype
 // ---------------------------------------------------------------------------
 
-__global__ void joint_bwd_reduce_kernel(int B, int T, int H, int V, int VLp,
-                                        const float* __restrict__ dw_part,
-                                        const float* __restrict__ dwb_part,
-                                        const float* __restrict__ db_acc,
-                                        const float* __restrict__ de_acc,
-                                        float* __restrict__ dw, float* __restrict__ db,
-                                        bf16* __restrict__ de) {
-  const int VL = V - 1;
-  const long long n_dw = (long long)H * V, n_de = (long long)B * T * H;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_dw) {
-    const int h = (int)(i / V), c = (int)(i % V);
-    float s = 0.f;
-    if (c < VL) {
-      for (int k = 0; k < KSPLIT; ++k) s += dw_part[((size_t)k * H + h) * VLp + c];
-    } else {
-      for (int k = 0; k < KSPLIT; ++k) s += dwb_part[(size_t)k * H + h];
-    }
-    dw[i] = s;
-  } else if (i < n_dw + V) {
-    db[i - n_dw] = db_acc[i - n_dw];
-  } else if (i < n_dw + V + n_de) {
-    const long long j = i - n_dw - V;
-    de[j] = __float2bfloat16(de_acc[j]);
-  }
+template <int K>
+int fwd_entry(const void* e, const void* p, const void* w, const void* bias, const void* targets,
+              const void* t_lens, const void* u_lens, const void* cell_off, void* blank_lp,
+              void* label_lp, void* lse, int b, int t, int u1, int h, int hh, int v, int vt,
+              int tp, int act, int drop_t, int seed, int hash_base, int grid, void* stream) {
+  const Joint<K> J = make_joint<K>(e, p, bias, targets, t_lens, u_lens, cell_off, b, t, u1, h,
+                                   hh, v, tp, act, drop_t, seed, hash_base);
+  const int rows = fwd_rows(h);
+  if (rows == 0 || !widths_ok(h, hh, v) || vt < v || vt % 8 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  return rows == 128 ? launch_fwd<4, K>(J, w, vt, grid, (float*)blank_lp, (float*)label_lp,
+                                        (float*)lse, (cudaStream_t)stream)
+                     : launch_fwd<2, K>(J, w, vt, grid, (float*)blank_lp, (float*)label_lp,
+                                        (float*)lse, (cudaStream_t)stream);
 }
 
-Joint make_joint(const void* e, const void* p, const void* bias,
-                 const void* targets, int B, int T, int U1, int H, int V, int Tp, int act,
-                 int drop_t, int seed, int hash_base) {
-  Joint J;
-  J.e = (const bf16*)e;
-  J.p = (const bf16*)p;
-  J.bias = (const bf16*)bias;
-  J.targets = (const int*)targets;
-  J.B = B; J.T = T; J.U1 = U1; J.H = H; J.V = V; J.VL = V - 1; J.Tp = Tp;
-  J.act = act;
-  J.drop_t = drop_t;
-  J.seed = (uint32_t)seed;
-  J.hash_base = (uint32_t)hash_base;
-  J.inv_keep = drop_t > 0 ? (float)(1.0 / (1.0 - drop_t / 256.0)) : 1.f;
-  J.t_lens = J.u_lens = nullptr;
-  J.off = nullptr;
-  return J;
+template <int K>
+int cells_entry(const void* e, const void* p, const void* w_pad, const void* w_blank,
+                const void* bias, const void* targets, const void* t_lens, const void* u_lens,
+                const void* cell_off, const void* lse, const void* total, const void* gb,
+                const void* gy, const void* g, void* dlab, void* dblank, void* dx, void* h_win,
+                void* dbl_part, void* dh_part, int b, int t, int u1, int h, int hh, int v,
+                int vlp, int tp, int act, int drop_t, int seed, int hash_base, int win,
+                long long c0, float clamp, void* stream) {
+  const Joint<K> J = make_joint<K>(e, p, bias, targets, t_lens, u_lens, cell_off, b, t, u1, h,
+                                   hh, v, tp, act, drop_t, seed, hash_base);
+  const size_t smem = cell_layout(h, vlp).total;
+  if (!widths_ok(h, hh, v) || smem > flash::SMEM_BLOCK || win % BROWS)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(joint_bwd_cells_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  joint_bwd_cells_kernel<K><<<win / BROWS, CELL_THREADS, smem, (cudaStream_t)stream>>>(
+      J, (const bf16*)w_pad, (const bf16*)w_blank, vlp, (const float*)lse, (const float*)total,
+      (const float*)gb, (const float*)gy, (const float*)g, clamp, c0, win, (bf16*)dlab,
+      (float*)dblank, (bf16*)dx, (bf16*)h_win, (float*)dbl_part, (float*)dh_part);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int sums_entry(const void* t_lens, const void* u_lens, const void* cell_off, const void* dlab,
+               const void* dblank, const void* dx, const void* h_win, const void* dbl_part,
+               void* de_acc, void* dp, void* dw_part, void* dwb_part, void* db_acc, int b, int t,
+               int u1, int h, int v, int vlp, int win, long long c0, void* stream) {
+  const Joint<K> J = make_joint<K>(nullptr, nullptr, nullptr, nullptr, t_lens, u_lens, cell_off,
+                                   b, t, u1, h, h, v, t, 0, 0, 0, 0);
+  const size_t smem = sum_layout(vlp).total;
+  cudaError_t err = cudaFuncSetAttribute(joint_bwd_sums_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks =
+      (h + HCH - 1) / HCH * KSPLIT * ((vlp + PASS_COLS - 1) / PASS_COLS) + b * t + b * u1 + 1;
+  joint_bwd_sums_kernel<K><<<blocks, SUM_THREADS, smem, (cudaStream_t)stream>>>(
+      J, vlp, c0, win, (const bf16*)dlab, (const float*)dblank, (const bf16*)dx,
+      (const bf16*)h_win, (const float*)dbl_part, (float*)de_acc, (float*)dp, (float*)dw_part,
+      (float*)dwb_part, (float*)db_acc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Bytes of shared memory the forward (which = 0), the backward's cells (1)
-// or sums (2) kernel needs at H, V (the forward: the layout of the tile
-// height it takes, or its 64-row layout where none fits).
+// or sums (2) kernel needs at the padded width H and V (the forward: the
+// layout of the tile height it takes, or its 64-row layout where none fits).
 extern "C" long long rnnt_joint_smem_bytes(int H, int V, int which) {
   const int vlp = (V - 1 + 31) / 32 * 32;
   if (which == 0) return (long long)fwd_layout(fwd_rows(H) ? fwd_rows(H) : 64, H).total;
   return (long long)(which == 1 ? cell_layout(H, vlp).total : sum_layout(vlp).total);
 }
 
-// The forward's tile height at H: 128 or 64 lattice cells, 0 where neither
-// layout fits in a block's shared memory.
+// The forward's tile height at the padded width H: 128 or 64 lattice cells,
+// 0 where neither layout fits in a block's shared memory.
 extern "C" int rnnt_joint_fwd_rows(int H) { return fwd_rows(H); }
 
 // The backward's layout constants, which size the buffers the caller
@@ -1190,111 +1082,86 @@ extern "C" int rnnt_joint_bwd_tile_cells() { return BROWS; }
 extern "C" int rnnt_joint_bwd_ksplit() { return KSPLIT; }
 extern "C" int rnnt_joint_bwd_pass_cols() { return PASS_COLS; }
 
-// e: [b, t, h], p: [b, u1, h] bf16; w: [h, vt] bf16 whose first v columns
+// The entry points, one per compute dtype (_bf16, _f16): e, p, w, bias and
+// the window's dlab, dx and h are of that dtype, everything else as stated.
+//
+// The forward. e: [b, t, h], p: [b, u1, h]; w: [h, vt] whose first v columns
 // are W [h, v] (blank last), zeros past them, vt >= v a multiple of 8 (16-byte
-// rows); bias: [v] bf16; targets: [b, u1-1], t_lens, u_lens: [b] int32;
-// cell_off: [b + 1] int64, each sample's first lattice cell (sample-major,
-// t-major; cell_off[b]: the lattice's cells); blank_lp, label_lp, lse:
-// [b, t, u1] fp32 (-1e30, -1e30 and 1e30 outside each lattice). All
-// contiguous and 16-byte aligned; h a multiple of 16 that `fwd_rows` takes.
+// rows); bias: [v]; targets: [b, u1-1], t_lens, u_lens: [b] int32; cell_off:
+// [b + 1] int64, each sample's first lattice cell (sample-major, t-major;
+// cell_off[b]: the lattice's cells); blank_lp, label_lp, lse: [b, t, u1] fp32
+// (-1e30, -1e30 and 1e30 outside each lattice). All contiguous and 16-byte
+// aligned; h a multiple of 16 that `fwd_rows` takes, whose last h - hh columns
+// of e, p and w's rows are zero padding (hh the caller's width, hh > h - 16).
 // tp: the dropout layout's padded t; act 0 relu, 1 sigmoid, 2 tanh; drop_t 0
 // disables dropout; hash_base: added to every dropout index (a row offset
-// times tp * u1 * h, mod 2^32); grid >= 1: the blocks of the persistent grid (any count
-// covers every cell; the wrapper takes one per SM, at most one per tile of
-// the b * t * u1 cells). Launches on `stream`; returns the cudaError_t of the
-// launch.
-extern "C" int rnnt_joint_fwd_bf16(const void* e, const void* p, const void* w, const void* bias,
-                                   const void* targets, const void* t_lens, const void* u_lens,
-                                   const void* cell_off, void* blank_lp, void* label_lp, void* lse,
-                                   int b, int t, int u1, int h, int v, int vt, int tp, int act,
-                                   int drop_t, int seed, int hash_base, int grid,
-                                   void* stream) {
-  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed, hash_base);
-  J.t_lens = (const int*)t_lens;
-  J.u_lens = (const int*)u_lens;
-  J.off = (const long long*)cell_off;
-  const int rows = fwd_rows(h);
-  if (rows == 0 || h % 16 || v < 2 || vt < v || vt % 8 || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  return rows == 128 ? launch_fwd<4>(J, w, vt, grid, (float*)blank_lp, (float*)label_lp,
-                                     (float*)lse, (cudaStream_t)stream)
-                     : launch_fwd<2>(J, w, vt, grid, (float*)blank_lp, (float*)label_lp,
-                                     (float*)lse, (cudaStream_t)stream);
-}
+// times tp * u1 * hh, mod 2^32); grid >= 1: the blocks of the persistent grid
+// (any count covers every cell; the wrapper takes one per SM, at most one per
+// tile of the b * t * u1 cells). Launches on `stream`; returns the
+// cudaError_t of the launch.
+#define FWD_ENTRY(SUFFIX, KIND)                                                                   \
+  extern "C" int rnnt_joint_fwd_##SUFFIX(                                                        \
+      const void* e, const void* p, const void* w, const void* bias, const void* targets,        \
+      const void* t_lens, const void* u_lens, const void* cell_off, void* blank_lp,              \
+      void* label_lp, void* lse, int b, int t, int u1, int h, int hh, int v, int vt, int tp,     \
+      int act, int drop_t, int seed, int hash_base, int grid, void* stream) {                    \
+    return fwd_entry<KIND>(e, p, w, bias, targets, t_lens, u_lens, cell_off, blank_lp, label_lp, \
+                           lse, b, t, u1, h, hh, v, vt, tp, act, drop_t, seed, hash_base, grid,  \
+                           stream);                                                              \
+  }
 
 // The backward's cells kernel over the window of global cells [c0, c0 + win)
 // (win a multiple of 64): as the forward's inputs, with w_pad [h, vlp] the
-// label block zero-padded to vlp (a multiple of 32) and w_blank [h] bf16;
-// cell_off [b + 1] int64, each sample's first lattice cell (sample-major,
-// t-major; cell_off[b]: the lattice's cells); lse, total, gb, gy [b, t, u1]
-// fp32 (read inside the lattice only); g [b] fp32. Writes the window's dlab
-// [win, vlp] bf16, dblank [win] fp32, dx and h [win, h] bf16 and per-tile db
-// partials [win / 64, v] fp32. dh_part [win, h] fp32 holds dh between the
-// passes over a label block wider than 320 columns (unused, and may be null,
-// up to 320).
-extern "C" int rnnt_joint_bwd_cells_bf16(
-    const void* e, const void* p, const void* w_pad, const void* w_blank, const void* bias,
-    const void* targets, const void* t_lens, const void* u_lens, const void* cell_off,
-    const void* lse, const void* total, const void* gb, const void* gy, const void* g,
-    void* dlab, void* dblank, void* dx, void* h_win, void* dbl_part, void* dh_part, int b, int t,
-    int u1, int h,
-    int v, int vlp, int tp, int act, int drop_t, int seed, int hash_base, int win, long long c0,
-    float clamp, void* stream) {
-  Joint J = make_joint(e, p, bias, targets, b, t, u1, h, v, tp, act, drop_t, seed, hash_base);
-  J.t_lens = (const int*)t_lens;
-  J.u_lens = (const int*)u_lens;
-  J.off = (const long long*)cell_off;
-  const size_t smem = cell_layout(h, vlp).total;
-  cudaError_t err = cudaFuncSetAttribute(joint_bwd_cells_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  joint_bwd_cells_kernel<<<win / BROWS, CELL_THREADS, smem, (cudaStream_t)stream>>>(
-      J, (const bf16*)w_pad, (const bf16*)w_blank, vlp, (const float*)lse, (const float*)total,
-      (const float*)gb, (const float*)gy, (const float*)g, clamp, c0, win, (bf16*)dlab,
-      (float*)dblank, (bf16*)dx, (bf16*)h_win, (float*)dbl_part, (float*)dh_part);
-  return (int)cudaGetLastError();
-}
+// label block zero-padded to vlp (a multiple of 32) and w_blank [h]; lse,
+// total, gb, gy [b, t, u1] fp32 (read inside the lattice only); g [b] fp32.
+// Writes the window's dlab [win, vlp], dblank [win] fp32, dx and h [win, h]
+// and per-tile db partials [win / 64, v] fp32. dh_part [win, h] fp32 holds dh
+// between the passes over a label block wider than 320 columns (unused, and
+// may be null, up to 320).
+#define CELLS_ENTRY(SUFFIX, KIND)                                                                 \
+  extern "C" int rnnt_joint_bwd_cells_##SUFFIX(                                                  \
+      const void* e, const void* p, const void* w_pad, const void* w_blank, const void* bias,    \
+      const void* targets, const void* t_lens, const void* u_lens, const void* cell_off,         \
+      const void* lse, const void* total, const void* gb, const void* gy, const void* g,         \
+      void* dlab, void* dblank, void* dx, void* h_win, void* dbl_part, void* dh_part, int b,     \
+      int t, int u1, int h, int hh, int v, int vlp, int tp, int act, int drop_t, int seed,       \
+      int hash_base, int win, long long c0, float clamp, void* stream) {                         \
+    return cells_entry<KIND>(e, p, w_pad, w_blank, bias, targets, t_lens, u_lens, cell_off, lse, \
+                             total, gb, gy, g, dlab, dblank, dx, h_win, dbl_part, dh_part, b, t, \
+                             u1, h, hh, v, vlp, tp, act, drop_t, seed, hash_base, win, c0,       \
+                             clamp, stream);                                                     \
+  }
 
 // The backward's sums kernel over the same window, from the cells kernel's
-// dlab, dblank, dx, h [win, h] bf16 and db partials: adds its dW_lab to
+// dlab, dblank, dx, h [win, h] and db partials: adds its dW_lab to
 // dw_part [KSPLIT, h, vlp], its dW[:, v-1] to dwb_part [KSPLIT, h], its de to
 // de_acc [b, t, h], its dp to dp [b, u1, h] and its db to db_acc [v], all
 // fp32 (zeroed by the caller before the first window).
-extern "C" int rnnt_joint_bwd_sums_f32(const void* t_lens, const void* u_lens,
-                                       const void* cell_off, const void* dlab,
-                                       const void* dblank, const void* dx, const void* h_win,
-                                       const void* dbl_part, void* de_acc, void* dp,
-                                       void* dw_part, void* dwb_part, void* db_acc, int b, int t,
-                                       int u1, int h, int v, int vlp, int win, long long c0,
-                                       void* stream) {
-  Joint J = make_joint(nullptr, nullptr, nullptr, nullptr, b, t, u1, h, v, t, 0, 0, 0, 0);
-  J.t_lens = (const int*)t_lens;
-  J.u_lens = (const int*)u_lens;
-  J.off = (const long long*)cell_off;
-  const size_t smem = sum_layout(vlp).total;
-  cudaError_t err = cudaFuncSetAttribute(joint_bwd_sums_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks =
-      (h + HCH - 1) / HCH * KSPLIT * ((vlp + PASS_COLS - 1) / PASS_COLS) + b * t + b * u1 + 1;
-  joint_bwd_sums_kernel<<<blocks, SUM_THREADS, smem, (cudaStream_t)stream>>>(
-      J, vlp, c0, win, (const bf16*)dlab, (const float*)dblank, (const bf16*)dx,
-      (const bf16*)h_win, (const float*)dbl_part, (float*)de_acc, (float*)dp, (float*)dw_part,
-      (float*)dwb_part, (float*)db_acc);
-  return (int)cudaGetLastError();
-}
+#define SUMS_ENTRY(SUFFIX, KIND)                                                                  \
+  extern "C" int rnnt_joint_bwd_sums_##SUFFIX(                                                   \
+      const void* t_lens, const void* u_lens, const void* cell_off, const void* dlab,            \
+      const void* dblank, const void* dx, const void* h_win, const void* dbl_part, void* de_acc, \
+      void* dp, void* dw_part, void* dwb_part, void* db_acc, int b, int t, int u1, int h, int v, \
+      int vlp, int win, long long c0, void* stream) {                                            \
+    return sums_entry<KIND>(t_lens, u_lens, cell_off, dlab, dblank, dx, h_win, dbl_part, de_acc, \
+                            dp, dw_part, dwb_part, db_acc, b, t, u1, h, v, vlp, win, c0, stream);\
+  }
 
-// The reduce kernel: dw [h, v], db [v] fp32 and de [b, t, h] bf16 from the
-// sums' accumulators.
-extern "C" int rnnt_joint_bwd_reduce_f32(const void* dw_part, const void* dwb_part,
-                                         const void* db_acc, const void* de_acc, void* dw,
-                                         void* db, void* de, int b, int t, int h, int v, int vlp,
-                                         void* stream) {
-  const long long n = (long long)h * v + v + (long long)b * t * h;
-  const int threads = 256;
-  joint_bwd_reduce_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                            (cudaStream_t)stream>>>(
-      b, t, h, v, vlp, (const float*)dw_part, (const float*)dwb_part, (const float*)db_acc,
-      (const float*)de_acc, (float*)dw, (float*)db, (bf16*)de);
-  return (int)cudaGetLastError();
-}
+// The reduce kernel: dw [h, v], db [v] fp32 and de [b, t, h] in the dtype
+// from the sums' accumulators.
+#define REDUCE_ENTRY(SUFFIX, KIND)                                                                \
+  extern "C" int rnnt_joint_bwd_reduce_##SUFFIX(                                                 \
+      const void* dw_part, const void* dwb_part, const void* db_acc, const void* de_acc,         \
+      void* dw, void* db, void* de, int b, int t, int h, int v, int vlp, void* stream) {         \
+    return launch_reduce<KIND>(dw_part, dwb_part, db_acc, de_acc, dw, db, de, b, t, h, v, vlp,   \
+                               (cudaStream_t)stream);                                            \
+  }
+
+FWD_ENTRY(bf16, BF16)
+FWD_ENTRY(f16, F16)
+CELLS_ENTRY(bf16, BF16)
+CELLS_ENTRY(f16, F16)
+SUMS_ENTRY(bf16, BF16)
+SUMS_ENTRY(f16, F16)
+REDUCE_ENTRY(bf16, BF16)
+REDUCE_ENTRY(f16, F16)

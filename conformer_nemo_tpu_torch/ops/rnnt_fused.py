@@ -33,9 +33,9 @@ class RNNTLossFused(torch.autograd.Function):
                 fastemit_lambda: float, clamp: float, lattice_impl: str, activation: str,
                 drop_t: int, bt: int):
         if e.is_cuda and any(ctx.needs_input_grad[:4]):
-            # the backward's kernels take a narrower H than the forward's:
-            # refuse before any work rather than after the forward
-            check_smem(e.shape[2], w.shape[1], (1, 2))
+            # the backward's range, checked before the forward's work rather
+            # than after it (the kernels' one range rule)
+            check_smem(e.shape[2], w.shape[1], (1, 2), e.dtype)
         alphas, betas = lattice_fns(lattice_impl, e.device)
         tg = targets.to(torch.int32).contiguous()
         tl, ul = t_lens.to(torch.int32).contiguous(), u_lens.to(torch.int32).contiguous()

@@ -32,13 +32,23 @@ global batch draws for them (the JAX package's data-sharded step hashes
 the global row).
 
 For CUDA tensors `joint_flash_fwd` / `joint_flash_bwd` launch the
-hand-written bf16 kernels of ops/csrc/rnnt_joint.cu (design and bound
-described there) and raise on anything they do not take; for CPU tensors
-they run `joint_flash_fwd_reference` / `joint_flash_bwd_reference`, the
-plain versions, which materialise the tile in torch. The backward runs in
-pieces over windows of lattice cells (`joint_flash_bwd_windowed`: the cells
+hand-written kernels (design and bound described in their sources):
+ops/csrc/rnnt_joint.cu in bf16 and fp16, ops/csrc/rnnt_joint_f32.cu in
+fp32, and raise on anything they do not take; for CPU tensors they run
+`joint_flash_fwd_reference` / `joint_flash_bwd_reference`, the plain
+versions, which materialise the tile in torch. The backward runs in pieces
+over windows of lattice cells (`joint_flash_bwd_windowed`: the cells
 kernel, the sums kernel, the reduce), each with its plain version here, and
 the plain pieces compose to `joint_flash_bwd_reference`.
+
+Any H >= 1 runs: the CUDA wrappers pad e, p and W's rows with zeros to a
+multiple of 16 (`pad_hidden`) and slice de, dp and dW back. The kernels take
+the caller's H apart (`hash_h`): the dropout hash indexes the layout at that
+width, and the padded units are 0 in h and in act' whatever the activation
+(sigmoid(0) is 0.5). The plain versions take `hash_h` the same way, so that
+a padded call through them gives the unpadded call's outputs. The limit on
+H is the forward's shared memory (`check_smem`, `fwd_rows`: 1376 in the
+16-bit dtypes; fp32 any H); the backward takes every H the forward takes.
 """
 
 from __future__ import annotations
@@ -48,18 +58,33 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, launch_count, load
+from conformer_nemo_tpu_torch.ops.build import SMEM_LIMIT, LaunchCount, launch_count, load
 from conformer_nemo_tpu_torch.ops.rnnt_lattice import NEG_INF, valid_cells
 
 ACTIVATIONS = ("relu", "sigmoid", "tanh")
 _M1, _M2 = 0x85EBCA6B, 0xC2B2AE35
 _MASK32 = 0xFFFFFFFF
 
-# launches per kernel, keyed by (B, T, U+1, H, V)
-fwd_launches = launch_count("K4-fwd")
-bwd_launches = launch_count("K4-bwd")
-bwd_sums_launches = launch_count("K4-bwd-dw")
-bwd_reduce_launches = launch_count("K4-bwd-reduce")
+# the library and entry-point suffix of each compute dtype the kernels take
+KERNELS = {torch.bfloat16: ("rnnt_joint.cu", "bf16"), torch.float16: ("rnnt_joint.cu", "f16"),
+           torch.float32: ("rnnt_joint_f32.cu", "f32")}
+_NAMES = {"fwd": "K4-fwd", "cells": "K4-bwd", "sums": "K4-bwd-dw", "reduce": "K4-bwd-reduce"}
+
+
+def counter(kernel: str, dtype) -> LaunchCount:
+    """The launch count of K4's `kernel` ("fwd", "cells", "sums" or
+    "reduce") in `dtype`, keyed by the caller's (B, T, U+1, H, V): K4-fwd,
+    K4-bwd, K4-bwd-dw and K4-bwd-reduce in bf16, with "-f16" or "-f32" after
+    the name in the others."""
+    name = _NAMES[kernel]
+    return launch_count(name if dtype == torch.bfloat16 else f"{name}-{KERNELS[dtype][1]}")
+
+
+for _dt in KERNELS:  # every count registered, so each reads 0 before its first launch
+    for _k in _NAMES:
+        counter(_k, _dt)
+fwd_launches, bwd_launches, bwd_sums_launches, bwd_reduce_launches = (
+    counter(k, torch.bfloat16) for k in _NAMES)
 
 
 def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -161,6 +186,33 @@ def _act_grad(x, h, activation: str):
     return 1 - h * h
 
 
+def padded_h(h: int) -> int:
+    """H rounded up to the kernels' multiple of 16."""
+    return -(-h // 16) * 16
+
+
+def pad_hidden(e, p, w):
+    """e [B,T,H], p [B,U1,H] and W [H,V] with zero hidden units up to
+    `padded_h(H)`, contiguous; the same tensors where H is a multiple of 16."""
+    h = e.shape[2]
+    hp = padded_h(h)
+    if hp == h:
+        return e, p, w
+    return (F.pad(e, (0, hp - h)).contiguous(), F.pad(p, (0, hp - h)).contiguous(),
+            F.pad(w, (0, 0, 0, hp - h)).contiguous())
+
+
+def _unpadded(hash_h, h: int) -> bool:
+    """Whether a plain version's inputs carry padding units past hash_h."""
+    return hash_h is not None and hash_h < h
+
+
+def _pad_units(x, h: int, dim: int = -1):
+    """x with zero units up to h along `dim` (-1 or 0)."""
+    pad = h - x.shape[dim]
+    return F.pad(x, (0, pad) if dim == -1 else (0, 0, 0, pad))
+
+
 def _tile(e, p, w, bias, targets, seed, blank_id, activation, drop_t, bt):
     """The forward tile over the padded [B, Tp, U1] cells:
     (x, h dropped, keep or None, lab [.., V-1] fp32, blank fp32, target ids)."""
@@ -181,10 +233,16 @@ def _tile(e, p, w, bias, targets, seed, blank_id, activation, drop_t, bt):
 
 
 def joint_flash_fwd_reference(e, p, w, bias, targets, seed, *, t_lens, u_lens, blank_id: int,
-                              activation: str = "relu", drop_t: int = 0, bt: int = 32):
+                              activation: str = "relu", drop_t: int = 0, bt: int = 32,
+                              hash_h: int | None = None):
     """Plain PyTorch version of K4-fwd -> (blank_lp, label_lp, lse) [B, T, U1]
     fp32; outside each sample's lattice blank_lp = label_lp = -1e30 and
-    lse = 1e30."""
+    lse = 1e30. hash_h: the caller's width where e, p and W carry zero units
+    past it (`pad_hidden`), as the kernels take it: the call at that width."""
+    if _unpadded(hash_h, e.shape[2]):
+        return joint_flash_fwd_reference(
+            e[..., :hash_h], p[..., :hash_h], w[:hash_h], bias, targets, seed, t_lens=t_lens,
+            u_lens=u_lens, blank_id=blank_id, activation=activation, drop_t=drop_t, bt=bt)
     t = e.shape[1]
     _, _, _, lab, blank, tgt = _tile(e, p, w, bias, targets, seed, blank_id, activation,
                                      drop_t, bt)
@@ -198,10 +256,20 @@ def joint_flash_fwd_reference(e, p, w, bias, targets, seed, *, t_lens, u_lens, b
 
 def joint_flash_bwd_reference(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *,
                               t_lens, u_lens, blank_id: int, activation: str = "relu",
-                              drop_t: int = 0, bt: int = 32, clamp: float = -1.0):
+                              drop_t: int = 0, bt: int = 32, clamp: float = -1.0,
+                              hash_h: int | None = None):
     """Plain PyTorch version of K4-bwd -> (de [B, T, H] e.dtype, dp [B, U1, H],
     dw [H, V], db [V] fp32). Cells outside each sample's lattice add
-    nothing (whatever lse, total, gb and gy hold there)."""
+    nothing (whatever lse, total, gb and gy hold there). hash_h as the
+    forward's: the padding units' de, dp and dW rows are 0, as the kernels
+    write them."""
+    if _unpadded(hash_h, e.shape[2]):
+        de, dp, dw, db = joint_flash_bwd_reference(
+            e[..., :hash_h], p[..., :hash_h], w[:hash_h], bias, targets, lse, total, gb, gy, g,
+            seed, t_lens=t_lens, u_lens=u_lens, blank_id=blank_id, activation=activation,
+            drop_t=drop_t, bt=bt, clamp=clamp)
+        h = e.shape[2]
+        return _pad_units(de, h), _pad_units(dp, h), _pad_units(dw, h, 0), db
     dt = e.dtype
     t = e.shape[1]
     tp = padded_t(t, bt)
@@ -241,27 +309,48 @@ def joint_flash_bwd_reference(e, p, w, bias, targets, lse, total, gb, gy, g, see
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
+TILE_CELLS = 64  # lattice cells per tile of the cells kernel
+KSPLIT = 24  # fixed number of K splits of the dW product
+# label columns per pass of the backward kernels over the label block
+PASS_COLS = {torch.bfloat16: 320, torch.float16: 320, torch.float32: 128}
+WINDOW_BYTES = 320 << 20  # at most a window's scratch (dlab, dblank, dx, h, db partials, dh)
 
 _CHECKED_LIBS: set = set()
 
 
-def _lib():
-    """rnnt_joint.cu's library. The backward's layout constants, which size
-    the buffers allocated here, are held against the library's once."""
-    lib = load("rnnt_joint.cu")
+def _load_checked(dtype):
+    """The library of `dtype`'s kernels. The backward's layout constants, which
+    size the buffers allocated here, are held against the library's once."""
+    lib = load(KERNELS[dtype][0])
     if id(lib) not in _CHECKED_LIBS:
         got = (lib.rnnt_joint_bwd_tile_cells(), lib.rnnt_joint_bwd_ksplit(),
                lib.rnnt_joint_bwd_pass_cols())
-        if got != (TILE_CELLS, KSPLIT, PASS_COLS):
-            raise RuntimeError(f"rnnt_joint.cu's (tile cells, K splits, pass columns) are {got}, "
-                               f"this module's {(TILE_CELLS, KSPLIT, PASS_COLS)}")
+        want = (TILE_CELLS, KSPLIT, PASS_COLS[dtype])
+        if got != want:
+            raise RuntimeError(f"{KERNELS[dtype][0]}'s (tile cells, K splits, pass columns) are "
+                               f"{got}, this module's {want}")
         _CHECKED_LIBS.add(id(lib))
     return lib
 
 
-def _c_fn(name: str, n_ptr: int, n_int: int, tail: tuple = ()):
-    """An entry point: pointers, ints, the `tail` types (ctypes), the stream."""
-    fn = getattr(_lib(), name)
+def _lib():
+    """rnnt_joint.cu's library: the bf16 and fp16 kernels."""
+    return _load_checked(torch.bfloat16)
+
+
+def _lib_f32():
+    """rnnt_joint_f32.cu's library: the fp32 kernels."""
+    return _load_checked(torch.float32)
+
+
+def _lib_of(dtype):
+    return _lib_f32() if dtype == torch.float32 else _lib()
+
+
+def _c_fn(dtype, name: str, n_ptr: int, n_int: int, tail: tuple = ()):
+    """`dtype`'s entry point `name`: pointers, ints, the `tail` types (ctypes),
+    the stream."""
+    fn = getattr(_lib_of(dtype), f"{name}_{KERNELS[dtype][1]}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + list(tail) + \
             [ctypes.c_void_p]
@@ -282,61 +371,75 @@ def _shapes(e, p, w, bias, targets):
 
 
 def _check_cuda(tensors: dict, h: int, v: int, which: tuple) -> None:
-    bf = {k: x for k, x in tensors.items() if k in ("e", "p", "w", "w_pad", "w_blank", "bias")}
-    if any(x.dtype != torch.bfloat16 for x in bf.values()):
-        raise TypeError("the CUDA kernels take bf16 e, p, w and bias, got "
-                        + ", ".join(f"{k} {x.dtype}" for k, x in bf.items()))
+    """Raise on what the CUDA kernels do not take: e, p, w and bias of one
+    dtype among KERNELS', int32 targets, contiguous tensors on one card, and
+    H and V as `check_smem` takes them for the kernels in `which`."""
+    dt = tensors["e"].dtype
+    if dt not in KERNELS:
+        raise TypeError(f"the CUDA joint kernels take {', '.join(map(str, KERNELS))}; got {dt}")
+    same = {k: x for k, x in tensors.items() if k in ("e", "p", "w", "w_pad", "w_blank", "bias")}
+    if any(x.dtype != dt for x in same.values()):
+        raise TypeError("the CUDA kernels take e, p, w and bias of one dtype, got "
+                        + ", ".join(f"{k} {x.dtype}" for k, x in same.items()))
     if tensors["targets"].dtype != torch.int32:
         raise TypeError("the CUDA kernels take int32 targets")
     dev = tensors["e"].device
     if not all(x.is_cuda and x.device == dev and x.is_contiguous() for x in tensors.values()):
         raise ValueError("the CUDA kernels take contiguous tensors on one card")
-    if h % 16 or h <= 0 or v < 2:
-        raise ValueError(f"the CUDA kernels take H a positive multiple of 16 and V >= 2, "
-                         f"got H={h}, V={v}")
-    if tensors["e"].data_ptr() % 16 or tensors["p"].data_ptr() % 16:
+    if padded_h(h) == h and (tensors["e"].data_ptr() % 16 or tensors["p"].data_ptr() % 16):
         raise ValueError("the CUDA kernels read e and p in 16-byte vectors: both must start "
                          "16-byte aligned")
-    check_smem(h, v, which)
+    check_smem(h, v, which, dt)
 
 
-def check_smem(h: int, v: int, which: tuple = (0, 1, 2)) -> None:
-    """Raise if a CUDA joint kernel (0 the forward, 1 and 2 the backward's
-    cells and sums) needs more shared memory at H, V than a block has; a
-    training caller checks the backward's before the forward runs."""
-    lib = _lib()
+def check_smem(h: int, v: int, which: tuple = (0, 1, 2), dtype=torch.bfloat16) -> None:
+    """The CUDA joint kernels' range, the one rule that the wrappers, `joint_impl:
+    auto` and the training loss's early check apply: raise unless H >= 1 (the
+    wrappers pad it to a multiple of 16), V >= 2 and each kernel in `which`
+    (0 the forward, 1 and 2 the backward's cells and sums) of `dtype` fits a
+    block's shared memory at the padded H. The backward takes every H the
+    forward takes; a training caller checks (1, 2) before the forward runs."""
+    if dtype not in KERNELS:
+        raise TypeError(f"the CUDA joint kernels take {', '.join(map(str, KERNELS))}; "
+                        f"got {dtype}")
+    if h < 1 or v < 2:
+        raise ValueError(f"the CUDA joint kernels take H >= 1 and V >= 2, got H={h}, V={v}")
+    lib = _lib_of(dtype)
     lib.rnnt_joint_smem_bytes.restype = ctypes.c_longlong
+    hp = padded_h(h)
     for k in which:
-        smem = lib.rnnt_joint_smem_bytes(h, v, k)
+        smem = lib.rnnt_joint_smem_bytes(hp, v, k)
         if smem > SMEM_LIMIT:
             raise ValueError(f"the CUDA joint kernel {k} needs {smem} bytes of shared memory "
-                             f"at H={h}, V={v}; a block has {SMEM_LIMIT}")
+                             f"at H={h} (padded to {hp}), V={v}; a block has {SMEM_LIMIT}")
 
 
 def fwd_weight(w):
-    """W [H, V] as the forward's tensor copies read it: rows of a multiple of
-    8 columns (16 bytes), 16-byte aligned, zeros past column V - 1 (the
-    blank, last: column VL joins the label product). W itself where it
-    already is so; else a zero-padded copy [H, ceil(V / 8) * 8]."""
+    """W [H, V] as the forward reads it: rows of a multiple of 8 columns
+    (16 bytes in the 16-bit dtypes, whose tensor copies need it; 32 in fp32),
+    16-byte aligned, zeros past column V - 1 (the blank, last: column VL
+    joins the label product). W itself where it already is so; else a
+    zero-padded copy [H, ceil(V / 8) * 8]."""
     v = w.shape[1]
     if v % 8 == 0 and w.is_contiguous() and w.data_ptr() % 16 == 0:
         return w
     return F.pad(w, (0, -v % 8)).contiguous()
 
 
-def fwd_rows(h: int) -> int:
-    """Lattice cells per tile the CUDA forward takes at H: 128 or 64, 0
-    where neither tile fits a block's shared memory (`check_smem` refuses)."""
-    return _lib().rnnt_joint_fwd_rows(h)
+def fwd_rows(h: int, dtype=torch.bfloat16) -> int:
+    """Lattice cells per tile the CUDA forward of `dtype` takes at H (padded
+    to 16): 128 or 64 in the 16-bit dtypes, 0 where neither tile fits a
+    block's shared memory (`check_smem` refuses); 64 in fp32 at any H."""
+    return _lib_of(dtype).rnnt_joint_fwd_rows(padded_h(h))
 
 
 def fwd_grid(cells: int, rows: int, n_sm: int) -> int:
-    """Blocks of the forward's persistent grid over B * T * U1 `cells` in
-    tiles of `rows`: one per SM, no more than the tiles. Block x takes the
+    """Blocks of the 16-bit forward's persistent grid over B * T * U1 `cells`
+    in tiles of `rows`: one per SM, no more than the tiles. Block x takes the
     lattice's tiles x, x + grid, ... (tile k: lattice cells k * rows ..
     k * rows + rows - 1 in `lattice_cells` order), and the sentinels of the
     full [B, T, U1] index in a grid-stride loop, so any grid covers every
-    cell once."""
+    cell once. (The fp32 forward launches a block per tile instead.)"""
     return max(1, min(n_sm, -(-cells // rows)))
 
 
@@ -355,11 +458,12 @@ def _lens(t_lens, u_lens, b: int):
 
 def joint_flash_fwd(e, p, w, bias, targets, seed, *, t_lens, u_lens, blank_id: int,
                     activation: str = "relu", drop_t: int = 0, bt: int = 32):
-    """K4-fwd: e [B,T,H], p [B,U1,H], w [H,V], bias [V], targets [B,U] int,
-    seed [1] int32, t_lens / u_lens [B] -> (blank_lp, label_lp, lse) each
-    [B,T,U1] fp32. Only the cells inside each sample's lattice (t < t_len,
-    u <= u_len) are computed; outside it blank_lp = label_lp = -1e30 and
-    lse = 1e30 (the lattice and the backward never read them)."""
+    """K4-fwd: e [B,T,H], p [B,U1,H], w [H,V], bias [V] (bf16, fp16 or fp32),
+    targets [B,U] int, seed [1] int32, t_lens / u_lens [B] -> (blank_lp,
+    label_lp, lse) each [B,T,U1] fp32. Only the cells inside each sample's
+    lattice (t < t_len, u <= u_len) are computed; outside it blank_lp =
+    label_lp = -1e30 and lse = 1e30 (the lattice and the backward never read
+    them)."""
     b, t, u1, h, v = _shapes(e, p, w, bias, targets)
     split_blank(w, bias, blank_id)
     act = _act_code(activation)
@@ -375,31 +479,34 @@ def joint_flash_fwd(e, p, w, bias, targets, seed, *, t_lens, u_lens, blank_id: i
     outs = [torch.empty((b, t, u1), dtype=torch.float32, device=e.device) for _ in range(3)]
     if b == 0 or t == 0:
         return tuple(outs)
-    _launch_fwd(e, p, fwd_weight(w), bias, targets, seed, t_lens, u_lens, outs, v, act,
-                int(drop_t), bt)
+    ep, pp, wp = pad_hidden(e, p, w)
+    _launch_fwd(ep, pp, fwd_weight(wp), bias, targets, seed, t_lens, u_lens, outs, v, act,
+                int(drop_t), bt, hash_h=h)
     return tuple(outs)
 
 
 def _launch_fwd(e, p, w_fwd, bias, targets, seed, t_lens, u_lens, outs, v: int, act: int,
-                drop_t: int, bt: int, grid: int | None = None) -> None:
-    """One launch of the forward on checked inputs: w_fwd from `fwd_weight`,
-    grid the persistent grid's blocks (default `fwd_grid`'s)."""
+                drop_t: int, bt: int, grid: int | None = None, hash_h: int | None = None) -> None:
+    """One launch of the forward on checked inputs of a width a multiple of 16:
+    w_fwd from `fwd_weight`, grid the 16-bit persistent grid's blocks (default
+    `fwd_grid`'s), hash_h the caller's width where e, p and W are padded."""
     b, t, h = e.shape
-    u1 = p.shape[1]
+    u1, dt = p.shape[1], e.dtype
+    hh = h if hash_h is None else hash_h
     if grid is None:
-        grid = fwd_grid(b * t * u1, fwd_rows(h),
+        grid = fwd_grid(b * t * u1, fwd_rows(h, dt),
                         torch.cuda.get_device_properties(e.device).multi_processor_count)
     cell_off = lattice_offsets(t_lens, u_lens, t, u1)
     with torch.cuda.device(e.device):
-        err = _c_fn("rnnt_joint_fwd_bf16", 11, 12)(
+        err = _c_fn(dt, "rnnt_joint_fwd", 11, 13)(
             e.data_ptr(), p.data_ptr(), w_fwd.data_ptr(), bias.data_ptr(), targets.data_ptr(),
             t_lens.data_ptr(), u_lens.data_ptr(), cell_off.data_ptr(),
-            *(o.data_ptr() for o in outs), b, t, u1, h, v, w_fwd.shape[1], padded_t(t, bt), act,
-            drop_t, _seed_int(seed), _i32(_hash_base(seed)), int(grid),
+            *(o.data_ptr() for o in outs), b, t, u1, h, hh, v, w_fwd.shape[1], padded_t(t, bt),
+            act, drop_t, _seed_int(seed), _i32(_hash_base(seed)), int(grid),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"joint_flash_fwd kernel launch failed: CUDA error {err}")
-    fwd_launches.add((b, t, u1, h, v))
+    counter("fwd", dt).add((b, t, u1, hh, v))
 
 
 def joint_flash_bwd(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_lens, u_lens,
@@ -411,7 +518,7 @@ def joint_flash_bwd(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_le
     sample's lattice, and the cells outside it add nothing. -> (de [B,T,H]
     e.dtype, dp [B,U1,H], dw [H,V], db [V] fp32). On CUDA: per window of
     lattice cells the cells kernel and the sums kernel, then the reduce
-    (`joint_flash_bwd_windowed`)."""
+    (`joint_flash_bwd_windowed`), at H padded to 16 and sliced back."""
     b, t, u1, h, v = _shapes(e, p, w, bias, targets)
     split_blank(w, bias, blank_id)
     _act_code(activation)
@@ -424,14 +531,21 @@ def joint_flash_bwd(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_le
                                          clamp=clamp)
     if e.device.type != "cuda":
         raise ValueError(f"unsupported device {e.device}")
+    _lens(t_lens, u_lens, b)
+    _check_cuda({"e": e, "p": p, "w": w, "bias": bias, "targets": targets, "t_lens": t_lens,
+                 "u_lens": u_lens}, h, v, (1, 2))
     if b == 0 or t == 0:
         f32 = dict(dtype=torch.float32, device=e.device)
         return (torch.zeros((b, t, h), dtype=e.dtype, device=e.device),
                 torch.zeros((b, u1, h), **f32), torch.zeros((h, v), **f32),
                 torch.zeros((v,), **f32))
-    return joint_flash_bwd_windowed(e, p, w, bias, targets, lse, total, gb, gy, g, seed,
-                                    t_lens=t_lens, u_lens=u_lens, blank_id=blank_id,
-                                    activation=activation, drop_t=drop_t, bt=bt, clamp=clamp)
+    ep, pp, wp = pad_hidden(e, p, w)
+    de, dp, dw, db = joint_flash_bwd_windowed(
+        ep, pp, wp, bias, targets, lse, total, gb, gy, g, seed, t_lens=t_lens, u_lens=u_lens,
+        blank_id=blank_id, activation=activation, drop_t=drop_t, bt=bt, clamp=clamp, hash_h=h)
+    if ep.shape[2] != h:
+        de, dp, dw = de[..., :h].contiguous(), dp[..., :h].contiguous(), dw[:h].contiguous()
+    return de, dp, dw, db
 
 
 # ---------------------------------------------------------------------------
@@ -440,44 +554,44 @@ def joint_flash_bwd(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_le
 # then the reduce. Each piece runs its plain version on CPU tensors.
 # ---------------------------------------------------------------------------
 
-TILE_CELLS = 64  # lattice cells per tile of the cells kernel
-KSPLIT = 24  # fixed number of K splits of the dW product
-PASS_COLS = 320  # label columns per pass of the backward kernels over the label block
-WINDOW_BYTES = 320 << 20  # at most a window's scratch (dlab, dblank, dx, h, db partials, dh)
-
 
 def padded_vl(v: int) -> int:
     """V - 1 rounded up to a multiple of 32: the label block's padded width."""
     return -(-(v - 1) // 32) * 32
 
 
-def _window_bytes_per_cell(h: int, v: int) -> float:
-    """A window's scratch per cell: bf16 dlab, dx and h, fp32 dblank, the db
-    partials, and fp32 dh between the passes over a label block wider than
-    PASS_COLS."""
-    vlp = padded_vl(v)
-    return 2 * (2 * h + vlp) + 4 + 4 * v / TILE_CELLS + (4 * h if vlp > PASS_COLS else 0)
+def _window_bytes_per_cell(h: int, v: int, dtype) -> float:
+    """A window's scratch per cell at the padded H: dlab, dx and h in the
+    dtype, fp32 dblank, the db partials, and fp32 dh between the passes over
+    a label block wider than a pass."""
+    es, vlp = torch.tensor([], dtype=dtype).element_size(), padded_vl(v)
+    return es * (2 * h + vlp) + 4 + 4 * v / TILE_CELLS + (4 * h if vlp > PASS_COLS[dtype] else 0)
 
 
-def bwd_windows(cells: int, h: int, v: int, window: int | None = None):
+def bwd_windows(cells: int, h: int, v: int, window: int | None = None, dtype=torch.bfloat16):
     """(cells per window, windows) of the backward over a lattice of `cells`
-    cells: a window holds at most `window` cells (default: as many as fit
-    WINDOW_BYTES of scratch at H, V), a multiple of 64, and no more than the
-    lattice needs."""
+    cells at width H (padded to 16): a window holds at most `window` cells
+    (default: as many as fit WINDOW_BYTES of scratch at H, V in `dtype`), a
+    multiple of 64, and no more than the lattice needs."""
     if window is None:
-        window = int(WINDOW_BYTES // _window_bytes_per_cell(h, v))
+        window = int(WINDOW_BYTES // _window_bytes_per_cell(padded_h(h), v, dtype))
     win = max(TILE_CELLS, min(window // TILE_CELLS, -(-cells // TILE_CELLS)) * TILE_CELLS)
     return win, -(-cells // win)
 
 
 def bwd_scratch_bytes(cells: int, b: int, t: int, u1: int, h: int, v: int,
-                      window: int | None = None) -> int:
-    """Device bytes the backward allocates besides its outputs: the padded W,
-    the lattice offsets, one window's scratch and the fp32 accumulators."""
-    win, _ = bwd_windows(cells, h, v, window)
-    vlp = padded_vl(v)
-    return int(2 * h * (vlp + 1) + 8 * (b + 1) + win * _window_bytes_per_cell(h, v)
-               + 4 * b * t * h + 4 * KSPLIT * h * (vlp + 1) + 4 * v)
+                      window: int | None = None, dtype=torch.bfloat16) -> int:
+    """Device bytes the backward allocates besides its outputs: the copies of
+    e, p and W padded to 16 hidden units (where H is not), the padded label
+    block (and its transpose in fp32), the lattice offsets, one window's
+    scratch and the fp32 accumulators."""
+    hp = padded_h(h)
+    win, _ = bwd_windows(cells, h, v, window, dtype)
+    vlp, es = padded_vl(v), torch.tensor([], dtype=dtype).element_size()
+    pad_copies = es * hp * (b * t + b * u1 + v) if hp != h else 0
+    w_copies = es * hp * (vlp + 1) + (4 * hp * vlp if dtype == torch.float32 else 0)
+    return int(pad_copies + w_copies + 8 * (b + 1) + win * _window_bytes_per_cell(hp, v, dtype)
+               + 4 * b * t * hp + 4 * KSPLIT * hp * (vlp + 1) + 4 * v)
 
 
 def pad_label_block(w, blank_id: int):
@@ -496,37 +610,41 @@ def bwd_accumulators(b: int, t: int, u1: int, h: int, v: int, device):
 
 def joint_flash_bwd_windowed(e, p, w, bias, targets, lse, total, gb, gy, g, seed, *, t_lens,
                              u_lens, blank_id: int, activation: str = "relu", drop_t: int = 0,
-                             bt: int = 32, clamp: float = -1.0, window: int | None = None):
+                             bt: int = 32, clamp: float = -1.0, window: int | None = None,
+                             hash_h: int | None = None):
     """K4-bwd as the kernels run it: the lattice's cells in windows of at most
     `window` cells, each through the cells kernel and the sums kernel
     (`joint_flash_bwd_cells` and `joint_flash_bwd_sums` launch them the
     same way), then `joint_flash_bwd_reduce`. The windows cover B * T * U1
     cells, the most a lattice of these shapes can hold (the lattice's own
-    count stays on the card; a window past it exits at once). On CPU
-    tensors every piece is its plain version, and the whole equals
+    count stays on the card; a window past it exits at once). On CUDA H must
+    be a multiple of 16 (`pad_hidden`), with hash_h the caller's width. On
+    CPU tensors every piece is its plain version, and the whole equals
     `joint_flash_bwd_reference`."""
     b, t, u1, h, v = _shapes(e, p, w, bias, targets)
+    dt = e.dtype
     w_pad, w_blank = pad_label_block(w, blank_id)
-    win, n_win = bwd_windows(b * t * u1, h, v, window)
+    win, n_win = bwd_windows(b * t * u1, h, v, window, dt)
     acc = bwd_accumulators(b, t, u1, h, v, e.device)
     cells_in = (e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed)
     if e.device.type == "cpu":
         for k in range(n_win):
             scratch = joint_flash_bwd_cells_reference(
                 *cells_in, t_lens=t_lens, u_lens=u_lens, c0=k * win, win=win,
-                activation=activation, drop_t=drop_t, bt=bt, clamp=clamp)
+                activation=activation, drop_t=drop_t, bt=bt, clamp=clamp, hash_h=hash_h)
             joint_flash_bwd_sums_reference(scratch, acc, t_lens=t_lens, u_lens=u_lens,
                                            c0=k * win, win=win)
-        return joint_flash_bwd_reduce_reference(acc, e.dtype)
+        return joint_flash_bwd_reduce_reference(acc, dt)
     # checked once; then two launches per window
-    _check_cells(*cells_in[:-1], t_lens, u_lens, win)
+    hh = _check_cells(*cells_in[:-1], t_lens, u_lens, win, hash_h)
     scratch, dh_part = _cells_scratch(e, w_pad, bias, win)
+    wt = _transposed(w_pad)
     cell_off = lattice_offsets(t_lens, u_lens, t, u1)
     for k in range(n_win):
         _launch_cells(cells_in, t_lens, u_lens, cell_off, scratch, dh_part, k * win, win,
-                      activation, drop_t, bt, clamp)
-        _launch_sums(t_lens, u_lens, cell_off, scratch, acc, k * win, win)
-    return joint_flash_bwd_reduce(acc, e.dtype)
+                      activation, drop_t, bt, clamp, hh, wt)
+        _launch_sums(t_lens, u_lens, cell_off, scratch, acc, k * win, win, hh)
+    return joint_flash_bwd_reduce(acc, dt, hh)
 
 
 def lattice_offsets(t_lens, u_lens, t: int, u1: int):
@@ -574,12 +692,19 @@ def _window(cells, c0: int, win: int):
 def joint_flash_bwd_cells_reference(e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g,
                                     seed, *, t_lens, u_lens, c0: int, win: int,
                                     activation: str = "relu", drop_t: int = 0, bt: int = 32,
-                                    clamp: float = -1.0):
+                                    clamp: float = -1.0, hash_h: int | None = None):
     """Plain version of the cells kernel for the window of lattice cells
     [c0, c0 + win) -> (dlab [win, VLp] e.dtype, dblank [win] fp32, dx
     [win, H] e.dtype, h [win, H] e.dtype, db partials [win // 64, V] fp32:
     each 64-cell tile's sums of the fp32 dlab, and of dblank in the last
-    column). Rows past the lattice's cells are zero."""
+    column). Rows past the lattice's cells are zero; hash_h as the forward's
+    (the padding units' dx and h are 0)."""
+    if _unpadded(hash_h, e.shape[2]):
+        dlab, dblank, dx, h, dbl = joint_flash_bwd_cells_reference(
+            e[..., :hash_h], p[..., :hash_h], w_pad[:hash_h], w_blank[:hash_h], bias, targets,
+            lse, total, gb, gy, g, seed, t_lens=t_lens, u_lens=u_lens, c0=c0, win=win,
+            activation=activation, drop_t=drop_t, bt=bt, clamp=clamp)
+        return dlab, dblank, _pad_units(dx, e.shape[2]), _pad_units(h, e.shape[2]), dbl
     dt = e.dtype
     b, t, h_dim = e.shape
     u1, v, vlp = p.shape[1], bias.shape[0], w_pad.shape[1]
@@ -652,92 +777,111 @@ def joint_flash_bwd_reduce_reference(acc, dtype):
     return de_acc.to(dtype), dp.clone(), dw, db_acc.clone()
 
 
-def _launch(what: str, counter, shape, dev, fn, *args) -> None:
+def _launch(what: str, count, shape, dev, fn, *args) -> None:
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"joint_flash_bwd {what} kernel launch failed: CUDA error {err}")
-    counter.add(shape)
+    count.add(shape)
 
 
 def _check_cells(e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, t_lens, u_lens,
-                 win: int) -> None:
-    """Raise on what the cells kernel does not take."""
+                 win: int, hash_h: int | None = None) -> int:
+    """Raise on what the cells kernel does not take. -> the caller's width."""
     b, t, h = e.shape
     v = bias.shape[0]
+    hh = h if hash_h is None else hash_h
     if win % TILE_CELLS or w_pad.shape != (h, padded_vl(v)) or w_blank.shape != (h,):
         raise ValueError("want win a multiple of 64, w_pad [H, VLp] and w_blank [H]")
+    if h % 16 or not 0 < hh <= h < hh + 16:
+        raise ValueError(f"the backward's kernels take e, p and w padded to a multiple of 16 "
+                         f"hidden units (pad_hidden) with hash_h the width before it; got H={h}, "
+                         f"hash_h={hh}")
     _lens(t_lens, u_lens, b)
     if any(x.dtype != torch.float32 for x in (lse, total, gb, gy, g)):
         raise TypeError("the CUDA kernels take fp32 lse, total, gb, gy and g")
     _check_cuda({"e": e, "p": p, "w_pad": w_pad, "w_blank": w_blank, "bias": bias,
                  "targets": targets, "t_lens": t_lens, "u_lens": u_lens, "lse": lse,
                  "total": total, "gb": gb, "gy": gy, "g": g}, h, v, (1, 2))
+    return hh
+
+
+def _transposed(w_pad):
+    """W_lab^T [VLp, H], contiguous: the fp32 cells kernel's dh operand (None
+    in the 16-bit dtypes, whose kernel reads W_pad's rows as it)."""
+    return w_pad.t().contiguous() if w_pad.dtype == torch.float32 else None
 
 
 def _cells_scratch(e, w_pad, bias, win: int):
     """The cells kernel's window scratch (dlab, dblank, dx, h, db partials) and
     its fp32 dh between passes ([win, H], or None for one pass)."""
-    h, vlp, v, dev = e.shape[2], w_pad.shape[1], bias.shape[0], e.device
-    scratch = (torch.empty((win, vlp), dtype=e.dtype, device=dev),
+    h, vlp, v, dev, dt = e.shape[2], w_pad.shape[1], bias.shape[0], e.device, e.dtype
+    scratch = (torch.empty((win, vlp), dtype=dt, device=dev),
                torch.empty((win,), dtype=torch.float32, device=dev),
-               torch.empty((win, h), dtype=e.dtype, device=dev),
-               torch.empty((win, h), dtype=e.dtype, device=dev),
+               torch.empty((win, h), dtype=dt, device=dev),
+               torch.empty((win, h), dtype=dt, device=dev),
                torch.empty((win // TILE_CELLS, v), dtype=torch.float32, device=dev))
-    dh_part = (torch.empty((win, h), dtype=torch.float32, device=dev) if vlp > PASS_COLS
+    dh_part = (torch.empty((win, h), dtype=torch.float32, device=dev) if vlp > PASS_COLS[dt]
                else None)
     return scratch, dh_part
 
 
 def _launch_cells(cells_in, t_lens, u_lens, cell_off, scratch, dh_part, c0: int, win: int,
-                  activation: str, drop_t: int, bt: int, clamp: float) -> None:
-    """One launch of the cells kernel on checked inputs."""
+                  activation: str, drop_t: int, bt: int, clamp: float, hash_h: int,
+                  wt=None) -> None:
+    """One launch of the cells kernel on checked inputs (wt: `_transposed`)."""
     e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed = cells_in
     b, t, h = e.shape
-    u1, v = p.shape[1], bias.shape[0]
-    ptrs = (e, p, w_pad, w_blank, bias, targets, t_lens, u_lens, cell_off, lse, total, gb, gy, g,
-            *scratch)
-    _launch("cells", bwd_launches, (b, t, u1, h, v), e.device,
-            _c_fn("rnnt_joint_bwd_cells_bf16", 20, 12, (ctypes.c_longlong, ctypes.c_float)),
+    u1, v, dt = p.shape[1], bias.shape[0], e.dtype
+    ptrs = (e, p, w_pad, *(() if wt is None else (wt,)), w_blank, bias, targets, t_lens, u_lens,
+            cell_off, lse, total, gb, gy, g, *scratch)
+    _launch("cells", counter("cells", dt), (b, t, u1, hash_h, v), e.device,
+            _c_fn(dt, "rnnt_joint_bwd_cells", len(ptrs) + 1, 13,
+                  (ctypes.c_longlong, ctypes.c_float)),
             *(x.data_ptr() for x in ptrs), None if dh_part is None else dh_part.data_ptr(),
-            b, t, u1, h, v, w_pad.shape[1], padded_t(t, bt), _act_code(activation), int(drop_t),
-            _seed_int(seed), _i32(_hash_base(seed)), win, c0, float(clamp))
+            b, t, u1, h, hash_h, v, w_pad.shape[1], padded_t(t, bt), _act_code(activation),
+            int(drop_t), _seed_int(seed), _i32(_hash_base(seed)), win, c0, float(clamp))
 
 
-def _launch_sums(t_lens, u_lens, cell_off, scratch, acc, c0: int, win: int) -> None:
+def _launch_sums(t_lens, u_lens, cell_off, scratch, acc, c0: int, win: int, hash_h: int) -> None:
     """One launch of the sums kernel on checked inputs."""
     b, t, h = acc[0].shape
-    u1, v = acc[1].shape[1], acc[4].shape[0]
-    _launch("sums", bwd_sums_launches, (b, t, u1, h, v), acc[0].device,
-            _c_fn("rnnt_joint_bwd_sums_f32", 13, 7, (ctypes.c_longlong,)),
+    u1, v, dt = acc[1].shape[1], acc[4].shape[0], scratch[0].dtype
+    _launch("sums", counter("sums", dt), (b, t, u1, hash_h, v), acc[0].device,
+            _c_fn(dt, "rnnt_joint_bwd_sums", 13, 7, (ctypes.c_longlong,)),
             *(x.data_ptr() for x in (t_lens, u_lens, cell_off, *scratch, *acc)),
             b, t, u1, h, v, padded_vl(v), win, c0)
 
 
 def joint_flash_bwd_cells(e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed, *,
                           t_lens, u_lens, c0: int, win: int, activation: str = "relu",
-                          drop_t: int = 0, bt: int = 32, clamp: float = -1.0):
+                          drop_t: int = 0, bt: int = 32, clamp: float = -1.0,
+                          hash_h: int | None = None):
     """K4-bwd's cells kernel over the window [c0, c0 + win) of lattice
     cells (win a multiple of 64): w_pad [H, VLp] and w_blank [H] from
     `pad_label_block` -> (dlab, dblank, dx, h, db partials) as
-    `joint_flash_bwd_cells_reference` gives them; on CUDA the rows past the
+    `joint_flash_bwd_cells_reference` gives them; on CUDA H a multiple of 16
+    (`pad_hidden`, hash_h the width before it) and the rows past the
     lattice's cells are left unwritten."""
     cells_in = (e, p, w_pad, w_blank, bias, targets, lse, total, gb, gy, g, seed)
     if e.device.type == "cpu":
         return joint_flash_bwd_cells_reference(
             *cells_in, t_lens=t_lens, u_lens=u_lens, c0=c0, win=win, activation=activation,
-            drop_t=drop_t, bt=bt, clamp=clamp)
-    _check_cells(*cells_in[:-1], t_lens, u_lens, win)
+            drop_t=drop_t, bt=bt, clamp=clamp, hash_h=hash_h)
+    hh = _check_cells(*cells_in[:-1], t_lens, u_lens, win, hash_h)
     scratch, dh_part = _cells_scratch(e, w_pad, bias, win)
     _launch_cells(cells_in, t_lens, u_lens, lattice_offsets(t_lens, u_lens, e.shape[1], p.shape[1]),
-                  scratch, dh_part, c0, win, activation, drop_t, bt, clamp)
+                  scratch, dh_part, c0, win, activation, drop_t, bt, clamp, hh,
+                  _transposed(w_pad))
     return scratch
 
 
-def joint_flash_bwd_sums(scratch, acc, *, t_lens, u_lens, c0: int, win: int):
+def joint_flash_bwd_sums(scratch, acc, *, t_lens, u_lens, c0: int, win: int,
+                         hash_h: int | None = None):
     """K4-bwd's sums kernel: adds the window's dW, de, dp and db from the
     cells kernel's scratch to `acc` (`bwd_accumulators`) in place, as
-    `joint_flash_bwd_sums_reference`."""
+    `joint_flash_bwd_sums_reference`; hash_h names the caller's width in
+    the launch count."""
     if acc[0].device.type == "cpu":
         return joint_flash_bwd_sums_reference(scratch, acc, t_lens=t_lens, u_lens=u_lens, c0=c0,
                                               win=win)
@@ -745,29 +889,33 @@ def joint_flash_bwd_sums(scratch, acc, *, t_lens, u_lens, c0: int, win: int):
     u1, vlp = acc[1].shape[1], padded_vl(acc[4].shape[0])
     if not all(x.is_cuda and x.is_contiguous() for x in (*scratch, *acc)):
         raise ValueError("the CUDA kernels take contiguous scratch and accumulators on the card")
-    if scratch[0].shape != (win, vlp) or acc[2].shape != (KSPLIT, h, vlp):
+    if scratch[0].shape != (win, vlp) or acc[2].shape != (KSPLIT, h, vlp) or \
+            scratch[0].dtype not in KERNELS or h % 16:
         raise ValueError("want the scratch of `joint_flash_bwd_cells` and `bwd_accumulators`")
     _lens(t_lens, u_lens, b)
-    _launch_sums(t_lens, u_lens, lattice_offsets(t_lens, u_lens, t, u1), scratch, acc, c0, win)
+    _launch_sums(t_lens, u_lens, lattice_offsets(t_lens, u_lens, t, u1), scratch, acc, c0, win,
+                 h if hash_h is None else hash_h)
     return acc
 
 
-def joint_flash_bwd_reduce(acc, dtype):
+def joint_flash_bwd_reduce(acc, dtype, hash_h: int | None = None):
     """K4-bwd's reduce kernel: the K splits summed in a fixed order -> (de
-    [B,T,H] dtype, dp [B,U1,H], dw [H,V], db [V] fp32)."""
+    [B,T,H] dtype, dp [B,U1,H], dw [H,V], db [V] fp32); hash_h names the
+    caller's width in the launch count."""
     if acc[0].device.type == "cpu":
         return joint_flash_bwd_reduce_reference(acc, dtype)
     de_acc, dp, dw_part, dwb_part, db_acc = acc
     b, t, h = de_acc.shape
     u1, v, vlp = dp.shape[1], db_acc.shape[0], dw_part.shape[2]
-    if dtype != torch.bfloat16:
-        raise TypeError("the CUDA kernels write de in bf16")
+    if dtype not in KERNELS:
+        raise TypeError(f"the CUDA kernels write de in {', '.join(map(str, KERNELS))}; "
+                        f"got {dtype}")
     dev = de_acc.device
     dw = torch.empty((h, v), dtype=torch.float32, device=dev)
     db = torch.empty((v,), dtype=torch.float32, device=dev)
     de = torch.empty((b, t, h), dtype=dtype, device=dev)
-    _launch("reduce", bwd_reduce_launches, (b, t, u1, h, v), dev,
-            _c_fn("rnnt_joint_bwd_reduce_f32", 7, 5),
+    _launch("reduce", counter("reduce", dtype), (b, t, u1, h if hash_h is None else hash_h, v),
+            dev, _c_fn(dtype, "rnnt_joint_bwd_reduce", 7, 5),
             *(x.data_ptr() for x in (dw_part, dwb_part, db_acc, de_acc, dw, db, de)),
             b, t, h, v, vlp)
     return de, dp, dw, db

@@ -472,9 +472,9 @@ def test_rnnt_lattice_cuda_kernels_match_plain(cuda_device, case):
                 [plan_of(w, r, strip) for w, r in zip(widths, rows)], (name, threads)
 
 
-def _joint_inputs(dev, b, t, u, h, v, seed=0):
+def _joint_inputs(dev, b, t, u, h, v, seed=0, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
-    bf = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev, torch.bfloat16)
+    bf = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev, dtype)
     e, p = bf(b, t, h, scale=0.5), bf(b, u + 1, h, scale=0.5)
     w, bias = bf(h, v, scale=h ** -0.5), bf(v, scale=0.1)
     targets = torch.randint(0, v - 1, (b, u), generator=g).to(dev, torch.int32)
@@ -609,14 +609,71 @@ def test_rnnt_joint_cuda_fwd_at_the_edge_of_its_tiles(cuda_device, edge, v):
 
 @pytest.mark.gpu
 def test_rnnt_joint_cuda_smem_limits(cuda_device):
-    """The training path refuses, before its forward, an H that the
-    backward's kernels cannot take: H 640 fits at any V, H 704 does not."""
+    """The backward's kernels take every H the forward takes: check_smem
+    passes at every H with fwd_rows(H) > 0 (to 1376, any H padded to 16) at
+    the shipped vocabularies, and refuses H 1392 in the 16-bit dtypes; the
+    fp32 kernels take any H."""
     from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
 
-    for v in (296, 401, 1025):
-        jt.check_smem(640, v)
-    with pytest.raises(ValueError, match="shared memory"):
-        jt.check_smem(704, 296, (1,))
+    takes = [h for h in range(1, 1400) if jt.fwd_rows(h) > 0]
+    assert takes == list(range(1, 1377))
+    for v in (296, 584, 1025):
+        for h in takes:
+            jt.check_smem(h, v, (1, 2))
+            jt.check_smem(h, v, (0, 1, 2), torch.float16)
+        with pytest.raises(ValueError, match="shared memory"):
+            jt.check_smem(1392, v)
+        jt.check_smem(2048, v, (0, 1, 2), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,v,drop_t,activation", [
+    (torch.float16, 64, 41, 26, "tanh"), (torch.float16, 640, 296, 26, "relu"),
+    (torch.float32, 64, 41, 26, "tanh"), (torch.float32, 640, 401, 26, "sigmoid"),
+    (torch.bfloat16, 1024, 296, 26, "relu"), (torch.bfloat16, 1376, 296, 0, "relu"),
+    (torch.bfloat16, 600, 296, 26, "sigmoid"), (torch.bfloat16, 100, 41, 26, "relu")])
+def test_rnnt_joint_cuda_kernels_in_every_dtype_and_width(cuda_device, dtype, h, v, drop_t,
+                                                          activation):
+    """K4's forward and whole backward in fp16 (4e-3 of max) and fp32
+    (2e-5, TF32 off) against the plain version in that dtype, and bf16 (2e-2)
+    at H 1024 and 1376 (past the old backward's 640) and at H 600 and 100
+    (padded to 608 and 112, the hash at the true H): the same bits on a
+    second call, counted under the dtype's kernel names."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    tol = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 2e-5}[dtype]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, t, u = 3, 37, 8
+    e, p, w, bias, targets, g = _joint_inputs(cuda_device, b, t, u, h, v, dtype=dtype)
+    seed = jt.joint_seed(555, 7, t, u + 1, h, 16)
+    t_lens = torch.tensor([37, 20, 1], dtype=torch.int32, device=cuda_device)
+    u_lens = torch.tensor([8, 3, 0], dtype=torch.int32, device=cuda_device)
+    kw = dict(t_lens=t_lens, u_lens=u_lens, blank_id=v - 1, activation=activation,
+              drop_t=drop_t, bt=16)
+    counts = [jt.counter(k, dtype) for k in ("fwd", "cells", "sums", "reduce")]
+    before = [c.total for c in counts]
+    fwd = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    fwd_ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    inside = (torch.arange(t, device=cuda_device)[None, :, None] < t_lens[:, None, None]) & (
+        torch.arange(u + 1, device=cuda_device)[None, None, :] <= u_lens[:, None, None])
+    post = [torch.rand(b, t, u + 1, generator=g).to(cuda_device) * s for s in (1.1, 0.6, 0.6)]
+    args = (e, p, w, bias, targets, fwd_ref[2].contiguous(), *post,
+            torch.tensor([1.0, 0.5, 2.0], device=cuda_device), seed)
+    bwd = jt.joint_flash_bwd(*args, clamp=2.0, **kw)
+    bwd_ref = jt.joint_flash_bwd_reference(*args, clamp=2.0, **kw)
+    again = jt.joint_flash_bwd(*args, clamp=2.0, **kw)
+    torch.cuda.synchronize()
+    assert [c.total - n for c, n in zip(counts, before)] == [1, 2, 2, 2]
+    assert all(torch.equal(a, r) for a, r in zip(bwd, again))
+    for name, a, r in zip(("blank_lp", "label_lp", "lse"), fwd, fwd_ref):
+        assert torch.equal(a[~inside], r[~inside]), name
+        a, r = a[inside], r[inside]
+        assert (a - r).abs().max().item() <= tol * r.abs().max().item(), name
+    for name, a, r in zip(("de", "dp", "dw", "db"), bwd, bwd_ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all(), name
+        assert (a - r).abs().max().item() <= tol * r.abs().max().item(), name
 
 
 @pytest.mark.gpu

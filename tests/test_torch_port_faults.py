@@ -5,9 +5,10 @@
   step (the libraries' limits stood in for, since this machine has no
   card); every depth the forward takes trains, and inference past a
   backward limit is not refused;
-* `joint_impl: auto` does not pick a flash joint whose backward cannot take
-  the joint's width H (the joint library's shared-memory query stood in
-  for);
+* `joint_impl: auto` takes the flash joint at every width H its kernels
+  take (the backward takes every H the forward takes, to 1376 in bf16) and
+  the dense joint past it, saying so once (the joint library's
+  shared-memory query stood in for);
 * the training loader shuffles as the JAX package's `fit` does, with seed
   0, whatever the model's seed.
 """
@@ -142,11 +143,11 @@ def test_fit_checks_the_flash_depth_at_the_longest_batch_before_a_step(monkeypat
 
 
 def _flash_joint_smem(h, v, which):
-    """Stand-in for rnnt_joint_smem_bytes: the backward fits up to H 640."""
-    return SMEM_LIMIT if which == 0 or h <= 640 else 10 ** 6
+    """Stand-in for rnnt_joint_smem_bytes: every kernel fits up to H 1376."""
+    return SMEM_LIMIT if h <= 1376 else 10 ** 6
 
 
-@pytest.mark.parametrize("h,want", [(704, "dense"), (640, "flash")])
+@pytest.mark.parametrize("h,want", [(704, "flash"), (640, "flash"), (1392, "dense")])
 def test_auto_joint_takes_dense_where_the_flash_backward_cannot_take_h(monkeypatch, caplog, h,
                                                                         want):
     monkeypatch.setattr(rnnt_joint, "_lib", lambda: types.SimpleNamespace(

@@ -45,9 +45,12 @@ def _inputs(seed=0, b=2, t=7, u=3, h=16, v=13):
     )
 
 
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
+
+
 def _both(x, dtype):
-    jd, td = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16,
-                                                                   torch.bfloat16)}[dtype]
+    jd, td = DTYPES[dtype]
     return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
 
 
