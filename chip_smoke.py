@@ -203,8 +203,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                its trained ones (finite gradients, loss within PARITY_LOSS_REL; the
                cosine reported: scores in the millions, past an fp32 softmax's
                resolution); K2 on the trained model's first and last layers' own
-               inputs against the plain version in fp64 (ssl_trained_layer*, each
-               error within CAPTURED_ERR_RATIO of the plain fp32 version's);
+               inputs against the plain version in fp64, in bf16 and cast to fp32
+               (ssl_trained_layer*, *_fp32: each error within CAPTURED_ERR_RATIO of
+               the plain fp32 version's, or within the dtype's K2_TOLS);
                transfer_encoder_to a ConformerCTC of the config and one finite fit
                step; steady step, audio-s/s, peak memory
   labels       the label models at their default widths through their CLIs:
@@ -262,13 +263,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                `streaming`); K2-fwd at the resnet serve's calls, K1 at its fit's, K3
                and K4 at the subencoder fit's (path `frontends`); K2-fwd, dQ and dK/dV
                at the SSL step's (path `ssl`), and at the same shapes on exact
-               scores of 1e9 and more (ssl_extreme: lse equal to the plain one bit
-               for bit, the backward within BWD_REL_TOL); K2-fwd at the diarization
+               scores of 1e9 and more in bf16 and fp32 (ssl_extreme,
+               ssl_extreme_fp32: lse equal to the plain one bit for bit, the
+               backward within the dtype's K2_TOLS); K2-fwd at the diarization
                transcript's call (path `diarization`); K2-fwd, dQ and dK/dV at the
                widths phase's fits' calls (path `widths`): Small's (d1 220, dv 44),
                XLarge's (1152, 128), and the flagship shapes in fp16 and in fp32
                (the fp32 kernels of ops/csrc/flash_attention_f32.cu; bounds at the
-               fp32 FMA rate); K4 at the joints phase's calls (path `joints`): fp16
+               fp32 FMA rate, and for the fp32 backward also its own: S and dP at
+               that rate, the gradient products at 495 / 3 TFLOP/s, the larger of
+               the two times); K4 at the joints phase's calls (path `joints`): fp16
                and fp32 (ops/csrc/rnnt_joint_f32.cu, TF32 off) at the transducer
                step's shapes, bf16 at joint widths 1024 and 600, each held to its
                dtype's limit (JOINT_TOLS) and run twice for the same bits; and K4
@@ -288,6 +292,16 @@ config's V and at V 1025) with conformer_nemo_tpu_torch imported from the
 checkout at DIR, so that two versions of the joint can be timed in turns (run
 each checkout's own script from its root with DIR `.`: the cases follow the
 package's interface).
+
+    python3 chip_smoke.py --flash-bench DIR
+
+runs env, build and the K2 cases alone (forward, dQ and dK/dV in bf16, fp16
+and fp32 at the train step's shapes and at the widths phase's Small and
+XLarge shapes, lengths from the loader, and at the train step's shapes with
+every row full) with conformer_nemo_tpu_torch
+imported from the checkout at DIR; run it once with DIR a copy of the parent
+commit and once with `.` to time the two versions' kernels in turns on one
+card (the cases follow the package's interface).
 
 It imports nothing of JAX or of the JAX package, and exits non-zero without
 printing a result when CUDA is not available.
@@ -325,6 +339,7 @@ TRAIN_STEPS = 3
 # H100 SXM published peaks (dense bf16 tensor cores; fp32 outside them; HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3  # fp32 products as three TF32 tensor-core products
 PEAK_BYTES_PER_S = 3.35e12
 
 # K2-fwd vs its plain version on the same bf16 unit-scale inputs: bf16
@@ -939,15 +954,17 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev, dtype=torch.bfloa
               "plain_ms": plain_ms, "library_ms": library_ms}
     rows, peak = [], _k2_peak(dtype)
     iters = 10 if dtype != torch.float32 else 3
-    for kernel, fn, flops, out_bytes, err in (
-            (fa.counter("dq", dtype).name, lambda: fa.flash_attention_bwd_dq(*args),
+    for kind, kernel, fn, flops, out_bytes, err in (
+            ("dq", fa.counter("dq", dtype).name, lambda: fa.flash_attention_bwd_dq(*args),
              2.0 * pairs * (2 * d1 + dv), isz * bh * t * d1, abs_errs["dq"]),
-            (fa.counter("dkv", dtype).name, lambda: fa.flash_attention_bwd_dkv(*args),
+            ("dkv", fa.counter("dkv", dtype).name, lambda: fa.flash_attention_bwd_dkv(*args),
              2.0 * pairs * (2 * d1 + 2 * dv), isz * bh * t * (d1 + dv),
              max(abs_errs["dk"], abs_errs["dv"]))):
         row = {**common, "kernel": kernel, "max_abs_err": err, "ms": time_ms(fn, iters),
                **bound(flops, inputs + out_bytes, peak)}
         row["tflops"] = row["flops"] / (row["ms"] * 1e-3) / 1e12
+        if dtype == torch.float32:
+            row.update(_f32_bwd_bound(kind, pairs, d1, dv))
         emit("kernels", **row)
         rows.append(row)
     # the pair as one function: S once, dP, dQ, dK, dV
@@ -957,7 +974,34 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev, dtype=torch.bfloa
     return rows
 
 
-def _flash_extreme_inputs(bh, t, d1, dv, lens, gen, dev) -> tuple:
+def _f32_bwd_bound(kind: str, pairs: int, d1: int, dv: int) -> dict:
+    """The fp32 backward kernel's bound in its own arithmetic, beside the
+    contract's (every operation at the fp32 FMA rate): S and dP, 2 * pairs *
+    (d1 + dv) FLOPs, at PEAK_FP32_FLOPS on the CUDA cores, and the gradient
+    products (dQ: 2 * pairs * d1; dK and dV: 2 * pairs * (d1 + dv)) at
+    PEAK_3XTF32_FLOPS on the tensor cores; the two pipes work at once, so the
+    larger of the two times. With the kernel's plan (flash_attention_bwd_f32_plan),
+    where the library reports it."""
+    from conformer_nemo_tpu_torch.ops import flash_attention as fa
+
+    fma_ms = 2.0 * pairs * (d1 + dv) / PEAK_FP32_FLOPS * 1e3
+    tc_ms = 2.0 * pairs * (d1 if kind == "dq" else d1 + dv) / PEAK_3XTF32_FLOPS * 1e3
+    out = {"bound_3xtf32_ms": max(fma_ms, tc_ms), "bound_3xtf32_fma_ms": fma_ms,
+           "bound_3xtf32_tc_ms": tc_ms}
+    lib = fa.load("flash_attention_f32.cu")
+    if hasattr(lib, "flash_attention_bwd_f32_plan"):
+        import ctypes
+
+        res, stages, passes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        smem = lib.flash_attention_bwd_f32_plan(fa.padded(d1), fa.padded(dv), int(kind == "dkv"),
+                                                ctypes.byref(res), ctypes.byref(stages),
+                                                ctypes.byref(passes))
+        out["plan"] = {"smem_bytes": smem, "resident": bool(res.value), "stages": stages.value,
+                       "passes": passes.value}
+    return out
+
+
+def _flash_extreme_inputs(bh, t, d1, dv, lens, gen, dev, dtype=torch.bfloat16) -> tuple:
     """K2 inputs whose scores lie far past fp32's integer range and still come
     out exact from any order of summation: qs holds integers in [-8, 8] times
     EXTREME_Q_SCALE in its first d1 / 2 columns and 0 past them, ks integers
@@ -976,20 +1020,22 @@ def _flash_extreme_inputs(bh, t, d1, dv, lens, gen, dev) -> tuple:
     ks = ints(bh, t, d1)
     ks[:, 1::2, :half] = ks[:, 0::2, :half][:, : t // 2]
     v, do = (torch.randn(bh, t, dv, generator=gen, device=dev) for _ in range(2))
-    return (*(x.to(torch.bfloat16) for x in (qs, ks, v, do)),
+    return (*(x.to(dtype) for x in (qs, ks, v, do)),
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-def _flash_extreme_case(name, bh, t, d1, dv, lens, gen, dev) -> dict:
+def _flash_extreme_case(name, bh, t, d1, dv, lens, gen, dev, dtype=torch.bfloat16) -> dict:
     """K2-fwd, dQ and dK/dV against their plain versions at scores of 1e9 and
-    more (_flash_extreme_inputs): lse equal to the plain one bit for bit, o
-    within O_TOL, dQ, dK and dV finite and within BWD_REL_TOL. Beside them,
-    the rows where the forward's earlier lse (the row max kept as
-    x * scale * log2 e, back through ln 2) would have put exp(x - lse) past
-    fp32's range, as an SSL step at the long-form config's rate met it."""
+    more (_flash_extreme_inputs, in `dtype`): lse equal to the plain one bit
+    for bit, o and dQ, dK and dV finite and within the dtype's limits
+    (K2_TOLS). Beside them, the rows where the forward's earlier lse (the
+    row max kept as x * scale * log2 e, back through ln 2) would have put
+    exp(x - lse) past fp32's range, as an SSL step at the long-form config's
+    rate met it."""
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
 
-    qs, ks, v, do, lens_t = _flash_extreme_inputs(bh, t, d1, dv, lens, gen, dev)
+    o_tol, _, rel_tol = K2_TOLS[dtype]
+    qs, ks, v, do, lens_t = _flash_extreme_inputs(bh, t, d1, dv, lens, gen, dev, dtype)
     scale = 1.0 / math.sqrt(64.0)
     o, lse = fa.flash_attention_fwd(qs, ks, v, lens_t, scale)
     o_ref, lse_ref = fa.flash_attention_fwd_reference(qs, ks, v, lens_t, scale)
@@ -1018,15 +1064,16 @@ def _flash_extreme_case(name, bh, t, d1, dv, lens, gen, dev) -> dict:
                + math.log(2.0)).float()
     gap = (lse_ref.double() - lse_old.double()).float()
     rows_old_overflow = int((gap > EXP_F32_MAX_ARG).sum())
-    row = {"case": name, "kernel": "K2-fwd + K2-bwd", "bh": bh, "t": t, "d1": d1, "dv": dv,
-           "q_scale": EXTREME_Q_SCALE, "max_abs_lse": lse_ref.abs().max().item(),
-           "lse_equal": lse_equal, "max_abs_err_o": err_o, "tol_o": O_TOL, "rel_err": errs,
-           "tol_rel": BWD_REL_TOL, "rows": bh * t, "rows_past_exp_range_before": rows_old_overflow}
+    row = {"case": name, "kernel": "K2-fwd + K2-bwd", "dtype": str(dtype), "bh": bh, "t": t,
+           "d1": d1, "dv": dv, "q_scale": EXTREME_Q_SCALE,
+           "max_abs_lse": lse_ref.abs().max().item(), "lse_equal": lse_equal,
+           "max_abs_err_o": err_o, "tol_o": o_tol, "rel_err": errs, "tol_rel": rel_tol,
+           "rows": bh * t, "rows_past_exp_range_before": rows_old_overflow}
     emit("kernels", **row)
     check(lse_equal, (name, "lse differs from the plain version's"))
-    check(err_o <= O_TOL, (name, "o", err_o))
+    check(err_o <= o_tol, (name, "o", err_o))
     for out_name, err in errs.items():
-        check(err <= BWD_REL_TOL, (name, out_name, err))
+        check(err <= rel_tol, (name, out_name, err))
     # the inputs reach the fault's regime (a property of the data, not of a kernel)
     check(rows_old_overflow > 0, (name, "no row reaches past exp's range", row))
     return row
@@ -2096,20 +2143,23 @@ def _captured_attention(out: list, calls: tuple):
         conformer.flash_attention = orig
 
 
-def _flash_captured_case(name, qs, ks, v, lens, scale, left, right, gen) -> dict:
-    """K2 on attention inputs captured from a model: the kernels and the
-    plain fp32 version, each against the plain version in fp64 on the same
-    bf16 inputs (a random dO). Where the scores reach millions, fp32 itself
-    cannot resolve the softmax (a unit in the last place of the scores is
-    worth a factor e in P), so the kernels are held to what the plain fp32
-    version achieves there: every output finite, and each error at most
-    CAPTURED_ERR_RATIO times the plain fp32 version's, or within the
-    usual limits (O_TOL, BWD_REL_TOL)."""
+def _flash_captured_case(name, qs, ks, v, lens, scale, left, right, gen,
+                         dtype=torch.bfloat16) -> dict:
+    """K2 on attention inputs captured from a model (cast to `dtype`): the
+    kernels and the plain fp32 version, each against the plain version in
+    fp64 on the same inputs (a random dO). Where the scores reach millions,
+    fp32 itself cannot resolve the softmax (a unit in the last place of the
+    scores is worth a factor e in P), so the kernels are held to what the
+    plain fp32 version achieves there: every output finite, and each error at
+    most CAPTURED_ERR_RATIO times the plain fp32 version's, or within the
+    dtype's limits (K2_TOLS). In fp32 this is the check that fails if the
+    backward's S leaves the forward's chain."""
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
 
     dev = qs.device
     band = (left, right)
-    do = torch.randn(v.shape, generator=gen, device=dev).to(torch.bfloat16)
+    qs, ks, v = (x.to(dtype) for x in (qs, ks, v))
+    do = torch.randn(v.shape, generator=gen, device=dev).to(dtype)
     o, lse = fa.flash_attention_fwd(qs, ks, v, lens, scale, *band)
     got = (fa.flash_attention_bwd_dq(qs, ks, v, do, lse, (do.float() * o.float()).sum(-1), lens,
                                      scale, *band),
@@ -2128,13 +2178,14 @@ def _flash_captured_case(name, qs, ks, v, lens, scale, left, right, gen) -> dict
     def rel(a, b):
         return ((a.double() - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
 
-    errs, limits = {}, {"o": O_TOL, "dq": BWD_REL_TOL, "dk": BWD_REL_TOL, "dv": BWD_REL_TOL}
+    o_tol, _, rel_tol = K2_TOLS[dtype]
+    errs, limits = {}, {"o": o_tol, "dq": rel_tol, "dk": rel_tol, "dv": rel_tol}
     for out_name, k_out, p_out, x_out in zip(("o", "dq", "dk", "dv"), (o, *got),
                                              (o32, *plain), (o64, *exact)):
         check(bool(torch.isfinite(k_out).all()), (name, out_name, "not finite"))
         errs[out_name] = {"kernel": rel(k_out, x_out), "plain_fp32": rel(p_out, x_out)}
-    row = {"case": name, "kernel": "K2-fwd + K2-bwd", "bh": qs.shape[0], "t": qs.shape[1],
-           "d1": qs.shape[2], "dv": v.shape[2], "scale": scale,
+    row = {"case": name, "kernel": "K2-fwd + K2-bwd", "dtype": str(dtype), "bh": qs.shape[0],
+           "t": qs.shape[1], "d1": qs.shape[2], "dv": v.shape[2], "scale": scale,
            "max_abs_lse": lse64.abs().max().item(),
            "lse_abs_err": {"kernel": (lse.double() - lse64).abs().max().item(),
                            "plain_fp32": (lse32.double() - lse64).abs().max().item()},
@@ -2288,9 +2339,12 @@ def phase_ssl(tmp: str, gpu: str) -> dict:
     with _captured_attention(captured, (0, enc.n_layers - 1)):
         parity.append(_ssl_flash_vs_dense(model, inputs, "trained", hold_cosine=False))
     gen_do = torch.Generator(device=dev).manual_seed(SEED + 9)
-    captured_rows = [_flash_captured_case(f"ssl_trained_layer{i}", *args, gen_do)
+    # the same inputs through the fp32 kernels, held to the fp32 limits
+    captured_rows = [_flash_captured_case(f"ssl_trained_layer{i}{sfx}", *args, gen_do,
+                                          dtype=dtype)
+                     for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_fp32"))
                      for i, args in zip((0, enc.n_layers - 1), captured)]
-    check(len(captured_rows) == 2, ("captured attention calls", len(captured)))
+    check(len(captured_rows) == 4, ("captured attention calls", len(captured)))
     del captured
     free_cuda()
 
@@ -5332,9 +5386,10 @@ def phase_kernels(dev, cfg, flash_calls, train: dict, rnnt: dict, multilang: dic
         free_cuda()
     # the same shapes at scores past fp32's integer range, where the SSL CLI's
     # own rate takes the encoder
-    _flash_extreme_case(f"ssl_extreme_bh{len(lens_ss)}_t{t_ss}", len(lens_ss), t_ss, d1, dv,
-                        lens_ss, gen, dev)
-    free_cuda()
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        _flash_extreme_case(f"ssl_extreme{sfx}_bh{len(lens_ss)}_t{t_ss}", len(lens_ss), t_ss, d1,
+                            dv, lens_ss, gen, dev, dtype=dtype)
+        free_cuda()
     # tiny depths, empty rows, a two-sided band, the top of the forward's range
     # (d1 1152, dv 128), dQ in two passes of columns
     _flash_case("tiny", 4, 200, 80, 16, [200, 100, 1, 0], (-1, -1), gen, dev)
@@ -5525,6 +5580,54 @@ def joint_bench(root: str) -> int:
     return 0
 
 
+def flash_bench(root: str) -> int:
+    """K2 alone, with the package imported from the checkout at `root` (so
+    that two versions can be timed in turns on one card): `_flash_case` and
+    `_flash_bwd_case` in bf16, fp16 and fp32 at the train step's shapes (the
+    long-form Large model: d1 576, dv 64) and at the widths phase's (Small:
+    d1 220, dv 44; XLarge: d1 1152, dv 128), each batch's lengths from the
+    same generated manifests through the loader (no fit), and at the train
+    step's shapes with every row at its full length."""
+    from conformer_nemo_tpu_torch.api import ConformerCTC
+
+    dev = torch.device("cuda")
+    env = phase_env()
+    phase_build()
+    shapes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lf = _write_manifest(tmp, "lf_train", 16, 45.0, 75.0, np.random.RandomState(SEED + 1))
+        wd = _write_manifest(tmp, "widths", WIDTHS_FILES, WIDTHS_SECONDS, WIDTHS_SECONDS,
+                             np.random.RandomState(SEED + 21))
+        for name, config, overrides, manifest in (
+                ("flagship", LONGFORM, TRAIN_OVERRIDES, lf),
+                ("small", CONFIG, {**SMALL_OVERRIDES, **SMALL_FIT}, wd),
+                ("xlarge", CONFIG, WIDE_OVERRIDES, wd)):
+            model = ConformerCTC.from_config_file(config, overrides=overrides, seed=SEED)
+            batch = next(iter(model._loader(manifest, model.raw_cfg["model"]["train_ds"],
+                                            shuffle=True)))
+            enc = model.cfg.encoder
+            t = encoder_frames(model.cfg, [batch.audio.shape[1]])[0]
+            lens = [n for n in encoder_frames(model.cfg, batch.audio_lens.tolist())
+                    for _ in range(enc.n_heads)]
+            shapes[name] = (len(lens), t, enc.d_head + enc.d_model, enc.d_head, lens)
+            del model
+            free_cuda()
+    bh, t, d1, dv, _ = shapes["flagship"]
+    shapes["flagship_full"] = (bh, t, d1, dv, [t] * bh)  # every row at T: the most pairs
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ms = {}
+    for name, (bh, t, d1, dv, lens) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            case = f"bench_{name}_{str(dtype).split('.')[-1]}_bh{bh}_t{t}"
+            rows = [_flash_case(case, bh, t, d1, dv, lens, (-1, -1), gen, dev, dtype=dtype),
+                    *_flash_bwd_case(case, bh, t, d1, dv, lens, (-1, -1), gen, dev, dtype=dtype)]
+            ms[case] = {r["kernel"]: r["ms"] for r in rows}
+            ms[case]["library_bwd"] = rows[1]["library_ms"]
+            free_cuda()
+    emit("flash_bench", root=os.path.abspath(root), nvidia_smi=env["nvidia_smi"], ms=ms)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
@@ -5535,6 +5638,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--joint-bench"]:
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         return joint_bench(sys.argv[2])
+    if sys.argv[1:2] == ["--flash-bench"]:
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        return flash_bench(sys.argv[2])
     from conformer_nemo_tpu_torch.api import ConformerCTC
 
     dev = torch.device("cuda")

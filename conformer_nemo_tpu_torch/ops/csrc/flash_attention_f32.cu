@@ -14,38 +14,93 @@
 //
 // with the same masking (keys and queries past lens, the (left, right)
 // band), the same empty-row rule (o = 0, lse = 0) and the same outputs (o,
-// dq, dk, dv in fp32; lse in fp32).
+// dq, dk, dv in fp32; lse in fp32). No atomics: every output is the same
+// bits on every call.
 //
-// Why not the tensor cores: TF32 keeps 10 bits of mantissa and reads about
-// 1e-3 off an fp32 reference, where a model that asks for fp32 is held to
-// fp32's own rounding. So every product here is fp32 FMA on the CUDA cores.
-// Bound on an H100: 2 * pairs * (d1 + dv) FLOPs forward and 2 * pairs *
-// (3 * d1 + 2 * dv) backward at 67 TFLOP/s fp32 (against the bytes at 3.35
-// TB/s: far under the ridge, so the arithmetic bounds them).
+// S in one chain. Every kernel here forms each score S_ij as one fmaf chain
+// over the depth in order from 0.0f (`tile_dot` in the forward,
+// `chain_box` in the backward), then x = fl(S * scale): the backward's x is
+// the forward's bit for bit, so x - lse <= 0 and P <= 1 hold at scores in the
+// millions, where a unit in the last place of x is worth a factor e in P
+// (see p_of). That is why S stays on the CUDA cores: a tensor-core product
+// sums in the hardware's order, and the forward would have to change with
+// it. TF32 alone keeps 10 bits of mantissa and reads about 1e-3 off an fp32
+// reference, where a model that asks for fp32 is held to fp32's rounding.
 //
-// Design (simple and right first):
-//   * 256 threads a block as a 16 x 16 grid; thread (ty, tx) owns rows
-//     4ty..4ty+3 and columns tx, tx+16, tx+32, tx+48 of a 64 x 64 score tile;
-//   * S (and dP) accumulate in one fmaf chain per element over the depth in
-//     order (`tile_dot`), from 32-deep chunks of both sides staged in shared
-//     memory transposed; the three kernels run the same chain, so the
-//     backward's S is the forward's bit for bit (as in the 16-bit kernels:
-//     see p_of there);
-//   * the forward: one block per (64-query tile, bh) over the key tiles in
-//     band, the online softmax on the thread's S registers (row max and sum
-//     by shuffles over the 16 lanes of a row), P through shared memory into
-//     O += P V with O in registers (dv <= 128: 32 a thread);
-//   * dQ: one block per (64-query tile, bh, pass of dQ columns) over the key
-//     tiles; dK/dV: one block per (64-key tile, bh, pass of dK columns) over
-//     the query tiles, dV in the first pass. A pass holds up to 256 columns
-//     in registers (64 a thread), so there is no limit on d1; each pass
-//     recomputes S and dP;
-//   * no atomics: every output is the same bits on every call.
-// Shared memory: 81 KB forward, 113 KB dQ, 145 KB dK/dV, whatever d1.
+// The forward (simple and right first; not redesigned): 256 threads a block
+// as a 16 x 16 grid, thread (ty, tx) owns rows 4ty..4ty+3 and columns tx,
+// tx+16, tx+32, tx+48 of a 64 x 64 score tile; S accumulates from 32-deep
+// chunks of both sides staged in shared memory transposed; the online
+// softmax on the thread's S registers (row max and sum by shuffles over the
+// 16 lanes of a row), P through shared memory into O += P V with O in
+// registers (dv <= 128: 32 a thread). 81 KB of shared memory, whatever d1.
+// Bound: 2 * pairs * (d1 + dv) FLOPs at 67 TFLOP/s fp32.
+//
+// The backward (redesigned for Hopper): one template over the dQ kernel
+// (own side the queries, other side the keys) and the dK/dV kernel (own side
+// the keys, other side the queries; the band inverts), one block of 12 warps
+// per (bh, 32 own rows, pass of 576 gradient columns), looping over the
+// other side's 64-row tiles in band. What bounds it on an H100: S and dP,
+// 2 * pairs * (d1 + dv) FLOPs on the fp32 FMA pipe (67 TFLOP/s), and the
+// gradient products, 2 * pairs * d1 (dQ) or 2 * pairs * (d1 + dv) (dK, dV),
+// on the tensor cores in 3xTF32 (495 / 3 = 165 TFLOP/s effective at most:
+// mma.sync does not reach the card's TF32 peak); the bytes each input and
+// output moves once are far under either. The pieces, and what each does
+// about its bound:
+//   * S and dP on the CUDA cores, 4 "S" warps: a thread owns a 4 x 4 piece of
+//     the 32 x 64 score tile (own rows 4i.., other rows j + 16c) and reads both
+//     operands as 16-byte shared loads of 4 depth steps (`chain_box`). Shared
+//     memory delivers a block 32 floats a clock against 128 FMAs, so the
+//     loads bound it: 0.5 floats an FMA here (a 2 x 4 piece reads 0.75). The
+//     S warps then form P and dS, split them into tf32
+//     hi and lo, and write them to a shared [32 x 64] tile of (hi, hi, lo, lo)
+//     pairs, double-buffered, so they run a tile ahead of the G warps;
+//   * the gradients on the tensor cores, 8 "G" warps: dQ (dK, and dV in pass
+//     0) stays in fp32 mma fragments across the whole loop, each warp all 32
+//     own rows x up to 9 n-tiles of 8 columns (72 registers a thread), dV 2
+//     n-tiles more. One pass over the gradient columns up to d1 576 (Small's
+//     224, Large's 576; XLarge's 1152 in two, d_model 640's 720 in two), so S
+//     and dP are formed once per (own tile, other tile, pass). Each product
+//     is 3xTF32 (mma.sync m16n8k8): dS (P) hi and lo come from their tile
+//     with one 16-byte load a fragment row; the other side's rows are split
+//     in registers as their fragments are read, so the streamed tiles stay
+//     fp32. The mma's k index runs over other rows 2t and 2t + 1 (t = lane %
+//     4) on both sides, so both operands' reads are free of bank conflicts. A
+//     k-step's three products are summed apart and added to the fragment with
+//     an fp32 add: accumulated on the tensor cores, which round toward zero,
+//     the gradients drift from the plain fp32 version as T grows, near the
+//     2e-5 limit at the flagship's T 1843;
+//   * streaming: each warp group has a ring of tensor copies (the Tensor
+//     Memory Accelerator; [rows x 32] fp32 boxes with the 128-byte swizzle,
+//     so the 8 rows a load instruction reads hit 8 distinct bank groups): the
+//     S ring carries per other tile its d1 columns in [64 x 32] boxes (beside
+//     the own rows' boxes where they stream) and its dv columns with the own
+//     dO (v) rows; the gradient ring the tile's rows again in 8-row chunks of
+//     the pass's columns (one mma k-step each; the dK/dV kernel's pass 0 adds
+//     the dO rows for dV). The other side is read twice, from L2, so that
+//     shared memory holds no 64 x d1 tile. Each ring is refilled by its
+//     group's warps in turn, after the barrier at which every warp of the
+//     group is done with the stage (a dedicated producer warp would make 13
+//     warps, which the register file allots as 16: 128 registers a thread);
+//     a gradient chunk's boxes are issued by one warp's lanes at once. The
+//     own d1 rows stay resident where that leaves room for 4 gradient
+//     stages, else they stream; nothing sets a limit on d1;
+//   * shared memory (`plan`, reported by flash_attention_bwd_f32_plan): at d1
+//     576, dv 64 both kernels stream their own rows: dQ 4 S stages of 12 KB,
+//     7 gradient stages of 18 KB and two 18 KB dS tiles, 211 KB; dK/dV the
+//     same S ring, 5 gradient stages of 20 KB and two dS and two P tiles,
+//     221 KB; the own rows stay resident up to d1 544 (dQ) and 384 (dK/dV)
+//     at dv 64 (Small's 224 in both). One block an SM;
+//   * no atomics: every output is the same bits on every call. The outputs go
+//     straight from the fragments to device memory as 8-byte stores.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "flash_tiles.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -53,8 +108,6 @@ constexpr int TT = 64;                 // rows of a tile (queries or keys)
 constexpr int NTH = 256;               // threads a block: 16 x 16
 constexpr int DC = 32;                 // depth of a staged chunk
 constexpr int LDC = TT + 1;            // float row stride of a chunk and of a P / dS tile
-constexpr int MAXW = 256;              // columns of a pass
-constexpr int NJ = MAXW / 16;          // accumulator columns a thread row holds in a pass
 constexpr int MAXDV = 128;
 constexpr int NJV = MAXDV / 16;        // output columns a thread row holds of o and dv
 constexpr float NEG_INF = -1e30f;
@@ -227,189 +280,498 @@ fwd_kernel(const float* __restrict__ qs, const float* __restrict__ ks,
   }
 }
 
-// P of a visible pair from its S accumulator, as the 16-bit kernels form it
+// P of a visible pair from its S accumulator, as the 16-bit kernels form it:
+// x = fl(S * scale), rounded as the forward rounds it (never fused into the
+// subtraction), then exp(min(x - lse, 0)); with S the forward's chain, x is
+// the forward's x bit for bit and x - lse <= 0
 __device__ inline float p_of(float sv, float scale, float lse) {
   return expf(fminf(__fmul_rn(sv, scale) - lse, 0.f));
 }
 
-// one block per (64-query tile, bh, pass of `pw` dQ columns from pw * z)
-__global__ void __launch_bounds__(NTH, 1)
-dq_kernel(const float* __restrict__ qs, const float* __restrict__ ks,
-          const float* __restrict__ v, const float* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          const int* __restrict__ lens, float* __restrict__ dq, int T, int d1, int dv,
-          float scale, int left, int right, int pw) {
-  extern __shared__ float sm[];
-  float *As = sm + Smem::a, *Bs = sm + Smem::b, *Ds = sm + Smem::d, *Kp = sm + Smem::x;
-  const int bh = blockIdx.y, q0 = blockIdx.x * TT, c0 = blockIdx.z * pw;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int klim = min(max(lens[bh], 0), T);
-  const float* k_bh = ks + (size_t)bh * T * d1;
-  const float* v_bh = v + (size_t)bh * T * dv;
-  int lo, hi;
-  band_tiles(q0, T, klim, left, right, &lo, &hi);
-  if (q0 >= klim) hi = lo;  // every query row of the tile is past the length
-  float lse_r[4], delta_r[4], acc[4][NJ];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
-    lse_r[r] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
-    delta_r[r] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
+// ---------------------------------------------------------------------------
+// The backward: one template over the dQ kernel (KV false) and the dK/dV
+// kernel (KV true)
+// ---------------------------------------------------------------------------
+
+namespace bwd {
+
+using namespace tc;
+
+constexpr int OWN = 32;      // rows of the block's own side (queries for dQ, keys for dK/dV)
+constexpr int OTH = 64;      // rows of a tile of the other side
+constexpr int BOXW = 32;     // columns of a box: 128 bytes of fp32
+constexpr int S_WARPS = 4;   // warps that form S, dP, P and dS on the FMA pipe
+constexpr int G_WARPS = 8;   // warps that hold the gradients and run the tensor-core products
+constexpr int THREADS = (S_WARPS + G_WARPS) * 32;
+constexpr int NT = 9;        // n-tiles of 8 gradient columns a G warp holds in a pass
+constexpr int PASS = G_WARPS * NT * 8;  // 576 gradient columns a pass
+constexpr int KSTEP = 8;     // other rows of a gradient chunk: one mma k-step
+constexpr int NG = OTH / KSTEP;         // gradient chunks of an other tile
+constexpr int LDD = 2 * OTH + 16;       // floats a dS / P row: 32 (hi, hi, lo, lo) pairs, padded
+constexpr int S_STAGES = 4;
+constexpr int MAX_G_STAGES = 8;
+constexpr int MIN_RESIDENT_G_STAGES = 4;
+constexpr size_t OWN_BOX = sizeof(float) * OWN * BOXW;    // a [32 x 32] box
+constexpr size_t OTH_BOX = sizeof(float) * OTH * BOXW;    // a [64 x 32] box
+constexpr size_t ROW_BOX = sizeof(float) * KSTEP * BOXW;  // an [8 x 32] box
+constexpr size_t S_STAGE = OWN_BOX + OTH_BOX;             // an S or dP chunk: a box of each side
+constexpr size_t TILE = sizeof(float) * OWN * LDD;        // a dS or P tile
+constexpr size_t BARS = 256;                              // the mbarriers
+
+struct Layout {
+  int nc1, nc2;   // boxes of 32 columns over d1 and over dv
+  int gb1;        // boxes of a gradient chunk over a pass's columns (the first pass's)
+  int g_stages;
+  bool resident;  // the block's own d1 rows stay in shared memory
+  // byte offsets from the block's 1024-aligned base (the resident rows at
+  // 0), and the dynamic shared memory a launch asks for (1024 of it to align)
+  size_t s_ring, g_ring, g_stage, ds, p, bar, total;
+};
+
+__host__ __device__ inline Layout layout(bool kv, bool resident, int g_stages, int d1, int dv) {
+  Layout L;
+  L.nc1 = (d1 + BOXW - 1) / BOXW;
+  L.nc2 = (dv + BOXW - 1) / BOXW;
+  L.gb1 = ((d1 < PASS ? d1 : PASS) + BOXW - 1) / BOXW;
+  L.g_stages = g_stages;
+  L.resident = resident;
+  L.g_stage = ROW_BOX * (L.gb1 + (kv ? L.nc2 : 0));
+  L.s_ring = resident ? OWN_BOX * L.nc1 : 0;
+  L.g_ring = L.s_ring + S_STAGES * S_STAGE;
+  L.ds = L.g_ring + g_stages * L.g_stage;  // two dS tiles, then (dK/dV) two P tiles
+  L.p = L.ds + 2 * TILE;
+  L.bar = L.p + (kv ? 2 * TILE : 0);
+  L.total = L.bar + BARS + 1024;
+  return L;
+}
+
+// The layout a launch at (d1, dv) takes: the own d1 rows resident where that
+// leaves room for MIN_RESIDENT_G_STAGES gradient stages, else streamed; as
+// many gradient stages as fit, up to MAX_G_STAGES. Streamed, two always fit:
+// a gradient stage is at most 22 KB (576 columns and dv 128 in 8-row boxes).
+inline Layout plan(bool kv, int d1, int dv) {
+  for (int s = MAX_G_STAGES; s >= MIN_RESIDENT_G_STAGES; --s) {
+    const Layout L = layout(kv, true, s, d1, dv);
+    if (L.total <= flash::SMEM_BLOCK) return L;
   }
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * TT;
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot(s, qs + (size_t)bh * T * d1, q0, T, k_bh, k0, T, d1, As, Bs);
-    tile_dot(dp, dout + (size_t)bh * T * dv, q0, T, v_bh, k0, T, dv, As, Bs);
-    __syncthreads();  // every thread is done with the previous tile's dS and Ks columns
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + 4 * ty + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tx + 16 * c;
-        const bool ok = qi < klim && kj < klim && in_band(qi, kj, left, right);
-        const float p = ok ? p_of(s[r][c], scale, lse_r[r]) : 0.f;
-        Ds[(4 * ty + r) * LDC + tx + 16 * c] = ok ? p * (dp[r][c] - delta_r[r]) * scale : 0.f;
-      }
-    }
-    load_tile(Kp, MAXW, k_bh, d1, k0, T, c0, pw);
-    __syncthreads();
-    for (int k = 0; k < TT; ++k) {
-      float ds[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) ds[r] = Ds[(4 * ty + r) * LDC + k];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (tx + 16 * j < pw) {
-          const float kv = Kp[k * MAXW + tx + 16 * j];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(ds[r], kv, acc[r][j]);
-        }
-      }
-    }
+  for (int s = MAX_G_STAGES; s > 2; --s) {
+    const Layout L = layout(kv, false, s, d1, dv);
+    if (L.total <= flash::SMEM_BLOCK) return L;
   }
+  return layout(kv, false, 2, d1, dv);
+}
+
+// Tensor maps of a launch: the own side's and the other side's d1 rows (qs
+// and ks) as [32 x 32] and [64 x 32] boxes, their dv rows (dO and v) the same,
+// and the other side's d1 and dv rows as [8 x 32] boxes for the gradient
+// chunks (g2: dO, the dK/dV kernel's dV).
+struct Maps {
+  CUtensorMap own_s, oth_s, own_p, oth_p, g1, g2;
+};
+
+// Element (r, c) of a box of 32-float rows written with the 128-byte
+// swizzle: the 16-byte unit c / 4 of row r sits at unit (c / 4) ^ (r % 8).
+// The box starts 1024-byte aligned.
+__device__ inline int swz(int r, int c) { return r * BOXW + ((((c >> 2) ^ r) & 7) << 2) + (c & 3); }
+
+// acc[r][c] += sum over the box's 32 columns, in order, of A[ra + r][.] *
+// B[rb + 16c][.]: one fmaf chain per element, as tile_dot forms it (fmaf's
+// two factors commute exactly, so the dK/dV kernel's K-times-Qs chain is the
+// forward's Qs-times-K one). A is a [32 x 32] box, B a [64 x 32] box, both
+// swizzled; ra % 4 == 0 and rb % 8 is the lane's column tc, so the 8 lanes of
+// a quarter warp read one A row, or 8 B rows at distinct units. Shared
+// memory gives a block 32 floats a clock against 128 FMAs: the 4 x 4 piece
+// reads 0.5 floats an FMA.
+__device__ inline void chain_box(float (&acc)[4][4], const float* A, const float* B, int ra,
+                                 int rb) {
+  const float* a = A + ra * BOXW;
+  const float* b = B + rb * BOXW;
+  const int xa = ra & 7, xb = rb & 7;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
-    if (qi >= T) continue;
+  for (int u = 0; u < BOXW / 4; ++u) {
+    float4 x[4], y[4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (tx + 16 * j < pw && c < d1) dq[((size_t)bh * T + qi) * d1 + c] = acc[r][j];
-    }
+    for (int r = 0; r < 4; ++r)
+      x[r] = *reinterpret_cast<const float4*>(a + r * BOXW + ((u ^ (xa + r)) << 2));
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      y[c] = *reinterpret_cast<const float4*>(b + c * 16 * BOXW + ((u ^ xb) << 2));
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].x, y[c].x, acc[r][c]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].y, y[c].y, acc[r][c]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].z, y[c].z, acc[r][c]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].w, y[c].w, acc[r][c]);
   }
 }
 
-// one block per (64-key tile, bh, pass of `pw` dK columns from pw * z); dV
-// in pass 0
-__global__ void __launch_bounds__(NTH, 1)
-dkv_kernel(const float* __restrict__ qs, const float* __restrict__ ks,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           const int* __restrict__ lens, float* __restrict__ dk, float* __restrict__ dvo, int T,
-           int d1, int dv, float scale, int left, int right, int pw) {
-  extern __shared__ float sm[];
-  float *As = sm + Smem::a, *Bs = sm + Smem::b, *Ps = sm + Smem::p, *Ds = sm + Smem::d;
-  float *Qp = sm + Smem::x, *dOs = Qp + TT * MAXW;
-  const int bh = blockIdx.y, k0 = blockIdx.x * TT, c0 = blockIdx.z * pw;
-  const bool with_dv = blockIdx.z == 0;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int klim = min(max(lens[bh], 0), T);
-  const float* q_bh = qs + (size_t)bh * T * d1;
-  const float* do_bh = dout + (size_t)bh * T * dv;
-  // the window inverts: a key tile meets queries up to `right` before it and
-  // `left` after it
-  int lo, hi;
-  band_tiles(k0, T, klim, right, left, &lo, &hi);
-  if (k0 >= klim) hi = lo;
-  float acc[4][NJ], dva[4][NJV];
+// The A fragments (hi and lo) of own rows 16m.. at k-step ks from a dS or P
+// tile: other rows 8ks + 2t and 8ks + 2t + 1 are the fragment's k = t and t
+// + 4 (t = lane % 4), one (hi, hi, lo, lo) pair of a row
+__device__ inline void a_frags(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile, int m,
+                               int ks, int g, int t) {
+  const float4 x = *reinterpret_cast<const float4*>(tile + (16 * m + g) * LDD + 4 * (4 * ks + t));
+  const float4 y =
+      *reinterpret_cast<const float4*>(tile + (16 * m + g + 8) * LDD + 4 * (4 * ks + t));
+  hi[0] = __float_as_uint(x.x); hi[1] = __float_as_uint(y.x);
+  hi[2] = __float_as_uint(x.y); hi[3] = __float_as_uint(y.y);
+  lo[0] = __float_as_uint(x.z); lo[1] = __float_as_uint(y.z);
+  lo[2] = __float_as_uint(x.w); lo[3] = __float_as_uint(y.w);
+}
+
+// Where this lane's B fragment of n-tile `nt` (columns 8nt.. of [8 x 32]
+// boxes stacked by column) sits in a gradient chunk: the float offset of its
+// row 2t element, column 8nt + g; row 2t + 1's is one row on, at unit
+// (c / 4) ^ (2t + 1), row 2t's unit XOR 1 (b_next)
+__device__ inline int b_at(int nt, int g, int t) {
+  const int col = 8 * nt + g;
+  return (col >> 5) * KSTEP * BOXW + swz(2 * t, col & 31);
+}
+__device__ inline int b_next(int at) { return (at + BOXW) ^ 4; }
+
+// The B fragment (hi, lo split) at offset `at` (b_at) of a gradient chunk
+__device__ inline void b_frag(uint32_t (&b)[4], const float* chunk, int at) {
+  split_tf32(chunk[at], b[0], b[2]);
+  split_tf32(chunk[b_next(at)], b[1], b[3]);
+}
+
+// acc += a b over one k-step in 3xTF32, the k-step's three products summed
+// apart first: the tensor cores round each accumulation toward zero, which
+// over a whole loop of k-steps into acc drifts by ~1e-5; a k-step's own sum
+// is small and its error random in sign, and acc takes it with an fp32 add
+__device__ inline void mma_step(float (&acc)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                const uint32_t (&b)[4]) {
+  float t[4];
+  mma1688_3x(t, ah, al, b[0], b[1], b[2], b[3]);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJV; ++j) dva[r][j] = 0.f;
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// a barrier of one warp group: id 1 the S warps, id 2 the G warps
+__device__ inline void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// RES: the own d1 rows resident (else streamed beside the other side's
+// boxes). grad: dq (KV false) or dk (KV true) [bh, T, d1]; dvo: dv [bh, T,
+// dv] (KV). Two warp groups work on the other tiles at once, a tile or two
+// apart: the S warps form tile j's S and dP (FMA chains) and write its P and
+// dS into shared buffer j % 2; the G warps take them from there with the
+// tile's rows streamed again, into the gradients (tensor cores). Each group
+// has its own ring of tensor copies, refilled by its warps in turn.
+template <bool KV, bool RES>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_kernel(const __grid_constant__ Maps maps, const float* __restrict__ lse,
+           const float* __restrict__ delta, const int* __restrict__ lens,
+           float* __restrict__ grad, float* __restrict__ dvo, int T, int d1, int dv,
+           float scale, int left, int right, int g_stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const Layout L = layout(KV, RES, g_stages, d1, dv);
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(smem + L.bar);  // an S / dP chunk has landed
+  uint64_t* g_full = s_full + S_STAGES;                           // a gradient chunk has landed
+  uint64_t* ds_full = g_full + MAX_G_STAGES;   // a tile's dS (and P) are in buffer b
+  uint64_t* ds_empty = ds_full + 2;            // the G warps are done with buffer b
+  uint64_t* obar = ds_empty + 2;               // the resident rows have landed
+
+  const int bh = blockIdx.y, own0 = blockIdx.x * OWN;
+  const int pc0 = blockIdx.z * PASS;                // this pass's first gradient column
+  const int pw = min(PASS, d1 - pc0);               // and its width
+  const bool with_dv = KV && blockIdx.z == 0;       // dV once, in the first pass
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int klim = min(max(lens[bh], 0), T);        // keys and queries < klim are valid
+
+  // other tiles in band of own rows own0..own0+31 (_band_tile_bounds; for
+  // the dK/dV kernel the window inverts), capped at the length; none when
+  // every own row is past the length
+  const int before = KV ? right : left, after = KV ? left : right;
+  const int n_tiles = (T + OTH - 1) / OTH;
+  int lo = 0, hi = n_tiles;
+  if (before >= 0) lo = max(own0 - before, 0) / OTH;
+  if (after >= 0) hi = min((own0 + OWN - 1 + after) / OTH + 1, n_tiles);
+  hi = min(hi, (klim + OTH - 1) / OTH);
+  if (own0 >= klim) hi = lo;
+
+  const int gb1 = (pw + BOXW - 1) / BOXW;  // this pass's boxes in a gradient chunk
+  const int ns = L.nc1 + L.nc2;            // S and dP chunks of a tile
+  const int own_row = bh * T + own0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S_STAGES; ++s) mbar_init(&s_full[s], 1);
+    for (int s = 0; s < g_stages; ++s) mbar_init(&g_full[s], 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&ds_full[b], S_WARPS * 32);
+      mbar_init(&ds_empty[b], G_WARPS * 32);
+    }
+    mbar_init(obar, 1);
+    mbar_fence_init();
   }
-  for (int qt = lo; qt < hi; ++qt) {
-    const int q0 = qt * TT;
-    // S^T = K Qs^T and dP^T = V dO^T: the forward's chains, operands swapped
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot(s, ks + (size_t)bh * T * d1, k0, T, q_bh, q0, T, d1, As, Bs);
-    tile_dot(dp, v + (size_t)bh * T * dv, k0, T, do_bh, q0, T, dv, As, Bs);
-    __syncthreads();  // every thread is done with the previous tile's P, dS, Qs and dO
+  __syncthreads();
+  // chunks of each ring (none where no tile is in band: the gradients are 0)
+  const int n_s = max(hi - lo, 0) * ns, n_g = max(hi - lo, 0) * NG;
+
+  if (warp < S_WARPS) {
+    // ------------------------------------------------------------------ S warps
+    // S chunk i: tile lo + i / ns; depth box c = i % ns over d1, then over dv
+    auto s_issue = [&](int i) {
+      const int st = i % S_STAGES, ot = lo + i / ns, c = i % ns;
+      const bool d1_part = c < L.nc1;
+      const bool with_own = !RES || !d1_part;
+      mbar_arrive_expect(&s_full[st], OTH_BOX + (with_own ? OWN_BOX : 0));
+      unsigned char* dst = smem + L.s_ring + st * S_STAGE;
+      const int col = BOXW * (d1_part ? c : c - L.nc1);
+      tma_load_2d(dst, d1_part ? &maps.oth_s : &maps.oth_p, col, bh * T + ot * OTH, &s_full[st]);
+      if (with_own)
+        tma_load_2d(dst + OTH_BOX, d1_part ? &maps.own_s : &maps.own_p, col, own_row,
+                    &s_full[st]);
+    };
+    if (threadIdx.x == 0) {
+      if (RES && n_s > 0) {
+        mbar_arrive_expect(obar, OWN_BOX * L.nc1);
+        for (int c = 0; c < L.nc1; ++c)
+          tma_load_2d(smem + c * OWN_BOX, &maps.own_s, BOXW * c, own_row, obar);
+      }
+      for (int i = 0; i < min(S_STAGES, n_s); ++i) s_issue(i);
+    }
+    if (RES && n_s > 0) mbar_wait(obar, 0);
+    // Score piece of this thread: own rows ra .. ra + 3, other rows rb + 16c
+    // (c < 4) of the 32 x 64 tile
+    const int ra = 16 * (warp & 1) + 4 * (l >> 3), rb = 8 * (warp >> 1) + (l & 7);
+    const float* lse_bh = lse + (size_t)bh * T;
+    const float* delta_bh = delta + (size_t)bh * T;
+    float lse_o[4], delta_o[4];  // dQ: the own rows' (queries')
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int qi = q0 + tx + 16 * c;
-      const float lse_q = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
-      const float delta_q = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+    for (int r = 0; r < 4; ++r) {
+      const int qi = own0 + ra + r;
+      lse_o[r] = !KV && qi < T ? lse_bh[qi] : 0.f;
+      delta_o[r] = !KV && qi < T ? delta_bh[qi] : 0.f;
+    }
+    int i = 0;  // S chunks taken
+    for (int it = lo; it < hi; ++it) {
+      const int o0 = it * OTH;
+      float lse_c[4], delta_c[4];  // dK/dV: the queries of this thread's score columns
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = o0 + rb + 16 * c;
+        lse_c[c] = KV && qi < T ? lse_bh[qi] : 0.f;
+        delta_c[c] = KV && qi < T ? delta_bh[qi] : 0.f;
+      }
+      // S over d1 in the forward's chain (S^T for the dK/dV kernel), then dP
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+      for (int c = 0; c < ns; ++c, ++i) {
+        // chunk i, once it has landed and every S warp is done with chunk
+        // i - 1, whose stage S warp i % 4 refills with chunk i - 1 + stages
+        const int st = i % S_STAGES;
+        mbar_wait(&s_full[st], (i / S_STAGES) & 1);
+        group_sync(1, S_WARPS * 32);
+        if (i > 0 && i - 1 + S_STAGES < n_s && threadIdx.x == 32 * (i % S_WARPS)) {
+          fence_proxy_async();
+          s_issue(i - 1 + S_STAGES);
+        }
+        const float* stf = reinterpret_cast<const float*>(smem + L.s_ring + st * S_STAGE);
+        if (c < L.nc1)
+          chain_box(s, RES ? reinterpret_cast<const float*>(smem) + c * (OWN_BOX / 4)
+                           : stf + OTH_BOX / 4,
+                    stf, ra, rb);
+        else
+          chain_box(dp, stf + OTH_BOX / 4, stf, ra, rb);
+      }
+      // the tile's P and dS, split for the tensor cores, into buffer j % 2
+      // once the G warps are done with the tile two before (j: the tile's
+      // place from lo)
+      const int j = it - lo, b = j & 1;
+      if (j >= 2) mbar_wait(&ds_empty[b], ((j >> 1) - 1) & 1);
+      float* ds_t = reinterpret_cast<float*>(smem + L.ds + b * TILE);
+      float* p_t = reinterpret_cast<float*>(smem + L.p + b * TILE);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int kj = k0 + 4 * ty + r;
-        const bool ok = kj < klim && qi < klim && in_band(qi, kj, left, right);
-        const float p = ok ? p_of(s[r][c], scale, lse_q) : 0.f;
-        Ps[(4 * ty + r) * LDC + tx + 16 * c] = p;
-        Ds[(4 * ty + r) * LDC + tx + 16 * c] = ok ? p * (dp[r][c] - delta_q) * scale : 0.f;
-      }
-    }
-    load_tile(Qp, MAXW, q_bh, d1, q0, T, c0, pw);
-    if (with_dv) load_tile(dOs, MAXDV, do_bh, dv, q0, T, 0, dv);
-    __syncthreads();
-    for (int q = 0; q < TT; ++q) {
-      float ds[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) ds[r] = Ds[(4 * ty + r) * LDC + q];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (tx + 16 * j < pw) {
-          const float qv = Qp[q * MAXW + tx + 16 * j];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][j] = fmaf(ds[r], qv, acc[r][j]);
+        for (int c = 0; c < 4; ++c) {
+          const int oi = own0 + ra + r, oj = o0 + rb + 16 * c;
+          const int qi = KV ? oj : oi, kj = KV ? oi : oj;
+          const bool ok = qi < klim && kj < klim && in_band(qi, kj, left, right);
+          const float lq = KV ? lse_c[c] : lse_o[r], dq = KV ? delta_c[c] : delta_o[r];
+          const float p = ok ? p_of(s[r][c], scale, lq) : 0.f;
+          const float d = ok ? p * (dp[r][c] - dq) * scale : 0.f;
+          const int kk = rb + 16 * c, at = (ra + r) * LDD + 4 * (kk >> 1) + (kk & 1);
+          uint32_t h, lw;
+          split_tf32(d, h, lw);
+          ds_t[at] = __uint_as_float(h);
+          ds_t[at + 2] = __uint_as_float(lw);
+          if (KV) {
+            split_tf32(p, h, lw);
+            p_t[at] = __uint_as_float(h);
+            p_t[at + 2] = __uint_as_float(lw);
+          }
         }
       }
-      if (with_dv) {
-        float p[4];
+      mbar_arrive(&ds_full[b]);
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------------- G warps
+  const int gw = warp - S_WARPS;
+  // gradient chunk i: tile lo + i / 8, its rows 8 (i % 8).. over the pass's
+  // columns (and over dv for dV), issued by a whole warp, lane b copying box
+  // b, so that no lane issues many copies while the other G warps wait for
+  // the refill at the next chunk
+  const int n_box = gb1 + (with_dv ? L.nc2 : 0);
+  auto g_issue = [&](int i) {
+    const int st = i % g_stages, ot = lo + i / NG, k = i % NG;
+    if (l == 0) mbar_arrive_expect(&g_full[st], ROW_BOX * n_box);
+    __syncwarp();
+    unsigned char* dst = smem + L.g_ring + st * L.g_stage;
+    const int row = bh * T + ot * OTH + KSTEP * k;
+    for (int b = l; b < n_box; b += 32) {
+      fence_proxy_async();  // the G warps' reads of the stage before the copy's writes
+      if (b < gb1)
+        tma_load_2d(dst + b * ROW_BOX, &maps.g1, pc0 + BOXW * b, row, &g_full[st]);
+      else
+        tma_load_2d(dst + b * ROW_BOX, &maps.g2, BOXW * (b - gb1), row, &g_full[st]);
+    }
+  };
+  if (gw == 0)
+    for (int i = 0; i < min(g_stages, n_g); ++i) g_issue(i);
+  const int g = l >> 2, t4 = l & 3;  // the lane's fragment row and column
+  // this warp's gradient n-tiles of the pass, nt0 .. nt0 + nk - 1; dV's
+  // n-tiles gw and gw + 8
+  const int pn = pw / 8, ntw = (pn + G_WARPS - 1) / G_WARPS;
+  const int nt0 = gw * ntw, nk = max(0, min(ntw, pn - nt0));
+  const int nv = with_dv ? dv / 8 : 0;
+  int b_off[NT], bv_off[2];  // the lane's B fragments in a gradient chunk
 #pragma unroll
-        for (int r = 0; r < 4; ++r) p[r] = Ps[(4 * ty + r) * LDC + q];
+  for (int jj = 0; jj < NT; ++jj) b_off[jj] = b_at(nt0 + jj, g, t4);
 #pragma unroll
-        for (int j = 0; j < NJV; ++j) {
-          if (tx + 16 * j < dv) {
-            const float ov = dOs[q * MAXDV + tx + 16 * j];
+  for (int jj = 0; jj < 2; ++jj) bv_off[jj] = gb1 * KSTEP * BOXW + b_at(gw + G_WARPS * jj, g, t4);
+  float acc[2][NT][4], accv[2][2][4];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) dva[r][j] = fmaf(p[r], ov, dva[r][j]);
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accv[m][j][e] = 0.f;
+  }
+  int i = 0;  // gradient chunks taken
+  for (int it = lo; it < hi; ++it) {
+    const int j = it - lo, b = j & 1;
+    mbar_wait(&ds_full[b], (j >> 1) & 1);
+    const float* ds_t = reinterpret_cast<const float*>(smem + L.ds + b * TILE);
+    const float* p_t = reinterpret_cast<const float*>(smem + L.p + b * TILE);
+    for (int k = 0; k < NG; ++k, ++i) {
+      // chunk i, once it has landed and every G warp is done with chunk i -
+      // 1, whose stage G warp i % 8 refills with chunk i - 1 + stages
+      const int st = i % g_stages;
+      mbar_wait(&g_full[st], (i / g_stages) & 1);
+      group_sync(2, G_WARPS * 32);
+      if (i > 0 && i - 1 + g_stages < n_g && gw == i % G_WARPS) g_issue(i - 1 + g_stages);
+      const float* stf = reinterpret_cast<const float*>(smem + L.g_ring + st * L.g_stage);
+      // grad += dS X1 (X1 = ks for dQ, qs for dK) over the pass's columns,
+      // dV += P^T dO
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) a_frags(ah[m], al[m], ds_t, m, k, g, t4);
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) {
+        if (jj < nk) {
+          uint32_t bf[4];
+          b_frag(bf, stf, b_off[jj]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) mma_step(acc[m][jj], ah[m], al[m], bf);
+        }
+      }
+      if (KV && with_dv) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) a_frags(ah[m], al[m], p_t, m, k, g, t4);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          if (gw + G_WARPS * jj < nv) {
+            uint32_t bf[4];
+            b_frag(bf, stf, bv_off[jj]);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) mma_step(accv[m][jj], ah[m], al[m], bf);
           }
         }
       }
     }
+    mbar_arrive(&ds_empty[b]);  // this thread is done with the tile's dS and P
   }
+
+  // the fragments straight out as 8-byte stores: rows past T are not
+  // written, rows past the length are 0
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kj = k0 + 4 * ty + r;
-    if (kj >= T) continue;
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (tx + 16 * j < pw && c < d1) dk[((size_t)bh * T + kj) * d1 + c] = acc[r][j];
+    for (int h = 0; h < 2; ++h) {
+      const int oi = own0 + 16 * m + g + 8 * h;
+      if (oi >= T) continue;
+      float* out = grad + ((size_t)bh * T + oi) * d1 + pc0 + 2 * t4;
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj)
+        if (jj < nk)
+          *reinterpret_cast<float2*>(out + 8 * (nt0 + jj)) =
+              make_float2(acc[m][jj][2 * h], acc[m][jj][2 * h + 1]);
+      if (KV)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          if (gw + G_WARPS * jj < nv)
+            *reinterpret_cast<float2*>(dvo + ((size_t)bh * T + oi) * dv + 8 * (gw + G_WARPS * jj) +
+                                       2 * t4) = make_float2(accv[m][jj][2 * h],
+                                                             accv[m][jj][2 * h + 1]);
     }
-    if (with_dv)
-#pragma unroll
-      for (int j = 0; j < NJV; ++j)
-        if (tx + 16 * j < dv) dvo[((size_t)bh * T + kj) * dv + tx + 16 * j] = dva[r][j];
   }
 }
+
+template <bool KV>
+int launch(const void* qs, const void* ks, const void* v, const void* dout, const void* lse,
+           const void* delta, const void* lens, void* grad, void* dvo, int bh, int t, int d1,
+           int dv, float scale, int left, int right, void* stream) {
+  if (dv > MAXDV || dv <= 0 || d1 <= 0 || d1 % 8 || dv % 8 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Layout L = plan(KV, d1, dv);
+  const long long rows = (long long)bh * t;
+  const void *own = KV ? ks : qs, *oth = KV ? qs : ks;
+  const void *own2 = KV ? v : dout, *oth2 = KV ? dout : v;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  Maps m;
+  if (!flash::tensor_map(&m.own_s, own, d1, rows, OWN, f32) ||
+      !flash::tensor_map(&m.oth_s, oth, d1, rows, OTH, f32) ||
+      !flash::tensor_map(&m.own_p, own2, dv, rows, OWN, f32) ||
+      !flash::tensor_map(&m.oth_p, oth2, dv, rows, OTH, f32) ||
+      !flash::tensor_map(&m.g1, oth, d1, rows, KSTEP, f32) ||
+      !flash::tensor_map(&m.g2, oth2, dv, rows, KSTEP, f32))
+    return (int)cudaErrorNotSupported;
+  auto kernel = L.resident ? bwd_kernel<KV, true> : bwd_kernel<KV, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t + OWN - 1) / OWN, bh, (d1 + PASS - 1) / PASS);
+  kernel<<<grid, THREADS, L.total, (cudaStream_t)stream>>>(
+      m, (const float*)lse, (const float*)delta, (const int*)lens, (float*)grad, (float*)dvo, t,
+      d1, dv, scale, left, right, L.g_stages);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
 
 constexpr size_t FWD_SMEM = sizeof(float) * (Smem::x + TT * MAXDV);
-constexpr size_t DQ_SMEM = sizeof(float) * (Smem::x + TT * MAXW);
-constexpr size_t DKV_SMEM = sizeof(float) * (Smem::x + TT * MAXW + TT * MAXDV);
-
-// the columns of a pass: the fewest passes of at most MAXW columns, evened
-// out and rounded up to 16
-int pass_width(int d1, int* n_passes) {
-  *n_passes = (d1 + MAXW - 1) / MAXW;
-  return ((d1 + *n_passes - 1) / *n_passes + 15) / 16 * 16;
-}
 
 template <typename K>
 int prepare(K kernel, size_t smem) {
@@ -435,23 +797,29 @@ extern "C" int flash_attention_fwd_f32(const void* qs, const void* ks, const voi
   return (int)cudaGetLastError();
 }
 
+// The backward's plan at (d1, dv) for the dQ kernel (kv 0) or the dK/dV
+// kernel (kv 1): returns the dynamic shared memory a block asks for, and
+// sets *resident (1 where the block's own rows stay in shared memory),
+// *stages (the ring's) and *passes (of 576 gradient columns).
+extern "C" int flash_attention_bwd_f32_plan(int d1, int dv, int kv, int* resident, int* stages,
+                                            int* passes) {
+  const bwd::Layout L = bwd::plan(kv != 0, d1, dv);
+  *resident = L.resident;
+  *stages = L.g_stages;
+  *passes = (d1 + bwd::PASS - 1) / bwd::PASS;
+  return (int)L.total;
+}
+
 // As flash_attention_bwd_dq_bf16 (flash_attention_bwd.cu) in fp32: qs, ks,
-// v, dout and dq fp32.
+// v, dout and dq fp32; d1 and dv multiples of 8, dv <= 128, every tensor
+// 16-byte aligned. Any d1.
 extern "C" int flash_attention_bwd_dq_f32(const void* qs, const void* ks, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           const void* lens, void* dq, int bh, int t, int d1,
                                           int dv, float scale, int left, int right,
                                           void* stream) {
-  if (dv > MAXDV || dv <= 0 || d1 <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  int n_passes;
-  const int pw = pass_width(d1, &n_passes);
-  int err = prepare(dq_kernel, DQ_SMEM);
-  if (err != 0) return err;
-  dq_kernel<<<dim3((t + TT - 1) / TT, bh, n_passes), NTH, DQ_SMEM, (cudaStream_t)stream>>>(
-      (const float*)qs, (const float*)ks, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)delta, (const int*)lens, (float*)dq, t, d1, dv, scale,
-      left, right, pw);
-  return (int)cudaGetLastError();
+  return bwd::launch<false>(qs, ks, v, dout, lse, delta, lens, dq, nullptr, bh, t, d1, dv,
+                            scale, left, right, stream);
 }
 
 // As flash_attention_bwd_dkv_bf16 in fp32: dk and dvo fp32.
@@ -460,14 +828,6 @@ extern "C" int flash_attention_bwd_dkv_f32(const void* qs, const void* ks, const
                                            const void* lens, void* dk, void* dvo, int bh, int t,
                                            int d1, int dv, float scale, int left, int right,
                                            void* stream) {
-  if (dv > MAXDV || dv <= 0 || d1 <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  int n_passes;
-  const int pw = pass_width(d1, &n_passes);
-  int err = prepare(dkv_kernel, DKV_SMEM);
-  if (err != 0) return err;
-  dkv_kernel<<<dim3((t + TT - 1) / TT, bh, n_passes), NTH, DKV_SMEM, (cudaStream_t)stream>>>(
-      (const float*)qs, (const float*)ks, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)delta, (const int*)lens, (float*)dk, (float*)dvo, t, d1,
-      dv, scale, left, right, pw);
-  return (int)cudaGetLastError();
+  return bwd::launch<true>(qs, ks, v, dout, lse, delta, lens, dk, dvo, bh, t, d1, dv, scale,
+                           left, right, stream);
 }

@@ -1,5 +1,6 @@
 // Constants and helpers shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_f32.cu's
+// backward).
 #pragma once
 
 #include <cuda.h>
@@ -25,14 +26,15 @@ __device__ inline bool in_band(int i, int j, int left, int right) {
   return (left < 0 || i - j <= left) && (right < 0 || j - i <= right);
 }
 
-// A 2D tensor map over a row-major [rows x cols] tensor of 16-bit elements
-// for tensor copies of [box_rows x 64] boxes with the 128-byte swizzle, zeros
-// past the tensor's edges (host code; the CUDA driver API's encoder, found
-// through the runtime). A copy moves bits, so the default bf16 type serves
-// fp16 too; a caller may name the elements' own type.
+// A 2D tensor map over a row-major [rows x cols] tensor for tensor copies of
+// boxes of box_rows rows of 128 bytes (64 16-bit or 32 fp32 elements) with
+// the 128-byte swizzle, zeros past the tensor's edges (host code; the CUDA
+// driver API's encoder, found through the runtime). A copy moves bits, so
+// the default bf16 type serves fp16 too; fp32 names its own type.
 inline bool tensor_map(CUtensorMap* map, const void* base, int cols, long long rows,
                        int box_rows,
                        CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const cuuint32_t elem = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -44,10 +46,10 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int cols, long long r
     }
   }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows}, elem[2] = {1, 1};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {128 / elem, (cuuint32_t)box_rows}, step[2] = {1, 1};
   return encode(map, dtype, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

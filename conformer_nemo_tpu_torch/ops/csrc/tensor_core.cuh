@@ -1,8 +1,8 @@
 // Tensor-core and async-copy helpers shared by the kernels of rnnt_joint.cu,
-// flash_attention_fwd.cu, flash_attention_bwd.cu and (the copies only)
-// rnnt_lattice.cu: cp.async into shared memory,
-// ldmatrix fragments and mma.sync m16n8k16 bf16 (or fp16) with fp32
-// accumulation.
+// flash_attention_fwd.cu, flash_attention_bwd.cu, flash_attention_f32.cu's
+// backward and (the copies only) rnnt_lattice.cu: cp.async into shared
+// memory, ldmatrix fragments and mma.sync m16n8k16 bf16 (or fp16) with fp32
+// accumulation, and mma.sync m16n8k8 tf32 in 3xTF32 for fp32 operands.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, lane l, g = l / 4, c = 2 * (l % 4)):
 //   A [16 x 16]: a[0] = (row g, k c..c+1), a[1] = (row g+8, k c..c+1),
@@ -180,6 +180,45 @@ __device__ inline uint32_t pack(float lo, float hi) {
   } else {
     return pack2(lo, hi);
   }
+}
+
+// 3xTF32 (for fp32 operands on the tensor cores): x = hi + lo with hi =
+// tf32(x) and lo = tf32(x - hi) (the subtraction is exact), so hi + lo keeps
+// 22 of x's 24 mantissa bits; a product a b is taken as a_lo b_hi + a_hi b_lo
+// + a_hi b_hi, dropping a_lo b_lo (about 2^-22 of |a b|).
+__device__ inline uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+// mma.sync m16n8k8 tf32 with fp32 accumulation. Fragments (lane l, g = l / 4,
+// t = l % 4): A [16 x 8]: a[0] = (row g, k t), a[1] = (g + 8, t), a[2] = (g,
+// t + 4), a[3] = (g + 8, t + 4); B [8 x 8]: b0 = (k t, col g), b1 = (k t + 4,
+// col g); C as for m16n8k16.
+__device__ inline void mma1688(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d = a b (no accumulator read)
+__device__ inline void mma1688_zero(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+// d = a b in 3xTF32: the two small products first, then hi x hi
+__device__ inline void mma1688_3x(float* d, const uint32_t* a_hi, const uint32_t* a_lo,
+                                  uint32_t b0_hi, uint32_t b1_hi, uint32_t b0_lo,
+                                  uint32_t b1_lo) {
+  mma1688_zero(d, a_lo, b0_hi, b1_hi);
+  mma1688(d, a_hi, b0_lo, b1_lo);
+  mma1688(d, a_hi, b0_hi, b1_hi);
 }
 
 }  // namespace tc

@@ -22,11 +22,15 @@ The kernels are hand-written CUDA for sm_90a: ops/csrc/flash_attention_fwd.cu
 and ops/csrc/flash_attention_bwd.cu (a dQ kernel tiled by query and a dK/dV
 kernel tiled by key) for bf16 and fp16 operands (one template, fp32
 accumulation on the tensor cores), and ops/csrc/flash_attention_f32.cu,
-the same three functions in fp32 on the CUDA cores (fp32 FMA: TF32 would
-read about 1e-3 off an fp32 reference). What bounds them on an H100:
+the same three functions in fp32: the forward on the CUDA cores (fp32 FMA:
+TF32 alone would read about 1e-3 off an fp32 reference), the backward with
+S and dP on the CUDA cores in the forward's chain and dQ, dK and dV on the
+tensor cores in 3xTF32 (each fp32 operand split into two TF32 parts, three
+products). What bounds them on an H100:
 `2 * pairs * (d1 + dv)` FLOPs forward and `2 * pairs * (3 * d1 + 2 * dv)`
 backward (S recomputed once) at 989 TFLOP/s bf16/fp16 dense or 67 TFLOP/s
-fp32, against the bytes each reads and writes once at 3.35 TB/s; with
+fp32 (the fp32 backward's gradient products at 495 / 3 TFLOP/s), against
+the bytes each reads and writes once at 3.35 TB/s; with
 full-length rows at the flagship shapes that is several hundred operations
 per byte, over the ridge of ~295, so the arithmetic bounds them. A bucket
 with many short rows does fewer operations on the same bytes and can fall
@@ -330,9 +334,10 @@ def check_bwd_depth(d1: int, dv: int, kernels: tuple = ("dq", "dkv"),
                     dtype=torch.bfloat16) -> None:
     """Raise ValueError if a backward kernel named in `kernels` ("dq",
     "dkv") cannot take depths (d1, dv) in `dtype`, by the limits its library
-    reports at the depths padded to multiples of 8. The fp32 kernels go in
-    passes of columns over any depth; the 16-bit kernels report the largest
-    d1 their shared memory takes at dv."""
+    reports at the depths padded to multiples of 8. The fp32 kernels take
+    any depth (they stream it in 32-column boxes and take the gradient in
+    passes of 576 columns: `flash_attention_bwd_f32_plan`); the 16-bit
+    kernels report the largest d1 their shared memory takes at dv."""
     if dtype == torch.float32:
         return
     d1p, dvp = padded(d1), padded(dv)

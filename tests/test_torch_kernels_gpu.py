@@ -271,6 +271,84 @@ def test_flash_kernels_at_every_width_and_dtype(cuda_device, dtype, t, d1, dv, b
         port.flash_attention_bwd(qs, ks, v, do, lse, delta, lens, scale, *band), got))
 
 
+def _f32_plan(d1: int, dv: int, kv: int) -> dict:
+    """The fp32 backward's plan as its library reports it."""
+    import ctypes
+
+    res, stages, passes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = port.load("flash_attention_f32.cu").flash_attention_bwd_f32_plan(
+        d1, dv, kv, ctypes.byref(res), ctypes.byref(stages), ctypes.byref(passes))
+    return {"smem": smem, "resident": res.value, "stages": stages.value, "passes": passes.value}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d1,dv,band", [(157, 1224, 128, (-1, -1)), (301, 720, 64, (-1, -1)),
+                                          (200, 1736, 48, (40, 8)), (97, 584, 128, (-1, 3))])
+def test_flash_f32_backward_takes_any_depth(cuda_device, t, d1, dv, band):
+    """The fp32 backward past the 16-bit forward's depth (d1 1224: three
+    passes of 576 gradient columns; 1736: four, banded) and about the pass
+    and residency boundaries (d1 720: two passes, the dK/dV kernel's own rows
+    streamed; 584 at dv 128: 576 + 8): dQ, dK and dV against the plain fp32
+    version within 2e-5 of the largest entry, rows past the length 0, the
+    same bits on a second call; the plan the library reports."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    qs, ks = (torch.randn(3, t, d1, generator=g).to(cuda_device) for _ in range(2))
+    v, do = (torch.randn(3, t, dv, generator=g).to(cuda_device) for _ in range(2))
+    lens = torch.tensor([t, t // 2 + 5, 0], dtype=torch.int32, device=cuda_device)
+    scale = 1.0 / np.sqrt(64)
+    o, lse = port.flash_attention_fwd(qs, ks, v, lens, scale, *band)
+    delta = (do * o).sum(-1)
+    args = (qs, ks, v, do, lse, delta, lens, scale, *band)
+    got = port.flash_attention_bwd(*args)
+    want = port.flash_attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        rel = (a - b).abs().max() / b.abs().max()
+        assert rel.item() <= K2_TOLS[torch.float32][2], (name, rel.item())
+        assert a[1, t // 2 + 5:].abs().max().item() == 0.0 and a[2].abs().max().item() == 0.0
+    assert all(torch.equal(a, b) for a, b in zip(port.flash_attention_bwd(*args), got))
+    passes = -(-d1 // 576)
+    assert [_f32_plan(d1, dv, kv)["passes"] for kv in (0, 1)] == [passes, passes]
+
+
+@pytest.mark.gpu
+def test_flash_f32_backward_keeps_the_forward_chain(cuda_device):
+    """Scores near 1e7 that no fp32 sum gives exactly (qs and ks random times
+    2048 in their first half of columns, keys 2i and 2i + 1 equal there, so
+    each softmax row splits over tied pairs): a unit in the last place of a
+    score is worth a factor e in P, so the fp32 backward agrees with fp64 as
+    well as the plain fp32 version does only where its S is its forward's
+    bit for bit. Each gradient's error against the plain version in fp64 is
+    at most 4 times the plain fp32 version's."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    bh, t, d1, dv, half = 2, 600, 576, 64, 288
+    qs = torch.zeros(bh, t, d1)
+    qs[..., :half] = torch.randn(bh, t, half, generator=g) * 2048.0
+    ks = torch.randn(bh, t, d1, generator=g)
+    ks[..., :half] *= 2048.0
+    ks[:, 1::2, :half] = ks[:, 0::2, :half]
+    v, do = (torch.randn(bh, t, dv, generator=g) for _ in range(2))
+    qs, ks, v, do = (x.to(cuda_device) for x in (qs, ks, v, do))
+    lens = torch.tensor([t, 451], dtype=torch.int32, device=cuda_device)
+    scale = 0.125
+    o, lse = port.flash_attention_fwd(qs, ks, v, lens, scale)
+    got = port.flash_attention_bwd(qs, ks, v, do, lse, (do * o).sum(-1), lens, scale)
+    o32, lse32 = port.flash_attention_fwd_reference(qs, ks, v, lens, scale)
+    plain = port.flash_attention_bwd_reference(qs, ks, v, do, lse32, (do * o32).sum(-1), lens,
+                                               scale)
+    q64, k64, v64, do64 = (x.double() for x in (qs, ks, v, do))
+    o64, lse64 = port.flash_attention_fwd_reference(q64, k64, v64, lens, scale)
+    exact = port.flash_attention_bwd_reference(q64, k64, v64, do64, lse64, (do64 * o64).sum(-1),
+                                               lens, scale)
+    torch.cuda.synchronize()
+    assert lse64.abs().max().item() > 1e6
+    for name, a, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
+        assert bool(torch.isfinite(a).all()), name
+        err = ((a.double() - x).abs().max() / x.abs().max()).item()
+        err_plain = ((p.double() - x).abs().max() / x.abs().max()).item()
+        assert err <= max(K2_TOLS[torch.float32][2], 4.0 * err_plain), (name, err, err_plain)
+
+
 @pytest.mark.gpu
 def test_cuda_fit_trains_past_the_old_backward_depth(cuda_device, tmp_path):
     """d_model 640 (d1 = 80 + 640 = 720, past the 576 dK columns the dK/dV
