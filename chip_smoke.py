@@ -813,7 +813,8 @@ def _flash_inputs(bh, t, d1, dv, lens, gen, dev, dtype=torch.bfloat16):
 
 def _k2_peak(dtype) -> float:
     """The card's peak rate for K2's products in `dtype`: the tensor cores
-    for bf16 and fp16, fp32 FMA outside them for fp32."""
+    for bf16 and fp16, fp32 FMA outside them for fp32 (the fp32 forward; the
+    fp32 backward's bound is `_f32_bwd_bound`'s)."""
     return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
 
 
@@ -964,30 +965,42 @@ def _flash_bwd_case(name, bh, t, d1, dv, lens, band, gen, dev, dtype=torch.bfloa
                **bound(flops, inputs + out_bytes, peak)}
         row["tflops"] = row["flops"] / (row["ms"] * 1e-3) / 1e12
         if dtype == torch.float32:
-            row.update(_f32_bwd_bound(kind, pairs, d1, dv))
+            row.update(_f32_bwd_bound(kind, pairs, d1, dv, inputs + out_bytes))
         emit("kernels", **row)
         rows.append(row)
     # the pair as one function: S once, dP, dQ, dK, dV
+    pair_bytes = inputs + isz * bh * t * (2 * d1 + dv)
+    pair = bound(2.0 * pairs * (3 * d1 + 2 * dv), pair_bytes, peak)
+    if dtype == torch.float32:
+        pair.update(_f32_bwd_bound("pair", pairs, d1, dv, pair_bytes))
     emit("kernels", case=name, dtype=str(dtype), kernel="K2-bwd pair",
-         ms=rows[0]["ms"] + rows[1]["ms"],
-         **bound(2.0 * pairs * (3 * d1 + 2 * dv), inputs + isz * bh * t * (2 * d1 + dv), peak))
+         ms=rows[0]["ms"] + rows[1]["ms"], **pair)
     return rows
 
 
-def _f32_bwd_bound(kind: str, pairs: int, d1: int, dv: int) -> dict:
-    """The fp32 backward kernel's bound in its own arithmetic, beside the
-    contract's (every operation at the fp32 FMA rate): S and dP, 2 * pairs *
-    (d1 + dv) FLOPs, at PEAK_FP32_FLOPS on the CUDA cores, and the gradient
-    products (dQ: 2 * pairs * d1; dK and dV: 2 * pairs * (d1 + dv)) at
+def _f32_bwd_bound(kind: str, pairs: int, d1: int, dv: int, nbytes: float) -> dict:
+    """The fp32 backward's bound in its own arithmetic, which replaces the
+    row's `bound_ms` and `bound_by`: S and dP, 2 * pairs * (d1 + dv) FLOPs, at
+    PEAK_FP32_FLOPS on the CUDA cores, and the gradient products (dQ: 2 *
+    pairs * d1; dK and dV: 2 * pairs * (d1 + dv); the pair both) at
     PEAK_3XTF32_FLOPS on the tensor cores; the two pipes work at once, so the
-    larger of the two times. With the kernel's plan (flash_attention_bwd_f32_plan),
+    larger of the two times, or of the bytes' time (`nbytes` at
+    PEAK_BYTES_PER_S) where that is larger. Beside it, `bound_all_fma_ms`:
+    every operation at the fp32 FMA rate, as `_k2_peak` bounds the forward.
+    With the kernel's plan (flash_attention_bwd_f32_plan) for a kernel's row,
     where the library reports it."""
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
 
+    grad_cols = {"dq": d1, "dkv": d1 + dv, "pair": 2 * d1 + dv}[kind]
     fma_ms = 2.0 * pairs * (d1 + dv) / PEAK_FP32_FLOPS * 1e3
-    tc_ms = 2.0 * pairs * (d1 if kind == "dq" else d1 + dv) / PEAK_3XTF32_FLOPS * 1e3
-    out = {"bound_3xtf32_ms": max(fma_ms, tc_ms), "bound_3xtf32_fma_ms": fma_ms,
-           "bound_3xtf32_tc_ms": tc_ms}
+    tc_ms = 2.0 * pairs * grad_cols / PEAK_3XTF32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    out = {"bound_ms": max(fma_ms, tc_ms, bytes_ms),
+           "bound_by": "operations" if max(fma_ms, tc_ms) >= bytes_ms else "bytes",
+           "bound_fma_ms": fma_ms, "bound_tc_ms": tc_ms,
+           "bound_all_fma_ms": 2.0 * pairs * (d1 + dv + grad_cols) / PEAK_FP32_FLOPS * 1e3}
+    if kind == "pair":
+        return out
     lib = fa.load("flash_attention_f32.cu")
     if hasattr(lib, "flash_attention_bwd_f32_plan"):
         import ctypes
@@ -2152,8 +2165,10 @@ def _flash_captured_case(name, qs, ks, v, lens, scale, left, right, gen,
     scores is worth a factor e in P), so the kernels are held to what the
     plain fp32 version achieves there: every output finite, and each error at
     most CAPTURED_ERR_RATIO times the plain fp32 version's, or within the
-    dtype's limits (K2_TOLS). In fp32 this is the check that fails if the
-    backward's S leaves the forward's chain."""
+    dtype's limits (K2_TOLS). The inputs come from a bf16 model, so in fp32
+    their scores' sums come out about the same in any order: that the fp32
+    backward's S is its forward's chain is held by the card test that reads
+    P back (test_flash_f32_backward_keeps_the_forward_chain), not here."""
     from conformer_nemo_tpu_torch.ops import flash_attention as fa
 
     dev = qs.device

@@ -90,7 +90,9 @@
 //     7 gradient stages of 18 KB and two 18 KB dS tiles, 211 KB; dK/dV the
 //     same S ring, 5 gradient stages of 20 KB and two dS and two P tiles,
 //     221 KB; the own rows stay resident up to d1 544 (dQ) and 384 (dK/dV)
-//     at dv 64 (Small's 224 in both). One block an SM;
+//     at dv 64 (Small's 224 in both; there, on an H100, resident rows make
+//     dK/dV 2% faster than streamed ones and dQ no slower, timed in turns
+//     with `chip_smoke.py --flash-bench`). One block an SM;
 //   * no atomics: every output is the same bits on every call. The outputs go
 //     straight from the fragments to device memory as 8-byte stores.
 

@@ -311,15 +311,37 @@ def test_flash_f32_backward_takes_any_depth(cuda_device, t, d1, dv, band):
     assert [_f32_plan(d1, dv, kv)["passes"] for kv in (0, 1)] == [passes, passes]
 
 
+def _chain_scores(qs, ks, depth):
+    """fl(S) of the fp32 kernels' chain: for each (query, key) one fmaf over
+    depth 0 .. depth - 1 in order from 0.0f, taken in fp64 (the product of two
+    fp32 numbers is exact there) and rounded to fp32 at every step. Where fp64
+    rounds the sum first, the result can be a unit off fmaf's: that fails the
+    check below, it cannot pass it."""
+    acc = torch.zeros(qs.shape[0], qs.shape[1], ks.shape[1], dtype=torch.float64,
+                      device=qs.device)
+    q64, k64 = qs.double(), ks.double()
+    for d in range(depth):
+        acc = (q64[:, :, None, d] * k64[:, None, :, d] + acc).float().double()
+    return acc.float()
+
+
 @pytest.mark.gpu
 def test_flash_f32_backward_keeps_the_forward_chain(cuda_device):
     """Scores near 1e7 that no fp32 sum gives exactly (qs and ks random times
     2048 in their first half of columns, keys 2i and 2i + 1 equal there, so
     each softmax row splits over tied pairs): a unit in the last place of a
-    score is worth a factor e in P, so the fp32 backward agrees with fp64 as
-    well as the plain fp32 version does only where its S is its forward's
-    bit for bit. Each gradient's error against the plain version in fp64 is
-    at most 4 times the plain fp32 version's."""
+    score is worth up to a factor e in P, so the fp32 backward agrees with
+    fp64 as well as the plain fp32 version does only where its S is its
+    forward's bit for bit. Each gradient's error against the plain version in
+    fp64 is at most 4 times the plain fp32 version's. Then P itself, read out
+    of both kernels on the same scores: with dO one-hot at four query rows
+    (column r at row i_r), v's first four columns 1 and delta 0, dV[j, r] is
+    P[i_r, j] and dQ[i_r, 288 + m] is scale times the sum of P[i_r, j] over
+    keys j = m mod 288, where ks' second half (which meets qs' zeros, so S
+    does not change) is that indicator. Both are held within 1e-5 of
+    exp(min(fl(S * scale) - lse, 0)) with S the forward's chain taken on the
+    host and lse the forward kernel's: a score one unit off moves its P by 6%
+    or more."""
     g = torch.Generator(device="cpu").manual_seed(13)
     bh, t, d1, dv, half = 2, 600, 576, 64, 288
     qs = torch.zeros(bh, t, d1)
@@ -346,7 +368,35 @@ def test_flash_f32_backward_keeps_the_forward_chain(cuda_device):
         assert bool(torch.isfinite(a).all()), name
         err = ((a.double() - x).abs().max() / x.abs().max()).item()
         err_plain = ((p.double() - x).abs().max() / x.abs().max()).item()
+        print(f"{name}: rel err vs fp64 {err!r}, plain fp32 {err_plain!r}")
         assert err <= max(K2_TOLS[torch.float32][2], 4.0 * err_plain), (name, err, err_plain)
+
+    rows = torch.tensor([[5, 122, 347, 599], [0, 201, 333, 450]], device=cuda_device)
+    ks_p = ks.clone()
+    ks_p[..., half:] = (torch.arange(t, device=cuda_device)[:, None] % half
+                        == torch.arange(half, device=cuda_device)).float()
+    v_p = v.clone()
+    v_p[..., :4] = 1.0
+    do_p = torch.zeros_like(do)
+    for r in range(4):
+        do_p[torch.arange(bh), rows[:, r], r] = 1.0
+    _, lse_p = port.flash_attention_fwd(qs, ks_p, v_p, lens, scale)
+    dq, _, dvv = port.flash_attention_bwd(qs, ks_p, v_p, do_p, lse_p, torch.zeros_like(lse_p),
+                                          lens, scale)
+    q_rows = qs[torch.arange(bh)[:, None], rows]
+    x = (_chain_scores(q_rows, ks_p, half) * scale).float()
+    lse_rows = lse_p[torch.arange(bh)[:, None], rows]
+    key_ok = torch.arange(t, device=cuda_device)[None, :] < lens[:, None]
+    want = torch.where(key_ok[:, None], torch.exp((x - lse_rows[..., None]).clamp(max=0.0)), 0.0)
+    assert want.amax(-1).min().item() > 0.1  # every probed row has P where a unit moves it
+    got_p = dvv[..., :4].transpose(1, 2)
+    err_dv = (got_p - want).abs().max().item()
+    want_dq = torch.zeros(bh, 4, half, device=cuda_device).index_add_(
+        2, torch.arange(t, device=cuda_device) % half, want)
+    got_dq = dq[torch.arange(bh)[:, None], rows][..., half:] / scale
+    err_dq = (got_dq - want_dq).abs().max().item()
+    print(f"P from dV: max abs err {err_dv!r}; from dQ: {err_dq!r}")
+    assert err_dv <= 1e-5 and err_dq <= 1e-5, (err_dv, err_dq)
 
 
 @pytest.mark.gpu
