@@ -845,7 +845,7 @@ def _flash_case(name, bh, t, d1, dv, lens, band, gen, dev, compare_rows=False,
            "band": list(band), "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
            "tol_o": o_tol, "tol_lse": lse_tol, "deterministic": True,
            "rows": (load("flash_attention_fwd.cu").flash_attention_fwd_rows(
-               bh, t, fa.padded(d1), fa.padded(dv)) if dtype != torch.float32 else 64),
+               bh, t, fa.padded(d1), fa.padded(dv)) if dtype != torch.float32 else 128),
            "max_abs_err": max(err_o, err_lse)}
     if compare_rows:
         turns = {64: [], 128: []}
@@ -5602,7 +5602,9 @@ def flash_bench(root: str) -> int:
     long-form Large model: d1 576, dv 64) and at the widths phase's (Small:
     d1 220, dv 44; XLarge: d1 1152, dv 128), each batch's lengths from the
     same generated manifests through the loader (no fit), and at the train
-    step's shapes with every row at its full length."""
+    step's shapes with every row at its full length. Each case's times sit
+    beside SDPA's forward and backward on the same inputs (`library_fwd`,
+    `library_bwd`), so "no slower than SDPA" reads from one run."""
     from conformer_nemo_tpu_torch.api import ConformerCTC
 
     dev = torch.device("cuda")
@@ -5637,6 +5639,7 @@ def flash_bench(root: str) -> int:
             rows = [_flash_case(case, bh, t, d1, dv, lens, (-1, -1), gen, dev, dtype=dtype),
                     *_flash_bwd_case(case, bh, t, d1, dv, lens, (-1, -1), gen, dev, dtype=dtype)]
             ms[case] = {r["kernel"]: r["ms"] for r in rows}
+            ms[case]["library_fwd"] = rows[0]["library_ms"]
             ms[case]["library_bwd"] = rows[1]["library_ms"]
             free_cuda()
     emit("flash_bench", root=os.path.abspath(root), nvidia_smi=env["nvidia_smi"], ms=ms)

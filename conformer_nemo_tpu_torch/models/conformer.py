@@ -35,6 +35,7 @@ group when `tp` is set (parallel/sharding.py holds the sharding rules).
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Any, Optional
 
@@ -55,6 +56,12 @@ from conformer_nemo_tpu_torch.parallel.sharding import (
     copy_to_tp,
     reduce_from_tp,
 )
+
+
+logger = logging.getLogger(__name__)
+# (d1, dv, dtype) for which "auto" took the dense attention because no flash
+# kernel takes the depth, said once each
+_DENSE_FOR_DEPTH: set = set()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,14 +361,40 @@ def _can_flash(cfg: ConformerEncoderConfig) -> bool:
             and cfg.use_flash_attention is not False)
 
 
+def dense_for_depth(cfg: ConformerEncoderConfig, device) -> bool:
+    """True where `use_flash_attention` is "auto" on CUDA and no flash
+    kernel takes the encoder's depths d1 = d_head + d_model and dv = d_head
+    in its dtype (`ops.flash_attention.check_depth` refuses dv > 128, and in
+    the 16-bit types a d1 past the forward's shared memory): such an
+    encoder takes the dense path, and a log line says so once per (d1, dv,
+    dtype). An explicit True is refused at construction instead
+    (`check_flash_dtype`), and a dtype no kernel takes is refused either
+    way."""
+    if cfg.use_flash_attention != "auto" or torch.device(device).type != "cuda":
+        return False
+    d1, dv = cfg.d_head + cfg.d_model, cfg.d_head
+    try:
+        check_depth(d1, dv, cfg.dtype)
+    except TypeError:
+        return False
+    except ValueError as e:
+        if (d1, dv, cfg.dtype) not in _DENSE_FOR_DEPTH:
+            _DENSE_FOR_DEPTH.add((d1, dv, cfg.dtype))
+            logger.warning("use_flash_attention auto: the dense attention, since the flash "
+                           "kernels cannot take d1=%d, dv=%d in %s (%s)", d1, dv, cfg.dtype, e)
+        return True
+    return False
+
+
 def check_flash_dtype(cfg: ConformerEncoderConfig, device) -> None:
     """The CUDA flash kernels take bf16, fp16 and fp32 at d1 = d_head +
     d_model, dv = d_head <= 128, and in the 16-bit types d1 up to the
     forward's shared memory (`ops.flash_attention.check_depth`). Refuse a
     CUDA encoder whose attention can take the flash path in a dtype or at a
     depth no kernel takes, before any work, rather than at its first batch
-    with T >= flash_attention_min_t."""
-    if torch.device(device).type != "cuda" or not _can_flash(cfg):
+    with T >= flash_attention_min_t; under "auto" a depth no kernel takes
+    sends the attention to the dense path (`dense_for_depth`)."""
+    if torch.device(device).type != "cuda" or not _can_flash(cfg) or dense_for_depth(cfg, device):
         return
     try:
         check_depth(cfg.d_head + cfg.d_model, cfg.d_head, cfg.dtype)
@@ -383,7 +416,7 @@ def check_flash_training(cfg: ConformerEncoderConfig, device, longest_t: int) ->
         cfg.use_flash_attention == "auto" and longest_t >= cfg.flash_attention_min_t)
     can_flash = (cfg.self_attention_model == "rel_pos" and cfg.dropout_emb == 0.0
                  and cfg.dropout_att == 0.0 and want)
-    if torch.device(device).type != "cuda" or not can_flash:
+    if torch.device(device).type != "cuda" or not can_flash or dense_for_depth(cfg, device):
         return
     d1, dv = cfg.d_head + cfg.d_model, cfg.d_head
     try:
@@ -435,13 +468,15 @@ class RelPosMultiHeadAttention(nn.Module):
         """The JAX dispatch: flash when wanted (True, or "auto" at T >=
         flash_attention_min_t), with the decomposition (dropout_emb == 0),
         lengths, and no attention dropout to apply (eval mode, or
-        dropout_att == 0): the kernel has no dropout epilogue."""
+        dropout_att == 0): the kernel has no dropout epilogue. Under "auto"
+        on CUDA, not at depths no kernel takes (`dense_for_depth`)."""
         cfg = self.cfg
         want = cfg.use_flash_attention is True or (
             cfg.use_flash_attention == "auto" and t >= cfg.flash_attention_min_t)
         deterministic = not self.training
         return (want and cfg.dropout_emb == 0.0 and lengths is not None
-                and (deterministic or cfg.dropout_att == 0.0))
+                and (deterministic or cfg.dropout_att == 0.0)
+                and not dense_for_depth(cfg, lengths.device))
 
     def forward(self, x, pos_emb, sin_cos, att_mask, lengths=None, seed=None):
         """sin_cos: the encoder's (sin, cos) tables [T, D/2] in the compute

@@ -18,23 +18,54 @@
 // bits on every call.
 //
 // S in one chain. Every kernel here forms each score S_ij as one fmaf chain
-// over the depth in order from 0.0f (`tile_dot` in the forward,
-// `chain_box` in the backward), then x = fl(S * scale): the backward's x is
-// the forward's bit for bit, so x - lse <= 0 and P <= 1 hold at scores in the
+// over the depth in order from 0.0f (`chain_box`: 8 x 8 pieces in the
+// forward, 4 x 4 in the backward), then x = fl(S * scale): the backward's x
+// is the forward's bit for bit, so x - lse <= 0 and P <= 1 hold at scores in the
 // millions, where a unit in the last place of x is worth a factor e in P
 // (see p_of). That is why S stays on the CUDA cores: a tensor-core product
 // sums in the hardware's order, and the forward would have to change with
 // it. TF32 alone keeps 10 bits of mantissa and reads about 1e-3 off an fp32
 // reference, where a model that asks for fp32 is held to fp32's rounding.
 //
-// The forward (simple and right first; not redesigned): 256 threads a block
-// as a 16 x 16 grid, thread (ty, tx) owns rows 4ty..4ty+3 and columns tx,
-// tx+16, tx+32, tx+48 of a 64 x 64 score tile; S accumulates from 32-deep
-// chunks of both sides staged in shared memory transposed; the online
-// softmax on the thread's S registers (row max and sum by shuffles over the
-// 16 lanes of a row), P through shared memory into O += P V with O in
-// registers (dv <= 128: 32 a thread). 81 KB of shared memory, whatever d1.
-// Bound: 2 * pairs * (d1 + dv) FLOPs at 67 TFLOP/s fp32.
+// The forward (redesigned for Hopper): one block of 8 warps per (bh, 128
+// query rows), looping over the 128-key tiles in band and under the length.
+// What bounds it on an H100: 2 * pairs * (d1 + dv) FLOPs on the fp32 FMA
+// pipe (67 TFLOP/s); S is d1 / (d1 + dv) of it (90% at d1 576, dv 64). The
+// pieces, and what each does about its bound:
+//   * S on the CUDA cores: a thread owns an 8 x 8 piece of the 128 x 128
+//     score tile (query rows 8g.., keys kc + 16c) and reads both operands as
+//     16-byte shared loads of 4 depth steps (`chain_box<8, 8>`, the backward's
+//     chain at another piece shape). Shared memory gives a block 32 floats a
+//     clock against 128 FMAs; the 8 x 8 piece reads 0.25 floats an FMA, so
+//     its loads and its FMAs take the same clocks (a 4 x 4 piece reads 0.5,
+//     an 8 x 4 piece 0.375: bound by the loads at 67% of the FMA rate);
+//   * streaming: a ring of 5 stages of tensor copies ([128 x 32] fp32 boxes
+//     with the 128-byte swizzle, zeros past the edges, so any d1 runs and a
+//     depth that is not a multiple of 32 reads zeros). A stage carries one
+//     32-column box of the block's 128 query rows and one of the tile's 128
+//     keys, or 64 columns of the tile's v rows. The query rows are read again
+//     for every key tile: at 128 query rows they would take 288 KB at d1 576,
+//     and a resident 64-row tile (144 KB) leaves room for 128-key stages
+//     only with 8 x 4 pieces. 128 x 128 tiles read each fp32 element of qs
+//     and ks from L2 once per 128 uses, as many bytes an FMA as a resident
+//     64-row tile does. Each warp hands a stage back through an mbarrier when
+//     it is done with it; the warps take turns refilling, the stage of chunk
+//     i - 2 at chunk i, so no block barrier stands between two chunks and
+//     the copies run up to 3 chunks ahead;
+//   * the online softmax on the thread's S registers (row max and sum by
+//     shuffles over the 16 lanes of a row group), then P through a shared
+//     [128 x 128] tile (two block barriers a key tile) into O += P V on the
+//     FMA pipe, O in registers (8 rows x 4 columns a thread per 64 columns
+//     of dv: 32 or 64 registers), P and v read as 16-byte loads;
+//   * shared memory: 5 stages of 32 KB and the 64 KB P tile, 225 KB; one
+//     block an SM; 254 registers a thread, no spills. No atomics: o and lse
+//     are the same bits on every call.
+// Timed on an H100 with parts removed: S and the softmax run at 53-59% of
+// the FMA rate (the pieces' loads take as many of shared memory's clocks as
+// their FMAs take of the FMA pipe's; 2-step loads, which leave ptxas room to
+// load ahead, were 10% slower); P V takes 10% of the kernel at d1 576, dv 64
+// and 20% at d1 224, dv 48; without S the rest (the copies, the softmax,
+// P V) takes a quarter of the kernel's time at d1 576.
 //
 // The backward (redesigned for Hopper): one template over the dQ kernel
 // (own side the queries, other side the keys) and the dK/dV kernel (own side
@@ -106,55 +137,90 @@
 
 namespace {
 
-constexpr int TT = 64;                 // rows of a tile (queries or keys)
-constexpr int NTH = 256;               // threads a block: 16 x 16
-constexpr int DC = 32;                 // depth of a staged chunk
-constexpr int LDC = TT + 1;            // float row stride of a chunk and of a P / dS tile
 constexpr int MAXDV = 128;
-constexpr int NJV = MAXDV / 16;        // output columns a thread row holds of o and dv
 constexpr float NEG_INF = -1e30f;
+constexpr int BOXW = 32;  // columns of a box: 128 bytes of fp32
 
 __device__ inline bool in_band(int i, int j, int left, int right) {
   return (left < 0 || i - j <= left) && (right < 0 || j - i <= right);
 }
 
-// acc[r][c] += sum_d A[a0 + 4ty + r][d] * B[b0 + tx + 16c][d] over d = 0 ..
-// depth - 1 in order, one fmaf chain per element. A and B are row-major with
-// `depth` columns; rows at or past alim / blim read as 0. As, Bs: [DC][LDC]
-// chunks in shared memory. Every thread of the block calls it.
-__device__ void tile_dot(float (&acc)[4][4], const float* __restrict__ A, int a0, int alim,
-                         const float* __restrict__ B, int b0, int blim, int depth, float* As,
-                         float* Bs) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int d0 = 0; d0 < depth; d0 += DC) {
-    const int dn = min(DC, depth - d0);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < TT * DC; i += NTH) {
-      const int r = i / DC, d = i % DC;
-      float a = 0.f, b = 0.f;
-      if (d < dn) {
-        if (a0 + r < alim) a = A[(size_t)(a0 + r) * depth + d0 + d];
-        if (b0 + r < blim) b = B[(size_t)(b0 + r) * depth + d0 + d];
-      }
-      As[d * LDC + r] = a;
-      Bs[d * LDC + r] = b;
-    }
-    __syncthreads();
-    for (int d = 0; d < dn; ++d) {
-      float a[4], b[4];
+// Element (r, c) of a box of 32-float rows written with the 128-byte
+// swizzle: the 16-byte unit c / 4 of row r sits at unit (c / 4) ^ (r % 8).
+// The box starts 1024-byte aligned.
+__device__ inline int swz(int r, int c) { return r * BOXW + ((((c >> 2) ^ r) & 7) << 2) + (c & 3); }
+
+// acc[r][c] += sum over the box's 32 columns, in order, of A[ra + r][.] *
+// B[rb + 16c][.]: one fmaf chain per element, the chain every kernel here
+// forms S in (fmaf's two factors commute exactly, so the dK/dV kernel's
+// K-times-Qs chain is the forward's Qs-times-K one). A and B are boxes of
+// 32-float rows, both swizzled; (ra % 8) + R <= 8, and rb % 8 is the lane's
+// column within its quarter warp, so the 8 lanes of a quarter warp read one
+// A row, or 8 B rows at distinct units. Shared memory gives a block 32
+// floats a clock against 128 FMAs: an R x C piece reads (R + C) / (R * C)
+// floats an FMA, 0.5 at the backward's 4 x 4 and 0.25 at the forward's 8 x 8.
+template <int R, int C>
+__device__ inline void chain_box(float (&acc)[R][C], const float* A, const float* B, int ra,
+                                 int rb) {
+  const float* a = A + ra * BOXW;
+  const float* b = B + rb * BOXW;
+  const int xa = ra & 7, xb = rb & 7;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[d * LDC + 4 * ty + r];
+  for (int u = 0; u < BOXW / 4; ++u) {
+    float4 x[R], y[C];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Bs[d * LDC + tx + 16 * c];
+    for (int r = 0; r < R; ++r)
+      x[r] = *reinterpret_cast<const float4*>(a + r * BOXW + ((u ^ (xa + r)) << 2));
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < C; ++c)
+      y[c] = *reinterpret_cast<const float4*>(b + c * 16 * BOXW + ((u ^ xb) << 2));
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(x[r].x, y[c].x, acc[r][c]);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(x[r].y, y[c].y, acc[r][c]);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(x[r].z, y[c].z, acc[r][c]);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(x[r].w, y[c].w, acc[r][c]);
   }
 }
 
-// a reduction over the 16 lanes of a row (lanes 16h .. 16h + 15 of a warp)
+// ---------------------------------------------------------------------------
+// The forward
+// ---------------------------------------------------------------------------
+
+namespace fwd {
+
+using namespace tc;
+
+constexpr int TILE = 128;    // query rows of a block, keys of a tile
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int PR = 8, PC = 8;  // a thread's score piece: query rows 8g.., keys kc + 16c
+constexpr int STAGES = 5;
+constexpr int LAG = 2;       // at chunk i, the stage of chunk i - LAG is refilled
+constexpr int LDP = TILE;    // floats a P row
+constexpr size_t BOX = sizeof(float) * TILE * BOXW;  // a [128 x 32] box
+constexpr size_t STAGE = 2 * BOX;    // a box of queries and one of keys, or 64 columns of v
+constexpr size_t RING = STAGES * STAGE;
+constexpr size_t P_TILE = sizeof(float) * TILE * LDP;
+// dynamic shared memory a launch asks for: the ring, the P tile, the
+// mbarriers, and 1024 bytes to align the ring
+constexpr size_t SMEM = RING + P_TILE + 2 * STAGES * sizeof(uint64_t) + 1024;
+
+struct Maps {  // qs and ks ([rows x d1]) and v ([rows x dv]) as [128 x 32] boxes
+  CUtensorMap q, k, v;
+};
+
+// a reduction over the 16 lanes of a row group (lanes 16h .. 16h + 15)
 __device__ inline float row_max(float x) {
 #pragma unroll
   for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -166,66 +232,114 @@ __device__ inline float row_sum(float x) {
   return x;
 }
 
-// rows row0 .. row0 + 63 of a row-major [nrows x width] matrix, columns c0 ..
-// c0 + w - 1, into a [64][ld] shared tile; zeros past nrows and width
-__device__ inline void load_tile(float* dst, int ld, const float* __restrict__ src, int width,
-                                 int row0, int nrows, int c0, int w) {
-  for (int i = threadIdx.x; i < TT * w; i += NTH) {
-    const int r = i / w, c = i % w;
-    dst[r * ld + c] = row0 + r < nrows && c0 + c < width
-                          ? src[(size_t)(row0 + r) * width + c0 + c] : 0.f;
-  }
-}
-
-// the tiles [lo, hi) of 64 along the other side that tile `i0` meets under a
-// band (before, after) and the length klim (the TPU kernel's
-// _band_tile_bounds, then capped)
-__device__ inline void band_tiles(int i0, int T, int klim, int before, int after, int* lo,
+// the key tiles [lo, hi) that query tile `q0` meets under a band (left,
+// right) and the length klim (the TPU kernel's _band_tile_bounds, then
+// capped)
+__device__ inline void band_tiles(int q0, int T, int klim, int left, int right, int* lo,
                                   int* hi) {
-  const int n_tiles = (T + TT - 1) / TT;
-  *lo = before >= 0 ? max(i0 - before, 0) / TT : 0;
-  *hi = after >= 0 ? min((i0 + TT - 1 + after) / TT + 1, n_tiles) : n_tiles;
-  *hi = min(*hi, (klim + TT - 1) / TT);
+  const int n_tiles = (T + TILE - 1) / TILE;
+  *lo = left >= 0 ? max(q0 - left, 0) / TILE : 0;
+  *hi = right >= 0 ? min((q0 + TILE - 1 + right) / TILE + 1, n_tiles) : n_tiles;
+  *hi = min(*hi, (klim + TILE - 1) / TILE);
 }
 
-struct Smem {  // float offsets into the dynamic shared memory
-  static constexpr int a = 0, b = DC * LDC, p = 2 * DC * LDC, d = p + TT * LDC, x = d + TT * LDC;
-};
-
-__global__ void __launch_bounds__(NTH, 1)
-fwd_kernel(const float* __restrict__ qs, const float* __restrict__ ks,
-           const float* __restrict__ v, const int* __restrict__ lens, float* __restrict__ o,
+// NU: 64-column chunks of v (1 for dv <= 64, else 2). Each key tile takes
+// nc1 = ceil(d1 / 32) chunks of the ring for S, then NU for P V.
+template <int NU>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_kernel(const __grid_constant__ Maps maps, const int* __restrict__ lens, float* __restrict__ o,
            float* __restrict__ lse, int T, int d1, int dv, float scale, int left, int right) {
-  extern __shared__ float sm[];
-  float *As = sm + Smem::a, *Bs = sm + Smem::b, *Ps = sm + Smem::p, *Vs = sm + Smem::x;
-  const int bh = blockIdx.y, q0 = blockIdx.x * TT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* ps = reinterpret_cast<float*>(smem + RING);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING + P_TILE);  // a chunk has landed
+  uint64_t* empty = full + STAGES;                  // every warp is done with the stage
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * TILE, row0 = bh * T;
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int g = 2 * warp + (l >> 4);  // row group: query rows q0 + 8g .. q0 + 8g + 7
+  const int kc = l & 15;              // S: keys kc + 16c of a tile; P V: columns 4kc.. of 64
   const int klim = min(max(lens[bh], 0), T);
-  const float* q_bh = qs + (size_t)bh * T * d1;
-  const float* k_bh = ks + (size_t)bh * T * d1;
-  const float* v_bh = v + (size_t)bh * T * dv;
   int lo, hi;
   band_tiles(q0, T, klim, left, right, &lo, &hi);
+  const int nc1 = (d1 + BOXW - 1) / BOXW;
+  const int per = nc1 + NU;                 // chunks a key tile
+  const int n = max(hi - lo, 0) * per;      // chunks of the block
 
-  float m_run[4], l_run[4], oacc[4][NJV];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // chunk i: key tile lo + i / per; its depth box c = i % per, or past nc1
+  // the 64-column chunk c - nc1 of its v rows (one box or two)
+  auto issue = [&](int i) {
+    const int st = i % STAGES, k0 = (lo + i / per) * TILE, c = i % per;
+    unsigned char* dst = smem + st * STAGE;
+    if (c < nc1) {
+      mbar_arrive_expect(&full[st], 2 * BOX);
+      tma_load_2d(dst, &maps.q, BOXW * c, row0 + q0, &full[st]);
+      tma_load_2d(dst + BOX, &maps.k, BOXW * c, row0 + k0, &full[st]);
+    } else {
+      const int u = c - nc1, nb = min(2, (dv - 64 * u + BOXW - 1) / BOXW);
+      mbar_arrive_expect(&full[st], nb * BOX);
+      for (int b = 0; b < nb; ++b)
+        tma_load_2d(dst + b * BOX, &maps.v, 64 * u + BOXW * b, row0 + k0, &full[st]);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int i = 0; i < min(STAGES, n); ++i) issue(i);
+  // chunk i's stage once it has landed; first, warp i % 8 refills the stage
+  // of chunk i - LAG with chunk i - LAG + STAGES once every warp is done
+  // with it
+  auto take = [&](int i) {
+    const int j = i - LAG;
+    if (j >= 0 && j + STAGES < n && warp == i % WARPS && l == 0) {
+      mbar_wait(&empty[j % STAGES], (j / STAGES) & 1);
+      issue(j + STAGES);
+    }
+    __syncwarp();
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    return reinterpret_cast<const float*>(smem + (i % STAGES) * STAGE);
+  };
+  auto release = [&](int i) {  // this warp is done with chunk i's stage
+    __syncwarp();
+    if (l == 0) mbar_arrive(&empty[i % STAGES]);
+  };
+
+  float m_run[PR], l_run[PR], oacc[NU][PR][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < PR; ++r) {
     m_run[r] = NEG_INF;
     l_run[r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NJV; ++j) oacc[r][j] = 0.f;
-  }
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * TT;
-    float s[4][4] = {};
-    tile_dot(s, q_bh, q0, T, k_bh, k0, T, d1, As, Bs);
+    for (int u = 0; u < NU; ++u)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + 4 * ty + r;
+      for (int e = 0; e < 4; ++e) oacc[u][r][e] = 0.f;
+  }
+  int i = 0;  // chunks taken
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * TILE;
+    float s[PR][PC];
+#pragma unroll
+    for (int r = 0; r < PR; ++r)
+#pragma unroll
+      for (int c = 0; c < PC; ++c) s[r][c] = 0.f;
+    for (int c = 0; c < nc1; ++c, ++i) {
+      const float* stf = take(i);
+      chain_box(s, stf, stf + BOX / sizeof(float), 8 * g, kc);
+      release(i);
+    }
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      const int qi = q0 + 8 * g + r;
       float mx = NEG_INF;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tx + 16 * c;
+      for (int c = 0; c < PC; ++c) {
+        const int kj = k0 + kc + 16 * c;
         // rounded here, never fused into the exponent's subtraction: the
         // backward recomputes exactly this value
         s[r][c] = kj < klim && in_band(qi, kj, left, right) ? __fmul_rn(s[r][c], scale)
@@ -239,48 +353,90 @@ fwd_kernel(const float* __restrict__ qs, const float* __restrict__ ks,
       m_run[r] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < PC; ++c) {
         s[r][c] = expf(s[r][c] - m_safe);  // a masked score is -1e30: exactly 0
         sum += s[r][c];
       }
       l_run[r] = l_run[r] * alpha + sum;  // this thread's share of the row
 #pragma unroll
-      for (int j = 0; j < NJV; ++j) oacc[r][j] *= alpha;
+      for (int u = 0; u < NU; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[u][r][e] *= alpha;
     }
-    __syncthreads();  // every thread is done with the previous tile's P and V
+    __syncthreads();  // every warp is done with the previous tile's P
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < PR; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) Ps[(4 * ty + r) * LDC + tx + 16 * c] = s[r][c];
-    load_tile(Vs, MAXDV, v_bh, dv, k0, T, 0, dv);
+      for (int c = 0; c < PC; ++c) ps[(8 * g + r) * LDP + kc + 16 * c] = s[r][c];
     __syncthreads();
-    for (int k = 0; k < TT; ++k) {
-      float p[4];
+    // O[rows 8g.., columns 64u + 4kc..] += P V over the tile's keys in order;
+    // the lane's 4 columns are one 16-byte unit of v's box kc / 8
+    const float* prow = ps + 8 * g * LDP;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = Ps[(4 * ty + r) * LDC + k];
+    for (int u = 0; u < NU; ++u, ++i) {
+      const float* vbox = take(i) + (kc >> 3) * (BOX / sizeof(float));
+      const int cu = kc & 7;
+#pragma unroll 2
+      for (int k = 0; k < TILE; k += 4) {
+        float4 p[PR];
 #pragma unroll
-      for (int j = 0; j < NJV; ++j) {
-        if (tx + 16 * j < dv) {
-          const float vv = Vs[k * MAXDV + tx + 16 * j];
+        for (int r = 0; r < PR; ++r) p[r] = *reinterpret_cast<const float4*>(prow + r * LDP + k);
 #pragma unroll
-          for (int r = 0; r < 4; ++r) oacc[r][j] = fmaf(p[r], vv, oacc[r][j]);
+        for (int kk = 0; kk < 4; ++kk) {
+          const int kr = k + kk;
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vbox + kr * BOXW + ((cu ^ (kr & 7)) << 2));
+#pragma unroll
+          for (int r = 0; r < PR; ++r) {
+            const float pk = kk == 0 ? p[r].x : kk == 1 ? p[r].y : kk == 2 ? p[r].z : p[r].w;
+            oacc[u][r][0] = fmaf(pk, vv.x, oacc[u][r][0]);
+            oacc[u][r][1] = fmaf(pk, vv.y, oacc[u][r][1]);
+            oacc[u][r][2] = fmaf(pk, vv.z, oacc[u][r][2]);
+            oacc[u][r][3] = fmaf(pk, vv.w, oacc[u][r][3]);
+          }
         }
       }
+      release(i);
     }
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
+  for (int r = 0; r < PR; ++r) {
+    const int qi = q0 + 8 * g + r;
     const float lsum = row_sum(l_run[r]);
     const float l_safe = lsum == 0.f ? 1.f : lsum;
     if (qi >= T) continue;
 #pragma unroll
-    for (int j = 0; j < NJV; ++j)
-      if (tx + 16 * j < dv) o[((size_t)bh * T + qi) * dv + tx + 16 * j] = oacc[r][j] / l_safe;
-    if (tx == 0)
-      lse[(size_t)bh * T + qi] = (m_run[r] <= NEG_INF * 0.5f ? 0.f : m_run[r]) + logf(l_safe);
+    for (int u = 0; u < NU; ++u) {
+      const int col = 64 * u + 4 * kc;
+      if (col < dv)
+        *reinterpret_cast<float4*>(o + ((size_t)row0 + qi) * dv + col) =
+            make_float4(oacc[u][r][0] / l_safe, oacc[u][r][1] / l_safe, oacc[u][r][2] / l_safe,
+                        oacc[u][r][3] / l_safe);
+    }
+    if (kc == 0)
+      lse[(size_t)row0 + qi] = (m_run[r] <= NEG_INF * 0.5f ? 0.f : m_run[r]) + logf(l_safe);
   }
 }
+
+template <int NU>
+int launch(const void* qs, const void* ks, const void* v, const void* lens, void* o, void* lse,
+           int bh, int t, int d1, int dv, float scale, int left, int right, void* stream) {
+  const long long rows = (long long)bh * t;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  Maps m;
+  if (!flash::tensor_map(&m.q, qs, d1, rows, TILE, f32) ||
+      !flash::tensor_map(&m.k, ks, d1, rows, TILE, f32) ||
+      !flash::tensor_map(&m.v, v, dv, rows, TILE, f32))
+    return (int)cudaErrorNotSupported;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fwd_kernel<NU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  fwd_kernel<NU><<<dim3((t + TILE - 1) / TILE, bh), THREADS, SMEM, (cudaStream_t)stream>>>(
+      m, (const int*)lens, (float*)o, (float*)lse, t, d1, dv, scale, left, right);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd
 
 // P of a visible pair from its S accumulator, as the 16-bit kernels form it:
 // x = fl(S * scale), rounded as the forward rounds it (never fused into the
@@ -301,7 +457,6 @@ using namespace tc;
 
 constexpr int OWN = 32;      // rows of the block's own side (queries for dQ, keys for dK/dV)
 constexpr int OTH = 64;      // rows of a tile of the other side
-constexpr int BOXW = 32;     // columns of a box: 128 bytes of fp32
 constexpr int S_WARPS = 4;   // warps that form S, dP, P and dS on the FMA pipe
 constexpr int G_WARPS = 8;   // warps that hold the gradients and run the tensor-core products
 constexpr int THREADS = (S_WARPS + G_WARPS) * 32;
@@ -370,52 +525,6 @@ inline Layout plan(bool kv, int d1, int dv) {
 struct Maps {
   CUtensorMap own_s, oth_s, own_p, oth_p, g1, g2;
 };
-
-// Element (r, c) of a box of 32-float rows written with the 128-byte
-// swizzle: the 16-byte unit c / 4 of row r sits at unit (c / 4) ^ (r % 8).
-// The box starts 1024-byte aligned.
-__device__ inline int swz(int r, int c) { return r * BOXW + ((((c >> 2) ^ r) & 7) << 2) + (c & 3); }
-
-// acc[r][c] += sum over the box's 32 columns, in order, of A[ra + r][.] *
-// B[rb + 16c][.]: one fmaf chain per element, as tile_dot forms it (fmaf's
-// two factors commute exactly, so the dK/dV kernel's K-times-Qs chain is the
-// forward's Qs-times-K one). A is a [32 x 32] box, B a [64 x 32] box, both
-// swizzled; ra % 4 == 0 and rb % 8 is the lane's column tc, so the 8 lanes of
-// a quarter warp read one A row, or 8 B rows at distinct units. Shared
-// memory gives a block 32 floats a clock against 128 FMAs: the 4 x 4 piece
-// reads 0.5 floats an FMA.
-__device__ inline void chain_box(float (&acc)[4][4], const float* A, const float* B, int ra,
-                                 int rb) {
-  const float* a = A + ra * BOXW;
-  const float* b = B + rb * BOXW;
-  const int xa = ra & 7, xb = rb & 7;
-#pragma unroll
-  for (int u = 0; u < BOXW / 4; ++u) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      x[r] = *reinterpret_cast<const float4*>(a + r * BOXW + ((u ^ (xa + r)) << 2));
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      y[c] = *reinterpret_cast<const float4*>(b + c * 16 * BOXW + ((u ^ xb) << 2));
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].x, y[c].x, acc[r][c]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].y, y[c].y, acc[r][c]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].z, y[c].z, acc[r][c]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r].w, y[c].w, acc[r][c]);
-  }
-}
 
 // The A fragments (hi and lo) of own rows 16m.. at k-step ks from a dS or P
 // tile: other rows 8ks + 2t and 8ks + 2t + 1 are the fragment's k = t and t
@@ -773,30 +882,22 @@ int launch(const void* qs, const void* ks, const void* v, const void* dout, cons
 
 }  // namespace bwd
 
-constexpr size_t FWD_SMEM = sizeof(float) * (Smem::x + TT * MAXDV);
-
-template <typename K>
-int prepare(K kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
 }  // namespace
 
 // qs, ks: [bh, t, d1] fp32; v: [bh, t, dv] fp32; lens: [bh] int32; o: [bh,
-// t, dv] fp32; lse: [bh, t] fp32; all contiguous; dv <= 128. Launches on
-// `stream` and returns the cudaError_t of the launch.
+// t, dv] fp32; lse: [bh, t] fp32; all contiguous and 16-byte aligned, d1
+// and dv multiples of 4 (the tensor copies' row stride), dv <= 128; any d1.
+// Launches on `stream` and returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd_f32(const void* qs, const void* ks, const void* v,
                                        const void* lens, void* o, void* lse, int bh, int t,
                                        int d1, int dv, float scale, int left, int right,
                                        void* stream) {
-  if (dv > MAXDV || dv <= 0 || d1 <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
-  int err = prepare(fwd_kernel, FWD_SMEM);
-  if (err != 0) return err;
-  fwd_kernel<<<dim3((t + TT - 1) / TT, bh), NTH, FWD_SMEM, (cudaStream_t)stream>>>(
-      (const float*)qs, (const float*)ks, (const float*)v, (const int*)lens, (float*)o,
-      (float*)lse, t, d1, dv, scale, left, right);
-  return (int)cudaGetLastError();
+  if (dv > MAXDV || dv <= 0 || d1 <= 0 || d1 % 4 || dv % 4 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  return dv > 64 ? fwd::launch<2>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left, right,
+                                  stream)
+                 : fwd::launch<1>(qs, ks, v, lens, o, lse, bh, t, d1, dv, scale, left, right,
+                                  stream);
 }
 
 // The backward's plan at (d1, dv) for the dQ kernel (kv 0) or the dK/dV

@@ -79,8 +79,9 @@ def test_ctc_model_matches_jax(path):
 
 # (cfg fields, device, refusal or None): the CUDA flash kernels take bf16,
 # fp16 and fp32 at dv <= 128, and in the 16-bit types d1 up to the forward's
-# shared memory; a CUDA model that can reach the flash path in another dtype
-# or at another depth is refused up front
+# shared memory; a CUDA model that can reach the flash path in another dtype,
+# or with use_flash_attention True at another depth, is refused up front
+# (under "auto" such a depth takes the dense path)
 FLASH_DTYPE_CASES = {
     "cuda_fp32_auto": (dict(dtype=torch.float32), "cuda", None),
     "cuda_fp32_flash": (dict(dtype=torch.float32, use_flash_attention=True), "cuda", None),
@@ -94,8 +95,16 @@ FLASH_DTYPE_CASES = {
     "cuda_fp64_flash": (dict(dtype=torch.float64, use_flash_attention=True), "cuda",
                         "take torch.bfloat16, torch.float16, torch.float32"),
     # d1 = 72 + 1152 = 1224, past the 16-bit forward's 1216; fp32 streams the depth
-    "cuda_bf16_past_forward_depth": (dict(dtype=torch.bfloat16, d_model=1152, n_heads=16),
+    "cuda_bf16_past_forward_depth": (dict(dtype=torch.bfloat16, d_model=1152, n_heads=16,
+                                          use_flash_attention=True),
                                      "cuda", "flash_attention_fwd_smem_bytes"),
+    "cuda_bf16_past_forward_depth_auto": (dict(dtype=torch.bfloat16, d_model=1152, n_heads=16),
+                                          "cuda", None),
+    # d_head 144: past dv 128 in every dtype
+    "cuda_fp32_dv_past_128": (dict(dtype=torch.float32, d_model=1152, n_heads=8,
+                                   use_flash_attention=True), "cuda", "dv <= 128"),
+    "cuda_fp32_dv_past_128_auto": (dict(dtype=torch.float32, d_model=1152, n_heads=8), "cuda",
+                                   None),
     "cuda_fp32_past_forward_depth": (dict(dtype=torch.float32, d_model=1152, n_heads=16),
                                      "cuda", None),
 }

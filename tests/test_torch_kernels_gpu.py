@@ -325,6 +325,61 @@ def _chain_scores(qs, ks, depth):
     return acc.float()
 
 
+def _ulp(x):
+    """The gap from |x| to the next fp32 number up."""
+    a = x.float().abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+@pytest.mark.gpu
+def test_flash_f32_forward_keeps_the_chain(cuda_device):
+    """The fp32 forward's S is the fmaf chain taken on the host
+    (`_chain_scores`), read out of o. Scores near 1e7 as in the backward's
+    chain test (qs and ks random times 2048 in their first 288 columns, qs 0
+    past them), where a unit in the last place of x = fl(S * scale) is worth
+    6% or more of P. Keys 2i + 1 copy keys 2i there, but for column 0, which
+    is 2^-8 larger: the pair's exact scores differ by a few units of x, and
+    their fp32 chains by whatever the rounding along the chain makes of that,
+    so a row whose largest scores are such a pair splits its P between them
+    by the chain's order. v's 64 columns are one-hot probes of keys 0..63, so
+    o[i, r] is P of query i at key r. o is held within 1e-5 of exp(x - lse)
+    with x the host chain's and lse taken from it in fp64: the kernel's o is
+    P over its own row sum, and its lse, rounded to fp32, is a whole unit
+    coarse at these scores. The kernel's lse is held to the fp64 one within
+    half a unit in the last place, and to at least the row's largest x."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    bh, t, d1, half, probes = 2, 600, 576, 288, 64
+    qs = torch.zeros(bh, t, d1)
+    qs[..., :half] = torch.randn(bh, t, half, generator=g) * 2048.0
+    ks = torch.randn(bh, t, d1, generator=g)
+    ks[..., :half] *= 2048.0
+    ks[:, 1::2, :half] = ks[:, 0::2, :half]
+    ks[:, 1::2, 0] += 2.0 ** -8
+    v = torch.zeros(bh, t, probes)
+    v[:, :probes, :] = torch.eye(probes)
+    qs, ks, v = (x.to(cuda_device) for x in (qs, ks, v))
+    lens = torch.tensor([t, 451], dtype=torch.int32, device=cuda_device)
+    scale = 0.125
+    o, lse = port.flash_attention_fwd(qs, ks, v, lens, scale)
+    x = (_chain_scores(qs, ks, half) * scale).float()
+    key_ok = torch.arange(t, device=cuda_device)[None, None, :] < lens[:, None, None]
+    x64 = torch.where(key_ok, x.double(), float("-inf"))
+    m = x64.amax(-1)
+    lse64 = m + torch.log(torch.exp(x64 - m[..., None]).sum(-1))
+    want = torch.exp(x64[..., :probes] - lse64[..., None])
+    torch.cuda.synchronize()
+    lse_err = ((lse.double() - lse64).abs() / _ulp(lse64).double()).max().item()
+    under = (lse.double() < m).sum().item()
+    err = (o.double() - want).abs().max().item()
+    # rows with a probed pair that splits P, where a unit of x moves it by 6% or more
+    split = ((want > 0.01) & (want < 0.99) & (_ulp(x[..., :probes]) >= 2.0 ** -4)).any(-1)
+    print(f"o: max abs err {err!r}; lse: {lse_err!r} units off fp64, under the row's "
+          f"largest x on {under} rows; {split.sum().item()} rows split a probed pair")
+    assert lse64.abs().max().item() > 1e6 and split.sum().item() >= 40
+    assert under == 0 and lse_err <= 0.5 + 1e-3
+    assert err <= 1e-5
+
+
 @pytest.mark.gpu
 def test_flash_f32_backward_keeps_the_forward_chain(cuda_device):
     """Scores near 1e7 that no fp32 sum gives exactly (qs and ks random times

@@ -5,6 +5,10 @@
   step (the libraries' limits stood in for, since this machine has no
   card); every depth the forward takes trains, and inference past a
   backward limit is not refused;
+* under `use_flash_attention: auto` a CUDA encoder at depths no flash
+  kernel takes (dv > 128; in bf16/fp16 a d1 past the forward's shared
+  memory) takes the dense attention, saying so once, where an explicit
+  True is refused at construction;
 * `joint_impl: auto` takes the flash joint at every width H its kernels
   take (the backward takes every H the forward takes, to 1376 in bf16) and
   the dense joint past it, saying so once (the joint library's
@@ -99,6 +103,42 @@ def test_flash_inference_past_the_backward_depth_is_not_refused(monkeypatch):
     monkeypatch.setattr(fa, "load", lambda source: _BwdLimits())
     enc = _encoder(640, "auto")
     conformer.check_flash_dtype(enc, "cuda")
+
+
+@pytest.mark.parametrize("d_model,n_heads,dtype,dense", [
+    (1152, 16, torch.bfloat16, True),   # d1 = 72 + 1152 = 1224, past the 16-bit forward's 1216
+    (1152, 16, torch.float32, False),   # the fp32 forward streams the depth: any d1
+    (1152, 8, torch.float32, True),     # dv = d_head 144, past 128 in every dtype
+    (512, 8, torch.bfloat16, False),    # the flagship depth, d1 576
+])
+def test_auto_flash_takes_dense_where_no_kernel_takes_the_depth(monkeypatch, caplog, d_model,
+                                                                 n_heads, dtype, dense):
+    monkeypatch.setattr(fa, "load", lambda source: _BwdLimits())
+    monkeypatch.setattr(conformer, "_DENSE_FOR_DEPTH", set())
+    enc = dataclasses.replace(_encoder(d_model, "auto", n_heads=n_heads), dtype=dtype)
+    forced = dataclasses.replace(enc, use_flash_attention=True)
+    attn = conformer.RelPosMultiHeadAttention(enc)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))  # lengths on the card
+    t = enc.flash_attention_min_t
+    with caplog.at_level("WARNING", logger=conformer.__name__):
+        for _ in range(2):
+            conformer.check_flash_dtype(enc, "cuda")
+            conformer.check_flash_training(enc, "cuda", t)
+            assert attn.use_flash(t, on_card) is not dense
+    said = [r for r in caplog.records if "use_flash_attention auto" in r.getMessage()]
+    assert len(said) == (1 if dense else 0)  # said once
+    assert attn.use_flash(t, torch.zeros(2))  # the CPU runs the plain version at any depth
+    assert not attn.use_flash(t - 1, on_card)  # below flash_attention_min_t: dense anyway
+    # an explicit True is not rerouted: construction refuses the depth
+    assert conformer.RelPosMultiHeadAttention(forced).use_flash(t, on_card)
+    if dense:
+        for check in (lambda: conformer.check_flash_dtype(forced, "cuda"),
+                      lambda: conformer.check_flash_training(forced, "cuda", t)):
+            with pytest.raises(ValueError, match="model.encoder.use_flash_attention=False"):
+                check()
+    else:
+        conformer.check_flash_dtype(forced, "cuda")
+        conformer.check_flash_training(forced, "cuda", t)
 
 
 @pytest.fixture(scope="module")
