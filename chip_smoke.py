@@ -287,11 +287,12 @@ started by that phase.
 
     python3 chip_smoke.py --joint-bench DIR
 
-runs env, build and the K4 cases alone (the transducer step's shapes at the
-config's V and at V 1025) with conformer_nemo_tpu_torch imported from the
-checkout at DIR, so that two versions of the joint can be timed in turns (run
-each checkout's own script from its root with DIR `.`: the cases follow the
-package's interface).
+runs env, build and the K4 cases alone (bf16, fp16 and fp32 at the
+transducer step's shapes, at the config's V and at V 1025, each beside the
+dense joint's forward and autograd backward) with conformer_nemo_tpu_torch
+imported from the checkout at DIR, so that two versions of the joint can be
+timed in turns: run it once with DIR a copy of the parent commit and once
+with `.` (the cases follow the package's interface).
 
     python3 chip_smoke.py --flash-bench DIR
 
@@ -715,26 +716,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernels: dict, iters: int = 5) -> dict:
+def kernel_device_ms(fn, kernels: dict, iters: int = 5, tries: int = 3) -> dict:
     """Device time per call of fn() of each kernel named in `kernels`
     ({label: substring of its name}), summed over its launches in a call,
-    from torch.profiler over `iters` calls after a warm-up."""
+    from torch.profiler over `iters` calls after a warm-up. A trace in which
+    a named kernel shows no time is taken again, up to `tries` traces: late
+    in the full script the profiler has returned one without the cells
+    kernel of a backward whose outputs had just been checked (my chip call
+    60, PR 22), a trace that lost events, not a kernel that did not run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = {label: sum(e.self_device_time_total for e in events if name in e.key)
+              for label, name in kernels.items()}
+        if all(x > 0 for x in us.values()):
+            break
     for label, name in kernels.items():
-        us = sum(e.self_device_time_total for e in events if name in e.key)
-        check(us > 0, ("the profiler saw no", name))
-        out[label] = us / iters / 1e3
-    return out
+        check(us[label] > 0, ("the profiler saw no", name))
+    return {label: x / iters / 1e3 for label, x in us.items()}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -5564,9 +5571,13 @@ def kernel_summary(rows: dict, launches: dict) -> list:
 
 def joint_bench(root: str) -> int:
     """K4 alone, with the package imported from the checkout at `root` (so
-    that two versions can be timed in turns on one card): `_joint_case` at
-    the transducer step's shapes, its lengths from the same generated
-    manifest through the loader (no fit), at the config's V and at V 1025."""
+    that two versions can be timed in turns on one card): `_joint_case` in
+    bf16, fp16 and fp32 (TF32 off) at the transducer step's shapes, its
+    lengths from the same generated manifest through the loader (no fit), at
+    the config's V and at V 1025. Each case's kernel times sit beside the
+    dense joint's forward and autograd backward on the same inputs
+    (`library_fwd`, `library_bwd`) in the closing `joint_bench` line, so
+    "no slower than the library" and the turns read from one run."""
     from conformer_nemo_tpu_torch.api import ConformerTransducer
 
     dev = torch.device("cuda")
@@ -5587,11 +5598,19 @@ def joint_bench(root: str) -> int:
     free_cuda()
     b, u = batch.tokens.shape
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 cases and their dense yardstick
+    ms = {}
     for vv in (v, JOINT_FLAGSHIP_V):
-        _joint_case(f"bench_b{b}_t{t}_u1{u + 1}_v{vv}", b, t, u, h, vv, enc_lens,
-                    batch.token_lens.tolist(), gen, dev, drop_t=26)
-        free_cuda()
-    emit("joint_bench", root=os.path.abspath(root), nvidia_smi=env["nvidia_smi"])
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            case = f"bench_{str(dtype).split('.')[-1]}_b{b}_t{t}_u1{u + 1}_v{vv}"
+            rows = _joint_case(case, b, t, u, h, vv, enc_lens, batch.token_lens.tolist(), gen,
+                               dev, drop_t=26, dtype=dtype)
+            ms[case] = {r["kernel"]: r["ms"] for r in rows}
+            ms[case]["library_fwd"] = rows[0]["library_ms"]
+            ms[case]["library_bwd"] = rows[-1]["library_ms"]
+            ms[case]["windows"] = rows[0]["windows"]
+            free_cuda()
+    emit("joint_bench", root=os.path.abspath(root), nvidia_smi=env["nvidia_smi"], ms=ms)
     return 0
 
 

@@ -311,8 +311,7 @@ def joint_flash_bwd_reference(e, p, w, bias, targets, lse, total, gb, gy, g, see
 
 TILE_CELLS = 64  # lattice cells per tile of the cells kernel
 KSPLIT = 24  # fixed number of K splits of the dW product
-# label columns per pass of the backward kernels over the label block
-PASS_COLS = {torch.bfloat16: 320, torch.float16: 320, torch.float32: 128}
+PASS_COLS = 320  # label columns per pass of every dtype's backward over the label block
 WINDOW_BYTES = 320 << 20  # at most a window's scratch (dlab, dblank, dx, h, db partials, dh)
 
 _CHECKED_LIBS: set = set()
@@ -325,7 +324,7 @@ def _load_checked(dtype):
     if id(lib) not in _CHECKED_LIBS:
         got = (lib.rnnt_joint_bwd_tile_cells(), lib.rnnt_joint_bwd_ksplit(),
                lib.rnnt_joint_bwd_pass_cols())
-        want = (TILE_CELLS, KSPLIT, PASS_COLS[dtype])
+        want = (TILE_CELLS, KSPLIT, PASS_COLS)
         if got != want:
             raise RuntimeError(f"{KERNELS[dtype][0]}'s (tile cells, K splits, pass columns) are "
                                f"{got}, this module's {want}")
@@ -434,12 +433,12 @@ def fwd_rows(h: int, dtype=torch.bfloat16) -> int:
 
 
 def fwd_grid(cells: int, rows: int, n_sm: int) -> int:
-    """Blocks of the 16-bit forward's persistent grid over B * T * U1 `cells`
+    """Blocks of the forward's persistent grid over B * T * U1 `cells`
     in tiles of `rows`: one per SM, no more than the tiles. Block x takes the
     lattice's tiles x, x + grid, ... (tile k: lattice cells k * rows ..
     k * rows + rows - 1 in `lattice_cells` order), and the sentinels of the
     full [B, T, U1] index in a grid-stride loop, so any grid covers every
-    cell once. (The fp32 forward launches a block per tile instead.)"""
+    cell once. The fp32 forward walks 64-cell tiles the same way."""
     return max(1, min(n_sm, -(-cells // rows)))
 
 
@@ -488,7 +487,7 @@ def joint_flash_fwd(e, p, w, bias, targets, seed, *, t_lens, u_lens, blank_id: i
 def _launch_fwd(e, p, w_fwd, bias, targets, seed, t_lens, u_lens, outs, v: int, act: int,
                 drop_t: int, bt: int, grid: int | None = None, hash_h: int | None = None) -> None:
     """One launch of the forward on checked inputs of a width a multiple of 16:
-    w_fwd from `fwd_weight`, grid the 16-bit persistent grid's blocks (default
+    w_fwd from `fwd_weight`, grid the persistent grid's blocks (default
     `fwd_grid`'s), hash_h the caller's width where e, p and W are padded."""
     b, t, h = e.shape
     u1, dt = p.shape[1], e.dtype
@@ -565,7 +564,7 @@ def _window_bytes_per_cell(h: int, v: int, dtype) -> float:
     dtype, fp32 dblank, the db partials, and fp32 dh between the passes over
     a label block wider than a pass."""
     es, vlp = torch.tensor([], dtype=dtype).element_size(), padded_vl(v)
-    return es * (2 * h + vlp) + 4 + 4 * v / TILE_CELLS + (4 * h if vlp > PASS_COLS[dtype] else 0)
+    return es * (2 * h + vlp) + 4 + 4 * v / TILE_CELLS + (4 * h if vlp > PASS_COLS else 0)
 
 
 def bwd_windows(cells: int, h: int, v: int, window: int | None = None, dtype=torch.bfloat16):
@@ -814,14 +813,15 @@ def _transposed(w_pad):
 
 def _cells_scratch(e, w_pad, bias, win: int):
     """The cells kernel's window scratch (dlab, dblank, dx, h, db partials) and
-    its fp32 dh between passes ([win, H], or None for one pass)."""
+    its fp32 dh between passes over a label block wider than a pass ([win, H],
+    or None for one pass)."""
     h, vlp, v, dev, dt = e.shape[2], w_pad.shape[1], bias.shape[0], e.device, e.dtype
     scratch = (torch.empty((win, vlp), dtype=dt, device=dev),
                torch.empty((win,), dtype=torch.float32, device=dev),
                torch.empty((win, h), dtype=dt, device=dev),
                torch.empty((win, h), dtype=dt, device=dev),
                torch.empty((win // TILE_CELLS, v), dtype=torch.float32, device=dev))
-    dh_part = (torch.empty((win, h), dtype=torch.float32, device=dev) if vlp > PASS_COLS[dt]
+    dh_part = (torch.empty((win, h), dtype=torch.float32, device=dev) if vlp > PASS_COLS
                else None)
     return scratch, dh_part
 

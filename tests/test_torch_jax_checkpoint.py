@@ -1,5 +1,5 @@
 """Resumable checkpoints across the packages (convert/jax_train_state.py,
-train/checkpoint.py, scripts/convert_checkpoint.py).
+train/checkpoint.py).
 
 The JAX package trains a tiny model (d_model 128, so adafactor factors its
 linears) three steps with its own train step and writes `state.msgpack`
@@ -23,10 +23,9 @@ the transducer adamw and rmsprop clipped and accumulating). Checked:
   gradient is below 1e-4 of their tensor's largest, such as linear_pos's
   low-frequency columns): those within the most a step moves them (0.05).
 
-Then the files: a port `fit` of two steps with an experiment manager,
-`scripts/convert_checkpoint.py` to the JAX format, the JAX package's fit
-resuming it to step 3; and the JAX package's fit of two steps resumed by
-the port's fit through `trainer.resume_from_checkpoint`.
+The files crossing both ways through `fit` are in
+test_torch_jax_checkpoint_files.py (the two files spread over the test
+workers).
 """
 
 import os
@@ -38,7 +37,6 @@ import pytest
 import torch
 from flax import serialization
 
-from conformer_nemo_tpu.api import ConformerCTC as JaxConformerCTC
 from conformer_nemo_tpu.audio.features import MelFeatureConfig as JaxMelConfig
 from conformer_nemo_tpu.models import rnnt as jax_rnnt
 from conformer_nemo_tpu.models.conformer import ConformerEncoderConfig as JaxEncoderConfig
@@ -48,9 +46,6 @@ from conformer_nemo_tpu.train import lr_schedule as jlr
 from conformer_nemo_tpu.train import optim as jopt
 from conformer_nemo_tpu.train import rnnt_trainer as jax_rnnt_trainer
 from conformer_nemo_tpu.train import trainer as jax_trainer
-from conformer_nemo_tpu.train.exp_manager import ExperimentManager as JaxExpManager
-from conformer_nemo_tpu.train.exp_manager import ExpManagerConfig as JaxExpManagerConfig
-from conformer_nemo_tpu_torch.api import ConformerCTC
 from conformer_nemo_tpu_torch.audio.features import MelFeatureConfig
 from conformer_nemo_tpu_torch.convert import flax_msgpack
 from conformer_nemo_tpu_torch.convert import jax_train_state as jts
@@ -61,16 +56,12 @@ from conformer_nemo_tpu_torch.convert.jax_params import (
 from conformer_nemo_tpu_torch.models import rnnt as port_rnnt
 from conformer_nemo_tpu_torch.models.conformer import ConformerEncoderConfig
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, CTCModelConfig
-from conformer_nemo_tpu_torch.scripts import convert_checkpoint
 from conformer_nemo_tpu_torch.train import checkpoint as ckpt
 from conformer_nemo_tpu_torch.train import lr_schedule as plr
 from conformer_nemo_tpu_torch.train import optim as popt
-from conformer_nemo_tpu_torch.train.exp_manager import ExpManagerConfig, ExperimentManager
 from conformer_nemo_tpu_torch.train.rnnt_trainer import RNNTTrainConfig, init_rnnt_state
 from conformer_nemo_tpu_torch.train.rnnt_trainer import make_rnnt_train_step
 from conformer_nemo_tpu_torch.train.trainer import init_ctc_state, make_ctc_train_step
-
-from test_torch_fit import CONFIG, TINY, manifest  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
@@ -241,47 +232,6 @@ def test_generator_and_key_rule():
     assert torch.equal(gen.get_state(), state)  # the live generator did not move
     assert jts.generator_from_key(k).initial_seed() == ((int(k[0]) << 32) | int(k[1])) & (
         (1 << 63) - 1)
-
-
-def test_checkpoint_files_cross_both_ways(manifest, tmp_path):  # noqa: F811
-    over = {**TINY, "model.spec_augment.freq_masks": 0, "model.spec_augment.time_masks": 0,
-            "model.preprocessor.dither": 0.0, "model.encoder.dropout": 0.0,
-            "model.encoder.dropout_att": 0.0, "model.encoder.dropout_emb": 0.0,
-            "model.encoder.remat": False}
-    # the port's run -> the JAX format -> the JAX package resumes it
-    pm = ConformerCTC.from_config_file(CONFIG, overrides=over, device="cpu", dtype=torch.float32)
-    em = ExperimentManager(ExpManagerConfig(exp_dir=str(tmp_path / "port"),
-                                            create_tensorboard_logger=False))
-    assert pm.fit(manifest, manifest, max_steps=2, exp_manager=em)["steps"] == 2
-    em.wait_for_saves()
-    out_dir = str(tmp_path / "as_jax")
-    written = convert_checkpoint.main(["--config", CONFIG, "--device", "cpu", em.ckpt_dir,
-                                       out_dir] + [f"{k}={v}" for k, v in over.items()])
-    assert os.path.exists(os.path.join(written, "state.msgpack"))
-    jm = JaxConformerCTC.from_config_file(
-        CONFIG, overrides={**over, "trainer.resume_from_checkpoint": out_dir},
-        dtype=jnp.float32)
-    assert jm.fit(manifest, manifest, max_steps=3)["steps"] >= 1
-    assert int(jm.state.step) == 3
-    # and the file's weights are the port run's
-    jm2 = JaxConformerCTC.from_config_file(CONFIG, overrides=over, dtype=jnp.float32)
-    template = jm2._init_state(jm2._make_optimizer())
-    restored, _ = jax_ckpt.restore_train_state(out_dir, template)
-    sd = ctc_state_dict_from_jax(_host(restored), pm.cfg)
-    for k, v in pm.state_dict().items():
-        assert torch.equal(v, sd[k]), k
-
-    # the JAX package's run -> the port resumes it as it is
-    jm = JaxConformerCTC.from_config_file(CONFIG, overrides=over, dtype=jnp.float32)
-    jem = JaxExpManager(JaxExpManagerConfig(exp_dir=str(tmp_path / "jax"),
-                                            create_tensorboard_logger=False))
-    jm.fit(manifest, manifest, max_steps=2, exp_manager=jem)
-    jem.wait_for_saves()
-    pm = ConformerCTC.from_config_file(
-        CONFIG, overrides={**over, "trainer.resume_from_checkpoint": jem.ckpt_dir},
-        device="cpu", dtype=torch.float32)
-    assert pm.fit(manifest, manifest, max_steps=3)["steps"] >= 1
-    assert pm.train_state.step == 3
 
 
 def test_index_maps_every_entry_once():

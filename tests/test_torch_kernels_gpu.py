@@ -859,6 +859,130 @@ def test_rnnt_joint_cuda_kernels_in_every_dtype_and_width(cuda_device, dtype, h,
         assert (a - r).abs().max().item() <= tol * r.abs().max().item(), name
 
 
+F32_TOL = 2e-5  # the fp32 kernels against the plain fp32 version, TF32 off (JOINT_TOLS)
+
+
+def _rel(a, r) -> float:
+    a, r = a.float(), r.float()
+    return (a - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,v,drop_t,clamp,activation", [
+    (64, 41, 26, -1.0, "relu"), (640, 296, 26, 2.0, "relu"), (600, 321, 0, -1.0, "tanh"),
+    (640, 322, 26, -1.0, "relu"), (64, 401, 26, 0.5, "sigmoid"), (640, 584, 26, -1.0, "relu"),
+    (1376, 1025, 0, -1.0, "relu"), (1376, 296, 26, -1.0, "tanh")])
+def test_rnnt_joint_f32_kernels_at_the_edges_of_their_sweeps(cuda_device, h, v, drop_t, clamp,
+                                                             activation):
+    """The fp32 forward and cells kernel against their plain versions (2e-5
+    of max, TF32 off) where their sweeps end: V 41 (one 64-column sweep),
+    296 (320 columns), 321 (VLp 320: the widest one-pass label block) and
+    322 (VLp 352: two passes, dh through its scratch), 401, 584 and 1025
+    (two to four sweeps and passes); H 64, 600 (padded to 608), 640 and 1376
+    (one to five hidden sweeps of dh); a u_len 0 row and a 1-frame row, drop_t
+    0 and 26, a clamp. The cells kernel alone per window (windows of 64 cells
+    too), the whole backward, the forward's persistent grid at 1 and 3
+    blocks: the same bits on a second call and at every grid."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, t, u = 3, 37, 8
+    dt = torch.float32
+    e, p, w, bias, targets, g = _joint_inputs(cuda_device, b, t, u, h, v, dtype=dt)
+    seed = jt.joint_seed(4321, 5, t, u + 1, h, 16)
+    t_lens = torch.tensor([37, 20, 1], dtype=torch.int32, device=cuda_device)
+    u_lens = torch.tensor([8, 0, 3], dtype=torch.int32, device=cuda_device)
+    kw = dict(t_lens=t_lens, u_lens=u_lens, blank_id=v - 1, activation=activation,
+              drop_t=drop_t, bt=16)
+    fwd = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    fwd_ref = jt.joint_flash_fwd_reference(e, p, w, bias, targets, seed, **kw)
+    inside = (torch.arange(t, device=cuda_device)[None, :, None] < t_lens[:, None, None]) & (
+        torch.arange(u + 1, device=cuda_device)[None, None, :] <= u_lens[:, None, None])
+    ep, pp, wp = jt.pad_hidden(e, p, w)
+    grids = []
+    for grid in (1, 3):
+        outs = [torch.empty((b, t, u + 1), dtype=dt, device=cuda_device) for _ in range(3)]
+        jt._launch_fwd(ep, pp, jt.fwd_weight(wp), bias, targets, seed, t_lens, u_lens, outs, v,
+                       jt._act_code(activation), drop_t, 16, grid=grid, hash_h=h)
+        grids.append(outs)
+    post = [torch.rand(b, t, u + 1, generator=g).to(cuda_device) * s for s in (1.1, 0.6, 0.6)]
+    args = (e, p, w, bias, targets, fwd_ref[2].contiguous(), *post,
+            torch.tensor([1.0, 0.5, 2.0], device=cuda_device), seed)
+    bwd = jt.joint_flash_bwd(*args, clamp=clamp, **kw)
+    bwd_ref = jt.joint_flash_bwd_reference(*args, clamp=clamp, **kw)
+    small = jt.joint_flash_bwd_windowed(ep, pp, wp, *args[3:], clamp=clamp, window=64,
+                                        hash_h=h, **kw)
+    w_pad, w_blank = jt.pad_label_block(wp, v - 1)
+    pkw = dict(t_lens=t_lens, u_lens=u_lens, activation=activation, drop_t=drop_t, bt=16,
+               clamp=clamp, hash_h=h)
+    n = int((t_lens * (u_lens + 1)).sum())
+    cells_args = (ep, pp, w_pad, w_blank, *args[3:])
+    piece = [jt.joint_flash_bwd_cells(*cells_args, c0=c0, win=64, **pkw) for c0 in (0, 64)]
+    piece_ref = [jt.joint_flash_bwd_cells_reference(*cells_args, c0=c0, win=64, **pkw)
+                 for c0 in (0, 64)]
+    again = (jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw),
+             jt.joint_flash_bwd(*args, clamp=clamp, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(fwd, again[0]))
+    assert all(torch.equal(x, y) for x, y in zip(bwd, again[1]))
+    for outs in grids:
+        assert all(torch.equal(x, y) for x, y in zip(outs, fwd))
+    for name, a, r in zip(("blank_lp", "label_lp", "lse"), fwd, fwd_ref):
+        assert torch.equal(a[~inside], r[~inside]), name
+        assert torch.isfinite(a[inside]).all(), name
+        assert _rel(a[inside], r[inside]) <= F32_TOL, name
+    for name, a, r, s in zip(("de", "dp", "dw", "db"), bwd, bwd_ref, small):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, r) <= F32_TOL, name
+        s = s[..., :h] if s.dim() == 3 else s[:h] if s.dim() == 2 else s  # H padded to 16
+        assert _rel(s, r) <= F32_TOL, (name, "windows of 64")
+    for k, (cells, ref) in enumerate(zip(piece, piece_ref)):
+        rows = min(64, n - 64 * k)  # the rows the kernel writes
+        for name, a, r, m in zip(("dlab", "dblank", "dx", "h", "db_tiles"), cells, ref,
+                                 (rows, rows, rows, rows, 1)):
+            assert _rel(a[:m], r[:m]) <= F32_TOL, (name, k)
+
+
+@pytest.mark.gpu
+def test_rnnt_joint_f32_cells_keep_the_forward_chain(cuda_device):
+    """The cells kernel forms each logit in the forward's chain: with total
+    1, gb = gy = 0, g 1 and no clamp, dlab is exp(logit - lse) and dblank
+    exp(blank - lse) on the forward's lse, so where the chains agree dblank
+    is exp of the forward's blank_lp and dlab at the target exp of its
+    label_lp, to expf's rounding (2 units in the last place). Logits of a
+    few tens: a unit of the logit there moves exp by tens of units, so a
+    reordered chain fails."""
+    from conformer_nemo_tpu_torch.ops import rnnt_joint as jt
+
+    b, t, u, h, v = 2, 23, 6, 640, 296
+    dev = cuda_device
+    gen = torch.Generator().manual_seed(11)
+    e = torch.randn(b, t, h, generator=gen).to(dev)
+    p = torch.randn(b, u + 1, h, generator=gen).to(dev)
+    w = (torch.randn(h, v, generator=gen) * 0.6).to(dev)
+    bias = (torch.randn(v, generator=gen) * 0.1).to(dev)
+    targets = torch.randint(0, v - 1, (b, u), generator=gen).to(dev, torch.int32)
+    seed = torch.tensor([9], dtype=torch.int32)
+    full = lambda n: torch.full((b,), n, dtype=torch.int32, device=dev)
+    kw = dict(t_lens=full(t), u_lens=full(u), blank_id=v - 1, drop_t=26, bt=16)
+    blank_lp, label_lp, lse = jt.joint_flash_fwd(e, p, w, bias, targets, seed, **kw)
+    ones, zeros = torch.ones_like(lse), torch.zeros_like(lse)
+    ep, pp, wp = jt.pad_hidden(e, p, w)
+    w_pad, w_blank = jt.pad_label_block(wp, v - 1)
+    n = b * t * (u + 1)
+    dlab, dblank = jt.joint_flash_bwd_cells(
+        ep, pp, w_pad, w_blank, bias, targets, lse, ones, zeros, zeros, torch.ones(b, device=dev),
+        seed, t_lens=full(t), u_lens=full(u), c0=0, win=-(-n // 64) * 64, drop_t=26, bt=16)[:2]
+    torch.cuda.synchronize()
+    cells = jt.lattice_cells(full(t), full(u), t, u + 1, dev)  # the scratch's row order
+    tgt = torch.nn.functional.pad(targets.long(), (0, 1))[cells[0], cells[2]]
+    assert 10 < (blank_lp + lse)[cells].abs().max() < 200  # logits of a few tens
+    for got, want in ((dblank[:n], torch.exp(blank_lp[cells])),
+                      (dlab[:n].gather(1, tgt[:, None])[:, 0], torch.exp(label_lp[cells]))):
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+        assert ((got - want).abs() <= 2 * ulp).all(), ((got - want).abs() / ulp).max()
+
+
 @pytest.mark.gpu
 def test_rnnt_joint_cuda_dropout_mask_is_the_hash_mask(cuda_device):
     """Probe: W_lab the identity, p = 0, e a positive constant: each cell's

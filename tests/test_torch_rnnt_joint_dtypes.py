@@ -197,12 +197,35 @@ def test_cuda_transducer_joint_takes_fp16_and_fp32(monkeypatch, dtype):
 
 def test_window_sizes_follow_the_dtype():
     """The backward's windows hold WINDOW_BYTES of scratch at the padded H in
-    the dtype's element size and pass width (fp32 passes of 128 columns keep
-    a dh row in fp32 past VLp 128)."""
+    the dtype's element size and pass width (every dtype's passes take 320
+    label columns: one pass at VLp 320 keeps no dh row between passes)."""
     cells = 16 * 391 * 129
     w16, n16 = port.bwd_windows(cells, 640, 296)
     w32, n32 = port.bwd_windows(cells, 640, 296, dtype=torch.float32)
     assert w16 % 64 == 0 and w32 % 64 == 0 and w32 < w16 and n32 > n16
     assert port.bwd_windows(cells, 600, 296) == port.bwd_windows(cells, 608, 296)
-    per32 = 4 * (2 * 640 + 320) + 4 + 4 * 296 / 64 + 4 * 640
+    per32 = 4 * (2 * 640 + 320) + 4 + 4 * 296 / 64
     assert w32 == int(port.WINDOW_BYTES // per32) // 64 * 64
+    assert (w32, n32) == (52224, 16)
+
+
+@pytest.mark.parametrize("v,passes", [(296, 1), (321, 1), (322, 2), (584, 2), (1025, 4)])
+def test_fp32_dh_row_only_past_one_pass(v, passes):
+    """The fp32 cells kernel takes 320 label columns a pass: its window holds
+    an fp32 dh row between passes only where VLp passes 320 (V 322 on), and
+    the scratch the backward reports counts it only there."""
+    h, f32 = 640, torch.float32
+    vlp = port.padded_vl(v)
+    assert -(-vlp // port.PASS_COLS) == passes
+    dh_row = 4 * h if passes > 1 else 0
+    per = 4 * (2 * h + vlp) + 4 + 4 * v / 64 + dh_row
+    assert port._window_bytes_per_cell(h, v, f32) == per
+    e = torch.zeros(1, 1, h)
+    scratch, dh_part = port._cells_scratch(e, torch.zeros(h, vlp), torch.zeros(v), 128)
+    assert (dh_part is None) == (passes == 1) and scratch[0].shape == (128, vlp)
+    if dh_part is not None:
+        assert dh_part.shape == (128, h) and dh_part.dtype == f32
+    win, _ = port.bwd_windows(16 * 391 * 129, h, v, dtype=f32)
+    fixed = port.bwd_scratch_bytes(16 * 391 * 129, 16, 391, 129, h, v, dtype=f32) - win * per
+    assert fixed == 4 * h * (vlp + 1) + 4 * h * vlp + 8 * 17 + 4 * 16 * 391 * h + \
+        4 * port.KSPLIT * h * (vlp + 1) + 4 * v

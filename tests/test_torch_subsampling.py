@@ -12,17 +12,13 @@ odd lengths (the pools' ceil rule, stacking's pad from the batch's T).
 Tolerances: encoder outputs and CTC log-probs 1e-4 absolute (fp32 sums in
 other orders through the front end and a layer); lengths exact; the
 BatchNorm statistics a training forward writes 1e-5 absolute; the bridge
-both ways bit for bit. Two train steps of a tiny CTC model per mode
-against `make_ctc_train_step` (adamw + Noam, dropout, dither and
-SpecAugment off): loss and gradient norm relative 1e-4, BatchNorm
-statistics 1e-5 absolute. Then `.nemo` checkpoints of a resnet CTC and a
-subencoder transducer, written by the test with NeMo's extra entries,
-load in the port as the JAX converter loads them, and each mode's CTC
-model exports (`torch.export`) to a program equal to the live forward.
+both ways bit for bit. Two train steps per mode are in
+test_torch_subsampling_steps.py, the `.nemo` loads and exports in
+test_torch_subsampling_export.py (the three files spread over the test
+workers).
 """
 
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
@@ -35,12 +31,8 @@ from conformer_nemo_tpu.audio.features import MelFeatureConfig as JaxMelConfig
 from conformer_nemo_tpu.models.conformer import ConformerEncoderConfig as JaxEncoderConfig
 from conformer_nemo_tpu.models.ctc_model import CTCModel as JaxCTCModel
 from conformer_nemo_tpu.models.ctc_model import CTCModelConfig as JaxCTCConfig
-from conformer_nemo_tpu.train import lr_schedule as jax_lr
-from conformer_nemo_tpu.train import optim as jax_optim
 from conformer_nemo_tpu.train.trainer import init_ctc_state as jax_init_state
-from conformer_nemo_tpu.train.trainer import make_ctc_train_step as jax_train_step
-from conformer_nemo_tpu_torch.api import ConformerCTC, ConformerTransducer
-from conformer_nemo_tpu_torch.audio.features import MelFeatureConfig, log_mel_spectrogram
+from conformer_nemo_tpu_torch.audio.features import MelFeatureConfig
 from conformer_nemo_tpu_torch.convert.jax_params import (
     ctc_state_dict_from_jax,
     ctc_variables_to_jax,
@@ -51,14 +43,6 @@ from conformer_nemo_tpu_torch.models.conformer import (
     frame_factor,
 )
 from conformer_nemo_tpu_torch.models.ctc_model import CTCModel, CTCModelConfig
-from conformer_nemo_tpu_torch.train import lr_schedule as port_lr
-from conformer_nemo_tpu_torch.train import optim as port_optim
-from conformer_nemo_tpu_torch.train.trainer import init_ctc_state, make_ctc_train_step
-from conformer_nemo_tpu_torch.utils.export import load_exported
-
-from test_torch_nemo import _check_both, _nemo_config, _nemo_state, _write_nemo
-from test_torch_portable import ENC as PENC
-from test_torch_portable import RNNT, ROOT
 
 torch.set_num_threads(2)
 
@@ -182,101 +166,7 @@ def test_weight_bridge_round_trips(mode, factor):
     assert abs(int(out[0]) - 64) <= 2
 
 
-@pytest.mark.parametrize("mode,factor", [c for c in CASES if c[0] != "striding"])
-def test_two_train_steps_match_jax(mode, factor):
-    sched = {"name": "NoamAnnealing", "d_model": 32, "warmup_steps": 1000, "min_lr": 1e-6}
-    jcfg, pcfg = _configs(mode, factor, feat_in=80)
-    jopt = jax_optim.make_optimizer("adamw", jax_lr.make_lr_schedule(sched, 2.0),
-                                    weight_decay=1e-3)
-    jstate = jax_init_state(jcfg, jopt, jax.random.PRNGKey(0), (1, 80, 64))
-    jstep = jax_train_step(jcfg, jopt)
-    variables = {"params": jax.device_get(jstate.params),
-                 "batch_stats": jax.device_get(jstate.batch_stats)}
-    model = CTCModel(pcfg)
-    model.load_state_dict(ctc_state_dict_from_jax(variables, pcfg))
-    popt = port_optim.make_optimizer("adamw", port_lr.make_lr_schedule(sched, 2.0),
-                                     weight_decay=1e-3)
-    state = init_ctc_state(model, popt)
-    step = make_ctc_train_step(pcfg, popt)
-    rng = np.random.RandomState(5)
-    for i in range(2):
-        n = 12000
-        audio = (0.1 * rng.randn(2, n)).astype(np.float32)
-        audio[1, 9000:] = 0.0
-        batch = {"audio": audio, "audio_lens": np.array([n, 9000], np.int32),
-                 "tokens": rng.randint(0, V, (2, 5)).astype(np.int32),
-                 "token_lens": np.array([5, 3], np.int32)}
-        jstate, m_j = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        m_p = step(state, batch)
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(float(m_p[key]), float(m_j[key]), rtol=RTOL,
-                                       err_msg=f"{key} at step {i + 1}")
-    want = ctc_state_dict_from_jax({"params": jax.device_get(jstate.params),
-                                    "batch_stats": jax.device_get(jstate.batch_stats)}, pcfg)
-    for k, v in state.model.state_dict().items():
-        if k.endswith(("running_mean", "running_var")):
-            np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=0, atol=STATS_ATOL,
-                                       err_msg=k)
-
-
 def test_unknown_mode_raises():
     with pytest.raises(ValueError, match="unknown subsampling mode"):
         CTCModel(dataclasses.replace(_configs("striding", 4)[1], encoder=ConformerEncoderConfig(
             **dict(ENC, subsampling="dw_striding"))))
-
-
-NEMO_CASES = {"resnet": ("ctc", "conformer_ctc_char.yaml"),
-              "subencoder": ("rnnt", "conformer_transducer_char.yaml")}
-
-
-@pytest.mark.parametrize("mode", sorted(NEMO_CASES))
-def test_nemo_checkpoint_loads(mode, tmp_path):
-    """A `.nemo` of a resnet CTC and of a subencoder transducer, written by
-    the test (the front end's BatchNorm2d counters included), converts in
-    the port and in the JAX package to the same weights, and the port's
-    restore transcribes as the source model."""
-    kind, config = NEMO_CASES[mode]
-    cls = ConformerCTC if kind == "ctc" else ConformerTransducer
-    over = {**PENC, "model.encoder.subsampling": mode,
-            "model.encoder.subsampling_conv_channels": 8, **(RNNT if kind == "rnnt" else {})}
-    pm = cls.from_config_file(os.path.join(ROOT, "configs", config), overrides=over,
-                              device="cpu", dtype=torch.float32, seed=3)
-    gen = torch.Generator().manual_seed(3)
-    with torch.no_grad():
-        for p in pm.model.parameters():
-            p.add_(0.2 * torch.randn(p.shape, generator=gen))
-        for name, b in pm.model.named_buffers():
-            if name.endswith(("running_mean", "running_var")):
-                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
-    sd = _nemo_state(pm)
-    for k in list(sd):
-        if ".pre_encode." in k and k.endswith("running_var"):
-            sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(5)
-    assert any(".batchnorm1.num_batches_tracked" in k for k in sd)
-    nemo = _write_nemo(str(tmp_path / f"{mode}.nemo"), _nemo_config(pm), sd)
-    restored, _ = _check_both(kind, pm, nemo, tmp_path)
-    assert restored._encoder_config.subsampling == mode
-
-
-@pytest.mark.parametrize("mode,factor", [("vggnet", 4), ("resnet", 4), ("subencoder", 8),
-                                         ("stacking", 4), ("none", 1)])
-def test_export_every_mode(mode, factor, tmp_path):
-    """`export` of a CTC model of each front end: the reloaded program
-    gives the live model's log-probs and lengths bit for bit."""
-    pm = ConformerCTC.from_config_file(
-        os.path.join(ROOT, "configs", "conformer_ctc_char.yaml"), device="cpu",
-        dtype=torch.float32, seed=4,
-        overrides={**PENC, "model.encoder.subsampling": mode,
-                   "model.encoder.subsampling_factor": factor,
-                   "model.encoder.subsampling_conv_channels": 8})
-    path = str(tmp_path / "m.tar.gz")
-    pm.export(path, batch_size=2, seconds=0.5)
-    rng = np.random.RandomState(2)
-    audio = torch.from_numpy((0.1 * rng.randn(2, 8000)).astype(np.float32))
-    lens = torch.tensor([8000, 5000], dtype=torch.int32)
-    out = load_exported(path)["forward"](audio, lens)
-    with torch.no_grad():
-        feats, fl = log_mel_spectrogram(pm.cfg.preprocessor, audio, lens)
-        live = pm.model(feats, fl)
-    assert torch.equal(out[1], live[1])
-    assert torch.equal(out[0], live[0])
